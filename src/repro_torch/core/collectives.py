@@ -1,0 +1,266 @@
+"""EM collective communication (thesis §2.2, §6.2, §7), device tier, P == 1.
+
+Message model: a sending context holds a field of shape ``[v, ω]`` (one padded
+message per destination, ω the thesis' per-message bound) plus a ``[v]`` count
+field; after Alltoallv the receiving context's ``[v, ω]`` field holds message
+``recv[s] = send_of_s[ρ]``.  The destination slot offsets are static layout
+offsets — the thesis' shared offset table ``T`` (§6.2).
+
+Two Alltoallv implementations:
+
+* ``mode="direct"``, ``use_kernel=True`` — PEMS2 (Alg 7.1.1/7.1.2) at the
+  word level: the delivery kernel (:mod:`repro_torch.kernels.
+  alltoallv_deliver`) reads each message from the send field's word range of
+  its source context and writes it straight into the recv word range of its
+  destination context in the store — no ``[v, v, ω]`` temporary — with the
+  receiver's boundary mask (``fill``) and the counts transpose fused into the
+  same launch.
+* ``mode="indirect"`` or ``use_kernel=False`` — the dense path: the PEMS1
+  baseline (Alg 2.2.1) stages every message through a materialised
+  "indirect area" copy first; the direct dense route is the seed reference.
+
+Both are bit-identical.  The I/O ledger is updated with the thesis' event
+counts, independent of the implementation; it equals the JAX package's.
+``allgather``/``reduce``/``allreduce`` are not on the PSRS path and are not
+ported yet (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..kernels.alltoallv_deliver import check_fill_range, deliver_words
+from .context import WORD, ContextStore, _from_words
+
+
+# --------------------------------------------------------------------------- #
+# Alltoallv                                                                    #
+# --------------------------------------------------------------------------- #
+
+def alltoallv(
+    self,
+    store: ContextStore,
+    send: str,
+    recv: str,
+    send_counts: Optional[str] = None,
+    recv_counts: Optional[str] = None,
+    mode: str = "direct",
+    fill=None,
+    use_kernel: bool = True,
+    procs: Optional[list] = None,
+) -> ContextStore:
+    """Every VP ρ sends message ``send[d]`` to VP d; after the call VP ρ holds
+    ``recv[s] =`` (s's message to ρ) and transposed counts.
+
+    ``send``/``recv`` name ``[v, ω]`` layout fields (``ω`` the per-message
+    payload; all byte math below is ``ω`` words × 4 bytes).  ``fill``
+    (optional, requires counts) fuses the receiver's boundary mask into
+    delivery: lanes past ``send_counts[ρ][d]`` arrive as ``fill`` instead of
+    whatever padding the sender left.  ``use_kernel=False`` keeps the seed's
+    dense-transpose implementation (bit-identical, for equivalence testing);
+    the ledger is unaffected by either knob.  The store is updated in place.
+
+    ``procs`` restricts a backing-tier store to some processes' shards; the
+    device tier has none, so it raises ``ValueError`` here as in the JAX
+    package.
+
+    Raises ``ValueError`` for unknown ``mode``, mismatched field shapes,
+    ``fill`` without counts or out of the payload dtype's range.
+    """
+    if mode not in ("direct", "indirect"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if procs is not None:
+        raise ValueError("procs= requires a backing-tier store")
+    cfg = self.cfg
+    f = store.layout.field(send)
+    if store.layout.field(recv).shape != f.shape:
+        raise ValueError("send/recv field shapes must match")
+    if f.shape[0] != cfg.v:
+        raise ValueError(f"alltoallv fields must be [v, ω]; got {f.shape}")
+    if fill is not None and (send_counts is None or recv_counts is None):
+        raise ValueError("fill requires send_counts/recv_counts")
+    if fill is not None:
+        check_fill_range(fill, f.dtype)
+    omega_b = (int(np.prod(f.shape[1:], dtype=np.int64)) * WORD
+               if len(f.shape) > 1 else WORD)
+
+    if mode == "direct" and use_kernel:
+        store = _alltoallv_fused(self, store, send, recv,
+                                 send_counts, recv_counts, fill)
+    else:
+        store = _alltoallv_dense(self, store, send, recv,
+                                 send_counts, recv_counts, mode, fill)
+
+    _ledger_alltoallv(self, omega_b, mode)
+    return store
+
+
+def _fill_word(fill, dtype) -> int:
+    """The word-level masking convention, in one place: the bit pattern of
+    ``fill`` in the payload field's dtype, as a (signed) int32 store word."""
+    t = torch.tensor(fill).to(dtype)
+    return int(t.view(torch.int32))
+
+
+def _alltoallv_fused(self, store, send, recv, send_counts, recv_counts, fill):
+    """PEMS2 word-level direct delivery (Alg 7.1.1/7.1.2): one kernel launch
+    moves every message from the send word range of its source context into
+    the recv word range of its destination context, masks lanes past the
+    counts with ``fill`` and transposes the counts words."""
+    v = self.cfg.v
+    lo = store.layout
+    data = store.data
+    ww = lo.field_words(send) // v             # ω in store words
+    off_s, off_r = lo.offset(send), lo.offset(recv)
+
+    src, src_off = data, off_s
+    if send == recv:
+        # Delivering in place would overwrite messages not yet read: go
+        # through a copy of the field (the JAX row loop guards the same).
+        src, src_off = store.field_words_view(send).clone(), 0
+
+    has_counts = send_counts is not None and recv_counts is not None
+    cnt, cnt_off = None, 0
+    fill_word = None
+    if fill is not None:
+        fill_word = _fill_word(fill, lo.field(send).dtype)
+        cs = lo.field(send_counts).dtype
+        if cs in (torch.int32, torch.uint32):
+            # int32 mask lengths are the counts words themselves.
+            cnt, cnt_off = data, lo.offset(send_counts)
+        else:
+            cnt = store.field(send_counts).reshape(v, v).to(torch.int32)
+    cp = ct = None
+    cp_off = ct_off = 0
+    ct_tmp = False
+    if has_counts:
+        cs = lo.field(send_counts).dtype
+        cr = lo.field(recv_counts).dtype
+        cp, cp_off = data, lo.offset(send_counts)
+        # The transposed counts land straight in the recv counts words,
+        # unless they need a dtype conversion or would overwrite their own
+        # source.
+        ct_tmp = cs != cr or send_counts == recv_counts
+        if ct_tmp:
+            ct = torch.empty((v, v), dtype=torch.int32, device=data.device)
+        else:
+            ct, ct_off = data, lo.offset(recv_counts)
+    deliver_words(src, src_off, data, off_r, v, ww, cnt, cnt_off, fill_word,
+                  cp, cp_off, ct, ct_off)
+    if ct_tmp:
+        if cs == cr:
+            store = store.with_field_words(recv_counts, ct)
+        else:
+            store = store.with_field(recv_counts, _from_words(ct, cs).to(cr))
+    return store
+
+
+def _alltoallv_dense(self, store, send, recv, send_counts, recv_counts,
+                     mode, fill):
+    """Dense-transpose data path: the PEMS1 indirect baseline and the
+    ``use_kernel=False`` reference."""
+    cfg = self.cfg
+    f = store.layout.field(send)
+
+    M = store.field(send).reshape(cfg.v, cfg.v, -1)
+    if mode == "indirect":
+        # PEMS1: stage every message in the indirect area first.
+        M = M.clone()
+    Mt = M.transpose(0, 1).contiguous()        # [v, v, ω] axes (dst, src)
+    Ct = None
+    if send_counts is not None and recv_counts is not None:
+        C = store.field(send_counts).reshape(cfg.v, cfg.v, 1)
+        if mode == "indirect":
+            C = C.clone()
+        Ct = C.transpose(0, 1).contiguous()
+    if fill is not None:
+        lane = torch.arange(Mt.shape[2], device=Mt.device)
+        Mt = torch.where(lane < Ct.to(torch.int32),
+                         Mt, torch.tensor(fill, device=Mt.device).to(Mt.dtype))
+    store = store.with_field(recv, Mt.reshape((cfg.v,) + f.shape))
+    if Ct is not None:
+        store = store.with_field(
+            recv_counts, Ct.reshape(cfg.v, cfg.v).to(
+                store.layout.field(recv_counts).dtype))
+    return store
+
+
+def _ledger_alltoallv(self, omega_b: int, mode: str) -> None:
+    cfg = self.cfg
+    B = cfg.block_bytes
+    v, k, Pn = cfg.v, cfg.k, cfg.P
+    m = cfg.v_local
+    mu = self.layout.live_bytes
+    led = self.ledger
+
+    if mode == "direct":
+        # Alg 7.1.1 / 7.1.2 event counts (Lemma 7.1.3).
+        delta = (m * m + m * k) // 2           # ID-ordered rounds, per proc
+        led.add_swap_out(v * max(mu - v * omega_b, 0), B)
+        led.add_msg_direct(Pn * delta * omega_b, B)
+        led.add_msg_indirect(Pn * 2 * (m * m - delta) * omega_b, B)
+        led.add_boundary(2 * v * v * B, B)
+        led.add_barrier(3)
+    else:
+        # Alg 2.2.1 event counts (Lemma 2.2.1: 4vμ + 2v²ω).
+        led.add_msg_indirect(v * v * omega_b, B)      # write to indirect area
+        led.add_swap_out(v * mu, B)
+        led.add_swap_in(v * mu, B)
+        led.add_msg_indirect(v * v * omega_b, B)      # read back for delivery
+        led.add_swap_out(v * mu, B)
+        led.add_swap_in(v * mu, B)
+        led.require_disk(v * mu // Pn + v * v * omega_b)
+        led.add_barrier(2)
+
+
+# --------------------------------------------------------------------------- #
+# Rooted collectives (§7.2–7.3)                                                #
+# --------------------------------------------------------------------------- #
+
+def bcast(self, store: ContextStore, field: str, root: int = 0,
+          procs=None) -> ContextStore:
+    """EM-Bcast (Alg 7.2.1): root's field value lands in every context
+    (in place)."""
+    cfg = self.cfg
+    if procs is not None:
+        raise ValueError("procs= requires a backing-tier store")
+    vals = store.field(field)                  # [v, ...]
+    vals.copy_(vals[root].clone().expand_as(vals))
+
+    B = cfg.block_bytes
+    mu = self.layout.live_bytes
+    omega_b = self.layout.field_bytes(field)
+    # Lemma 7.2.1: root-partition sharers swap out and back in; every VP
+    # delivers ω to its context.
+    self.ledger.add_swap_out(cfg.v * mu // (cfg.P * cfg.k), B)
+    self.ledger.add_swap_in(cfg.v * mu // (cfg.P * cfg.k), B)
+    self.ledger.add_msg_direct(cfg.v * omega_b, B)
+    self.ledger.add_barrier()
+    return store
+
+
+def gather(self, store: ContextStore, send: str, recv: str, root: int = 0,
+           procs=None) -> ContextStore:
+    """EM-Gather (Alg 7.3.1): every VP's ``send`` ([ω]) lands in the root's
+    ``recv`` ([v, ω]), in place.  Non-root recv fields are left untouched."""
+    cfg = self.cfg
+    fs = store.layout.field(send)
+    fr = store.layout.field(recv)
+    if fr.shape != (cfg.v,) + fs.shape:
+        raise ValueError(f"recv must be [v, *send.shape]; got {fr.shape}")
+    if procs is not None:
+        raise ValueError("procs= requires a backing-tier store")
+    A = store.field(send).to(fr.dtype)         # [v, ...] gathered result
+    store.field(recv)[root] = A
+
+    B = cfg.block_bytes
+    omega_b = self.layout.field_bytes(send)
+    # Lemma 7.3.1 (exact form): the root may swap out (μ) and the gathered
+    # v·ω result is written to its context on disk.
+    self.ledger.add_swap_out(self.layout.live_bytes, B)
+    self.ledger.add_msg_direct(cfg.v * omega_b, B)
+    self.ledger.add_barrier()
+    return store

@@ -1,0 +1,39 @@
+"""Carry a context store between the JAX package and the port.
+
+The JAX package keeps its ``[v, words]`` store as ``uint32`` words; the port
+keeps the same bits as ``int32`` words.  Converting is a reinterpretation of
+the bits, never a value conversion, so a store taken mid-plan from one side
+resumes bit-identically on the other — the port's counterpart of carrying
+weights over: run the JAX ``psrs_plan`` stages up to some stage, move the
+store with :func:`store_from_numpy`, and finish the stages in the port's
+``psrs_plan``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.context import ContextLayout, ContextStore, resolve_device
+
+
+def store_from_numpy(layout: ContextLayout, words_u32: np.ndarray,
+                     device=None) -> ContextStore:
+    """The port's store over ``words_u32`` (``[v, layout.words]`` uint32,
+    e.g. ``np.asarray(jax_store.data)``), copied to ``device`` (CUDA by
+    default)."""
+    words = np.ascontiguousarray(words_u32)
+    if words.dtype != np.uint32 or words.ndim != 2:
+        raise TypeError(f"expected [v, words] uint32 words, got {words.dtype} "
+                        f"{words.shape}")
+    if words.shape[1] != layout.words:
+        raise ValueError(f"store rows hold {words.shape[1]} words but the "
+                         f"layout has {layout.words}")
+    data = torch.from_numpy(words.view(np.int32).copy())
+    return ContextStore(layout, data.to(resolve_device(device)))
+
+
+def store_to_numpy(store: ContextStore) -> np.ndarray:
+    """The store's words as a ``[v, words]`` uint32 numpy array (the JAX
+    package's ``ContextStore.data`` bits)."""
+    return store.data.cpu().numpy().view(np.uint32)

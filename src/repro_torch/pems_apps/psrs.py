@@ -1,0 +1,342 @@
+"""PSRS — Parallel Sorting by Regular Sampling (thesis Alg 8.3.1) on PEMS,
+device tier, ``P == 1``.
+
+Four virtual supersteps, exactly the thesis' structure:
+
+  1. local sort + choose v regular samples        (computation)
+  2. **Gather** all v² samples at the root
+  3. root sorts samples, picks v−1 splitters; **Bcast**
+  4. partition local data by splitters; **Alltoallv** counts + buckets
+  5. merge received buckets                        (computation)
+
+Duplicate keys are handled by lexicographic (value, global-index) splitters,
+which preserves the 2n/v per-receiver bound even for constant inputs.
+
+The stages take the round's ``k`` contexts at once (``rhos [k]``, a batched
+:class:`~repro_torch.core.Ctx`); the bitonic local sort, the Alltoallv direct
+delivery and the k-way merge tile sort are the hand-written CUDA kernels of
+:mod:`repro_torch.kernels` on a CUDA store, their plain PyTorch versions on a
+CPU store.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..core import ContextLayout, Pems, PemsConfig, resolve_device
+from ..kernels.bitonic_sort import bitonic_sort
+from ..kernels.kway_merge import kway_merge
+from .common import INT_MAX, group_by_dest
+
+_HI = 1 << 32   # (value, gid) -> value·2^32 + gid
+
+
+def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
+           mode: str, local_sort, use_kernel: bool = True,
+           tier: str = "device", backing_path=None, device_cap_bytes=None,
+           P: int = 1, mesh=None, alpha=None,
+           io_driver=None, io_queue_depth=None,
+           fault_spec=None, checksums: bool = False, io_retries=None,
+           merge_kernel=None, merge_tile=None,
+           trace: bool = False, trace_path=None, device=None):
+    # One home for the PSRS capacity defaults: the always-safe per-message
+    # bound n/v and the 2n/v per-receiver guarantee.
+    cap = n_v if cap is None else cap
+    rcap = 2 * n_v if rcap is None else rcap
+    # Default local sort: the bitonic kernel; use_kernel=False keeps the
+    # torch.sort reference.  Both are bit-identical on int32 keys.
+    if local_sort is None:
+        if use_kernel:
+            local_sort = bitonic_sort
+        else:
+            def local_sort(x):
+                return torch.sort(x, dim=-1).values
+    lo = (
+        ContextLayout()
+        .add("data", (n_v,), torch.int32)
+        .add("samp", (v, 2), torch.int32)        # (value, global index)
+        .add("allsamp", (v, v, 2), torch.int32)
+        .add("gsplit", (v, 2), torch.int32)
+        .add("bsend", (v, cap), torch.int32)
+        .add("bscnt", (v,), torch.int32)
+        .add("brecv", (v, cap), torch.int32)
+        .add("brcnt", (v,), torch.int32)
+        .add("result", (rcap,), torch.int32)
+        .add("rcount", (1,), torch.int32)
+        .add("oflow", (1,), torch.int32)
+    )
+    # Knobs of the JAX signature this slice leaves out reach PemsConfig,
+    # which names the ROADMAP.md item that ports each of them.
+    io_kw = {}
+    if io_driver is not None:
+        io_kw["io_driver"] = io_driver
+    if io_queue_depth is not None:
+        io_kw["io_queue_depth"] = io_queue_depth
+    if fault_spec is not None:
+        io_kw["fault_spec"] = fault_spec
+    if io_retries is not None:
+        io_kw["io_retries"] = io_retries
+    if checksums:
+        io_kw["checksums"] = True
+    if merge_kernel is not None:
+        io_kw["merge_kernel"] = bool(merge_kernel)
+    if merge_tile is not None:
+        io_kw["merge_tile"] = merge_tile
+    if trace:
+        io_kw["trace"] = True
+    if trace_path is not None:
+        io_kw["trace_path"] = trace_path
+    pems = Pems(PemsConfig(v=v, k=k, P=P, driver=driver, tier=tier,
+                           backing_path=backing_path, alpha=alpha,
+                           device_cap_bytes=device_cap_bytes, **io_kw),
+                lo, mesh=mesh, device=device)
+    dev = pems.device
+    merge_on_kernel = pems.cfg.merge_kernel and use_kernel
+    merge_tile = pems.cfg.merge_tile
+    # Regular sampling: positions ⌊j·n_v/v⌋, j = 0..v−1 (Shi & Schaeffer).
+    samp_idx = (torch.arange(v, device=dev) * n_v) // v
+    # Splitters at ranks (i+1)·v + v/2 − 1, i = 0..v−2; sentinel at end.
+    split_ranks = (torch.arange(v - 1, device=dev) + 1) * v + v // 2 - 1
+    lane_gid = torch.arange(n_v, dtype=torch.int64, device=dev)
+
+    def sort_and_sample(rhos, ctx):
+        data = local_sort(ctx.get("data"))                   # [k, n_v]
+        gid = rhos[:, None] * n_v + samp_idx.to(torch.int32)
+        samp = torch.stack([data[:, samp_idx], gid], dim=-1)
+        return ctx.set("data", data).set("samp", samp)
+
+    def pick_splitters(rhos, ctx):
+        allsamp = ctx.get("allsamp").reshape(ctx.k, v * v, 2)
+        # Lexicographic (value, gid) order: torch has no lexsort, so a
+        # stable sort on the secondary key, then on the primary.
+        o = torch.sort(allsamp[..., 1], dim=1, stable=True).indices
+        s = torch.gather(allsamp, 1, o[..., None].expand(-1, -1, 2))
+        o = torch.sort(s[..., 0], dim=1, stable=True).indices
+        s = torch.gather(s, 1, o[..., None].expand(-1, -1, 2))
+        sentinel = torch.full((ctx.k, 1, 2), INT_MAX, dtype=torch.int32,
+                              device=s.device)
+        return ctx.set("gsplit",
+                       torch.cat([s[:, split_ranks], sentinel], dim=1))
+
+    def partition(rhos, ctx):
+        data = ctx.get("data")                               # [k, n_v]
+        gs = ctx.get("gsplit")                               # [k, v, 2]
+        gid = rhos[:, None].to(torch.int64) * n_v + lane_gid
+        # dest = #splitters (sv, sg) <= (x, gid) lexicographically: one
+        # searchsorted of the 64-bit key x·2^32 + gid into the sorted
+        # splitter keys (0 <= gid < 2^32 keeps the lexicographic order).
+        key = data.to(torch.int64) * _HI + gid
+        skey = (gs[:, :-1, 0].to(torch.int64) * _HI
+                + gs[:, :-1, 1].to(torch.int64))
+        dest = torch.searchsorted(skey.contiguous(), key, right=True)
+        msgs, counts, _, ok = group_by_dest(data, dest, v, cap, fill=INT_MAX)
+        return (
+            ctx.set("bsend", msgs)
+            .set("bscnt", counts)
+            .set("oflow", (~ok).to(torch.int32)[:, None])
+        )
+
+    def merge(rhos, ctx):
+        # The boundary mask is fused into delivery (alltoallv fill=INT_MAX):
+        # lanes past brcnt arrive as INT_MAX, so the received buckets merge
+        # as-is.
+        recv = ctx.get("brecv")              # [k, v, cap]
+        cnt = ctx.get("brcnt")               # [k, v]
+        if merge_on_kernel:
+            # Tiled k-way merge with exact splitting: O(n log v) over the
+            # already-sorted buckets instead of the O(n log n) re-sort.
+            merged, total, over = kway_merge(
+                recv, cnt, rcap=rcap, tile=merge_tile, fill=INT_MAX)
+        else:
+            merged = local_sort(recv.reshape(ctx.k, v * cap))[:, :rcap]
+            total = cnt.sum(dim=1, dtype=torch.int32)
+            over = (total > rcap).to(torch.int32)
+        oflow = ctx.get("oflow") | over[:, None]
+        return (
+            ctx.set("result", merged)
+            .set("rcount", total[:, None])
+            .set("oflow", oflow)
+        )
+
+    # The program as an explicit stage list: callers (the carry-over tests,
+    # resumable jobs) can stop after any stage and resume from a store.
+    # ``procs`` is a backing-tier knob and raises on the device tier.
+    steps = [
+        ("sort_sample", lambda st, procs=None: pems.superstep(
+            st, sort_and_sample, reads=["data"], writes=["data", "samp"],
+            procs=procs)),
+        ("gather_samples", lambda st, procs=None: pems.gather(
+            st, "samp", "allsamp", root=0, procs=procs)),
+        ("pick_splitters", lambda st, procs=None: pems.superstep(
+            st, pick_splitters, reads=["allsamp"], writes=["gsplit"],
+            procs=procs)),
+        ("bcast_splitters", lambda st, procs=None: pems.bcast(
+            st, "gsplit", root=0, procs=procs)),
+        ("partition", lambda st, procs=None: pems.superstep(
+            st, partition, reads=["data", "gsplit"],
+            writes=["bsend", "bscnt", "oflow"], procs=procs)),
+        ("alltoallv", lambda st, procs=None: pems.alltoallv(
+            st, "bsend", "brecv", "bscnt", "brcnt",
+            mode=mode, fill=INT_MAX, use_kernel=use_kernel, procs=procs)),
+        ("merge", lambda st, procs=None: pems.superstep(
+            st, merge, reads=["brecv", "brcnt", "oflow"],
+            writes=["result", "rcount", "oflow"], procs=procs,
+            stream=True)),
+    ]
+
+    def load(data_blocks):                  # [v, n_v] int32
+        return pems.init().with_field("data", data_blocks)
+
+    def extract(store):
+        return (store.field("result"), store.field("rcount"),
+                store.field("oflow"))
+
+    def program(data_blocks):
+        store = load(data_blocks)
+        for _, step in steps:
+            store = step(store)
+        return extract(store)
+
+    return pems, program, (load, steps, extract)
+
+
+def psrs_plan(
+    v: int,
+    n_v: int,
+    k: int = 1,
+    driver: str = "explicit",
+    mode: str = "direct",
+    cap: Optional[int] = None,
+    rcap: Optional[int] = None,
+    local_sort=None,
+    use_kernel: bool = True,
+    tier: str = "device",
+    backing_path=None,
+    device_cap_bytes=None,
+    P: int = 1,
+    mesh=None,
+    alpha=None,
+    io_driver=None,
+    io_queue_depth=None,
+    fault_spec=None,
+    checksums: bool = False,
+    io_retries=None,
+    merge_kernel: Optional[bool] = None,
+    merge_tile: Optional[int] = None,
+    trace: bool = False,
+    trace_path: Optional[str] = None,
+    device=None,
+):
+    """Stepwise PSRS: returns ``(pems, load, steps, extract)``.
+
+    ``load([v, n_v] int32) -> store`` initialises the population on the
+    executor's device (CUDA unless ``device`` names another); ``steps`` is a
+    list of named ``store -> store`` stages (run them in order, or stop after
+    any stage and resume later — :mod:`repro_torch.interop` carries a JAX
+    package store over); ``extract(store) -> (result, rcount, oflow)``.
+    Stages update the store in place.
+    """
+    pems, _, (load, steps, extract) = _build(
+        v, k, n_v, cap, rcap, driver, mode, local_sort,
+        use_kernel=use_kernel, tier=tier, backing_path=backing_path,
+        device_cap_bytes=device_cap_bytes, P=P, mesh=mesh, alpha=alpha,
+        io_driver=io_driver, io_queue_depth=io_queue_depth,
+        fault_spec=fault_spec, checksums=checksums, io_retries=io_retries,
+        merge_kernel=merge_kernel, merge_tile=merge_tile,
+        trace=trace, trace_path=trace_path, device=device,
+    )
+    return pems, load, steps, extract
+
+
+def psrs_sort(
+    keys,
+    v: int,
+    k: int = 1,
+    driver: str = "explicit",
+    mode: str = "direct",
+    cap: Optional[int] = None,
+    rcap: Optional[int] = None,
+    local_sort=None,
+    return_pems: bool = False,
+    use_kernel: bool = True,
+    tier: str = "device",
+    backing_path=None,
+    device_cap_bytes=None,
+    P: int = 1,
+    mesh=None,
+    alpha=None,
+    io_driver=None,
+    io_queue_depth=None,
+    fault_spec=None,
+    checksums: bool = False,
+    io_retries=None,
+    merge_kernel: Optional[bool] = None,
+    merge_tile: Optional[int] = None,
+    trace: bool = False,
+    trace_path: Optional[str] = None,
+    device=None,
+):
+    """Sort int32 ``keys`` ([n], n divisible by v) with PSRS on PEMS.
+
+    Same arguments and results as ``repro.pems_apps.psrs_sort``, on the
+    device tier at ``P == 1``.  ``mode`` selects PEMS2 direct delivery or the
+    PEMS1 indirect baseline for the final Alltoallv; ``cap`` is the
+    per-(sender,dest) message capacity ω (defaults to the always-safe n/v)
+    and ``rcap`` the per-receiver capacity (defaults to the PSRS guarantee
+    2n/v).  ``use_kernel`` toggles the kernel paths end to end — the fused
+    direct delivery, the bitonic local sort and the tiled k-way merge;
+    ``False`` keeps the dense/``torch.sort`` routes (bit-identical).
+    ``merge_kernel``/``merge_tile`` (defaults from
+    :class:`~repro_torch.core.PemsConfig`) control the merge stage alone.
+    ``local_sort`` overrides the local-sort primitive; unlike the JAX
+    package's, which sorts one context's ``[n_v]`` keys, it sorts each row
+    of the round's ``[k, n_v]`` block.
+
+    ``device`` is where the store lives and the stages run: CUDA by default
+    (the kernels launch there), ``"cpu"`` for the kernels' plain PyTorch
+    versions.  The result is a tensor on that device.
+
+    The backing tiers (``tier`` other than ``"device"``, ``backing_path``
+    and the ``io_*``/``fault_spec``/``checksums`` knobs), ``P > 1``
+    (``P``/``mesh``/``alpha``) and tracing (``trace``/``trace_path``) are
+    not ported yet and raise ``NotImplementedError`` naming the
+    ``ROADMAP.md`` item that brings each.
+
+    Raises ``ValueError`` for n not divisible by v (and for any invalid
+    :class:`~repro_torch.core.PemsConfig` combination), ``RuntimeError`` when
+    CUDA is asked for and missing, and ``OverflowError`` when a bucket
+    exceeds ``cap``/``rcap``.
+    """
+    dev = resolve_device(device)
+    keys = torch.as_tensor(keys).to(device=dev, dtype=torch.int32)
+    n = keys.shape[0]
+    if n % v:
+        raise ValueError(f"n={n} must be divisible by v={v}")
+    n_v = n // v
+    pems, program, _ = _build(v, k, n_v, cap, rcap, driver, mode, local_sort,
+                              use_kernel=use_kernel, tier=tier,
+                              backing_path=backing_path,
+                              device_cap_bytes=device_cap_bytes,
+                              P=P, mesh=mesh, alpha=alpha,
+                              io_driver=io_driver,
+                              io_queue_depth=io_queue_depth,
+                              fault_spec=fault_spec, checksums=checksums,
+                              io_retries=io_retries,
+                              merge_kernel=merge_kernel,
+                              merge_tile=merge_tile,
+                              trace=trace, trace_path=trace_path,
+                              device=dev)
+    result, rcount, oflow = program(keys.reshape(v, n_v))
+    if bool(oflow.any()):
+        raise OverflowError(
+            "PSRS message capacity exceeded; raise cap/rcap "
+            f"(cap={cap}, rcap={rcap})"
+        )
+    counts = rcount[:, 0].tolist()
+    out = torch.cat([result[i, :counts[i]] for i in range(v)])
+    if return_pems:
+        return out, pems
+    return out
+

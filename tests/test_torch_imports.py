@@ -1,0 +1,115 @@
+"""Guards of the PyTorch port's package boundary.
+
+``repro_torch`` and ``chip_smoke.py`` import ``torch`` and numpy, never
+``jax`` and nothing of the JAX package ``repro`` (whose name ``repro_torch``
+shares a prefix, so the checks compare whole dotted names).  Its entry points
+run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+_ROOT = Path(__file__).resolve().parent.parent
+_PORT_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    _ROOT / "chip_smoke.py"]
+
+
+def _forbidden(module: str) -> bool:
+    """Whether a dotted module name is jax or the JAX package."""
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            yield node.lineno, node.args[0].value
+
+
+def test_forbidden_names_tell_repro_from_repro_torch():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("repro") and _forbidden("repro.io")
+    assert not _forbidden("repro_torch")
+    assert not _forbidden("repro_torch.core.context")
+
+
+@pytest.mark.parametrize("path", _PORT_FILES,
+                         ids=lambda p: str(p.relative_to(_ROOT)))
+def test_port_source_imports_no_jax_and_no_repro(path):
+    bad = [f"{path.name}:{line}: {mod}" for line, mod in _imports(path)
+           if _forbidden(mod)]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch.pems_apps.psrs, repro_torch.interop\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(_ROOT / "src")] + [p for p in
+                                env.get("PYTHONPATH", "").split(os.pathsep)
+                                if p])
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=str(_ROOT))
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
+    from repro_torch.core import ContextLayout, Pems, PemsConfig
+    from repro_torch.pems_apps import psrs_plan, psrs_sort
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    keys = torch.arange(64, dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        psrs_sort(keys, v=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        psrs_plan(4, 16)
+    lo = ContextLayout().add("x", (4,), torch.int32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Pems(PemsConfig(v=4), lo)
+    out = psrs_sort(keys.flip(0), v=4, device="cpu")
+    assert out.device.type == "cpu"
+    assert torch.equal(out, keys)
+
+
+@pytest.mark.parametrize("knob, value, item", [
+    ("tier", "host", "item 5"),
+    ("backing_path", "/nonexistent", "item 5"),
+    ("io_driver", "buffered", "item 5"),
+    ("checksums", True, "item 6"),
+    ("fault_spec", "eio@1", "item 6"),
+    ("P", 2, "item 7"),
+    ("alpha", 1, "item 7"),
+    ("trace", True, "item 9"),
+])
+def test_knobs_outside_the_slice_raise_and_name_their_roadmap_item(
+        knob, value, item):
+    from repro_torch.pems_apps import psrs_sort
+
+    keys = torch.arange(64, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match=item):
+        psrs_sort(keys, v=4, device="cpu", **{knob: value})
