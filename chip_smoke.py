@@ -18,20 +18,28 @@ What it does, in order; any failure raises and the exit code is non-zero:
    k = 4, the async driver, every kernel on; the output must equal
    ``torch.sort``, and every kernel's launch count (reset just before) must
    be above zero.
-5. Runs the same plan stage by stage (``psrs_plan``) a few times with
-   CUDA-event stage times, checks ``rcount``/``oflow``, times one
-   ``torch.sort`` of the same keys as a yardstick, and then times each
-   kernel, its plain version and, where one exists, the one PyTorch call
-   computing the same function, on the inputs that run gave it.
+5. Runs the same plan stage by stage (``psrs_plan``) a few times under
+   each driver (explicit, sliced, async) with CUDA-event stage times,
+   checks ``rcount``/``oflow``, and times each driver's swap cost alone (a
+   superstep whose function changes nothing).  Times one ``torch.sort`` of
+   the same keys as a yardstick, and then times each kernel, its plain
+   version and, where one exists, the one PyTorch call computing the same
+   function, on the inputs the async run gave it (the local sort on a fresh
+   store's strided rows, as a round hands them over).
 6. Runs a smaller matrix at 2^20 keys: all drivers, direct and indirect,
    random and duplicate-heavy keys, the dense routes, and a CPU-vs-GPU
    bit-for-bit comparison.
 7. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
 
-Bounds use the H100 SXM data-sheet rates: 3.35 TB/s of HBM bandwidth, and
-67 T/s for 32-bit min/max on the CUDA cores (the float32 non-tensor rate,
-the nearest published figure for int32 comparisons).
+A kernel's bound is the larger of two times: the bytes the function must
+move (each input read once, each output written once) over the H100 SXM's
+3.35 TB/s of HBM bandwidth, and the operations it must do over the card's
+int32 rate, 16.7 T/s (132 SMs x 64 int32 lanes x 1.98 GHz; the data sheet
+gives no int32 figure).  For a sort the operations are the comparisons any
+comparison sort needs, log2(n!) per row of n; the bitonic network's own
+min/max count describes the algorithm, not the function, and is printed
+beside it for information.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -50,7 +59,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 INT_MIN, INT_MAX = -2**31, 2**31 - 1
 HBM_BYTES_PER_S = 3.35e12
-CORE_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 16.7e12
 
 
 def check(ok, what: str) -> None:
@@ -109,9 +118,14 @@ def network_ops(rows: int, n: int) -> int:
     return 2 * rows * (n // 2) * L * (L + 1) // 2
 
 
-def bound(nbytes: int, ops: int = 0):
+def sort_ops(rows: int, n: int) -> float:
+    """Comparisons any comparison sort needs for [rows, n]: log2(n!) a row."""
+    return rows * math.lgamma(n + 1) / math.log(2)
+
+
+def bound(nbytes: int, ops: float = 0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CORE_OPS_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -193,9 +207,6 @@ def main(argv=None) -> int:
     so = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {so.name}")
-    for ln in _build.build_log.get("ptxas", "").splitlines():
-        if "Used" in ln or "spill" in ln:
-            print(f"  ptxas: {ln.strip()}")
     rows = run(torch.device("cuda"), args)
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -245,36 +256,52 @@ def run(dev: torch.device, args) -> list:
           f"host clock (first call), launches {launches}, peak "
           f"{peak / 2**30:.2f} GiB")
 
-    # ---- the same plan, stage by stage, a few times ---------------------
-    pems, load, steps, extract = psrs_plan(v, n_v, k=k, driver="async",
-                                           device=dev)
+    # ---- the same plan, stage by stage, under each driver ---------------
+    # Async runs last: its finished store feeds the kernel timings below.
+    # Each driver's swap cost is also timed alone, as a superstep whose
+    # function changes nothing (explicit: none; sliced: a zeroed view of
+    # each round; async: each round copied into a buffer and written back).
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    stage_ms = {name: [] for name in ["load"] + [nm for nm, _ in steps]}
-    for _ in range(args.stage_reps):
-        store = None                          # free the last run's store
-        start.record()
-        store = load(keys.reshape(v, n_v))
-        end.record()
-        end.synchronize()
-        stage_ms["load"].append(start.elapsed_time(end))
-        for name, fn in steps:
+    stage_ms, swap_ms = {}, {}
+    for driver in ("explicit", "sliced", "async"):
+        store = result = rcount = oflow = None   # free the last plan's store
+        pems, load, steps, extract = psrs_plan(v, n_v, k=k, driver=driver,
+                                               device=dev)
+        ms = {name: [] for name in ["load"] + [nm for nm, _ in steps]}
+        for _ in range(args.stage_reps):
+            store = None                          # free the last run's store
             start.record()
-            store = fn(store)
+            store = load(keys.reshape(v, n_v))
             end.record()
             end.synchronize()
-            stage_ms[name].append(start.elapsed_time(end))
-    result, rcount, oflow = extract(store)
-    check(int(rcount.sum()) == n, f"rcount sums to n ({int(rcount.sum())})")
-    check(int(oflow.sum()) == 0, "no overflow")
-    counts = rcount[:, 0].tolist()
-    check(torch.equal(torch.cat([result[i, :counts[i]] for i in range(v)]),
-                      ref), "staged plan output == torch.sort")
-    totals = [sum(t) for t in zip(*stage_ms.values())]
-    for name, ts in list(stage_ms.items()) + [("total", totals)]:
-        print(f"stage {name}: median {statistics.median(ts):.3f} ms "
-              f"(min {min(ts):.3f}, max {max(ts):.3f}, "
-              f"{len(ts)} runs)")
+            ms["load"].append(start.elapsed_time(end))
+            for name, fn in steps:
+                start.record()
+                store = fn(store)
+                end.record()
+                end.synchronize()
+                ms[name].append(start.elapsed_time(end))
+        result, rcount, oflow = extract(store)
+        check(int(rcount.sum()) == n,
+              f"{driver}: rcount sums to n ({int(rcount.sum())})")
+        check(int(oflow.sum()) == 0, f"{driver}: no overflow")
+        counts = rcount[:, 0].tolist()
+        check(torch.equal(torch.cat([result[i, :counts[i]]
+                                     for i in range(v)]), ref),
+              f"{driver}: staged plan output == torch.sort")
+        swap_ms[driver] = cuda_ms(
+            lambda: pems.superstep(store, lambda rhos, ctx: ctx, reads=[],
+                                   writes=[]), args.reps)
+        stage_ms[driver] = ms
+    for driver, ms in stage_ms.items():
+        totals = [sum(t) for t in zip(*ms.values())]
+        for name, ts in list(ms.items()) + [("total", totals)]:
+            print(f"stage {driver} {name}: median "
+                  f"{statistics.median(ts):.3f} ms (min {min(ts):.3f}, "
+                  f"max {max(ts):.3f}, {len(ts)} runs)")
+        print(f"swap {driver}: {swap_ms[driver]:.3f} ms per superstep "
+              f"({args.reps} no-op supersteps)")
     # Yardstick for the whole path: one library sort of the same keys.
     print(f"torch.sort of the same {n} keys: "
           f"{cuda_ms(lambda: torch.sort(keys), args.reps):.3f} ms")
@@ -283,28 +310,13 @@ def run(dev: torch.device, args) -> list:
     rows = []
     reps = args.reps
 
-    x = keys[:k * n_v].reshape(k, n_v)        # round 0's sort_sample rows
-    err = same(bs.bitonic_sort_rows(x), bs.bitonic_network(x),
-               "bitonic main path")
-    b_ms, b_by = bound(8 * x.numel(), network_ops(k, n_v))
-    rows.append(dict(
-        name="bitonic_sort", route="cuda",
-        source="src/repro_torch/csrc/bitonic_sort.cu",
-        replaces="src/repro/kernels/bitonic_sort/bitonic_sort.py:44",
-        launches=launches["bitonic"], max_abs_err=err,
-        ms=cuda_ms(lambda: bs.bitonic_sort_rows(x), reps),
-        plain_ms=cuda_ms(lambda: bs.bitonic_network(x), 2),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(lambda: torch.sort(x, dim=-1), reps),
-        shape=f"[{k}, {n_v}] int32"))
-
     lo = pems.layout
     tiles, _, _ = gather_tiles(store.field("brecv")[:k],
                                store.field("brcnt")[:k], rcap=2 * n_v,
                                tile=tile, fill=INT_MAX)
     err = same(km.merge_tile_grid(tiles), km.sort_tile_rows(tiles),
                "kway tiles main path")
-    b_ms, b_by = bound(8 * tiles.numel(), network_ops(*tiles.shape))
+    b_ms, b_by = bound(8 * tiles.numel(), sort_ops(*tiles.shape))
     rows.append(dict(
         name="kway_merge_tiles", route="cuda",
         source="src/repro_torch/csrc/bitonic_sort.cu",
@@ -314,7 +326,8 @@ def run(dev: torch.device, args) -> list:
         plain_ms=cuda_ms(lambda: km.sort_tile_rows(tiles), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.sort(tiles, dim=-1), reps),
-        shape=f"[{tiles.shape[0]}, {tile}] int32"))
+        shape=f"[{tiles.shape[0]}, {tile}] int32",
+        network=network_ops(*tiles.shape)))
     del tiles
 
     data = store.data
@@ -345,7 +358,29 @@ def run(dev: torch.device, args) -> list:
         plain_ms=cuda_ms(deliver(dv.deliver_words_plain), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"v={v}, ww={ww} int32 words, {valid} valid"))
-    del store, data, result, rcount, oflow, pems
+    store = data = result = rcount = oflow = None
+
+    # The local sort's input as round 0 of sort_sample sees it: the "data"
+    # field of the first k contexts of a freshly loaded store, rows one
+    # context (the store's row stride) apart.
+    store = load(keys.reshape(v, n_v))
+    x = store.field("data")[:k]
+    check(x.stride(0) == lo.words, f"strided rows ({x.stride()})")
+    err = same(bs.bitonic_sort_rows(x), bs.bitonic_network(x),
+               "bitonic main path")
+    b_ms, b_by = bound(8 * x.numel(), sort_ops(k, n_v))
+    rows.insert(0, dict(
+        name="bitonic_sort", route="cuda",
+        source="src/repro_torch/csrc/bitonic_sort.cu",
+        replaces="src/repro/kernels/bitonic_sort/bitonic_sort.py:44",
+        launches=launches["bitonic"], max_abs_err=err,
+        ms=cuda_ms(lambda: bs.bitonic_sort_rows(x), reps),
+        plain_ms=cuda_ms(lambda: bs.bitonic_network(x), 2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.sort(x, dim=-1), reps),
+        shape=f"[{k}, {n_v}] int32, row stride {x.stride(0)}",
+        network=network_ops(k, n_v)))
+    del store, x, pems, load, steps, extract
     torch.cuda.empty_cache()
 
     # ---- smaller matrix ------------------------------------------------
@@ -378,10 +413,15 @@ def run(dev: torch.device, args) -> list:
               f"launches {r['launches']}, plain {r['plain_ms']:.3f} ms, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"library {lib} ms")
+        if "network" in r:
+            print(f"  bitonic network: {r['network']:.4g} min/max, "
+                  f"{r['network'] / INT32_OPS_PER_S * 1e3:.4f} ms at the "
+                  "int32 rate (the algorithm's work, not the function's)")
     print(f"peak device memory (main path): {peak / 2**30:.2f} GiB; "
           f"whole script: {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           "GiB")
-    return [{key: r[key] for key in r if key != "shape"} for r in rows]
+    return [{key: r[key] for key in r if key not in ("shape", "network")}
+            for r in rows]
 
 
 if __name__ == "__main__":

@@ -23,22 +23,25 @@
 // passes: 66 for L = 23 (55 global, 11 shared).  Every pass reads and writes
 // the whole batch once with coalesced 4-byte accesses.
 //
-// Bound.  The function itself must read its input once and write its output
-// once (2 x 4 bytes per element) and do n/2 * L(L+1)/2 compare-exchanges per
-// row.  At [4, 2^23] int32 that is 256 MiB (0.08 ms at 3.35 TB/s) against
-// 9.3e9 min/max operations (0.14 ms at the 67 T/s CUDA-core rate), so the
-// network is operations-bound in principle.  This simple design instead pays
-// 66 passes x 256 MiB of memory traffic: it is bound by those bytes, and a
-// later design (larger in-register/shared segments, fused global strides)
-// should cut the number of passes.
+// Bound.  The function must read its input once and write its output once
+// (2 x 4 bytes per element): at [4, 2^23] int32 that is 256 MiB, 0.080 ms at
+// 3.35 TB/s.  The comparisons any comparison sort needs, log2(n!) per row
+// (7.2e8 for the batch), take 0.043 ms at the card's int32 rate (16.7 T/s:
+// 132 SMs x 64 int32 lanes x 1.98 GHz), so bytes bound the function.  The
+// network's own n/2 * L(L+1)/2 compare-exchanges per row (9.3e9 min/max for
+// the batch) describe the algorithm, not the function.  This simple design
+// pays 66 passes x 256 MiB of memory traffic (5.2 ms at 3.35 TB/s): those
+// bytes bound it, and a later design (larger in-register/shared segments,
+// fused global strides) should cut the number of passes.
 //
 // The k-way merge tiles are 256 elements by default: one block per tile sorts
 // it entirely in shared memory (1 KiB), one launch for all k*G tiles of a
 // round; larger power-of-two tiles fall through to the same global passes.
 // Bound of the tile sort: at full-scale PSRS a round holds 4 * 65,536 tiles
 // of 256 int32, 512 MiB read and written once (0.16 ms at 3.35 TB/s) against
-// 2.4e9 min/max operations (0.036 ms at 67 T/s): bytes bound it, and a tile
-// that fits one segment is read once and written once, in a single pass.
+// log2(256!) comparisons a tile (4.4e8 in all, 0.026 ms at the int32 rate):
+// bytes bound it, and a tile that fits one segment is read once and written
+// once, in a single pass.
 //
 // Offsets are 64-bit throughout: a batch may exceed 2^31 elements.
 

@@ -21,7 +21,6 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
@@ -46,7 +45,6 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-build_log = {}   # "seconds", "library", "ptxas": what the last build did
 
 
 def _nvcc() -> str:
@@ -70,38 +68,33 @@ def build() -> Path:
     so = library_path()
     if so.exists():
         return so
-    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    # Per-process names, then one rename: a build cut short, or another
-    # process building the same sources, never leaves a partial library
-    # under the final name.
+    # One nvcc per source, all started together, then one link.  Objects
+    # and the library carry this process's id until the library is synced to
+    # disk and renamed, so a build cut short, or another process building
+    # the same sources, never leaves a partial library under the final name.
     tag = f"{so.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
-    tmp = BUILD_DIR / f"{tag}.so.tmp"
-    procs = [
-        subprocess.Popen([nvcc, *FLAGS, "-Xptxas", "-v", "-c", str(CSRC / s),
-                          "-o", str(o)],
-                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                         text=True)
-        for s, o in zip(SOURCES, objs)
-    ]
-    logs = []
+    tmp = BUILD_DIR / f"{tag}.so"
+    procs = [subprocess.Popen([nvcc, *FLAGS, "-c", str(CSRC / s),
+                               "-o", str(o)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
     for s, p in zip(SOURCES, procs):
-        out, err = p.communicate()
+        out = p.communicate()[0]
         if p.returncode:
-            raise RuntimeError(f"nvcc failed on {s}:\n{out}{err}")
-        logs.append(err)
+            raise RuntimeError(f"nvcc failed on {s}:\n{out}")
     link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp),
                            *map(str, objs)], capture_output=True, text=True)
     if link.returncode:
         raise RuntimeError(f"linking {so.name} failed:\n{link.stdout}"
                            f"{link.stderr}")
-    tmp.replace(so)
+    with open(tmp) as f:
+        os.fsync(f.fileno())
+    os.replace(tmp, so)
     for o in objs:
         o.unlink()
-    build_log.update(seconds=time.perf_counter() - t0, library=str(so),
-                     ptxas="".join(logs))
     return so
 
 
