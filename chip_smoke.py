@@ -29,14 +29,37 @@ What it does, in order; any failure raises and the exit code is non-zero:
 6. Runs a smaller matrix at 2^20 keys: all drivers, direct and indirect,
    random and duplicate-heavy keys, the dense routes, and a CPU-vs-GPU
    bit-for-bit comparison.
-7. Prints the stage and kernel times, peak device memory, one ``kernels``
+7. The LM serving path.  Holds flash attention and the SSD scan against
+   their plain versions at the CPU tests' edge shapes and at qwen2's head
+   dim 128 (float32, atol 1e-5; SSD within 1e-4 (1 + |plain|)).  Runs the
+   smoke-width qwen2-1.5b and mamba2-130m in float32 with TF32 off on the
+   card and on the CPU from the same parameters: prefill logits within
+   1e-4, greedy tokens equal.
+8. Serves qwen2-1.5b and then mamba2-130m at full width (bf16, random
+   weights from ``--seed``): ``REQUESTS`` (8) prompts of ``PROMPT_LEN``
+   (1024) tokens, ``GEN_LEN`` (64) greedy tokens, every kernel's count reset
+   just before each run and the model's own kernel required above zero after
+   it.  Prints prefill ms, decode ms per step (median), generated tokens/s
+   and peak memory, checks the tokens and that the prefill logits keep a
+   cosine of 0.99 with the same model on the kernels' plain versions, and
+   times the prefill and one decode step on the device alone, layer by
+   layer queued behind a sleep kernel, to give the device's busy share.
+9. Holds each float kernel against its plain version at the serve shapes
+   (flash: a causal prefill over the cache and a decode call whose
+   ``sk_valid`` is no tile multiple, bf16 within 2^-10 + 2^-7 |plain|: both
+   sum in fp32 and round once, so they differ by one bf16 ulp at most;
+   SSD: the prompt length and a ragged one) and times it beside its plain
+   version and ``scaled_dot_product_attention`` (never called by the port);
+   the short decode call, and its library call, on the device alone.
+10. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
 
 A kernel's bound is the larger of two times: the bytes the function must
 move (each input read once, each output written once) over the H100 SXM's
 3.35 TB/s of HBM bandwidth, and the operations it must do over the card's
-int32 rate, 16.7 T/s (132 SMs x 64 int32 lanes x 1.98 GHz; the data sheet
-gives no int32 figure).  For a sort the operations are the comparisons any
+rate for their type: int32 16.7 T/s (132 SMs x 64 int32 lanes x 1.98 GHz;
+the data sheet gives no int32 figure), bf16 989 TFLOP/s on the tensor
+cores, fp32 67 TFLOP/s outside them (no tensor core runs exact fp32).  For a sort the operations are the comparisons any
 comparison sort needs, log2(n!) per row of n; the bitonic network's own
 min/max count describes the algorithm, not the function, and is printed
 beside it for information.
@@ -60,6 +83,8 @@ ROOT = Path(__file__).resolve().parent
 INT_MIN, INT_MAX = -2**31, 2**31 - 1
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
+BF16_FLOPS_PER_S = 989e12   # dense bf16 on the tensor cores
+FP32_FLOPS_PER_S = 67e12    # fp32 outside the tensor cores
 
 
 def check(ok, what: str) -> None:
@@ -123,9 +148,11 @@ def sort_ops(rows: int, n: int) -> float:
     return rows * math.lgamma(n + 1) / math.log(2)
 
 
-def bound(nbytes: int, ops: float = 0):
+def bound(nbytes: int, ops: float = 0, rate: float = INT32_OPS_PER_S):
+    """(ms, what bounds it): the larger of the bytes over the HBM rate and
+    the operations over ``rate``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -201,13 +228,15 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
-    print(f"card: {card}")
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     so = _build.build()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {so.name}")
-    rows = run(torch.device("cuda"), args)
+    dev = torch.device("cuda")
+    rows = run(dev, args)
+    rows += run_lm(dev, args)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -421,6 +450,353 @@ def run(dev: torch.device, args) -> list:
           f"whole script: {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           "GiB")
     return [{key: r[key] for key in r if key not in ("shape", "network")}
+            for r in rows]
+
+
+# --------------------------------------------------------------------------- #
+# The LM serving path: flash attention (qwen2) and the SSD scan (mamba2).     #
+# --------------------------------------------------------------------------- #
+
+# The serve path's shapes: requests, prompt tokens and generated tokens.
+REQUESTS, PROMPT_LEN, GEN_LEN = 8, 1024, 64
+# Flash attention edge shapes of tests/test_torch_flash_attention.py, in
+# [B, S, H, d] terms: (b, hq, hkv, sq, sk, d); the last two are at qwen2's
+# heads in fp32, a prefill and a decode call split over the keys.
+FLASH_EDGES = [(2, 2, 2, 16, 16, 16), (1, 4, 2, 13, 29, 16),
+               (2, 6, 1, 1, 37, 32), (1, 12, 2, 24, 24, 16),
+               (2, 2, 1, 5, 70, 16), (2, 6, 2, 16, 32, 16),
+               (2, 12, 2, 70, 150, 128), (2, 12, 2, 1, 1062, 128)]
+# SSD edge shapes of tests/test_torch_ssd_scan.py: (b, h, s, p, n).
+SSD_EDGES = [(1, 1, 1, 16, 16), (2, 3, 37, 16, 16), (1, 2, 64, 32, 32),
+             (2, 2, 50, 32, 32), (1, 2, 40, 64, 64), (1, 2, 45, 64, 128)]
+# Both sides sum in fp32 and round once to bf16: one bf16 ulp of |plain|
+# (at most 2^-7 |plain|) apart, plus the fp32 sums' order near zero.
+BF16_RTOL, BF16_ATOL = 2**-7, 2**-10
+FP32_ATOL = 1e-5     # only the order of the float sums differs
+SSD_TOL = 1e-4       # |kernel - plain| <= 1e-4 (1 + |plain|), fp32
+
+
+def close(got, want, rtol, atol, what: str) -> float:
+    """max |got - want| over float tensors; fails unless every element is
+    within ``atol + rtol * |want|``."""
+    torch.cuda.synchronize()
+    check(got.shape == want.shape, f"{what}: shapes {got.shape} vs "
+                                   f"{want.shape}")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    check(ok and math.isfinite(err), f"{what}: max |kernel - plain| = {err}")
+    return err
+
+
+def flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype):
+    dev = gen.device
+    return (torch.randn((b, sq, hq, d), generator=gen, device=dev).to(dtype),
+            torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dtype),
+            torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dtype))
+
+
+def ssd_inputs(gen, b, h, s, p, n):
+    dev = gen.device
+    x = torch.randn((b, h, s, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, h, s), generator=gen, device=dev))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device=dev))
+    B, C = (torch.randn((b, s, n), generator=gen, device=dev) / n ** 0.5
+            for _ in range(2))
+    return x, dt, A, B, C
+
+
+def lm_edge_checks(gen, fa, ss) -> None:
+    for b, hq, hkv, sq, sk, d in FLASH_EDGES:
+        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.float32)
+        calls = [dict(causal=c) for c in (True, False)]
+        calls += [dict(causal=c, sk_valid=kv) for c in (True, False)
+                  for kv in (0, 1, sk // 2 + 1)]
+        calls += [dict(causal=True, sk_valid=pos + 1, q_offset=pos)
+                  for pos in (0, sk // 3, sk - 1) if sq == 1]
+        for kw in calls:
+            close(fa.attend(q, k, v, **kw), fa.attend_plain(q, k, v, **kw),
+                  0, FP32_ATOL, f"flash {b, hq, hkv, sq, sk, d} {kw}")
+    for shape in SSD_EDGES:
+        args = ssd_inputs(gen, *shape)
+        y, s_fin = ss.ssd_scan_chunked(*args)
+        y_p, s_p = ss.ssd_chunked_plain(*args, 128)
+        close(y, y_p, SSD_TOL, SSD_TOL, f"ssd y {shape}")
+        close(s_fin, s_p, SSD_TOL, SSD_TOL, f"ssd S_fin {shape}")
+
+
+def glue_check(dev, seed: int) -> None:
+    """The models' glue around the kernels on the card, in float32 with TF32
+    off: smoke-width prefill logits and greedy tokens equal the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("glue: float32, torch.backends.cuda.matmul.allow_tf32 = False, "
+          "torch.backends.cudnn.allow_tf32 = False")
+    for arch in ("qwen2-1.5b", "mamba2-130m"):
+        cfg = get_config(arch).smoke()
+        params = init_params(cfg, torch.Generator().manual_seed(seed))
+        gpu = Model(cfg, device=dev, params=params)
+        cpu = Model(cfg, device="cpu", params=params)
+        prompts = torch.randint(0, cfg.vocab, (4, 40),
+                                generator=torch.Generator().manual_seed(seed))
+        lg, _ = gpu.prefill({"tokens": prompts.to(dev)},
+                            gpu.init_cache(4, 64))
+        lc, _ = cpu.prefill({"tokens": prompts}, cpu.init_cache(4, 64))
+        err = close(lg.cpu(), lc, 1e-4, 1e-4, f"glue {cfg.name} prefill")
+        tg = ServeEngine(gpu, max_seq=64).generate(prompts, steps=16)
+        tc = ServeEngine(cpu, max_seq=64).generate(prompts, steps=16)
+        check(torch.equal(tg.cpu(), tc), f"glue {cfg.name}: greedy tokens "
+                                         "on the card == CPU")
+        print(f"glue {cfg.name}: prefill logits max |gpu - cpu| = {err:.3g}, "
+              "16 greedy tokens x 4 equal")
+
+
+def serve_full(dev, arch: str, kernel: str, mods: dict, args) -> dict:
+    """Serve ``arch`` at full width (bf16, weights from the seed): a short
+    warm-up, then the main run with every kernel's count (``mods``) set to 0
+    just before it; ``mods[kernel]`` must have launched.  Checks the tokens
+    and, on two prompts, the prefill logits with the kernels against the
+    same model with their plain versions."""
+    import repro_torch.models.blocks as blocks
+    import repro_torch.models.layers as layers
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import attend_plain
+    from repro_torch.kernels.ssd_scan import ssd_chunked_plain
+    from repro_torch.models import Model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(arch)
+    b, s, g = REQUESTS, PROMPT_LEN, GEN_LEN
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev, seed=args.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    eng = ServeEngine(model, max_seq=s + g + 8)
+    prompts = torch.randint(0, cfg.vocab, (b, s),
+                            generator=torch.Generator().manual_seed(args.seed))
+    eng.generate(prompts[:2, :64], steps=2)                      # warm-up
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, steps=g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: mod.LAUNCHES for name, mod in mods.items()}
+    launches = counts[kernel]
+    peak = torch.cuda.max_memory_allocated()
+    check(launches > 0, f"{arch}: {kernel} launched on the serve path "
+                        f"({counts})")
+    check(out.shape == (b, g) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab, f"{arch}: {g} tokens per request")
+    t = eng.timing
+
+    # The same prefill with the kernels and with their plain versions.
+    two = prompts[:2].to(dev)
+    lk, _ = model.prefill({"tokens": two}, model.init_cache(2, s))
+    saved = layers.attend, blocks.ssd_scan_chunked
+    layers.attend = attend_plain
+    blocks.ssd_scan_chunked = (lambda *a, chunk: ssd_chunked_plain(*a, chunk))
+    try:
+        lp, _ = model.prefill({"tokens": two}, model.init_cache(2, s))
+    finally:
+        layers.attend, blocks.ssd_scan_chunked = saved
+    check(bool(torch.isfinite(lk).all()) and lk.shape == (2, 1, cfg.vocab),
+          f"{arch}: finite prefill logits")
+    cos = torch.nn.functional.cosine_similarity(lk[:, 0], lp[:, 0], dim=-1)
+    same_top = int((lk[:, 0].argmax(-1) == lp[:, 0].argmax(-1)).sum())
+    check(bool((cos >= 0.99).all()), f"{arch}: prefill logits with the "
+                                     f"kernels vs plain, cosine {cos.tolist()}")
+    res = dict(arch=arch, params=n_params, launches=launches,
+               prefill_ms=t["prefill_ms"],
+               decode_ms=statistics.median(t["decode_ms"]),
+               tok_s=b * g / ((t["prefill_ms"] + sum(t["decode_ms"])) / 1e3),
+               wall_s=wall, peak_gib=peak / 2**30)
+    print(f"serve {arch} ({n_params / 1e9:.3f} B params, bf16) requests={b} "
+          f"prompt={s} generated={g}: prefill {res['prefill_ms']:.3f} ms, "
+          f"decode {res['decode_ms']:.3f} ms/step (median of {g}), "
+          f"{res['tok_s']:.1f} generated tok/s, {wall:.3f} s host clock, "
+          f"peak {res['peak_gib']:.2f} GiB, launches {counts}; prefill "
+          f"logits vs plain: cosine {min(cos.tolist()):.6f}, "
+          f"{same_top}/2 same top token")
+
+    # The device's own time for the prefill and one decode step, against
+    # the times above, which the host paces: the rest is the device idle.
+    cache = model.init_cache(b, s + g + 8)
+    pre_dev = stack_device_ms(model, model._embed(prompts.to(dev)), cache, 0)
+    dec_dev = stack_device_ms(model, model._embed(out[:, :1].to(dev)), cache,
+                              s)
+    for name, dev_ms, paced in (("prefill", pre_dev, res["prefill_ms"]),
+                                ("decode step", dec_dev, res["decode_ms"])):
+        busy = ("not measured (the host did not finish queueing first)"
+                if dev_ms is None else
+                f"{dev_ms:.3f} ms on the device, busy {dev_ms / paced:.1%} "
+                f"of the {paced:.3f} ms the host paced")
+        print(f"serve {arch} {name}: {busy}")
+    res["prefill_device_ms"], res["decode_device_ms"] = pre_dev, dec_dev
+    del model, eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def device_ms(fn, reps: int = 1):
+    """Milliseconds the device spends on one ``fn()``'s work alone: ``reps``
+    calls are queued behind a sleep kernel (about 35 ms) that outlasts the
+    host's queueing, so the events around them see no host gap.  ``None``
+    when the host had not finished queueing before the sleep ended (a full
+    launch queue, or a slow host)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1 << 26)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_first = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / reps if queued_first else None
+
+
+def stack_device_ms(model, x, cache, pos: int):
+    """Device milliseconds of one pass of ``x`` through ``model``'s layers
+    and its unembedding, timed layer by layer with :func:`device_ms` (a
+    whole step's ~1,700 launches overflow the launch queue)."""
+    times = [device_ms(lambda: model._unembed(x[:, -1:]))]
+    for lp, c in zip(model.layers, cache["layers"]):
+        times.append(device_ms(lambda: model._layer(lp, x, c, pos)))
+    return None if None in times else sum(times)
+
+
+def sdpa_fn(q, k, v, causal: bool):
+    """One scaled_dot_product_attention call on [B, H, S, d] copies of the
+    same inputs (the yardstick; the port never calls it)."""
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=causal, enable_gqa=True)
+
+
+def lm_kernel_rows(gen, fa, ss, launches, args) -> list:
+    """Each float kernel at the serve path's shapes: held against its plain
+    version and timed beside it, its bound and its library call."""
+    from repro_torch.configs import get_config
+    reps = args.reps
+    b, s, g = REQUESTS, PROMPT_LEN, GEN_LEN
+    cache = s + g + 8
+    qwen, mamba = get_config("qwen2-1.5b"), get_config("mamba2-130m")
+    hq, hkv, d = qwen.n_heads, qwen.n_kv_heads, qwen.head_dim
+    # Prefill: q over the whole cache, causal, sk_valid = s.
+    q, k, v = flash_inputs(gen, b, s, cache, hq, hkv, d, torch.bfloat16)
+    pre = dict(causal=True, sk_valid=s)
+    err = close(fa.attend(q, k, v, **pre), fa.attend_plain(q, k, v, **pre),
+                BF16_RTOL, BF16_ATOL, "flash prefill")
+    pairs = s * (s + 1) // 2
+    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * s * hkv * d),
+                       4 * b * hq * d * pairs, BF16_FLOPS_PER_S)
+    kv = k[:, :s], v[:, :s]
+    row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:78",
+        launches=launches["flash"], max_abs_err=err,
+        ms=cuda_ms(lambda: fa.attend(q, k, v, **pre), reps),
+        plain_ms=cuda_ms(lambda: fa.attend_plain(q, k, v, **pre), 2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(sdpa_fn(q, *kv, True), reps),
+        shape=f"prefill q [{b}, {s}, {hq}, {d}] bf16 over a [{b}, {cache}, "
+              f"{hkv}, {d}] cache, causal, sk_valid {s}")
+    # Decode: one query row at pos, sk_valid = pos + 1 (not a tile multiple).
+    pos = s + g // 2 + 5
+    q1 = q[:, :1].contiguous()
+    dec = dict(causal=True, sk_valid=pos + 1, q_offset=pos)
+    row["decode_max_abs_err"] = close(
+        fa.attend(q1, k, v, **dec), fa.attend_plain(q1, k, v, **dec),
+        BF16_RTOL, BF16_ATOL, "flash decode")
+    # A decode call is short enough for the host to pace back-to-back
+    # calls, so it is timed on the device alone (kernel and library alike);
+    # the back-to-back time is printed beside it.
+    row["decode_ms"] = device_ms(lambda: fa.attend(q1, k, v, **dec), 20)
+    row["decode_paced_ms"] = cuda_ms(lambda: fa.attend(q1, k, v, **dec),
+                                     reps * 20)
+    row["decode_plain_ms"] = cuda_ms(lambda: fa.attend_plain(q1, k, v, **dec),
+                                     reps)
+    row["decode_bound_ms"], row["decode_bound_by"] = bound(
+        2 * (2 * q1.numel() + 2 * b * (pos + 1) * hkv * d),
+        4 * b * hq * d * (pos + 1), BF16_FLOPS_PER_S)
+    row["decode_library_ms"] = device_ms(
+        sdpa_fn(q1, k[:, :pos + 1], v[:, :pos + 1], False), 20)
+    row["decode_shape"] = (f"q [{b}, 1, {hq}, {d}] bf16 at pos {pos} over the "
+                           f"[{b}, {cache}, {hkv}, {d}] cache, sk_valid "
+                           f"{pos + 1}")
+    rows = [row]
+    del q, k, v, q1, kv
+
+    h, p, n = mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_state
+    for length in (s, s - 24):                           # and a ragged one
+        args_ = ssd_inputs(gen, b, h, length, p, n)
+        y, s_fin = ss.ssd_scan_chunked(*args_)
+        y_p, s_p = ss.ssd_chunked_plain(*args_, 128)
+        err = max(close(y, y_p, SSD_TOL, SSD_TOL, f"ssd y S={length}"),
+                  close(s_fin, s_p, SSD_TOL, SSD_TOL, f"ssd S_fin S={length}"))
+        if length == s:
+            main, main_err = args_, err
+    x, dt, A, B, C = main
+    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
+                  + C.numel() + b * h * n * p)
+    b_ms, b_by = bound(nbytes, 4 * n * p * b * h * s, FP32_FLOPS_PER_S)
+    rows.append(dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:78",
+        launches=launches["ssd"], max_abs_err=main_err,
+        ms=cuda_ms(lambda: ss.ssd_scan_chunked(*main), reps),
+        plain_ms=cuda_ms(lambda: ss.ssd_chunked_plain(*main, 128), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"x [{b}, {h}, {s}, {p}], B/C [{b}, {s}, {n}] fp32, "
+              f"S_fin [{b}, {h}, {n}, {p}]"))
+    return rows
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def run_lm(dev: torch.device, args) -> list:
+    """The serving phases after PSRS; returns their ``kernels`` rows."""
+    mods = {m: importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+            for m in ("bitonic_sort", "kway_merge", "alltoallv_deliver",
+                      "flash_attention", "ssd_scan")}
+    fa, ss = mods["flash_attention"], mods["ssd_scan"]
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    lm_edge_checks(gen, fa, ss)
+    print(f"flash/ssd edge checks: passed in {time.perf_counter() - t0:.2f} s")
+    glue_check(dev, args.seed)
+    served = {"flash": serve_full(dev, "qwen2-1.5b", "flash_attention", mods,
+                                  args),
+              "ssd": serve_full(dev, "mamba2-130m", "ssd_scan", mods, args)}
+    rows = lm_kernel_rows(gen, fa, ss, {k: r["launches"]
+                                        for k, r in served.items()}, args)
+    for r in rows:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms, launches "
+              f"{r['launches']}, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ms, "
+              f"max |kernel - plain| {r['max_abs_err']:.3g}")
+        if "decode_ms" in r:
+            print(f"kernel {r['name']} decode {r['decode_shape']}: "
+                  f"{fmt_ms(r['decode_ms'])} on the device ("
+                  f"{r['decode_paced_ms']:.4f} ms a call back to back), plain "
+                  f"{r['decode_plain_ms']:.4f} ms, bound "
+                  f"{r['decode_bound_ms']:.4f} ms ({r['decode_bound_by']}), "
+                  f"library {fmt_ms(r['decode_library_ms'])} on the device, "
+                  f"max |kernel - plain| {r['decode_max_abs_err']:.3g}")
+    return [{key: r[key] for key in r if not key.endswith("shape")}
             for r in rows]
 
 

@@ -1,4 +1,5 @@
-"""Carry a context store between the JAX package and the port.
+"""Carry state between the JAX package and the port: a context store, and a
+model's parameters.
 
 The JAX package keeps its ``[v, words]`` store as ``uint32`` words; the port
 keeps the same bits as ``int32`` words.  Converting is a reinterpretation of
@@ -37,3 +38,42 @@ def store_to_numpy(store: ContextStore) -> np.ndarray:
     """The store's words as a ``[v, words]`` uint32 numpy array (the JAX
     package's ``ContextStore.data`` bits)."""
     return store.data.cpu().numpy().view(np.uint32)
+
+
+def params_from_jax(cfg, tree, device=None):
+    """The port's :class:`repro_torch.models.Model` of ``cfg`` holding the
+    JAX package's parameters ``tree`` (its ``Model.init`` pytree as numpy
+    arrays, ``jax.tree.map(np.asarray, params)``), on ``device`` (CUDA by
+    default).  The JAX package stacks the layers along a leading ``[L, ...]``
+    axis for its scan; the port keeps one dict per layer, so the stack is cut
+    into its ``L`` layers.  bfloat16 arrays carry over bit for bit."""
+    from .models.model import Model
+
+    def tensor(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        return torch.from_numpy(a.copy())
+
+    def layer(t, i):
+        if isinstance(t, dict):
+            return {k: layer(v, i) for k, v in t.items()}
+        return tensor(t[i])
+
+    stack = tree["layers"]
+    n = len(next(iter(_leaves(stack))))
+    if n != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: the tree stacks {n} layers, the "
+                         f"config has {cfg.n_layers}")
+    params = {k: tensor(v) for k, v in tree.items() if k != "layers"}
+    params["layers"] = [layer(stack, i) for i in range(n)]
+    return Model(cfg, device=device, params=params)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree

@@ -6,8 +6,9 @@ together) for ``sm_90a`` and the objects are linked into one shared library,
 ``build/kernels/librepro_torch_<hash>.so`` at the root of the source tree;
 ``<hash>`` covers the sources and flags, so a changed source builds anew and
 an unchanged one loads at once.  The library is loaded with :mod:`ctypes`:
-every pointer and the stream are ``c_void_p``, every size ``c_int64``, and
-every entry returns the ``cudaError_t`` of its launches.
+every pointer and the stream are ``c_void_p``, every size ``c_int64``, every
+real ``c_double``, and every entry returns the ``cudaError_t`` of its
+launches.
 
 Nothing here runs at import: the CPU tests import every module, and only a
 call on a CUDA tensor builds.
@@ -27,11 +28,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("bitonic_sort.cu", "alltoallv_deliver.cu")
+SOURCES = ("bitonic_sort.cu", "alltoallv_deliver.cu", "flash_attention.cu",
+           "ssd_scan.cu")
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-# Argument kinds per entry point: "p" pointer (c_void_p), "i" size (c_int64).
+# Argument kinds per entry point: "p" pointer (c_void_p), "i" size (c_int64),
+# "f" real (c_double).
 _SIGNATURES = {
     # device, in, in_stride, out, rows, n, stream
     "repro_bitonic_sort_rows": "ipipiip",
@@ -41,6 +44,16 @@ _SIGNATURES = {
     # cnt, cnt_stride, cnt_off, fill, cp, cp_stride, cp_off,
     # ct, ct_stride, ct_off, stream
     "repro_deliver_words": "ipiipiiii" "piii" "pii" "pii" "p",
+    # device, q, q strides (b, s, h), k, k strides, v, v strides, o,
+    # o strides, part, batch, sq, sk, hq, hkv, d, sk_valid, q_offset,
+    # causal, dtype, bq, splits, split_len, scale, stream
+    "repro_flash_attention": "i" "piii" "piii" "piii" "piii" "p"
+                             "iiiiiiiiiiiii" "f" "p",
+    # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
+    # B strides (b, s), C, C strides (b, s), y, y strides (b, h, s), s_fin,
+    # batch, heads, seq, n, p, stream
+    "repro_ssd_scan": "i" "piii" "piii" "p" "pii" "pii" "piii" "p" "iiiii"
+                      "p",
 }
 
 _lock = threading.Lock()
@@ -104,7 +117,8 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int64}
+            kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int64,
+                     "f": ctypes.c_double}
             for name, sig in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = [kinds[c] for c in sig]

@@ -116,3 +116,108 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         bs.bitonic_sort_rows(
             torch.zeros((8, 2), dtype=torch.int32, device=cuda).t())
+
+
+# --------------------------------------------------------------------------- #
+# The serving path's float kernels: flash attention and the SSD scan.         #
+# fp32 cases compare within atol 1e-5 (the kernels sum in another order);     #
+# bf16 outputs within 2^-10 + 2^-7 |plain|: kernel and plain both sum in fp32 #
+# and round once to bf16, so they differ by one bf16 ulp at most.            #
+# --------------------------------------------------------------------------- #
+
+# (b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, dtype)
+_ATTN = [
+    (2, 128, 150, 12, 2, 128, True, 128, 0, torch.bfloat16),
+    (8, 1, 300, 12, 2, 128, True, 201, 200, torch.bfloat16),
+    (1, 1, 1096, 12, 2, 128, False, 1061, 0, torch.bfloat16),
+    (2, 128, 150, 12, 2, 128, True, 128, 0, torch.float32),
+    (8, 1, 1096, 12, 2, 128, True, 1062, 1061, torch.float32),
+    (2, 37, 37, 4, 2, 16, True, 37, 0, torch.float32),
+    (2, 100, 130, 6, 1, 64, True, 90, 0, torch.float32),
+    (3, 5, 70, 2, 2, 32, False, 33, 0, torch.float32),
+    (1, 3, 80, 4, 1, 32, True, 61, 58, torch.float32),
+    (1, 1, 100, 6, 1, 64, False, 0, 0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", _ATTN, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, dtype = case
+    fa = _kernel("flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(sq * sk)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    before = fa.LAUNCHES
+    got = fa.attend(q, k, v, causal=causal, sk_valid=sk_valid,
+                    q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    want = fa.attend_plain(q, k, v, causal=causal, sk_valid=sk_valid,
+                           q_offset=q_offset)
+    rtol, atol = (0, 1e-5) if dtype == torch.float32 else (2**-7, 2**-10)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("b, h, s, p, n", [(8, 24, 256, 64, 128),
+                                           (2, 3, 37, 16, 16),
+                                           (1, 2, 100, 64, 64),
+                                           (2, 2, 33, 32, 32), (1, 1, 1, 16, 16)])
+def test_ssd_kernel_matches_plain(cuda, b, h, s, p, n):
+    ss = _kernel("ssd_scan")
+    g = torch.Generator(device=cuda).manual_seed(s * n)
+    x = torch.randn((b, h, s, p), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn((b, h, s), generator=g,
+                                                  device=cuda))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=g, device=cuda))
+    Bm, Cm = (torch.randn((b, s, n), generator=g, device=cuda) / n ** 0.5
+              for _ in range(2))
+    before = ss.LAUNCHES
+    y, s_fin = ss.ssd_scan_chunked(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES == before + 1
+    y_want, s_want = ss.ssd_chunked_plain(x, dt, A, Bm, Cm, 128)
+    torch.testing.assert_close(y, y_want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_fin, s_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m"])
+def test_smoke_models_on_the_card_match_the_cpu(cuda, arch, monkeypatch):
+    """The model's glue around the kernels, in float32 with TF32 off: the
+    card's prefill logits and greedy tokens equal the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServeEngine
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = get_config(arch).smoke()
+    params = init_params(cfg, torch.Generator().manual_seed(1))
+    gpu = Model(cfg, device=cuda, params=params)
+    cpu = Model(cfg, device="cpu", params=params)
+    prompts = torch.randint(0, cfg.vocab, (4, 40),
+                            generator=torch.Generator().manual_seed(2))
+    lg, _ = gpu.prefill({"tokens": prompts.to(cuda)}, gpu.init_cache(4, 64))
+    lc, _ = cpu.prefill({"tokens": prompts}, cpu.init_cache(4, 64))
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    tg = ServeEngine(gpu, max_seq=64).generate(prompts, steps=16)
+    tc = ServeEngine(cpu, max_seq=64).generate(prompts, steps=16)
+    assert torch.equal(tg.cpu(), tc)
+
+
+def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    fa, ss = _kernel("flash_attention"), _kernel("ssd_scan")
+    q = torch.zeros((1, 4, 2, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="kernel takes"):
+        fa.attend(q, q, q, causal=True)
+    q = torch.zeros((1, 4, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.attend(q, q, q, causal=True)
+    x = torch.zeros((1, 2, 8, 16), device=cuda)
+    dt = torch.zeros((1, 2, 8), device=cuda)
+    A = torch.zeros((2,), device=cuda)
+    Bm = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ss.ssd_scan_chunked(x.bfloat16(), dt, A, Bm, Bm)
+    with pytest.raises(ValueError, match="built for"):
+        ss.ssd_scan_chunked(x, dt, A, Bm[..., :8], Bm[..., :8])

@@ -63,6 +63,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import sys\n"
         "import repro_torch.pems_apps.psrs, repro_torch.interop\n"
+        "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.ssd_scan\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
