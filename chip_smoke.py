@@ -29,28 +29,35 @@ What it does, in order; any failure raises and the exit code is non-zero:
 6. Runs a smaller matrix at 2^20 keys: all drivers, direct and indirect,
    random and duplicate-heavy keys, the dense routes, and a CPU-vs-GPU
    bit-for-bit comparison.
-7. The LM serving path.  Holds flash attention and the SSD scan against
-   their plain versions at the CPU tests' edge shapes and at qwen2's head
-   dim 128 (float32, atol 1e-5; SSD within 1e-4 (1 + |plain|)).  Runs the
-   smoke-width qwen2-1.5b and mamba2-130m in float32 with TF32 off on the
-   card and on the CPU from the same parameters: prefill logits within
-   1e-4, greedy tokens equal.
-8. Serves qwen2-1.5b and then mamba2-130m at full width (bf16, random
-   weights from ``--seed``): ``REQUESTS`` (8) prompts of ``PROMPT_LEN``
-   (1024) tokens, ``GEN_LEN`` (64) greedy tokens, every kernel's count reset
-   just before each run and the model's own kernel required above zero after
-   it.  Prints prefill ms, decode ms per step (median), generated tokens/s
-   and peak memory, checks the tokens and that the prefill logits keep a
-   cosine of 0.99 with the same model on the kernels' plain versions, and
-   times the prefill and one decode step on the device alone, layer by
-   layer queued behind a sleep kernel, to give the device's busy share.
+7. The LM serving path.  Holds flash attention, the SSD scan and the LRU
+   scan against their plain versions at the CPU tests' edge shapes, at
+   qwen2's head dim 128 and at recurrentgemma's sliding window and head dim
+   256 (float32, atol 1e-5; SSD within 1e-4 (1 + |plain|), LRU within
+   1e-5 (1 + |plain|)).  Runs the smoke-width qwen2-1.5b, mamba2-130m and
+   recurrentgemma-2b in float32 with TF32 off on the card and on the CPU
+   from the same parameters (40-token prompts, past recurrentgemma's smoke
+   window of 16): prefill logits within 1e-4, greedy tokens equal.
+8. Serves qwen2-1.5b, mamba2-130m and recurrentgemma-2b at full width
+   (bf16, random weights from ``--seed``): ``REQUESTS`` (8) prompts of
+   ``PROMPT_LEN`` (1024) tokens, or ``HYBRID_PROMPT_LEN`` (3072, so that
+   its 2048-token window masks keys) for recurrentgemma, ``GEN_LEN`` (64)
+   greedy tokens, every kernel's count reset just before each run and the
+   model's own kernels (recurrentgemma: the LRU scan and flash attention)
+   required above zero after it.  Prints prefill ms, decode ms per step
+   (median), generated tokens/s and peak memory, checks the tokens and that
+   the prefill logits keep a cosine of 0.99 with the same model on the
+   kernels' plain versions, and times the prefill and one decode step on
+   the device alone, layer by layer queued behind a sleep kernel, to give
+   the device's busy share.
 9. Holds each float kernel against its plain version at the serve shapes
-   (flash: a causal prefill over the cache and a decode call whose
-   ``sk_valid`` is no tile multiple, bf16 within 2^-10 + 2^-7 |plain|: both
-   sum in fp32 and round once, so they differ by one bf16 ulp at most;
-   SSD: the prompt length and a ragged one) and times it beside its plain
-   version and ``scaled_dot_product_attention`` (never called by the port);
-   the short decode call, and its library call, on the device alone.
+   (flash: qwen2's causal prefill over the cache and a decode call whose
+   ``sk_valid`` is no tile multiple, and recurrentgemma's windowed ones,
+   bf16 within 2^-10 + 2^-7 |plain|: both sum in fp32 and round once, so
+   they differ by one bf16 ulp at most; SSD: the prompt length and a ragged
+   one; LRU: the prompt length and a ragged one) and times it beside its
+   plain version and ``scaled_dot_product_attention`` (never called by the
+   port); the short decode calls, and their library calls, on the device
+   alone.
 10. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
 
@@ -457,8 +464,10 @@ def run(dev: torch.device, args) -> list:
 # The LM serving path: flash attention (qwen2) and the SSD scan (mamba2).     #
 # --------------------------------------------------------------------------- #
 
-# The serve path's shapes: requests, prompt tokens and generated tokens.
+# The serve path's shapes: requests, prompt tokens and generated tokens;
+# recurrentgemma's prompt is longer than its 2048-token window.
 REQUESTS, PROMPT_LEN, GEN_LEN = 8, 1024, 64
+HYBRID_PROMPT_LEN = 3072
 # Flash attention edge shapes of tests/test_torch_flash_attention.py, in
 # [B, S, H, d] terms: (b, hq, hkv, sq, sk, d); the last two are at qwen2's
 # heads in fp32, a prefill and a decode call split over the keys.
@@ -466,6 +475,16 @@ FLASH_EDGES = [(2, 2, 2, 16, 16, 16), (1, 4, 2, 13, 29, 16),
                (2, 6, 1, 1, 37, 32), (1, 12, 2, 24, 24, 16),
                (2, 2, 1, 5, 70, 16), (2, 6, 2, 16, 32, 16),
                (2, 12, 2, 70, 150, 128), (2, 12, 2, 1, 1062, 128)]
+# Windowed flash edge shapes, (b, hq, hkv, sq, sk, d): recurrentgemma's heads
+# (10 of 256 over one KV head) in a prefill and a decode call, and smaller
+# ones; each is called with windows of 1, 16 and 100 (fp32).
+FLASH_WINDOW_EDGES = [(2, 4, 1, 70, 90, 256), (1, 10, 1, 1, 300, 256),
+                      (1, 10, 1, 4, 110, 256), (2, 6, 2, 33, 80, 64),
+                      (1, 2, 2, 40, 40, 16)]
+# LRU edge shapes of tests/test_torch_lru_scan.py and the model's width:
+# (b, s, d).
+LRU_EDGES = [(1, 1, 1), (2, 1, 64), (2, 37, 64), (1, 300, 100),
+             (2, 37, 256), (3, 17, 2560)]
 # SSD edge shapes of tests/test_torch_ssd_scan.py: (b, h, s, p, n).
 SSD_EDGES = [(1, 1, 1, 16, 16), (2, 3, 37, 16, 16), (1, 2, 64, 32, 32),
              (2, 2, 50, 32, 32), (1, 2, 40, 64, 64), (1, 2, 45, 64, 128)]
@@ -474,6 +493,7 @@ SSD_EDGES = [(1, 1, 1, 16, 16), (2, 3, 37, 16, 16), (1, 2, 64, 32, 32),
 BF16_RTOL, BF16_ATOL = 2**-7, 2**-10
 FP32_ATOL = 1e-5     # only the order of the float sums differs
 SSD_TOL = 1e-4       # |kernel - plain| <= 1e-4 (1 + |plain|), fp32
+LRU_TOL = 1e-5       # |kernel - plain| <= 1e-5 (1 + |plain|), fp32
 
 
 def close(got, want, rtol, atol, what: str) -> float:
@@ -507,7 +527,14 @@ def ssd_inputs(gen, b, h, s, p, n):
     return x, dt, A, B, C
 
 
-def lm_edge_checks(gen, fa, ss) -> None:
+def lru_inputs(gen, b, s, d):
+    """The model's operands: gates in (0.5, 0.999), inputs of unit scale."""
+    dev = gen.device
+    return (0.5 + 0.499 * torch.rand((b, s, d), generator=gen, device=dev),
+            torch.randn((b, s, d), generator=gen, device=dev))
+
+
+def lm_edge_checks(gen, fa, ss, ls) -> None:
     for b, hq, hkv, sq, sk, d in FLASH_EDGES:
         q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.float32)
         calls = [dict(causal=c) for c in (True, False)]
@@ -518,12 +545,32 @@ def lm_edge_checks(gen, fa, ss) -> None:
         for kw in calls:
             close(fa.attend(q, k, v, **kw), fa.attend_plain(q, k, v, **kw),
                   0, FP32_ATOL, f"flash {b, hq, hkv, sq, sk, d} {kw}")
+    for b, hq, hkv, sq, sk, d in FLASH_WINDOW_EDGES:
+        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.float32)
+        for w in (1, 16, 100):
+            calls = [dict(causal=False, sk_valid=sk - 3, q_offset=sk - sq)]
+            calls += ([dict(causal=True, sk_valid=pos + 1, q_offset=pos)
+                       for pos in (sk // 3, sk - 1)] if sq == 1 else
+                      [dict(causal=True), dict(causal=True, q_offset=sk - sq)])
+            for kw in calls:
+                kw["window"] = w
+                close(fa.attend(q, k, v, **kw), fa.attend_plain(q, k, v, **kw),
+                      0, FP32_ATOL, f"flash {b, hq, hkv, sq, sk, d} {kw}")
     for shape in SSD_EDGES:
         args = ssd_inputs(gen, *shape)
         y, s_fin = ss.ssd_scan_chunked(*args)
         y_p, s_p = ss.ssd_chunked_plain(*args, 128)
         close(y, y_p, SSD_TOL, SSD_TOL, f"ssd y {shape}")
         close(s_fin, s_p, SSD_TOL, SSD_TOL, f"ssd S_fin {shape}")
+    for b, s, d in LRU_EDGES:
+        a, x = lru_inputs(gen, b, s, d)
+        wide = torch.zeros((b, s, 2 * d), device=gen.device)   # strided a
+        wide[..., d:] = a
+        for args in ((a, x), (wide[..., d:], x)):
+            h, h_fin = ls.lru_scan_chunked(*args)
+            h_p, fin_p = ls.lru_chunked_plain(*args, 256)
+            close(h, h_p, LRU_TOL, LRU_TOL, f"lru h {b, s, d}")
+            close(h_fin, fin_p, LRU_TOL, LRU_TOL, f"lru h_fin {b, s, d}")
 
 
 def glue_check(dev, seed: int) -> None:
@@ -538,7 +585,7 @@ def glue_check(dev, seed: int) -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("glue: float32, torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
-    for arch in ("qwen2-1.5b", "mamba2-130m"):
+    for arch in ("qwen2-1.5b", "mamba2-130m", "recurrentgemma-2b"):
         cfg = get_config(arch).smoke()
         params = init_params(cfg, torch.Generator().manual_seed(seed))
         gpu = Model(cfg, device=dev, params=params)
@@ -557,22 +604,24 @@ def glue_check(dev, seed: int) -> None:
               "16 greedy tokens x 4 equal")
 
 
-def serve_full(dev, arch: str, kernel: str, mods: dict, args) -> dict:
+def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
+               prompt_len: int = PROMPT_LEN) -> dict:
     """Serve ``arch`` at full width (bf16, weights from the seed): a short
     warm-up, then the main run with every kernel's count (``mods``) set to 0
-    just before it; ``mods[kernel]`` must have launched.  Checks the tokens
-    and, on two prompts, the prefill logits with the kernels against the
-    same model with their plain versions."""
+    just before it; each of ``mods[kernels]`` must have launched.  Checks
+    the tokens and, on two prompts, the prefill logits with the kernels
+    against the same model with their plain versions."""
     import repro_torch.models.blocks as blocks
     import repro_torch.models.layers as layers
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import attend_plain
+    from repro_torch.kernels.lru_scan import lru_chunked_plain
     from repro_torch.kernels.ssd_scan import ssd_chunked_plain
     from repro_torch.models import Model
     from repro_torch.serve import ServeEngine
 
     cfg = get_config(arch)
-    b, s, g = REQUESTS, PROMPT_LEN, GEN_LEN
+    b, s, g = REQUESTS, prompt_len, GEN_LEN
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg, device=dev, seed=args.seed)
     n_params = sum(p.numel() for p in model.parameters())
@@ -588,10 +637,11 @@ def serve_full(dev, arch: str, kernel: str, mods: dict, args) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: mod.LAUNCHES for name, mod in mods.items()}
-    launches = counts[kernel]
+    launches = {name: counts[name] for name in kernels}
     peak = torch.cuda.max_memory_allocated()
-    check(launches > 0, f"{arch}: {kernel} launched on the serve path "
-                        f"({counts})")
+    check(all(n > 0 for n in launches.values()),
+          f"{arch}: {', '.join(kernels)} launched on the serve path "
+          f"({counts})")
     check(out.shape == (b, g) and int(out.min()) >= 0
           and int(out.max()) < cfg.vocab, f"{arch}: {g} tokens per request")
     t = eng.timing
@@ -599,13 +649,15 @@ def serve_full(dev, arch: str, kernel: str, mods: dict, args) -> dict:
     # The same prefill with the kernels and with their plain versions.
     two = prompts[:2].to(dev)
     lk, _ = model.prefill({"tokens": two}, model.init_cache(2, s))
-    saved = layers.attend, blocks.ssd_scan_chunked
+    saved = layers.attend, blocks.ssd_scan_chunked, blocks.lru_scan_chunked
     layers.attend = attend_plain
     blocks.ssd_scan_chunked = (lambda *a, chunk: ssd_chunked_plain(*a, chunk))
+    blocks.lru_scan_chunked = (lambda *a, chunk: lru_chunked_plain(*a, chunk))
     try:
         lp, _ = model.prefill({"tokens": two}, model.init_cache(2, s))
     finally:
-        layers.attend, blocks.ssd_scan_chunked = saved
+        (layers.attend, blocks.ssd_scan_chunked,
+         blocks.lru_scan_chunked) = saved
     check(bool(torch.isfinite(lk).all()) and lk.shape == (2, 1, cfg.vocab),
           f"{arch}: finite prefill logits")
     cos = torch.nn.functional.cosine_similarity(lk[:, 0], lp[:, 0], dim=-1)
@@ -635,10 +687,11 @@ def serve_full(dev, arch: str, kernel: str, mods: dict, args) -> dict:
                                 ("decode step", dec_dev, res["decode_ms"])):
         busy = ("not measured (the host did not finish queueing first)"
                 if dev_ms is None else
-                f"{dev_ms:.3f} ms on the device, busy {dev_ms / paced:.1%} "
-                f"of the {paced:.3f} ms the host paced")
+                f"{dev_ms[0]:.3f} ms on the device, busy "
+                f"{dev_ms[0] / paced:.1%} of the {paced:.3f} ms the host "
+                "paced; by layer kind " + ", ".join(
+                    f"{k} {t:.3f} ms" for k, t in dev_ms[1].items()))
         print(f"serve {arch} {name}: {busy}")
-    res["prefill_device_ms"], res["decode_device_ms"] = pre_dev, dec_dev
     del model, eng
     torch.cuda.empty_cache()
     return res
@@ -667,11 +720,20 @@ def device_ms(fn, reps: int = 1):
 def stack_device_ms(model, x, cache, pos: int):
     """Device milliseconds of one pass of ``x`` through ``model``'s layers
     and its unembedding, timed layer by layer with :func:`device_ms` (a
-    whole step's ~1,700 launches overflow the launch queue)."""
-    times = [device_ms(lambda: model._unembed(x[:, -1:]))]
-    for lp, c in zip(model.layers, cache["layers"]):
-        times.append(device_ms(lambda: model._layer(lp, x, c, pos)))
-    return None if None in times else sum(times)
+    whole step's ~1,700 launches overflow the launch queue): ``(total,
+    {kind: ms})`` summed by layer kind (a hybrid model's rec and windowed
+    attn layers are one flat list, as are their caches), or ``None``."""
+    from repro_torch.models.model import layer_kinds
+    times = [("unembed", device_ms(lambda: model._unembed(x[:, -1:])))]
+    for kind, lp, c in zip(layer_kinds(model.cfg), model.layers,
+                           cache["layers"]):
+        times.append((kind, device_ms(lambda: model._layer(lp, x, c, pos))))
+    if any(t is None for _, t in times):
+        return None
+    by_kind = {}
+    for kind, t in times:
+        by_kind[kind] = by_kind.get(kind, 0.0) + t
+    return sum(by_kind.values()), by_kind
 
 
 def sdpa_fn(q, k, v, causal: bool):
@@ -682,7 +744,45 @@ def sdpa_fn(q, k, v, causal: bool):
         qh, kh, vh, is_causal=causal, enable_gqa=True)
 
 
-def lm_kernel_rows(gen, fa, ss, launches, args) -> list:
+def sdpa_window_fn(q, k, v, window: int):
+    """One scaled_dot_product_attention call over [B, H, S, d] copies of the
+    same inputs, the KV head expanded to the query heads, with the causal
+    window as a boolean mask (the yardstick; the port never calls it)."""
+    hq, hkv = q.shape[2], k.shape[2]
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+              .contiguous() for t in (k, v))
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = (j <= i) & (j > i - window)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask)
+
+
+def flash_decode_row(fa, row, q1, k, v, dec, live, reps):
+    """Add a decode call's error, times, bound and library time to ``row``:
+    ``q1`` at ``dec["q_offset"]`` over the cache, whose ``live`` keys end at
+    ``sk_valid``.  A decode call is short enough for the host to pace
+    back-to-back calls, so it is timed on the device alone (kernel and
+    library alike); the back-to-back time is kept beside it."""
+    b, _, hq, d = q1.shape
+    hkv, end = k.shape[2], dec["sk_valid"]
+    row["decode_max_abs_err"] = close(
+        fa.attend(q1, k, v, **dec), fa.attend_plain(q1, k, v, **dec),
+        BF16_RTOL, BF16_ATOL, "flash decode")
+    row["decode_ms"] = device_ms(lambda: fa.attend(q1, k, v, **dec), 20)
+    row["decode_paced_ms"] = cuda_ms(lambda: fa.attend(q1, k, v, **dec),
+                                     reps * 20)
+    row["decode_plain_ms"] = cuda_ms(lambda: fa.attend_plain(q1, k, v, **dec),
+                                     reps)
+    row["decode_bound_ms"], row["decode_bound_by"] = bound(
+        2 * (2 * q1.numel() + 2 * b * live * hkv * d),
+        4 * b * hq * d * live, BF16_FLOPS_PER_S)
+    row["decode_library_ms"] = device_ms(
+        sdpa_fn(q1, k[:, end - live:end], v[:, end - live:end], False), 20)
+
+
+def lm_kernel_rows(gen, fa, ss, ls, launches, args) -> list:
     """Each float kernel at the serve path's shapes: held against its plain
     version and timed beside it, its bound and its library call."""
     from repro_torch.configs import get_config
@@ -714,23 +814,8 @@ def lm_kernel_rows(gen, fa, ss, launches, args) -> list:
     # Decode: one query row at pos, sk_valid = pos + 1 (not a tile multiple).
     pos = s + g // 2 + 5
     q1 = q[:, :1].contiguous()
-    dec = dict(causal=True, sk_valid=pos + 1, q_offset=pos)
-    row["decode_max_abs_err"] = close(
-        fa.attend(q1, k, v, **dec), fa.attend_plain(q1, k, v, **dec),
-        BF16_RTOL, BF16_ATOL, "flash decode")
-    # A decode call is short enough for the host to pace back-to-back
-    # calls, so it is timed on the device alone (kernel and library alike);
-    # the back-to-back time is printed beside it.
-    row["decode_ms"] = device_ms(lambda: fa.attend(q1, k, v, **dec), 20)
-    row["decode_paced_ms"] = cuda_ms(lambda: fa.attend(q1, k, v, **dec),
-                                     reps * 20)
-    row["decode_plain_ms"] = cuda_ms(lambda: fa.attend_plain(q1, k, v, **dec),
-                                     reps)
-    row["decode_bound_ms"], row["decode_bound_by"] = bound(
-        2 * (2 * q1.numel() + 2 * b * (pos + 1) * hkv * d),
-        4 * b * hq * d * (pos + 1), BF16_FLOPS_PER_S)
-    row["decode_library_ms"] = device_ms(
-        sdpa_fn(q1, k[:, :pos + 1], v[:, :pos + 1], False), 20)
+    flash_decode_row(fa, row, q1, k, v, dict(causal=True, sk_valid=pos + 1,
+                                             q_offset=pos), pos + 1, reps)
     row["decode_shape"] = (f"q [{b}, 1, {hq}, {d}] bf16 at pos {pos} over the "
                            f"[{b}, {cache}, {hkv}, {d}] cache, sk_valid "
                            f"{pos + 1}")
@@ -759,6 +844,62 @@ def lm_kernel_rows(gen, fa, ss, launches, args) -> list:
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"x [{b}, {h}, {s}, {p}], B/C [{b}, {s}, {n}] fp32, "
               f"S_fin [{b}, {h}, {n}, {p}]"))
+    del main, args_, x, dt, A, B, C
+
+    # recurrentgemma: the windowed prefill over its cache and a decode call
+    # past the window.
+    rg = get_config("recurrentgemma-2b")
+    s, w = HYBRID_PROMPT_LEN, rg.local_window
+    cache = s + g + 8
+    hq, hkv, d = rg.n_heads, rg.n_kv_heads, rg.head_dim
+    q, k, v = flash_inputs(gen, b, s, cache, hq, hkv, d, torch.bfloat16)
+    pre = dict(causal=True, sk_valid=s, window=w)
+    err = close(fa.attend(q, k, v, **pre), fa.attend_plain(q, k, v, **pre),
+                BF16_RTOL, BF16_ATOL, "flash windowed prefill")
+    seen = sum(min(p + 1, w) for p in range(s))     # keys the queries see
+    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * s * hkv * d),
+                       4 * b * hq * d * seen, BF16_FLOPS_PER_S)
+    row = dict(
+        name="flash_attention_window_d256", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:78",
+        launches=launches["flash_window"], max_abs_err=err,
+        ms=cuda_ms(lambda: fa.attend(q, k, v, **pre), reps),
+        plain_ms=cuda_ms(lambda: fa.attend_plain(q, k, v, **pre), 2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(sdpa_window_fn(q, k[:, :s], v[:, :s], w), reps),
+        shape=f"prefill q [{b}, {s}, {hq}, {d}] bf16 over a [{b}, {cache}, "
+              f"{hkv}, {d}] cache, causal, window {w}, sk_valid {s}")
+    pos = s + g // 2 + 5
+    q1 = q[:, :1].contiguous()
+    flash_decode_row(fa, row, q1, k, v, dict(causal=True, sk_valid=pos + 1,
+                                             q_offset=pos, window=w),
+                     min(pos + 1, w), reps)
+    row["decode_shape"] = (f"q [{b}, 1, {hq}, {d}] bf16 at pos {pos} over the "
+                           f"[{b}, {cache}, {hkv}, {d}] cache, window {w}, "
+                           f"sk_valid {pos + 1}")
+    rows.append(row)
+    del q, k, v, q1
+
+    width = rg.lru_width
+    for length in (s - 24, s):             # a ragged length, then the prompt's
+        a, x = lru_inputs(gen, b, length, width)
+        h, h_fin = ls.lru_scan_chunked(a, x)
+        h_p, fin_p = ls.lru_chunked_plain(a, x, 256)
+        err = max(close(h, h_p, LRU_TOL, LRU_TOL, f"lru h S={length}"),
+                  close(h_fin, fin_p, LRU_TOL, LRU_TOL,
+                        f"lru h_fin S={length}"))
+        del h, h_fin, h_p, fin_p
+    b_ms, b_by = bound(4 * (3 * a.numel() + b * width), 2 * a.numel(),
+                       FP32_FLOPS_PER_S)
+    rows.append(dict(
+        name="lru_scan", route="cuda", source="src/repro_torch/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/lru_scan/lru_scan.py:57",
+        launches=launches["lru"], max_abs_err=err,
+        ms=cuda_ms(lambda: ls.lru_scan_chunked(a, x), reps),
+        plain_ms=cuda_ms(lambda: ls.lru_chunked_plain(a, x, 256), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"a, b [{b}, {s}, {width}] fp32, h_fin [{b}, {width}]"))
     return rows
 
 
@@ -770,18 +911,23 @@ def run_lm(dev: torch.device, args) -> list:
     """The serving phases after PSRS; returns their ``kernels`` rows."""
     mods = {m: importlib.import_module(f"repro_torch.kernels.{m}.{m}")
             for m in ("bitonic_sort", "kway_merge", "alltoallv_deliver",
-                      "flash_attention", "ssd_scan")}
-    fa, ss = mods["flash_attention"], mods["ssd_scan"]
+                      "flash_attention", "ssd_scan", "lru_scan")}
+    fa, ss, ls = mods["flash_attention"], mods["ssd_scan"], mods["lru_scan"]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
-    lm_edge_checks(gen, fa, ss)
-    print(f"flash/ssd edge checks: passed in {time.perf_counter() - t0:.2f} s")
+    lm_edge_checks(gen, fa, ss, ls)
+    print(f"flash/ssd/lru edge checks: passed in "
+          f"{time.perf_counter() - t0:.2f} s")
     glue_check(dev, args.seed)
-    served = {"flash": serve_full(dev, "qwen2-1.5b", "flash_attention", mods,
-                                  args),
-              "ssd": serve_full(dev, "mamba2-130m", "ssd_scan", mods, args)}
-    rows = lm_kernel_rows(gen, fa, ss, {k: r["launches"]
-                                        for k, r in served.items()}, args)
+    qwen = serve_full(dev, "qwen2-1.5b", ("flash_attention",), mods, args)
+    mamba = serve_full(dev, "mamba2-130m", ("ssd_scan",), mods, args)
+    rg = serve_full(dev, "recurrentgemma-2b", ("lru_scan", "flash_attention"),
+                    mods, args, prompt_len=HYBRID_PROMPT_LEN)
+    launches = {"flash": qwen["launches"]["flash_attention"],
+                "ssd": mamba["launches"]["ssd_scan"],
+                "flash_window": rg["launches"]["flash_attention"],
+                "lru": rg["launches"]["lru_scan"]}
+    rows = lm_kernel_rows(gen, fa, ss, ls, launches, args)
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms, launches "

@@ -1,4 +1,5 @@
-// Flash attention (online softmax, GQA, causal, length mask) for Hopper (sm_90a).
+// Flash attention (online softmax, GQA, causal, sliding window, length mask) for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel flash_attention_bh
 // (src/repro/kernels/flash_attention/flash_attention.py:78, body _attn_kernel
@@ -10,7 +11,9 @@
 // [B, S, H, d] KV cache and the JAX kernel's [B*H, S, d] both go in without
 // a transposed copy.  q_offset is the absolute position of query row 0 (the
 // TPU kernel's causal mask assumes 0): with it, a decode step (Sq = 1,
-// q_offset = pos, sk_valid = pos + 1) is the same call as prefill.
+// q_offset = pos, sk_valid = pos + 1) is the same call as prefill.  window > 0
+// adds the JAX model's local mask (src/repro/models/layers.py:54): a query at
+// position p sees the keys k > p - window, itself and the window - 1 before it.
 //
 // Design.  One block owns one (batch, KV head, tile of BQ query rows).  The
 // rows of a tile are (position i, query head g of the KV head's group) pairs,
@@ -20,17 +23,25 @@
 // inside the block runs over 32-key tiles and takes the place of the TPU's
 // sequential KV grid axis; it stops at the tile holding the last key any row
 // of the block may see, min(sk_valid, q_offset + last position + 1), so
-// causal and padded tiles are never loaded.  Q (pre-scaled), K^T, V and P^T
+// causal and padded tiles are never loaded; with a window it also starts at
+// the tile holding the first key its first row may see, so tiles wholly
+// before the window are never loaded either.  Q (pre-scaled), K^T, V and P^T
 // tiles sit in shared memory as fp32; each of the 128 threads holds RT query
 // rows: 4 keys of the score tile and D/8 columns of the fp32 accumulator, in
 // registers.  Row max and row sum reduce over the 8 lanes sharing a row with
 // warp shuffles.  Inputs are fp32 or bf16; math is fp32 FMA; the output is
-// written in the input type.  BQ is 64 (RT = 4) for prefill and 16 (RT = 1)
-// when a (batch, KV head) has 16 rows or fewer, as in decode.  When the row
-// tiles alone give too few blocks to fill the card (decode: batch * KV heads
-// = 16 for qwen2 at B 8), the wrapper cuts the keys into ranges, one block
-// each; every block writes its unnormalised (acc, m, l) to fp32 scratch and
-// a second launch merges them, as flash-decoding does.
+// written in the input type.  BQ is 64 (RT = 4) for prefill at head dims up
+// to 128 and 32 (RT = 2) at head dim 256, where four rows' accumulators (128
+// fp32 registers a thread) would not fit beside the rest; 16 (RT = 1) when a
+// (batch, KV head) has 16 rows or fewer, as in decode.  Shared memory is
+// 109 KiB at D 256, BQ 32 (two blocks an SM), under the 227 KB opt-in.  When
+// the row tiles alone give too few blocks to fill the card (decode: batch *
+// KV heads = 16 for qwen2 at B 8, 8 for recurrentgemma), the wrapper cuts the
+// live keys -- from the window's first tile, if there is a window, to the
+// last valid key -- into ranges, one block each; every block writes its
+// unnormalised (acc, m, l) to fp32 scratch (l = 0 for a block whose rows see
+// no key of its range) and a second launch merges them, as flash-decoding
+// does.
 //
 // Bound.  The function reads q, the sk_valid keys and values of each (batch,
 // KV head) and writes out: bytes bound a decode step (B 8, 1088 cached
@@ -42,6 +53,10 @@
 // tensor-core (mma.sync / wgmma) version is later work.  Decode computes 16
 // query rows for qwen2's 6 live ones and loads each K/V tile without
 // overlapping it with compute, so it is far from its bound too.
+// recurrentgemma-2b's windowed prefill (B 8, 3072 positions, 10 query heads
+// of 256 over one KV head, window 2048) does 4 * 8 * 10 * 256 * 4,195,328 =
+// 344 GFLOP, 0.348 ms at the tensor-core rate; its decode step reads the
+// window's 2048 keys and values (16.8 MB, 5.0 us).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +95,13 @@ struct Strides {
   int64_t b, s, h;  // elements per batch, position, head; d is contiguous
 };
 
+// The first key of the tile holding the first key a query at position pos
+// sees under a window: max(0, pos - window + 1), rounded down to the tile.
+__device__ __forceinline__ int64_t first_key_tile(int64_t pos, int64_t window) {
+  const int64_t first = pos - window + 1;
+  return first > 0 ? first / kBK * kBK : 0;
+}
+
 template <int D, int RT>
 struct Tile {
   static constexpr int BQ = 16 * RT;                 // query rows per block
@@ -97,7 +119,7 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
              const T* __restrict__ v, Strides vs, T* __restrict__ o, Strides os,
              float* __restrict__ part, int64_t tiles, int64_t split_len, int64_t sq,
              int64_t sk, int64_t group, int64_t sk_valid, int64_t q_offset, int causal,
-             float scale) {
+             int64_t window, float scale) {
   using L = Tile<D, RT>;
   constexpr int BQ = L::BQ, QP = L::QP, KP = L::KP, VP = L::VP;
   constexpr int VEC = L::VEC, NCG = L::NCG;
@@ -129,15 +151,22 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
   }
 
   // Keys past kv_lim are masked for every row; past kv_end for this block,
-  // which runs over its split's keys [k_lo, k_hi).
+  // which runs over its split's keys [k_lo, k_hi).  The splits cut the keys
+  // from k_base, the tile holding the first key row 0 may see (0 without a
+  // window); the block starts at the tile holding its first row's first key.
   const int64_t kv_lim = sk_valid < sk ? sk_valid : sk;
   int64_t kv_end = kv_lim;
   if (causal) {
     const int64_t last = q_offset + (r_end - 1) / group + 1;
     kv_end = last < kv_end ? last : kv_end;
   }
-  const int64_t k_lo = split * split_len;
+  const int64_t k_base = window > 0 ? first_key_tile(q_offset, window) : 0;
+  int64_t k_lo = k_base + split * split_len;
   const int64_t k_hi = k_lo + split_len < kv_end ? k_lo + split_len : kv_end;
+  if (window > 0) {
+    const int64_t own = first_key_tile(q_offset + r0 / group, window);
+    k_lo = own > k_lo ? own : k_lo;
+  }
 
   int64_t pos[RT];
   bool alive[RT];
@@ -191,7 +220,8 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int64_t kp = k0 + tx * 4 + j;
-        ok[j] = alive[i] && kp < kv_lim && (!causal || kp <= pos[i]);
+        ok[j] = alive[i] && kp < kv_lim && (!causal || kp <= pos[i]) &&
+                (window <= 0 || kp > pos[i] - window);
         s[i][j] = ok[j] ? s[i][j] : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -283,12 +313,17 @@ __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ o
   }
 }
 
+// The row tiles built for each head dim: 16 rows (RT 1) for every one; for
+// prefill 64 rows (RT 4) up to 128, and 32 (RT 2) at 256.
+template <int D, int RT>
+constexpr bool kBuilt = RT == 1 || RT == (D == 256 ? 2 : 4);
+
 template <typename T, int D, int RT>
 cudaError_t run(const void* q, Strides qs, const void* k, Strides ks, const void* v,
                 Strides vs, void* o, Strides os, float* part, int64_t splits,
                 int64_t split_len, int64_t batch, int64_t sq, int64_t sk, int64_t hq,
-                int64_t hkv, int64_t sk_valid, int64_t q_offset, int causal, float scale,
-                cudaStream_t stream) {
+                int64_t hkv, int64_t sk_valid, int64_t q_offset, int causal,
+                int64_t window, float scale, cudaStream_t stream) {
   using L = Tile<D, RT>;
   const size_t smem = sizeof(float) * L::kSmemFloats;
   auto* kern = flash_kernel<T, D, RT>;
@@ -302,7 +337,7 @@ cudaError_t run(const void* q, Strides qs, const void* k, Strides ks, const void
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), qs, static_cast<const T*>(k), ks, static_cast<const T*>(v),
       vs, static_cast<T*>(o), os, splits > 1 ? part : nullptr, tiles, split_len, sq, sk,
-      group, sk_valid, q_offset, causal, scale);
+      group, sk_valid, q_offset, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits <= 1) return err;
   dim3 cgrid(static_cast<unsigned>(sq * group), static_cast<unsigned>(hkv),
@@ -317,16 +352,37 @@ cudaError_t by_dim(int64_t d, const void* q, Strides qs, const void* k, Strides 
                    const void* v, Strides vs, void* o, Strides os, float* part,
                    int64_t splits, int64_t split_len, int64_t batch, int64_t sq, int64_t sk,
                    int64_t hq, int64_t hkv, int64_t sk_valid, int64_t q_offset, int causal,
-                   float scale, cudaStream_t stream) {
-#define REPRO_FLASH_D(DV)                                                            \
-  if (d == DV)                                                                       \
-    return run<T, DV, RT>(q, qs, k, ks, v, vs, o, os, part, splits, split_len, batch, \
-                          sq, sk, hq, hkv, sk_valid, q_offset, causal, scale, stream);
+                   int64_t window, float scale, cudaStream_t stream) {
+#define REPRO_FLASH_D(DV)                                                              \
+  if constexpr (kBuilt<DV, RT>) {                                                      \
+    if (d == DV)                                                                       \
+      return run<T, DV, RT>(q, qs, k, ks, v, vs, o, os, part, splits, split_len, batch, \
+                            sq, sk, hq, hkv, sk_valid, q_offset, causal, window, scale, \
+                            stream);                                                   \
+  }
   REPRO_FLASH_D(16)
   REPRO_FLASH_D(32)
   REPRO_FLASH_D(64)
   REPRO_FLASH_D(128)
+  REPRO_FLASH_D(256)
 #undef REPRO_FLASH_D
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t by_rows(int64_t bq, int64_t d, const void* q, Strides qs, const void* k,
+                    Strides ks, const void* v, Strides vs, void* o, Strides os, float* part,
+                    int64_t splits, int64_t split_len, int64_t batch, int64_t sq, int64_t sk,
+                    int64_t hq, int64_t hkv, int64_t sk_valid, int64_t q_offset, int causal,
+                    int64_t window, float scale, cudaStream_t stream) {
+#define REPRO_FLASH_RT(RTV)                                                              \
+  if (bq == 16 * RTV)                                                                    \
+    return by_dim<T, RTV>(d, q, qs, k, ks, v, vs, o, os, part, splits, split_len, batch, \
+                          sq, sk, hq, hkv, sk_valid, q_offset, causal, window, scale, stream);
+  REPRO_FLASH_RT(1)
+  REPRO_FLASH_RT(2)
+  REPRO_FLASH_RT(4)
+#undef REPRO_FLASH_RT
   return cudaErrorInvalidValue;
 }
 
@@ -335,43 +391,39 @@ cudaError_t by_dim(int64_t d, const void* q, Strides qs, const void* k, Strides 
 // Attention of q [batch, sq, hq, d] over k, v [batch, sk, hkv, d] into
 // o [batch, sq, hq, d]; each tensor given by its pointer and its batch,
 // position and head strides in elements (d contiguous).  dtype 0 is fp32,
-// 1 is bf16; d is 16, 32, 64 or 128; hq is a multiple of hkv.  bq (16 or 64)
-// is the query-row tile.  The keys are cut into `splits` ranges of
-// split_len (a multiple of 32) keys, one block each; with splits > 1, part
-// is fp32 scratch of [splits, batch, hkv, sq * hq / hkv, d + 2] for their
-// partial results, merged by a second launch.
+// 1 is bf16; hq is a multiple of hkv; window 0 is none.  bq is the query-row
+// tile: 16 for any d of 16, 32, 64, 128 or 256, else 64 for d up to 128 and 32
+// for d 256.  The keys from the tile holding max(0, q_offset - window + 1)
+// (0 without a window) are cut into `splits` ranges of split_len (a multiple
+// of 32) keys, one block each; with splits > 1, part is fp32 scratch of
+// [splits, batch, hkv, sq * hq / hkv, d + 2] for their partial results,
+// merged by a second launch.
 extern "C" int repro_flash_attention(
     int64_t device, const void* q, int64_t qsb, int64_t qss, int64_t qsh, const void* k,
     int64_t ksb, int64_t kss, int64_t ksh, const void* v, int64_t vsb, int64_t vss,
     int64_t vsh, void* o, int64_t osb, int64_t oss, int64_t osh, void* part,
     int64_t batch, int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t d,
-    int64_t sk_valid, int64_t q_offset, int64_t causal, int64_t dtype, int64_t bq,
-    int64_t splits, int64_t split_len, double scale, void* stream) {
+    int64_t sk_valid, int64_t q_offset, int64_t causal, int64_t window, int64_t dtype,
+    int64_t bq, int64_t splits, int64_t split_len, double scale, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || sq <= 0 || hq <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || (bq != 16 && bq != 64) || splits < 1 ||
+  if (hkv <= 0 || hq % hkv != 0 || window < 0 || splits < 1 ||
       (splits > 1 && (part == nullptr || split_len <= 0 || split_len % kBK != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   const auto s = static_cast<cudaStream_t>(stream);
   const float sc = static_cast<float>(scale);
   const int c = causal ? 1 : 0;
-  const bool small = bq == 16;
   auto* pt = static_cast<float*>(part);
   if (splits == 1) split_len = sk;  // one range: every key
   if (dtype == 0) {
-    err = small ? by_dim<float, 1>(d, q, qs, k, ks, v, vs, o, os, pt, splits, split_len,
-                                   batch, sq, sk, hq, hkv, sk_valid, q_offset, c, sc, s)
-                : by_dim<float, 4>(d, q, qs, k, ks, v, vs, o, os, pt, splits, split_len,
-                                   batch, sq, sk, hq, hkv, sk_valid, q_offset, c, sc, s);
+    err = by_rows<float>(bq, d, q, qs, k, ks, v, vs, o, os, pt, splits, split_len, batch,
+                         sq, sk, hq, hkv, sk_valid, q_offset, c, window, sc, s);
   } else if (dtype == 1) {
-    err = small ? by_dim<__nv_bfloat16, 1>(d, q, qs, k, ks, v, vs, o, os, pt, splits,
-                                           split_len, batch, sq, sk, hq, hkv, sk_valid,
-                                           q_offset, c, sc, s)
-                : by_dim<__nv_bfloat16, 4>(d, q, qs, k, ks, v, vs, o, os, pt, splits,
-                                           split_len, batch, sq, sk, hq, hkv, sk_valid,
-                                           q_offset, c, sc, s);
+    err = by_rows<__nv_bfloat16>(bq, d, q, qs, k, ks, v, vs, o, os, pt, splits, split_len,
+                                 batch, sq, sk, hq, hkv, sk_valid, q_offset, c, window, sc,
+                                 s);
   } else {
     err = cudaErrorInvalidValue;
   }

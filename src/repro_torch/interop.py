@@ -46,7 +46,11 @@ def params_from_jax(cfg, tree, device=None):
     arrays, ``jax.tree.map(np.asarray, params)``), on ``device`` (CUDA by
     default).  The JAX package stacks the layers along a leading ``[L, ...]``
     axis for its scan; the port keeps one dict per layer, so the stack is cut
-    into its ``L`` layers.  bfloat16 arrays carry over bit for bit."""
+    into its ``L`` layers.  A hybrid tree stacks groups of ``block_pattern``
+    blocks (``layers["b<j>"][g]``) and the rec layers left over
+    (``extra[e]``): group ``g``'s block ``j`` becomes layer ``3g + j`` (for a
+    pattern of 3) and ``extra[e]`` follows the groups, the order the JAX
+    model runs them.  bfloat16 arrays carry over bit for bit."""
     from .models.model import Model
 
     def tensor(a):
@@ -61,13 +65,25 @@ def params_from_jax(cfg, tree, device=None):
             return {k: layer(v, i) for k, v in t.items()}
         return tensor(t[i])
 
+    def depth(stack):
+        return len(next(iter(_leaves(stack))))
+
     stack = tree["layers"]
-    n = len(next(iter(_leaves(stack))))
-    if n != cfg.n_layers:
-        raise ValueError(f"{cfg.name}: the tree stacks {n} layers, the "
-                         f"config has {cfg.n_layers}")
-    params = {k: tensor(v) for k, v in tree.items() if k != "layers"}
-    params["layers"] = [layer(stack, i) for i in range(n)]
+    if cfg.family == "hybrid":
+        blocks = [f"b{j}" for j in range(len(cfg.block_pattern))]
+        flat = [layer(stack[bj], g) for g in range(depth(stack[blocks[0]]))
+                for bj in blocks]
+        if "extra" in tree:
+            flat += [layer(tree["extra"], e)
+                     for e in range(depth(tree["extra"]))]
+    else:
+        flat = [layer(stack, i) for i in range(depth(stack))]
+    if len(flat) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: the tree stacks {len(flat)} layers, "
+                         f"the config has {cfg.n_layers}")
+    params = {k: tensor(v) for k, v in tree.items()
+              if k not in ("layers", "extra")}
+    params["layers"] = flat
     return Model(cfg, device=device, params=params)
 
 

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("bitonic_sort.cu", "alltoallv_deliver.cu", "flash_attention.cu",
-           "ssd_scan.cu")
+           "ssd_scan.cu", "lru_scan.cu")
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -46,14 +46,17 @@ _SIGNATURES = {
     "repro_deliver_words": "ipiipiiii" "piii" "pii" "pii" "p",
     # device, q, q strides (b, s, h), k, k strides, v, v strides, o,
     # o strides, part, batch, sq, sk, hq, hkv, d, sk_valid, q_offset,
-    # causal, dtype, bq, splits, split_len, scale, stream
+    # causal, window, dtype, bq, splits, split_len, scale, stream
     "repro_flash_attention": "i" "piii" "piii" "piii" "piii" "p"
-                             "iiiiiiiiiiiii" "f" "p",
+                             "iiiiiiiiiiiiii" "f" "p",
     # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
     # B strides (b, s), C, C strides (b, s), y, y strides (b, h, s), s_fin,
     # batch, heads, seq, n, p, stream
     "repro_ssd_scan": "i" "piii" "piii" "p" "pii" "pii" "piii" "p" "iiiii"
                       "p",
+    # device, a, a strides (b, s), b, b strides (b, s), h, h_fin, batch,
+    # seq, width, stream
+    "repro_lru_scan": "i" "pii" "pii" "pp" "iii" "p",
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,6 @@
+from .lru_scan import lru_chunked_plain, lru_scan_chunked
+from .ops import lru_scan
+from .ref import lru_scan_ref
+
+__all__ = ["lru_chunked_plain", "lru_scan", "lru_scan_chunked",
+           "lru_scan_ref"]

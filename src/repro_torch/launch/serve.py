@@ -3,6 +3,8 @@
     python -m repro_torch.launch.serve --arch mamba2-130m --requests 8 \\
         --prompt-len 1024 --gen-len 64
     python -m repro_torch.launch.serve --arch qwen2-1.5b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b \\
+        --requests 8 --prompt-len 3072 --gen-len 64
 
 Weights are made on the device from ``--seed``; prompts are random tokens
 from the same seed.  Prints the prefill time, the decode time per step

@@ -1,5 +1,6 @@
-"""The serving path's models: dense GQA transformers and Mamba-2 SSMs (the
-port of ``repro.models`` for those two families)."""
+"""The serving path's models: dense GQA transformers, Mamba-2 SSMs and the
+RG-LRU/local-attention hybrid (the port of ``repro.models`` for those three
+families)."""
 
 from .model import Model
 

@@ -1,15 +1,16 @@
 """Per-family layer blocks of the serving path — the port of the GQA
-attention and Mamba-2 (SSD) blocks of ``repro/models/blocks.py``.
+attention, Mamba-2 (SSD) and RG-LRU blocks of ``repro/models/blocks.py``.
 
 Every block has ``<name>_params(gen, cfg)``, ``<name>_apply`` and
 ``<name>_cache``.  Parameters are mappings of tensors named as in the JAX
 package.  Unlike the JAX package, whose caches are immutable, the port
 updates a cache **in place**: ``attn_apply`` writes the new keys and values
 into ``cache["k"]``/``cache["v"]`` and ``mamba_apply`` overwrites
-``cache["ssm"]``/``cache["conv"]``; each returns the same dict.  At full
-width a functional copy of the KV cache per decode step would move the
-whole cache twice a layer.  The MoE and RG-LRU blocks come with their
-families (``ROADMAP.md`` queue 1 item 10).
+``cache["ssm"]``/``cache["conv"]`` and ``rglru_apply`` ``cache["h"]``/
+``cache["conv"]``; each returns the same dict.  At full width a functional
+copy of the KV cache per decode step would move the whole cache twice a
+layer.  The MoE block comes with its family (``ROADMAP.md`` queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.lru_scan.lru_scan import lru_scan_chunked
 from ..kernels.ssd_scan.ssd_scan import ssd_scan_chunked
 from .layers import _init, attention, rmsnorm, rope
 
@@ -188,4 +190,82 @@ def mamba_cache(cfg, batch: int, device) -> dict:
                            dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, din + 2 * n),
                             dtype=_dtype(cfg), device=device),
+    }
+
+
+# =========================================================================== #
+# RG-LRU recurrent block (RecurrentGemma / Griffin)                            #
+# =========================================================================== #
+
+_RG_C = 8.0
+_RG_CONV = 4   # width of the block's causal depthwise conv
+
+
+def rglru_params(gen: torch.Generator, cfg) -> dict:
+    d, w = cfg.d_model, cfg.lru_width
+    dt = _dtype(cfg)
+    dev = gen.device
+    zeros = lambda dtype: torch.zeros((w,), dtype=dtype, device=dev)
+    return {
+        "in_x": _init(gen, (d, w), d, dt),
+        "in_gate": _init(gen, (d, w), d, dt),
+        "conv_w": _init(gen, (_RG_CONV, w), _RG_CONV, dt),
+        "conv_b": zeros(dt),
+        "w_a": _init(gen, (w, w), w, dt),
+        "b_a": zeros(torch.float32),
+        "w_i": _init(gen, (w, w), w, dt),
+        "b_i": zeros(torch.float32),
+        "lam": torch.full((w,), 2.0, dtype=torch.float32, device=dev),
+        "out": _init(gen, (w, d), w, dt),
+    }
+
+
+def rglru_apply(cfg, p, x: torch.Tensor, *, cache: Optional[dict] = None,
+                cache_pos: Optional[int] = None,
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x [B, S, d] → (out [B, S, d], cache).  A prefill (no cache, or
+    S > 1) runs the LRU scan kernel's wrapper and, with a cache, stores the
+    final state and the conv window in it; a decode step (S == 1 with a
+    cache) advances the cached state by one step in plain PyTorch."""
+    b, s, _ = x.shape
+    cw = _RG_CONV
+    gate = F.gelu(x @ p["in_gate"], approximate="tanh")   # jax.nn.gelu's form
+    xr = x @ p["in_x"]
+
+    if cache is None or s > 1:
+        pad = F.pad(xr, (0, 0, cw - 1, 0))
+        xc = sum(pad[:, i:i + s] * p["conv_w"][i] for i in range(cw))
+        conv_tail = (torch.cat([cache["conv"], xr[:, -(cw - 1):]],
+                               dim=1)[:, -(cw - 1):]
+                     if cache is not None else None)
+    else:
+        window = torch.cat([cache["conv"], xr], dim=1)
+        xc = sum(window[:, i:i + 1] * p["conv_w"][i] for i in range(cw))
+        conv_tail = window[:, 1:]
+    xc = xc + p["conv_b"]
+
+    r = torch.sigmoid((xc @ p["w_a"]).float() + p["b_a"])
+    i = torch.sigmoid((xc @ p["w_i"]).float() + p["b_i"])
+    a = torch.exp(-_RG_C * F.softplus(p["lam"]) * r)
+    gated_x = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (i * xc.float())
+
+    if cache is None or s > 1:
+        h, h_fin = lru_scan_chunked(a, gated_x, chunk=min(256, max(16, s)))
+    else:
+        h = a * cache["h"][:, None] + gated_x
+        h_fin = h[:, -1]
+
+    out = (h.to(x.dtype) * gate) @ p["out"]
+    if cache is not None:
+        cache["h"].copy_(h_fin)
+        cache["conv"].copy_(conv_tail)
+    return out, cache
+
+
+def rglru_cache(cfg, batch: int, device) -> dict:
+    w = cfg.lru_width
+    return {
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, _RG_CONV - 1, w), dtype=_dtype(cfg),
+                            device=device),
     }

@@ -1,10 +1,13 @@
 """The serving model: the port of ``repro/models/model.py`` for the ``dense``
-family without experts and for ``ssm``.
+family without experts, for ``ssm`` and for ``hybrid``.
 
 A :class:`Model` is an ``nn.Module`` holding its weights; its layers are an
 ``nn.ModuleList`` run in a Python loop (the JAX package scans a stacked
-pytree).  Weights are made on the device from ``seed`` with an explicit
-``torch.Generator``, or carried over from the JAX package with
+pytree).  A hybrid model's layers are one flat list in the order the JAX
+package runs them: each ``block_pattern`` group's blocks (``b0, b1, b2``),
+group after group, then the rec layers left over (its ``extra`` stack); see
+:func:`layer_kinds`.  Weights are made on the device from ``seed`` with an
+explicit ``torch.Generator``, or carried over from the JAX package with
 :func:`repro_torch.interop.params_from_jax`.
 
 API (the JAX package's, with the parameters held by the module):
@@ -27,7 +30,8 @@ from torch import nn
 
 from ..core.context import resolve_device
 from .blocks import (attn_apply, attn_cache, attn_params, mamba_apply,
-                     mamba_cache, mamba_params)
+                     mamba_cache, mamba_params, rglru_apply, rglru_cache,
+                     rglru_params)
 from .layers import _init, mlp, mlp_params, rmsnorm
 
 _LATER = "ROADMAP.md queue 1 item 10"
@@ -36,23 +40,35 @@ _LATER = "ROADMAP.md queue 1 item 10"
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
     serve yet."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"({_LATER}); the port serves 'dense' and 'ssm'")
+            f"({_LATER}); the port serves 'dense', 'ssm' and 'hybrid'")
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
                                   f"yet ({_LATER})")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend "
                                   f"is not ported yet ({_LATER})")
-    if cfg.local_window > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: local_window > 0 comes with the recurrentgemma-2b "
-            f"slice ({_LATER})")
     if cfg.is_encoder_only:
         raise NotImplementedError(f"{cfg.name} is encoder-only: no decode "
                                   "step to serve")
+
+
+def layer_kinds(cfg) -> list:
+    """Each layer's kind, in the order the model runs them: ``"ssm"``,
+    ``"attn"`` or, for the hybrid family, ``block_pattern[i % len]`` for the
+    layers of whole groups and ``"rec"`` for those left over.  A hybrid
+    ``"attn"`` layer attends within ``cfg.local_window`` (the JAX package's
+    ``attn_local``); a dense one sees every earlier key."""
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if cfg.family != "hybrid":
+        return ["attn"] * cfg.n_layers
+    pat = cfg.block_pattern
+    grouped = cfg.n_layers // len(pat) * len(pat)
+    return [pat[i % len(pat)] if i < grouped else "rec"
+            for i in range(cfg.n_layers)]
 
 
 def init_params(cfg, gen: torch.Generator) -> Dict:
@@ -68,17 +84,18 @@ def init_params(cfg, gen: torch.Generator) -> Dict:
     if not cfg.tie_embeddings:
         params["head"] = _init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, dt)
     layers = []
-    for _ in range(cfg.n_layers):
-        if cfg.family == "ssm":
+    for kind in layer_kinds(cfg):
+        if kind == "ssm":
             layers.append({"ln": zeros(cfg.d_model),
                            "mamba": mamba_params(gen, cfg)})
-        else:
-            layers.append({
-                "ln1": zeros(cfg.d_model),
-                "attn": attn_params(gen, cfg),
-                "ln2": zeros(cfg.d_model),
-                "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dt),
-            })
+            continue
+        mixer = rglru_params(gen, cfg) if kind == "rec" else attn_params(gen, cfg)
+        layers.append({
+            "ln1": zeros(cfg.d_model),
+            kind: mixer,
+            "ln2": zeros(cfg.d_model),
+            "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dt),
+        })
     params["layers"] = layers
     return params
 
@@ -139,13 +156,18 @@ class Model(nn.Module):
 
     def _layer(self, lp, x, cache, pos):
         cfg = self.cfg
-        if cfg.family == "ssm":
+        if "mamba" in lp:
             h, nc = mamba_apply(cfg, lp["mamba"],
                                 rmsnorm(x, lp["ln"], cfg.norm_eps),
                                 cache=cache, cache_pos=pos)
             return x + h, nc
-        h, nc = attn_apply(cfg, lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps),
-                           cache=cache, cache_pos=pos)
+        y = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        if "rec" in lp:
+            h, nc = rglru_apply(cfg, lp["rec"], y, cache=cache, cache_pos=pos)
+        else:
+            window = cfg.local_window if cfg.family == "hybrid" else 0
+            h, nc = attn_apply(cfg, lp["attn"], y, window=window, cache=cache,
+                               cache_pos=pos)
         x = x + h
         return x + mlp(rmsnorm(x, lp["ln2"], cfg.norm_eps), lp["mlp"],
                        cfg.act), nc
@@ -158,11 +180,10 @@ class Model(nn.Module):
     # ----------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_seq: int) -> Dict:
         cfg, dev = self.cfg, self.device
-        if cfg.family == "ssm":
-            one = lambda: mamba_cache(cfg, batch, dev)
-        else:
-            one = lambda: attn_cache(cfg, batch, max_seq, dev)
-        return {"layers": [one() for _ in range(cfg.n_layers)]}
+        one = {"ssm": lambda: mamba_cache(cfg, batch, dev),
+               "rec": lambda: rglru_cache(cfg, batch, dev),
+               "attn": lambda: attn_cache(cfg, batch, max_seq, dev)}
+        return {"layers": [one[kind]() for kind in layer_kinds(cfg)]}
 
     def prefill(self, batch: Dict, cache: Dict) -> Tuple[torch.Tensor, Dict]:
         """The prompt ``batch["tokens"] [B, S]`` from position 0: fills the

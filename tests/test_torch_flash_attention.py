@@ -2,7 +2,8 @@
 package's Pallas kernel in interpret mode and against both packages' oracles
 (``ref.attention_ref``), on small shapes with the edge cases: causal and not,
 GQA groups 1, 2 and 6, ``sk_valid`` below ``Sk``, one query row, lengths that
-are not tile multiples, and the model's decode call (``q_offset``).
+are not tile multiples, the model's decode call (``q_offset``), and the
+sliding window (against the JAX model's attention and its mask).
 
 float32 throughout; the tolerance is atol 1e-5 because only the order of the
 float sums differs.  On the CPU the wrapper takes its plain version; the CUDA
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 
 from repro.kernels.flash_attention.ops import flash_attention as j_flash
 from repro.kernels.flash_attention.ref import attention_ref as j_ref
+from repro.models.layers import _mask_block as j_mask_block
 from repro.models.layers import attention as j_attention
 from repro_torch.kernels.flash_attention import (attend, attend_plain,
                                                  attention_ref,
@@ -146,6 +148,67 @@ def test_fully_masked_rows_give_zeros():
     _close(got.transpose(1, 2), j_ref(q, k, v, causal=False, sk_valid=0))
 
 
+# (b, hq, hkv, sq, sk, d, window, q_offset, kv_valid, causal): prefill with
+# a window shorter than the prompt, a ragged one, queries at q_offset over a
+# cache, decode steps past the window, recurrentgemma's head dim 256 over one
+# KV head, a window of 1 and one wider than every key, and a non-causal call.
+WINDOWED = [
+    (2, 4, 2, 20, 20, 16, 5, 0, None, True),
+    (1, 4, 1, 37, 37, 16, 16, 0, None, True),
+    (2, 4, 2, 6, 30, 16, 8, 17, 23, True),
+    (2, 4, 1, 1, 40, 16, 16, 33, 34, True),
+    (2, 6, 1, 1, 70, 32, 16, 69, 70, True),
+    (2, 4, 1, 9, 40, 256, 16, 25, 34, True),
+    (1, 10, 1, 1, 50, 256, 32, 45, 46, True),
+    (1, 2, 2, 8, 8, 16, 1, 0, None, True),
+    (1, 2, 2, 8, 8, 16, 100, 0, None, True),
+    (2, 4, 2, 12, 12, 16, 4, 0, None, False),
+]
+
+
+def _masked_softmax_ref(q, k, v, *, window, q_offset, kv_valid, causal):
+    """Attention from the JAX model's own mask (``layers._mask_block``) and
+    a numpy softmax, without Pallas and without the model's attention."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    mask = np.asarray(j_mask_block(q_offset + jnp.arange(sq), jnp.arange(sk),
+                                   causal=causal, window=window, prefix=0))
+    if kv_valid is not None:
+        mask = mask & (np.arange(sk) < kv_valid)[None, :]
+    kr = np.repeat(k, hq // hkv, axis=2).astype(np.float64)
+    vr = np.repeat(v, hq // hkv, axis=2).astype(np.float64)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kr) / np.sqrt(d)
+    s = np.where(mask, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bhqk,bkhd->bqhd", p, vr)
+
+
+@pytest.mark.parametrize("case", WINDOWED, ids=str)
+def test_window_matches_the_jax_model_attention_and_its_mask(case):
+    b, hq, hkv, sq, sk, d, window, q_offset, kv_valid, causal = case
+    rng = np.random.default_rng(sum(x or 0 for x in case))
+    q = rng.standard_normal((b, sq, hq, d), dtype=np.float32)
+    k = rng.standard_normal((b, sk, hkv, d), dtype=np.float32)
+    v = rng.standard_normal((b, sk, hkv, d), dtype=np.float32)
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid=kv_valid)
+    got = attend(_t(q), _t(k), _t(v), causal=causal, sk_valid=kv_valid,
+                 q_offset=q_offset, window=window)
+    for chunk in (0, 4):
+        _close(got, np.asarray(j_attention(q, k, v, window=window,
+                                           chunk=chunk, **kw)))
+    _close(got, _masked_softmax_ref(q, k, v, window=window, **kw))
+    _close(attend_plain(_t(q), _t(k), _t(v), causal=causal,
+                        sk_valid=kv_valid, q_offset=q_offset, window=window),
+           got.numpy())
+
+
+def test_a_window_wider_than_every_key_changes_nothing():
+    q, k, v = (_t(x).transpose(1, 2) for x in _qkv(3, 2, 4, 2, 10, 10, 16))
+    assert torch.equal(attend(q, k, v, causal=True, window=10),
+                       attend(q, k, v, causal=True))
+
+
 def test_attend_rejects_bad_shapes():
     q = torch.zeros((1, 4, 3, 16))
     k = torch.zeros((1, 4, 2, 16))
@@ -154,3 +217,5 @@ def test_attend_rejects_bad_shapes():
     with pytest.raises(ValueError, match="multiple of Hkv"):
         attend(torch.zeros((1, 4, 4, 16)), k, torch.zeros((1, 5, 2, 16)),
                causal=True)
+    with pytest.raises(ValueError, match="window"):
+        attend(k, k, k, causal=True, window=-1)

@@ -6,8 +6,9 @@ module is imported).  On a machine with an NVIDIA H100 and the CUDA toolkit::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-The first test builds the kernels (``build/kernels``).  Outputs compare
-exactly: every kernel is integer data movement or comparison.
+The first test builds the kernels (``build/kernels``).  The integer kernels
+(data movement and comparison) compare exactly; the float kernels within the
+tolerances stated above their tests.
 """
 
 from __future__ import annotations
@@ -158,6 +159,66 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
+# (b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, window, dtype): the
+# sliding window at recurrentgemma's heads (10 of 256 over one KV head) and
+# smaller ones.  Decode calls cut the live keys into splits; the first split
+# holds the window's first key, and in the fp32 call with 4 query rows the
+# second row tile sees no key of the first split (l = 0 in the merge).
+_WINDOWED = [
+    (2, 64, 80, 10, 1, 256, True, 80, 0, 16, torch.bfloat16),
+    (2, 70, 90, 4, 1, 256, True, 90, 20, 16, torch.float32),
+    (8, 1, 3144, 10, 1, 256, True, 3108, 3107, 2048, torch.bfloat16),
+    (8, 1, 3144, 10, 1, 256, True, 3108, 3107, 2048, torch.float32),
+    (4, 1, 700, 10, 1, 256, True, 650, 649, 300, torch.bfloat16),
+    (1, 4, 110, 10, 1, 256, True, 104, 100, 8, torch.float32),
+    (1, 1, 40, 10, 1, 256, True, 40, 39, 64, torch.float32),
+    (2, 33, 80, 6, 2, 64, False, 70, 10, 20, torch.float32),
+    (1, 40, 40, 2, 2, 16, True, 40, 0, 1, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", _WINDOWED, ids=str)
+def test_windowed_flash_attention_kernel_matches_plain(cuda, case):
+    b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, window, dtype = case
+    fa = _kernel("flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(sq * sk + window)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    kw = dict(causal=causal, sk_valid=sk_valid, q_offset=q_offset,
+              window=window)
+    before = fa.LAUNCHES
+    got = fa.attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    want = fa.attend_plain(q, k, v, **kw)
+    rtol, atol = (0, 1e-5) if dtype == torch.float32 else (2**-7, 2**-10)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("b, s, d", [(1, 1, 1), (2, 37, 64), (1, 300, 100),
+                                     (3, 17, 2560), (8, 1024, 2560)])
+def test_lru_kernel_matches_plain(cuda, b, s, d):
+    ls = _kernel("lru_scan")
+    g = torch.Generator(device=cuda).manual_seed(s * d)
+    a = 0.5 + 0.499 * torch.rand((b, s, d), generator=g, device=cuda)
+    x = torch.randn((b, s, d), generator=g, device=cuda)
+    before = ls.LAUNCHES
+    h, h_fin = ls.lru_scan_chunked(a, x)
+    torch.cuda.synchronize()
+    assert ls.LAUNCHES == before + 1
+    h_want, fin_want = ls.lru_chunked_plain(a, x, 256)
+    torch.testing.assert_close(h, h_want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h_fin, fin_want, rtol=1e-5, atol=1e-5)
+    # The same operands as strided views: a column slice and every second
+    # step of a longer tensor.
+    wide = torch.zeros((b, s, 2 * d), device=cuda)
+    wide[..., d:] = a
+    long = torch.zeros((b, 2 * s, d), device=cuda)
+    long[:, ::2] = x
+    hv, fin_v = ls.lru_scan_chunked(wide[..., d:], long[:, ::2])
+    assert torch.equal(hv, h) and torch.equal(fin_v, h_fin)
+
+
 @pytest.mark.parametrize("b, h, s, p, n", [(8, 24, 256, 64, 128),
                                            (2, 3, 37, 16, 16),
                                            (1, 2, 100, 64, 64),
@@ -180,10 +241,12 @@ def test_ssd_kernel_matches_plain(cuda, b, h, s, p, n):
     torch.testing.assert_close(s_fin, s_want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m",
+                                  "recurrentgemma-2b"])
 def test_smoke_models_on_the_card_match_the_cpu(cuda, arch, monkeypatch):
     """The model's glue around the kernels, in float32 with TF32 off: the
-    card's prefill logits and greedy tokens equal the CPU's."""
+    card's prefill logits and greedy tokens equal the CPU's (40-token
+    prompts and 16 steps: past recurrentgemma's smoke window of 16)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models.model import init_params
@@ -207,12 +270,24 @@ def test_smoke_models_on_the_card_match_the_cpu(cuda, arch, monkeypatch):
 
 def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):
     fa, ss = _kernel("flash_attention"), _kernel("ssd_scan")
+    ls = _kernel("lru_scan")
     q = torch.zeros((1, 4, 2, 16), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="kernel takes"):
         fa.attend(q, q, q, causal=True)
-    q = torch.zeros((1, 4, 2, 48), device=cuda)
-    with pytest.raises(ValueError, match="head dims"):
-        fa.attend(q, q, q, causal=True)
+    for d in (48, 512):
+        q = torch.zeros((1, 4, 2, d), device=cuda)
+        with pytest.raises(ValueError, match="head dims"):
+            fa.attend(q, q, q, causal=True)
+    q = torch.zeros((1, 4, 2, 256), device=cuda)
+    with pytest.raises(ValueError, match="window"):
+        fa.attend(q, q, q, causal=True, window=-1)
+    a = torch.zeros((1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ls.lru_scan_chunked(a.bfloat16(), a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ls.lru_scan_chunked(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        ls.lru_scan_chunked(a, a.cpu())
     x = torch.zeros((1, 2, 8, 16), device=cuda)
     dt = torch.zeros((1, 2, 8), device=cuda)
     A = torch.zeros((2,), device=cuda)

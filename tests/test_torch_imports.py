@@ -1,6 +1,7 @@
 """Guards of the PyTorch port's package boundary.
 
-``repro_torch`` and ``chip_smoke.py`` import ``torch`` and numpy, never
+``repro_torch``, ``chip_smoke.py`` and ``scripts/flash_d256_tiles.py``
+import ``torch`` and numpy, never
 ``jax`` and nothing of the JAX package ``repro`` (whose name ``repro_torch``
 shares a prefix, so the checks compare whole dotted names).  Its entry points
 run on CUDA unless the caller passes ``device="cpu"``.
@@ -19,7 +20,7 @@ import torch
 
 _ROOT = Path(__file__).resolve().parent.parent
 _PORT_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    _ROOT / "chip_smoke.py"]
+    _ROOT / "chip_smoke.py", _ROOT / "scripts" / "flash_d256_tiles.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -64,7 +65,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import sys\n"
         "import repro_torch.pems_apps.psrs, repro_torch.interop\n"
         "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
-        "import repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.kernels.lru_scan\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

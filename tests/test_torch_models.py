@@ -71,7 +71,8 @@ def test_config_copies_equal_the_jax_package(name):
                                                     j.ssm_heads)
 
 
-SERVED = {"qwen2-1.5b", "qwen2.5-3b", "yi-6b", "qwen3-14b", "mamba2-130m"}
+SERVED = {"qwen2-1.5b", "qwen2.5-3b", "yi-6b", "qwen3-14b", "mamba2-130m",
+          "recurrentgemma-2b"}
 
 
 @pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)
@@ -127,9 +128,18 @@ def test_attention_matches(kw):
 @pytest.mark.parametrize("kw, what", [(dict(window=4), "local_window"),
                                       (dict(prefix=2), "prefix")])
 def test_attention_knobs_outside_the_slice_raise(kw, what):
-    q = torch.zeros((1, 3, 2, 16))
-    with pytest.raises(NotImplementedError, match=what):
-        layers.attention(q, q, q, **kw)
+    """``prefix`` (the patches frontend) is outside the slice and raises;
+    ``window`` (recurrentgemma's local attention) came with the hybrid
+    family and now matches the JAX attention."""
+    if what == "prefix":
+        q = torch.zeros((1, 3, 2, 16))
+        with pytest.raises(NotImplementedError, match=what):
+            layers.attention(q, q, q, **kw)
+        return
+    q, k, v = _x(0, 2, 9, 4, 16), _x(1, 2, 9, 2, 16), _x(2, 2, 9, 2, 16)
+    for chunk in (0, 4):
+        _close(layers.attention(*map(torch.from_numpy, (q, k, v)), **kw),
+               jlayers.attention(q, k, v, chunk=chunk, **kw))
 
 
 # --------------------------------------------------------------------------- #
@@ -210,14 +220,92 @@ def test_mamba_block_prefill_and_decode_match():
     _close(tc["conv"], jc["conv"])
 
 
+def test_rglru_block_prefill_and_decode_match():
+    """rglru_apply without a cache, then a 9-token prefill (the LRU scan) and
+    three decode steps (the single-step recurrence and the cached 3-row conv
+    window); outputs, the state ``h`` and the conv window match the JAX
+    block."""
+    jcfg = jconfigs.get_config("recurrentgemma-2b").smoke()
+    cfg = configs.get_config("recurrentgemma-2b").smoke()
+    p = _noisy(jblocks.rglru_params(jax.random.PRNGKey(0), jcfg), 1)
+    tp = _torch(p)
+    b, s = 2, 9
+    x = _x(3, b, s, cfg.d_model)
+    out, _ = blocks.rglru_apply(cfg, tp, torch.from_numpy(x))
+    want, _ = jblocks.rglru_apply(jcfg, p, x)
+    _close(out, want)
+
+    jc = jblocks.rglru_cache(jcfg, b)
+    tc = blocks.rglru_cache(cfg, b, "cpu")
+    want, jc = jblocks.rglru_apply(jcfg, p, x, cache=jc, cache_pos=0)
+    out, tc = blocks.rglru_apply(cfg, tp, torch.from_numpy(x), cache=tc,
+                                 cache_pos=0)
+    _close(out, want)
+    _close(tc["h"], jc["h"])
+    _close(tc["conv"], jc["conv"])
+    for pos in range(s, s + 3):
+        x1 = _x(pos, b, 1, cfg.d_model)
+        want, jc = jblocks.rglru_apply(jcfg, p, x1, cache=jc,
+                                       cache_pos=jnp.int32(pos))
+        out, tc = blocks.rglru_apply(cfg, tp, torch.from_numpy(x1), cache=tc,
+                                     cache_pos=pos)
+        _close(out, want)
+    _close(tc["h"], jc["h"])
+    _close(tc["conv"], jc["conv"])
+
+
+def test_hybrid_layers_follow_the_jax_groups():
+    """recurrentgemma-2b's 26 layers: 8 (rec, rec, attn) groups, then the 2
+    rec layers of the JAX ``extra`` stack."""
+    from repro_torch.models.model import layer_kinds
+    kinds = layer_kinds(configs.get_config("recurrentgemma-2b"))
+    assert kinds == ["rec", "rec", "attn"] * 8 + ["rec", "rec"]
+    smoke = layer_kinds(configs.get_config("recurrentgemma-2b").smoke())
+    assert smoke == ["rec", "rec", "attn", "rec"]
+    assert layer_kinds(configs.get_config("qwen2-1.5b").smoke()) == ["attn"] * 2
+
+
+def test_hybrid_model_prefill_and_decode_past_the_window_match():
+    """The hybrid smoke model (one (rec, rec, attn) group and one extra rec
+    layer, window 16) against ``repro.models.Model`` with the same
+    parameters: the 21-token prefill's logits and every decode step's up to
+    position 39, past the window, within 1e-5.  Noise of 0.1 on the
+    parameters: ``sqrt(1 - a²)`` cancels as the gate ``a`` nears 1, so a
+    larger noise turns the two sides' fp32 rounding into 1e-4."""
+    from repro.models import Model as JModel
+    arch = "recurrentgemma-2b"
+    jcfg = jconfigs.get_config(arch).smoke()
+    cfg = configs.get_config(arch).smoke()
+    jm = JModel(jcfg)
+    tree = _noisy(jm.init(jax.random.PRNGKey(0)), 2)
+    model = params_from_jax(cfg, tree, device="cpu")
+    jp = jax.tree.map(jnp.asarray, tree)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, 21))
+    max_seq = 40
+    jc, tc = jm.init_cache(3, max_seq), model.init_cache(3, max_seq)
+    jl, jc = jax.jit(jm.prefill)(
+        jp, {"tokens": jnp.asarray(prompts, jnp.int32)}, jc)
+    tl, tc = model.prefill({"tokens": torch.from_numpy(prompts)}, tc)
+    _close(tl, jl)
+    decode = jax.jit(jm.decode)
+    tok = np.asarray(jl)[:, -1].argmax(-1)[:, None]
+    for pos in range(prompts.shape[1], max_seq):
+        jl, jc = decode(jp, jnp.asarray(tok, jnp.int32), jnp.int32(pos), jc)
+        tl, tc = model.decode(torch.from_numpy(tok), pos, tc)
+        _close(tl, jl)
+        tok = np.asarray(jl)[:, -1].argmax(-1)[:, None]
+
+
 # --------------------------------------------------------------------------- #
 # carrying parameters over                                                     #
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m",
+                                  "recurrentgemma-2b"])
 def test_params_from_jax_unstacks_layers_bit_for_bit(arch):
     """The JAX tree (stacked [L, ...] layers, bfloat16 here) lands in the
-    port's per-layer parameters with the same bits."""
+    port's per-layer parameters with the same bits; a hybrid tree's groups
+    and extra rec layers land in the order the JAX model runs them."""
     jcfg = dataclasses.replace(jconfigs.get_config(arch).smoke(),
                                dtype="bfloat16")
     cfg = dataclasses.replace(configs.get_config(arch).smoke(),
@@ -232,11 +320,19 @@ def test_params_from_jax_unstacks_layers_bit_for_bit(arch):
 
     np.testing.assert_array_equal(bits(m.top["embed"]),
                                   tree["embed"].view(np.int16))
-    name = "mamba" if cfg.family == "ssm" else "attn"
-    leaf = "in_proj" if cfg.family == "ssm" else "wq"
-    for i, layer in enumerate(m.layers):
-        np.testing.assert_array_equal(bits(layer[name][leaf]),
-                                      tree["layers"][name][leaf][i].view(
+    if cfg.family == "hybrid":
+        n_grp = cfg.n_layers // len(cfg.block_pattern)
+        where = [(tree["layers"][f"b{j}"], g) for g in range(n_grp)
+                 for j in range(len(cfg.block_pattern))]
+        where += [(tree["extra"], e) for e in range(cfg.n_layers - 3 * n_grp)]
+    else:
+        where = [(tree["layers"], i) for i in range(cfg.n_layers)]
+    leaf = {"mamba": "in_proj", "attn": "wq", "rec": "in_x"}
+    for layer, (stack, i) in zip(m.layers, where, strict=True):
+        name = next(n for n in leaf if n in layer)
+        assert name in stack
+        np.testing.assert_array_equal(bits(layer[name][leaf[name]]),
+                                      stack[name][leaf[name]][i].view(
                                           np.int16))
     short = dataclasses.replace(cfg, n_layers=cfg.n_layers + 1)
     with pytest.raises(ValueError, match="stacks"):
