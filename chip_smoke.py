@@ -13,7 +13,10 @@ What it does, in order; any failure raises and the exit code is non-zero:
    per source, all started together) and prints the build seconds.
 3. Holds each kernel against its plain PyTorch version on the card at edge
    shapes (ragged widths, empty and full counts, extreme and duplicate keys,
-   tiles up to and past one shared-memory segment).  Equality is exact.
+   tiles up to and past one shared-memory segment; for the mesh staging,
+   kernel 4, P of 1, 2 and 4, counts of 0, of ω, past ω and negative, fills
+   None, -7 and INT_MAX with and without the counts payload, α-chunk
+   offsets, and a float32 payload).  Equality is exact.
 4. Drives the main path once through ``psrs_sort``: 2^27 int32 keys, v = 16,
    k = 4, the async driver, every kernel on; the output must equal
    ``torch.sort``, and every kernel's launch count (reset just before) must
@@ -26,9 +29,20 @@ What it does, in order; any failure raises and the exit code is non-zero:
    version and, where one exists, the one PyTorch call computing the same
    function, on the inputs the async run gave it (the local sort on a fresh
    store's strided rows, as a round hands them over).
+5b. The ``P > 1`` path: ``psrs_sort`` on the same keys over ``MESH_P`` (4)
+   real processors of a one-card mesh, k = ``MESH_K`` (2), unchunked under
+   the async driver and α-chunked (α = 1) under the explicit driver.  Each
+   run resets every kernel count just before it; its output must equal
+   ``torch.sort`` and the ``P == 1`` run, the bitonic, tile and mesh
+   staging (kernel 4) counts must be above zero, and kernel 4's launches
+   and ``pems.ledger.network_rounds`` must equal the closed form of
+   ``repro_torch.core.analysis``.  Times both plans stage by stage, prints
+   their ``alltoallv`` stage beside the ``P == 1`` ones, and times kernel 4
+   and its plain version on the α = 1 run's first chunk.
 6. Runs a smaller matrix at 2^20 keys: all drivers, direct and indirect,
-   random and duplicate-heavy keys, the dense routes, and a CPU-vs-GPU
-   bit-for-bit comparison.
+   random and duplicate-heavy keys, the dense routes, P of 2 and 4 over
+   every driver, mode and α in {None, 1}, and CPU-vs-GPU bit-for-bit
+   comparisons at 2^14 keys (P = 1, and P = 4 with equal ledgers).
 7. The LM serving path.  Holds flash attention, the SSD scan and the LRU
    scan against their plain versions at the CPU tests' edge shapes, at
    qwen2's head dim 128 and at recurrentgemma's sliding window and head dim
@@ -92,6 +106,17 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
 BF16_FLOPS_PER_S = 989e12   # dense bf16 on the tensor cores
 FP32_FLOPS_PER_S = 67e12    # fp32 outside the tensor cores
+
+
+# Kernel 4 (the P > 1 mesh staging) edge shapes, as assemble_words takes
+# them: (m, P, nq, s0, s, c0, d, ww) — P of 1, 2 and 4, ragged ω and ω past
+# one block's 1024-word chunk, α-chunk offsets s0, c0 != 0.
+ASSEMBLE_EDGES = [(1, 1, 1, 0, 1, 0, 1, 1), (4, 2, 2, 0, 4, 0, 4, 127),
+                  (4, 4, 4, 2, 2, 1, 1, 300), (4, 4, 3, 1, 3, 2, 2, 1030),
+                  (2, 4, 4, 0, 2, 0, 2, 1)]
+# The P > 1 path: real processors on the one card, and contexts resident
+# per real processor.
+MESH_P, MESH_K = 4, 2
 
 
 def check(ok, what: str) -> None:
@@ -211,6 +236,79 @@ def edge_checks(gen, kern) -> None:
                 what = f"deliver v={v} ww={ww} fill={fill} ct={payload}"
                 same(outs[0], outs[2], what)
                 same(outs[1], outs[3], what + " counts")
+    for m, P, nq, s0, s, c0, d, ww in ASSEMBLE_EDGES:
+        v = m * P
+        src = rand_int32((v, 9 + v * ww), gen)
+        cnt = torch.randint(-2, ww + 3, (v, v + 4), generator=gen,
+                            device=gen.device, dtype=torch.int32)
+        # Counts of 0, of ω, past ω and negative.
+        cnt[0, 4:8] = torch.tensor([0, ww, ww + 5, -3],
+                                   device=gen.device)[:v]
+        for fill in (None, -7, INT_MAX):
+            for payload in (False, True):
+                outs = []
+                for fn in (dv.assemble_words, dv.assemble_words_plain):
+                    out = torch.zeros(nq * P * d * s * ww, dtype=torch.int32,
+                                      device=gen.device)
+                    ct = torch.zeros(nq * P * d * s, dtype=torch.int32,
+                                     device=gen.device)
+                    fn(src, 9, m, P, nq, s0, s, c0, d, ww, out,
+                       None if fill is None else cnt, 4, fill,
+                       cnt if payload else None, 4, ct if payload else None)
+                    outs += [out, ct]
+                what = (f"assemble m={m} P={P} nq={nq} s0={s0} s={s} "
+                        f"c0={c0} d={d} ww={ww} fill={fill} ct={payload}")
+                same(outs[0], outs[2], what)
+                same(outs[1], outs[3], what + " counts")
+    # The array form, float32 payload and counts payload, a float fill.
+    from repro_torch.kernels.alltoallv_deliver.ref import assemble_proc_ref
+    msgs = torch.randn((2, 4, 3, 300), generator=gen, device=gen.device)
+    cnt = torch.randint(-2, 303, (2, 4, 3), generator=gen, device=gen.device,
+                        dtype=torch.int32)
+    got = dv.assemble_proc_tiles(msgs, cnt, cnt.float(), fill=-1.5)
+    want = assemble_proc_ref(msgs, cnt, cnt.float(), fill=-1.5)
+    for g, w in zip(got, want):
+        same(g.view(torch.int32), w.view(torch.int32), "assemble float32")
+
+
+def staged(load, steps, extract, keys, v, reps, ref, what):
+    """Run a ``psrs_plan`` ``reps`` times stage by stage with CUDA-event
+    times; check its output against ``ref``.  Returns ``({stage: [ms]},
+    the last run's store)``."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    n_v = keys.numel() // v
+    ms = {name: [] for name in ["load"] + [nm for nm, _ in steps]}
+    store = None
+    for _ in range(reps):
+        store = None                              # free the last run's store
+        start.record()
+        store = load(keys.reshape(v, n_v))
+        end.record()
+        end.synchronize()
+        ms["load"].append(start.elapsed_time(end))
+        for name, fn in steps:
+            start.record()
+            store = fn(store)
+            end.record()
+            end.synchronize()
+            ms[name].append(start.elapsed_time(end))
+    result, rcount, oflow = extract(store)
+    check(int(rcount.sum()) == keys.numel(),
+          f"{what}: rcount sums to n ({int(rcount.sum())})")
+    check(int(oflow.sum()) == 0, f"{what}: no overflow")
+    counts = rcount[:, 0].tolist()
+    check(torch.equal(torch.cat([result[i, :counts[i]] for i in range(v)]),
+                      ref), f"{what}: staged plan output == torch.sort")
+    return ms, store
+
+
+def print_stages(what, ms):
+    totals = [sum(t) for t in zip(*ms.values())]
+    for name, ts in list(ms.items()) + [("total", totals)]:
+        print(f"stage {what} {name}: median "
+              f"{statistics.median(ts):.3f} ms (min {min(ts):.3f}, "
+              f"max {max(ts):.3f}, {len(ts)} runs)")
 
 
 def main(argv=None) -> int:
@@ -255,6 +353,7 @@ def main(argv=None) -> int:
 def run(dev: torch.device, args) -> list:
     """Every phase after the build, on ``dev``; returns the ``kernels``
     rows."""
+    from repro_torch.core import make_mesh
     from repro_torch.kernels.kway_merge.ops import gather_tiles
     from repro_torch.pems_apps import psrs_plan, psrs_sort
     # The kernel modules by name: each package re-exports a function of the
@@ -287,6 +386,7 @@ def run(dev: torch.device, args) -> list:
     check(torch.equal(out, ref), "psrs_sort output == torch.sort")
     check(all(c > 0 for c in launches.values()),
           f"every kernel launched on the main path: {launches}")
+    out_p1 = out
     del out
     print(f"psrs_sort n=2^{args.log_n} v={v} k={k} async: {sort_s:.3f} s "
           f"host clock (first call), launches {launches}, peak "
@@ -297,45 +397,19 @@ def run(dev: torch.device, args) -> list:
     # Each driver's swap cost is also timed alone, as a superstep whose
     # function changes nothing (explicit: none; sliced: a zeroed view of
     # each round; async: each round copied into a buffer and written back).
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
     stage_ms, swap_ms = {}, {}
     for driver in ("explicit", "sliced", "async"):
-        store = result = rcount = oflow = None   # free the last plan's store
+        store = None                              # free the last plan's store
         pems, load, steps, extract = psrs_plan(v, n_v, k=k, driver=driver,
                                                device=dev)
-        ms = {name: [] for name in ["load"] + [nm for nm, _ in steps]}
-        for _ in range(args.stage_reps):
-            store = None                          # free the last run's store
-            start.record()
-            store = load(keys.reshape(v, n_v))
-            end.record()
-            end.synchronize()
-            ms["load"].append(start.elapsed_time(end))
-            for name, fn in steps:
-                start.record()
-                store = fn(store)
-                end.record()
-                end.synchronize()
-                ms[name].append(start.elapsed_time(end))
-        result, rcount, oflow = extract(store)
-        check(int(rcount.sum()) == n,
-              f"{driver}: rcount sums to n ({int(rcount.sum())})")
-        check(int(oflow.sum()) == 0, f"{driver}: no overflow")
-        counts = rcount[:, 0].tolist()
-        check(torch.equal(torch.cat([result[i, :counts[i]]
-                                     for i in range(v)]), ref),
-              f"{driver}: staged plan output == torch.sort")
+        ms, store = staged(load, steps, extract, keys, v, args.stage_reps,
+                           ref, driver)
         swap_ms[driver] = cuda_ms(
             lambda: pems.superstep(store, lambda rhos, ctx: ctx, reads=[],
                                    writes=[]), args.reps)
         stage_ms[driver] = ms
     for driver, ms in stage_ms.items():
-        totals = [sum(t) for t in zip(*ms.values())]
-        for name, ts in list(ms.items()) + [("total", totals)]:
-            print(f"stage {driver} {name}: median "
-                  f"{statistics.median(ts):.3f} ms (min {min(ts):.3f}, "
-                  f"max {max(ts):.3f}, {len(ts)} runs)")
+        print_stages(driver, ms)
         print(f"swap {driver}: {swap_ms[driver]:.3f} ms per superstep "
               f"({args.reps} no-op supersteps)")
     # Yardstick for the whole path: one library sort of the same keys.
@@ -419,6 +493,12 @@ def run(dev: torch.device, args) -> list:
     del store, x, pems, load, steps, extract
     torch.cuda.empty_cache()
 
+    # run_mesh resets the peak for its own runs: keep the larger one.
+    script_peak = torch.cuda.max_memory_allocated()
+    rows.append(run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms))
+    del out_p1
+    torch.cuda.empty_cache()
+
     # ---- smaller matrix ------------------------------------------------
     t0 = time.perf_counter()
     m = 1 << min(20, args.log_n)
@@ -436,10 +516,34 @@ def run(dev: torch.device, args) -> list:
                             device=dev)
             check(torch.equal(got, mref),
                   f"psrs 2^20 {kind} use_kernel={uk} merge_kernel={mkn}")
+        # P > 1 on the one card: P real processors of v/P contexts each.
+        for P in (2, MESH_P):
+            mesh = make_mesh(P, device=dev)
+            for driver in ("explicit", "sliced", "async"):
+                for mode in ("direct", "indirect"):
+                    for alpha in (None, 1):
+                        got = psrs_sort(mk, v=v, k=MESH_K, P=P, mesh=mesh,
+                                        alpha=alpha, driver=driver,
+                                        mode=mode, device=dev)
+                        check(torch.equal(got, mref),
+                              f"psrs 2^20 {kind} P={P} {driver} {mode} "
+                              f"alpha={alpha}")
+            got = psrs_sort(mk, v=v, k=MESH_K, P=P, mesh=mesh, alpha=1,
+                            use_kernel=False, device=dev)
+            check(torch.equal(got, mref),
+                  f"psrs 2^20 {kind} P={P} use_kernel=False")
     small = rand_int32((1 << 14,), gen, "extremes")
     check(torch.equal(psrs_sort(small, v=8, k=2, device=dev).cpu(),
                       psrs_sort(small.cpu(), v=8, k=2, device="cpu")),
           "psrs 2^14 GPU == CPU plain versions")
+    kw = dict(v=v, k=MESH_K, P=MESH_P, alpha=1, return_pems=True)
+    got, gp = psrs_sort(small, mesh=make_mesh(MESH_P, device=dev),
+                        device=dev, **kw)
+    want, cp = psrs_sort(small.cpu(), mesh=make_mesh(MESH_P, device="cpu"),
+                         device="cpu", **kw)
+    check(torch.equal(got.cpu(), want)
+          and gp.ledger.snapshot() == cp.ledger.snapshot(),
+          f"psrs 2^14 P={MESH_P} GPU == CPU plain versions, equal ledgers")
     print(f"matrix at 2^20: passed in {time.perf_counter() - t0:.2f} s")
 
     # ---- report ----------------------------------------------------------
@@ -453,11 +557,130 @@ def run(dev: torch.device, args) -> list:
             print(f"  bitonic network: {r['network']:.4g} min/max, "
                   f"{r['network'] / INT32_OPS_PER_S * 1e3:.4f} ms at the "
                   "int32 rate (the algorithm's work, not the function's)")
+    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
     print(f"peak device memory (main path): {peak / 2**30:.2f} GiB; "
-          f"whole script: {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          "GiB")
+          f"whole script: {script_peak / 2**30:.2f} GiB")
     return [{key: r[key] for key in r if key not in ("shape", "network")}
             for r in rows]
+
+
+def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
+    """The ``P > 1`` path on the one card: ``psrs_sort`` over ``MESH_P``
+    real processors (row blocks of one store, a one-device mesh) on the main
+    path's keys, unchunked under the async driver and α-chunked (α = 1)
+    under the explicit driver, each with every kernel count reset just
+    before it; then the same plans stage by stage, and kernel 4 timed on the
+    α = 1 run's first chunk.  Returns kernel 4's ``kernels`` row."""
+    from repro_torch.core import analysis, make_mesh
+    from repro_torch.pems_apps import psrs_plan, psrs_sort
+    bs, km, dv = kern["bitonic"], kern["kway"], kern["deliver"]
+    n, v, P, k = keys.numel(), args.v, MESH_P, MESH_K
+    n_v, m = n // v, v // MESH_P
+    mesh = make_mesh(P, device=dev)
+    runs = (("async", None), ("explicit", 1))
+    launches = {}
+    for driver, alpha in runs:
+        bs.LAUNCHES = km.LAUNCHES = dv.LAUNCHES = dv.ASSEMBLE_LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, pems = psrs_sort(keys, v=v, k=k, P=P, mesh=mesh, alpha=alpha,
+                              driver=driver, device=dev, return_pems=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {"bitonic": bs.LAUNCHES, "kway": km.LAUNCHES,
+               "assemble": dv.ASSEMBLE_LAUNCHES}
+        what = f"P={P} {driver} alpha={alpha}"
+        check(torch.equal(out, ref), f"psrs_sort {what} == torch.sort")
+        check(torch.equal(out, out_p1), f"psrs_sort {what} == the P=1 run")
+        check(all(c > 0 for c in got.values()),
+              f"every kernel of the P > 1 path launched ({what}): {got}")
+        rounds = analysis.pems2_alltoallv_par_network_rounds(v, P, k, alpha)
+        check(pems.ledger.network_rounds == rounds == got["assemble"],
+              f"{what}: network_rounds {pems.ledger.network_rounds}, "
+              f"closed form {rounds}, kernel 4 launches {got['assemble']}")
+        launches[(driver, alpha)] = got
+        print(f"psrs_sort n=2^{args.log_n} v={v} k={k} {what}: {secs:.3f} s "
+              f"host clock (first call), launches {got}, network_rounds "
+              f"{rounds}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del out, pems
+
+    stage_ms = {}
+    for driver, alpha in runs:
+        store = None                              # free the last plan's store
+        pems, load, steps, extract = psrs_plan(v, n_v, k=k, P=P, mesh=mesh,
+                                               alpha=alpha, driver=driver,
+                                               device=dev)
+        what = f"P={P} {driver} alpha={alpha}"
+        stage_ms[what], store = staged(load, steps, extract, keys, v,
+                                       args.stage_reps, ref, what)
+    for what, ms in stage_ms.items():
+        print_stages(what, ms)
+    med = {what: statistics.median(ms["alltoallv"])
+           for what, ms in list(stage_ms_p1.items()) + list(stage_ms.items())}
+    print("alltoallv stage, median ms: " + ", ".join(
+        f"{'P=1 ' + w if 'P=' not in w else w} {t:.3f}"
+        for w, t in med.items()) + " (the P > 1 exchange is a copy within "
+        "the card's HBM, no network)")
+
+    # Kernel 4 on the α = 1 run's first chunk: source round 0 (s = k rows of
+    # every sender), destination chunk 0 (d = 1 context of every process).
+    lo, data = pems.layout, store.data
+    off_s, off_c = lo.offset("bsend"), lo.offset("bscnt")
+    s, d = k, 1
+    nmsg = P * P * d * s
+    bufs = [torch.empty(nmsg * n_v, dtype=torch.int32, device=dev)
+            for _ in range(2)]
+    cts = [torch.empty(nmsg, dtype=torch.int32, device=dev)
+           for _ in range(2)]
+
+    def stage(fn, i):
+        return lambda: fn(data, off_s, m, P, P, 0, s, 0, d, n_v, bufs[i],
+                          data, off_c, INT_MAX, data, off_c, cts[i])
+
+    stage(dv.assemble_words, 0)()
+    stage(dv.assemble_words_plain, 1)()
+    err = max(same(bufs[0], bufs[1], "assemble main path"),
+              same(cts[0], cts[1], "assemble main path counts"))
+    # The chunk's valid words: counts of rows q·m + j (j < s) for the
+    # destinations p·m (d = 1), clamped to [0, ω].
+    cnt = store.field("bscnt").reshape(P, m, P, m)[:, :s, :, :d]
+    valid = int(cnt.clamp(0, n_v).sum())
+    b_ms, b_by = bound(4 * (valid + nmsg * n_v + 3 * nmsg))
+    row = dict(
+        name="assemble_proc_tiles", route="cuda",
+        source="src/repro_torch/csrc/alltoallv_deliver.cu",
+        replaces="src/repro/kernels/alltoallv_deliver/"
+                 "alltoallv_deliver.py:163",
+        launches=launches[("explicit", 1)]["assemble"], max_abs_err=err,
+        ms=cuda_ms(stage(dv.assemble_words, 0), args.reps),
+        plain_ms=cuda_ms(stage(dv.assemble_words_plain, 1), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"P={P} senders x [s={s}, P={P}, d={d}, ww={n_v}] int32 "
+              f"words, {valid} valid")
+    print("kernel 4 launches per run: " + ", ".join(
+        f"P={P} {dr} alpha={a}: {c['assemble']}"
+        for (dr, a), c in launches.items()))
+    # Where the alltoallv stage's time goes: the exchange (a strided copy of
+    # the chunk into the recv rows) beside kernel 4, on the same chunk, and
+    # kernel 4 on the unchunked run's one chunk (s = d = m, 8 GiB at 2^27).
+    off_r = lo.offset("brecv")
+    recv = data[:, off_r:off_r + v * n_v].view(P, m, P, m, n_v)
+    dst = recv[:, :d, :, :s].permute(0, 2, 1, 3, 4)
+    out = bufs[0].view(P, P, d, s, n_v)
+    print(f"alltoallv P={P} alpha=1 first chunk: kernel 4 {row['ms']:.3f} "
+          f"ms, exchange (Mesh.all_to_all) "
+          f"{cuda_ms(lambda: mesh.all_to_all(out, dst), args.reps):.3f} ms "
+          f"for {out.numel() * 4 / 2**30:.2f} GiB")
+    del bufs, out, dst
+    whole = torch.empty(P * P * m * m * n_v, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: dv.assemble_words(data, off_s, m, P, P, 0, m, 0, m,
+                                           n_v, whole, data, off_c, INT_MAX),
+                 args.reps)
+    print(f"kernel 4 on the unchunked chunk [P={P}, P={P}, {m}, {m}, {n_v}] "
+          f"({whole.numel() * 4 / 2**30:.2f} GiB written): {ms:.3f} ms")
+    return row
 
 
 # --------------------------------------------------------------------------- #

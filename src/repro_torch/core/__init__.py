@@ -1,11 +1,12 @@
 """PEMS2 core of the PyTorch port: contexts, the superstep executor and the
-collectives, on the device tier at ``P == 1``.
+collectives, on the device tier, over ``P`` real processors of a one-device
+mesh.
 
 Public API::
 
     from repro_torch.core import (
         Pems, PemsConfig, ContextLayout, ContextStore, Ctx, Field,
-        Allocator, IOLedger,
+        Allocator, IOLedger, Mesh, make_mesh,
     )
 """
 
@@ -21,6 +22,7 @@ from .context import (
 )
 from .executor import DRIVERS, TIERS, Pems, PemsConfig
 from .iostats import IOLedger, TierStats
+from .mesh import Mesh, make_mesh
 
 __all__ = [
     "Allocator",
@@ -30,11 +32,13 @@ __all__ = [
     "DRIVERS",
     "Field",
     "IOLedger",
+    "Mesh",
     "Pems",
     "PemsConfig",
     "TIERS",
     "TierStats",
     "WORD",
     "init_store",
+    "make_mesh",
     "resolve_device",
 ]

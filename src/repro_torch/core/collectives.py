@@ -1,4 +1,4 @@
-"""EM collective communication (thesis §2.2, §6.2, §7), device tier, P == 1.
+"""EM collective communication (thesis §2.2, §6.2, §7), device tier.
 
 Message model: a sending context holds a field of shape ``[v, ω]`` (one padded
 message per destination, ω the thesis' per-message bound) plus a ``[v]`` count
@@ -19,6 +19,16 @@ Two Alltoallv implementations:
   baseline (Alg 2.2.1) stages every message through a materialised
   "indirect area" copy first; the direct dense route is the seed reference.
 
+With ``P > 1`` (a :class:`~.mesh.Mesh`) the direct kernel route runs per
+real processor (``_alltoallv_fused_mesh``): the mesh staging kernel
+assembles each chunk straight from the send word ranges into destination
+order (boundary mask and counts transpose fused), the mesh's
+:meth:`~.mesh.Mesh.all_to_all` ships it and lands it in the destination
+rows.  ``alpha=None`` ships everything at once; with ``alpha`` the network
+phase is α-chunked (Alg 7.1.3): one buffer per (source round of ``k``,
+destination α-chunk), ≤ α·k·ω words per process pair.  The dense route
+transposes through the same exchange (``_global_transpose``).
+
 Both are bit-identical.  The I/O ledger is updated with the thesis' event
 counts, independent of the implementation; it equals the JAX package's.
 ``allgather``/``reduce``/``allreduce`` are not on the PSRS path and are not
@@ -32,8 +42,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.alltoallv_deliver import check_fill_range, deliver_words
-from .context import WORD, ContextStore, _from_words
+from ..kernels.alltoallv_deliver import assemble_words, check_fill_range, \
+    deliver_words
+from .context import WORD, ContextStore, _from_words, _to_words
 
 
 # --------------------------------------------------------------------------- #
@@ -88,8 +99,8 @@ def alltoallv(
                if len(f.shape) > 1 else WORD)
 
     if mode == "direct" and use_kernel:
-        store = _alltoallv_fused(self, store, send, recv,
-                                 send_counts, recv_counts, fill)
+        fused = _alltoallv_fused if cfg.P == 1 else _alltoallv_fused_mesh
+        store = fused(self, store, send, recv, send_counts, recv_counts, fill)
     else:
         store = _alltoallv_dense(self, store, send, recv,
                                  send_counts, recv_counts, mode, fill)
@@ -158,6 +169,103 @@ def _alltoallv_fused(self, store, send, recv, send_counts, recv_counts, fill):
     return store
 
 
+def _alltoallv_fused_mesh(self, store, send, recv, send_counts, recv_counts,
+                          fill):
+    """PEMS2 word-level direct delivery over ``P > 1`` real processors:
+    assemble → ship → land, Alg 7.1.3's structure at the word level.
+
+    For each chunk the mesh staging kernel assembles every sender's messages
+    straight from the store's send word range into a ``[P(src), P(dst), d,
+    s, ω]`` buffer in destination order (mask and counts transpose fused),
+    and the mesh's exchange ships ``buffer[q, p]`` to process ``p`` and lands
+    it in ``p``'s recv rows: source ``q``'s slots are the contiguous words
+    ``off_r + (q·m + s0)·ω`` of destination rows ``c0…c0+d``, its counts
+    ``off_rc + q·m + s0``.  Unchunked (``alpha=None``) one chunk covers
+    everything; with ``alpha`` each (source round of ``k``, destination
+    α-chunk) is one chunk, ≤ α·k·ω words per process pair (Lemma 7.1.9)."""
+    cfg = self.cfg
+    lo = store.layout
+    data = store.data
+    v, Pn, m, k = cfg.v, cfg.P, cfg.v_local, cfg.k
+    ww = lo.field_words(send) // v             # ω in store words
+    off_r = lo.offset(recv)
+
+    # A chunk's landing overwrites words that a later chunk still reads
+    # when the fields alias: read those from a copy (the JAX mesh path
+    # slices the send words functionally before any landing).
+    src, src_off = data, lo.offset(send)
+    if send == recv:
+        src, src_off = store.field_words_view(send).clone(), 0
+
+    has_counts = send_counts is not None and recv_counts is not None
+    cp = cnt = fill_word = None
+    cp_off = cnt_off = 0
+    if has_counts:
+        cs = lo.field(send_counts).dtype
+        cr = lo.field(recv_counts).dtype
+        cp, cp_off = data, lo.offset(send_counts)
+        if send_counts == recv_counts:
+            cp, cp_off = store.field_words_view(send_counts).clone(), 0
+        # The landed counts view, [P(dst), m, P(src), m] words.
+        rc = data[:, lo.offset(recv_counts):lo.offset(recv_counts) + v]
+        rc = rc.view(Pn, m, Pn, m)
+    if fill is not None:
+        fill_word = _fill_word(fill, lo.field(send).dtype)
+        if cs in (torch.int32, torch.uint32):
+            # int32 mask lengths are the counts words themselves.
+            cnt, cnt_off = cp, cp_off
+        else:
+            cnt = store.field(send_counts).reshape(v, v).to(torch.int32)
+
+    # The recv rows as [P(dst), m (row), P(src), m (slot), ω] words.
+    rows = data[:, off_r:off_r + v * ww].view(Pn, m, Pn, m, ww)
+    if cfg.alpha is None:
+        chunks = [(0, m, 0, m)]
+    else:
+        chunks = [(s0, k, c0, min(cfg.alpha, m - c0))
+                  for s0 in range(0, m, k) for c0 in range(0, m, cfg.alpha)]
+    most = max(s * d for _, s, _, d in chunks) * Pn * Pn
+    buf = torch.empty(most * ww, dtype=torch.int32, device=data.device)
+    ctbuf = (torch.empty(most, dtype=torch.int32, device=data.device)
+             if has_counts else None)
+    for s0, s, c0, d in chunks:
+        n = Pn * Pn * d * s
+        out = buf[:n * ww].view(Pn, Pn, d, s, ww)
+        ct = None if ctbuf is None else ctbuf[:n].view(Pn, Pn, d, s)
+        assemble_words(src, src_off, m, Pn, Pn, s0, s, c0, d, ww, out,
+                       cnt, cnt_off, fill_word, cp, cp_off, ct)
+        # Land: recv[p, q] = rows[p, c0:c0+d, q, s0:s0+s] in (q, dl, j).
+        self.mesh.all_to_all(
+            out, rows[:, c0:c0 + d, :, s0:s0 + s].permute(0, 2, 1, 3, 4))
+        if has_counts:
+            if cs != cr:
+                ct = _to_words(_from_words(ct, cs).to(cr))
+            self.mesh.all_to_all(
+                ct, rc[:, c0:c0 + d, :, s0:s0 + s].permute(0, 2, 1, 3))
+    return store
+
+
+def _global_transpose(self, M: torch.Tensor) -> torch.Tensor:
+    """``[v(src), v(dst), w] → [v(dst), v(src), w]``; at ``P > 1`` through
+    the mesh's exchange, α-chunked over the destination contexts
+    (Alg 7.1.3), as the JAX package's dense route ships it."""
+    cfg = self.cfg
+    if cfg.P == 1:
+        return M.transpose(0, 1).contiguous()
+    Pn, m = cfg.P, cfg.v_local
+    alpha = m if cfg.alpha is None else cfg.alpha
+    w = M.shape[-1]
+    # x: (src proc, src local, dst proc, dst local, w);
+    # y: (dst proc, dst local, src proc, src local, w).
+    x = M.reshape(Pn, m, Pn, m, w)
+    y = torch.empty_like(x)
+    for c0 in range(0, m, alpha):
+        c1 = min(c0 + alpha, m)
+        self.mesh.all_to_all(x[:, :, :, c0:c1].permute(0, 2, 1, 3, 4),
+                             y[:, c0:c1].permute(0, 2, 3, 1, 4))
+    return y.reshape(cfg.v, cfg.v, w)
+
+
 def _alltoallv_dense(self, store, send, recv, send_counts, recv_counts,
                      mode, fill):
     """Dense-transpose data path: the PEMS1 indirect baseline and the
@@ -169,13 +277,13 @@ def _alltoallv_dense(self, store, send, recv, send_counts, recv_counts,
     if mode == "indirect":
         # PEMS1: stage every message in the indirect area first.
         M = M.clone()
-    Mt = M.transpose(0, 1).contiguous()        # [v, v, ω] axes (dst, src)
+    Mt = _global_transpose(self, M)            # [v, v, ω] axes (dst, src)
     Ct = None
     if send_counts is not None and recv_counts is not None:
         C = store.field(send_counts).reshape(cfg.v, cfg.v, 1)
         if mode == "indirect":
             C = C.clone()
-        Ct = C.transpose(0, 1).contiguous()
+        Ct = _global_transpose(self, C)
     if fill is not None:
         lane = torch.arange(Mt.shape[2], device=Mt.device)
         Mt = torch.where(lane < Ct.to(torch.int32),
@@ -202,6 +310,16 @@ def _ledger_alltoallv(self, omega_b: int, mode: str) -> None:
         led.add_swap_out(v * max(mu - v * omega_b, 0), B)
         led.add_msg_direct(Pn * delta * omega_b, B)
         led.add_msg_indirect(Pn * 2 * (m * m - delta) * omega_b, B)
+        if Pn > 1:
+            led.add_network(v * (v - m) * omega_b)
+            led.add_msg_direct(v * (v - m) * omega_b, B)
+            # Network launches: one bulk exchange when unchunked, else one
+            # per (source round of k, destination α-chunk) — Alg 7.1.3,
+            # analysis.pems2_alltoallv_par_network_rounds.
+            if cfg.alpha is None:
+                led.add_network_rounds(1)
+            else:
+                led.add_network_rounds((m // k) * -(-m // cfg.alpha))
         led.add_boundary(2 * v * v * B, B)
         led.add_barrier(3)
     else:
@@ -212,6 +330,9 @@ def _ledger_alltoallv(self, omega_b: int, mode: str) -> None:
         led.add_msg_indirect(v * v * omega_b, B)      # read back for delivery
         led.add_swap_out(v * mu, B)
         led.add_swap_in(v * mu, B)
+        if Pn > 1:
+            # §2.3.3 indirect routing: each remote message crosses twice.
+            led.add_network(2 * v * (v - m) * omega_b)
         led.require_disk(v * mu // Pn + v * v * omega_b)
         led.add_barrier(2)
 
@@ -238,6 +359,8 @@ def bcast(self, store: ContextStore, field: str, root: int = 0,
     self.ledger.add_swap_out(cfg.v * mu // (cfg.P * cfg.k), B)
     self.ledger.add_swap_in(cfg.v * mu // (cfg.P * cfg.k), B)
     self.ledger.add_msg_direct(cfg.v * omega_b, B)
+    if cfg.P > 1:
+        self.ledger.add_network((cfg.P - 1) * omega_b)
     self.ledger.add_barrier()
     return store
 
@@ -262,5 +385,7 @@ def gather(self, store: ContextStore, send: str, recv: str, root: int = 0,
     # v·ω result is written to its context on disk.
     self.ledger.add_swap_out(self.layout.live_bytes, B)
     self.ledger.add_msg_direct(cfg.v * omega_b, B)
+    if cfg.P > 1:
+        self.ledger.add_network((cfg.v - cfg.v_local) * omega_b)
     self.ledger.add_barrier()
     return store

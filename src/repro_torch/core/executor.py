@@ -1,11 +1,15 @@
-"""The PEMS2 superstep executor, device tier, ``P == 1``.
+"""The PEMS2 superstep executor, device tier.
 
-Simulates ``v`` virtual processors with ``k`` concurrently-resident contexts,
-exactly the thesis' model (§3.2): execution proceeds in deterministic
-ID-ordered rounds of ``k`` virtual processors (§6.5).  A stage function takes
-the round's IDs ``rhos [k]`` and a batched :class:`~.context.Ctx` over the
-round's ``[k, words]`` block — the explicit form of the JAX package's
-``vmap`` — and returns the context.
+Simulates ``v`` virtual processors on ``P`` real processors with ``k``
+concurrently-resident contexts per real processor, exactly the thesis' model
+(§3.2): execution proceeds in deterministic ID-ordered rounds of ``P·k``
+virtual processors (§6.5); real processor ``p`` runs its ``v/(P·k)`` rounds
+over its own contexts ``[p·v/P, (p+1)·v/P)``.  ``P > 1`` needs a
+:class:`~.mesh.Mesh` of ``P`` entries; the port runs one on a single device,
+the store one ``[v, words]`` tensor whose row blocks are the processes.  A
+stage function takes the round's IDs ``rhos [k]`` and a batched
+:class:`~.context.Ctx` over the round's ``[k, words]`` block — the explicit
+form of the JAX package's ``vmap`` — and returns the context.
 
 Drivers (§5):
   * ``explicit`` — every round swaps the full *live* context in and out.  On
@@ -19,8 +23,8 @@ Drivers (§5):
     and each round's result is copied back (the STXXL-file driver of §5.1).
 
 All drivers produce bit-identical results; they differ in bytes moved (the
-ledger) and in schedule.  The backing tiers, ``P > 1``, recovery and tracing
-are not ported yet: their knobs raise ``NotImplementedError`` naming the
+ledger) and in schedule.  The backing tiers, recovery and tracing are not
+ported yet: their knobs raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that brings them.
 """
 
@@ -39,6 +43,7 @@ from .context import (
     resolve_device,
 )
 from .iostats import IOLedger
+from .mesh import Mesh, canonical
 
 DRIVERS = ("explicit", "sliced", "async")
 TIERS = ("device", "host", "memmap", "file")
@@ -46,9 +51,6 @@ TIERS = ("device", "host", "memmap", "file")
 # Knobs of the JAX PemsConfig that this slice does not run yet: their
 # defaults, and the ROADMAP.md item that brings them.
 _NOT_PORTED = {
-    "P": (1, "queue 1 item 7 (P > 1)"),
-    "alpha": (None, "queue 1 item 7 (P > 1)"),
-    "vp_axis": ("vp", "queue 1 item 7 (P > 1)"),
     "tier": ("device", "queue 1 item 5 (backing tiers)"),
     "backing_path": (None, "queue 1 item 5 (backing tiers)"),
     "io_driver": (None, "queue 1 item 5 (backing tiers)"),
@@ -72,9 +74,13 @@ def not_ported(knob: str, value, item: str) -> NotImplementedError:
 class PemsConfig:
     """Simulation parameters (thesis Appendix B.3), for the ported slice.
 
-    * ``v``/``k`` — total virtual processors and concurrently-resident
-      contexts.  ``v`` must divide by ``k``; the ``v`` contexts run in
-      ``v/k`` ID-ordered rounds (§6.5).
+    * ``v``/``P``/``k`` — total virtual processors, real processors and
+      concurrently-resident contexts per real processor.  ``v`` must divide
+      by ``P`` and ``v/P`` by ``k``; each real processor runs its ``v/P``
+      contexts in ``v/(P·k)`` ID-ordered rounds (§6.5).
+    * ``alpha`` — Alltoallv network chunk: how many destination contexts
+      are shipped at once (Alg 7.1.3), ``1 <= alpha <= v/P``, or ``None``
+      for one unchunked exchange.  ``vp_axis`` names the mesh axis.
     * ``driver`` — round swap strategy: ``explicit`` (full live context),
       ``sliced`` (declared fields only), ``async`` (double-buffered
       prefetch, §5.1).  Bit-identical results; different bytes/schedule.
@@ -87,14 +93,13 @@ class PemsConfig:
       Bit-identical either way; ``merge_tile`` must be a power of two.
 
     The other fields keep the JAX package's names (``docs/TUNING.md``
-    documents them) and accept only their defaults here: ``P``, ``alpha``,
-    ``vp_axis``, ``tier`` and the backing, I/O, fault, checksum and trace
-    knobs raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-    ports them.
+    documents them) and accept only their defaults here: ``tier`` and the
+    backing, I/O, fault, checksum and trace knobs raise
+    ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
 
     Raises ``ValueError`` at construction for any invalid combination —
     unknown driver or tier names, a bad ``merge_tile``, indivisible
-    ``v``/``P``/``k``.
+    ``v``/``P``/``k``, out-of-range ``alpha``.
     """
 
     v: int                      # total virtual processors
@@ -138,6 +143,21 @@ class PemsConfig:
             raise ValueError("v must be divisible by P")
         if (self.v // self.P) % self.k:
             raise ValueError("v/P must be divisible by k")
+        if self.alpha is not None:
+            # The Alltoallv network chunk (Alg 7.1.3): validated here so
+            # every consumer (network phase, ledger rounds) sees a sane one.
+            if self.alpha != int(self.alpha):
+                raise ValueError(
+                    f"alpha={self.alpha!r} must be an integer chunk size"
+                )
+            self.alpha = int(self.alpha)
+            if not 1 <= self.alpha <= self.v_local:
+                raise ValueError(
+                    f"alpha={self.alpha} out of range: the Alltoallv "
+                    f"network chunk must satisfy 1 <= alpha <= v/P = "
+                    f"{self.v_local} (alpha=None means unchunked, one "
+                    "chunk of v/P destinations)"
+                )
 
     @property
     def v_local(self) -> int:
@@ -151,16 +171,29 @@ class PemsConfig:
 class Pems:
     """Executor: superstep engine + I/O ledger, on one device (CUDA unless
     ``device`` names another; the CPU runs the kernels' plain versions).
-    Collective methods are bound from :mod:`repro_torch.core.collectives`."""
+    ``P > 1`` needs a ``mesh`` (:func:`~.mesh.make_mesh`) with ``P`` entries
+    along ``cfg.vp_axis`` on that device.  Collective methods are bound from
+    :mod:`repro_torch.core.collectives`."""
 
-    def __init__(self, cfg: PemsConfig, layout: ContextLayout, mesh=None,
-                 device=None):
-        if mesh is not None:
-            raise not_ported("mesh", mesh, "queue 1 item 7 (P > 1)")
+    def __init__(self, cfg: PemsConfig, layout: ContextLayout,
+                 mesh: Optional[Mesh] = None, device=None):
         self.cfg = cfg
         self.layout = layout
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.ledger = IOLedger()
+        if cfg.P > 1 and mesh is None:
+            raise ValueError("P > 1 requires a mesh with the vp axis "
+                             "(device tier; backing tiers shard instead)")
+        if mesh is not None:
+            if mesh.shape.get(cfg.vp_axis) != cfg.P:
+                raise ValueError(
+                    f"mesh axis {cfg.vp_axis}="
+                    f"{mesh.shape.get(cfg.vp_axis)} != P={cfg.P}")
+            if mesh.device() != canonical(self.device):
+                raise ValueError(
+                    f"the mesh lies on {mesh.device()} but the executor on "
+                    f"{self.device}")
         if cfg.device_cap_bytes is not None:
             # The device tier must fit the whole population.
             need = cfg.v * layout.mu_bytes
@@ -223,16 +256,22 @@ class Pems:
             body = self._round_body_sliced(fn, list(reads), list(writes))
         else:
             body = self._round_body_full(fn)
-        self._run_rounds(store.data, body)
+        # Each real processor runs its rounds over its own row block, IDs
+        # offset by its first context (the JAX shard_map's per-device body).
+        m = cfg.v_local
+        for p in range(cfg.P):
+            self._run_rounds(store.data[p * m:(p + 1) * m], body, p * m)
         return store
 
     # ----------------------------------------------------------- round bodies
-    def _run_rounds(self, data: torch.Tensor, body) -> None:
-        """Drive ``body(rhos, blk) -> out`` over the ``v/k`` ID-ordered rounds;
-        ``out`` lands in the round's rows of ``data``."""
+    def _run_rounds(self, data: torch.Tensor, body, base: int) -> None:
+        """Drive ``body(rhos, blk) -> out`` over one real processor's
+        ``v/(P·k)`` ID-ordered rounds; ``data`` is its ``[v/P, words]`` row
+        block, ``base`` its first context's ID, and ``out`` lands in the
+        round's rows of ``data``."""
         cfg = self.cfg
         k, rounds = cfg.k, cfg.rounds
-        rho0 = torch.arange(k, dtype=torch.int32, device=data.device)
+        rho0 = base + torch.arange(k, dtype=torch.int32, device=data.device)
 
         if cfg.driver != "async" or rounds < 2:
             for r in range(rounds):

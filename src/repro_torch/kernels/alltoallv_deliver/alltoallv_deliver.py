@@ -15,6 +15,16 @@ is the JAX kernel's array form on top of it.
 
 :func:`deliver_words_plain` is the plain PyTorch version: the CPU path, and
 what ``chip_smoke.py`` holds the kernel against on the card.
+
+The ``P > 1`` mesh staging replaces the TPU kernel ``assemble_proc_tiles``
+(``alltoallv_deliver.py:163`` of the JAX package): ``out[p, d, j, :] =
+msgs[j, p, d, :]``, lanes at or past ``counts[j, p, d]`` set to ``fill``, and
+the fused ``ct[p, d, j] = counts_payload[j, p, d]``.  Its CUDA entry
+``repro_assemble_proc_words`` reads the store's send word range directly
+(:func:`assemble_words`), one α-chunk for every sending process in one
+launch; :func:`assemble_proc_tiles` is the JAX kernel's array form and
+:func:`assemble_words_plain` the plain version.  Its launches are counted in
+``ASSEMBLE_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import torch
 from .._build import launch, ptr, require_cuda
 
 LAUNCHES = 0   # calls of deliver_words that launched the CUDA kernel
+ASSEMBLE_LAUNCHES = 0   # calls of assemble_words that launched the kernel
 
 
 def deliver_words_plain(src, src_off, dst, dst_off, v, ww, counts=None,
@@ -132,3 +143,142 @@ def _words(x: torch.Tensor) -> torch.Tensor:
     if x.element_size() != 4:
         raise TypeError(f"delivery moves 4-byte words, got {x.dtype}")
     return x if x.dtype == torch.int32 else x.view(torch.int32)
+
+
+# --------------------------------------------------------------------------- #
+# Mesh staging (P > 1)                                                         #
+# --------------------------------------------------------------------------- #
+
+def _check_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww, out, counts,
+                    cnt_off, fill, counts_payload, cp_off, ct_out) -> None:
+    if fill is not None and counts is None:
+        raise ValueError("fill requires counts")
+    if (counts_payload is None) != (ct_out is None):
+        raise ValueError("counts_payload and ct_out go together")
+    if min(m, pn, nq, s, d, ww) < 1 or min(s0, c0, src_off) < 0:
+        raise ValueError("assemble_words: sizes must be positive and "
+                         "offsets non-negative")
+    if c0 + d > m:
+        raise ValueError(f"destination chunk [{c0}, {c0 + d}) passes m={m}")
+    rows = (nq - 1) * m + s0 + s               # last source row + 1
+    for name, t, off, words in (("src", src, src_off, pn * m * ww),
+                                ("counts", counts, cnt_off, pn * m),
+                                ("counts_payload", counts_payload, cp_off,
+                                 pn * m)):
+        if t is None:
+            continue
+        if t.dim() != 2 or t.shape[0] < rows or t.shape[1] < off + words:
+            raise ValueError(
+                f"assemble_words: {name} {tuple(t.shape)} lacks rows "
+                f"[0, {rows}) or words [{off}, {off + words})")
+    for name, t, n in (("out", out, nq * pn * d * s * ww),
+                       ("ct_out", ct_out, nq * pn * d * s)):
+        if t is not None and (t.numel() != n or not t.is_contiguous()):
+            raise ValueError(f"assemble_words: {name} must be contiguous "
+                             f"with {n} words")
+
+
+def assemble_words_plain(src, src_off, m, pn, nq, s0, s, c0, d, ww, out,
+                         counts=None, cnt_off=0, fill=None,
+                         counts_payload=None, cp_off=0, ct_out=None) -> None:
+    """Plain PyTorch version of :func:`assemble_words` (same arguments)."""
+    out = out.view(nq, pn, d, s, ww)
+    lane = torch.arange(ww, device=src.device)
+    for q in range(nq):
+        r0 = q * m + s0                        # sender q's first source row
+        msgs = src[r0:r0 + s, src_off:src_off + pn * m * ww]
+        msgs = msgs.reshape(s, pn, m, ww)[:, :, c0:c0 + d]
+        staged = msgs.permute(1, 2, 0, 3)      # [pn, d, s, ww]
+        if fill is not None:
+            cnt = counts[r0:r0 + s, cnt_off:cnt_off + pn * m]
+            cnt = cnt.reshape(s, pn, m)[:, :, c0:c0 + d].permute(1, 2, 0)
+            staged = torch.where(
+                lane < cnt[..., None], staged,
+                torch.tensor(fill, dtype=torch.int32, device=src.device))
+        out[q] = staged
+        if counts_payload is not None:
+            cp = counts_payload[r0:r0 + s, cp_off:cp_off + pn * m]
+            ct_out.view(nq, pn, d, s)[q] = (
+                cp.reshape(s, pn, m)[:, :, c0:c0 + d].permute(1, 2, 0))
+
+
+def assemble_words(src: torch.Tensor, src_off: int, m: int, pn: int,
+                   nq: int, s0: int, s: int, c0: int, d: int, ww: int,
+                   out: torch.Tensor, counts: Optional[torch.Tensor] = None,
+                   cnt_off: int = 0, fill: Optional[int] = None,
+                   counts_payload: Optional[torch.Tensor] = None,
+                   cp_off: int = 0,
+                   ct_out: Optional[torch.Tensor] = None) -> None:
+    """Stage one chunk of the ``P > 1`` exchange for ``nq`` senders into
+    ``out`` (``[nq, pn, d, s, ww]`` int32 words, contiguous).
+
+    ``src`` is a ``[rows, row_words]`` int32 word tensor with contiguous rows
+    (the context store).  Sender ``q``'s local source ``j < s`` is row
+    ``q·m + s0 + j``; its message for destination process ``p``'s local
+    context ``c0 + dl`` (``dl < d``) is the ``ww`` words at ``src_off +
+    (p·m + c0 + dl)·ww`` of that row, and lands at ``out[q, p, dl, j]``.
+    With ``fill`` (an int32 word) lanes at or past ``counts[row, cnt_off +
+    p·m + c0 + dl]`` are written as ``fill``; with ``counts_payload`` the
+    word at the same place of ``counts_payload`` lands at ``ct_out[q, p, dl,
+    j]`` (``ct_out``: ``[nq, pn, d, s]`` words) in the same launch.
+
+    A CPU ``src`` takes the plain version; a CUDA one launches the kernel.
+    """
+    global ASSEMBLE_LAUNCHES
+    _check_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww, out, counts,
+                    cnt_off, fill, counts_payload, cp_off, ct_out)
+    if src.device.type == "cpu":
+        assemble_words_plain(src, src_off, m, pn, nq, s0, s, c0, d, ww, out,
+                             counts, cnt_off, fill, counts_payload, cp_off,
+                             ct_out)
+        return
+    require_cuda("assemble_words", src, out, counts, counts_payload, ct_out)
+    masked = fill is not None
+    launch("repro_assemble_proc_words", src.device,
+           ptr(src), src.stride(0), src_off, m, pn, nq, s0, s, c0, d, ww,
+           ptr(out),
+           ptr(counts) if masked else None,
+           counts.stride(0) if masked else 0, cnt_off,
+           int(fill) if masked else 0,
+           ptr(counts_payload),
+           0 if counts_payload is None else counts_payload.stride(0), cp_off,
+           ptr(ct_out))
+    ASSEMBLE_LAUNCHES += 1
+
+
+def assemble_proc_tiles(
+    msgs: torch.Tensor,                       # [s, P, d, ω]
+    counts: Optional[torch.Tensor] = None,    # [s, P, d] int32 valid lengths
+    counts_payload: Optional[torch.Tensor] = None,  # [s, P, d] raw counts words
+    *,
+    fill=None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns ``(out, ct)`` with ``out[p, d, j] = msgs[j, p, d]`` (lanes ≥
+    ``counts[j, p, d]`` replaced by ``fill`` when ``fill`` is not ``None``)
+    and ``ct[p, d, j] = counts_payload[j, p, d]`` (``None`` when no payload
+    given): one real processor's chunk — axes (source local, destination
+    process, destination local, payload) — staged in destination order.
+    ``msgs`` and ``counts_payload`` may be any 4-byte dtype; ``fill`` is a
+    value of ``msgs``' dtype."""
+    s, pn, d, omega = msgs.shape
+    if fill is not None and counts is None:
+        raise ValueError("fill requires counts")
+    words = _words(msgs.contiguous()).reshape(s, pn * d * omega)
+    out = torch.empty((pn, d, s, omega), dtype=torch.int32,
+                      device=msgs.device)
+    fill_word = cnt = None
+    if fill is not None:
+        fill_word = int(torch.tensor(fill, dtype=msgs.dtype)
+                        .view(torch.int32))
+        cnt = counts.to(torch.int32).reshape(s, pn * d).contiguous()
+    ct = cp = None
+    if counts_payload is not None:
+        cp = _words(counts_payload.contiguous()).reshape(s, pn * d)
+        ct = torch.empty((pn, d, s), dtype=torch.int32, device=msgs.device)
+    # One sender (nq = 1) whose destination processes are d contexts apart.
+    assemble_words(words, 0, d, pn, 1, 0, s, 0, d, omega, out, cnt, 0,
+                   fill_word, cp, 0, ct)
+    out = out.view(msgs.dtype)
+    if ct is not None:
+        ct = ct.view(counts_payload.dtype)
+    return out, ct

@@ -1,8 +1,9 @@
-"""Public wrappers for the direct-delivery kernel (``ops.py:33-135`` of the
+"""Public wrappers for the direct-delivery kernels (``ops.py:33-171`` of the
 JAX package).
 
-The kernel route is the default: :func:`deliver_tiles` launches the CUDA
-kernel on a CUDA tensor and runs its plain version on a CPU tensor.
+The kernel route is the default: :func:`deliver_tiles` and
+:func:`assemble_proc_tiles` launch their CUDA kernels on a CUDA tensor and
+run their plain versions on a CPU tensor.
 ``use_kernel=False`` takes the dense reference (:mod:`.ref`) instead — the
 seed implementation, kept so equivalence can be asserted end to end.
 """
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .alltoallv_deliver import deliver_tiles
+from .alltoallv_deliver import assemble_proc_tiles, deliver_tiles
 
 
 def check_fill_range(fill, dtype) -> None:
@@ -96,3 +97,26 @@ def deliver_fused(
     return _dispatch(
         msgs, None if fill is None else counts.to(torch.int32),
         counts_payload, fill=fill, use_kernel=use_kernel)
+
+
+def assemble_proc_fused(
+    msgs: torch.Tensor,                        # [s, P, d, ω] (any 4-byte dtype)
+    counts: Optional[torch.Tensor] = None,     # [s, P, d] int32 mask lengths
+    counts_payload: Optional[torch.Tensor] = None,  # [s, P, d] raw counts words
+    *,
+    fill=None,
+    use_kernel: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Mesh-path staging with the same fusions as :func:`deliver_fused`: the
+    chunk ``[s, P, d, ω]`` in destination order, ``out[p, d, j] = msgs[j,
+    p, d]`` (boundary mask applied at the source; transposed counts payload
+    as the fused second output).  Returns ``(out, ct)``."""
+    if fill is not None and counts is None:
+        raise ValueError("fill requires counts")
+    if fill is not None:
+        check_fill_range(fill, msgs.dtype)
+    counts = None if fill is None else counts.to(torch.int32)
+    if use_kernel:
+        return assemble_proc_tiles(msgs, counts, counts_payload, fill=fill)
+    from .ref import assemble_proc_ref
+    return assemble_proc_ref(msgs, counts, counts_payload, fill=fill)

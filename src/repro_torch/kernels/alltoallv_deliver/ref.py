@@ -33,3 +33,26 @@ def deliver_fused_ref(
     ct = (None if counts_payload is None
           else counts_payload.transpose(0, 1).contiguous())
     return out, ct
+
+
+def assemble_proc_ref(
+    msgs: torch.Tensor,                       # [s, P, d, ω]
+    counts: Optional[torch.Tensor] = None,    # [s, P, d]
+    counts_payload: Optional[torch.Tensor] = None,  # [s, P, d]
+    *,
+    fill=None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Oracle for :func:`..alltoallv_deliver.assemble_proc_tiles`: stage the
+    chunk into destination order — ``out[p, d, j] = msgs[j, p, d]`` — with
+    the optional source-side boundary mask and transposed counts payload."""
+    out = torch.movedim(msgs, 0, 2)           # [P, d, s, ω]
+    if fill is not None:
+        cm = torch.movedim(counts, 0, 2)      # [P, d, s]
+        lane = torch.arange(msgs.shape[-1], device=msgs.device)
+        out = torch.where(lane < cm[..., None], out,
+                          torch.tensor(fill, dtype=msgs.dtype,
+                                       device=msgs.device))
+    ct = None
+    if counts_payload is not None:
+        ct = torch.movedim(counts_payload, 0, 2).contiguous()
+    return out.contiguous(), ct

@@ -1,5 +1,5 @@
 """PSRS — Parallel Sorting by Regular Sampling (thesis Alg 8.3.1) on PEMS,
-device tier, ``P == 1``.
+device tier.
 
 Four virtual supersteps, exactly the thesis' structure:
 
@@ -281,7 +281,7 @@ def psrs_sort(
     """Sort int32 ``keys`` ([n], n divisible by v) with PSRS on PEMS.
 
     Same arguments and results as ``repro.pems_apps.psrs_sort``, on the
-    device tier at ``P == 1``.  ``mode`` selects PEMS2 direct delivery or the
+    device tier.  ``mode`` selects PEMS2 direct delivery or the
     PEMS1 indirect baseline for the final Alltoallv; ``cap`` is the
     per-(sender,dest) message capacity ω (defaults to the always-safe n/v)
     and ``rcap`` the per-receiver capacity (defaults to the PSRS guarantee
@@ -298,14 +298,20 @@ def psrs_sort(
     (the kernels launch there), ``"cpu"`` for the kernels' plain PyTorch
     versions.  The result is a tensor on that device.
 
+    ``P``/``mesh`` run the simulation over ``P`` real processors, each
+    owning ``v/P`` contexts: ``mesh`` is a
+    :func:`~repro_torch.core.make_mesh` of ``P`` entries on ``device``, and
+    the final Alltoallv's network phase is α-chunked over it (``alpha``,
+    Alg 7.1.3).  The output is bit-identical to the ``P == 1`` run.
+
     The backing tiers (``tier`` other than ``"device"``, ``backing_path``
-    and the ``io_*``/``fault_spec``/``checksums`` knobs), ``P > 1``
-    (``P``/``mesh``/``alpha``) and tracing (``trace``/``trace_path``) are
-    not ported yet and raise ``NotImplementedError`` naming the
-    ``ROADMAP.md`` item that brings each.
+    and the ``io_*``/``fault_spec``/``checksums`` knobs) and tracing
+    (``trace``/``trace_path``) are not ported yet and raise
+    ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings each.
 
     Raises ``ValueError`` for n not divisible by v (and for any invalid
-    :class:`~repro_torch.core.PemsConfig` combination), ``RuntimeError`` when
+    :class:`~repro_torch.core.PemsConfig` combination, or ``P > 1`` without
+    a mesh of ``P`` entries on ``device``), ``RuntimeError`` when
     CUDA is asked for and missing, and ``OverflowError`` when a bucket
     exceeds ``cap``/``rcap``.
     """

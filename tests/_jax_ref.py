@@ -11,6 +11,16 @@ without ``__contains__``, so the membership test at
 missing ``__contains__`` (membership in ``fancy_primitive_batchers``, where
 jax 0.9 registers the rule that test looks for) before anything imports the
 JAX package's apps.  Nothing under ``src/repro`` changes.
+
+The JAX package's ``P > 1`` paths need two more shims under jax 0.9, both
+for a process that started with several host devices
+(``--xla_force_host_platform_device_count``, set before jax starts):
+:func:`auto_mesh` builds the mesh with an ``Auto`` axis (``jax.make_mesh``
+now defaults to ``Explicit``, under which ``bcast``'s dynamic slice and the
+mesh Alltoallv's landing raise ``ShardingTypeError``), and
+:func:`enable_mesh` turns off ``shard_map``'s varying-axes check, which
+rejects the rounds' ``scan`` carry (``uint32[3]`` against
+``uint32[3]{V:vp}``).
 """
 
 from __future__ import annotations
@@ -42,8 +52,9 @@ import repro.pems_apps as apps  # noqa: E402
 # By name: the package re-exports a function of the module's own name.
 bitonic = importlib.import_module("repro.kernels.bitonic_sort.bitonic_sort")
 
-__all__ = ["apps", "bitonic", "bitonic_ops", "core", "deliver", "jax",
-           "jnp", "kway", "np_out", "psrs", "psrs_plan_run", "store_words"]
+__all__ = ["apps", "auto_mesh", "bitonic", "bitonic_ops", "core", "deliver",
+           "enable_mesh", "jax", "jnp", "kway", "np_out", "psrs",
+           "psrs_plan_run", "store_words"]
 
 
 def np_out(x):
@@ -77,3 +88,24 @@ def psrs_plan_run(keys: np.ndarray, v: int, upto: str, **kw):
         if name == upto:
             return pems, store
     raise ValueError(f"no stage {upto!r}")
+
+
+def auto_mesh(P: int):
+    """A ``P``-device mesh over the ``vp`` axis with an ``Auto`` axis type,
+    the sharding the JAX package's ``P > 1`` code was written for."""
+    return jax.make_mesh((P,), ("vp",),
+                         axis_types=(jax.sharding.AxisType.Auto,))
+
+
+def enable_mesh() -> None:
+    """Run the JAX package's ``shard_map`` calls with ``check_vma=False``.
+    Its executor and collectives fetch ``shard_map`` through
+    ``repro.core.executor._shard_map`` at call time, so wrapping that one
+    module attribute covers every ``P > 1`` path."""
+    import functools
+
+    import repro.core.executor as executor
+
+    shard_map = executor._shard_map()
+    executor._shard_map = lambda: functools.partial(shard_map,
+                                                    check_vma=False)

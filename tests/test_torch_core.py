@@ -15,7 +15,7 @@ import torch
 
 from _jax_ref import core as jcore, jnp, store_words
 from repro_torch import interop
-from repro_torch.core import ContextLayout, IOLedger, Pems, PemsConfig
+from repro_torch.core import ContextLayout, IOLedger, Mesh, Pems, PemsConfig
 
 V = 4
 
@@ -134,10 +134,14 @@ def test_executor_rejects_what_jax_rejects():
         p.superstep(st, _torch_stage, procs=[0])
     with pytest.raises(NotImplementedError, match="item 5"):
         p.init(tier="host")
+    # P > 1 runs on a one-device mesh; a mesh over several cards is not
+    # ported yet (ROADMAP.md queue 1 item 7b), whatever its axis name.
     with pytest.raises(NotImplementedError, match="item 7"):
-        Pems(PemsConfig(v=4), tl, mesh=object(), device="cpu")
+        Pems(PemsConfig(v=4, P=2), tl, mesh=Mesh(["cuda:0", "cuda:1"]),
+             device="cpu")
     with pytest.raises(NotImplementedError, match="item 7"):
-        PemsConfig(v=4, vp_axis="procs")
+        Pems(PemsConfig(v=4, P=2, vp_axis="procs"), tl,
+             mesh=Mesh(["cuda:0", "cuda:1"], ("procs",)), device="cpu")
 
 
 def test_pems_ledger_requires_the_jax_disk_space():

@@ -110,6 +110,57 @@ def test_psrs_on_the_card_matches_the_cpu_and_launches_every_kernel(cuda):
     assert torch.equal(got.cpu(), cpu)
 
 
+# (m, P, nq, s0, s, c0, d, ww): P of 1, 2 and 4, ragged ω and ω past one
+# block's 1024-word chunk, α-chunk offsets s0, c0 != 0.
+_ASSEMBLE = [(1, 1, 1, 0, 1, 0, 1, 1), (4, 2, 2, 0, 4, 0, 4, 127),
+             (4, 4, 4, 2, 2, 1, 1, 300), (4, 4, 3, 1, 3, 2, 2, 1030),
+             (2, 4, 4, 0, 2, 0, 2, 1)]
+
+
+@pytest.mark.parametrize("m, P, nq, s0, s, c0, d, ww", _ASSEMBLE)
+@pytest.mark.parametrize("fill", [None, -7, INT_MAX])
+@pytest.mark.parametrize("with_payload", [False, True])
+def test_assemble_kernel_matches_plain(cuda, m, P, nq, s0, s, c0, d, ww,
+                                       fill, with_payload):
+    dv = _kernel("alltoallv_deliver")
+    v = m * P
+    src = _keys((v, 9 + v * ww), cuda, v * ww)
+    # Counts of 0, of ω, past ω and negative.
+    cnt = torch.randint(-2, ww + 3, (v, v + 4), device=cuda,
+                        dtype=torch.int32)
+    cnt[0, 4:8] = torch.tensor([0, ww, ww + 5, -3], device=cuda)[:v]
+    outs = []
+    for fn in (dv.assemble_words, dv.assemble_words_plain):
+        out = torch.zeros(nq * P * d * s * ww, dtype=torch.int32,
+                          device=cuda)
+        ct = (torch.zeros(nq * P * d * s, dtype=torch.int32, device=cuda)
+              if with_payload else None)
+        fn(src, 9, m, P, nq, s0, s, c0, d, ww, out,
+           None if fill is None else cnt, 4, fill,
+           cnt if with_payload else None, 4, ct)
+        outs += [out, ct]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[2])
+    if with_payload:
+        assert torch.equal(outs[1], outs[3])
+
+
+def test_psrs_at_P4_on_the_card_matches_P1_and_launches_kernel_4(cuda):
+    from repro_torch.core import make_mesh
+    from repro_torch.pems_apps import psrs_sort
+
+    dv = _kernel("alltoallv_deliver")
+    keys = _keys((1 << 20,), cuda, 9)
+    want = psrs_sort(keys, v=16, k=2)
+    assert torch.equal(want, torch.sort(keys).values)
+    for driver, alpha in (("async", None), ("explicit", 1), ("sliced", 2)):
+        dv.ASSEMBLE_LAUNCHES = 0
+        got, pems = psrs_sort(keys, v=16, k=2, P=4, mesh=make_mesh(4),
+                              alpha=alpha, driver=driver, return_pems=True)
+        assert torch.equal(got, want)
+        assert dv.ASSEMBLE_LAUNCHES == pems.ledger.network_rounds > 0
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     bs = _kernel("bitonic_sort")
     with pytest.raises(TypeError, match="int32"):

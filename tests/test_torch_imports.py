@@ -66,6 +66,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.pems_apps.psrs, repro_torch.interop\n"
         "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.kernels.lru_scan\n"
+        "import repro_torch.core.mesh, repro_torch.core.analysis\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -82,10 +83,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
-    from repro_torch.core import ContextLayout, Pems, PemsConfig
+    from repro_torch.core import ContextLayout, Pems, PemsConfig, make_mesh
     from repro_torch.pems_apps import psrs_plan, psrs_sort
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh(4)
     keys = torch.arange(64, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         psrs_sort(keys, v=4)
@@ -111,8 +114,14 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
 ])
 def test_knobs_outside_the_slice_raise_and_name_their_roadmap_item(
         knob, value, item):
+    from repro_torch.core import Mesh
     from repro_torch.pems_apps import psrs_sort
 
     keys = torch.arange(64, dtype=torch.int32)
+    kw = {knob: value}
+    if knob in ("P", "alpha"):
+        # P > 1 runs on a one-device mesh; a mesh over several cards is
+        # still to come (ROADMAP.md queue 1 item 7b).
+        kw.update(P=2, mesh=Mesh(["cuda:0", "cuda:1"]))
     with pytest.raises(NotImplementedError, match=item):
-        psrs_sort(keys, v=4, device="cpu", **{knob: value})
+        psrs_sort(keys, v=4, device="cpu", **kw)
