@@ -47,10 +47,13 @@ What it does, in order; any failure raises and the exit code is non-zero:
    scan against their plain versions at the CPU tests' edge shapes, at
    qwen2's head dim 128 and at recurrentgemma's sliding window and head dim
    256 (float32, atol 1e-5; SSD within 1e-4 (1 + |plain|), LRU within
-   1e-5 (1 + |plain|)).  Runs the smoke-width qwen2-1.5b, mamba2-130m and
-   recurrentgemma-2b in float32 with TF32 off on the card and on the CPU
-   from the same parameters (40-token prompts, past recurrentgemma's smoke
-   window of 16): prefill logits within 1e-4, greedy tokens equal.
+   1e-5 (1 + |plain|)), then the same flash calls in bf16, on the
+   tensor-core kernel, within 2^-10 + 2^-7 |plain| (``sk_valid`` 0, 1 and
+   sk/2 + 1, decode ``q_offset``, windows 1, 16 and 100).  Runs the
+   smoke-width qwen2-1.5b, mamba2-130m and recurrentgemma-2b in float32
+   with TF32 off on the card and on the CPU from the same parameters
+   (40-token prompts, past recurrentgemma's smoke window of 16): prefill
+   logits within 1e-4, greedy tokens equal.
 8. Serves qwen2-1.5b, mamba2-130m and recurrentgemma-2b at full width
    (bf16, random weights from ``--seed``): ``REQUESTS`` (8) prompts of
    ``PROMPT_LEN`` (1024) tokens, or ``HYBRID_PROMPT_LEN`` (3072, so that
@@ -66,8 +69,9 @@ What it does, in order; any failure raises and the exit code is non-zero:
 9. Holds each float kernel against its plain version at the serve shapes
    (flash: qwen2's causal prefill over the cache and a decode call whose
    ``sk_valid`` is no tile multiple, and recurrentgemma's windowed ones,
-   bf16 within 2^-10 + 2^-7 |plain|: both sum in fp32 and round once, so
-   they differ by one bf16 ulp at most; SSD: the prompt length and a ragged
+   bf16 within 2^-10 + 2^-7 |plain|: both sum in fp32 and round once, the
+   kernel's P entering P·V as bf16 hi + lo, so they differ by one bf16 ulp
+   at most; SSD: the prompt length and a ragged
    one; LRU: the prompt length and a ragged one) and times it beside its
    plain version and ``scaled_dot_product_attention`` (never called by the
    port); the short decode calls, and their library calls, on the device
@@ -693,14 +697,15 @@ REQUESTS, PROMPT_LEN, GEN_LEN = 8, 1024, 64
 HYBRID_PROMPT_LEN = 3072
 # Flash attention edge shapes of tests/test_torch_flash_attention.py, in
 # [B, S, H, d] terms: (b, hq, hkv, sq, sk, d); the last two are at qwen2's
-# heads in fp32, a prefill and a decode call split over the keys.
+# heads, a prefill and a decode call split over the keys.  Each is checked in
+# fp32 and in bf16.
 FLASH_EDGES = [(2, 2, 2, 16, 16, 16), (1, 4, 2, 13, 29, 16),
                (2, 6, 1, 1, 37, 32), (1, 12, 2, 24, 24, 16),
                (2, 2, 1, 5, 70, 16), (2, 6, 2, 16, 32, 16),
                (2, 12, 2, 70, 150, 128), (2, 12, 2, 1, 1062, 128)]
 # Windowed flash edge shapes, (b, hq, hkv, sq, sk, d): recurrentgemma's heads
 # (10 of 256 over one KV head) in a prefill and a decode call, and smaller
-# ones; each is called with windows of 1, 16 and 100 (fp32).
+# ones; each is called with windows of 1, 16 and 100 (fp32 and bf16).
 FLASH_WINDOW_EDGES = [(2, 4, 1, 70, 90, 256), (1, 10, 1, 1, 300, 256),
                       (1, 10, 1, 4, 110, 256), (2, 6, 2, 33, 80, 64),
                       (1, 2, 2, 40, 40, 16)]
@@ -711,8 +716,9 @@ LRU_EDGES = [(1, 1, 1), (2, 1, 64), (2, 37, 64), (1, 300, 100),
 # SSD edge shapes of tests/test_torch_ssd_scan.py: (b, h, s, p, n).
 SSD_EDGES = [(1, 1, 1, 16, 16), (2, 3, 37, 16, 16), (1, 2, 64, 32, 32),
              (2, 2, 50, 32, 32), (1, 2, 40, 64, 64), (1, 2, 45, 64, 128)]
-# Both sides sum in fp32 and round once to bf16: one bf16 ulp of |plain|
-# (at most 2^-7 |plain|) apart, plus the fp32 sums' order near zero.
+# Both sides sum in fp32 and round once to bf16 (the kernel's P enters P·V as
+# bf16 hi + lo, exact to about 2^-16 p): one bf16 ulp of |plain| (at most
+# 2^-7 |plain|) apart, plus the fp32 sums' order near zero.
 BF16_RTOL, BF16_ATOL = 2**-7, 2**-10
 FP32_ATOL = 1e-5     # only the order of the float sums differs
 SSD_TOL = 1e-4       # |kernel - plain| <= 1e-4 (1 + |plain|), fp32
@@ -757,9 +763,15 @@ def lru_inputs(gen, b, s, d):
             torch.randn((b, s, d), generator=gen, device=dev))
 
 
-def lm_edge_checks(gen, fa, ss, ls) -> None:
+def flash_edge_checks(gen, fa, dtype, rtol: float, atol: float) -> int:
+    """Flash attention against its plain version at ``FLASH_EDGES`` and
+    ``FLASH_WINDOW_EDGES`` in ``dtype`` (float32 takes the FMA kernel,
+    bfloat16 the tensor-core kernel): causal and not, ``sk_valid`` 0, 1 and
+    sk/2 + 1, decode calls at ``q_offset``, windows of 1, 16 and 100.
+    Returns the number of calls checked."""
+    n = 0
     for b, hq, hkv, sq, sk, d in FLASH_EDGES:
-        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.float32)
+        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
         calls = [dict(causal=c) for c in (True, False)]
         calls += [dict(causal=c, sk_valid=kv) for c in (True, False)
                   for kv in (0, 1, sk // 2 + 1)]
@@ -767,9 +779,10 @@ def lm_edge_checks(gen, fa, ss, ls) -> None:
                   for pos in (0, sk // 3, sk - 1) if sq == 1]
         for kw in calls:
             close(fa.attend(q, k, v, **kw), fa.attend_plain(q, k, v, **kw),
-                  0, FP32_ATOL, f"flash {b, hq, hkv, sq, sk, d} {kw}")
+                  rtol, atol, f"flash {dtype} {b, hq, hkv, sq, sk, d} {kw}")
+            n += 1
     for b, hq, hkv, sq, sk, d in FLASH_WINDOW_EDGES:
-        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, torch.float32)
+        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
         for w in (1, 16, 100):
             calls = [dict(causal=False, sk_valid=sk - 3, q_offset=sk - sq)]
             calls += ([dict(causal=True, sk_valid=pos + 1, q_offset=pos)
@@ -778,7 +791,14 @@ def lm_edge_checks(gen, fa, ss, ls) -> None:
             for kw in calls:
                 kw["window"] = w
                 close(fa.attend(q, k, v, **kw), fa.attend_plain(q, k, v, **kw),
-                      0, FP32_ATOL, f"flash {b, hq, hkv, sq, sk, d} {kw}")
+                      rtol, atol,
+                      f"flash {dtype} {b, hq, hkv, sq, sk, d} {kw}")
+                n += 1
+    return n
+
+
+def lm_edge_checks(gen, fa, ss, ls) -> None:
+    flash_edge_checks(gen, fa, torch.float32, 0, FP32_ATOL)
     for shape in SSD_EDGES:
         args = ssd_inputs(gen, *shape)
         y, s_fin = ss.ssd_scan_chunked(*args)
@@ -1141,6 +1161,11 @@ def run_lm(dev: torch.device, args) -> list:
     lm_edge_checks(gen, fa, ss, ls)
     print(f"flash/ssd/lru edge checks: passed in "
           f"{time.perf_counter() - t0:.2f} s")
+    # The same flash calls in bf16, on the tensor-core kernel.
+    t0 = time.perf_counter()
+    n = flash_edge_checks(gen, fa, torch.bfloat16, BF16_RTOL, BF16_ATOL)
+    print(f"flash bf16 edge checks: {n} calls within 2^-10 + 2^-7 |plain|, "
+          f"passed in {time.perf_counter() - t0:.2f} s")
     glue_check(dev, args.seed)
     qwen = serve_full(dev, "qwen2-1.5b", ("flash_attention",), mods, args)
     mamba = serve_full(dev, "mamba2-130m", ("ssd_scan",), mods, args)

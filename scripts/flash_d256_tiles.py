@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The flash kernel's prefill tile at head dim 256: 32 query rows or 64.
+"""The bf16 flash kernel's key tile at head dim 256: 32 keys or 64.
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -7,20 +7,21 @@ CUDA toolkit:
     python3 scripts/flash_d256_tiles.py
 
 Compiles ``src/repro_torch/csrc/flash_attention.cu`` as the port builds it
-(32-row prefill tiles, RT 2, at head dim 256) and a copy whose head-dim-256
-prefill tile has 64 rows (RT 4, the tile of the smaller head dims), prints
-what ``ptxas -v`` reports for each head-dim-256 kernel (registers, spill
-stores and loads), then times both at recurrentgemma-2b's windowed prefill
-(q [8, 3072, 10, 256] bf16 over a [8, 3144, 1, 256] cache, causal, window
-2048) in one process, in turns (32, 64, 64, 32), and checks that they give
-the same output.  Builds go to ``build/`` in the checkout.
+and prints what ``ptxas -v`` reports (registers, spill stores and loads) for
+every instantiation: the tensor-core kernel ``flash_mma_kernel<D, BK,
+decode>`` (bf16) and the FMA kernel ``flash_kernel<float, D, RT>``.  Then
+times recurrentgemma-2b's windowed prefill (q [8, 3072, 10, 256] bf16 over a
+[8, 3144, 1, 256] cache, causal, window 2048) with 32-key and 64-key tiles
+(the kernel is built for both; the wrapper's ``D256_PREFILL_BK`` picks one)
+in one process, in turns (32, 64, 64, 32), and holds each tile's output to
+the plain version within 2^-10 + 2^-7 |plain|.  The object goes to
+``build/`` in the checkout.
 """
 
 from __future__ import annotations
 
 import importlib
 import re
-import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -28,39 +29,32 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-BUILT = "RT == (D == 256 ? 2 : 4)"   # the tile choice in flash_attention.cu
 
 
-def rows64_sources(dst: Path, build) -> Path:
-    """A copy of the kernel sources whose head-dim-256 prefill tile has 64
-    rows."""
-    dst.mkdir(parents=True, exist_ok=True)
-    for name in build.SOURCES:
-        shutil.copy(build.CSRC / name, dst / name)
-    src = (dst / "flash_attention.cu").read_text()
-    if BUILT not in src:
-        raise RuntimeError(f"{BUILT!r} is no longer in flash_attention.cu: "
-                           "update this script to the kernel's tile choice")
-    (dst / "flash_attention.cu").write_text(src.replace(BUILT, "RT == 4"))
-    return dst
-
-
-def ptxas_lines(build, source: Path, obj: Path) -> list:
-    """``ptxas -v``'s registers and spills for each head-dim-256 kernel."""
+def ptxas_lines(build, obj: Path) -> list:
+    """``ptxas -v``'s registers and spills for each flash kernel."""
     out = subprocess.run([build._nvcc(), *build.FLAGS, "-Xptxas", "-v", "-c",
-                          str(source), "-o", str(obj)], capture_output=True,
-                         text=True, check=True)
+                          str(build.CSRC / "flash_attention.cu"), "-o",
+                          str(obj)], capture_output=True, text=True,
+                         check=True)
     lines, name = [], None
     for line in (out.stdout + out.stderr).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
             continue
-        m = re.search(r"flash_kernelI(13__nv_bfloat16|f)Li256ELi(\d)E", name or "")
-        if m and ("registers" in line or "spill" in line):
-            dtype = "bf16" if m.group(1) != "f" else "fp32"
-            lines.append(f"{dtype} {16 * int(m.group(2))}-row tile: "
-                         f"{line.split(':', 1)[-1].strip()}")
+        if not name or ("registers" not in line and "spill" not in line):
+            continue
+        mma = re.search(r"flash_mma_kernelILi(\d+)ELi(\d+)ELb([01])E", name)
+        fma = re.search(r"flash_kernelIfLi(\d+)ELi(\d)E", name)
+        if mma:
+            what = (f"bf16 D {mma.group(1)}, BK {mma.group(2)}, "
+                    f"{'decode' if mma.group(3) == '1' else 'prefill'}")
+        elif fma:
+            what = f"fp32 D {fma.group(1)}, {16 * int(fma.group(2))} rows"
+        else:
+            continue
+        lines.append(f"{what}: {line.split(':', 1)[-1].strip()}")
     return lines
 
 
@@ -75,24 +69,11 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-
     work = ROOT / "build" / "d256_tiles"
-    csrc64 = rows64_sources(work / "csrc64", build)
-    for tag, src in (("built", build.CSRC), ("64-row copy", csrc64)):
-        print(f"ptxas -v, {tag}:")
-        for line in ptxas_lines(build, src / "flash_attention.cu",
-                                work / f"{tag.split()[0]}.o"):
-            print("  " + line)
-
-    libs = {32: build.library()}
-    build.CSRC, build._lib = csrc64, None
-    libs[64] = build.library()
-    plan = fa._plan
-
-    def use(rows: int) -> None:
-        build._lib = libs[rows]
-        fa._plan = lambda *a: (
-            (rows, *plan(*a)[1:]) if plan(*a)[0] == 32 else plan(*a))
+    work.mkdir(parents=True, exist_ok=True)
+    print("ptxas -v:")
+    for line in ptxas_lines(build, work / "flash_attention.o"):
+        print("  " + line)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -101,25 +82,30 @@ def main() -> int:
     k, v = (torch.randn((b, cache, hkv, d), generator=gen,
                         device=dev).bfloat16() for _ in range(2))
     kw = dict(causal=True, sk_valid=s, window=w)
-    outs, ms = {}, {32: [], 64: []}
-    for rows in (32, 64, 64, 32):
-        use(rows)
-        outs[rows] = fa.attend(q, k, v, **kw)
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(5):
-            fa.attend(q, k, v, **kw)
-        end.record()
-        end.synchronize()
-        ms[rows].append(start.elapsed_time(end) / 5)
-    same = torch.equal(outs[32], outs[64])
-    for rows in (32, 64):
-        print(f"{rows}-row tiles: {', '.join(f'{t:.3f}' for t in ms[rows])} "
-              f"ms a call (5 calls each turn)")
-    print(f"outputs equal: {same}")
-    return 0 if same else 1
+    want = fa.attend_plain(q, k, v, **kw).float()
+    built = fa.D256_PREFILL_BK
+    ms, ok = {32: [], 64: []}, True
+    try:
+        for bk in (32, 64, 64, 32):
+            fa.D256_PREFILL_BK = bk
+            got = fa.attend(q, k, v, **kw).float()
+            err = (got - want).abs()
+            ok &= bool((err <= 2**-10 + 2**-7 * want.abs()).all())
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(5):
+                fa.attend(q, k, v, **kw)
+            end.record()
+            end.synchronize()
+            ms[bk].append(start.elapsed_time(end) / 5)
+    finally:
+        fa.D256_PREFILL_BK = built
+    for bk in (32, 64):
+        print(f"{bk}-key tiles: {', '.join(f'{t:.4f}' for t in ms[bk])} ms a "
+              f"call (5 calls each turn){' (built)' if bk == built else ''}")
+    print(f"both within 2^-10 + 2^-7 |plain|: {ok}")
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

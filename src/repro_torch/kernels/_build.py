@@ -49,9 +49,9 @@ _SIGNATURES = {
     "repro_assemble_proc_words": "ipii" "iiiiiiii" "p" "piii" "pii" "p" "p",
     # device, q, q strides (b, s, h), k, k strides, v, v strides, o,
     # o strides, part, batch, sq, sk, hq, hkv, d, sk_valid, q_offset,
-    # causal, window, dtype, bq, splits, split_len, scale, stream
+    # causal, window, dtype, bq, bk, splits, split_len, scale, stream
     "repro_flash_attention": "i" "piii" "piii" "piii" "piii" "p"
-                             "iiiiiiiiiiiiii" "f" "p",
+                             "iiiiiiiiiiiiiii" "f" "p",
     # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
     # B strides (b, s), C, C strides (b, s), y, y strides (b, h, s), s_fin,
     # batch, heads, seq, n, p, stream

@@ -17,9 +17,20 @@ H, d]`` KV cache is attended in place.  When the row tiles alone give too few
 blocks to fill the card, as in decode, the live keys are cut into ranges, one
 block each, and a second launch merges their partial results (:func:`_plan`
 decides; flash-decoding's split).  Head dims 16, 32, 64, 128 and 256 are
-built.  Inputs are float32 or bfloat16; the sums are float32 and the output
-has the input type, as on the TPU.  What bounds it and why it is far from
-that bound is in the source's note.
+built.
+
+bfloat16, what the model serves in, runs on the tensor cores: ``mma.sync``
+products of bf16 fragments summed in float32, 64 query rows (4 warps of 16)
+over 64-key tiles (32 at head dim 256, :data:`D256_PREFILL_BK`), K/V tiles
+copied asynchronously two stages ahead, and in decode one 16-row tile whose
+4 warps take a quarter of each key tile.  The probabilities go into P·V as
+two bf16 parts, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, so the output
+still differs from :func:`attend_plain` by its rounding to bf16 alone.  The
+kernel's 16-byte copies need bf16 tensors that start on 16 bytes with
+strides in multiples of 8 elements; anything else raises.  float32 keeps an
+FMA kernel whose sums are float32 too.  The output has the input type, as on
+the TPU.  What bounds each and what its design does about it is in the
+source's note.
 
 :func:`attend` is the entry: ``[B, Sq, Hq, d]`` queries over ``[B, Sk, Hkv,
 d]`` keys and values, with ``q_offset`` (the absolute position of query row
@@ -35,6 +46,7 @@ signature for the parity tests only.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -44,7 +56,9 @@ from .._build import launch, ptr
 LAUNCHES = 0   # calls of attend that launched the CUDA kernel
 HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the CUDA kernel is built for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BK = 32   # keys per KV tile of the CUDA kernel
+# Keys per K/V tile of the bf16 prefill kernel at head dim 256; the kernel is
+# built for 32 and 64 (``scripts/flash_d256_tiles.py`` compares them).
+D256_PREFILL_BK = 32
 
 
 def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -114,11 +128,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in HEAD_DIMS:
         raise ValueError(f"attend: the kernel is built for head dims "
                          f"{HEAD_DIMS}, got {d}")
-    # The live keys: from the tile holding the first key row 0 may see
-    # (the kernel's k_base) to the last valid key.
-    lo = _BK * (max(0, q_offset - window + 1) // _BK) if window else 0
-    bq, splits, split_len = _plan(q.device, b, sq * (hq // hkv), hkv, d,
-                                  max(0, min(max(sk_valid, 0), sk) - lo))
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_aligned(name, t)
+    bq, bk, splits, split_len = _plan(
+        _sms(q.device), q.dtype, b, sq * (hq // hkv), hkv, d, sk=sk,
+        sk_valid=sk_valid, q_offset=q_offset, window=window)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     part = (torch.empty((splits, b, hkv, sq * (hq // hkv), d + 2),
                         dtype=torch.float32, device=q.device)
@@ -127,26 +142,70 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            ptr(q), *q.stride()[:3], ptr(k), *k.stride()[:3],
            ptr(v), *v.stride()[:3], ptr(out), *out.stride()[:3], ptr(part),
            b, sq, sk, hq, hkv, d, sk_valid, q_offset, int(bool(causal)),
-           window, _DTYPES[q.dtype], bq, splits, split_len, scale)
+           window, _DTYPES[q.dtype], bq, bk, splits, split_len, scale)
     LAUNCHES += 1
     return out
 
 
-def _plan(device: torch.device, b: int, rows: int, hkv: int, d: int,
-          keys: int) -> tuple[int, int, int]:
-    """The kernel's launch plan: query-row tile ``bq`` (16 when a (batch, KV
-    head) has no more rows, as in decode, else 64, or 32 at head dim 256),
-    and the ``keys`` live keys cut into ``splits`` ranges of ``split_len`` (a
-    multiple of the 32-key tile) so that there are about two blocks per SM
-    when the row tiles alone are too few."""
-    bq = 16 if rows <= 16 else (32 if d == 256 else 64)
+def _check_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise unless bf16 ``t`` suits the kernel's 16-byte asynchronous
+    copies: its data 16-byte aligned and its batch, position and head strides
+    (of the dims longer than 1) multiples of 8 elements."""
+    strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
+    if t.data_ptr() % 16 or any(st % 8 for st in strides):
+        raise ValueError(
+            f"attend: bf16 {name} must start on a 16-byte boundary with its "
+            f"batch, position and head strides multiples of 8 elements, got "
+            f"an address {t.data_ptr() % 16} bytes past one and strides "
+            f"{tuple(t.stride())}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tiles(dtype: torch.dtype, d: int, rows: int) -> tuple[int, int]:
+    """The kernel's tile of query rows and keys, ``(bq, bk)``, for ``rows``
+    query rows per (batch, KV head).  bf16 (tensor cores): 16 rows when
+    there are no more (decode) over 64-key tiles, else 64 rows over 64-key
+    tiles (:data:`D256_PREFILL_BK` at head dim 256).  float32 (FMA): 32-key
+    tiles, 16 rows, else 64, or 32 at head dim 256."""
+    if dtype == torch.bfloat16:
+        if rows <= 16:
+            return 16, 64
+        return 64, (D256_PREFILL_BK if d == 256 else 64)
+    return (16 if rows <= 16 else (32 if d == 256 else 64)), 32
+
+
+def _key_base(q_offset: int, window: int, bk: int) -> int:
+    """The first key the kernel's splits start from: the ``bk``-key tile
+    holding the first key query row 0 may see (0 without a window)."""
+    return bk * (max(0, q_offset - window + 1) // bk) if window else 0
+
+
+def _plan(sms: int, dtype: torch.dtype, b: int, rows: int, hkv: int, d: int,
+          *, sk: int, sk_valid: int, q_offset: int = 0,
+          window: int = 0) -> tuple[int, int, int, int]:
+    """The kernel's launch plan on a card of ``sms`` SMs: its tile
+    ``(bq, bk)`` (:func:`_tiles`), and the live keys, from
+    :func:`_key_base` to the last valid one, cut into ``splits`` ranges of
+    ``split_len`` keys (a multiple of ``bk``) when the row tiles alone give
+    fewer than ``sms`` blocks: the longest ranges of whole tiles that still
+    give at least ``sms`` blocks, where there are key tiles enough (fewer
+    ranges, fewer partial results for the merge to read).  One range
+    (``splits`` 1, ``split_len`` 0) takes every key."""
+    bq, bk = _tiles(dtype, d, rows)
+    keys = max(0, min(max(sk_valid, 0), sk) - _key_base(q_offset, window, bk))
     blocks = -(-rows // bq) * hkv * b
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    kv_tiles = -(-keys // _BK)
+    kv_tiles = -(-keys // bk)
     if blocks >= sms or kv_tiles <= 1:
-        return bq, 1, 0
-    per = -(-kv_tiles // min(kv_tiles, -(-2 * sms // blocks)))
-    return bq, -(-kv_tiles // per), per * _BK
+        return bq, bk, 1, 0
+    # ceil(kv_tiles / per) >= want  <=>  per <= (kv_tiles - 1) // (want - 1)
+    want = -(-sms // blocks)
+    per = max(1, (kv_tiles - 1) // (want - 1))
+    return bq, bk, -(-kv_tiles // per), per * bk
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

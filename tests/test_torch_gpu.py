@@ -174,7 +174,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # The serving path's float kernels: flash attention and the SSD scan.         #
 # fp32 cases compare within atol 1e-5 (the kernels sum in another order);     #
 # bf16 outputs within 2^-10 + 2^-7 |plain|: kernel and plain both sum in fp32 #
-# and round once to bf16, so they differ by one bf16 ulp at most.            #
+# and round once to bf16 (the kernel's P enters P·V as bf16 hi + lo, exact to #
+# about 2^-16), so they differ by one bf16 ulp at most.                       #
 # --------------------------------------------------------------------------- #
 
 # (b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, dtype)
@@ -189,6 +190,17 @@ _ATTN = [
     (3, 5, 70, 2, 2, 32, False, 33, 0, torch.float32),
     (1, 3, 80, 4, 1, 32, True, 61, 58, torch.float32),
     (1, 1, 100, 6, 1, 64, False, 0, 0, torch.float32),
+    # bf16 on the tensor cores: ragged row counts (74, 600, 5, 12, 420),
+    # groups 1, 2, 4, 6 and head dims 16, 32, 64, 128; sk_valid 0; a decode
+    # call split over the keys whose causal end (position 50) leaves every
+    # split past the first unseen (l = 0 into the merge).
+    (2, 37, 37, 4, 2, 16, True, 37, 0, torch.bfloat16),
+    (2, 100, 130, 6, 1, 64, True, 90, 0, torch.bfloat16),
+    (3, 5, 70, 2, 2, 32, False, 33, 0, torch.bfloat16),
+    (1, 3, 80, 4, 1, 32, True, 61, 58, torch.bfloat16),
+    (1, 1, 100, 6, 1, 64, False, 0, 0, torch.bfloat16),
+    (2, 70, 150, 12, 2, 128, True, 76, 5, torch.bfloat16),
+    (2, 1, 320, 6, 1, 128, True, 300, 50, torch.bfloat16),
 ]
 
 
@@ -225,6 +237,17 @@ _WINDOWED = [
     (1, 1, 40, 10, 1, 256, True, 40, 39, 64, torch.float32),
     (2, 33, 80, 6, 2, 64, False, 70, 10, 20, torch.float32),
     (1, 40, 40, 2, 2, 16, True, 40, 0, 1, torch.float32),
+    # bf16: window edges inside a key tile, ragged row counts (280, 198,
+    # 40, 600), groups 1, 3, 4, 6 and 10, head dims 16, 64, 128 and 256; in
+    # the call with 8 query rows of 10 heads, the second row tile sees no
+    # key of the first split.
+    (2, 70, 90, 4, 1, 256, True, 90, 20, 16, torch.bfloat16),
+    (1, 8, 120, 10, 1, 256, True, 108, 100, 8, torch.bfloat16),
+    (1, 4, 110, 10, 1, 256, True, 104, 100, 8, torch.bfloat16),
+    (1, 1, 40, 10, 1, 256, True, 40, 39, 64, torch.bfloat16),
+    (2, 33, 80, 6, 2, 64, False, 70, 10, 20, torch.bfloat16),
+    (1, 40, 40, 2, 2, 16, True, 40, 0, 1, torch.bfloat16),
+    (2, 50, 200, 12, 2, 128, True, 200, 150, 37, torch.bfloat16),
 ]
 
 
@@ -244,6 +267,26 @@ def test_windowed_flash_attention_kernel_matches_plain(cuda, case):
     want = fa.attend_plain(q, k, v, **kw)
     rtol, atol = (0, 1e-5) if dtype == torch.float32 else (2**-7, 2**-10)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_bf16_flash_attention_rejects_misaligned_tensors(cuda):
+    """The tensor-core kernel copies K/V tiles in 16-byte pieces: a bf16
+    tensor whose data or strides are not 16-byte aligned raises, and
+    launches nothing."""
+    fa = _kernel("flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((2, 8, 4, 128), generator=g, device=cuda).bfloat16()
+    kv = torch.randn((2, 8, 2, 128), generator=g, device=cuda).bfloat16()
+    wide = torch.randn((2, 8, 2, 130), generator=g, device=cuda).bfloat16()
+    wide_q = torch.randn((2, 8, 4, 136), generator=g,
+                         device=cuda).bfloat16()
+    before = fa.LAUNCHES
+    for qq, k, v in ((q, wide[..., :128], kv),        # k: head stride 130
+                     (q[:, :1], kv, wide[..., 2:]),   # v: 4 bytes past 16
+                     (wide_q[..., 4:132], kv, kv)):   # q: 8 bytes past 16
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.attend(qq, k, v, causal=True)
+    assert fa.LAUNCHES == before
 
 
 @pytest.mark.parametrize("b, s, d", [(1, 1, 1), (2, 37, 64), (1, 300, 100),
