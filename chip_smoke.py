@@ -12,8 +12,10 @@ What it does, in order; any failure raises and the exit code is non-zero:
 2. Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all started together) and prints the build seconds.
 3. Holds each kernel against its plain PyTorch version on the card at edge
-   shapes (ragged widths, empty and full counts, extreme and duplicate keys,
-   tiles up to and past one shared-memory segment; for the mesh staging,
+   shapes (ragged widths, empty and full counts, extreme, duplicate and
+   all-equal keys, rows and tiles up to and past one shared-memory segment,
+   where the local sort turns from the bitonic pass to the radix kernel, and
+   radix rows of several tiles, strided; for the mesh staging,
    kernel 4, P of 1, 2 and 4, counts of 0, of ω, past ω and negative, fills
    None, -7 and INT_MAX with and without the counts payload, α-chunk
    offsets, and a float32 payload).  Equality is exact.
@@ -33,7 +35,7 @@ What it does, in order; any failure raises and the exit code is non-zero:
    real processors of a one-card mesh, k = ``MESH_K`` (2), unchunked under
    the async driver and α-chunked (α = 1) under the explicit driver.  Each
    run resets every kernel count just before it; its output must equal
-   ``torch.sort`` and the ``P == 1`` run, the bitonic, tile and mesh
+   ``torch.sort`` and the ``P == 1`` run, the local sort, tile and mesh
    staging (kernel 4) counts must be above zero, and kernel 4's launches
    and ``pems.ledger.network_rounds`` must equal the closed form of
    ``repro_torch.core.analysis``.  Times both plans stage by stage, prints
@@ -84,10 +86,12 @@ move (each input read once, each output written once) over the H100 SXM's
 3.35 TB/s of HBM bandwidth, and the operations it must do over the card's
 rate for their type: int32 16.7 T/s (132 SMs x 64 int32 lanes x 1.98 GHz;
 the data sheet gives no int32 figure), bf16 989 TFLOP/s on the tensor
-cores, fp32 67 TFLOP/s outside them (no tensor core runs exact fp32).  For a sort the operations are the comparisons any
-comparison sort needs, log2(n!) per row of n; the bitonic network's own
-min/max count describes the algorithm, not the function, and is printed
-beside it for information.
+cores, fp32 67 TFLOP/s outside them, and fp32 to fp32 accuracy on the
+tensor cores as 3xTF32 (three TF32 products a product, the SSD kernel's
+way) at a third of dense TF32's 494.7 TFLOP/s.  For a sort the operations
+are the comparisons any comparison sort needs, log2(n!) per row of n; the
+k-way merge tiles' bitonic network's own min/max count describes the
+algorithm, not the function, and is printed beside it for information.
 """
 
 from __future__ import annotations
@@ -110,6 +114,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
 BF16_FLOPS_PER_S = 989e12   # dense bf16 on the tensor cores
 FP32_FLOPS_PER_S = 67e12    # fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 494.7e12  # dense TF32 on the tensor cores
+# fp32 work done as 3xTF32: three TF32 products for each one
+TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 
 
 # Kernel 4 (the P > 1 mesh staging) edge shapes, as assemble_words takes
@@ -136,6 +143,8 @@ def rand_int32(shape, gen, kind="random"):
     elif kind == "dups":
         x = torch.randint(0, 4, shape, generator=gen, device=dev,
                           dtype=torch.int64)
+    elif kind == "equal":                   # one bin holds the whole row
+        x = torch.full(shape, -3, device=dev, dtype=torch.int64)
     else:                                   # extremes
         pool = torch.tensor([INT_MIN, INT_MIN + 1, -1, 0, 1, INT_MAX - 1,
                              INT_MAX], device=dev)
@@ -196,16 +205,22 @@ def edge_checks(gen, kern) -> None:
     bs, km, dv = kern["bitonic"], kern["kway"], kern["deliver"]
     from repro_torch.kernels.bitonic_sort import bitonic_sort
     from repro_torch.kernels.kway_merge import kway_merge, kway_merge_ref
+    # The local sort: one shared-memory bitonic pass up to 2^13 keys a row,
+    # the radix kernel past it (2^14), over several tiles (2^16, 2^17).
     for rows, n in [(1, 1), (1, 2), (3, 8), (2, 1024), (2, 8192),
-                    (2, 16384), (3, 1 << 17)]:
-        for kind in ("random", "dups", "extremes"):
+                    (2, 16384), (3, 1 << 16), (3, 1 << 17)]:
+        for kind in ("random", "dups", "extremes", "equal"):
             x = rand_int32((rows, n), gen, kind)
             y = bs.bitonic_sort_rows(x)
-            same(y, bs.bitonic_network(x), f"bitonic {rows}x{n}")
-            same(y, torch.sort(x, dim=-1).values, f"bitonic ref {rows}x{n}")
-    wide = rand_int32((3, 3000), gen)                   # strided rows
-    same(bs.bitonic_sort_rows(wide[:, 100:2148]),
-         bs.bitonic_network(wide[:, 100:2148]), "bitonic strided")
+            same(y, bs.radix_sort_plain(x), f"local sort {rows}x{n} {kind}")
+            same(y, torch.sort(x, dim=-1).values,
+                 f"local sort ref {rows}x{n} {kind}")
+    for n in (2048, 1 << 16):                           # strided rows
+        wide = rand_int32((3, n + 300), gen)[:, 100:100 + n]
+        same(bs.bitonic_sort_rows(wide), bs.radix_sort_plain(wide),
+             f"local sort strided n={n}")
+        same(bs.bitonic_sort_rows(wide), torch.sort(wide, dim=-1).values,
+             f"local sort strided ref n={n}")
     x = rand_int32((2, 1000), gen, "extremes")          # padded to 1024
     same(bitonic_sort(x), torch.sort(x, dim=-1).values, "ops.sort n=1000")
     for tile in (2, 8, 256, 8192, 16384):
@@ -480,20 +495,22 @@ def run(dev: torch.device, args) -> list:
     store = load(keys.reshape(v, n_v))
     x = store.field("data")[:k]
     check(x.stride(0) == lo.words, f"strided rows ({x.stride()})")
-    err = same(bs.bitonic_sort_rows(x), bs.bitonic_network(x),
-               "bitonic main path")
+    got = bs.bitonic_sort_rows(x)
+    err = max(same(got, bs.radix_sort_plain(x), "radix main path"),
+              same(got, torch.sort(x, dim=-1).values,
+                   "radix main path == torch.sort"))
+    del got
     b_ms, b_by = bound(8 * x.numel(), sort_ops(k, n_v))
     rows.insert(0, dict(
-        name="bitonic_sort", route="cuda",
-        source="src/repro_torch/csrc/bitonic_sort.cu",
+        name="radix_sort", route="cuda",
+        source="src/repro_torch/csrc/radix_sort.cu",
         replaces="src/repro/kernels/bitonic_sort/bitonic_sort.py:44",
         launches=launches["bitonic"], max_abs_err=err,
         ms=cuda_ms(lambda: bs.bitonic_sort_rows(x), reps),
-        plain_ms=cuda_ms(lambda: bs.bitonic_network(x), 2),
+        plain_ms=cuda_ms(lambda: bs.radix_sort_plain(x), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.sort(x, dim=-1), reps),
-        shape=f"[{k}, {n_v}] int32, row stride {x.stride(0)}",
-        network=network_ops(k, n_v)))
+        shape=f"[{k}, {n_v}] int32, row stride {x.stride(0)}"))
     del store, x, pems, load, steps, extract
     torch.cuda.empty_cache()
 
@@ -558,7 +575,7 @@ def run(dev: torch.device, args) -> list:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
               f"library {lib} ms")
         if "network" in r:
-            print(f"  bitonic network: {r['network']:.4g} min/max, "
+            print(f"  tile bitonic network: {r['network']:.4g} min/max, "
                   f"{r['network'] / INT32_OPS_PER_S * 1e3:.4f} ms at the "
                   "int32 rate (the algorithm's work, not the function's)")
     script_peak = max(script_peak, torch.cuda.max_memory_allocated())
@@ -714,8 +731,12 @@ FLASH_WINDOW_EDGES = [(2, 4, 1, 70, 90, 256), (1, 10, 1, 1, 300, 256),
 LRU_EDGES = [(1, 1, 1), (2, 1, 64), (2, 37, 64), (1, 300, 100),
              (2, 37, 256), (3, 17, 2560)]
 # SSD edge shapes of tests/test_torch_ssd_scan.py: (b, h, s, p, n).
+# and mamba2's (N 128, P 64) at one kernel chunk (64 steps; 128 is built
+# too) and one step past it.
 SSD_EDGES = [(1, 1, 1, 16, 16), (2, 3, 37, 16, 16), (1, 2, 64, 32, 32),
-             (2, 2, 50, 32, 32), (1, 2, 40, 64, 64), (1, 2, 45, 64, 128)]
+             (2, 2, 50, 32, 32), (1, 2, 40, 64, 64), (1, 2, 45, 64, 128),
+             (1, 2, 64, 64, 128), (1, 2, 65, 64, 128), (1, 2, 128, 64, 128),
+             (1, 2, 129, 64, 128)]
 # Both sides sum in fp32 and round once to bf16 (the kernel's P enters P·V as
 # bf16 hi + lo, exact to about 2^-16 p): one bf16 ulp of |plain| (at most
 # 2^-7 |plain|) apart, plus the fp32 sums' order near zero.
@@ -805,6 +826,21 @@ def lm_edge_checks(gen, fa, ss, ls) -> None:
         y_p, s_p = ss.ssd_chunked_plain(*args, 128)
         close(y, y_p, SSD_TOL, SSD_TOL, f"ssd y {shape}")
         close(s_fin, s_p, SSD_TOL, SSD_TOL, f"ssd S_fin {shape}")
+    # x, B and C as column slices of one projection whose rows are not
+    # 16-byte aligned (the kernel's 4-byte copies), as the model slices them.
+    b, h, s, p, n = 2, 3, 70, 64, 128
+    x, dt, A, B, C = ssd_inputs(gen, b, h, s, p, n)
+    proj = torch.zeros((b, s, h * p + 2 * n + 3), device=gen.device)
+    proj[..., 1:1 + h * p] = x.transpose(1, 2).reshape(b, s, h * p)
+    proj[..., 1 + h * p:1 + h * p + n] = B
+    proj[..., 1 + h * p + n:1 + h * p + 2 * n] = C
+    views = (proj[..., 1:1 + h * p].reshape(b, s, h, p).transpose(1, 2), dt,
+             A, proj[..., 1 + h * p:1 + h * p + n],
+             proj[..., 1 + h * p + n:1 + h * p + 2 * n])
+    y, s_fin = ss.ssd_scan_chunked(*views)
+    y_p, s_p = ss.ssd_chunked_plain(x, dt, A, B, C, 128)
+    close(y, y_p, SSD_TOL, SSD_TOL, "ssd y, unaligned views")
+    close(s_fin, s_p, SSD_TOL, SSD_TOL, "ssd S_fin, unaligned views")
     for b, s, d in LRU_EDGES:
         a, x = lru_inputs(gen, b, s, d)
         wide = torch.zeros((b, s, 2 * d), device=gen.device)   # strided a
@@ -1077,7 +1113,9 @@ def lm_kernel_rows(gen, fa, ss, ls, launches, args) -> list:
     x, dt, A, B, C = main
     nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
                   + C.numel() + b * h * n * p)
-    b_ms, b_by = bound(nbytes, 4 * n * p * b * h * s, FP32_FLOPS_PER_S)
+    # The recurrence's 4 N P operations a step and head, in fp32 accuracy on
+    # the tensor cores: 3xTF32 does them at a third of TF32's rate.
+    b_ms, b_by = bound(nbytes, 4 * n * p * b * h * s, TF32X3_FLOPS_PER_S)
     rows.append(dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/ssd_scan.py:78",

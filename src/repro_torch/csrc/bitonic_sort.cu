@@ -1,47 +1,37 @@
-// Bitonic sorting networks for Hopper (sm_90a): the PSRS local sort and the
-// k-way merge's tile sort.
+// Bitonic sorting networks for Hopper (sm_90a): the k-way merge's tile sort,
+// and the PSRS local sort of rows that fit one shared-memory segment.
 //
-// Replaces two TPU kernels of the JAX package:
-//   * bitonic_sort_rows (src/repro/kernels/bitonic_sort/bitonic_sort.py:44,
-//     body _bitonic_kernel :22) — entry point repro_bitonic_sort_rows;
-//   * merge_tile_grid (src/repro/kernels/kway_merge/kway_merge.py:65, body
-//     _kway_merge_kernel :61, network sort_tile_rows :35) — entry point
-//     repro_kway_tile_sort.
-// Both TPU kernels run the same network: for stage = 0 .. log2(n)-1 and
+// Replaces the TPU kernel merge_tile_grid
+// (src/repro/kernels/kway_merge/kway_merge.py:65, body _kway_merge_kernel
+// :61, network sort_tile_rows :35) — entry point repro_kway_tile_sort.  The
+// TPU kernel runs a bitonic network: for stage = 0 .. log2(n)-1 and
 // sub = stage .. 0, elements i and i + 2^sub (bit sub of i clear) are
 // compare-exchanged, ascending iff bit (stage+1) of i is 0
-// (bitonic_sort.py:31-35).
+// (src/repro/kernels/bitonic_sort/bitonic_sort.py:31-35).  The PSRS local
+// sort (TPU kernel bitonic_sort_rows, bitonic_sort.py:44) is the radix sort
+// of radix_sort.cu; a row of 2^13 keys or fewer takes this file's one
+// shared-memory pass instead (entry repro_bitonic_sort_rows).
 //
-// Design.  The TPU kernel keeps a whole row in VMEM.  A full-scale PSRS row is
-// 2^23 int32 (32 MiB), far beyond the 227 KB of shared memory a Hopper block
-// may use, so the network is split:
+// Design.  The TPU kernel keeps a whole row in VMEM; a Hopper block may use
+// 227 KB of shared memory, so the network is split:
 //   * a shared-memory pass (smem_stages) loads one 2^13-element segment
 //     (32 KiB) per block, runs every compare-exchange whose stride is below
 //     the segment, and writes the segment back;
 //   * one global-memory pass (global_step) per larger stride.
 // A row of n = 2^L elements, L > 13, costs 1 + sum_{s=13}^{L-1} (s - 12) + (L - 13)
-// passes: 66 for L = 23 (55 global, 11 shared).  Every pass reads and writes
-// the whole batch once with coalesced 4-byte accesses.
-//
-// Bound.  The function must read its input once and write its output once
-// (2 x 4 bytes per element): at [4, 2^23] int32 that is 256 MiB, 0.080 ms at
-// 3.35 TB/s.  The comparisons any comparison sort needs, log2(n!) per row
-// (7.2e8 for the batch), take 0.043 ms at the card's int32 rate (16.7 T/s:
-// 132 SMs x 64 int32 lanes x 1.98 GHz), so bytes bound the function.  The
-// network's own n/2 * L(L+1)/2 compare-exchanges per row (9.3e9 min/max for
-// the batch) describe the algorithm, not the function.  This simple design
-// pays 66 passes x 256 MiB of memory traffic (5.2 ms at 3.35 TB/s): those
-// bytes bound it, and a later design (larger in-register/shared segments,
-// fused global strides) should cut the number of passes.
+// passes, each reading and writing the whole batch once with coalesced 4-byte
+// accesses; a row of 2^13 or fewer costs the one shared-memory pass.
 //
 // The k-way merge tiles are 256 elements by default: one block per tile sorts
 // it entirely in shared memory (1 KiB), one launch for all k*G tiles of a
-// round; larger power-of-two tiles fall through to the same global passes.
+// round; larger power-of-two tiles fall through to the global passes.
 // Bound of the tile sort: at full-scale PSRS a round holds 4 * 65,536 tiles
 // of 256 int32, 512 MiB read and written once (0.16 ms at 3.35 TB/s) against
-// log2(256!) comparisons a tile (4.4e8 in all, 0.026 ms at the int32 rate):
-// bytes bound it, and a tile that fits one segment is read once and written
-// once, in a single pass.
+// log2(256!) comparisons a tile (4.4e8 in all, 0.026 ms at the card's int32
+// rate, 16.7 T/s: 132 SMs x 64 int32 lanes x 1.98 GHz): bytes bound it, and
+// a tile that fits one segment is read once and written once, in a single
+// pass.  The network's own n/2 * L(L+1)/2 compare-exchanges per tile
+// describe the algorithm, not the function.
 //
 // Offsets are 64-bit throughout: a batch may exceed 2^31 elements.
 
@@ -147,7 +137,8 @@ int sort_rows(int64_t device, const void* in, int64_t in_stride, void* out,
 }  // namespace
 
 // Ascending sort of each row of in[rows, n] (n a power of two, rows
-// in_stride elements apart) into the contiguous out[rows, n].
+// in_stride elements apart) into the contiguous out[rows, n]; the local sort
+// takes it for n <= 2^13, one shared-memory pass.
 extern "C" int repro_bitonic_sort_rows(int64_t device, const void* in, int64_t in_stride,
                                        void* out, int64_t rows, int64_t n, void* stream) {
   return sort_rows(device, in, in_stride, out, rows, n, stream);

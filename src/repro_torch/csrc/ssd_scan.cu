@@ -1,4 +1,4 @@
-// Mamba-2 SSD chunked scan for Hopper (sm_90a).
+// Mamba-2 SSD scan for Hopper (sm_90a), chunk-parallel on the tensor cores.
 //
 // Replaces the TPU kernel ssd_scan_chunked
 // (src/repro/kernels/ssd_scan/ssd_scan.py:78, body _ssd_kernel :27).  Per
@@ -6,251 +6,443 @@
 //
 //     S_t = exp(A dt_t) S_{t-1} + dt_t B_t (x) x_t,     y_t = C_t . S_t
 //
-// computed chunk by chunk as the SSD decomposition does: inside a chunk the
-// quadratic form y_intra = (C B^T (.) exp(A (cdt_t - cdt_i)) (.) dt_i, i <= t) x,
-// across chunks y_carry = exp(A cdt_t) C S and the state update
-// S' = exp(A cdt_last) S + sum_i exp(A (cdt_last - cdt_i)) dt_i B_i (x) x_i.
 // Besides y it writes the final state S_fin [B, H, N, P], which the model's
 // prefill keeps in its cache (the TPU kernel drops its scratch state).
 //
-// Design.  One block of 256 threads owns one (b, h) and loops over chunks of
-// 32 steps: the loop takes the place of the TPU's sequential chunk axis.  The
-// state stays on chip for the whole sequence: each thread holds an
-// (N/16) x (P/16) tile of it in registers and updates it, and a copy in
-// shared memory (32 KiB at N 128, P 64) feeds every thread's y_carry.  A
-// chunk's x, B, B^T, C^T and the masked decay matrix W^T (32 x 32 fp32, not
-// the 64 KiB a 128-step chunk's C x C tile would need) sit in shared memory,
-// 97 KiB in all at N 128, P 64, so two blocks share an SM.  cumsum(dt) is
-// a warp scan; every product is an fp32 FMA loop over register tiles.  Steps
-// past the sequence's end load as zeros (dt = 0 is the identity transition,
-// as the JAX wrapper's padding is), and their y is not written.  Every tensor
-// is addressed with element strides (last dim contiguous), so the model's
-// x [B, S, H, P] and B, C (column slices of one projection) go in as views.
+// Design: the SSD decomposition (arXiv:2405.21060 sections 6-7) over chunks
+// of Q steps (Q 64; 128 is built too, see scripts/radix_ssd_tiles.py),
+// nc = ceil(S / Q), cdt = cumsum(dt) within a chunk, in three launches:
+//   1. ssd_gram, grid (chunk, batch): G = C B^T [Q, Q] once per (batch,
+//      chunk), shared by every head (B and C have no head axis).
+//   2-3. ssd_states, grid (N / 64, head, batch): the chunk states and the
+//      state passing in one block per 64 state rows of a (batch, head).  It
+//      walks the chunks in order with the state in its MMA accumulators:
+//      S_0 = 0, S_c+1 = exp(A cdt_last) S_c + dS_c, where the chunk's own
+//      state dS_c[n, p] = sum_i B[i, n] (exp(A (cdt_last - cdt_i)) dt_i
+//      x[i, p]) is an [N x Q] . [Q x P] product added onto the decayed
+//      state.  It writes each S_c for phase 4, and S_fin; the next chunk's
+//      B, x and dt are copied in (cp.async, double-buffered) while this one
+//      is computed.  A separate pass kernel over the chunk states, as first
+//      built, read and wrote them once more and cost a quarter of the scan
+//      (PERF.md).
+//   4. ssd_output, grid (chunk, head, batch):
+//      y[t, p] = sum_{i<=t} W[t, i] x[i, p] + exp(A cdt_t) sum_n C[t, n]
+//      S_c[n, p] with W[t, i] = G[t, i] exp(A (cdt_t - cdt_i)) dt_i (i > t
+//      masked before the exp, whose argument is positive there): a
+//      [Q x N] . [N x P] product whose accumulator rows are then scaled by
+//      exp(A cdt_t), and a [Q x Q] . [Q x P] product added into the same
+//      accumulator, W built from G as its fragments are read.
+// Every product runs on mma.sync m16n8k8 TF32 as 3xTF32: each operand a is
+// split into hi = tf32(a) and lo = tf32(a - hi), both rounded to nearest as
+// cvt.rna rounds (by integer operations), and lo.hi + hi.lo + hi.hi go into
+// the fp32 accumulator (lo.lo, about 2^-22 of the product, is dropped).  One
+// TF32 pass errs by 2^-11 of each operand, which the card's 1e-4 (1 + |plain|)
+// check does not hold at K = 128; three hold it (tests/test_torch_ssd_scan.py
+// models both).  Each warp owns 16 rows of an output tile; operand tiles
+// reach shared memory by cp.async (16-byte copies when every row is 16-byte
+// aligned, else 4-byte ones) into rows padded so that the fragment loads are
+// free of bank conflicts.  Steps past the sequence's end load as zeros with
+// dt = 0 (the identity transition, as the JAX wrapper's padding is), and
+// their y is not written.  x, dt, B, C and y are addressed with element
+// strides (last dim contiguous), so the model's x [B, S, H, P] and B, C
+// (column slices of one projection) go in as views.  Scratch, from the
+// wrapper: G [B, nc, Q, Q] and the states before each chunk [B, H, nc, N, P].
 //
-// Bound.  The function reads x, dt, B, C (B and C once per batch: they are
-// shared by the heads) and writes y and S_fin; it needs the recurrence's
-// 4 N P operations a step and head, at the fp32 rate (67 TFLOP/s, no tensor
-// core runs exact fp32).  At mamba2-130m's prefill (B 8, H 24, S 1024,
-// P 64, N 128) that is 115 MB, 34 us at 3.35 TB/s, and 6.4 GFLOP, 96 us:
-// operations bound it.  This kernel does the chunked form's ~1.4x as many
-// and reads its operands from shared memory, so expect it well above that.
+// Bound.  The function reads x, dt, B, C (B and C once per batch) and writes
+// y and S_fin; it needs the recurrence's 4 N P operations a step and head.
+// At mamba2-130m's prefill (B 8, H 24, S 1024, P 64, N 128) that is 115 MB,
+// 34 us at 3.35 TB/s, and 6.4 GFLOP, which 3xTF32 does at a third of dense
+// TF32's 494.7 TFLOP/s: 39 us, so operations bound it.  This design does the
+// chunked form's ~1.3x as many operations (three MMAs each) and writes the
+// chunk states (B H nc N P fp32: 100 MB at Q 64) and reads them back once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-constexpr int kQ = 32;         // chunk length (one warp's scan)
-constexpr int kQP = kQ + 4;    // padded rows of B^T, C^T, W^T
+// ---- 3xTF32 tensor-core products ----------------------------------------- //
 
-template <int NV>
-__device__ __forceinline__ void ld(const float* p, float* out) {
-  if constexpr (NV % 4 == 0) {
+// x rounded to TF32's 10-bit mantissa, to nearest with ties away from zero
+// (cvt.rna.tf32.f32 for finite x) by two integer operations; the MMA reads
+// only the top 19 bits of an operand, so the mask matters only where the
+// value is used again, as hi is.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[j] += A[16 x 8 ks] . B[8 ks x 8 NT] for one warp, in 3xTF32, with
+// A(m, k) = a_at(m, k) (m counted from the warp's first row) and B(k, n) =
+// b_at(k, n) (n from the warp's first column), read from shared memory.
+// Fragments (PTX m16n8k8 .tf32): g = lane / 4, q = lane % 4; A holds
+// (g, q), (g + 8, q), (g, q + 4), (g + 8, q + 4); B holds (q, g), (q + 4, g);
+// the accumulator (g, 2q), (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1).
+template <int NT, typename LA, typename LB>
+__device__ __forceinline__ void warp_mma(float (&acc)[NT][4], int ks, LA a_at, LB b_at) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll 2
+  for (int s = 0; s < ks; ++s) {
+    const int k = 8 * s + q;
+    uint32_t ah[4], al[4];
+    split(a_at(g, k), ah[0], al[0]);
+    split(a_at(g + 8, k), ah[1], al[1]);
+    split(a_at(g, k + 4), ah[2], al[2]);
+    split(a_at(g + 8, k + 4), ah[3], al[3]);
 #pragma unroll
-    for (int i = 0; i < NV; i += 4) {
-      float4 t = *reinterpret_cast<const float4*>(p + i);
-      out[i] = t.x; out[i + 1] = t.y; out[i + 2] = t.z; out[i + 3] = t.w;
+    for (int j = 0; j < NT; ++j) {
+      uint32_t bh[2], bl[2];
+      split(b_at(k, 8 * j + g), bh[0], bl[0]);
+      split(b_at(k + 4, 8 * j + g), bh[1], bl[1]);
+      mma_tf32(acc[j], al, bh);
+      mma_tf32(acc[j], ah, bl);
+      mma_tf32(acc[j], ah, bh);
     }
-  } else if constexpr (NV == 2) {
-    float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x; out[1] = t.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) out[i] = p[i];
   }
 }
 
-template <int N, int P>
-struct Layout {
-  static constexpr int TN = N / 16, TP = P / 16;  // state tile per thread
-  static constexpr int kSmemFloats =
-      kQ * P + kQ * N + 2 * N * kQP + kQ * kQP + N * P + 4 * kQ;
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+}
+
+// Store a warp's 16 x 8 NT accumulator at dst (row stride rs, first column
+// c0), rows r0 + g and r0 + g + 8 only where below `rows`.
+template <int NT>
+__device__ __forceinline__ void store_acc(const float (&acc)[NT][4], float* dst, int64_t rs,
+                                          int r0, int c0, int rows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= rows) continue;
+    float* row = dst + r * rs + c0 + 2 * q;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+// ---- asynchronous copies into padded shared rows ------------------------- //
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's committed groups are in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(pending) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  cp_async_commit();
+  cp_async_wait<0>();
+}
+
+// rows x L floats from src (row stride rs) into dst (row stride DS); rows at
+// or past `valid` are zero-filled.  vec: every source row is 16-byte aligned.
+template <int L, int DS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int64_t rs, int rows,
+                                          int valid, bool vec) {
+  static_assert(L % 4 == 0 && DS % 4 == 0, "rows of whole float4s");
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (L / 4); e += blockDim.x) {
+      const int r = e / (L / 4), c = 4 * (e % (L / 4));
+      float* d = dst + r * DS + c;
+      if (r < valid)
+        cp_async16(d, src + r * rs + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * L; e += blockDim.x) {
+      const int r = e / L, c = e % L;
+      float* d = dst + r * DS + c;
+      if (r < valid)
+        cp_async4(d, src + r * rs + c);
+      else
+        *d = 0.f;
+    }
+  }
+}
+
+// The chunk's dt (0 past `valid`) into dts, by 4-byte copies in the current
+// group.
+template <int Q>
+__device__ __forceinline__ void load_dt(float* dts, const float* dt, int64_t ds, int valid) {
+  for (int t = threadIdx.x; t < Q; t += blockDim.x) {
+    if (t < valid)
+      cp_async4(dts + t, dt + t * ds);
+    else
+      dts[t] = 0.f;
+  }
+}
+
+// Warp 0: the inclusive cumsum of dts[0 .. Q) into cdt; Q a multiple of 32.
+// Returns the chunk's sum of dt (every lane).
+template <int Q>
+__device__ __forceinline__ float chunk_cumsum(const float* dts, float* cdt) {
+  constexpr int E = Q / 32;
+  const int lane = threadIdx.x & 31;
+  float v[E], run = 0.f;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    run += dts[lane * E + e];
+    v[e] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += u;
+  }
+  const float excl = incl - run;
+#pragma unroll
+  for (int e = 0; e < E; ++e) cdt[lane * E + e] = excl + v[e];
+  return __shfl_sync(0xffffffffu, incl, 31);
+}
+
+// Padded shared row strides: A-side tiles read (row g, col q) want a stride
+// of 4 mod 32 words, B-side tiles read (row q, col g) 8 mod 32.
+template <int Q, int N, int P>
+struct Dims {
+  static constexpr int kRB = N < 64 ? N : 64;  // state rows a states block owns
+  static constexpr int kCS = N + 4;   // C (and B in the gram) [Q][N]
+  static constexpr int kBS = kRB + 8; // B's columns of the block, as A = B^T
+  static constexpr int kXS = P + 8;   // x [Q][P], S [N][P]
+  static constexpr int kWS = Q + 4;   // G [Q][Q]
+  static constexpr int kGramThreads = 32 * (Q / 16) * 2;
+  static constexpr int kStateThreads = 32 * (kRB / 16);
+  static constexpr int kOutThreads = 32 * (Q / 16) * 2;
+  static constexpr int kGramSmem = 2 * Q * kCS;
+  static constexpr int kStage = Q * kBS + Q * kXS + Q;  // B, x, dt of a chunk
+  static constexpr int kStateSmem = 2 * kStage + 2 * Q + 32;
+  static constexpr int kOutSmem = Q * kWS + Q * kCS + Q * kXS + N * kXS + 3 * Q;
 };
 
-template <int N, int P>
-__global__ void __launch_bounds__(kThreads)
-ssd_kernel(const float* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
+// 1. G[b, c] = C_c B_c^T.  Warp w: rows 16 (w / 2), columns (w % 2) Q / 2.
+template <int Q, int N>
+__global__ void __launch_bounds__(Dims<Q, N, 16>::kGramThreads)
+ssd_gram(const float* __restrict__ Bm, int64_t bsb, int64_t bss, const float* __restrict__ Cm,
+         int64_t csb, int64_t css, float* __restrict__ G, int64_t seq, bool vec) {
+  using D = Dims<Q, N, 16>;
+  constexpr int NT = Q / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* cs = smem;               // [Q][kCS]
+  float* bs = cs + Q * D::kCS;    // [Q][kCS]
+  const int64_t c = blockIdx.x, b = blockIdx.y, t0 = c * Q;
+  const int valid = static_cast<int>(seq - t0 < Q ? seq - t0 : Q);
+  load_rows<N, D::kCS>(cs, Cm + b * csb + t0 * css, css, Q, valid, vec);
+  load_rows<N, D::kCS>(bs, Bm + b * bsb + t0 * bss, bss, Q, valid, vec);
+  cp_async_wait_all();
+  __syncthreads();
+  const int w = threadIdx.x >> 5, r0 = 16 * (w >> 1), c0 = (w & 1) * (Q / 2);
+  float acc[NT][4];
+  zero(acc);
+  warp_mma(acc, N / 8, [&](int m, int k) { return cs[(r0 + m) * D::kCS + k]; },
+           [&](int k, int n) { return bs[(c0 + n) * D::kCS + k]; });
+  store_acc(acc, G + (b * gridDim.x + c) * Q * Q, Q, r0, c0, Q);
+}
+
+// 2-3. Chunk states and state passing, grid (N / kRB, head, batch): the block
+// owns kRB rows of one (batch, head)'s state, walks the chunks in order and
+// keeps the state in its MMA accumulators: for each chunk it writes the state
+// before the chunk, S_c, then S_c+1 = exp(A cdt_last) S_c + B^T (w x) with
+// w_i = exp(A (cdt_last - cdt_i)) dt_i; last it writes S_fin.  The next
+// chunk's B, x and dt are copied in while this one is computed.  Warp w:
+// state rows 16 w of the block's, all P columns.
+template <int Q, int N, int P>
+__global__ void __launch_bounds__(Dims<Q, N, P>::kStateThreads)
+ssd_states(const float* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
            const float* __restrict__ dt, int64_t dsb, int64_t dsh, int64_t dss,
            const float* __restrict__ A, const float* __restrict__ Bm, int64_t bsb,
-           int64_t bss, const float* __restrict__ Cm, int64_t csb, int64_t css,
-           float* __restrict__ y, int64_t ysb, int64_t ysh, int64_t yss,
-           float* __restrict__ s_fin, int64_t seq) {
-  using L = Layout<N, P>;
-  constexpr int TN = L::TN, TP = L::TP;
+           int64_t bss, float* __restrict__ states, float* __restrict__ s_fin, int64_t seq,
+           bool vec) {
+  using D = Dims<Q, N, P>;
+  constexpr int NT = P / 8;
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                // [kQ][P]   x of the chunk
-  float* bs = xs + kQ * P;         // [kQ][N]   B
-  float* bt = bs + kQ * N;         // [N][kQP]  B^T
-  float* ct = bt + N * kQP;        // [N][kQP]  C^T
-  float* wt = ct + N * kQP;        // [kQ][kQP] W^T: wt[i][t] = W[t][i]
-  float* st = wt + kQ * kQP;       // [N][P]    state before the chunk
-  float* cdt = st + N * P;         // [kQ]      cumsum(dt)
-  float* dts = cdt + kQ;           // [kQ]      dt
-  float* dec = dts + kQ;           // [kQ]      exp(A cdt_t)
-  float* wgt = dec + kQ;           // [kQ]      exp(A (cdt_last - cdt_i)) dt_i
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int64_t h = blockIdx.x, b = blockIdx.y;
+  float* cdt = smem + 2 * D::kStage;  // [Q]
+  float* wts = cdt + Q;               // [Q]
+  float* dec = wts + Q;               // [1]
+  const int64_t rb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int64_t heads = gridDim.y;
+  const int64_t nc = (seq + Q - 1) / Q;
   const float a = A[h];
   const float* xb = x + b * xsb + h * xsh;
   const float* db = dt + b * dsb + h * dsh;
-  const float* bb = Bm + b * bsb;
-  const float* cb = Cm + b * csb;
-  float* yb = y + b * ysb + h * ysh;
-
-  float s_reg[TN][TP];  // S[ty*TN + i][tx*TP + j]
-#pragma unroll
-  for (int i = 0; i < TN; ++i)
-#pragma unroll
-    for (int j = 0; j < TP; ++j) s_reg[i][j] = 0.f;
-  for (int e = tid; e < N * P; e += kThreads) st[e] = 0.f;
-
-  for (int64_t c0 = 0; c0 < seq; c0 += kQ) {
-    const int64_t valid = seq - c0 < kQ ? seq - c0 : kQ;
-    __syncthreads();  // the last chunk's operands are no longer read
-    for (int e = tid; e < kQ * P; e += kThreads) {
-      const int t = e / P, p = e % P;
-      xs[e] = t < valid ? xb[(c0 + t) * xss + p] : 0.f;
-    }
-    for (int e = tid; e < kQ * N; e += kThreads) {
-      const int t = e / N, n = e % N;
-      const float bv = t < valid ? bb[(c0 + t) * bss + n] : 0.f;
-      const float cv = t < valid ? cb[(c0 + t) * css + n] : 0.f;
-      bs[e] = bv;
-      bt[n * kQP + t] = bv;
-      ct[n * kQP + t] = cv;
-    }
-    float last_cdt = 0.f;
-    if (tid < kQ) {  // warp 0: inclusive scan of dt over the chunk
-      const float d = tid < valid ? db[(c0 + tid) * dss] : 0.f;
-      float cs = d;
-#pragma unroll
-      for (int w = 1; w < kQ; w <<= 1) {
-        const float u = __shfl_up_sync(0xffffffffu, cs, w);
-        if (tid >= w) cs += u;
-      }
-      last_cdt = __shfl_sync(0xffffffffu, cs, kQ - 1);
-      cdt[tid] = cs;
-      dts[tid] = d;
-      dec[tid] = expf(a * cs);
-      wgt[tid] = expf(a * (last_cdt - cs)) * d;
-    }
+  const float* bb = Bm + b * bsb + rb * D::kRB;
+  auto stage = [&](int64_t c) { return smem + (c & 1) * D::kStage; };
+  auto load = [&](int64_t c) {
+    float* st = stage(c);
+    const int64_t t0 = c * Q;
+    const int valid = static_cast<int>(seq - t0 < Q ? seq - t0 : Q);
+    load_rows<D::kRB, D::kBS>(st, bb + t0 * bss, bss, Q, valid, vec);
+    load_rows<P, D::kXS>(st + Q * D::kBS, xb + t0 * xss, xss, Q, valid, vec);
+    load_dt<Q>(st + Q * D::kBS + Q * D::kXS, db + t0 * dss, dss, valid);
+  };
+  const int r0 = 16 * (threadIdx.x >> 5);
+  float* sb = states + ((b * heads + h) * nc * N + rb * D::kRB) * P;
+  float acc[NT][4];
+  zero(acc);
+  if (nc > 0) load(0);
+  cp_async_commit();
+  for (int64_t c = 0; c < nc; ++c) {
+    if (c + 1 < nc) load(c + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // chunk c has landed
     __syncthreads();
-
-    // W[t][i] = (C_t . B_i) exp(A (cdt_t - cdt_i)) dt_i for i <= t, else 0;
-    // thread (ty, tx) computes t = 2ty + {0,1}, i = 2tx + {0,1}.
-    {
-      float g[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll 8
-      for (int n = 0; n < N; ++n) {
-        float cv[2], bv[2];
-        ld<2>(ct + n * kQP + 2 * ty, cv);
-        ld<2>(bt + n * kQP + 2 * tx, bv);
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int q = 0; q < 2; ++q) g[r][q] = fmaf(cv[r], bv[q], g[r][q]);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int t = 2 * ty + r, i = 2 * tx + q;
-          wt[i * kQP + t] = i <= t ? g[r][q] * expf(a * (cdt[t] - cdt[i])) * dts[i] : 0.f;
-        }
+    const float* bs = stage(c);
+    const float* xs = bs + Q * D::kBS;
+    const float* dts = xs + Q * D::kXS;
+    if (threadIdx.x < 32) {
+      const float last = chunk_cumsum<Q>(dts, cdt);
+      for (int i = threadIdx.x; i < Q; i += 32) wts[i] = expf(a * (last - cdt[i])) * dts[i];
+      if (threadIdx.x == 0) dec[0] = expf(a * last);
     }
+    if (c > 0) store_acc(acc, sb + c * N * P, P, r0, 0, D::kRB);  // S_c
     __syncthreads();
-
-    // y[t][p] = sum_i W[t][i] x[i][p] + exp(A cdt_t) sum_n C[t][n] S[n][p];
-    // thread (ty, tx) computes t = 2ty + {0,1}, p = tx*TP + {0..TP-1}.
-    {
-      float yi[2][TP], yc[2][TP];
+    const float f = dec[0];
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < TP; ++j) yi[r][j] = yc[r][j] = 0.f;
-      const int t_hi = 2 * ty + 1;
-      for (int i = 0; i <= t_hi; ++i) {
-        float wv[2], xv[TP];
-        ld<2>(wt + i * kQP + 2 * ty, wv);
-        ld<TP>(xs + i * P + tx * TP, xv);
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int j = 0; j < TP; ++j) yi[r][j] = fmaf(wv[r], xv[j], yi[r][j]);
-      }
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cv[2], sv[TP];
-        ld<2>(ct + n * kQP + 2 * ty, cv);
-        ld<TP>(st + n * P + tx * TP, sv);
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-#pragma unroll
-          for (int j = 0; j < TP; ++j) yc[r][j] = fmaf(cv[r], sv[j], yc[r][j]);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int t = 2 * ty + r;
-        if (t < valid) {
-          float* yrow = yb + (c0 + t) * yss + tx * TP;
-#pragma unroll
-          for (int j = 0; j < TP; ++j) yrow[j] = yi[r][j] + dec[t] * yc[r][j];
-        }
-      }
-    }
-
-    // S' = exp(A cdt_last) S + sum_i B[i][n] (wgt_i x[i][p]), in registers.
-    {
-      const float e_last = dec[kQ - 1];
-#pragma unroll
-      for (int i = 0; i < TN; ++i)
-#pragma unroll
-        for (int j = 0; j < TP; ++j) s_reg[i][j] *= e_last;
-#pragma unroll 4
-      for (int i = 0; i < kQ; ++i) {
-        float bv[TN], xv[TP];
-        ld<TN>(bs + i * N + ty * TN, bv);
-        ld<TP>(xs + i * P + tx * TP, xv);
-        const float w = wgt[i];
-#pragma unroll
-        for (int j = 0; j < TP; ++j) xv[j] *= w;
-#pragma unroll
-        for (int r = 0; r < TN; ++r)
-#pragma unroll
-          for (int j = 0; j < TP; ++j) s_reg[r][j] = fmaf(bv[r], xv[j], s_reg[r][j]);
-      }
-    }
-    __syncthreads();  // every y_carry has read the old state
-#pragma unroll
-    for (int r = 0; r < TN; ++r)
-#pragma unroll
-      for (int j = 0; j < TP; ++j) st[(ty * TN + r) * P + tx * TP + j] = s_reg[r][j];
+      for (int e = 0; e < 4; ++e) acc[j][e] *= f;
+    warp_mma(acc, Q / 8, [&](int m, int k) { return bs[k * D::kBS + r0 + m]; },
+             [&](int k, int n) { return xs[k * D::kXS + n] * wts[k]; });
+    __syncthreads();  // stage c is free for chunk c + 2
   }
-
-  float* sb = s_fin + (b * gridDim.x + h) * static_cast<int64_t>(N * P);
-#pragma unroll
-  for (int r = 0; r < TN; ++r)
-#pragma unroll
-    for (int j = 0; j < TP; ++j) sb[(ty * TN + r) * P + tx * TP + j] = s_reg[r][j];
+  store_acc(acc, s_fin + ((b * heads + h) * N + rb * D::kRB) * P, P, r0, 0, D::kRB);
 }
 
-template <int N, int P>
+// 4. y of the chunk.  Warp w: rows 16 (w / 2), columns (w % 2) P / 2.  The
+// carry C S_c goes into the accumulator first and its rows are scaled by
+// exp(A cdt_t); then W x is added, W built from G as the fragments are read.
+template <int Q, int N, int P>
+__global__ void __launch_bounds__(Dims<Q, N, P>::kOutThreads)
+ssd_output(const float* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
+           const float* __restrict__ dt, int64_t dsb, int64_t dsh, int64_t dss,
+           const float* __restrict__ A, const float* __restrict__ Cm, int64_t csb,
+           int64_t css, const float* __restrict__ G, const float* __restrict__ states,
+           float* __restrict__ y, int64_t ysb, int64_t ysh, int64_t yss, int64_t seq,
+           bool vec) {
+  using D = Dims<Q, N, P>;
+  constexpr int NT = P / 16;
+  extern __shared__ __align__(16) float smem[];
+  float* gs = smem;              // [Q][kWS]
+  float* cs = gs + Q * D::kWS;   // [Q][kCS]
+  float* xs = cs + Q * D::kCS;   // [Q][kXS]
+  float* ss = xs + Q * D::kXS;   // [N][kXS]: the state before the chunk
+  float* dts = ss + N * D::kXS;  // [Q]
+  float* cdt = dts + Q;          // [Q]
+  float* dec = cdt + Q;          // [Q] exp(A cdt_t)
+  const int64_t c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t0 = c * Q;
+  const int64_t nc = gridDim.x, heads = gridDim.y;
+  const int valid = static_cast<int>(seq - t0 < Q ? seq - t0 : Q);
+  load_rows<Q, D::kWS>(gs, G + (b * nc + c) * Q * Q, Q, Q, Q, true);
+  load_rows<P, D::kXS>(xs, x + b * xsb + h * xsh + t0 * xss, xss, Q, valid, vec);
+  load_dt<Q>(dts, dt + b * dsb + h * dsh + t0 * dss, dss, valid);
+  if (c > 0) {
+    load_rows<N, D::kCS>(cs, Cm + b * csb + t0 * css, css, Q, valid, vec);
+    load_rows<P, D::kXS>(ss, states + ((b * heads + h) * nc + c) * N * P, P, N, N, true);
+  }
+  const float a = A[h];
+  cp_async_wait_all();
+  __syncthreads();
+  if (threadIdx.x < 32) chunk_cumsum<Q>(dts, cdt);
+  __syncthreads();
+  for (int t = threadIdx.x; t < Q; t += blockDim.x) dec[t] = expf(a * cdt[t]);
+  __syncthreads();
+  const int w = threadIdx.x >> 5, r0 = 16 * (w >> 1), c0 = (w & 1) * (P / 2);
+  const int g = (threadIdx.x & 31) >> 2;
+  float acc[NT][4];
+  zero(acc);
+  if (c > 0) {
+    warp_mma(acc, N / 8, [&](int m, int k) { return cs[(r0 + m) * D::kCS + k]; },
+             [&](int k, int n) { return ss[k * D::kXS + c0 + n]; });
+    const float e0 = dec[r0 + g], e1 = dec[r0 + g + 8];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] *= e0;
+      acc[j][1] *= e0;
+      acc[j][2] *= e1;
+      acc[j][3] *= e1;
+    }
+  }
+  // W[t, i] = G[t, i] exp(A (cdt_t - cdt_i)) dt_i for i <= t, else 0 (the
+  // mask before the exp); keys past the warp's last row give W = 0, so the
+  // product stops at i < r0 + 16.
+  warp_mma(acc, r0 / 8 + 2,
+           [&](int m, int k) {
+             const int t = r0 + m;
+             return k <= t ? gs[t * D::kWS + k] * expf(a * (cdt[t] - cdt[k])) * dts[k] : 0.f;
+           },
+           [&](int k, int n) { return xs[k * D::kXS + c0 + n]; });
+  store_acc(acc, y + b * ysb + h * ysh + t0 * yss, yss, r0, c0, valid);
+}
+
+template <typename K>
+cudaError_t allow_smem(K* kern, int bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+             : cudaSuccess;
+}
+
+bool aligned16(const void* p, int64_t s0, int64_t s1, int64_t s2 = 0) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s0 % 4 == 0 && s1 % 4 == 0 &&
+         s2 % 4 == 0;
+}
+
+template <int Q, int N, int P>
 cudaError_t run(const float* x, int64_t xsb, int64_t xsh, int64_t xss, const float* dt,
                 int64_t dsb, int64_t dsh, int64_t dss, const float* A, const float* Bm,
-                int64_t bsb, int64_t bss, const float* Cm, int64_t csb, int64_t css,
-                float* y, int64_t ysb, int64_t ysh, int64_t yss, float* s_fin,
-                int64_t batch, int64_t heads, int64_t seq, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * Layout<N, P>::kSmemFloats;
-  auto* kern = ssd_kernel<N, P>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch));
-  kern<<<grid, kThreads, smem, stream>>>(x, xsb, xsh, xss, dt, dsb, dsh, dss, A, Bm, bsb,
-                                         bss, Cm, csb, css, y, ysb, ysh, yss, s_fin, seq);
+                int64_t bsb, int64_t bss, const float* Cm, int64_t csb, int64_t css, float* y,
+                int64_t ysb, int64_t ysh, int64_t yss, float* s_fin, float* G, float* states,
+                int64_t batch, int64_t heads, int64_t seq, cudaStream_t st) {
+  using D = Dims<Q, N, P>;
+  const int64_t nc = (seq + Q - 1) / Q;
+  const bool vec_bc = aligned16(Bm, bsb, bss) && aligned16(Cm, csb, css);
+  const bool vec_x = vec_bc && aligned16(x, xsb, xsh, xss);
+  const int gram_smem = 4 * D::kGramSmem, state_smem = 4 * D::kStateSmem;
+  const int out_smem = 4 * D::kOutSmem;
+  cudaError_t err;
+  if ((err = allow_smem(ssd_gram<Q, N>, gram_smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(ssd_states<Q, N, P>, state_smem)) != cudaSuccess) return err;
+  if ((err = allow_smem(ssd_output<Q, N, P>, out_smem)) != cudaSuccess) return err;
+  const auto ub = static_cast<unsigned>(batch), uh = static_cast<unsigned>(heads);
+  const auto uc = static_cast<unsigned>(nc);
+  ssd_states<Q, N, P><<<dim3(N / D::kRB, uh, ub), D::kStateThreads, state_smem, st>>>(
+      x, xsb, xsh, xss, dt, dsb, dsh, dss, A, Bm, bsb, bss, states, s_fin, seq, vec_x);
+  if (seq > 0) {
+    ssd_gram<Q, N><<<dim3(uc, ub), D::kGramThreads, gram_smem, st>>>(Bm, bsb, bss, Cm, csb,
+                                                                   css, G, seq, vec_bc);
+    ssd_output<Q, N, P><<<dim3(uc, uh, ub), D::kOutThreads, out_smem, st>>>(
+        x, xsb, xsh, xss, dt, dsb, dsh, dss, A, Cm, csb, css, G, states, y, ysb, ysh, yss,
+        seq, vec_x);
+  }
   return cudaGetLastError();
 }
 
@@ -258,31 +450,41 @@ cudaError_t run(const float* x, int64_t xsb, int64_t xsh, int64_t xss, const flo
 
 // SSD scan of x [batch, heads, seq, p] with dt [batch, heads, seq], A [heads]
 // and B, C [batch, seq, n], all fp32 and given by pointer and element strides
-// (last dim contiguous); writes y [batch, heads, seq, p] (strided likewise)
-// and the final state s_fin [batch, heads, n, p] (contiguous).  (n, p) is one
-// of (16, 16), (32, 32), (64, 64), (128, 64).
+// (last dim contiguous); writes y [batch, heads, seq, p] (strided likewise,
+// p even) and the final state s_fin [batch, heads, n, p] (contiguous).
+// Scratch (contiguous fp32): g [batch, nc, q, q] and states [batch, heads,
+// nc, n, p], nc = ceil(seq / q).  (n, p) is one of (16, 16), (32, 32),
+// (64, 64), (128, 64); q is 64 or 128.
 extern "C" int repro_ssd_scan(int64_t device, const void* x, int64_t xsb, int64_t xsh,
                               int64_t xss, const void* dt, int64_t dsb, int64_t dsh,
                               int64_t dss, const void* A, const void* Bm, int64_t bsb,
                               int64_t bss, const void* Cm, int64_t csb, int64_t css,
                               void* y, int64_t ysb, int64_t ysh, int64_t yss, void* s_fin,
-                              int64_t batch, int64_t heads, int64_t seq, int64_t n,
-                              int64_t p, void* stream) {
+                              void* g, void* states, int64_t batch,
+                              int64_t heads, int64_t seq, int64_t n, int64_t p, int64_t q,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || heads <= 0) return 0;
+  if (batch > 65535 || heads > 65535 || (seq + q - 1) / q > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-#define REPRO_SSD_NP(NV, PV)                                                             \
-  if (n == NV && p == PV)                                                                \
-    return static_cast<int>(run<NV, PV>(                                                 \
+#define REPRO_SSD(QV, NV, PV)                                                            \
+  if (q == QV && n == NV && p == PV)                                                     \
+    return static_cast<int>(run<QV, NV, PV>(                                             \
         static_cast<const float*>(x), xsb, xsh, xss, static_cast<const float*>(dt), dsb, \
         dsh, dss, static_cast<const float*>(A), static_cast<const float*>(Bm), bsb, bss, \
         static_cast<const float*>(Cm), csb, css, static_cast<float*>(y), ysb, ysh, yss,  \
-        static_cast<float*>(s_fin), batch, heads, seq, s));
-  REPRO_SSD_NP(16, 16)
-  REPRO_SSD_NP(32, 32)
-  REPRO_SSD_NP(64, 64)
-  REPRO_SSD_NP(128, 64)
-#undef REPRO_SSD_NP
+        static_cast<float*>(s_fin), static_cast<float*>(g), static_cast<float*>(states), \
+        batch, heads, seq, s));
+  REPRO_SSD(64, 16, 16)
+  REPRO_SSD(64, 32, 32)
+  REPRO_SSD(64, 64, 64)
+  REPRO_SSD(64, 128, 64)
+  REPRO_SSD(128, 16, 16)
+  REPRO_SSD(128, 32, 32)
+  REPRO_SSD(128, 64, 64)
+  REPRO_SSD(128, 128, 64)
+#undef REPRO_SSD
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -28,8 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("bitonic_sort.cu", "alltoallv_deliver.cu", "flash_attention.cu",
-           "ssd_scan.cu", "lru_scan.cu")
+SOURCES = ("bitonic_sort.cu", "radix_sort.cu", "alltoallv_deliver.cu",
+           "flash_attention.cu", "ssd_scan.cu", "lru_scan.cu")
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -38,6 +38,9 @@ FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _SIGNATURES = {
     # device, in, in_stride, out, rows, n, stream
     "repro_bitonic_sort_rows": "ipipiip",
+    # device, in, in_stride, out, tmp, scratch, rows, n, kpt, threads,
+    # stream
+    "repro_radix_sort_rows": "ipipppiiiip",
     # device, in, out, tiles, tile, stream
     "repro_kway_tile_sort": "ippiip",
     # device, src, src_stride, src_off, dst, dst_stride, dst_off, v, ww,
@@ -54,9 +57,9 @@ _SIGNATURES = {
                              "iiiiiiiiiiiiiii" "f" "p",
     # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
     # B strides (b, s), C, C strides (b, s), y, y strides (b, h, s), s_fin,
-    # batch, heads, seq, n, p, stream
-    "repro_ssd_scan": "i" "piii" "piii" "p" "pii" "pii" "piii" "p" "iiiii"
-                      "p",
+    # g, states, batch, heads, seq, n, p, q, stream
+    "repro_ssd_scan": "i" "piii" "piii" "p" "pii" "pii" "piii" "p" "pp"
+                      "iiiiii" "p",
     # device, a, a strides (b, s), b, b strides (b, s), h, h_fin, batch,
     # seq, width, stream
     "repro_lru_scan": "i" "pii" "pii" "pp" "iii" "p",

@@ -6,12 +6,13 @@ splitting and compact gather in :mod:`.ops`, every output tile of
 ``tiles [G, tile]`` holds exactly its tile's elements, and what is left is
 ordering each row.  The CUDA entry ``repro_kway_tile_sort``
 (``csrc/bitonic_sort.cu``) sorts one tile per block entirely in shared memory
-(256 int32 is 1 KiB) — all ``k·G`` tiles of a round in one launch; a tile
-larger than a shared-memory segment reuses the bitonic kernel's global
-passes.
+(256 int32 is 1 KiB) with a bitonic network — all ``k·G`` tiles of a round
+in one launch; a tile larger than a shared-memory segment takes the
+network's global passes.  (The PSRS local sort, which once shared this
+network, is a radix sort on the card: ``csrc/radix_sort.cu``.)
 
-:func:`sort_tile_rows` is the plain PyTorch version (the same bitonic
-network as :func:`repro_torch.kernels.bitonic_sort.bitonic_network`).
+:func:`sort_tile_rows` is the plain PyTorch version (the network of
+:func:`repro_torch.kernels.bitonic_sort.bitonic_network`).
 """
 
 from __future__ import annotations

@@ -39,6 +39,13 @@ def _keys(shape, dev, seed, kind="random"):
     if kind == "random":
         return torch.randint(INT_MIN, INT_MAX + 1, shape, generator=g,
                              device=dev, dtype=torch.int64).to(torch.int32)
+    if kind == "equal":
+        return torch.full(shape, -5, dtype=torch.int32, device=dev)
+    if kind == "extremes":
+        pool = torch.tensor([INT_MIN, INT_MIN + 1, -1, 0, 1, INT_MAX - 1,
+                             INT_MAX], dtype=torch.int32, device=dev)
+        return pool[torch.randint(0, len(pool), shape, generator=g,
+                                  device=dev)]
     return torch.randint(-2, 3, shape, generator=g, device=dev,
                          dtype=torch.int32)
 
@@ -62,6 +69,24 @@ def test_bitonic_kernel_reads_strided_rows(cuda):
     x = _keys((3, 3000), cuda, 1)
     assert torch.equal(bs.bitonic_sort_rows(x[:, 100:2148]),
                        torch.sort(x[:, 100:2148], dim=-1).values)
+
+
+# Rows past one shared-memory segment take the radix kernel: 2^14 (just
+# past it), 2^16 (16 tiles), the PSRS local sort's [4, 2^23] as strided rows
+# of a wider store; all-equal rows put a whole row in one bin of every pass.
+@pytest.mark.parametrize("rows, n, pad", [(2, 1 << 14, 0), (3, 1 << 16, 0),
+                                          (2, 1 << 16, 100),
+                                          (4, 1 << 23, 1024)])
+@pytest.mark.parametrize("kind", ["random", "dups", "extremes", "equal"])
+def test_radix_kernel_matches_torch_sort_and_plain(cuda, rows, n, pad, kind):
+    bs = _kernel("bitonic_sort")
+    x = _keys((rows, n + pad), cuda, rows * n + pad, kind)[:, pad // 2:][:, :n]
+    before = bs.LAUNCHES
+    got = bs.bitonic_sort_rows(x)
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES == before + 1
+    assert torch.equal(got, torch.sort(x, dim=-1).values)
+    assert torch.equal(got, bs.radix_sort_plain(x))
 
 
 @pytest.mark.parametrize("tile", [2, 8, 256, 8192, 16384])
@@ -313,12 +338,20 @@ def test_lru_kernel_matches_plain(cuda, b, s, d):
     assert torch.equal(hv, h) and torch.equal(fin_v, h_fin)
 
 
+# The kernel's chunks of 64 (built) and 128: S = 64, 65, 128 and 129 are one
+# chunk and one step past it, for each.
 @pytest.mark.parametrize("b, h, s, p, n", [(8, 24, 256, 64, 128),
                                            (2, 3, 37, 16, 16),
                                            (1, 2, 100, 64, 64),
-                                           (2, 2, 33, 32, 32), (1, 1, 1, 16, 16)])
-def test_ssd_kernel_matches_plain(cuda, b, h, s, p, n):
+                                           (2, 2, 33, 32, 32), (1, 1, 1, 16, 16),
+                                           (1, 2, 64, 64, 128),
+                                           (1, 2, 65, 64, 128),
+                                           (1, 2, 128, 64, 128),
+                                           (1, 2, 129, 64, 128)])
+@pytest.mark.parametrize("q", [64, 128])
+def test_ssd_kernel_matches_plain(cuda, b, h, s, p, n, q, monkeypatch):
     ss = _kernel("ssd_scan")
+    monkeypatch.setattr(ss, "KERNEL_CHUNK", q)
     g = torch.Generator(device=cuda).manual_seed(s * n)
     x = torch.randn((b, h, s, p), generator=g, device=cuda)
     dt = torch.nn.functional.softplus(torch.randn((b, h, s), generator=g,
@@ -330,6 +363,25 @@ def test_ssd_kernel_matches_plain(cuda, b, h, s, p, n):
     y, s_fin = ss.ssd_scan_chunked(x, dt, A, Bm, Cm)
     torch.cuda.synchronize()
     assert ss.LAUNCHES == before + 1
+    y_want, s_want = ss.ssd_chunked_plain(x, dt, A, Bm, Cm, 128)
+    torch.testing.assert_close(y, y_want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_fin, s_want, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_kernel_reads_views_not_16_byte_aligned(cuda):
+    """x, B and C as column slices of a projection whose rows are 3 floats
+    past a multiple of 4: the kernel copies them 4 bytes at a time."""
+    ss = _kernel("ssd_scan")
+    b, h, s, p, n = 2, 3, 70, 64, 128
+    g = torch.Generator(device=cuda).manual_seed(5)
+    proj = torch.randn((b, s, h * p + 2 * n + 3), generator=g, device=cuda)
+    x = proj[..., 1:1 + h * p].reshape(b, s, h, p).transpose(1, 2)
+    Bm = proj[..., 1 + h * p:1 + h * p + n] / n ** 0.5
+    Cm = proj[..., 1 + h * p + n:1 + h * p + 2 * n] / n ** 0.5
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g,
+                                                  device=cuda)).transpose(1, 2)
+    A = -torch.exp(0.5 * torch.randn((h,), generator=g, device=cuda))
+    y, s_fin = ss.ssd_scan_chunked(x, dt, A, Bm, Cm)
     y_want, s_want = ss.ssd_chunked_plain(x, dt, A, Bm, Cm, 128)
     torch.testing.assert_close(y, y_want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s_fin, s_want, rtol=1e-4, atol=1e-4)

@@ -1,7 +1,7 @@
 """Guards of the PyTorch port's package boundary.
 
-``repro_torch``, ``chip_smoke.py`` and ``scripts/flash_d256_tiles.py``
-import ``torch`` and numpy, never
+``repro_torch``, ``chip_smoke.py``, ``scripts/flash_d256_tiles.py`` and
+``scripts/radix_ssd_tiles.py`` import ``torch`` and numpy, never
 ``jax`` and nothing of the JAX package ``repro`` (whose name ``repro_torch``
 shares a prefix, so the checks compare whole dotted names).  Its entry points
 run on CUDA unless the caller passes ``device="cpu"``.
@@ -20,7 +20,8 @@ import torch
 
 _ROOT = Path(__file__).resolve().parent.parent
 _PORT_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    _ROOT / "chip_smoke.py", _ROOT / "scripts" / "flash_d256_tiles.py"]
+    _ROOT / "chip_smoke.py", _ROOT / "scripts" / "flash_d256_tiles.py",
+    _ROOT / "scripts" / "radix_ssd_tiles.py"]
 
 
 def _forbidden(module: str) -> bool:
