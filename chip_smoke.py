@@ -15,14 +15,20 @@ What it does, in order; any failure raises and the exit code is non-zero:
    shapes (ragged widths, empty and full counts, extreme, duplicate and
    all-equal keys, rows and tiles up to and past one shared-memory segment,
    where the local sort turns from the bitonic pass to the radix kernel, and
-   radix rows of several tiles, strided; for the mesh staging,
-   kernel 4, P of 1, 2 and 4, counts of 0, of ω, past ω and negative, fills
-   None, -7 and INT_MAX with and without the counts payload, α-chunk
-   offsets, and a float32 payload).  Equality is exact.
+   radix rows of several tiles, strided; for the k-way merge's splitters
+   and segment merge, ``KWAY_EDGES``: v of 1 to 64, windows cut inside
+   runs of equal keys, counts of 0 and of cap, fill-only segments, total
+   past rcap, rcap past v·cap, tiles of 1 to 1024, many segments, and the
+   tile sort up to and past the warp-register sort's 1024 keys; for the
+   mesh staging, kernel 4, P of 1, 2 and 4, counts of 0, of ω, past ω and
+   negative, fills None, -7 and INT_MAX with and without the counts payload,
+   α-chunk offsets, and a float32 payload).  Equality is exact.
 4. Drives the main path once through ``psrs_sort``: 2^27 int32 keys, v = 16,
    k = 4, the async driver, every kernel on; the output must equal
-   ``torch.sort``, and every kernel's launch count (reset just before) must
-   be above zero.
+   ``torch.sort``, and the launch count (reset just before) of every kernel
+   of the path must be above zero: the local sort, the delivery, and the
+   merge's splitters and segment merge (the gathered-tile sort,
+   ``merge_tile_grid``, is off the main path and reports its count).
 5. Runs the same plan stage by stage (``psrs_plan``) a few times under
    each driver (explicit, sliced, async) with CUDA-event stage times,
    checks ``rcount``/``oflow``, and times each driver's swap cost alone (a
@@ -30,12 +36,16 @@ What it does, in order; any failure raises and the exit code is non-zero:
    the same keys as a yardstick, and then times each kernel, its plain
    version and, where one exists, the one PyTorch call computing the same
    function, on the inputs the async run gave it (the local sort on a fresh
-   store's strided rows, as a round hands them over).
+   store's strided rows, as a round hands them over; the merge on round 0's
+   received buckets where the store holds them).  Takes the merge stage's
+   round 0 apart before and after the fused merge
+   (``scripts/merge_stage_split.py``: each phase between CUDA events, and
+   each route's device time by kernel from ``torch.profiler``).
 5b. The ``P > 1`` path: ``psrs_sort`` on the same keys over ``MESH_P`` (4)
    real processors of a one-card mesh, k = ``MESH_K`` (2), unchunked under
    the async driver and α-chunked (α = 1) under the explicit driver.  Each
    run resets every kernel count just before it; its output must equal
-   ``torch.sort`` and the ``P == 1`` run, the local sort, tile and mesh
+   ``torch.sort`` and the ``P == 1`` run, the local sort, merge and mesh
    staging (kernel 4) counts must be above zero, and kernel 4's launches
    and ``pems.ledger.network_rounds`` must equal the closed form of
    ``repro_torch.core.analysis``.  Times both plans stage by stage, prints
@@ -128,6 +138,32 @@ ASSEMBLE_EDGES = [(1, 1, 1, 0, 1, 0, 1, 1), (4, 2, 2, 0, 4, 0, 4, 127),
 # The P > 1 path: real processors on the one card, and contexts resident
 # per real processor.
 MESH_P, MESH_K = 4, 2
+# The fused k-way merge's edges, (k, v, cap, keys, counts, rcap, tile,
+# segment tiles), as tests/test_torch_gpu.py has them: v of 1, 16, 33 and 64
+# (one and two warps of buckets, odd merge levels), windows cut inside runs
+# of equal keys, all-equal buckets, one bucket a segment, counts of 0 and of
+# cap, fill-only segments, total past rcap, rcap past v·cap and ragged,
+# tiles of 1 to 1024, many segments, the built size (32 tiles of 256) and
+# twice it.
+KWAY_EDGES = [(2, 1, 300, "dups", "random", 600, 256, 1),
+              (3, 16, 300, "dups", "random", 600, 8, 4),
+              (2, 16, 300, "equal", "full", 2000, 2, 64),
+              (2, 33, 100, "extremes", "random", 1500, 8, 8),
+              (2, 16, 1000, "random", "zero", 1000, 256, 2),
+              (2, 16, 4096, "random", "random", 8192, 256, 32),
+              (2, 16, 4096, "dups", "random", 9000, 256, 64),
+              (2, 4, 5000, "presorted", "full", 20000, 256, 64),
+              (2, 16, 300, "random", "full", 1000, 256, 2),
+              (2, 16, 64, "dups", "random", 999, 1024, 4),
+              (1, 64, 50, "dups", "random", 3000, 16, 16),
+              (2, 8, 40, "extremes", "random", 333, 1, 32)]
+# Each kernel's launch counter on the PSRS paths: (module, attribute).
+COUNTERS = {"radix_sort": ("bitonic", "LAUNCHES"),
+            "alltoallv_deliver": ("deliver", "LAUNCHES"),
+            "kway_splitters": ("kway", "SPLIT_LAUNCHES"),
+            "kway_merge_segments": ("kway", "SEGMENT_LAUNCHES"),
+            "kway_merge_tiles": ("kway", "LAUNCHES"),
+            "assemble_proc_tiles": ("deliver", "ASSEMBLE_LAUNCHES")}
 
 
 def check(ok, what: str) -> None:
@@ -151,6 +187,39 @@ def rand_int32(shape, gen, kind="random"):
         x = pool[torch.randint(0, len(pool), shape, generator=gen,
                                device=dev)]
     return x.to(torch.int32)
+
+
+def kway_inputs(gen, k, v, cap, kind, cnt_kind):
+    """Sorted buckets ``[k, v, cap]`` whose lanes past the counts hold random
+    words, as strided views of wider rows, and their counts (a view too)."""
+    dev = gen.device
+    if kind == "presorted":                   # bucket j below bucket j + 1
+        b = torch.arange(k * v * cap, device=dev, dtype=torch.int32)
+        b = b.reshape(k, v, cap)
+    else:
+        b = torch.sort(rand_int32((k, v, cap), gen, kind), dim=-1).values
+    c = {"random": torch.randint(0, cap + 1, (k, v), generator=gen,
+                                 device=dev, dtype=torch.int32),
+         "full": torch.full((k, v), cap, device=dev, dtype=torch.int32),
+         "zero": torch.zeros((k, v), device=dev, dtype=torch.int32)}[cnt_kind]
+    if cnt_kind == "random":
+        c[0, 0], c[-1, -1] = 0, cap
+    lane = torch.arange(cap, device=dev)
+    b = torch.where(lane < c[..., None], b, rand_int32((k, v, cap), gen))
+    rows = torch.zeros((k, v * cap + v + 40), dtype=torch.int32, device=dev)
+    rows[:, 24:24 + v * cap] = b.reshape(k, -1)
+    rows[:, 24 + v * cap:24 + v * cap + v] = c
+    return (rows[:, 24:24 + v * cap].view(k, v, cap),
+            rows[:, 24 + v * cap:24 + v * cap + v])
+
+
+def set_counts(kern, value: int = 0) -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(kern[mod], attr, value)
+
+
+def read_counts(kern, names) -> dict:
+    return {n: getattr(kern[COUNTERS[n][0]], COUNTERS[n][1]) for n in names}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -223,17 +292,34 @@ def edge_checks(gen, kern) -> None:
              f"local sort strided ref n={n}")
     x = rand_int32((2, 1000), gen, "extremes")          # padded to 1024
     same(bitonic_sort(x), torch.sort(x, dim=-1).values, "ops.sort n=1000")
-    for tile in (2, 8, 256, 8192, 16384):
+    # The tile sort: warp registers up to 1024 keys, the bitonic passes past.
+    for tile in (1, 2, 8, 256, 1024, 2048, 8192, 16384):
         t = rand_int32((max(1, (1 << 16) // tile), tile), gen, "extremes")
         same(km.merge_tile_grid(t), km.sort_tile_rows(t), f"tile {tile}")
     for v, cap, rcap, tile in [(4, 16, 20, 8), (4, 16, 64, 2),
-                               (4, 16, 100, 8), (16, 300, 600, 256)]:
+                               (4, 16, 100, 8), (16, 300, 600, 256),
+                               (16, 300, 600, 2048)]:
         b = torch.sort(rand_int32((3, v, cap), gen, "dups"), dim=-1).values
         c = torch.randint(0, cap + 1, (3, v), generator=gen,
                           device=gen.device, dtype=torch.int32)
         m, _, _ = kway_merge(b, c, rcap=rcap, tile=tile, fill=INT_MAX)
         same(m, kway_merge_ref(b, c, rcap=rcap, fill=INT_MAX),
              f"kway_merge v={v} cap={cap} rcap={rcap} tile={tile}")
+    # The fused merge's two kernels against their plain versions, on
+    # buckets laid out as the merge stage finds them (strided views).
+    for k, v, cap, kind, cnts, rcap, tile, S in KWAY_EDGES:
+        b, c = kway_inputs(gen, k, v, cap, kind, cnts)
+        ranks = km.coarse_ranks(rcap, tile, S, v * cap, gen.device)
+        what = f"kway k={k} v={v} cap={cap} {kind} {cnts} rcap={rcap} " \
+               f"tile={tile} S={S}"
+        starts = km.exact_splitters(b, c, ranks)
+        same(starts, km.exact_splitters_plain(b, c, ranks), what + " starts")
+        got = km.merge_segments(b, c, starts, rcap=rcap, tile=tile,
+                                seg_tiles=S)
+        same(got, km.merge_segments_plain(b, c, starts, rcap=rcap, tile=tile,
+                                          seg_tiles=S), what)
+        same(got, kway_merge_ref(b, c, rcap=rcap, fill=INT_MAX),
+             what + " == kway_merge_ref")
     for v, ww in [(1, 1), (3, 100), (4, 129), (16, 1000)]:
         src = rand_int32((v, v * ww + 7), gen)
         cnt = torch.randint(-2, ww + 3, (v, v + 2), generator=gen,
@@ -288,6 +374,108 @@ def edge_checks(gen, kern) -> None:
     want = assemble_proc_ref(msgs, cnt, cnt.float(), fill=-1.5)
     for g, w in zip(got, want):
         same(g.view(torch.int32), w.view(torch.int32), "assemble float32")
+
+
+def merge_rows(km, recv, cnt, rcap: int, tile: int, launches, reps) -> list:
+    """Kernel 3's fused merge on the main path's received buckets (round 0,
+    ``recv [k, v, cap]`` and ``cnt [k, v]`` as the store holds them): the
+    splitters and the segment merge, each held exactly against its plain
+    version and timed beside it, with its bound.  The segments' library
+    call is one ``torch.sort`` of the count-masked ``[k, v·cap]`` rows, as
+    ``kway_merge_ref`` does (the mask made outside the timed call)."""
+    from repro_torch.kernels.kway_merge import kway_merge
+    k, v, cap = recv.shape
+    S = km.segment_tiles(v, tile)
+    ranks = km.coarse_ranks(rcap, tile, S, v * cap, recv.device)
+    R = ranks.numel()
+    starts = km.exact_splitters(recv, cnt, ranks)
+    err = same(starts, km.exact_splitters_plain(recv, cnt, ranks),
+               "splitters main path")
+    # A search reads about log2(cap + 1) keys of a bucket for each rank and
+    # writes the starts.
+    probes = k * R * v * math.ceil(math.log2(cap + 1))
+    b_ms, b_by = bound(4 * (probes + k * v + k * R * v) + 8 * R, probes)
+    rows = [dict(
+        name="kway_splitters", route="cuda",
+        source="src/repro_torch/csrc/kway_merge.cu",
+        replaces="src/repro/kernels/kway_merge/kway_merge.py:65",
+        launches=launches["kway_splitters"], max_abs_err=err,
+        ms=cuda_ms(lambda: km.exact_splitters(recv, cnt, ranks), reps),
+        plain_ms=cuda_ms(lambda: km.exact_splitters_plain(recv, cnt, ranks),
+                         2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"[{k}, {v}, {cap}] int32 buckets, strides {recv.stride()}, "
+              f"{R} coarse ranks (S {S})")]
+
+    def segments():
+        return km.merge_segments(recv, cnt, starts, rcap=rcap, tile=tile,
+                                 seg_tiles=S)
+
+    got = segments()
+    err = same(got, km.merge_segments_plain(recv, cnt, starts, rcap=rcap,
+                                            tile=tile, seg_tiles=S),
+               "segments main path")
+    masked = km.mask_buckets(recv, cnt).reshape(k, v * cap)
+    same(got, torch.sort(masked, dim=-1).values[:, :rcap],
+         "fused merge main path == torch.sort of the masked rows")
+    # Reads the valid keys of rank below rcap, writes k·rcap keys;
+    # n·log2(v) comparisons merge them.
+    valid = int(torch.clamp(cnt.to(torch.int64), 0, cap).sum(dim=1)
+                .clamp(max=rcap).sum())
+    b_ms, b_by = bound(4 * (valid + k * rcap + starts.numel() + k * v),
+                       valid * math.log2(max(v, 2)))
+    rows.append(dict(
+        name="kway_merge_segments", route="cuda",
+        source="src/repro_torch/csrc/kway_merge.cu",
+        replaces="src/repro/kernels/kway_merge/kway_merge.py:65",
+        launches=launches["kway_merge_segments"], max_abs_err=err,
+        ms=cuda_ms(segments, reps),
+        plain_ms=cuda_ms(lambda: km.merge_segments_plain(
+            recv, cnt, starts, rcap=rcap, tile=tile, seg_tiles=S), 2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.sort(masked, dim=-1), reps),
+        shape=f"[{k}, {v}, {cap}] int32 buckets, {valid} valid keys below "
+              f"rcap, merged [{k}, {rcap}], tile {tile}, S {S}"))
+    del masked, got
+    whole = cuda_ms(lambda: kway_merge(recv, cnt, rcap=rcap, tile=tile,
+                                       fill=INT_MAX), reps)
+    print(f"kway_merge of round 0 (both launches and the totals): "
+          f"{whole:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+def merge_split(recv, cnt, rcap: int, result) -> None:
+    """The merge stage's round 0 taken apart on the card, before and after
+    the fused merge (``scripts/merge_stage_split.py``): the gather route's
+    phases (mask, splitter search, gather, tile sort, result copy) and the
+    fused route's, each between CUDA events, and each route's device time
+    by kernel (``torch.profiler``)."""
+    import merge_stage_split as mss
+    km = importlib.import_module("repro_torch.kernels.kway_merge.kway_merge")
+    ops = importlib.import_module("repro_torch.kernels.kway_merge.ops")
+    k = recv.shape[0]
+
+    def gather_round():
+        tiles, _, _ = ops.gather_tiles(recv, cnt, rcap=rcap, tile=mss.TILE,
+                                       fill=INT_MAX)
+        result.copy_(km.merge_tile_grid(tiles).reshape(k, -1)[:, :rcap])
+
+    def fused_round():
+        m, _, _ = ops.kway_merge(recv, cnt, rcap=rcap, tile=mss.TILE,
+                                 fill=INT_MAX)
+        result.copy_(m)
+
+    for route, split, whole in (
+            ("gather (before)", mss.gather_route_split, gather_round),
+            ("fused (after)", mss.fused_route_split, fused_round)):
+        ms = split(recv, cnt, rcap, result)
+        print(f"merge round 0, {route} route: " + ", ".join(
+            f"{name} {t:.3f} ms" for name, t in ms.items())
+            + f"; sum {sum(ms.values()):.3f} ms")
+        print(f"merge round 0, {route} route, device ms by kernel "
+              "(torch.profiler; ms, launches, kernel):")
+        for name, t, n in mss.by_kernel(whole):
+            print(f"  {t:9.3f} {n:5d}  {name[:100]}")
 
 
 def staged(load, steps, extract, keys, v, reps, ref, what):
@@ -346,6 +534,7 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "scripts"))
     from repro_torch.kernels import _build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -391,8 +580,7 @@ def run(dev: torch.device, args) -> list:
     n_v, tile = n // v, 256
     keys = rand_int32((n,), gen)
     ref = torch.sort(keys).values
-    for mod in kern.values():
-        mod.LAUNCHES = 0
+    set_counts(kern)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -400,11 +588,15 @@ def run(dev: torch.device, args) -> list:
                     merge_kernel=True, device=dev)
     torch.cuda.synchronize()
     sort_s = time.perf_counter() - t0
-    launches = {name: mod.LAUNCHES for name, mod in kern.items()}
+    launches = read_counts(kern, COUNTERS)
     peak = torch.cuda.max_memory_allocated()
     check(torch.equal(out, ref), "psrs_sort output == torch.sort")
-    check(all(c > 0 for c in launches.values()),
-          f"every kernel launched on the main path: {launches}")
+    # The merge stage runs the fused merge (splitters and segments); the
+    # gathered-tile sort runs only for tiles past 1024 keys.
+    path = ("radix_sort", "alltoallv_deliver", "kway_splitters",
+            "kway_merge_segments")
+    check(all(launches[name] > 0 for name in path),
+          f"every kernel of the main path launched: {launches}")
     out_p1 = out
     del out
     print(f"psrs_sort n=2^{args.log_n} v={v} k={k} async: {sort_s:.3f} s "
@@ -440,24 +632,27 @@ def run(dev: torch.device, args) -> list:
     reps = args.reps
 
     lo = pems.layout
-    tiles, _, _ = gather_tiles(store.field("brecv")[:k],
-                               store.field("brcnt")[:k], rcap=2 * n_v,
-                               tile=tile, fill=INT_MAX)
+    rcap = 2 * n_v
+    recv, rcnt = store.field("brecv")[:k], store.field("brcnt")[:k]
+    rows += merge_rows(km, recv, rcnt, rcap, tile, launches, reps)
+    merge_split(recv, rcnt, rcap, store.field("result")[:k])
+    tiles, _, _ = gather_tiles(recv, rcnt, rcap=rcap, tile=tile, fill=INT_MAX)
     err = same(km.merge_tile_grid(tiles), km.sort_tile_rows(tiles),
                "kway tiles main path")
     b_ms, b_by = bound(8 * tiles.numel(), sort_ops(*tiles.shape))
     rows.append(dict(
         name="kway_merge_tiles", route="cuda",
-        source="src/repro_torch/csrc/bitonic_sort.cu",
+        source="src/repro_torch/csrc/kway_merge.cu",
         replaces="src/repro/kernels/kway_merge/kway_merge.py:65",
-        launches=launches["kway"], max_abs_err=err,
+        launches=launches["kway_merge_tiles"], max_abs_err=err,
         ms=cuda_ms(lambda: km.merge_tile_grid(tiles), reps),
         plain_ms=cuda_ms(lambda: km.sort_tile_rows(tiles), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.sort(tiles, dim=-1), reps),
-        shape=f"[{tiles.shape[0]}, {tile}] int32",
+        shape=f"[{tiles.shape[0]}, {tile}] int32, the gather route's tiles "
+              "(off the main path since the fused merge)",
         network=network_ops(*tiles.shape)))
-    del tiles
+    del tiles, recv, rcnt
 
     data = store.data
     ww = n_v                                  # cap words per message
@@ -482,7 +677,7 @@ def run(dev: torch.device, args) -> list:
         source="src/repro_torch/csrc/alltoallv_deliver.cu",
         replaces="src/repro/kernels/alltoallv_deliver/"
                  "alltoallv_deliver.py:79",
-        launches=launches["deliver"], max_abs_err=err,
+        launches=launches["alltoallv_deliver"], max_abs_err=err,
         ms=cuda_ms(deliver(dv.deliver_words), reps),
         plain_ms=cuda_ms(deliver(dv.deliver_words_plain), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -505,7 +700,7 @@ def run(dev: torch.device, args) -> list:
         name="radix_sort", route="cuda",
         source="src/repro_torch/csrc/radix_sort.cu",
         replaces="src/repro/kernels/bitonic_sort/bitonic_sort.py:44",
-        launches=launches["bitonic"], max_abs_err=err,
+        launches=launches["radix_sort"], max_abs_err=err,
         ms=cuda_ms(lambda: bs.bitonic_sort_rows(x), reps),
         plain_ms=cuda_ms(lambda: bs.radix_sort_plain(x), 2),
         bound_ms=b_ms, bound_by=b_by,
@@ -594,14 +789,14 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
     α = 1 run's first chunk.  Returns kernel 4's ``kernels`` row."""
     from repro_torch.core import analysis, make_mesh
     from repro_torch.pems_apps import psrs_plan, psrs_sort
-    bs, km, dv = kern["bitonic"], kern["kway"], kern["deliver"]
+    dv = kern["deliver"]
     n, v, P, k = keys.numel(), args.v, MESH_P, MESH_K
     n_v, m = n // v, v // MESH_P
     mesh = make_mesh(P, device=dev)
     runs = (("async", None), ("explicit", 1))
     launches = {}
     for driver, alpha in runs:
-        bs.LAUNCHES = km.LAUNCHES = dv.LAUNCHES = dv.ASSEMBLE_LAUNCHES = 0
+        set_counts(kern)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -609,17 +804,20 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
                               driver=driver, device=dev, return_pems=True)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = {"bitonic": bs.LAUNCHES, "kway": km.LAUNCHES,
-               "assemble": dv.ASSEMBLE_LAUNCHES}
+        got = read_counts(kern, ("radix_sort", "kway_splitters",
+                                 "kway_merge_segments",
+                                 "assemble_proc_tiles"))
         what = f"P={P} {driver} alpha={alpha}"
         check(torch.equal(out, ref), f"psrs_sort {what} == torch.sort")
         check(torch.equal(out, out_p1), f"psrs_sort {what} == the P=1 run")
         check(all(c > 0 for c in got.values()),
               f"every kernel of the P > 1 path launched ({what}): {got}")
         rounds = analysis.pems2_alltoallv_par_network_rounds(v, P, k, alpha)
-        check(pems.ledger.network_rounds == rounds == got["assemble"],
+        check(pems.ledger.network_rounds == rounds
+              == got["assemble_proc_tiles"],
               f"{what}: network_rounds {pems.ledger.network_rounds}, "
-              f"closed form {rounds}, kernel 4 launches {got['assemble']}")
+              f"closed form {rounds}, kernel 4 launches "
+              f"{got['assemble_proc_tiles']}")
         launches[(driver, alpha)] = got
         print(f"psrs_sort n=2^{args.log_n} v={v} k={k} {what}: {secs:.3f} s "
               f"host clock (first call), launches {got}, network_rounds "
@@ -674,14 +872,15 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
         source="src/repro_torch/csrc/alltoallv_deliver.cu",
         replaces="src/repro/kernels/alltoallv_deliver/"
                  "alltoallv_deliver.py:163",
-        launches=launches[("explicit", 1)]["assemble"], max_abs_err=err,
+        launches=launches[("explicit", 1)]["assemble_proc_tiles"],
+        max_abs_err=err,
         ms=cuda_ms(stage(dv.assemble_words, 0), args.reps),
         plain_ms=cuda_ms(stage(dv.assemble_words_plain, 1), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"P={P} senders x [s={s}, P={P}, d={d}, ww={n_v}] int32 "
               f"words, {valid} valid")
     print("kernel 4 launches per run: " + ", ".join(
-        f"P={P} {dr} alpha={a}: {c['assemble']}"
+        f"P={P} {dr} alpha={a}: {c['assemble_proc_tiles']}"
         for (dr, a), c in launches.items()))
     # Where the alltoallv stage's time goes: the exchange (a strided copy of
     # the chunk into the recv rows) beside kernel 4, on the same chunk, and

@@ -1,16 +1,17 @@
-// Bitonic sorting networks for Hopper (sm_90a): the k-way merge's tile sort,
-// and the PSRS local sort of rows that fit one shared-memory segment.
+// Bitonic sorting network for Hopper (sm_90a): the PSRS local sort of rows
+// that fit one shared-memory segment, and the k-way merge's tile sort of
+// tiles larger than kway_merge.cu's warp-register sort takes.
 //
-// Replaces the TPU kernel merge_tile_grid
-// (src/repro/kernels/kway_merge/kway_merge.py:65, body _kway_merge_kernel
-// :61, network sort_tile_rows :35) — entry point repro_kway_tile_sort.  The
-// TPU kernel runs a bitonic network: for stage = 0 .. log2(n)-1 and
-// sub = stage .. 0, elements i and i + 2^sub (bit sub of i clear) are
-// compare-exchanged, ascending iff bit (stage+1) of i is 0
-// (src/repro/kernels/bitonic_sort/bitonic_sort.py:31-35).  The PSRS local
-// sort (TPU kernel bitonic_sort_rows, bitonic_sort.py:44) is the radix sort
-// of radix_sort.cu; a row of 2^13 keys or fewer takes this file's one
-// shared-memory pass instead (entry repro_bitonic_sort_rows).
+// The TPU kernels bitonic_sort_rows (src/repro/kernels/bitonic_sort/
+// bitonic_sort.py:44) and merge_tile_grid (src/repro/kernels/kway_merge/
+// kway_merge.py:65, network sort_tile_rows :35) run a bitonic network: for
+// stage = 0 .. log2(n)-1 and sub = stage .. 0, elements i and i + 2^sub (bit
+// sub of i clear) are compare-exchanged, ascending iff bit (stage+1) of i is
+// 0 (src/repro/kernels/bitonic_sort/bitonic_sort.py:31-35).  The PSRS local
+// sort is the radix sort of radix_sort.cu; a row of 2^13 keys or fewer takes
+// this file's one shared-memory pass instead.  The k-way merge sorts its
+// tiles in warp registers (kway_merge.cu); a tile of more than 1024 keys
+// comes here.  Entry point: repro_bitonic_sort_rows.
 //
 // Design.  The TPU kernel keeps a whole row in VMEM; a Hopper block may use
 // 227 KB of shared memory, so the network is split:
@@ -20,18 +21,8 @@
 //   * one global-memory pass (global_step) per larger stride.
 // A row of n = 2^L elements, L > 13, costs 1 + sum_{s=13}^{L-1} (s - 12) + (L - 13)
 // passes, each reading and writing the whole batch once with coalesced 4-byte
-// accesses; a row of 2^13 or fewer costs the one shared-memory pass.
-//
-// The k-way merge tiles are 256 elements by default: one block per tile sorts
-// it entirely in shared memory (1 KiB), one launch for all k*G tiles of a
-// round; larger power-of-two tiles fall through to the global passes.
-// Bound of the tile sort: at full-scale PSRS a round holds 4 * 65,536 tiles
-// of 256 int32, 512 MiB read and written once (0.16 ms at 3.35 TB/s) against
-// log2(256!) comparisons a tile (4.4e8 in all, 0.026 ms at the card's int32
-// rate, 16.7 T/s: 132 SMs x 64 int32 lanes x 1.98 GHz): bytes bound it, and
-// a tile that fits one segment is read once and written once, in a single
-// pass.  The network's own n/2 * L(L+1)/2 compare-exchanges per tile
-// describe the algorithm, not the function.
+// accesses; a row of 2^13 or fewer costs the one shared-memory pass.  Bytes
+// bound it: a row that fits one segment is read once and written once.
 //
 // Offsets are 64-bit throughout: a batch may exceed 2^31 elements.
 
@@ -138,17 +129,11 @@ int sort_rows(int64_t device, const void* in, int64_t in_stride, void* out,
 
 // Ascending sort of each row of in[rows, n] (n a power of two, rows
 // in_stride elements apart) into the contiguous out[rows, n]; the local sort
-// takes it for n <= 2^13, one shared-memory pass.
+// takes it for n <= 2^13, one shared-memory pass, and the k-way merge's tile
+// sort for tiles past 1024 keys.
 extern "C" int repro_bitonic_sort_rows(int64_t device, const void* in, int64_t in_stride,
                                        void* out, int64_t rows, int64_t n, void* stream) {
   return sort_rows(device, in, in_stride, out, rows, n, stream);
-}
-
-// Ascending sort of each compactly gathered k-way merge tile of in[G, tile]
-// into out: one block per tile while the tile fits one shared-memory segment.
-extern "C" int repro_kway_tile_sort(int64_t device, const void* in, void* out,
-                                    int64_t tiles, int64_t tile, void* stream) {
-  return sort_rows(device, in, tile, out, tiles, tile, stream);
 }
 
 extern "C" const char* repro_error_string(int64_t err) {

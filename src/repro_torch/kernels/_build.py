@@ -4,8 +4,9 @@ The sources under ``repro_torch/csrc/*.cu`` have a plain C interface.  On
 first use each source is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a`` and the objects are linked into one shared library,
 ``build/kernels/librepro_torch_<hash>.so`` at the root of the source tree;
-``<hash>`` covers the sources and flags, so a changed source builds anew and
-an unchanged one loads at once.  The library is loaded with :mod:`ctypes`:
+``<hash>`` covers the sources, every header beside them (``csrc/*.cuh``) and
+the flags, so a changed source or header builds anew and an unchanged tree
+loads at once.  The library is loaded with :mod:`ctypes`:
 every pointer and the stream are ``c_void_p``, every size ``c_int64``, every
 real ``c_double``, and every entry returns the ``cudaError_t`` of its
 launches.
@@ -28,8 +29,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("bitonic_sort.cu", "radix_sort.cu", "alltoallv_deliver.cu",
-           "flash_attention.cu", "ssd_scan.cu", "lru_scan.cu")
+SOURCES = ("bitonic_sort.cu", "radix_sort.cu", "kway_merge.cu",
+           "alltoallv_deliver.cu", "flash_attention.cu", "ssd_scan.cu",
+           "lru_scan.cu")
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -43,6 +45,12 @@ _SIGNATURES = {
     "repro_radix_sort_rows": "ipipppiiiip",
     # device, in, out, tiles, tile, stream
     "repro_kway_tile_sort": "ippiip",
+    # device, brecv, context stride, bucket stride, cnt, cnt context stride,
+    # ranks, R, k, v, cap, starts, stream
+    "repro_kway_splitters": "ipiipi" "pi" "iii" "p" "p",
+    # device, brecv, context stride, bucket stride, cnt, cnt context stride,
+    # starts, out, k, v, cap, rcap, tile, seg_tiles, stream
+    "repro_kway_merge_segments": "ipiipi" "pp" "iiiiii" "p",
     # device, src, src_stride, src_off, dst, dst_stride, dst_off, v, ww,
     # cnt, cnt_stride, cnt_off, fill, cp, cp_stride, cp_off,
     # ct, ct_stride, ct_off, stream
@@ -79,7 +87,8 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"

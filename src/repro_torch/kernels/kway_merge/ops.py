@@ -1,29 +1,33 @@
-"""Public k-way merge wrapper: exact splitting + compact gather + tile sort
-(``ops.py:98-221`` of the JAX package), batched over the round's contexts.
+"""Public k-way merge wrapper, batched over the round's contexts.
 
 ``kway_merge(buckets [k, v, cap], counts [k, v], rcap=...)`` returns, per
 context, the lowest ``rcap`` elements of the count-masked buckets, ascending,
 plus the total received count and an overflow flag — the PSRS merge-stage
-contract, bit identical to :func:`.ref.kway_merge_ref`.
+contract, bit identical to :func:`.ref.kway_merge_ref` and to the JAX
+package's ``kway_merge`` (the output is unique).
 
-Pipeline (plain PyTorch around one kernel launch):
+Routes, chosen by size alone:
 
-1. **Mask** lanes at/past ``counts[j]`` to ``fill`` (the dtype maximum), so
-   each row is ascending and the fill lanes are ordinary elements.
-2. **Exact splitters** (arxiv 0910.2582): for every output tile boundary
-   rank ``r = g·tile`` a 32-step MSB-first search over the biased value
-   domain finds ``t_r = max u: #{x < u} < r``; the duplicates of ``t_r`` are
-   handed out greedily in bucket order.  The candidates ``u | 1 << (31-i)``
-   live in int64 (``[0, 2^32)``), and each count is a ``searchsorted`` of
-   the int32 query ``u - 2^31`` into the int32 rows — ``int64(x) + 2^31``
-   keeps the order of the JAX package's biased uint32 domain exactly,
-   without a 64-bit copy of the buckets.
-3. **Compact gather**: tile ``g``'s window lengths sum to exactly ``tile``,
-   so the windows concatenate (owner bucket by ``searchsorted`` over the
-   exclusive length prefix) into one dense row per tile.
-4. **Tile sort**: :func:`.kway_merge.merge_tile_grid` — one launch for all
-   ``k·G`` tiles — or, with ``use_kernel=False``, its plain network
-   :func:`.kway_merge.sort_tile_rows` on any device.
+* **Fused** (a segment of :func:`.kway_merge.segment_tiles` tiles fits
+  shared memory: every tile up to ``SEGMENT_KEYS`` keys, the default 256
+  included): two launches that read the buckets where they lie.
+  :func:`.kway_merge.exact_splitters` finds every bucket's exact start at
+  the boundary of every ``S``-th output tile, and
+  :func:`.kway_merge.merge_segments` merges each segment of ``S`` tiles in
+  one block (its windows into shared memory, merged there pairwise).  No
+  masked copy of the buckets and no index tensor is made.  A CPU tensor
+  runs their plain versions.
+* **Gather** (a larger tile): the JAX package's pipeline,
+  :func:`gather_tiles` (the count mask, the exact splitters at every tile
+  boundary, the compact gather into ``[k·G, tile]``) and
+  :func:`.kway_merge.merge_tile_grid`, one launch for all tiles.
+* ``use_kernel=False`` takes the gather route with the plain network
+  :func:`.kway_merge.sort_tile_rows` on any device.
+
+The exact splitters (arxiv 0910.2582): for a boundary rank ``r`` a 32-step
+MSB-first search over the biased value domain finds ``t_r = max u: #{x < u}
+< r``, and the duplicates of ``t_r`` are handed out greedily in bucket order
+(:func:`.kway_merge.split_search`).
 """
 
 from __future__ import annotations
@@ -32,34 +36,9 @@ from typing import Tuple
 
 import torch
 
-from .kway_merge import merge_tile_grid, sort_tile_rows
-
-_BIAS = 1 << 31
-
-
-def _exact_starts(rows: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
-    """Per-bucket window starts for global ``ranks [R]`` over ``[k, v, cap]``
-    ascending int32 rows: ``starts[b, r, j]`` with
-    ``Σ_j starts[b, r, j] = ranks[r]``."""
-    k, v, _ = rows.shape
-    R = ranks.shape[0]
-
-    def search(u, right=False):             # u [k, R] biased → [k, v, R]
-        q = (u - _BIAS).to(torch.int32)[:, None, :].expand(k, v, R)
-        return torch.searchsorted(rows, q.contiguous(), right=right)
-
-    u = torch.zeros((k, R), dtype=torch.int64, device=rows.device)
-    for i in range(32):
-        cand = u | (1 << (31 - i))
-        u = torch.where(search(cand).sum(dim=1) < ranks, cand, u)
-
-    lo = search(u)                          # [k, v, R] elements < t
-    hi = search(u, right=True)              # [k, v, R] elements <= t
-    dups = hi - lo
-    need = ranks - lo.sum(dim=1, keepdim=True)        # duplicates of t
-    cum = torch.cumsum(dups, dim=1) - dups            # exclusive prefix
-    take = torch.minimum(torch.clamp(need - cum, min=0), dups)
-    return (lo + take).transpose(1, 2)                # [k, R, v]
+from .kway_merge import (coarse_ranks, compact_gather, exact_splitters,
+                         mask_buckets, merge_segments, merge_tile_grid,
+                         segment_tiles, sort_tile_rows, split_search)
 
 
 def kway_merge(
@@ -86,24 +65,28 @@ def kway_merge(
             buckets[None], counts[None], rcap=rcap, tile=tile, fill=fill,
             use_kernel=use_kernel)
         return merged[0], total[0], over[0]
-    tiles, total, overflow = gather_tiles(buckets, counts, rcap=rcap,
-                                          tile=tile, fill=fill)
+    _check(buckets, rcap=rcap, tile=tile, fill=fill)
+    k, v, cap = buckets.shape
+    counts = counts.to(torch.int32)
+    total = counts.sum(dim=1, dtype=torch.int32)
+    overflow = (total > rcap).to(torch.int32)
+    S = segment_tiles(v, tile) if use_kernel else 0
+    if S:
+        ranks = coarse_ranks(rcap, tile, S, v * cap, buckets.device)
+        starts = exact_splitters(buckets, counts, ranks)
+        merged = merge_segments(buckets, counts, starts, rcap=rcap,
+                                tile=tile, seg_tiles=S)
+        return merged, total, overflow
+    tiles, _, _ = gather_tiles(buckets, counts, rcap=rcap, tile=tile,
+                               fill=fill)
     merged = merge_tile_grid(tiles) if use_kernel else sort_tile_rows(tiles)
-    k = buckets.shape[0]
     return merged.reshape(k, -1)[:, :rcap], total, overflow
 
 
-def gather_tiles(buckets: torch.Tensor, counts: torch.Tensor, *, rcap: int,
-                 tile: int, fill) -> Tuple[torch.Tensor, torch.Tensor,
-                                           torch.Tensor]:
-    """Steps 1-3 of :func:`kway_merge` on ``[k, v, cap]`` buckets: returns
-    ``(tiles [k·G, tile], total [k], overflow [k])``, each row of ``tiles``
-    a permutation of its output tile's elements (``G = ceil(rcap/tile)``
-    tiles per context) — the tile sort's input."""
+def _check(buckets: torch.Tensor, *, rcap: int, tile: int, fill) -> None:
     if buckets.dim() != 3:
         raise ValueError(
             f"buckets must be [k, v, cap], got {tuple(buckets.shape)}")
-    k, v, cap = buckets.shape
     if buckets.dtype != torch.int32:
         raise ValueError(
             f"kway_merge supports int32 buckets, got {buckets.dtype} (the "
@@ -118,34 +101,26 @@ def gather_tiles(buckets: torch.Tensor, counts: torch.Tensor, *, rcap: int,
             f"fill={fill!r} must be the dtype maximum {fmax}: masked lanes "
             "must sort to every bucket's tail for the windows to be "
             "ascending")
+
+
+def gather_tiles(buckets: torch.Tensor, counts: torch.Tensor, *, rcap: int,
+                 tile: int, fill) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The gather route's steps before the tile sort on ``[k, v, cap]``
+    buckets: returns ``(tiles [k·G, tile], total [k], overflow [k])``, each
+    row of ``tiles`` a permutation of its output tile's elements
+    (``G = ceil(rcap/tile)`` tiles per context) — the tile sort's input."""
+    _check(buckets, rcap=rcap, tile=tile, fill=fill)
+    k, v, cap = buckets.shape
     dev = buckets.device
 
     counts = counts.to(torch.int32)
     total = counts.sum(dim=1, dtype=torch.int32)
     overflow = (total > rcap).to(torch.int32)
 
-    lane = torch.arange(cap, device=dev)
-    masked = torch.where(lane < counts[..., None], buckets,
-                         torch.tensor(fmax, dtype=torch.int32, device=dev))
-
+    masked = mask_buckets(buckets, counts)
     n_all = v * cap                          # fill lanes are elements too
     G = -(-rcap // tile)
     ranks = torch.clamp(torch.arange(G + 1, device=dev) * tile, max=n_all)
-    starts = _exact_starts(masked, ranks)    # [k, G+1, v]
-
-    # Compact gather: slot s of tile g belongs to the bucket whose exclusive
-    # length prefix covers s.
-    lens = starts[:, 1:] - starts[:, :-1]                        # [k, G, v]
-    cum = torch.cumsum(lens, dim=2) - lens
-    slot = torch.arange(tile, device=dev).expand(k, G, tile).contiguous()
-    own = torch.searchsorted(cum.contiguous(), slot, right=True) - 1
-    off = slot - torch.gather(cum, 2, own)
-    valid = off < torch.gather(lens, 2, own)     # only the last tile is short
-    pos = torch.gather(starts[:, :-1], 2, own) + off
-    flat = own * cap + torch.clamp(pos, 0, cap - 1)
-    tiles = torch.gather(masked.reshape(k, n_all), 1,
-                         flat.reshape(k, G * tile)).reshape(k, G, tile)
-    tiles = torch.where(valid, tiles,
-                        torch.tensor(fmax, dtype=torch.int32, device=dev))
-
-    return tiles.reshape(k * G, tile), total, overflow
+    starts = split_search(masked, ranks)     # [k, G+1, v]
+    return compact_gather(masked, starts, tile), total, overflow

@@ -89,7 +89,9 @@ def test_radix_kernel_matches_torch_sort_and_plain(cuda, rows, n, pad, kind):
     assert torch.equal(got, bs.radix_sort_plain(x))
 
 
-@pytest.mark.parametrize("tile", [2, 8, 256, 8192, 16384])
+# The warp-register sort up to 1024 keys a tile; 2048 and past take the
+# bitonic kernel's shared-memory and global passes.
+@pytest.mark.parametrize("tile", [2, 8, 256, 1024, 2048, 8192, 16384])
 def test_tile_kernel_matches_plain(cuda, tile):
     km = _kernel("kway_merge")
     t = _keys((max(1, (1 << 16) // tile), tile), cuda, tile, "dups")
@@ -98,6 +100,95 @@ def test_tile_kernel_matches_plain(cuda, tile):
     torch.cuda.synchronize()
     assert km.LAUNCHES == before + 1
     assert torch.equal(got, km.sort_tile_rows(t))
+
+
+# The fused k-way merge's edges, (k, v, cap, keys, counts, rcap, tile,
+# segment tiles): v of 1, 16, 33 and 64 (one and two warps of buckets, odd
+# merge levels), windows cut inside runs of equal keys, all-equal buckets,
+# one bucket a segment, counts of 0 and of cap, fill-only segments, total
+# past rcap, rcap past v·cap and ragged, tiles of 1 to 1024, many segments,
+# the built size (32 tiles of 256) and twice it.
+_KWAY = [(2, 1, 300, "dups", "random", 600, 256, 1),
+         (3, 16, 300, "dups", "random", 600, 8, 4),
+         (2, 16, 300, "equal", "full", 2000, 2, 64),
+         (2, 33, 100, "extremes", "random", 1500, 8, 8),
+         (2, 16, 1000, "random", "zero", 1000, 256, 2),
+         (2, 16, 4096, "random", "random", 8192, 256, 32),
+         (2, 16, 4096, "dups", "random", 9000, 256, 64),
+         (2, 4, 5000, "presorted", "full", 20000, 256, 64),
+         (2, 16, 300, "random", "full", 1000, 256, 2),
+         (2, 16, 64, "dups", "random", 999, 1024, 4),
+         (1, 64, 50, "dups", "random", 3000, 16, 16),
+         (2, 8, 40, "extremes", "random", 333, 1, 32)]
+
+
+def _kway_inputs(dev, k, v, cap, kind, cnt_kind, seed):
+    """Sorted buckets whose lanes past the counts hold random words, laid
+    out as the merge stage finds them: a [k, v, cap] view of wider rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "presorted":
+        b = torch.arange(k * v * cap, device=dev, dtype=torch.int32)
+        b = b.reshape(k, v, cap)
+    else:
+        b = torch.sort(_keys((k, v, cap), dev, seed, kind), dim=-1).values
+    cnt = {"random": torch.randint(0, cap + 1, (k, v), generator=g,
+                                   device=dev, dtype=torch.int32),
+           "full": torch.full((k, v), cap, device=dev, dtype=torch.int32),
+           "zero": torch.zeros((k, v), device=dev, dtype=torch.int32)}[
+               cnt_kind]
+    if cnt_kind == "random":
+        cnt[0, 0], cnt[-1, -1] = 0, cap
+    lane = torch.arange(cap, device=dev)
+    b = torch.where(lane < cnt[..., None], b, _keys((k, v, cap), dev, seed + 1))
+    rows = torch.zeros((k, v * cap + v + 40), dtype=torch.int32, device=dev)
+    rows[:, 24:24 + v * cap] = b.reshape(k, -1)
+    rows[:, 24 + v * cap:24 + v * cap + v] = cnt
+    return (rows[:, 24:24 + v * cap].view(k, v, cap),
+            rows[:, 24 + v * cap:24 + v * cap + v])
+
+
+@pytest.mark.parametrize("case", _KWAY, ids=str)
+def test_kway_merge_kernels_match_plain(cuda, case):
+    k, v, cap, kind, cnt_kind, rcap, tile, S = case
+    km = _kernel("kway_merge")
+    b, cnt = _kway_inputs(cuda, k, v, cap, kind, cnt_kind, v * cap + rcap)
+    ranks = km.coarse_ranks(rcap, tile, S, v * cap, cuda)
+    before = km.SPLIT_LAUNCHES, km.SEGMENT_LAUNCHES
+    starts = km.exact_splitters(b, cnt, ranks)
+    got = km.merge_segments(b, cnt, starts, rcap=rcap, tile=tile,
+                            seg_tiles=S)
+    torch.cuda.synchronize()
+    assert (km.SPLIT_LAUNCHES, km.SEGMENT_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert torch.equal(starts, km.exact_splitters_plain(b, cnt, ranks))
+    assert torch.equal(got, km.merge_segments_plain(
+        b, cnt, starts, rcap=rcap, tile=tile, seg_tiles=S))
+    from repro_torch.kernels.kway_merge import kway_merge, kway_merge_ref
+    assert torch.equal(got, kway_merge_ref(b, cnt, rcap=rcap, fill=INT_MAX))
+    merged, _, _ = kway_merge(b, cnt, rcap=rcap, tile=tile, fill=INT_MAX)
+    assert torch.equal(merged, got)
+
+
+def test_kway_merge_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    km = _kernel("kway_merge")
+    b = torch.zeros((2, 4, 16), dtype=torch.int32, device=cuda)
+    cnt = torch.zeros((2, 4), dtype=torch.int32, device=cuda)
+    ranks = km.coarse_ranks(64, 8, 2, 64, cuda)
+    starts = km.exact_splitters(b, cnt, ranks)
+    before = km.SPLIT_LAUNCHES, km.SEGMENT_LAUNCHES
+    with pytest.raises(TypeError, match="int32"):
+        km.exact_splitters(b.float(), cnt, ranks)
+    with pytest.raises(ValueError, match="contiguous"):
+        km.exact_splitters(b.transpose(1, 2).contiguous().transpose(1, 2),
+                           cnt, ranks)
+    with pytest.raises(ValueError, match="int64"):
+        km.exact_splitters(b, cnt, ranks.to(torch.int32))
+    with pytest.raises(ValueError, match="do not fit"):
+        km.merge_segments(b, cnt, starts, rcap=64, tile=1 << 16, seg_tiles=1)
+    with pytest.raises(ValueError, match="starts"):
+        km.merge_segments(b, cnt, starts[:, :-1], rcap=64, tile=8,
+                          seg_tiles=2)
+    assert (km.SPLIT_LAUNCHES, km.SEGMENT_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("v, ww", [(1, 1), (3, 100), (4, 129), (16, 1000)])
@@ -124,13 +215,16 @@ def test_psrs_on_the_card_matches_the_cpu_and_launches_every_kernel(cuda):
     mods = [_kernel(n) for n in ("bitonic_sort", "kway_merge",
                                  "alltoallv_deliver")]
     keys = _keys((1 << 16,), cuda, 7, "dups")
-    for m in mods:
-        m.LAUNCHES = 0
+    bs, km, dv = mods
+    bs.LAUNCHES = dv.LAUNCHES = 0
+    km.SPLIT_LAUNCHES = km.SEGMENT_LAUNCHES = 0
     for driver in ("explicit", "sliced", "async"):
         got = psrs_sort(keys, v=16, k=4, driver=driver)
         assert got.device.type == "cuda"
         assert torch.equal(got, torch.sort(keys).values)
-    assert all(m.LAUNCHES > 0 for m in mods)
+    # The merge stage runs the fused merge: the splitters and the segments.
+    assert all(c > 0 for c in (bs.LAUNCHES, dv.LAUNCHES, km.SPLIT_LAUNCHES,
+                               km.SEGMENT_LAUNCHES))
     cpu = psrs_sort(keys.cpu(), v=16, k=4, device="cpu")
     assert torch.equal(got.cpu(), cpu)
 
