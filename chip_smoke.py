@@ -22,7 +22,10 @@ What it does, in order; any failure raises and the exit code is non-zero:
    tile sort up to and past the warp-register sort's 1024 keys; for the
    mesh staging, kernel 4, P of 1, 2 and 4, counts of 0, of ω, past ω and
    negative, fills None, -7 and INT_MAX with and without the counts payload,
-   α-chunk offsets, and a float32 payload).  Equality is exact.
+   α-chunk offsets, a float32 payload, and both destination layouts, the
+   contiguous buffer and the receivers' recv rows of the store it reads, at
+   send and recv word offsets of every phase mod 4 over a row stride of 2
+   mod 4).  Equality is exact.
 4. Drives the main path once through ``psrs_sort``: 2^27 int32 keys, v = 16,
    k = 4, the async driver, every kernel on; the output must equal
    ``torch.sort``, and the launch count (reset just before) of every kernel
@@ -30,10 +33,11 @@ What it does, in order; any failure raises and the exit code is non-zero:
    merge's splitters and segment merge (the gathered-tile sort,
    ``merge_tile_grid``, is off the main path and reports its count).
 5. Runs the same plan stage by stage (``psrs_plan``) a few times under
-   each driver (explicit, sliced, async) with CUDA-event stage times,
-   checks ``rcount``/``oflow``, and times each driver's swap cost alone (a
-   superstep whose function changes nothing).  Times one ``torch.sort`` of
-   the same keys as a yardstick, and then times each kernel, its plain
+   each driver (explicit, sliced, async) with CUDA-event stage times and
+   each stage's peak device memory, checks ``rcount``/``oflow``, and times
+   each driver's swap cost alone (a superstep whose function changes
+   nothing).  Times one ``torch.sort`` of the same keys as a yardstick,
+   and then times each kernel, its plain
    version and, where one exists, the one PyTorch call computing the same
    function, on the inputs the async run gave it (the local sort on a fresh
    store's strided rows, as a round hands them over; the merge on round 0's
@@ -50,7 +54,11 @@ What it does, in order; any failure raises and the exit code is non-zero:
    and ``pems.ledger.network_rounds`` must equal the closed form of
    ``repro_torch.core.analysis``.  Times both plans stage by stage, prints
    their ``alltoallv`` stage beside the ``P == 1`` ones, and times kernel 4
-   and its plain version on the α = 1 run's first chunk.
+   and its plain version on the α = 1 run's first chunk as the main path
+   lands it, in the receivers' recv rows (exact against the plain version
+   and the buffer layout), with the buffer layout's time beside it, and
+   kernel 4 on the unchunked run's one chunk (8 GiB) beside kernel 2 on the
+   same words.
 6. Runs a smaller matrix at 2^20 keys: all drivers, direct and indirect,
    random and duplicate-heavy keys, the dense routes, P of 2 and 4 over
    every driver, mode and α in {None, 1}, and CPU-vs-GPU bit-for-bit
@@ -135,9 +143,14 @@ TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
 ASSEMBLE_EDGES = [(1, 1, 1, 0, 1, 0, 1, 1), (4, 2, 2, 0, 4, 0, 4, 127),
                   (4, 4, 4, 2, 2, 1, 1, 300), (4, 4, 3, 1, 3, 2, 2, 1030),
                   (2, 4, 4, 0, 2, 0, 2, 1)]
+# Kernel 4's destination phases: (send offset, recv offset) mod 4 words
+# over a store row stride of 2 mod 4 words, as PSRS's store has it.
+ASSEMBLE_PHASES = [(1, 3), (2, 2), (3, 1), (0, 2), (1, 1)]
 # The P > 1 path: real processors on the one card, and contexts resident
 # per real processor.
 MESH_P, MESH_K = 4, 2
+# The device's peak memory over the script, kept across reset_peak().
+SCRIPT_PEAK = [0]
 # The fused k-way merge's edges, (k, v, cap, keys, counts, rcap, tile,
 # segment tiles), as tests/test_torch_gpu.py has them: v of 1, 16, 33 and 64
 # (one and two warps of buckets, odd merge levels), windows cut inside runs
@@ -365,6 +378,56 @@ def edge_checks(gen, kern) -> None:
                         f"c0={c0} d={d} ww={ww} fill={fill} ct={payload}")
                 same(outs[0], outs[2], what)
                 same(outs[1], outs[3], what + " counts")
+    # Both destination layouts at every phase: a buffer that starts off a
+    # 16-byte boundary, and the recv rows of the store the chunk reads.
+    for m, P, nq, s0, s, c0, d, ww in ASSEMBLE_EDGES:
+        v = m * P
+        for ps, pr in ASSEMBLE_PHASES:
+            off_s = 4 + ps
+            off_r = off_s + v * ww + (pr - ps - v * ww) % 4 + 4
+            off_c = off_r + v * ww
+            W = off_c + 2 * v + 1
+            W += (2 - W) % 4
+            store = rand_int32((v, W), gen)
+            cnt = torch.randint(-2, ww + 3, (v, v), generator=gen,
+                                device=gen.device, dtype=torch.int32)
+            cnt.view(-1)[:4] = torch.tensor([0, ww, ww + 5, -3],
+                                            device=gen.device)[:v * v]
+            store[:, off_c:off_c + v] = cnt
+            for fill in (None, -7, INT_MAX):
+                for payload in (False, True):
+                    for layout in ("buffer", "rows"):
+                        outs = []
+                        for fn in (dv.assemble_words,
+                                   dv.assemble_words_plain):
+                            st = store.clone()
+                            if layout == "rows":
+                                rows = st[:, off_r:off_r + v * ww].view(
+                                    P, m, P, m, ww)
+                                rc = st[:, off_c + v:off_c + 2 * v].view(
+                                    P, m, P, m)
+                                out = rows[:, c0:c0 + d, :nq, s0:s0 + s]
+                                out = out.permute(2, 0, 1, 3, 4)
+                                ct = rc[:, c0:c0 + d, :nq, s0:s0 + s]
+                                ct = ct.permute(2, 0, 1, 3)
+                            else:
+                                n = nq * P * d * s
+                                out = torch.zeros(pr + n * ww,
+                                                  dtype=torch.int32,
+                                                  device=gen.device)[pr:]
+                                ct = torch.zeros(n, dtype=torch.int32,
+                                                 device=gen.device)
+                            fn(st, off_s, m, P, nq, s0, s, c0, d, ww, out,
+                               None if fill is None else st, off_c, fill,
+                               st if payload else None, off_c,
+                               ct if payload else None)
+                            outs.append((st, out, ct))
+                        what = (f"assemble {layout} m={m} P={P} nq={nq} "
+                                f"s0={s0} s={s} c0={c0} d={d} ww={ww} "
+                                f"phases={ps},{pr} fill={fill} ct={payload}")
+                        for a, b, part in zip(outs[0], outs[1],
+                                              ("store", "out", "counts")):
+                            same(a, b, f"{what} {part}")
     # The array form, float32 payload and counts payload, a float fill.
     from repro_torch.kernels.alltoallv_deliver.ref import assemble_proc_ref
     msgs = torch.randn((2, 4, 3, 300), generator=gen, device=gen.device)
@@ -478,28 +541,35 @@ def merge_split(recv, cnt, rcap: int, result) -> None:
             print(f"  {t:9.3f} {n:5d}  {name[:100]}")
 
 
+def reset_peak() -> None:
+    """Reset the device's peak-memory counter, keeping the script's peak so
+    far in ``SCRIPT_PEAK``."""
+    SCRIPT_PEAK[0] = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+
+
 def staged(load, steps, extract, keys, v, reps, ref, what):
     """Run a ``psrs_plan`` ``reps`` times stage by stage with CUDA-event
-    times; check its output against ``ref``.  Returns ``({stage: [ms]},
-    the last run's store)``."""
+    times and each stage's peak device memory; check its output against
+    ``ref``.  Returns ``({stage: [ms]}, {stage: peak bytes}, the last run's
+    store)``."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     n_v = keys.numel() // v
     ms = {name: [] for name in ["load"] + [nm for nm, _ in steps]}
+    peaks = dict.fromkeys(ms, 0)
     store = None
     for _ in range(reps):
         store = None                              # free the last run's store
-        start.record()
-        store = load(keys.reshape(v, n_v))
-        end.record()
-        end.synchronize()
-        ms["load"].append(start.elapsed_time(end))
-        for name, fn in steps:
+        for name, fn in [("load", lambda _: load(keys.reshape(v, n_v)))] \
+                + list(steps):
+            reset_peak()
             start.record()
             store = fn(store)
             end.record()
             end.synchronize()
             ms[name].append(start.elapsed_time(end))
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
     result, rcount, oflow = extract(store)
     check(int(rcount.sum()) == keys.numel(),
           f"{what}: rcount sums to n ({int(rcount.sum())})")
@@ -507,15 +577,17 @@ def staged(load, steps, extract, keys, v, reps, ref, what):
     counts = rcount[:, 0].tolist()
     check(torch.equal(torch.cat([result[i, :counts[i]] for i in range(v)]),
                       ref), f"{what}: staged plan output == torch.sort")
-    return ms, store
+    return ms, peaks, store
 
 
-def print_stages(what, ms):
+def print_stages(what, ms, peaks):
     totals = [sum(t) for t in zip(*ms.values())]
+    peaks = dict(peaks, total=max(peaks.values()))
     for name, ts in list(ms.items()) + [("total", totals)]:
         print(f"stage {what} {name}: median "
               f"{statistics.median(ts):.3f} ms (min {min(ts):.3f}, "
-              f"max {max(ts):.3f}, {len(ts)} runs)")
+              f"max {max(ts):.3f}, {len(ts)} runs), peak "
+              f"{peaks[name] / 2**30:.2f} GiB")
 
 
 def main(argv=None) -> int:
@@ -582,7 +654,7 @@ def run(dev: torch.device, args) -> list:
     ref = torch.sort(keys).values
     set_counts(kern)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     t0 = time.perf_counter()
     out = psrs_sort(keys, v=v, k=k, driver="async", use_kernel=True,
                     merge_kernel=True, device=dev)
@@ -608,19 +680,19 @@ def run(dev: torch.device, args) -> list:
     # Each driver's swap cost is also timed alone, as a superstep whose
     # function changes nothing (explicit: none; sliced: a zeroed view of
     # each round; async: each round copied into a buffer and written back).
-    stage_ms, swap_ms = {}, {}
+    stage_ms, stage_peak, swap_ms = {}, {}, {}
     for driver in ("explicit", "sliced", "async"):
         store = None                              # free the last plan's store
         pems, load, steps, extract = psrs_plan(v, n_v, k=k, driver=driver,
                                                device=dev)
-        ms, store = staged(load, steps, extract, keys, v, args.stage_reps,
-                           ref, driver)
+        ms, stage_peak[driver], store = staged(
+            load, steps, extract, keys, v, args.stage_reps, ref, driver)
         swap_ms[driver] = cuda_ms(
             lambda: pems.superstep(store, lambda rhos, ctx: ctx, reads=[],
                                    writes=[]), args.reps)
         stage_ms[driver] = ms
     for driver, ms in stage_ms.items():
-        print_stages(driver, ms)
+        print_stages(driver, ms, stage_peak[driver])
         print(f"swap {driver}: {swap_ms[driver]:.3f} ms per superstep "
               f"({args.reps} no-op supersteps)")
     # Yardstick for the whole path: one library sort of the same keys.
@@ -709,8 +781,6 @@ def run(dev: torch.device, args) -> list:
     del store, x, pems, load, steps, extract
     torch.cuda.empty_cache()
 
-    # run_mesh resets the peak for its own runs: keep the larger one.
-    script_peak = torch.cuda.max_memory_allocated()
     rows.append(run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms))
     del out_p1
     torch.cuda.empty_cache()
@@ -773,7 +843,7 @@ def run(dev: torch.device, args) -> list:
             print(f"  tile bitonic network: {r['network']:.4g} min/max, "
                   f"{r['network'] / INT32_OPS_PER_S * 1e3:.4f} ms at the "
                   "int32 rate (the algorithm's work, not the function's)")
-    script_peak = max(script_peak, torch.cuda.max_memory_allocated())
+    script_peak = max(SCRIPT_PEAK[0], torch.cuda.max_memory_allocated())
     print(f"peak device memory (main path): {peak / 2**30:.2f} GiB; "
           f"whole script: {script_peak / 2**30:.2f} GiB")
     return [{key: r[key] for key in r if key not in ("shape", "network")}
@@ -798,7 +868,7 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
     for driver, alpha in runs:
         set_counts(kern)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         t0 = time.perf_counter()
         out, pems = psrs_sort(keys, v=v, k=k, P=P, mesh=mesh, alpha=alpha,
                               driver=driver, device=dev, return_pems=True)
@@ -825,43 +895,63 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del out, pems
 
-    stage_ms = {}
+    stage_ms, stage_peak = {}, {}
     for driver, alpha in runs:
         store = None                              # free the last plan's store
         pems, load, steps, extract = psrs_plan(v, n_v, k=k, P=P, mesh=mesh,
                                                alpha=alpha, driver=driver,
                                                device=dev)
         what = f"P={P} {driver} alpha={alpha}"
-        stage_ms[what], store = staged(load, steps, extract, keys, v,
-                                       args.stage_reps, ref, what)
+        stage_ms[what], stage_peak[what], store = staged(
+            load, steps, extract, keys, v, args.stage_reps, ref, what)
     for what, ms in stage_ms.items():
-        print_stages(what, ms)
+        print_stages(what, ms, stage_peak[what])
     med = {what: statistics.median(ms["alltoallv"])
            for what, ms in list(stage_ms_p1.items()) + list(stage_ms.items())}
     print("alltoallv stage, median ms: " + ", ".join(
         f"{'P=1 ' + w if 'P=' not in w else w} {t:.3f}"
-        for w, t in med.items()) + " (the P > 1 exchange is a copy within "
-        "the card's HBM, no network)")
+        for w, t in med.items()) + " (at P > 1 kernel 4 lands each chunk "
+        "in the receivers' rows: no exchange copy, no network)")
 
     # Kernel 4 on the α = 1 run's first chunk: source round 0 (s = k rows of
-    # every sender), destination chunk 0 (d = 1 context of every process).
+    # every sender), destination chunk 0 (d = 1 context of every process),
+    # landing in the receivers' recv rows of the store as the main path
+    # lands it, and into a contiguous buffer (the layout a mesh over several
+    # cards would ship).
     lo, data = pems.layout, store.data
     off_s, off_c = lo.offset("bsend"), lo.offset("bscnt")
+    off_r, off_rc = lo.offset("brecv"), lo.offset("brcnt")
+    rows = data[:, off_r:off_r + v * n_v].view(P, m, P, m, n_v)
+    rc = data[:, off_rc:off_rc + v].view(P, m, P, m)
     s, d = k, 1
     nmsg = P * P * d * s
+
+    def landing(s, d):
+        return (rows[:, :d, :, :s].permute(2, 0, 1, 3, 4),
+                rc[:, :d, :, :s].permute(2, 0, 1, 3))
+
+    def stage(fn, s, d, out, ct):
+        return lambda: fn(data, off_s, m, P, P, 0, s, 0, d, n_v, out,
+                          data, off_c, INT_MAX, data, off_c, ct)
+
+    out, ct = landing(s, d)
+    stage(dv.assemble_words, s, d, out, ct)()
+    got, got_ct = out.clone(), ct.clone()
+    stage(dv.assemble_words_plain, s, d, out, ct)()
+    err = max(same(got, out, "assemble main path, recv rows"),
+              same(got_ct, ct, "assemble main path counts, recv rows"))
     bufs = [torch.empty(nmsg * n_v, dtype=torch.int32, device=dev)
             for _ in range(2)]
     cts = [torch.empty(nmsg, dtype=torch.int32, device=dev)
            for _ in range(2)]
-
-    def stage(fn, i):
-        return lambda: fn(data, off_s, m, P, P, 0, s, 0, d, n_v, bufs[i],
-                          data, off_c, INT_MAX, data, off_c, cts[i])
-
-    stage(dv.assemble_words, 0)()
-    stage(dv.assemble_words_plain, 1)()
-    err = max(same(bufs[0], bufs[1], "assemble main path"),
-              same(cts[0], cts[1], "assemble main path counts"))
+    stage(dv.assemble_words, s, d, bufs[0], cts[0])()
+    stage(dv.assemble_words_plain, s, d, bufs[1], cts[1])()
+    err = max(err, same(bufs[0], bufs[1], "assemble main path, buffer"),
+              same(cts[0], cts[1], "assemble main path counts, buffer"),
+              same(bufs[0].view(got.shape), got, "buffer == recv rows"),
+              same(cts[0].view(got_ct.shape), got_ct,
+                   "buffer counts == recv rows counts"))
+    del got, got_ct
     # The chunk's valid words: counts of rows q·m + j (j < s) for the
     # destinations p·m (d = 1), clamped to [0, ω].
     cnt = store.field("bscnt").reshape(P, m, P, m)[:, :s, :, :d]
@@ -874,32 +964,37 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
                  "alltoallv_deliver.py:163",
         launches=launches[("explicit", 1)]["assemble_proc_tiles"],
         max_abs_err=err,
-        ms=cuda_ms(stage(dv.assemble_words, 0), args.reps),
-        plain_ms=cuda_ms(stage(dv.assemble_words_plain, 1), 2),
+        ms=cuda_ms(stage(dv.assemble_words, s, d, out, ct), args.reps),
+        plain_ms=cuda_ms(stage(dv.assemble_words_plain, s, d, out, ct), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"P={P} senders x [s={s}, P={P}, d={d}, ww={n_v}] int32 "
-              f"words, {valid} valid")
+              f"words landing in the recv rows, {valid} valid")
+    buf_ms = cuda_ms(stage(dv.assemble_words, s, d, bufs[0], cts[0]),
+                     args.reps)
     print("kernel 4 launches per run: " + ", ".join(
         f"P={P} {dr} alpha={a}: {c['assemble_proc_tiles']}"
         for (dr, a), c in launches.items()))
-    # Where the alltoallv stage's time goes: the exchange (a strided copy of
-    # the chunk into the recv rows) beside kernel 4, on the same chunk, and
-    # kernel 4 on the unchunked run's one chunk (s = d = m, 8 GiB at 2^27).
-    off_r = lo.offset("brecv")
-    recv = data[:, off_r:off_r + v * n_v].view(P, m, P, m, n_v)
-    dst = recv[:, :d, :, :s].permute(0, 2, 1, 3, 4)
-    out = bufs[0].view(P, P, d, s, n_v)
-    print(f"alltoallv P={P} alpha=1 first chunk: kernel 4 {row['ms']:.3f} "
-          f"ms, exchange (Mesh.all_to_all) "
-          f"{cuda_ms(lambda: mesh.all_to_all(out, dst), args.reps):.3f} ms "
-          f"for {out.numel() * 4 / 2**30:.2f} GiB")
-    del bufs, out, dst
+    print(f"alltoallv P={P} alpha=1 first chunk: kernel 4 landing in the "
+          f"recv rows {row['ms']:.3f} ms (the main path, no exchange), into "
+          f"a buffer {buf_ms:.3f} ms, for {nmsg * n_v * 4 / 2**30:.2f} GiB")
+    del bufs, cts, out, ct
+    # The unchunked run's one chunk (s = d = m, 8 GiB at 2^27): kernel 4
+    # landing and into a buffer, beside kernel 2 on the same words (message
+    # (s -> d) from row s into row d: the same function).
+    out, ct = landing(m, m)
+    ms = cuda_ms(stage(dv.assemble_words, m, m, out, ct), args.reps)
     whole = torch.empty(P * P * m * m * n_v, dtype=torch.int32, device=dev)
-    ms = cuda_ms(lambda: dv.assemble_words(data, off_s, m, P, P, 0, m, 0, m,
-                                           n_v, whole, data, off_c, INT_MAX),
-                 args.reps)
+    whole_ct = torch.empty(P * P * m * m, dtype=torch.int32, device=dev)
+    whole_ms = cuda_ms(stage(dv.assemble_words, m, m, whole, whole_ct),
+                       args.reps)
+    del whole, whole_ct
+    k2_ms = cuda_ms(lambda: dv.deliver_words(
+        data, off_s, data, off_r, v, n_v, data, off_c, INT_MAX, data, off_c,
+        data, off_rc), args.reps)
     print(f"kernel 4 on the unchunked chunk [P={P}, P={P}, {m}, {m}, {n_v}] "
-          f"({whole.numel() * 4 / 2**30:.2f} GiB written): {ms:.3f} ms")
+          f"({P * P * m * m * n_v * 4 / 2**30:.2f} GiB written): landing in "
+          f"the recv rows {ms:.3f} ms, into a buffer {whole_ms:.3f} ms; "
+          f"kernel 2 on the same words {k2_ms:.3f} ms")
     return row
 
 

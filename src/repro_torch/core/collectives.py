@@ -19,15 +19,15 @@ Two Alltoallv implementations:
   baseline (Alg 2.2.1) stages every message through a materialised
   "indirect area" copy first; the direct dense route is the seed reference.
 
-With ``P > 1`` (a :class:`~.mesh.Mesh`) the direct kernel route runs per
-real processor (``_alltoallv_fused_mesh``): the mesh staging kernel
-assembles each chunk straight from the send word ranges into destination
-order (boundary mask and counts transpose fused), the mesh's
-:meth:`~.mesh.Mesh.all_to_all` ships it and lands it in the destination
-rows.  ``alpha=None`` ships everything at once; with ``alpha`` the network
-phase is α-chunked (Alg 7.1.3): one buffer per (source round of ``k``,
-destination α-chunk), ≤ α·k·ω words per process pair.  The dense route
-transposes through the same exchange (``_global_transpose``).
+With ``P > 1`` (a :class:`~.mesh.Mesh` on one device) the direct kernel
+route runs per real processor (``_alltoallv_fused_mesh``): the mesh staging
+kernel moves each chunk straight from the send word ranges into the
+receivers' recv rows (boundary mask and counts transpose fused), so each
+message moves once, as at ``P == 1``.  ``alpha=None`` moves everything in
+one launch; with ``alpha`` the network phase is α-chunked (Alg 7.1.3): one
+launch per (source round of ``k``, destination α-chunk), ≤ α·k·ω words per
+process pair.  The dense route transposes through the mesh's exchange,
+:meth:`~.mesh.Mesh.all_to_all` (``_global_transpose``).
 
 Both are bit-identical.  The I/O ledger is updated with the thesis' event
 counts, independent of the implementation; it equals the JAX package's.
@@ -171,24 +171,28 @@ def _alltoallv_fused(self, store, send, recv, send_counts, recv_counts, fill):
 
 def _alltoallv_fused_mesh(self, store, send, recv, send_counts, recv_counts,
                           fill):
-    """PEMS2 word-level direct delivery over ``P > 1`` real processors:
-    assemble → ship → land, Alg 7.1.3's structure at the word level.
+    """PEMS2 word-level direct delivery over ``P > 1`` real processors of a
+    one-device mesh, in Alg 7.1.3's chunks.
 
-    For each chunk the mesh staging kernel assembles every sender's messages
-    straight from the store's send word range into a ``[P(src), P(dst), d,
-    s, ω]`` buffer in destination order (mask and counts transpose fused),
-    and the mesh's exchange ships ``buffer[q, p]`` to process ``p`` and lands
-    it in ``p``'s recv rows: source ``q``'s slots are the contiguous words
-    ``off_r + (q·m + s0)·ω`` of destination rows ``c0…c0+d``, its counts
-    ``off_rc + q·m + s0``.  Unchunked (``alpha=None``) one chunk covers
-    everything; with ``alpha`` each (source round of ``k``, destination
-    α-chunk) is one chunk, ≤ α·k·ω words per process pair (Lemma 7.1.9)."""
+    For each chunk one launch of the mesh staging kernel reads every
+    sender's messages from the store's send word range and lands each in its
+    receiver's recv rows (mask and counts transpose fused): message ``(q, p,
+    dl, j)``, sender ``q``'s local source ``s0 + j`` to process ``p``'s
+    context ``c0 + dl``, at words ``off_r + (q·m + s0 + j)·ω`` of row ``p·m
+    + c0 + dl``, its counts word at ``off_rc + q·m + s0 + j``.  Unchunked
+    (``alpha=None``) one chunk covers everything; with ``alpha`` each
+    (source round of ``k``, destination α-chunk) is one chunk, ≤ α·k·ω words
+    per process pair (Lemma 7.1.9).  A mesh over several cards would stage
+    each chunk in destination order and ship it (``assemble_proc_tiles``,
+    :meth:`~.mesh.Mesh.all_to_all`); ``self.mesh.device()`` raises for one
+    until ``ROADMAP.md`` queue 1 item 7b."""
     cfg = self.cfg
     lo = store.layout
     data = store.data
     v, Pn, m, k = cfg.v, cfg.P, cfg.v_local, cfg.k
     ww = lo.field_words(send) // v             # ω in store words
     off_r = lo.offset(recv)
+    self.mesh.device()                         # one device: land in place
 
     # A chunk's landing overwrites words that a later chunk still reads
     # when the fields alias: read those from a copy (the JAX mesh path
@@ -224,24 +228,18 @@ def _alltoallv_fused_mesh(self, store, send, recv, send_counts, recv_counts,
     else:
         chunks = [(s0, k, c0, min(cfg.alpha, m - c0))
                   for s0 in range(0, m, k) for c0 in range(0, m, cfg.alpha)]
-    most = max(s * d for _, s, _, d in chunks) * Pn * Pn
-    buf = torch.empty(most * ww, dtype=torch.int32, device=data.device)
-    ctbuf = (torch.empty(most, dtype=torch.int32, device=data.device)
-             if has_counts else None)
     for s0, s, c0, d in chunks:
-        n = Pn * Pn * d * s
-        out = buf[:n * ww].view(Pn, Pn, d, s, ww)
-        ct = None if ctbuf is None else ctbuf[:n].view(Pn, Pn, d, s)
+        # Message (q, p, dl, j) lands at rows[p, c0 + dl, q, s0 + j].
+        out = rows[:, c0:c0 + d, :, s0:s0 + s].permute(2, 0, 1, 3, 4)
+        ct = None
+        if has_counts:
+            landed = rc[:, c0:c0 + d, :, s0:s0 + s].permute(2, 0, 1, 3)
+            ct = landed if cs == cr else torch.empty(
+                landed.shape, dtype=torch.int32, device=data.device)
         assemble_words(src, src_off, m, Pn, Pn, s0, s, c0, d, ww, out,
                        cnt, cnt_off, fill_word, cp, cp_off, ct)
-        # Land: recv[p, q] = rows[p, c0:c0+d, q, s0:s0+s] in (q, dl, j).
-        self.mesh.all_to_all(
-            out, rows[:, c0:c0 + d, :, s0:s0 + s].permute(0, 2, 1, 3, 4))
-        if has_counts:
-            if cs != cr:
-                ct = _to_words(_from_words(ct, cs).to(cr))
-            self.mesh.all_to_all(
-                ct, rc[:, c0:c0 + d, :, s0:s0 + s].permute(0, 2, 1, 3))
+        if has_counts and cs != cr:
+            landed.copy_(_to_words(_from_words(ct, cs).to(cr)))
     return store
 
 

@@ -6,11 +6,14 @@ through ``lax.all_to_all``).  The port keeps that single-controller shape: a
 :class:`Mesh` names ``P`` device entries along one axis, the store stays one
 ``[v, words]`` tensor, and real processor ``p`` owns its rows ``[p·m,
 (p+1)·m)`` with ``m = v/P``.  When every entry names the same device (the
-only mesh ported so far) the network phase is :meth:`Mesh.all_to_all`: a
-copy between row blocks in that device's memory.  A mesh over several cards
-(row blocks on distinct devices, the exchange by peer copies or NCCL)
-replaces only :meth:`Mesh.all_to_all`; until then it raises
-``NotImplementedError``.
+only mesh ported so far) the network phase needs no exchange of its own:
+the fused Alltoallv lands each message in its receiver's rows from the
+sender's (``core/collectives.py``), and only the dense route's transpose
+ships through :meth:`Mesh.all_to_all`, a copy between row blocks in that
+device's memory.  A mesh over several cards (row blocks on distinct
+devices, the exchange by peer copies or NCCL) replaces
+:meth:`Mesh.all_to_all` and ships the fused route's staged chunks through
+it; until then it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

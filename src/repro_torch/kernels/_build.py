@@ -55,9 +55,11 @@ _SIGNATURES = {
     # cnt, cnt_stride, cnt_off, fill, cp, cp_stride, cp_off,
     # ct, ct_stride, ct_off, stream
     "repro_deliver_words": "ipiipiiii" "piii" "pii" "pii" "p",
-    # device, src, src_stride, src_off, m, pn, nq, s0, s, c0, d, ww, out,
-    # cnt, cnt_stride, cnt_off, fill, cp, cp_stride, cp_off, ct, stream
-    "repro_assemble_proc_words": "ipii" "iiiiiiii" "p" "piii" "pii" "p" "p",
+    # device, src, src_stride, src_off, m, pn, nq, s0, s, c0, d, ww,
+    # out, out strides (q, p, dl, j), cnt, cnt_stride, cnt_off, fill,
+    # cp, cp_stride, cp_off, ct, ct strides (q, p, dl, j), span, stream
+    "repro_assemble_proc_words": "ipii" "iiiiiiii" "piiii" "piii" "pii"
+                                 "piiii" "i" "p",
     # device, q, q strides (b, s, h), k, k strides, v, v strides, o,
     # o strides, part, batch, sq, sk, hq, hkv, d, sk_valid, q_offset,
     # causal, window, dtype, bq, bk, splits, split_len, scale, stream

@@ -22,21 +22,30 @@ msgs[j, p, d, :]``, lanes at or past ``counts[j, p, d]`` set to ``fill``, and
 the fused ``ct[p, d, j] = counts_payload[j, p, d]``.  Its CUDA entry
 ``repro_assemble_proc_words`` reads the store's send word range directly
 (:func:`assemble_words`), one α-chunk for every sending process in one
-launch; :func:`assemble_proc_tiles` is the JAX kernel's array form and
+launch, and writes through a strided destination: the contiguous buffer,
+or on a one-card mesh the receivers' recv rows of the same store.
+:func:`assemble_proc_tiles` is the JAX kernel's array form (the buffer) and
 :func:`assemble_words_plain` the plain version.  Its launches are counted in
 ``ASSEMBLE_LAUNCHES``.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .._build import launch, ptr, require_cuda
 
 LAUNCHES = 0   # calls of deliver_words that launched the CUDA kernel
 ASSEMBLE_LAUNCHES = 0   # calls of assemble_words that launched the kernel
+# Words of one message that one block of the assemble kernel moves: 8 KiB,
+# two 16-byte stores a thread, the fastest span scripts/assemble_sweep.py
+# measured on an H100 (4 KiB to 128 KiB).
+SPAN_WORDS = 2048
 
 
 def deliver_words_plain(src, src_off, dst, dst_off, v, ww, counts=None,
@@ -149,8 +158,58 @@ def _words(x: torch.Tensor) -> torch.Tensor:
 # Mesh staging (P > 1)                                                         #
 # --------------------------------------------------------------------------- #
 
+def _dest(t, shape, name, unit_last):
+    """``t`` as a ``shape`` view: a tensor of that shape (with a unit last
+    stride when ``unit_last``), or a contiguous one of as many words."""
+    if tuple(t.shape) == shape:
+        if unit_last and shape[-1] > 1 and t.stride(-1) != 1:
+            raise ValueError(f"assemble_words: {name} must have a unit last "
+                             f"stride, got strides {t.stride()}")
+        return t
+    n = math.prod(shape)
+    if t.numel() != n or not t.is_contiguous():
+        raise ValueError(f"assemble_words: {name} must be contiguous with "
+                         f"{n} words or a {list(shape)} view, got "
+                         f"{tuple(t.shape)}")
+    return t.view(shape)
+
+
+@functools.lru_cache(maxsize=4096)
+def _meets(start, shape, strides, run, senders, n, W, lo, hi) -> bool:
+    """Whether a run of ``run`` words at any element of a view (its first
+    element ``start`` words past a source's ``[0, 0]``, its leading
+    ``shape`` and ``strides``) meets words ``[lo, hi)`` of the source rows
+    the chunk reads: ``senders = (nq, m, s0, s)`` reads rows ``q·m + s0 + j``
+    of the source's ``n`` rows of row stride ``W``.  A run that passes the
+    end of its row counts as meeting every later row it reaches.  Pure in
+    its integer arguments, so a chunk's geometry is checked once."""
+    runs = np.full(1, start, np.int64)
+    for size, st in zip(shape, strides):
+        runs = (runs[:, None] + np.arange(size, dtype=np.int64) * st)
+        runs = runs.reshape(-1)
+    nq, m, s0, s = senders
+    read = np.zeros(n, bool)
+    rows = (np.arange(nq)[:, None] * m + s0 + np.arange(s)).reshape(-1)
+    read[rows[rows < n]] = True
+    first, col = np.divmod(runs, W)
+    inside = (first >= 0) & (first < n)
+    meets = inside & read[np.where(inside, first, 0)] & (col < hi) \
+        & (col + run > lo)
+    if meets.any():
+        return True
+    spill = col + run > W
+    if not spill.any():
+        return False
+    below = np.concatenate([[0], np.cumsum(read)])   # read rows < i
+    last = first + (col + run - 1) // W
+    a, b = (np.clip(x[spill] + 1, 0, n) for x in (first, last))
+    return bool((below[b] > below[a]).any())
+
+
 def _check_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww, out, counts,
-                    cnt_off, fill, counts_payload, cp_off, ct_out) -> None:
+                    cnt_off, fill, counts_payload, cp_off, ct_out):
+    """Raise on what the kernel cannot take; returns ``(out, ct_out)`` as
+    ``[nq, pn, d, s, ww]`` and ``[nq, pn, d, s]`` views."""
     if fill is not None and counts is None:
         raise ValueError("fill requires counts")
     if (counts_payload is None) != (ct_out is None):
@@ -160,7 +219,12 @@ def _check_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww, out, counts,
                          "offsets non-negative")
     if c0 + d > m:
         raise ValueError(f"destination chunk [{c0}, {c0 + d}) passes m={m}")
+    if ww > 2**31 - 8 or nq * pn * d * s >= 2**31 or pn * m * ww >= 2**31:
+        raise ValueError("assemble_words: a message's words, the chunk's "
+                         "messages and a row's send words must fit in 31 "
+                         "bits")
     rows = (nq - 1) * m + s0 + s               # last source row + 1
+    reads = []                                 # the ranges the chunk reads
     for name, t, off, words in (("src", src, src_off, pn * m * ww),
                                 ("counts", counts, cnt_off, pn * m),
                                 ("counts_payload", counts_payload, cp_off,
@@ -171,18 +235,32 @@ def _check_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww, out, counts,
             raise ValueError(
                 f"assemble_words: {name} {tuple(t.shape)} lacks rows "
                 f"[0, {rows}) or words [{off}, {off + words})")
-    for name, t, n in (("out", out, nq * pn * d * s * ww),
-                       ("ct_out", ct_out, nq * pn * d * s)):
-        if t is not None and (t.numel() != n or not t.is_contiguous()):
-            raise ValueError(f"assemble_words: {name} must be contiguous "
-                             f"with {n} words")
+        reads.append((t, off, off + words))
+    out = _dest(out, (nq, pn, d, s, ww), "out", True)
+    if ct_out is not None:
+        ct_out = _dest(ct_out, (nq, pn, d, s), "ct_out", False)
+    for name, t, run in (("out", out, ww), ("ct_out", ct_out, 1)):
+        if t is None:
+            continue
+        base = t.untyped_storage().data_ptr()
+        for r, lo, hi in reads:
+            if base == r.untyped_storage().data_ptr() and _meets(
+                    (t.data_ptr() - r.data_ptr()) // 4, tuple(t.shape[:4]),
+                    t.stride()[:4], run, (nq, m, s0, s), r.shape[0],
+                    r.stride(0), lo, hi):
+                raise ValueError(f"assemble_words: {name} overlaps the "
+                                 "words the chunk reads")
+    return out, ct_out
 
 
 def assemble_words_plain(src, src_off, m, pn, nq, s0, s, c0, d, ww, out,
                          counts=None, cnt_off=0, fill=None,
                          counts_payload=None, cp_off=0, ct_out=None) -> None:
     """Plain PyTorch version of :func:`assemble_words` (same arguments)."""
-    out = out.view(nq, pn, d, s, ww)
+    if out.dim() != 5:
+        out = out.view(nq, pn, d, s, ww)
+    if ct_out is not None and ct_out.dim() != 4:
+        ct_out = ct_out.view(nq, pn, d, s)
     lane = torch.arange(ww, device=src.device)
     for q in range(nq):
         r0 = q * m + s0                        # sender q's first source row
@@ -198,8 +276,7 @@ def assemble_words_plain(src, src_off, m, pn, nq, s0, s, c0, d, ww, out,
         out[q] = staged
         if counts_payload is not None:
             cp = counts_payload[r0:r0 + s, cp_off:cp_off + pn * m]
-            ct_out.view(nq, pn, d, s)[q] = (
-                cp.reshape(s, pn, m)[:, :, c0:c0 + d].permute(1, 2, 0))
+            ct_out[q] = cp.reshape(s, pn, m)[:, :, c0:c0 + d].permute(1, 2, 0)
 
 
 def assemble_words(src: torch.Tensor, src_off: int, m: int, pn: int,
@@ -210,7 +287,9 @@ def assemble_words(src: torch.Tensor, src_off: int, m: int, pn: int,
                    cp_off: int = 0,
                    ct_out: Optional[torch.Tensor] = None) -> None:
     """Stage one chunk of the ``P > 1`` exchange for ``nq`` senders into
-    ``out`` (``[nq, pn, d, s, ww]`` int32 words, contiguous).
+    ``out``: a ``[nq, pn, d, s, ww]`` int32 view whose last axis is
+    contiguous (any strides on the others), or a contiguous tensor of as
+    many words (the communication buffer).
 
     ``src`` is a ``[rows, row_words]`` int32 word tensor with contiguous rows
     (the context store).  Sender ``q``'s local source ``j < s`` is row
@@ -220,29 +299,39 @@ def assemble_words(src: torch.Tensor, src_off: int, m: int, pn: int,
     With ``fill`` (an int32 word) lanes at or past ``counts[row, cnt_off +
     p·m + c0 + dl]`` are written as ``fill``; with ``counts_payload`` the
     word at the same place of ``counts_payload`` lands at ``ct_out[q, p, dl,
-    j]`` (``ct_out``: ``[nq, pn, d, s]`` words) in the same launch.
+    j]`` (``ct_out``: a ``[nq, pn, d, s]`` view or a contiguous tensor of as
+    many words) in the same launch.  On a one-card mesh ``out`` and
+    ``ct_out`` may view the receivers' recv rows of the same store, so each
+    message lands where it is read; neither may overlap the words the chunk
+    reads.
 
     A CPU ``src`` takes the plain version; a CUDA one launches the kernel.
     """
     global ASSEMBLE_LAUNCHES
-    _check_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww, out, counts,
-                    cnt_off, fill, counts_payload, cp_off, ct_out)
+    out, ct_out = _check_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww,
+                                  out, counts, cnt_off, fill, counts_payload,
+                                  cp_off, ct_out)
     if src.device.type == "cpu":
         assemble_words_plain(src, src_off, m, pn, nq, s0, s, c0, d, ww, out,
                              counts, cnt_off, fill, counts_payload, cp_off,
                              ct_out)
         return
-    require_cuda("assemble_words", src, out, counts, counts_payload, ct_out)
+    require_cuda("assemble_words", src, counts, counts_payload)
+    for t in (out, ct_out):
+        if t is not None and (not t.is_cuda or t.dtype != torch.int32):
+            raise ValueError("assemble_words: out and ct_out must be int32 "
+                             f"CUDA tensors, got {t.dtype} on {t.device}")
     masked = fill is not None
     launch("repro_assemble_proc_words", src.device,
            ptr(src), src.stride(0), src_off, m, pn, nq, s0, s, c0, d, ww,
-           ptr(out),
+           ptr(out), *out.stride()[:4],
            ptr(counts) if masked else None,
            counts.stride(0) if masked else 0, cnt_off,
            int(fill) if masked else 0,
            ptr(counts_payload),
            0 if counts_payload is None else counts_payload.stride(0), cp_off,
-           ptr(ct_out))
+           ptr(ct_out), *(ct_out.stride() if ct_out is not None else (0,) * 4),
+           SPAN_WORDS)
     ASSEMBLE_LAUNCHES += 1
 
 

@@ -17,6 +17,7 @@ import torch
 from _jax_ref import deliver as jdeliver, jax, jnp, np_out
 from repro.kernels.alltoallv_deliver.ref import assemble_proc_ref as \
     jax_assemble_ref
+from repro_torch.core import make_mesh
 from repro_torch.kernels import alltoallv_deliver as tdeliver
 from repro_torch.kernels.alltoallv_deliver import ref as deliver_ref
 
@@ -171,3 +172,118 @@ def test_assemble_words_rejects_what_the_kernel_cannot_take():
         tdeliver.assemble_words(*args, out[:-1])
     with pytest.raises(ValueError, match="positive"):
         tdeliver.assemble_words(src, 0, 4, 2, 2, 0, 0, 0, 2, 4, out)
+
+
+# The recv-rows layout of a one-card mesh: (m, P, s0, s, c0, d) chunks —
+# unchunked, α = 1, and α = 3's first and ragged last chunk at P = 4; the
+# unchunked and ragged α = 2 chunks at P = 2 with m = 3.
+_ROW_CHUNKS = [(4, 4, 0, 4, 0, 4), (4, 4, 2, 2, 1, 1), (4, 4, 2, 2, 0, 3),
+               (4, 4, 0, 2, 3, 1), (3, 2, 0, 3, 0, 3), (3, 2, 1, 2, 2, 1)]
+# (send offset, recv offset, row stride) mod 4: every phase of each.
+_PHASES = [(0, 0, 1), (1, 2, 2), (2, 3, 3), (3, 1, 2), (1, 1, 3), (2, 0, 1)]
+
+
+def _rows_store(m, P, ww, phases, seed):
+    """A ``[v, W]`` store with send words at ``off_s``, recv words at
+    ``off_r``, send counts at ``off_c`` and recv counts at ``off_rc``, each
+    offset and ``W`` in the given phases mod 4; the counts hold -1, 0, ω
+    and ω + 2 besides random lengths."""
+    ps, pr, pw = phases
+    v = m * P
+    off_s = 4 + ps
+    off_r = off_s + v * ww + (pr - ps - v * ww) % 4 + 4
+    off_c = off_r + v * ww + 1
+    off_rc = off_c + v + 2
+    W = off_rc + v + 3
+    W += (pw - W) % 4
+    rng = np.random.default_rng(seed)
+    store = rng.integers(INT_MIN, INT_MAX, size=(v, W), endpoint=True,
+                         dtype=np.int64).astype(np.int32)
+    cnt = rng.integers(-1, ww + 3, size=(v, v)).astype(np.int32)
+    cnt.reshape(-1)[rng.permutation(v * v)[:4]] = [-1, 0, ww, ww + 2]
+    store[:, off_c:off_c + v] = cnt
+    assert (off_s % 4, off_r % 4, W % 4) == phases
+    return torch.from_numpy(store), off_s, off_r, off_c, off_rc
+
+
+@pytest.mark.parametrize("m, P, s0, s, c0, d", _ROW_CHUNKS)
+@pytest.mark.parametrize("phases", _PHASES)
+@pytest.mark.parametrize("fill, with_payload", [(None, False), (-9, False),
+                                                (-9, True), (None, True)])
+def test_assemble_words_lands_in_the_recv_rows_as_the_exchange_did(
+        m, P, s0, s, c0, d, phases, fill, with_payload):
+    """Into a strided destination, the receivers' recv rows of the store it
+    reads, the staging equals the buffer layout followed by the transpose
+    copy the exchange made (``Mesh.all_to_all``), word for word."""
+    ww = 5
+    v = m * P
+    store, off_s, off_r, off_c, off_rc = _rows_store(
+        m, P, ww, phases, hash((m, s0, c0, phases)) % 2**32)
+    mesh = make_mesh(P, device="cpu")
+
+    def views(st):
+        rows = st[:, off_r:off_r + v * ww].view(P, m, P, m, ww)
+        rc = st[:, off_rc:off_rc + v].view(P, m, P, m)
+        return (rows[:, c0:c0 + d, :, s0:s0 + s],
+                rc[:, c0:c0 + d, :, s0:s0 + s])
+
+    def kw(st, ct):
+        out = {}
+        if fill is not None:
+            out.update(counts=st, cnt_off=off_c, fill=fill)
+        if with_payload:
+            out.update(counts_payload=st, cp_off=off_c, ct_out=ct)
+        return out
+
+    # Through the buffer and the exchange.
+    want = store.clone()
+    buf = torch.empty((P, P, d, s, ww), dtype=torch.int32)
+    ctbuf = torch.empty((P, P, d, s), dtype=torch.int32)
+    tdeliver.assemble_words(want, off_s, m, P, P, s0, s, c0, d, ww, buf,
+                            **kw(want, ctbuf))
+    rows, rc = views(want)
+    mesh.all_to_all(buf, rows.permute(0, 2, 1, 3, 4))
+    if with_payload:
+        mesh.all_to_all(ctbuf, rc.permute(0, 2, 1, 3))
+    # Straight into the recv rows.
+    got = store.clone()
+    rows, rc = views(got)
+    tdeliver.assemble_words(got, off_s, m, P, P, s0, s, c0, d, ww,
+                            rows.permute(2, 0, 1, 3, 4),
+                            **kw(got, rc.permute(2, 0, 1, 3)))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert not torch.equal(got, store)
+
+
+def test_assemble_words_rejects_a_strided_last_axis_or_an_overlap():
+    m, P, ww = 4, 2, 6
+    store, off_s, off_r, off_c, off_rc = _rows_store(m, P, ww, (1, 2, 2), 3)
+    v = m * P
+    rows = store[:, off_r:off_r + v * ww].view(P, m, P, m, ww)
+    args = (store, off_s, m, P, P, 0, 2, 1, 2, ww)
+    land = rows[:, 1:3, :, 0:2].permute(2, 0, 1, 3, 4)
+    tdeliver.assemble_words(*args, land)
+    wide = torch.zeros((P, P, 2, 2, 2 * ww), dtype=torch.int32)
+    with pytest.raises(ValueError, match="unit last stride"):
+        tdeliver.assemble_words(*args, wide[..., ::2])
+    # The send words of the rows the chunk reads, as the destination.
+    sent = store[:, off_s:off_s + v * ww].view(P, m, P, m, ww)
+    with pytest.raises(ValueError, match="out overlaps"):
+        tdeliver.assemble_words(*args, sent[:, 1:3, :, 0:2].permute(
+            2, 0, 1, 3, 4))
+    # A run that passes the end of row 0 into row 1, which the chunk reads.
+    W = store.shape[1]
+    past = store.view(-1)[W - ww // 2:].as_strided(
+        (P, P, 2, 2, ww), (0, 0, 0, 0, 1))
+    with pytest.raises(ValueError, match="out overlaps"):
+        tdeliver.assemble_words(*args, past)
+    # The transposed counts over the counts words they are read from.
+    rc = store[:, off_c:off_c + v].view(P, m, P, m)
+    with pytest.raises(ValueError, match="ct_out overlaps"):
+        tdeliver.assemble_words(*args, land, counts_payload=store,
+                                cp_off=off_c,
+                                ct_out=rc[:, 1:3, :, 0:2].permute(2, 0, 1, 3))
+    # Send words of rows the chunk does not read may take the landing: one
+    # sender reads rows 0 and 1, the messages land in rows 2, 3, 6 and 7.
+    tdeliver.assemble_words(store, off_s, m, P, 1, 0, 2, 1, 2, ww,
+                            sent[:, 2:4, 1:2, 0:2].permute(2, 0, 1, 3, 4))

@@ -264,6 +264,56 @@ def test_assemble_kernel_matches_plain(cuda, m, P, nq, s0, s, c0, d, ww,
         assert torch.equal(outs[1], outs[3])
 
 
+# (send offset, recv offset) mod 4 over a row stride of 2 mod 4 words, as
+# the PSRS store has it: every head and the 16-, 8- and 4-byte loads.
+_PHASES = [(0, 0), (1, 3), (2, 2), (3, 1), (2, 0), (1, 1)]
+
+
+@pytest.mark.parametrize("m, P, nq, s0, s, c0, d, ww", _ASSEMBLE)
+@pytest.mark.parametrize("layout", ["buffer", "rows"])
+@pytest.mark.parametrize("phases", _PHASES)
+@pytest.mark.parametrize("fill, with_payload", [(None, False), (-7, True),
+                                                (INT_MAX, False)])
+def test_assemble_kernel_matches_plain_in_both_layouts_at_every_phase(
+        cuda, m, P, nq, s0, s, c0, d, ww, layout, phases, fill, with_payload):
+    """The destination either a buffer starting off a 16-byte boundary or
+    the recv rows of the store the chunk reads; exact."""
+    dv = _kernel("alltoallv_deliver")
+    v, (ps, pr) = m * P, phases
+    off_s = 4 + ps
+    off_r = off_s + v * ww + (pr - ps - v * ww) % 4 + 4
+    off_c = off_r + v * ww
+    W = off_c + 2 * v + 1
+    W += (2 - W) % 4
+    gen = torch.Generator(device=cuda).manual_seed(v * ww + ps)
+    store = _keys((v, W), cuda, v * ww + pr)
+    cnt = torch.randint(-2, ww + 3, (v, v), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    cnt.view(-1)[:4] = torch.tensor([0, ww, ww + 5, -3], device=cuda)[:v * v]
+    store[:, off_c:off_c + v] = cnt
+    outs = []
+    for fn in (dv.assemble_words, dv.assemble_words_plain):
+        st = store.clone()
+        if layout == "rows":
+            rows = st[:, off_r:off_r + v * ww].view(P, m, P, m, ww)
+            rc = st[:, off_c + v:off_c + 2 * v].view(P, m, P, m)
+            out = rows[:, c0:c0 + d, :nq, s0:s0 + s].permute(2, 0, 1, 3, 4)
+            ct = rc[:, c0:c0 + d, :nq, s0:s0 + s].permute(2, 0, 1, 3)
+        else:
+            n = nq * P * d * s
+            out = torch.zeros(pr + n * ww, dtype=torch.int32,
+                              device=cuda)[pr:]
+            ct = torch.zeros(n, dtype=torch.int32, device=cuda)
+        fn(st, off_s, m, P, nq, s0, s, c0, d, ww, out,
+           None if fill is None else st, off_c, fill,
+           st if with_payload else None, off_c, ct if with_payload else None)
+        outs.append((st, out, ct))
+    torch.cuda.synchronize()
+    (st_k, out_k, ct_k), (st_p, out_p, ct_p) = outs
+    assert torch.equal(st_k, st_p) and torch.equal(out_k, out_p)
+    assert torch.equal(ct_k, ct_p)
+
+
 def test_psrs_at_P4_on_the_card_matches_P1_and_launches_kernel_4(cuda):
     from repro_torch.core import make_mesh
     from repro_torch.pems_apps import psrs_sort

@@ -12,7 +12,9 @@ them, and each test reads its case from there.
 
 Covered: ``alltoallv`` at P = 4, v = 16, k = 2 over α ∈ {None, 1, 2} ×
 ``use_kernel`` × (no counts | counts | counts + fill | float payload with
-float recv counts | in place, send == recv); ``bcast`` and ``gather``;
+float recv counts | in place, send == recv); the fused route at P = 2 and
+4 and with PSRS's exchange fields at odd word offsets, landing without a
+``Mesh.all_to_all`` call; ``bcast`` and ``gather``;
 ``psrs_sort`` at P ∈ {2, 4} × k ∈ {1, 2} × the three drivers × α ∈ {None, 1}
 × direct/indirect on random and duplicate-heavy keys (output equal to
 ``np.sort`` and to the port's ``P == 1`` run, the network terms and rounds
@@ -70,6 +72,13 @@ _VARIANTS = {
                      recv_counts="scnt", fill=-3),
 }
 _ALPHAS = [None, 1, 2]
+# PSRS's exchange fields at odd word offsets (bsend 3, brecv 85, bscnt 165,
+# brcnt 181) and an odd row of 197 words, ω = 5.
+_ODD_FIELDS = [("pad", (3,), "i"), ("bsend", (V, 5), "i"), ("gap", (2,), "i"),
+               ("brecv", (V, 5), "i"), ("bscnt", (V,), "i"),
+               ("brcnt", (V,), "i")]
+_ODD = dict(send="bsend", recv="brecv", send_counts="bscnt",
+            recv_counts="brcnt", fill=INT_MAX)
 
 # PSRS configurations (P, k, driver, alpha, mode) the JAX side runs: every
 # value of every axis, and every driver at P = 4 with and without alpha.
@@ -83,10 +92,20 @@ _JAX_PSRS = [
 N_V = 64                                    # PSRS keys per context
 
 
-def _words():
+def _words(fields=None):
     """The initial store words of the collective cases: random bits,
     counts words in ``[-1, ω + 1]`` (empty, partial, full and out-of-range
-    masks) and finite float payloads."""
+    masks) and finite float payloads; for ``_ODD_FIELDS`` counts in
+    ``[-1, ω + 2]``."""
+    if fields is not None:
+        lo = _layout(fields)
+        rng = np.random.default_rng(13)
+        w = rng.integers(0, 2**32, size=(V, lo.words),
+                         dtype=np.uint64).astype(np.uint32)
+        off = lo.offset("bscnt")
+        w[:, off:off + V] = rng.integers(-1, 8, size=(V, V)).astype(
+            np.int32).view(np.uint32)
+        return w
     lo = _layout()
     rng = np.random.default_rng(11)
     w = rng.integers(0, 2**32, size=(V, lo.words),
@@ -101,10 +120,10 @@ def _words():
     return w
 
 
-def _layout():
+def _layout(fields=_FIELDS):
     dt = {"i": torch.int32, "f": torch.float32}
     lo = ContextLayout()
-    for name, shape, kind in _FIELDS:
+    for name, shape, kind in fields:
         lo.add(name, shape, dt[kind])
     return lo
 
@@ -137,20 +156,22 @@ _JAX_SCRIPT = textwrap.dedent("""
     inp = np.load(os.path.join(d, "inputs.npz"))
     res = {}
 
-    def layout():
+    def layout(fields):
         dt = {"i": jnp.int32, "f": jnp.float32}
         lo = core.ContextLayout()
-        for name, shape, kind in spec["fields"]:
+        for name, shape, kind in fields:
             lo.add(name, tuple(shape), dt[kind])
         return lo
 
-    def pems(alpha=None, **kw):
-        p = core.Pems(core.PemsConfig(v=spec["V"], k=spec["K"], P=4,
-                                      alpha=alpha, **kw),
-                      layout(), mesh=R.auto_mesh(4))
+    def pems(alpha=None, P=4, odd=False):
+        p = core.Pems(core.PemsConfig(v=spec["V"], k=spec["K"], P=P,
+                                      alpha=alpha),
+                      layout(spec["odd_fields" if odd else "fields"]),
+                      mesh=R.auto_mesh(P))
         st = p.init()
         st = core.ContextStore(st.layout, jax.device_put(
-            jnp.asarray(inp["words"]), st.data.sharding))
+            jnp.asarray(inp["odd_words" if odd else "words"]),
+            st.data.sharding))
         return p, st
 
     def keep(tag, p, st):
@@ -166,6 +187,13 @@ _JAX_SCRIPT = textwrap.dedent("""
     p, st = pems()
     st = p.alltoallv(st, use_kernel=True, **spec["variants"]["fill"])
     keep("a2a/kernel", p, st)
+    for alpha in spec["alphas"]:
+        p, st = pems(alpha, P=2)
+        st = p.alltoallv(st, use_kernel=False, **spec["variants"]["fill"])
+        keep(f"a2a_P2/{alpha}/fill", p, st)
+        p, st = pems(alpha, odd=True)
+        st = p.alltoallv(st, use_kernel=False, **spec["odd"])
+        keep(f"a2a_odd/{alpha}", p, st)
 
     p, st = pems()
     st = p.bcast(st, "a", root=5)
@@ -202,9 +230,11 @@ _JAX_SCRIPT = textwrap.dedent("""
 def jax_mesh(tmp_path_factory):
     d = tmp_path_factory.mktemp("jax_mesh")
     spec = {"V": V, "K": K, "fields": _FIELDS, "alphas": _ALPHAS,
-            "variants": _VARIANTS, "psrs": _JAX_PSRS}
+            "variants": _VARIANTS, "psrs": _JAX_PSRS,
+            "odd_fields": _ODD_FIELDS, "odd": _ODD}
     (d / "spec.json").write_text(json.dumps(spec))
     np.savez(d / "inputs.npz", words=_words(),
+             odd_words=_words(_ODD_FIELDS),
              keys_random=_keys("random"), keys_dups=_keys("dups"))
     env = {"PYTHONPATH": os.pathsep.join([str(_ROOT / "src"),
                                           str(_ROOT / "tests")]),
@@ -224,12 +254,12 @@ def _ledger(ref, tag):
     return json.loads(str(ref[tag + "/ledger"]))
 
 
-def _store(words):
-    return interop.store_from_numpy(_layout(), words, device="cpu")
+def _store(words, fields=_FIELDS):
+    return interop.store_from_numpy(_layout(fields), words, device="cpu")
 
 
-def _pems(P=P4, k=K, **kw):
-    return Pems(PemsConfig(v=V, k=k, P=P, **kw), _layout(),
+def _pems(P=P4, k=K, fields=_FIELDS, **kw):
+    return Pems(PemsConfig(v=V, k=k, P=P, **kw), _layout(fields),
                 mesh=make_mesh(P, device="cpu"), device="cpu")
 
 
@@ -272,6 +302,58 @@ def test_alltoallv_kernel_route_matches_jax_kernel_route(jax_mesh):
     np.testing.assert_array_equal(interop.store_to_numpy(store),
                                   jax_mesh["a2a/kernel/words"])
     assert pems.ledger.snapshot() == _ledger(jax_mesh, "a2a/kernel")
+
+
+@pytest.fixture
+def exchanges(monkeypatch):
+    """The calls of ``Mesh.all_to_all`` while the test runs."""
+    calls = []
+    ship = Mesh.all_to_all
+
+    def counted(self, send, recv):
+        calls.append(tuple(send.shape))
+        ship(self, send, recv)
+
+    monkeypatch.setattr(Mesh, "all_to_all", counted)
+    return calls
+
+
+@pytest.mark.parametrize("alpha", _ALPHAS)
+@pytest.mark.parametrize("P", [2, P4])
+def test_fused_alltoallv_on_one_device_lands_without_an_exchange(
+        jax_mesh, exchanges, P, alpha):
+    """On a one-device mesh the staging kernel lands every chunk in the
+    receivers' rows: no ``Mesh.all_to_all`` call, and the words and the
+    ledger (network rounds included) equal JAX's."""
+    pems = _pems(P=P, alpha=alpha)
+    store = pems.alltoallv(_store(_words()), **_VARIANTS["fill"])
+    assert exchanges == []
+    tag = f"a2a/{alpha}/fill" if P == P4 else f"a2a_P2/{alpha}/fill"
+    np.testing.assert_array_equal(interop.store_to_numpy(store),
+                                  jax_mesh[tag + "/words"])
+    assert pems.ledger.snapshot() == _ledger(jax_mesh, tag)
+    assert pems.ledger.network_rounds == (
+        analysis.pems2_alltoallv_par_network_rounds(V, P, K, alpha))
+    # The dense route still transposes through the exchange.
+    _pems(P=P, alpha=alpha).alltoallv(_store(_words()), use_kernel=False,
+                                      **_VARIANTS["fill"])
+    assert exchanges
+
+
+@pytest.mark.parametrize("alpha", _ALPHAS)
+def test_fused_alltoallv_at_odd_word_offsets_matches_jax(jax_mesh, exchanges,
+                                                        alpha):
+    """PSRS's exchange fields at odd word offsets of an odd-length row: the
+    landing reads and writes each message at its own word phase."""
+    pems = _pems(fields=_ODD_FIELDS, alpha=alpha)
+    lo = pems.layout
+    assert [lo.offset(f) % 2 for f in ("bsend", "brecv", "bscnt", "brcnt")] \
+        == [1, 1, 1, 1] and lo.words % 2 == 1
+    store = pems.alltoallv(_store(_words(_ODD_FIELDS), _ODD_FIELDS), **_ODD)
+    assert exchanges == []
+    np.testing.assert_array_equal(interop.store_to_numpy(store),
+                                  jax_mesh[f"a2a_odd/{alpha}/words"])
+    assert pems.ledger.snapshot() == _ledger(jax_mesh, f"a2a_odd/{alpha}")
 
 
 def test_bcast_and_gather_at_P4_match_jax(jax_mesh):
