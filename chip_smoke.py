@@ -118,6 +118,7 @@ import argparse
 import importlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -151,6 +152,23 @@ ASSEMBLE_PHASES = [(1, 3), (2, 2), (3, 1), (0, 2), (1, 1)]
 MESH_P, MESH_K = 4, 2
 # The device's peak memory over the script, kept across reset_peak().
 SCRIPT_PEAK = [0]
+# The tiered phase: contexts resident per real processor, the device budget
+# for them (the population is v·μ ≈ 17.5 GiB at 2^27 keys), real
+# processors of the sharded runs, and where the disk backings go (inside
+# the checkout, git-ignored).
+TIER_K, TIER_CAP, TIER_P = 2, 8 << 30, 4
+TIER_DIR = ROOT / "build" / "tiered"
+# PSRS's four supersteps' declared (reads, writes), as
+# src/repro_torch/pems_apps/psrs.py declares them: what the sliced driver
+# swaps.
+PSRS_DECLARED = [(["data"], ["data", "samp"]), (["allsamp"], ["gsplit"]),
+                 (["data", "gsplit"], ["bsend", "bscnt", "oflow"]),
+                 (["brecv", "brcnt", "oflow"], ["result", "rcount", "oflow"])]
+# The IOLedger counters a backing tier measures; every other one is
+# modeled and equals the device tier's.
+IO_NAMES = ("buffered", "odirect", "mmap")
+MEASURED = ("h2d_bytes", "d2h_bytes", "disk_read_bytes", "disk_write_bytes",
+            "syscall_read_bytes", "syscall_write_bytes", "tier_total")
 # The fused k-way merge's edges, (k, v, cap, keys, counts, rcap, tile,
 # segment tiles), as tests/test_torch_gpu.py has them: v of 1, 16, 33 and 64
 # (one and two warps of buckets, odd merge levels), windows cut inside runs
@@ -601,6 +619,9 @@ def main(argv=None) -> int:
                     help="timed calls per kernel")
     ap.add_argument("--stage-reps", type=int, default=3,
                     help="staged PSRS runs timed stage by stage")
+    ap.add_argument("--tiered-only", action="store_true",
+                    help="build and run the backing-tier phase alone (no "
+                         "kernels line, no ok line)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -620,7 +641,13 @@ def main(argv=None) -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {so.name}")
     dev = torch.device("cuda")
+    if args.tiered_only:
+        run_tiered(dev, args)
+        return 0
     rows = run(dev, args)
+    torch.cuda.empty_cache()
+    run_tiered(dev, args)
+    torch.cuda.empty_cache()
     rows += run_lm(dev, args)
     print(card)
     print(json.dumps({"kernels": rows}))
@@ -636,11 +663,8 @@ def run(dev: torch.device, args) -> list:
     from repro_torch.core import make_mesh
     from repro_torch.kernels.kway_merge.ops import gather_tiles
     from repro_torch.pems_apps import psrs_plan, psrs_sort
-    # The kernel modules by name: each package re-exports a function of the
-    # module's own name, which an attribute import would pick instead.
-    bs, km, dv = (importlib.import_module(f"repro_torch.kernels.{m}.{m}")
-                  for m in ("bitonic_sort", "kway_merge", "alltoallv_deliver"))
-    kern = {"bitonic": bs, "kway": km, "deliver": dv}
+    kern = kernel_modules()
+    bs, km, dv = kern["bitonic"], kern["kway"], kern["deliver"]
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     t0 = time.perf_counter()
@@ -996,6 +1020,230 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
           f"the recv rows {ms:.3f} ms, into a buffer {whole_ms:.3f} ms; "
           f"kernel 2 on the same words {k2_ms:.3f} ms")
     return row
+
+
+# --------------------------------------------------------------------------- #
+# The backing tiers: PSRS with its population off the card.                   #
+# --------------------------------------------------------------------------- #
+
+def host_link(dev) -> dict:
+    """GB/s of a 1 GiB copy to and from the card, from pinned and from
+    pageable host memory: the bound of the tiered swaps."""
+    n = (1 << 30) // 4
+    d = torch.empty(n, dtype=torch.int32, device=dev)
+    rates = {}
+    for kind, pin in (("pinned", True), ("pageable", False)):
+        h = torch.ones(n, dtype=torch.int32, pin_memory=pin)
+        h2d = cuda_ms(lambda: d.copy_(h, non_blocking=pin), 3)
+        d2h = cuda_ms(lambda: h.copy_(d, non_blocking=pin), 3)
+        rates[kind] = (2**30 / h2d / 1e6, 2**30 / d2h / 1e6)
+        print(f"host link, 1 GiB {kind}: H2D {h2d:.3f} ms "
+              f"({rates[kind][0]:.2f} GB/s), D2H {d2h:.3f} ms "
+              f"({rates[kind][1]:.2f} GB/s)")
+        del h
+    return rates
+
+
+def host_room(path: Path) -> tuple:
+    """(free host RAM, free disk under ``path``, its filesystem type)."""
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    disk = shutil.disk_usage(path).free
+    fs = subprocess.run(["stat", "-f", "-c", "%T", str(path)],
+                        capture_output=True, text=True).stdout.strip()
+    return avail, disk, fs
+
+
+def declared_bytes(lo, driver: str, v: int) -> tuple:
+    """The closed form of a PSRS run's measured swaps: (h2d, d2h) bytes,
+    each superstep's declared fields (sliced) or live context (otherwise)
+    for every context."""
+    if driver != "sliced":
+        return (len(PSRS_DECLARED) * v * lo.live_bytes,) * 2
+    return tuple(v * sum(lo.field_bytes(f) for rw in PSRS_DECLARED
+                         for f in rw[i]) for i in (0, 1))
+
+
+def modeled(led) -> dict:
+    return {key: val for key, val in led.snapshot().items()
+            if key.split(".", 1)[1] not in MEASURED}
+
+
+def tiered_staged(dev, kern, keys, ref_cpu, v, tier, driver, path,
+                  P: int = 1, io_driver=None, cap=TIER_CAP):
+    """One PSRS plan with its population in ``tier``, stage by stage (host
+    clock, synchronised at each stage's end), every kernel count reset
+    just before it and the local sort and merge kernels required after it.
+    Returns ``(pems, {stage: ms}, launches, peak device bytes)``."""
+    from repro_torch.pems_apps import psrs_plan
+    n_v = keys.numel() // v
+    set_counts(kern)
+    torch.cuda.synchronize()
+    reset_peak()
+    pems, load, steps, extract = psrs_plan(
+        v, n_v, k=TIER_K, P=P, driver=driver, tier=tier, backing_path=path,
+        io_driver=io_driver, device_cap_bytes=cap, device=dev)
+    ms = {}
+    store = None
+    for name, fn in [("load", lambda _: load(keys.reshape(v, n_v)))] \
+            + list(steps):
+        t0 = time.perf_counter()
+        store = fn(store)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    result, rcount, oflow = extract(store)
+    launches = read_counts(kern, ("radix_sort", "kway_splitters",
+                                  "kway_merge_segments"))
+    peak = torch.cuda.max_memory_allocated()
+    what = f"tiered {tier} {driver} P={P} io={io_driver}"
+    check(int(oflow.sum()) == 0, f"{what}: no overflow")
+    counts = rcount[:, 0].tolist()
+    out = torch.cat([result[i, :counts[i]] for i in range(v)])
+    check(out.device.type == "cpu", f"{what}: the result is a CPU tensor")
+    check(torch.equal(out, ref_cpu), f"{what}: output == torch.sort")
+    check(all(c > 0 for c in launches.values()),
+          f"{what}: the local sort and merge kernels launched: {launches}")
+    return pems, ms, launches, peak
+
+
+def kernel_modules() -> dict:
+    """The PSRS kernels' modules by name: each package re-exports a
+    function of the module's own name, which an attribute import would pick
+    instead."""
+    return dict(zip(("bitonic", "kway", "deliver"), (
+        importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+        for m in ("bitonic_sort", "kway_merge", "alltoallv_deliver"))))
+
+
+def run_tiered(dev, args) -> None:
+    """The backing tiers on the card: the host link, PSRS at full scale with
+    its population in host memory and in a file (the device holding k
+    contexts of v under an 8 GiB budget), and a matrix of tiers, drivers,
+    real processors and I/O drivers at 2^20 keys."""
+    import gc
+
+    from repro_torch.pems_apps import psrs_plan, psrs_sort
+    kern = kernel_modules()
+    t_phase = time.perf_counter()
+    TIER_DIR.mkdir(parents=True, exist_ok=True)
+    link = host_link(dev)
+    ram, disk, fs = host_room(TIER_DIR)
+    print(f"tiered: free host RAM {ram / 2**30:.1f} GiB, free disk under "
+          f"{TIER_DIR.relative_to(ROOT)} {disk / 2**30:.1f} GiB ({fs})")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    v = args.v
+
+    # ---- full scale: 2^log_n keys, k = 2 of v = 16 on the card ----------
+    log_n = args.log_n
+    while True:
+        lo = psrs_plan(v, (1 << log_n) // v, k=TIER_K, device=dev)[0].layout
+        vmu = v * lo.mu_bytes
+        # Host: the population, twice the round staging (pinned, rounded
+        # to powers of two) and the Alltoallv's staging; disk: the file.
+        if ram >= 2 * vmu + 16 * TIER_K * lo.mu_bytes and disk >= 1.2 * vmu:
+            break
+        log_n -= 1
+        print(f"tiered: cut to 2^{log_n} keys (v·μ {vmu / 2**30:.2f} GiB "
+              "does not fit the host's RAM or disk)")
+    n = 1 << log_n
+    keys = rand_int32((n,), gen)
+    ref_cpu = torch.sort(keys).values.cpu()
+    print(f"tiered: n=2^{log_n} v={v} k={TIER_K}, v·μ "
+          f"{vmu / 2**30:.2f} GiB, device_cap_bytes {TIER_CAP / 2**30:.0f} "
+          f"GiB")
+    runs = [("host", "sliced", None), ("host", "sliced", None),
+            ("host", "async", None), ("file", "async", "buffered")]
+    device_led = {}
+    for driver in ("sliced", "async"):
+        _, dp = psrs_sort(keys, v=v, k=TIER_K, driver=driver, device=dev,
+                          return_pems=True)
+        device_led[driver] = modeled(dp.ledger)
+        del dp
+    torch.cuda.empty_cache()
+    for i, (tier, driver, io_driver) in enumerate(runs):
+        path = None if tier == "host" else str(TIER_DIR / f"full{i}.bin")
+        t0 = time.perf_counter()
+        pems, ms, launches, peak = tiered_staged(
+            dev, kern, keys, ref_cpu, v, tier, driver, path,
+            io_driver=io_driver)
+        secs = time.perf_counter() - t0
+        led, st = pems.ledger, pems.tier_stats
+        what = f"tiered {tier} {driver} run {i}"
+        check(modeled(led) == device_led[driver],
+              f"{what}: modeled ledger == the device tier's")
+        h2d, d2h = declared_bytes(lo, driver, v)
+        check((led.h2d_bytes, led.d2h_bytes) == (h2d, d2h),
+              f"{what}: h2d/d2h {led.h2d_bytes}/{led.d2h_bytes} == closed "
+              f"form {h2d}/{d2h}")
+        check(peak < vmu, f"{what}: peak device memory {peak} < v·μ {vmu}")
+        print(f"{what}: {secs:.2f} s, stages ms " + ", ".join(
+            f"{k} {t:.1f}" for k, t in ms.items())
+            + f"; total {sum(ms.values()):.1f}")
+        print(f"  launches {launches}; peak device "
+              f"{peak / 2**30:.2f} GiB < v·μ {vmu / 2**30:.2f} GiB")
+        print(f"  TierStats: rounds {st.rounds}, swap_in_s "
+              f"{st.swap_in_s:.3f}, swap_out_s {st.swap_out_s:.3f}, "
+              f"compute_s {st.compute_s:.3f}, stall_s {st.stall_s:.3f}, "
+              f"overlap_fraction {st.overlap_fraction:.3f}, "
+              f"peak_stage_bytes {st.peak_stage_bytes}, "
+              f"merge_prefetch_events {st.merge_prefetch_events}")
+        print(f"  swaps: h2d {led.h2d_bytes / 2**30:.2f} GiB in "
+              f"{st.swap_in_s:.3f} s ({led.h2d_bytes / st.swap_in_s / 1e9:.2f}"
+              f" GB/s, pinned link {link['pinned'][0]:.2f}), d2h "
+              f"{led.d2h_bytes / 2**30:.2f} GiB in {st.swap_out_s:.3f} s "
+              f"({led.d2h_bytes / st.swap_out_s / 1e9:.2f} GB/s, pinned "
+              f"link {link['pinned'][1]:.2f}); disk read "
+              f"{led.disk_read_bytes / 2**30:.2f} GiB, written "
+              f"{led.disk_write_bytes / 2**30:.2f} GiB")
+        if tier == "file":
+            print(f"  io driver {pems.backing.file.driver} (fallback "
+                  f"{pems.backing.file.fallback}) on {fs}")
+            pems.backing.close()
+            Path(path).unlink()
+        del pems
+        gc.collect()
+    del keys, ref_cpu
+    torch.cuda.empty_cache()
+
+    # ---- matrix at 2^20 keys --------------------------------------------
+    t0 = time.perf_counter()
+    m = 1 << min(20, args.log_n)
+    mk = rand_int32((m,), gen)
+    mref = torch.sort(mk).values.cpu()
+    disk_bytes = {}
+    matrix = [(t, d, P, None) for t in ("host", "memmap", "file")
+              for d in ("explicit", "sliced", "async") for P in (1, TIER_P)]
+    matrix += [("file", "sliced", 1, io) for io in IO_NAMES]
+    for j, (tier, driver, P, io) in enumerate(matrix):
+        path = None if tier == "host" else str(TIER_DIR / f"m{j}.bin")
+        pems = tiered_staged(dev, kern, mk, mref, v, tier, driver, path,
+                             P=P, io_driver=io, cap=None)[0]
+        led = pems.merged_shard_ledger()
+        disk_bytes[(tier, driver, P, io)] = (led.disk_read_bytes,
+                                             led.disk_write_bytes,
+                                             led.h2d_bytes, led.d2h_bytes)
+        if io is not None:
+            print(f"tiered 2^20 file io_driver={io}: ran "
+                  f"{pems.backing.file.driver} (fallback "
+                  f"{pems.backing.file.fallback}) on {fs}")
+        if tier != "host":
+            getattr(pems.backing, "close", lambda: None)()
+            for f in TIER_DIR.glob(f"m{j}.bin*"):
+                f.unlink()
+        del pems
+    for tier, driver, P, io in matrix:
+        if P > 1:
+            check(disk_bytes[(tier, driver, P, io)]
+                  == disk_bytes[(tier, driver, 1, io)],
+                  f"2^20 {tier} {driver}: P={P} merged shard disk and swap "
+                  f"bytes == P=1's")
+    print(f"tiered matrix at 2^20 ({len(matrix)} runs: tier x driver x "
+          f"P in (1, {TIER_P}), io drivers): passed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    print(f"tiered phase: {time.perf_counter() - t_phase:.2f} s")
 
 
 # --------------------------------------------------------------------------- #

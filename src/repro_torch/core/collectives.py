@@ -29,6 +29,12 @@ launch per (source round of ``k``, destination α-chunk), ≤ α·k·ω words pe
 process pair.  The dense route transposes through the mesh's exchange,
 :meth:`~.mesh.Mesh.all_to_all` (``_global_transpose``).
 
+On a backing tier (:class:`~.backing.TieredStore`) every collective is
+host-side data movement over the (possibly sharded) backing, in numpy, bit
+for bit the JAX package's: the Alltoallv stages each destination process's
+recv rows through a bounded host buffer, α-chunked and clamped under
+``device_cap_bytes`` (``_alltoallv_host``), and writes that shard only.
+
 Both are bit-identical.  The I/O ledger is updated with the thesis' event
 counts, independent of the implementation; it equals the JAX package's.
 ``allgather``/``reduce``/``allreduce`` are not on the PSRS path and are not
@@ -44,6 +50,7 @@ import torch
 
 from ..kernels.alltoallv_deliver import assemble_words, check_fill_range, \
     deliver_words
+from .backing import TieredStore, np_dtype
 from .context import WORD, ContextStore, _from_words, _to_words
 
 
@@ -74,16 +81,23 @@ def alltoallv(
     dense-transpose implementation (bit-identical, for equivalence testing);
     the ledger is unaffected by either knob.  The store is updated in place.
 
-    ``procs`` restricts a backing-tier store to some processes' shards; the
-    device tier has none, so it raises ``ValueError`` here as in the JAX
-    package.
+    On a backing tier the collective is host-side data movement over the
+    (possibly sharded) backing: each destination shard's recv rows are
+    staged through a bounded host buffer and written back to that shard
+    only, with measured disk bytes billed to the owning shard's ledger.
+    ``procs`` (tiered stores only) restricts the *destination* side to the
+    listed processes' shards; on the device tier it raises ``ValueError``,
+    as in the JAX package.
 
     Raises ``ValueError`` for unknown ``mode``, mismatched field shapes,
-    ``fill`` without counts or out of the payload dtype's range.
+    ``fill`` without counts or out of the payload dtype's range, ``procs``
+    on a device store, or a staging chunk that cannot fit
+    ``device_cap_bytes``.
     """
     if mode not in ("direct", "indirect"):
         raise ValueError(f"unknown mode {mode!r}")
-    if procs is not None:
+    tiered = isinstance(store, TieredStore)
+    if procs is not None and not tiered:
         raise ValueError("procs= requires a backing-tier store")
     cfg = self.cfg
     f = store.layout.field(send)
@@ -98,7 +112,10 @@ def alltoallv(
     omega_b = (int(np.prod(f.shape[1:], dtype=np.int64)) * WORD
                if len(f.shape) > 1 else WORD)
 
-    if mode == "direct" and use_kernel:
+    if tiered:
+        store = _alltoallv_host(self, store, send, recv,
+                                send_counts, recv_counts, fill, procs)
+    elif mode == "direct" and use_kernel:
         fused = _alltoallv_fused if cfg.P == 1 else _alltoallv_fused_mesh
         store = fused(self, store, send, recv, send_counts, recv_counts, fill)
     else:
@@ -294,6 +311,128 @@ def _alltoallv_dense(self, store, send, recv, send_counts, recv_counts,
     return store
 
 
+def _alltoallv_host(self, store, send, recv, send_counts, recv_counts, fill,
+                    procs=None):
+    """Backing-tier Alltoallv: host-side data movement over the backing —
+    messages move straight between context rows of the host or disk
+    population, copies only, bit-identical to the device paths.
+
+    The staging is chunked per destination process, then by α (Alg 7.1.3
+    applied host-side): each chunk stages ``[αd, v, ω]`` — every source's
+    messages for αd of process p's destination contexts — masks it in
+    place, and writes it straight into those destinations' recv word
+    ranges, which live entirely in shard p.  Sources are read from every
+    shard (and billed to each source shard's ledger); each chunk writes one
+    destination shard only, so a ``procs`` subset touches no other shard.
+    ``device_cap_bytes`` bounds the staging buffer per process: αd is
+    clamped so the chunk fits.  An in-place shuffle (``send == recv``)
+    snapshots the whole field first — a chunked in-place transpose would
+    read rows it has already overwritten — and raises when snapshot + chunk
+    cannot fit the cap."""
+    cfg = self.cfg
+    v, m = cfg.v, cfg.v_local
+    lo = store.layout
+    bk = store.backing
+    # Array-addressable backings (host/memmap) stage straight from a view;
+    # the engine-backed file tier and the sharded backing read their chunks
+    # through the block API.
+    arr = getattr(bk, "arr", None)
+    disk = store.on_disk
+    ww = lo.field_words(send) // v                 # ω in store words
+    off_s, off_r = lo.offset(send), lo.offset(recv)
+    procs = list(range(cfg.P)) if procs is None else list(procs)
+
+    Ct = None
+    if send_counts is not None and recv_counts is not None:
+        Ct = store.field(send_counts).reshape(v, v).T.numpy().copy()
+    fill_word = None
+    if fill is not None:
+        fill_word = np.asarray(fill, np_dtype(lo.field(send).dtype)).view(
+            np.uint32)
+
+    alpha = m if cfg.alpha is None else cfg.alpha
+    # The file tier's read_block returns a *copy* the size of the staging
+    # buffer, so a chunk there holds 2x its column bytes resident (copy +
+    # blk); host/memmap chunks and the in-place path slice views.
+    chunk_copies = 1 if (arr is not None or send == recv) else 2
+    if cfg.device_cap_bytes is not None:
+        per_dst = chunk_copies * v * ww * WORD     # one destination column
+        if per_dst > cfg.device_cap_bytes:
+            raise ValueError(
+                f"alltoallv staging needs {per_dst:,} bytes per destination "
+                f"([v, ω] = [{v}, {ww * WORD}B] x{chunk_copies}) but "
+                f"device_cap_bytes={cfg.device_cap_bytes:,}; raise the cap "
+                "or shrink ω"
+            )
+        alpha = min(alpha, cfg.device_cap_bytes // per_dst)
+    full = None
+    if send == recv:
+        full_bytes = v * v * ww * WORD
+        if (cfg.device_cap_bytes is not None
+                and full_bytes + alpha * v * ww * WORD
+                > cfg.device_cap_bytes):
+            raise ValueError(
+                f"in-place tiered alltoallv (send == recv) must snapshot "
+                f"the whole field ({full_bytes:,} B) on top of the "
+                f"{alpha * v * ww * WORD:,} B chunk, exceeding "
+                f"device_cap_bytes={cfg.device_cap_bytes:,}; use distinct "
+                "send/recv fields or raise the cap"
+            )
+        full = bk.read_block(0, v, cols=slice(off_s, off_s + v * ww))
+        if disk:
+            self._account_disk(0, v, v * ww * WORD, write=False)
+
+    for p in procs:
+        _alltoallv_proc_chunks(
+            self, p, m, v, ww, alpha, arr, full, disk, off_s, off_r,
+            fill_word, Ct, bk, self.shard_stats[p], chunk_copies)
+    if Ct is not None:
+        ct = torch.from_numpy(Ct).to(lo.field(recv_counts).dtype)
+        for p in procs:
+            store.with_field_rows(recv_counts, p * m, ct[p * m:(p + 1) * m])
+    return store
+
+
+def _alltoallv_proc_chunks(self, p, m, v, ww, alpha, arr, full, disk,
+                           off_s, off_r, fill_word, Ct, bk, stats,
+                           chunk_copies):
+    """The α-chunk loop of :func:`_alltoallv_host` for one destination
+    process ``p``."""
+    for c0 in range(p * m, (p + 1) * m, alpha):
+        c1 = min(c0 + alpha, (p + 1) * m)
+        if full is not None:
+            cols = full[:, c0 * ww:c1 * ww]
+        elif arr is not None:
+            cols = arr[:, off_s + c0 * ww:off_s + c1 * ww]
+        else:
+            cols = bk.read_block(
+                0, v, cols=slice(off_s + c0 * ww, off_s + c1 * ww))
+        blk = np.empty((c1 - c0, v, ww), np.uint32)  # staging buffer
+        blk[...] = np.swapaxes(cols.reshape(v, c1 - c0, ww), 0, 1)
+        if disk and full is None:
+            # The chunk reads (c1-c0)·ω columns of every source row — split
+            # across the source shards' ledgers.
+            self._account_disk(0, v, (c1 - c0) * ww * WORD, write=False)
+        stats.peak_stage_bytes = max(
+            stats.peak_stage_bytes,
+            chunk_copies * blk.nbytes
+            + (full.nbytes if full is not None else 0),
+        )
+        if fill_word is not None:
+            # Lanes at or past each message's count arrive as the fill: a
+            # slice fill a message (the JAX package's broadcast mask,
+            # without its [αd, v, ω] boolean temporary).
+            cnt = np.clip(Ct[c0:c1].astype(np.int64), 0, ww)
+            for d in range(c1 - c0):
+                for src in range(v):
+                    blk[d, src, cnt[d, src]:] = fill_word
+        bk.write_block(c0, c1, blk.reshape(c1 - c0, v * ww),
+                       cols=slice(off_r, off_r + v * ww))
+        if disk:
+            # The writes land entirely in destination shard p.
+            self._account_disk(c0, c1, v * ww * WORD, write=True)
+
+
 def _ledger_alltoallv(self, omega_b: int, mode: str) -> None:
     cfg = self.cfg
     B = cfg.block_bytes
@@ -342,12 +481,32 @@ def _ledger_alltoallv(self, omega_b: int, mode: str) -> None:
 def bcast(self, store: ContextStore, field: str, root: int = 0,
           procs=None) -> ContextStore:
     """EM-Bcast (Alg 7.2.1): root's field value lands in every context
-    (in place)."""
+    (in place).
+
+    On a tiered store ``procs`` restricts the write side to the listed
+    processes' shards (the root row is read wherever it lives)."""
     cfg = self.cfg
-    if procs is not None:
+    tiered = isinstance(store, TieredStore)
+    if procs is not None and not tiered:
         raise ValueError("procs= requires a backing-tier store")
-    vals = store.field(field)                  # [v, ...]
-    vals.copy_(vals[root].clone().expand_as(vals))
+    if tiered:
+        # Read only the root context's field range off the backing store.
+        m = cfg.v_local
+        off = store.layout.offset(field)
+        nw = store.layout.field_words(field)
+        row = store.backing.read_block(root, root + 1,
+                                       cols=slice(off, off + nw))
+        if store.on_disk:
+            self._account_disk(root, root + 1, row.nbytes, write=False)
+        for p in (range(cfg.P) if procs is None else procs):
+            store.backing.write_block(p * m, (p + 1) * m, row,  # every row
+                                      cols=slice(off, off + nw))
+            if store.on_disk:
+                self._account_disk(p * m, (p + 1) * m, row.nbytes,
+                                   write=True)
+    else:
+        vals = store.field(field)              # [v, ...]
+        vals.copy_(vals[root].clone().expand_as(vals))
 
     B = cfg.block_bytes
     mu = self.layout.live_bytes
@@ -366,16 +525,32 @@ def bcast(self, store: ContextStore, field: str, root: int = 0,
 def gather(self, store: ContextStore, send: str, recv: str, root: int = 0,
            procs=None) -> ContextStore:
     """EM-Gather (Alg 7.3.1): every VP's ``send`` ([ω]) lands in the root's
-    ``recv`` ([v, ω]), in place.  Non-root recv fields are left untouched."""
+    ``recv`` ([v, ω]), in place.  Non-root recv fields are left untouched.
+
+    On a tiered store ``procs`` restricts the write side: the root row is
+    only written when its shard (``root // (v/P)``) is listed."""
     cfg = self.cfg
     fs = store.layout.field(send)
     fr = store.layout.field(recv)
     if fr.shape != (cfg.v,) + fs.shape:
         raise ValueError(f"recv must be [v, *send.shape]; got {fr.shape}")
-    if procs is not None:
+    tiered = isinstance(store, TieredStore)
+    if procs is not None and not tiered:
         raise ValueError("procs= requires a backing-tier store")
-    A = store.field(send).to(fr.dtype)         # [v, ...] gathered result
-    store.field(recv)[root] = A
+    if tiered:
+        A = store.field(send)                  # CPU copy [v, ...]
+        w = A.to(fr.dtype).reshape(-1).view(torch.int32).numpy().view(
+            np.uint32)
+        off = store.layout.offset(recv)
+        # Only the root context's recv range is touched on the backing.
+        if procs is None or root // cfg.v_local in procs:
+            store.backing.write_block(root, root + 1, w[None],
+                                      cols=slice(off, off + w.size))
+            if store.on_disk:
+                self._account_disk(root, root + 1, w.nbytes, write=True)
+    else:
+        A = store.field(send).to(fr.dtype)     # [v, ...] gathered result
+        store.field(recv)[root] = A
 
     B = cfg.block_bytes
     omega_b = self.layout.field_bytes(send)

@@ -23,18 +23,47 @@ Drivers (§5):
     and each round's result is copied back (the STXXL-file driver of §5.1).
 
 All drivers produce bit-identical results; they differ in bytes moved (the
-ledger) and in schedule.  The backing tiers, recovery and tracing are not
-ported yet: their knobs raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings them.
+ledger) and in schedule.
+
+Backing tiers (:mod:`.backing`): with ``tier="host"``, ``"memmap"`` or
+``"file"`` the ``[v, words]`` population lives off the card (host RAM, an
+``np.memmap`` file, or a file behind the :mod:`repro_torch.io` engine) and
+the round loop becomes a host-driven pipeline (``_run_tiered``): each
+round's ``k`` contexts — live or declared words only (§6.6) — are gathered
+into a pinned host buffer, copied to the card on a side CUDA stream,
+computed, copied back into a pinned buffer and written to the backing.
+Under the ``async`` driver (and for a ``stream=True`` stage on a disk
+backing under any driver) a prefetch thread reads round ``r+1`` while round
+``r`` computes, and on the ``file`` tier the writeback stays in flight on
+the engine's queue, so both directions overlap compute (the STXXL-file
+driver, §5.1).  With ``P > 1`` the backing is sharded, one shard, engine,
+ledger and stats per real processor; no mesh is needed.  The ledger records
+the measured traffic beside the modeled counters, ``Pems.tier_stats`` the
+wall-clock overlap.  Recovery and tracing are not ported yet: their knobs
+raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
+from .backing import (
+    IO_DRIVERS,
+    RECOVERY_ITEM,
+    TIERS,
+    ColRuns,
+    TieredStore,
+    make_backing,
+    not_ported,
+    shard_row_ranges,
+)
 from .context import (
     Ctx,
     ContextLayout,
@@ -42,32 +71,19 @@ from .context import (
     init_store,
     resolve_device,
 )
-from .iostats import IOLedger
+from .iostats import IOLedger, TierStats
 from .mesh import Mesh, canonical
 
 DRIVERS = ("explicit", "sliced", "async")
-TIERS = ("device", "host", "memmap", "file")
 
-# Knobs of the JAX PemsConfig that this slice does not run yet: their
+# Knobs of the JAX PemsConfig that the port does not run yet: their
 # defaults, and the ROADMAP.md item that brings them.
 _NOT_PORTED = {
-    "tier": ("device", "queue 1 item 5 (backing tiers)"),
-    "backing_path": (None, "queue 1 item 5 (backing tiers)"),
-    "io_driver": (None, "queue 1 item 5 (backing tiers)"),
-    "io_queue_depth": (8, "queue 1 item 5 (backing tiers)"),
-    "io_retries": (2, "queue 1 item 5 (backing tiers)"),
-    "io_backoff_s": (0.002, "queue 1 item 5 (backing tiers)"),
-    "fault_spec": (None, "queue 1 item 6 (recovery)"),
-    "checksums": (False, "queue 1 item 6 (recovery)"),
+    "fault_spec": (None, RECOVERY_ITEM),
+    "checksums": (False, RECOVERY_ITEM),
     "trace": (False, "queue 1 item 9 (observability)"),
     "trace_path": (None, "queue 1 item 9 (observability)"),
 }
-
-
-def not_ported(knob: str, value, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{knob}={value!r} is not ported to repro_torch yet; ROADMAP.md "
-        f"{item} brings it")
 
 
 @dataclasses.dataclass
@@ -84,22 +100,40 @@ class PemsConfig:
     * ``driver`` — round swap strategy: ``explicit`` (full live context),
       ``sliced`` (declared fields only), ``async`` (double-buffered
       prefetch, §5.1).  Bit-identical results; different bytes/schedule.
+    * ``tier`` — where the ``[v, words]`` population lives: ``device``
+      (one tensor on the card), ``host`` (RAM), ``memmap`` (disk via
+      ``np.memmap``), ``file`` (disk via the :mod:`repro_torch.io` engine).
+      With ``P > 1`` a backing tier is sharded: process ``p`` owns rows
+      ``[p·v/P, (p+1)·v/P)`` in its own backing (``backing_path +
+      ".shard<p>"``) with its own ``pems.shard_ledgers[p]``/
+      ``shard_stats[p]``, and no mesh is needed.
+    * ``backing_path`` — disk tiers: backing file location (created sparse
+      at ``v·μ`` bytes; existing contents are reused, never zeroed).
+    * ``io_driver``/``io_queue_depth``/``io_retries``/``io_backoff_s`` —
+      file tier only: positional-I/O driver (``buffered``/``odirect``/
+      ``mmap``, default ``buffered``), bounded in-flight requests,
+      transient-error retries per request, and base backoff seconds
+      (doubles per retry).
     * ``block_bytes`` — B, the *modeled* ledger block size (bytes).
     * ``device_cap_bytes`` — device-memory budget (bytes) for the resident
-      contexts; construction fails if ``v·μ`` does not fit.
+      contexts: ``v·μ`` on the device tier, the in-flight round blocks on a
+      backing tier; construction fails if the config cannot fit, and the
+      tiered Alltoallv clamps its chunks under it.
     * ``merge_kernel``/``merge_tile`` — app-level merge stages (PSRS): route
       the merge through the tiled k-way merge kernel in ``merge_tile``-wide
       output tiles, instead of the dense re-sort of the received buckets.
       Bit-identical either way; ``merge_tile`` must be a power of two.
 
     The other fields keep the JAX package's names (``docs/TUNING.md``
-    documents them) and accept only their defaults here: ``tier`` and the
-    backing, I/O, fault, checksum and trace knobs raise
-    ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+    documents them) and accept only their defaults here: ``fault_spec``,
+    ``checksums``, the ``faulty:``/``sanitize:`` driver wrappers and the
+    trace knobs raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
+    that ports them.
 
     Raises ``ValueError`` at construction for any invalid combination —
-    unknown driver or tier names, a bad ``merge_tile``, indivisible
-    ``v``/``P``/``k``, out-of-range ``alpha``.
+    unknown driver, tier or I/O driver names, ``io_driver`` without
+    ``tier="file"``, out-of-range ``io_*`` knobs, a bad ``merge_tile``,
+    indivisible ``v``/``P``/``k``, out-of-range ``alpha``.
     """
 
     v: int                      # total virtual processors
@@ -132,6 +166,35 @@ class PemsConfig:
             value = getattr(self, knob)
             if value != default:
                 raise not_ported(knob, value, item)
+        # The io knobs fail here, at construction, like every other field.
+        wrappers = (self.io_driver or "").split(":")[:-1]
+        if any(w in ("faulty", "sanitize") for w in wrappers):
+            raise not_ported("io_driver", self.io_driver, RECOVERY_ITEM)
+        if self.tier == "file":
+            if self.io_driver is None:
+                self.io_driver = "buffered"
+            if self.io_driver not in IO_DRIVERS:
+                raise ValueError(f"unknown io_driver {self.io_driver!r} "
+                                 f"(choose from {IO_DRIVERS})")
+        elif self.io_driver is not None:
+            raise ValueError(
+                f"io_driver={self.io_driver!r} requires tier='file' "
+                f"(got tier={self.tier!r})"
+            )
+        if self.io_retries != int(self.io_retries) or self.io_retries < 0:
+            raise ValueError(
+                f"io_retries={self.io_retries!r} must be an integer >= 0")
+        self.io_retries = int(self.io_retries)
+        if self.io_backoff_s < 0:
+            raise ValueError(
+                f"io_backoff_s={self.io_backoff_s!r} must be >= 0")
+        if (self.io_queue_depth != int(self.io_queue_depth)
+                or self.io_queue_depth < 1):
+            raise ValueError(
+                f"io_queue_depth={self.io_queue_depth!r} must be an "
+                "integer >= 1"
+            )
+        self.io_queue_depth = int(self.io_queue_depth)
         if (self.merge_tile != int(self.merge_tile) or self.merge_tile < 2
                 or int(self.merge_tile) & (int(self.merge_tile) - 1)):
             raise ValueError(
@@ -171,8 +234,9 @@ class PemsConfig:
 class Pems:
     """Executor: superstep engine + I/O ledger, on one device (CUDA unless
     ``device`` names another; the CPU runs the kernels' plain versions).
-    ``P > 1`` needs a ``mesh`` (:func:`~.mesh.make_mesh`) with ``P`` entries
-    along ``cfg.vp_axis`` on that device.  Collective methods are bound from
+    ``P > 1`` on the device tier needs a ``mesh`` (:func:`~.mesh.make_mesh`)
+    with ``P`` entries along ``cfg.vp_axis`` on that device; a backing tier
+    shards instead.  Collective methods are bound from
     :mod:`repro_torch.core.collectives`."""
 
     def __init__(self, cfg: PemsConfig, layout: ContextLayout,
@@ -182,7 +246,20 @@ class Pems:
         self.device = resolve_device(device)
         self.mesh = mesh
         self.ledger = IOLedger()
-        if cfg.P > 1 and mesh is None:
+        self.tier_stats = TierStats()
+        # Per-process accounting (the parallel disk model, §6.3).  At
+        # P == 1 (or on the device tier) the shard lists alias the main
+        # ledger/stats; at P > 1 each shard's backing bills its own entry
+        # and merged_shard_ledger() recovers the P == 1 totals.
+        if cfg.P == 1 or cfg.tier == "device":
+            self.shard_ledgers = [self.ledger]
+            self.shard_stats = [self.tier_stats]
+        else:
+            self.shard_ledgers = [IOLedger() for _ in range(cfg.P)]
+            self.shard_stats = [TierStats() for _ in range(cfg.P)]
+        self.backing = None   # last backing this executor created (tiered)
+        self._bufs = None     # the tiered round loop's staging buffers
+        if cfg.P > 1 and cfg.tier == "device" and mesh is None:
             raise ValueError("P > 1 requires a mesh with the vp axis "
                              "(device tier; backing tiers shard instead)")
         if mesh is not None:
@@ -195,59 +272,133 @@ class Pems:
                     f"the mesh lies on {mesh.device()} but the executor on "
                     f"{self.device}")
         if cfg.device_cap_bytes is not None:
-            # The device tier must fit the whole population.
-            need = cfg.v * layout.mu_bytes
+            # The device tier must fit the whole population; a backing tier
+            # its in-flight round blocks — input + output, plus the
+            # prefetched next block under the double-buffered async driver.
+            if cfg.tier == "device":
+                need, what = cfg.v * layout.mu_bytes, "v·mu"
+            else:
+                bufs = 3 if cfg.driver == "async" else 2
+                need = bufs * cfg.k * layout.mu_bytes
+                what = f"{bufs}·k·mu in-flight round blocks"
             if need > cfg.device_cap_bytes:
                 raise ValueError(
-                    f"device-resident contexts need {need:,} bytes (v·mu) "
+                    f"device-resident contexts need {need:,} bytes ({what}) "
                     f"but device_cap_bytes={cfg.device_cap_bytes:,}; "
                     "lower k or use tier='host'/'memmap'/'file'"
                 )
         # PEMS2 disk requirement: exactly vμ/P per real processor (§6.3).
         self.ledger.require_disk(cfg.v * layout.mu_bytes // cfg.P)
+        for led in self.shard_ledgers:
+            led.require_disk(cfg.v * layout.mu_bytes // cfg.P)
+
+    # ------------------------------------------------------ per-process views
+    def merged_shard_ledger(self) -> IOLedger:
+        """Sum of the per-shard ledgers — equals the ``P == 1`` ledger's
+        measured counters for the same workload."""
+        out = IOLedger()
+        for led in self.shard_ledgers:
+            out = out.merge(led)
+        return out
+
+    def merged_shard_stats(self) -> TierStats:
+        out = TierStats()
+        for st in self.shard_stats:
+            out = out.merge(st)
+        return out
+
+    def _account_disk(self, r0: int, r1: int, row_bytes: int,
+                      write: bool) -> None:
+        """Bill measured disk traffic for global rows ``[r0, r1)`` to the
+        owning shard ledger(s) — the single main ledger at ``P == 1``."""
+        if len(self.shard_ledgers) == 1:
+            led = self.shard_ledgers[0]
+            (led.add_disk_write if write
+             else led.add_disk_read)((r1 - r0) * row_bytes)
+            return
+        for p, a, b in shard_row_ranges(self.cfg.v_local, r0, r1):
+            led = self.shard_ledgers[p]
+            (led.add_disk_write if write
+             else led.add_disk_read)((b - a) * row_bytes)
 
     # ------------------------------------------------------------------ setup
     def init(self, init_fn=None, tier: Optional[str] = None,
-             backing_path: Optional[str] = None) -> ContextStore:
-        """Create the zeroed context population on the executor's device.
-        ``init_fn(rhos[v]) -> {field: [v, *shape]}`` fills initial fields."""
+             backing_path: Optional[str] = None
+             ) -> ContextStore | TieredStore:
+        """Create the zeroed context population: on the executor's device
+        (``tier="device"``), or in a host/disk backing store
+        (:class:`~.backing.TieredStore`).  ``tier`` defaults to the
+        config's.  ``init_fn(rhos[n]) -> {field: [n, *shape]}`` fills
+        initial fields, batched over the IDs — ``k`` contexts at a time on a
+        backing tier, so the device never holds more than a round."""
         tier = self.cfg.tier if tier is None else tier
         if tier not in TIERS:
             raise ValueError(f"unknown tier {tier!r} (choose from {TIERS})")
         if tier != "device":
-            raise not_ported("tier", tier, "queue 1 item 5 (backing tiers)")
-        if backing_path is not None:
-            raise not_ported("backing_path", backing_path,
-                             "queue 1 item 5 (backing tiers)")
+            return self._init_tiered(init_fn, tier,
+                                     backing_path or self.cfg.backing_path)
         return init_store(self.layout, self.cfg.v, init_fn, self.device)
+
+    def _init_tiered(self, init_fn, tier: str,
+                     backing_path: Optional[str]) -> TieredStore:
+        cfg, lo = self.cfg, self.layout
+        backing = make_backing(tier, cfg.v, lo.words, backing_path,
+                               P=cfg.P,
+                               io_driver=cfg.io_driver,
+                               io_queue_depth=cfg.io_queue_depth,
+                               stats=self.tier_stats, ledger=self.ledger,
+                               shard_stats=self.shard_stats,
+                               shard_ledgers=self.shard_ledgers,
+                               io_retries=cfg.io_retries,
+                               io_backoff_s=cfg.io_backoff_s)
+        self.backing = backing
+        store = TieredStore(lo, backing, self.ledger,
+                            shard_ledgers=self.shard_ledgers)
+        if init_fn is not None:
+            for r0 in range(0, cfg.v, cfg.k):
+                blk = init_store(lo, cfg.k,
+                                 lambda rhos, r0=r0: init_fn(rhos + r0),
+                                 self.device)
+                store.load_rows(r0, blk.data.cpu().numpy().view(np.uint32))
+        return store
 
     # -------------------------------------------------------------- superstep
     def superstep(
         self,
-        store: ContextStore,
+        store: ContextStore | TieredStore,
         fn: Callable[[torch.Tensor, Ctx], Ctx],
         reads: Optional[Sequence[str]] = None,
         writes: Optional[Sequence[str]] = None,
         name: str = "superstep",
         procs: Optional[Sequence[int]] = None,
         stream: bool = False,
-    ) -> ContextStore:
+    ) -> ContextStore | TieredStore:
         """Run one computation superstep: ``fn(rhos, ctx) -> ctx`` for every
         round of ``k`` virtual processors, updating the store in place.
 
         ``reads``/``writes`` declare the touched fields for the ``sliced``
         driver (and tighten the ledger); with the ``explicit``/``async``
-        drivers the full live context swaps.  ``stream`` marks an I/O-bound
-        stage for the disk tiers' merge prefetch and changes nothing on the
-        device tier.  ``procs`` is a backing-tier knob (per-shard recovery)
-        and raises ``ValueError`` on the device tier, as in the JAX package.
-        ``name`` labels the superstep's trace span in the JAX package; the
-        port records no spans yet (``ROADMAP.md`` queue 1 item 9).
+        drivers the full live context swaps.
+
+        ``procs`` (tiered stores only) restricts the superstep to the named
+        processes' shards — contexts ``[p·v/P, (p+1)·v/P)`` per listed
+        ``p`` — and raises ``ValueError`` on the device tier, as in the JAX
+        package.  ``stream`` (disk backing tiers only) marks an I/O-bound
+        stage — PSRS's merge — whose round swap-ins are prefetched while the
+        previous round computes under every driver
+        (``TierStats.merge_prefetch_events`` counts them); it changes
+        nothing elsewhere.  ``name`` labels the superstep's trace span in
+        the JAX package; the port records no spans yet (``ROADMAP.md``
+        queue 1 item 9).
         """
         cfg = self.cfg
         sliced = (cfg.driver == "sliced" and reads is not None
                   and writes is not None)
         self._ledger_superstep(sliced, reads, writes, procs)
+        if isinstance(store, TieredStore):
+            self._superstep_tiered(store, fn, reads, writes, sliced, procs,
+                                   stream)
+            return store
         if procs is not None:
             raise ValueError(
                 "procs= is a tiered-store knob (per-shard recovery); the "
@@ -262,6 +413,178 @@ class Pems:
         for p in range(cfg.P):
             self._run_rounds(store.data[p * m:(p + 1) * m], body, p * m)
         return store
+
+    # ------------------------------------------------- tiered (host-driven)
+    def _superstep_tiered(self, store: TieredStore, fn, reads, writes,
+                          sliced: bool, procs=None,
+                          stream: bool = False) -> None:
+        """Host-driven round pipeline over a backing store: per round, swap
+        in the round's ``k`` contexts (live/declared words only), run the
+        round body on the device, swap the results out."""
+        lo = self.layout
+        # The swapped words as contiguous runs (the JAX package's word-index
+        # maps, field_word_index, merged): the declared fields under the
+        # sliced driver, else the live allocator words (§6.6), None when
+        # the whole context is live.
+        if sliced:
+            in_idx, out_idx = _col_runs(lo, reads), _col_runs(lo, writes)
+        else:
+            live = lo.live_word_index()
+            in_idx = out_idx = (None if live is None
+                                else ColRuns.of(live, lo.words))
+        if self._bufs is None:
+            self._bufs = _RoundBuffers(self.device)
+        body = self._tiered_body(fn, in_idx, out_idx)
+        for p in (range(self.cfg.P) if procs is None else procs):
+            self._run_tiered_proc(store, body, in_idx, out_idx, p, stream)
+
+    def _tiered_body(self, fn, in_idx, out_idx):
+        """The round body ``(rhos, blk [k, n_in]) -> [k, n_out]`` on the
+        device.  The JAX package jits (and caches) it per stage function;
+        the port runs eagerly, so there is nothing to cache.  As in the
+        JAX body, the context is zeros with the swapped-in words scattered
+        in (undeclared or dead words are not resident), and only the
+        ``out_idx`` words go back."""
+        lo, k = self.layout, self.cfg.k
+        in_runs = None if in_idx is None else in_idx.runs
+        out_runs, n_out = (None, lo.words) if out_idx is None \
+            else (out_idx.runs, out_idx.n)
+        bufs = self._bufs
+
+        def body(rhos, blk):
+            if in_runs is None:
+                ctx = blk
+            else:
+                # The context buffer persists across rounds: re-zero it so
+                # a word one round wrote is not resident in the next.
+                ctx = bufs.get("ctx", 0, (k, lo.words), device=True)
+                ctx.zero_()
+                for j, w0, nw in in_runs:
+                    ctx[:, w0:w0 + nw] = blk[:, j:j + nw]
+            out = fn(rhos, Ctx(lo, ctx)).words
+            if out_runs is None:
+                return out
+            dst = bufs.get("out", 0, (k, n_out), device=True)
+            for j, w0, nw in out_runs:
+                dst[:, j:j + nw] = out[:, w0:w0 + nw]
+            return dst
+
+        return body
+
+    def _run_tiered_proc(self, store: TieredStore, body, in_idx, out_idx,
+                         p: int, stream: bool = False) -> None:
+        """Process ``p``'s ``v/(P·k)`` rounds through its own shard of the
+        backing — its own file, engine, ledger and stats."""
+        cfg, lo = self.cfg, self.layout
+        stats, led = self.shard_stats[p], self.shard_ledgers[p]
+        bk = store.backing
+        disk = bk.disk
+        k = cfg.k
+        base = p * cfg.v_local
+        rounds = cfg.v_local // k
+        n_in = lo.words if in_idx is None else in_idx.n
+        n_out = lo.words if out_idx is None else out_idx.n
+        # A streamed stage (PSRS merge) prefetches its round swap-ins on a
+        # disk backing under every driver: it is I/O bound by construction.
+        streamed = stream and disk and rounds > 1
+        use_async = (cfg.driver == "async" or streamed) and rounds > 1
+        shard = bk.shards[p] if hasattr(bk, "shards") else bk
+        # Engine-backed tier + async: leave the writeback in flight on the
+        # engine's queue (rounds touch disjoint rows; the drain below
+        # orders it), so round r-1's swap-out and round r+1's swap-in both
+        # overlap round r's compute.
+        async_writeback = (use_async
+                           and getattr(shard, "engine", None) is not None)
+        bufs = self._bufs
+        cuda = bufs.cuda
+        main = torch.cuda.current_stream(self.device) if cuda else None
+        rho0 = torch.arange(k, dtype=torch.int32, device=self.device)
+        # Staging: a pinned host buffer and a device buffer per in-flight
+        # swap-in, and a pinned host buffer per in-flight swap-out.  An
+        # in-flight writeback reads from its buffer until its requests
+        # complete, so each out buffer remembers them and is refilled only
+        # after they are waited for.
+        n_bufs = 2 if use_async else 1
+        host_in = [bufs.get("host_in", i, (k, n_in)) for i in range(n_bufs)]
+        dev_in = [bufs.get("dev_in", i, (k, n_in), device=True)
+                  for i in range(n_bufs)]
+        n_outs = 2 if async_writeback else 1
+        host_out = [bufs.get("host_out", i, (k, n_out))
+                    for i in range(n_outs)]
+        pending = [[] for _ in range(n_outs)]
+
+        def fetch(r):
+            t0 = time.perf_counter()
+            r0 = base + r * k
+            h, d = host_in[r % n_bufs], dev_in[r % n_bufs]
+            bk.read_block(r0, r0 + k, cols=in_idx, out=h.numpy().view(
+                np.uint32))
+            ready = None
+            if cuda:
+                with torch.cuda.stream(bufs.side):
+                    d.copy_(h, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(bufs.side)
+                ready.synchronize()
+            else:
+                d.copy_(h)
+            led.add_tier_in(h.numel() * h.element_size(), disk)
+            stats.swap_in_s += time.perf_counter() - t0
+            return d, ready
+
+        pool = ThreadPoolExecutor(max_workers=1) if use_async else None
+        try:
+            nxt = pool.submit(fetch, 0) if use_async else None
+            for r in range(rounds):
+                t0 = time.perf_counter()
+                if use_async:
+                    blk, ready = nxt.result()
+                    dt = time.perf_counter() - t0
+                    if streamed:
+                        stats.merge_stall_s += dt
+                    if r + 1 < rounds:
+                        # Overlaps round r's compute and writeback: rounds
+                        # touch disjoint context rows.
+                        nxt = pool.submit(fetch, r + 1)
+                        if streamed:
+                            stats.merge_prefetch_events += 1
+                else:
+                    blk, ready = fetch(r)
+                    dt = time.perf_counter() - t0
+                stats.stall_s += dt
+
+                t0 = time.perf_counter()
+                if ready is not None:
+                    main.wait_event(ready)
+                out = body(rho0 + (base + r * k), blk)
+                ho = host_out[r % n_outs]
+                if pending[r % n_outs]:
+                    # The buffer's last writeback must have left it first.
+                    t1 = time.perf_counter()
+                    shard.engine.wait(pending[r % n_outs])
+                    stats.swap_out_s += time.perf_counter() - t1
+                ho.copy_(out, non_blocking=cuda)
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(main)
+                    done.synchronize()          # blocks on the compute
+                stats.compute_s += time.perf_counter() - t0
+
+                t0 = time.perf_counter()
+                r0 = base + r * k
+                out_h = ho.numpy().view(np.uint32)
+                pending[r % n_outs] = bk.write_block(
+                    r0, r0 + k, out_h, cols=out_idx,
+                    wait=not async_writeback)
+                led.add_tier_out(out_h.nbytes, disk)
+                stats.swap_out_s += time.perf_counter() - t0
+                stats.rounds += 1
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+            # Quiesce in-flight writebacks before anyone reads the rows
+            # back (and so errors surface here, not at a later read).
+            shard.drain()
 
     # ----------------------------------------------------------- round bodies
     def _run_rounds(self, data: torch.Tensor, body, base: int) -> None:
@@ -354,6 +677,45 @@ class Pems:
         self.ledger.add_swap_in(rbytes * nctx, B)
         self.ledger.add_swap_out(wbytes * nctx, B)
         self.ledger.add_barrier()
+
+
+class _RoundBuffers:
+    """The tiered round loop's staging, kept across supersteps: pinned host
+    buffers (plain ones on the CPU) and device buffers by role and index,
+    each grown to the largest round block asked of it, and the side stream
+    of the host-to-device copies."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self.side = torch.cuda.Stream(device) if self.cuda else None
+        self._flat = {}
+
+    def get(self, role: str, i: int, shape, device: bool = False):
+        """A ``shape`` int32 view of buffer ``(role, i)``: on the device, or
+        in pinned host memory."""
+        n = shape[0] * shape[1]
+        flat = self._flat.get((role, i))
+        if flat is None or flat.numel() < n:
+            self._flat.pop((role, i), None)     # free before reallocating
+            if device:
+                flat = torch.empty(n, dtype=torch.int32, device=self.device)
+            else:
+                flat = torch.empty(n, dtype=torch.int32,
+                                   pin_memory=self.cuda)
+            self._flat[(role, i)] = flat
+        return flat[:n].view(shape)
+
+
+def _col_runs(lo: ContextLayout, names: Sequence[str]) -> ColRuns:
+    """The named fields' words as a :class:`~.backing.ColRuns`: the same
+    runs as ``_cols_runs(field_word_index(lo, names))``, without the word
+    index."""
+    runs, n = [], 0
+    for a, b in _runs(lo, names):
+        runs.append((n, a, b - a))
+        n += b - a
+    return ColRuns(runs, n)
 
 
 def _runs(lo: ContextLayout, names: Sequence[str]) -> List[tuple]:

@@ -6,8 +6,10 @@ keeps the same bits as ``int32`` words.  Converting is a reinterpretation of
 the bits, never a value conversion, so a store taken mid-plan from one side
 resumes bit-identically on the other — the port's counterpart of carrying
 weights over: run the JAX ``psrs_plan`` stages up to some stage, move the
-store with :func:`store_from_numpy`, and finish the stages in the port's
-``psrs_plan``.
+store with :func:`store_from_numpy` (device tier) or
+:func:`tiered_store_from_numpy` (a backing tier), and finish the stages in
+the port's ``psrs_plan``.  A JAX memmap or file backing needs no carrying:
+the port's backing of the same path reopens it as it is.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.backing import TieredStore, make_backing
 from .core.context import ContextLayout, ContextStore, resolve_device
 
 
@@ -32,6 +35,29 @@ def store_from_numpy(layout: ContextLayout, words_u32: np.ndarray,
                          f"layout has {layout.words}")
     data = torch.from_numpy(words.view(np.int32).copy())
     return ContextStore(layout, data.to(resolve_device(device)))
+
+
+def tiered_store_from_numpy(layout: ContextLayout, words_u32: np.ndarray,
+                            tier: str, backing_path=None, *, ledger=None,
+                            shard_ledgers=None, **backing_kw) -> TieredStore:
+    """The port's backing-tier store (``tier`` ``"host"``, ``"memmap"`` or
+    ``"file"``, at ``backing_path``) holding ``words_u32`` (``[v,
+    layout.words]`` uint32, e.g. a JAX store's words).  ``backing_kw`` goes
+    to :func:`~repro_torch.core.make_backing` (``P``, ``io_driver``, ...);
+    ``ledger``/``shard_ledgers`` are the store's, as ``Pems.init`` passes
+    its own.  Loading the words is outside the ledger."""
+    words = np.ascontiguousarray(words_u32)
+    if words.dtype != np.uint32 or words.ndim != 2:
+        raise TypeError(f"expected [v, words] uint32 words, got {words.dtype} "
+                        f"{words.shape}")
+    if words.shape[1] != layout.words:
+        raise ValueError(f"store rows hold {words.shape[1]} words but the "
+                         f"layout has {layout.words}")
+    backing = make_backing(tier, words.shape[0], layout.words, backing_path,
+                           **backing_kw)
+    store = TieredStore(layout, backing, ledger, shard_ledgers=shard_ledgers)
+    store.load_rows(0, words)
+    return store
 
 
 def store_to_numpy(store: ContextStore) -> np.ndarray:

@@ -1,5 +1,4 @@
-"""PSRS — Parallel Sorting by Regular Sampling (thesis Alg 8.3.1) on PEMS,
-device tier.
+"""PSRS — Parallel Sorting by Regular Sampling (thesis Alg 8.3.1) on PEMS.
 
 Four virtual supersteps, exactly the thesis' structure:
 
@@ -16,7 +15,10 @@ The stages take the round's ``k`` contexts at once (``rhos [k]``, a batched
 :class:`~repro_torch.core.Ctx`); the bitonic local sort, the Alltoallv direct
 delivery and the k-way merge tile sort are the hand-written CUDA kernels of
 :mod:`repro_torch.kernels` on a CUDA store, their plain PyTorch versions on a
-CPU store.
+CPU store.  On a backing tier the population lives in host memory or on
+disk and each round's contexts visit the device, where the stages (and the
+local sort and merge kernels) run; the Alltoallv is then host-side data
+movement.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
            P: int = 1, mesh=None, alpha=None,
            io_driver=None, io_queue_depth=None,
            fault_spec=None, checksums: bool = False, io_retries=None,
-           merge_kernel=None, merge_tile=None,
+           io_backoff_s=None, merge_kernel=None, merge_tile=None,
            trace: bool = False, trace_path=None, device=None):
     # One home for the PSRS capacity defaults: the always-safe per-message
     # bound n/v and the 2n/v per-receiver guarantee.
@@ -67,8 +69,9 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
         .add("rcount", (1,), torch.int32)
         .add("oflow", (1,), torch.int32)
     )
-    # Knobs of the JAX signature this slice leaves out reach PemsConfig,
-    # which names the ROADMAP.md item that ports each of them.
+    # Knobs of the JAX signature the port leaves out (fault_spec,
+    # checksums, trace) reach PemsConfig, which names the ROADMAP.md item
+    # that ports each of them.
     io_kw = {}
     if io_driver is not None:
         io_kw["io_driver"] = io_driver
@@ -78,6 +81,8 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
         io_kw["fault_spec"] = fault_spec
     if io_retries is not None:
         io_kw["io_retries"] = io_retries
+    if io_backoff_s is not None:
+        io_kw["io_backoff_s"] = io_backoff_s
     if checksums:
         io_kw["checksums"] = True
     if merge_kernel is not None:
@@ -162,7 +167,8 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
 
     # The program as an explicit stage list: callers (the carry-over tests,
     # resumable jobs) can stop after any stage and resume from a store.
-    # ``procs`` is a backing-tier knob and raises on the device tier.
+    # ``procs`` (backing tiers) runs a stage for the listed processes'
+    # shards alone, and raises on the device tier.
     steps = [
         ("sort_sample", lambda st, procs=None: pems.superstep(
             st, sort_and_sample, reads=["data"], writes=["data", "samp"],
@@ -223,6 +229,7 @@ def psrs_plan(
     fault_spec=None,
     checksums: bool = False,
     io_retries=None,
+    io_backoff_s=None,
     merge_kernel: Optional[bool] = None,
     merge_tile: Optional[int] = None,
     trace: bool = False,
@@ -232,11 +239,14 @@ def psrs_plan(
     """Stepwise PSRS: returns ``(pems, load, steps, extract)``.
 
     ``load([v, n_v] int32) -> store`` initialises the population on the
-    executor's device (CUDA unless ``device`` names another); ``steps`` is a
-    list of named ``store -> store`` stages (run them in order, or stop after
-    any stage and resume later — :mod:`repro_torch.interop` carries a JAX
-    package store over); ``extract(store) -> (result, rcount, oflow)``.
-    Stages update the store in place.
+    executor's device (CUDA unless ``device`` names another), or in the
+    backing ``tier`` (``backing_path`` reused as it is: a JAX package's
+    memmap or file backing resumes here); ``steps`` is a list of named
+    ``store -> store`` stages (run them in order, or stop after any stage
+    and resume later — :mod:`repro_torch.interop` carries a JAX package
+    store over); ``extract(store) -> (result, rcount, oflow)``, CPU tensors
+    on a backing tier.  Stages update the store in place; each takes
+    ``procs=`` on a backing tier.
     """
     pems, _, (load, steps, extract) = _build(
         v, k, n_v, cap, rcap, driver, mode, local_sort,
@@ -244,7 +254,8 @@ def psrs_plan(
         device_cap_bytes=device_cap_bytes, P=P, mesh=mesh, alpha=alpha,
         io_driver=io_driver, io_queue_depth=io_queue_depth,
         fault_spec=fault_spec, checksums=checksums, io_retries=io_retries,
-        merge_kernel=merge_kernel, merge_tile=merge_tile,
+        io_backoff_s=io_backoff_s, merge_kernel=merge_kernel,
+        merge_tile=merge_tile,
         trace=trace, trace_path=trace_path, device=device,
     )
     return pems, load, steps, extract
@@ -272,6 +283,7 @@ def psrs_sort(
     fault_spec=None,
     checksums: bool = False,
     io_retries=None,
+    io_backoff_s=None,
     merge_kernel: Optional[bool] = None,
     merge_tile: Optional[int] = None,
     trace: bool = False,
@@ -294,26 +306,38 @@ def psrs_sort(
     package's, which sorts one context's ``[n_v]`` keys, it sorts each row
     of the round's ``[k, n_v]`` block.
 
-    ``device`` is where the store lives and the stages run: CUDA by default
-    (the kernels launch there), ``"cpu"`` for the kernels' plain PyTorch
-    versions.  The result is a tensor on that device.
+    ``device`` is where the stages run: CUDA by default (the kernels launch
+    there), ``"cpu"`` for the kernels' plain PyTorch versions.
 
-    ``P``/``mesh`` run the simulation over ``P`` real processors, each
-    owning ``v/P`` contexts: ``mesh`` is a
+    ``tier`` selects where the context population lives: ``"device"`` (one
+    tensor on ``device``; the result is a tensor there), or a backing tier
+    — ``"host"`` (RAM), ``"memmap"`` (a disk file at ``backing_path``) or
+    ``"file"`` (a disk file behind the :mod:`repro_torch.io` engine;
+    ``io_driver`` picks ``buffered``/``odirect``/``mmap``, ``io_queue_depth``
+    bounds in-flight requests, ``io_retries``/``io_backoff_s`` retry
+    transient errors).  On a backing tier only ``k`` contexts visit the
+    device at a time (``device_cap_bytes`` enforces the budget), and the
+    result is a CPU tensor, because it lives where the population lives.
+    All tiers sort bit-identically.
+
+    ``P`` runs the simulation over ``P`` real processors, each owning
+    ``v/P`` contexts.  On the device tier ``mesh`` is a
     :func:`~repro_torch.core.make_mesh` of ``P`` entries on ``device``, and
     the final Alltoallv's network phase is α-chunked over it (``alpha``,
-    Alg 7.1.3).  The output is bit-identical to the ``P == 1`` run.
+    Alg 7.1.3); on a backing tier no mesh is needed: the backing is sharded,
+    one file (``backing_path + ".shard<p>"``), engine, ledger and stats per
+    process.  The output is bit-identical to the ``P == 1`` run.
 
-    The backing tiers (``tier`` other than ``"device"``, ``backing_path``
-    and the ``io_*``/``fault_spec``/``checksums`` knobs) and tracing
-    (``trace``/``trace_path``) are not ported yet and raise
-    ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings each.
+    ``fault_spec``, ``checksums``, the ``faulty:``/``sanitize:`` I/O
+    drivers and tracing (``trace``/``trace_path``) are not ported yet and
+    raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
+    each.
 
     Raises ``ValueError`` for n not divisible by v (and for any invalid
-    :class:`~repro_torch.core.PemsConfig` combination, or ``P > 1`` without
-    a mesh of ``P`` entries on ``device``), ``RuntimeError`` when
-    CUDA is asked for and missing, and ``OverflowError`` when a bucket
-    exceeds ``cap``/``rcap``.
+    :class:`~repro_torch.core.PemsConfig` combination, or ``P > 1`` on the
+    device tier without a mesh of ``P`` entries on ``device``),
+    ``RuntimeError`` when CUDA is asked for and missing, and
+    ``OverflowError`` when a bucket exceeds ``cap``/``rcap``.
     """
     dev = resolve_device(device)
     keys = torch.as_tensor(keys).to(device=dev, dtype=torch.int32)
@@ -330,6 +354,7 @@ def psrs_sort(
                               io_queue_depth=io_queue_depth,
                               fault_spec=fault_spec, checksums=checksums,
                               io_retries=io_retries,
+                              io_backoff_s=io_backoff_s,
                               merge_kernel=merge_kernel,
                               merge_tile=merge_tile,
                               trace=trace, trace_path=trace_path,

@@ -330,6 +330,69 @@ def test_psrs_at_P4_on_the_card_matches_P1_and_launches_kernel_4(cuda):
         assert dv.ASSEMBLE_LAUNCHES == pems.ledger.network_rounds > 0
 
 
+@pytest.mark.parametrize("tier, driver, P", [
+    ("host", "async", 1), ("memmap", "sliced", 1), ("file", "async", 2),
+    ("file", "explicit", 1)])
+def test_tiered_psrs_on_the_card_matches_the_cpu_and_launches_kernels(
+        cuda, tmp_path, tier, driver, P):
+    """A backing tier on the card: each round's block runs the local sort
+    and the merge's splitters and segments as on the device tier, and the
+    run gives the CPU run's output, store words, ledgers and deterministic
+    stats; the result comes back on the CPU."""
+    from repro_torch.pems_apps import psrs_sort
+
+    bs, km = _kernel("bitonic_sort"), _kernel("kway_merge")
+    keys = _keys((1 << 16,), cuda, 11)
+    runs = []
+    for i, dev in enumerate(("cpu", cuda)):
+        bs.LAUNCHES = km.SPLIT_LAUNCHES = km.SEGMENT_LAUNCHES = 0
+        path = None if tier == "host" else str(tmp_path / f"{i}.bin")
+        out, pems = psrs_sort(keys.to(dev), v=16, k=2, P=P, tier=tier,
+                              driver=driver, backing_path=path, device=dev,
+                              return_pems=True)
+        assert out.device.type == "cpu"
+        st = [(s.rounds, s.merge_prefetch_events, s.peak_stage_bytes)
+              for s in pems.shard_stats]
+        runs.append((out, pems.backing.read_block(0, 16),
+                     [led.snapshot() for led in pems.shard_ledgers], st))
+    assert torch.equal(runs[1][0], torch.sort(keys).values.cpu())
+    assert torch.equal(runs[1][0], runs[0][0])
+    assert (runs[1][1] == runs[0][1]).all()
+    assert runs[1][2:] == runs[0][2:]
+    assert all(c > 0 for c in (bs.LAUNCHES, km.SPLIT_LAUNCHES,
+                               km.SEGMENT_LAUNCHES))
+
+
+def test_tiered_async_writeback_waits_for_its_pinned_buffer(cuda, tmp_path):
+    """tests/test_torch_tiered.py's aliasing case on the card, where the
+    writeback reads a pinned buffer the next round's device-to-host copy
+    would refill: every write slowed, one request in flight at a time."""
+    import time
+
+    from repro_torch.pems_apps import psrs_plan
+
+    v, n_v = 16, 64
+    keys = _keys((v * n_v,), cuda, 12)
+    pems, load, steps, extract = psrs_plan(
+        v, n_v, k=1, driver="async", tier="file", io_queue_depth=1,
+        backing_path=str(tmp_path / "slow.bin"), device=cuda)
+    store = load(keys.reshape(v, n_v))
+    f = pems.backing.file
+    fast = f.pwrite
+
+    def slow(offset, data):
+        time.sleep(0.002)
+        return fast(offset, data)
+
+    f.pwrite = slow
+    for _, step in steps:
+        store = step(store)
+    result, rcount, oflow = extract(store)
+    assert not oflow.any()
+    out = torch.cat([result[i, :rcount[i, 0]] for i in range(v)])
+    assert torch.equal(out, torch.sort(keys).values.cpu())
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     bs = _kernel("bitonic_sort")
     with pytest.raises(TypeError, match="int32"):

@@ -68,6 +68,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.kernels.lru_scan\n"
         "import repro_torch.core.mesh, repro_torch.core.analysis\n"
+        "import repro_torch.io, repro_torch.core.backing\n"
+        "repro_torch.io.open_file\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -104,9 +106,6 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("knob, value, item", [
-    ("tier", "host", "item 5"),
-    ("backing_path", "/nonexistent", "item 5"),
-    ("io_driver", "buffered", "item 5"),
     ("checksums", True, "item 6"),
     ("fault_spec", "eio@1", "item 6"),
     ("P", 2, "item 7"),
@@ -126,3 +125,19 @@ def test_knobs_outside_the_slice_raise_and_name_their_roadmap_item(
         kw.update(P=2, mesh=Mesh(["cuda:0", "cuda:1"]))
     with pytest.raises(NotImplementedError, match=item):
         psrs_sort(keys, v=4, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(io_driver="sanitize:buffered"),
+    dict(io_driver="faulty:buffered", fault_spec="eio@1"),
+    dict(checksums=True),
+], ids=["sanitize-wrapper", "faulty-wrapper", "checksums"])
+def test_backing_tier_recovery_knobs_name_item_6(kw):
+    """The backing tiers run (ROADMAP.md queue 1 item 5); on the file tier
+    their recovery knobs and the wrapped I/O drivers still wait for item
+    6."""
+    from repro_torch.pems_apps import psrs_sort
+
+    keys = torch.arange(64, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        psrs_sort(keys, v=4, device="cpu", tier="file", **kw)
