@@ -63,6 +63,23 @@ What it does, in order; any failure raises and the exit code is non-zero:
    random and duplicate-heavy keys, the dense routes, P of 2 and 4 over
    every driver, mode and α in {None, 1}, and CPU-vs-GPU bit-for-bit
    comparisons at 2^14 keys (P = 1, and P = 4 with equal ledgers).
+6b. The backing tiers (``run_tiered``): the host link, PSRS at full scale
+   with k = 2 of v = 16 contexts on the card under an 8 GiB budget on the
+   host and file tiers, and a 2^20 matrix of tiers, drivers, P and I/O
+   drivers.
+6c. Crash recovery (``run_recovery``): ``psrs_run_recoverable`` on the
+   file tier at the tiered phase's full scale and keys, (a) with checksum
+   sidecars and (b) without, stage by stage with the seconds of snapshots,
+   cursor writes, commit flushes and CRCs (``RecoveryClock``); (c) a child
+   killed by SIGKILL in the merge stage and (d) its resume in a fresh child.
+   (a), (b) and (d) must equal ``torch.sort`` (and (d) (a)), the modeled
+   ledger the device tier's, the peak device memory stay under v·μ, and the
+   resume rerun the merge alone.  Then a matrix at 2^20 keys, each leg a
+   child, the chains side by side: SIGKILL in and after every stage
+   (buffered), in one stage under odirect and mmap, seeded EIO absorbed
+   (injected equals retries), a torn write healed, the sanitizer clean, and
+   at P = 2 a kill on shard 1's disk after which only process 1 reruns.
+   Alone: ``python3 chip_smoke.py --recovery-only``.
 7. The LM serving path.  Holds flash attention, the SSD scan and the LRU
    scan against their plain versions at the CPU tests' edge shapes, at
    qwen2's head dim 128 and at recurrentgemma's sliding window and head dim
@@ -622,12 +639,20 @@ def main(argv=None) -> int:
     ap.add_argument("--tiered-only", action="store_true",
                     help="build and run the backing-tier phase alone (no "
                          "kernels line, no ok line)")
+    ap.add_argument("--recovery-only", action="store_true",
+                    help="build and run the recovery phase alone (no "
+                         "kernels line, no ok line)")
+    ap.add_argument("--recovery-child", metavar="SPEC",
+                    help="one leg of the recovery phase (a JSON spec); the "
+                         "phase starts these itself")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "scripts"))
+    if args.recovery_child:
+        return recovery_child(json.loads(args.recovery_child))
     from repro_torch.kernels import _build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -644,9 +669,14 @@ def main(argv=None) -> int:
     if args.tiered_only:
         run_tiered(dev, args)
         return 0
+    if args.recovery_only:
+        run_recovery(dev, args)
+        return 0
     rows = run(dev, args)
     torch.cuda.empty_cache()
     run_tiered(dev, args)
+    torch.cuda.empty_cache()
+    run_recovery(dev, args)
     torch.cuda.empty_cache()
     rows += run_lm(dev, args)
     print(card)
@@ -1244,6 +1274,418 @@ def run_tiered(dev, args) -> None:
           f"P in (1, {TIER_P}), io drivers): passed in "
           f"{time.perf_counter() - t0:.2f} s")
     print(f"tiered phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+# --------------------------------------------------------------------------- #
+# The recovery phase: psrs_run_recoverable on the file tier, killed and       #
+# resumed.                                                                    #
+# --------------------------------------------------------------------------- #
+
+# Where the recoverable runs keep their state dirs (inside the checkout,
+# git-ignored), and the small legs' key count.
+RECOVERY_DIR = ROOT / "build" / "recovery"
+RECOVERY_SMALL_LOG_N = 20
+
+
+class RecoveryClock:
+    """Host-clock seconds of a recoverable run's durable-state work, by
+    wrapping the functions that do it: stage snapshots (save and load),
+    cursor writes, commit flushes, checksum recomputes and every CRC call
+    (seconds and bytes hashed, from every thread), and each stage's wall
+    time from its in-progress mark to its commit (synchronised with the
+    card before the commit is read).  ``restore()`` puts them back."""
+
+    def __init__(self):
+        import threading
+
+        from repro_torch.core import FileBacking, SuperstepCursor
+        from repro_torch.io import checksum
+        from repro_torch.pems_apps import psrs
+        self.secs = dict.fromkeys(("snapshot_save", "snapshot_load",
+                                   "cursor", "commit_flush", "recompute",
+                                   "crc"), 0.0)
+        self.crc_bytes = 0
+        self.stages = {}
+        self._lock = threading.Lock()
+        self._open = {}
+        self._saved = []
+        crc = checksum.crc_bytes
+
+        def counted_crc(buf):
+            t0 = time.perf_counter()
+            out = crc(buf)
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.secs["crc"] += dt
+                self.crc_bytes += memoryview(buf).nbytes
+            return out
+
+        self._patch(checksum, "crc_bytes", counted_crc)
+        for name, key in (("_save_snapshot", "snapshot_save"),
+                          ("_load_snapshot", "snapshot_load")):
+            self._patch(psrs, name, self._timed(getattr(psrs, name), key))
+        self._patch(FileBacking, "flush",
+                    self._timed(FileBacking.flush, "commit_flush"))
+        self._patch(FileBacking, "recompute_checksums",
+                    self._timed(FileBacking.recompute_checksums,
+                                "recompute"))
+        self._patch(SuperstepCursor, "note_round",
+                    self._timed(SuperstepCursor.note_round, "cursor"))
+        mark_in, mark_done = (SuperstepCursor.mark_in_progress,
+                              SuperstepCursor.mark_completed)
+        clock = self
+
+        def mark_in_progress(cur, stage, name=None):
+            t0 = time.perf_counter()
+            mark_in(cur, stage, name)
+            t1 = time.perf_counter()
+            clock.secs["cursor"] += t1 - t0
+            clock._open[(cur.path, stage)] = t1
+
+        def mark_completed(cur, stage, name=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mark_done(cur, stage, name)
+            clock.secs["cursor"] += time.perf_counter() - t0
+            start = clock._open.pop((cur.path, stage))
+            clock.stages[name] = clock.stages.get(name, 0.0) + t0 - start
+
+        self._patch(SuperstepCursor, "mark_in_progress", mark_in_progress)
+        self._patch(SuperstepCursor, "mark_completed", mark_completed)
+
+    def _patch(self, owner, name, fn):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, fn)
+
+    def _timed(self, fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.secs[key] += time.perf_counter() - t0
+        return run
+
+    def restore(self) -> None:
+        for owner, name, fn in reversed(self._saved):
+            setattr(owner, name, fn)
+
+    def report(self) -> dict:
+        return {"stages_s": self.stages, "durable_s": self.secs,
+                "crc_bytes": self.crc_bytes}
+
+
+def recovery_keys(spec: dict, dev):
+    """A leg's keys, made on ``dev`` from its seed: the parent and its
+    children draw the same keys."""
+    gen = torch.Generator(device=dev).manual_seed(spec["seed"])
+    return rand_int32((1 << spec["log_n"],), gen)
+
+
+def recovery_run(spec: dict, keys, clock: bool):
+    """One ``psrs_run_recoverable`` call as ``spec`` describes it, on the
+    device of ``keys``; returns ``(out, pems, report)``, the report with the run's
+    seconds, launches, peak device memory and, with ``clock``, its
+    durable-state seconds."""
+    from repro_torch.pems_apps import psrs_plan, psrs_run_recoverable
+    kern = kernel_modules()
+    v, k = spec["v"], spec["k"]
+    fault = spec.get("fault_spec")
+    if fault and "{result}" in fault:
+        # 4 bytes in the middle of shard row 0's result field (2n/v words,
+        # 16 checksum segments here): under the sliced driver only the
+        # merge stage writes its checksum segment.
+        lo = psrs_plan(v, keys.numel() // v, k=k,
+                       device="cpu")[0].layout
+        at = (lo.offset("result") + lo.field_words("result") // 2) * 4
+        fault = fault.replace("{result}", f"{at}-{at + 3}")
+    rc = RecoveryClock() if clock else None
+    set_counts(kern)
+    torch.cuda.synchronize()
+    reset_peak()
+    t0 = time.perf_counter()
+    try:
+        out, pems = psrs_run_recoverable(
+            keys, v=v, k=k, P=spec.get("P", 1), state_dir=spec["state_dir"],
+            tier="file", driver=spec.get("driver", "async"),
+            io_driver=spec.get("io_driver", "buffered"), fault_spec=fault,
+            checksums=spec.get("checksums", True),
+            io_retries=spec.get("io_retries"),
+            device_cap_bytes=spec.get("cap"),
+            crash_in_stage=spec.get("crash_in"),
+            crash_after_stage=spec.get("crash_after"),
+            device=keys.device, return_pems=True)
+        torch.cuda.synchronize()
+    finally:
+        if rc is not None:
+            rc.restore()
+    led = pems.merged_shard_ledger()
+    rep = {"wall_s": time.perf_counter() - t0,
+           "launches": read_counts(kern, ("radix_sort", "kway_splitters",
+                                          "kway_merge_segments")),
+           "peak": torch.cuda.max_memory_allocated(),
+           "rounds": [s.rounds for s in pems.shard_stats],
+           "tier": pems.merged_shard_stats().as_dict(),
+           "disk_gib": [led.disk_read_bytes / 2**30,
+                        led.disk_write_bytes / 2**30]}
+    if rc is not None:
+        rep.update(rc.report())
+    return out, pems, rep
+
+
+def recovery_child(spec: dict) -> int:
+    """A leg of the recovery phase in a process of its own: sort its keys
+    recoverably (killed by the run's own hooks or faults where the leg asks
+    for it), check the output against ``torch.sort`` and print
+    ``RECOVERY_CHILD <json>`` with what the parent checks."""
+    from repro_torch.io import collect_findings
+    keys = recovery_keys(spec, torch.device("cuda"))
+    ref = torch.sort(keys).values.cpu()
+    out, pems, rep = recovery_run(spec, keys, spec.get("clock", False))
+    check(torch.equal(out, ref), f"recovery leg {spec['name']}: output == "
+          "torch.sort")
+    shards = getattr(pems.backing, "shards", None) or [pems.backing]
+    files = [s.file for s in shards]
+    rep.update(
+        name=spec["name"],
+        injected=[dict(getattr(f, "injected", {})) for f in files],
+        retries=[s.engine.retries for s in shards],
+        permanent_errors=[s.engine.permanent_errors for s in shards],
+        findings=[x.format() for x in collect_findings(pems.backing)],
+        tracked=[getattr(f, "tracked", 0) for f in files],
+        driver=[f.driver for f in files],
+        cursors=[c.state() for c in pems.cursors],
+        out_sum=int(out.to(torch.int64).sum()))
+    print("RECOVERY_CHILD " + json.dumps(rep), flush=True)
+    return 0
+
+
+def spawn_leg(spec: dict):
+    """Run one leg in a child (``sys.executable``, ``PYTHONPATH=src``);
+    returns ``(returncode, its RECOVERY_CHILD report or None, stderr)``."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--recovery-child", json.dumps(spec)],
+                       capture_output=True, text=True, env=env, cwd=ROOT,
+                       timeout=900)
+    rep = None
+    for line in r.stdout.splitlines():
+        if line.startswith("RECOVERY_CHILD "):
+            rep = json.loads(line.split(" ", 1)[1])
+    return r.returncode, rep, r.stderr
+
+
+def leg_killed(spec: dict) -> None:
+    import signal
+    rc, _, err = spawn_leg(spec)
+    check(rc == -signal.SIGKILL, f"recovery leg {spec['name']}: died by "
+          f"SIGKILL (exit {rc}; {err[-2000:]})")
+
+
+def leg_ok(spec: dict) -> dict:
+    rc, rep, err = spawn_leg(spec)
+    check(rc == 0 and rep is not None, f"recovery leg {spec['name']}: "
+          f"completed (exit {rc}; {err[-2000:]})")
+    return rep
+
+
+def small_legs(base: dict) -> list:
+    """The small matrix, as chains of legs: each chain's legs share one
+    state dir and run one after another; the chains run side by side.
+    Returns ``[(chain name, [(spec, expect 'killed' or 'ok')])]``."""
+    def leg(name, sd, **kw):
+        return dict(base, name=name, state_dir=str(RECOVERY_DIR / sd), **kw)
+
+    chains = []
+    for kind in ("in", "after"):
+        legs = [(leg(f"buffered {kind} {i}", f"b_{kind}",
+                     **{f"crash_{kind}": i}), "killed") for i in range(8)]
+        chains.append((f"buffered {kind}", legs + [
+            (leg(f"buffered {kind} resume", f"b_{kind}"), "ok")]))
+    for io, stage in (("odirect", "partition"), ("mmap", "merge")):
+        chains.append((io, [
+            (leg(f"{io} in {stage}", io, io_driver=io, crash_in=stage),
+             "killed"),
+            (leg(f"{io} resume", io, io_driver=io), "ok")]))
+    # Rare enough that no request fails past its retries (0.005^4 a
+    # request), frequent enough over some 10^4 requests to fire.
+    chains.append(("eio", [(leg("faulty eio", "eio",
+                                io_driver="faulty:buffered",
+                                fault_spec="seed=5;eio@p0.005:x2",
+                                io_retries=6), "ok")]))
+    chains.append(("torn", [
+        (leg("torn in load", "torn", io_driver="faulty:buffered",
+             fault_spec="torn@wb0-4095:0.5", crash_in=0), "killed"),
+        (leg("torn resume", "torn"), "ok")]))
+    chains.append(("sanitize", [(leg("sanitize", "san",
+                                     io_driver="sanitize:buffered"), "ok")]))
+    chains.append(("shard", [
+        (leg("P=2 shard 1 killed in merge", "shard", P=2, v=8,
+             driver="sliced", io_driver="faulty:buffered",
+             fault_spec="shard=1;kill@wb{result}"), "killed"),
+        (leg("P=2 resume", "shard", P=2, v=8, driver="sliced"), "ok")]))
+    return chains
+
+
+def run_chains(chains) -> dict:
+    """Chains of legs side by side, in threads that each wait on their
+    children one after another; returns the completing legs' reports by
+    name.  Every chain runs to its end before the first failure raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def chain(legs):
+        reps = {}
+        for spec, expect in legs:
+            if expect == "killed":
+                leg_killed(spec)
+            else:
+                reps[spec["name"]] = leg_ok(spec)
+        return reps
+
+    with ThreadPoolExecutor(max_workers=len(chains)) as pool:
+        futs = [pool.submit(chain, legs) for _, legs in chains]
+        reps = {}
+        for f in futs:
+            reps.update(f.result())
+    return reps
+
+
+def run_recovery(dev, args) -> None:
+    """The recovery phase on the card: ``psrs_run_recoverable`` at full
+    width on the file tier (the tiered phase's keys and population), (a)
+    with checksums, (b) without, (c) killed by SIGKILL in the merge stage in
+    a child, beside the small matrix of legs at 2^20 keys (each in a
+    child), and (d) resumed in a fresh child."""
+    import gc
+
+    from repro_torch.pems_apps import psrs_plan, psrs_sort
+    t_phase = time.perf_counter()
+    shutil.rmtree(RECOVERY_DIR, ignore_errors=True)
+    RECOVERY_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        ram, disk, fs = host_room(RECOVERY_DIR)
+        v = args.v
+        log_n = args.log_n
+        while True:
+            lo = psrs_plan(v, (1 << log_n) // v, k=TIER_K,
+                           device=dev)[0].layout
+            vmu = v * lo.mu_bytes
+            # Disk: one state dir at a time (the file, its sidecar, a
+            # snapshot); host: the round staging and the page cache's
+            # working set.
+            if disk >= 1.2 * vmu and ram >= 16 * TIER_K * lo.mu_bytes:
+                break
+            log_n -= 1
+            print(f"recovery: cut to 2^{log_n} keys (v·μ "
+                  f"{vmu / 2**30:.2f} GiB does not fit the host's disk)")
+        print(f"recovery: n=2^{log_n} v={v} k={TIER_K}, v·μ "
+              f"{vmu / 2**30:.2f} GiB on {fs}, free disk "
+              f"{disk / 2**30:.1f} GiB, free host RAM {ram / 2**30:.1f} GiB")
+        full = {"seed": args.seed + 20, "log_n": log_n, "v": v, "k": TIER_K,
+                "cap": TIER_CAP, "driver": "async", "io_driver": "buffered"}
+        keys = recovery_keys(full, dev)
+        ref = torch.sort(keys).values.cpu()
+        _, dp = psrs_sort(keys, v=v, k=TIER_K, driver="async", device=dev,
+                          return_pems=True)
+        device_led = modeled(dp.ledger)
+        del dp
+        torch.cuda.empty_cache()
+        outs = {}
+        for leg, checksums in (("a", True), ("b", False)):
+            spec = dict(full, name=leg, checksums=checksums,
+                        state_dir=str(RECOVERY_DIR / leg))
+            out, pems, rep = recovery_run(spec, keys, clock=True)
+            what = f"recovery ({leg}) checksums={checksums}"
+            check(torch.equal(out, ref), f"{what}: output == torch.sort")
+            check(modeled(pems.ledger) == device_led,
+                  f"{what}: modeled ledger == the plain tiered run's (the "
+                  "device tier's)")
+            check(rep["peak"] < vmu, f"{what}: peak device memory "
+                  f"{rep['peak']} < v·μ {vmu}")
+            check(all(c > 0 for c in rep["launches"].values()),
+                  f"{what}: the local sort and merge kernels launched")
+            print_recovery(what, rep)
+            outs[leg] = out
+            pems.backing.close()
+            del pems
+            gc.collect()
+            shutil.rmtree(RECOVERY_DIR / leg)
+        check(torch.equal(outs["a"], outs["b"]), "recovery (a) == (b)")
+        # (c): a child killed in merge, side by side with the small matrix
+        # at 2^20 keys (each leg a child too), whose legs time nothing.
+        spec = dict(full, name="c", checksums=True,
+                    state_dir=str(RECOVERY_DIR / "cd"))
+        base = {"seed": args.seed + 21, "log_n": RECOVERY_SMALL_LOG_N,
+                "v": 16, "k": 2}
+        chains = small_legs(base)
+        t0 = time.perf_counter()
+        reps = run_chains(chains + [("c", [(dict(spec, crash_in="merge"),
+                                            "killed")])])
+        print(f"recovery (c) killed in merge beside the small matrix at "
+              f"2^{RECOVERY_SMALL_LOG_N} ({sum(len(c) for _, c in chains)} "
+              f"legs in {len(chains)} chains): {time.perf_counter() - t0:.2f}"
+              " s host clock, the children's starts included")
+        t0 = time.perf_counter()
+        rep = leg_ok(dict(spec, name="d", clock=True))
+        print(f"recovery (d) resumed in a fresh process: "
+              f"{time.perf_counter() - t0:.2f} s host clock, the child's "
+              "start included")
+        print_recovery("recovery (d) resume", rep)
+        check(rep["out_sum"] == int(outs["a"].to(torch.int64).sum()),
+              "recovery (d): its output sums as (a)'s")
+        check(rep["launches"]["radix_sort"] == 0
+              and rep["launches"]["kway_merge_segments"] == v // TIER_K,
+              f"recovery (d): reran the merge alone ({rep['launches']})")
+        check(rep["cursors"][0]["completed"] == 7,
+              "recovery (d): the cursor committed the last stage")
+        shutil.rmtree(RECOVERY_DIR / "cd")
+        del keys, ref, outs
+        torch.cuda.empty_cache()
+
+        eio = reps["faulty eio"]
+        check(eio["injected"][0]["eio"] > 0
+              and eio["retries"] == [eio["injected"][0]["eio"]]
+              and eio["permanent_errors"] == [0],
+              f"recovery leg faulty eio: injected == retries, 0 permanent "
+              f"({eio['injected']}, {eio['retries']})")
+        san = reps["sanitize"]
+        check(san["findings"] == [] and san["tracked"][0] > 0,
+              f"recovery leg sanitize: no findings, tracked "
+              f"{san['tracked']}")
+        shard = reps["P=2 resume"]
+        check(shard["rounds"] == [0, 8 // 2 // base["k"]],
+              f"recovery leg P=2: only process 1 reran its stage "
+              f"(rounds {shard['rounds']})")
+        print(f"recovery small matrix at 2^{RECOVERY_SMALL_LOG_N}: every leg "
+              f"passed ({len(reps)} completing children); eio injected "
+              f"{eio['injected'][0]['eio']} = retries {eio['retries'][0]}; "
+              f"sanitizer tracked {san['tracked'][0]}; P=2 resume rounds "
+              f"{shard['rounds']}")
+    finally:
+        shutil.rmtree(RECOVERY_DIR, ignore_errors=True)
+    print(f"recovery phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+def print_recovery(what: str, rep: dict) -> None:
+    d, st = rep["durable_s"], rep["tier"]
+    print(f"{what}: {rep['wall_s']:.2f} s host clock; stages s (in progress "
+          "to commit) " + ", ".join(f"{k} {t:.2f}"
+                                   for k, t in rep["stages_s"].items()))
+    crc_rate = rep["crc_bytes"] / d["crc"] / 1e9 if d["crc"] else 0.0
+    print(f"  durable state s: snapshot save {d['snapshot_save']:.2f}, "
+          f"snapshot load {d['snapshot_load']:.2f}, cursor writes "
+          f"{d['cursor']:.2f}, commit flushes {d['commit_flush']:.2f}, "
+          f"checksum recompute {d['recompute']:.2f}; CRC "
+          f"{rep['crc_bytes'] / 2**30:.2f} GiB hashed in {d['crc']:.2f} s "
+          f"({crc_rate:.2f} GB/s, every thread)")
+    print(f"  launches {rep['launches']}; peak device "
+          f"{rep['peak'] / 2**30:.2f} GiB; disk read / written "
+          f"{rep['disk_gib'][0]:.2f} / {rep['disk_gib'][1]:.2f} GiB")
+    print(f"  TierStats: rounds {st['rounds']}, swap_in_s "
+          f"{st['swap_in_s']:.3f}, swap_out_s {st['swap_out_s']:.3f}, "
+          f"compute_s {st['compute_s']:.3f}, stall_s {st['stall_s']:.3f}, "
+          f"merge_prefetch_events {st['merge_prefetch_events']}")
 
 
 # --------------------------------------------------------------------------- #

@@ -8,7 +8,8 @@ Public API::
         Pems, PemsConfig, ContextLayout, ContextStore, Ctx, Field,
         Allocator, IOLedger, TierStats, Mesh, make_mesh,
         TieredStore, make_backing, HostBacking, MemmapBacking, FileBacking,
-        ShardedBacking,
+        ShardedBacking, SuperstepCursor, atomic_replace_file,
+        atomic_write_json,
     )
 """
 
@@ -34,6 +35,7 @@ from .backing import (
 from .executor import DRIVERS, Pems, PemsConfig
 from .iostats import IOLedger, TierStats
 from .mesh import Mesh, make_mesh
+from .recovery import SuperstepCursor, atomic_replace_file, atomic_write_json
 
 __all__ = [
     "Allocator",
@@ -50,10 +52,13 @@ __all__ = [
     "Pems",
     "PemsConfig",
     "ShardedBacking",
+    "SuperstepCursor",
     "TIERS",
     "TierStats",
     "TieredStore",
     "WORD",
+    "atomic_replace_file",
+    "atomic_write_json",
     "init_store",
     "make_backing",
     "make_mesh",

@@ -23,12 +23,18 @@ by path (create-or-reuse keeps its contents) and the other way round.  The
 numpy arrays stay ``uint32``; :class:`TieredStore` hands fields out as CPU
 tensors of the field's dtype.
 
+With ``checksum=True`` a disk backing keeps a CRC sidecar
+(:mod:`repro_torch.io.checksum`) beside its file and verifies every read;
+``io_driver="faulty:<inner>"`` injects the faults of a ``fault_spec``
+(:mod:`repro_torch.io.faults`) and ``"sanitize:<inner>"`` records in-flight
+races (:mod:`repro_torch.io.sanitize`).
+
 This module is the port's copy of the JAX package's ``core/backing.py`` and
 ``io/drivers.py``: every raw ``os.open``/``os.preadv``/``os.pwritev``,
 ``np.memmap`` and binary ``open`` of the port lives here, the one place the
-``block-api-only`` lint rule allows them outside ``repro/io/``.  Checksum
-sidecars and the ``faulty:``/``sanitize:`` driver wrappers come with
-``ROADMAP.md`` queue 1 item 6 and raise ``NotImplementedError`` until then.
+``block-api-only`` lint rule allows them outside ``repro/io/`` — the
+checksum sidecar's header and map, and the checkpoint layer's ``.npy``
+files (:mod:`repro_torch.io.npyio`), included.
 """
 
 from __future__ import annotations
@@ -44,23 +50,17 @@ import numpy as np
 import torch
 
 from ..io.aligned import ALIGN, AlignedPool, align_down, align_up
+from ..io.checksum import ChecksumSidecar, span_plan
 from ..io.engine import IOEngine
+from ..io.faults import FaultSpec, FaultyFile, split_shard_clause
+from ..io.sanitize import SanitizingFile
 from .context import WORD, ContextLayout, as_dtype
 
 TIERS = ("device", "host", "memmap", "file")
 IO_DRIVERS = ("buffered", "odirect", "mmap")
-RECOVERY_ITEM = "queue 1 item 6 (recovery)"
 
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
               torch.uint32: np.uint32}
-
-
-def not_ported(knob: str, value, item: str) -> NotImplementedError:
-    """The error for a JAX knob the port does not run yet, naming the
-    ``ROADMAP.md`` item that brings it."""
-    return NotImplementedError(
-        f"{knob}={value!r} is not ported to repro_torch yet; ROADMAP.md "
-        f"{item} brings it")
 
 
 def np_dtype(dtype) -> np.dtype:
@@ -269,13 +269,20 @@ class ODirectFile:
 
 class MmapFile:
     """``np.memmap`` adapter: the memmap path behind the engine interface,
-    so one submission/completion code path serves all drivers."""
+    so one submission/completion code path serves all drivers.  ``mm=``
+    wraps an existing flat uint8 array instead of opening ``path`` (the
+    checkpoint layer streams chunks into a memmap this way)."""
 
     driver = "mmap"
     align = 1
     fallback = False
 
-    def __init__(self, path: str, size: Optional[int] = None):
+    def __init__(self, path: Optional[str] = None,
+                 size: Optional[int] = None, mm: Optional[np.ndarray] = None):
+        if mm is not None:
+            self.path = getattr(mm, "filename", None)
+            self.mm = mm
+            return
         ensure_file_size(path, size)
         self.path = path
         self.mm = np.memmap(path, dtype=np.uint8, mode="r+",
@@ -292,28 +299,41 @@ class MmapFile:
         return src.size
 
     def flush(self) -> None:
-        self.mm.flush()
+        if isinstance(self.mm, np.memmap):
+            self.mm.flush()
 
     def close(self) -> None:
         self.flush()
         self.mm = None
 
 
-def open_file(path: str, size: Optional[int], driver: str):
-    """Driver factory: ``buffered`` | ``odirect`` | ``mmap``.  The JAX
-    package's ``faulty:``/``sanitize:`` wrappers raise
-    ``NotImplementedError`` (``ROADMAP.md`` queue 1 item 6)."""
-    wrapper = driver.split(":", 1)[0]
-    if ":" in driver and wrapper in ("faulty", "sanitize"):
-        raise not_ported("io_driver", driver, RECOVERY_ITEM)
+def open_file(path: str, size: Optional[int], driver: str,
+              fault_spec: Optional[str] = None):
+    """Driver factory: ``buffered`` | ``odirect`` | ``mmap``, or any of
+    them wrapped for fault injection as ``faulty:<inner>`` (``fault_spec``
+    selects what to inject, :mod:`repro_torch.io.faults`) and/or for
+    in-flight race detection as ``sanitize:<inner>``
+    (:mod:`repro_torch.io.sanitize`); wrappers compose left to right, e.g.
+    ``sanitize:faulty:buffered``."""
+    if driver.startswith("sanitize:"):
+        inner = open_file(path, size, driver.split(":", 1)[1], fault_spec)
+        return SanitizingFile(inner)
+    if driver.startswith("faulty:"):
+        inner = open_file(path, size, driver.split(":", 1)[1])
+        return FaultyFile(inner, FaultSpec.parse(fault_spec))
+    if fault_spec is not None:
+        raise ValueError(
+            f"fault_spec requires a 'faulty:<driver>' io driver, got "
+            f"{driver!r}")
     if driver == "buffered":
         return BufferedFile(path, size)
     if driver == "odirect":
         return ODirectFile(path, size)
     if driver == "mmap":
         return MmapFile(path, size)
-    raise ValueError(f"unknown io driver {driver!r} (choose from "
-                     f"{IO_DRIVERS})")
+    raise ValueError(
+        f"unknown io driver {driver!r} (choose from {IO_DRIVERS}, "
+        "'faulty:<driver>', or 'sanitize:<driver>')")
 
 
 def _buffered_pread(fd: int, mv: memoryview, offset: int) -> int:
@@ -332,6 +352,65 @@ def _buffered_pwrite(fd: int, mv: memoryview, offset: int) -> int:
     while total < len(mv):
         total += os.pwritev(fd, [mv[total:]], offset + total)
     return total
+
+
+# --------------------------------------------------------------------------- #
+# Raw file helpers of the checksum sidecar and the checkpoint layer            #
+# --------------------------------------------------------------------------- #
+
+def read_head(path: str, n: int) -> Optional[Tuple[bytes, int]]:
+    """The first ``n`` bytes of ``path`` and its size, or ``None`` when it
+    cannot be read (a sidecar that does not exist yet)."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(n)
+        return head, os.path.getsize(path)
+    except OSError:
+        return None
+
+
+def create_sized_file(path: str, head: bytes, size: int) -> None:
+    """(Re)create ``path`` holding ``head``, extended sparse to ``size``
+    bytes."""
+    with open(path, "wb") as f:
+        f.write(head)
+        f.truncate(size)
+
+
+def map_words(path: str, dtype, offset: int, shape) -> np.memmap:
+    """A writable ``np.memmap`` of ``shape`` ``dtype`` at byte ``offset``
+    of ``path``."""
+    return np.memmap(path, dtype=dtype, mode="r+", offset=offset,
+                     shape=shape)
+
+
+def fsync_file(path: str) -> None:
+    """fsync an existing file by path (after a memmap flush, whose
+    ``msync`` alone does not guarantee metadata durability)."""
+    with open(path, "rb+") as f:
+        os.fsync(f.fileno())
+
+
+def save_npy_durable(path: str, arr: np.ndarray) -> None:
+    """``np.save`` + flush + fsync: the array is on stable storage when
+    this returns (the caller owns any atomic rename above it)."""
+    with open(path, "wb") as f:
+        np.save(f, arr)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def create_npy_memmap(path: str, dtype, shape) -> np.memmap:
+    """A writable ``.npy``-format memmap at ``path`` (header included), for
+    chunked writes that never stage the whole array in RAM."""
+    return np.lib.format.open_memmap(path, mode="w+", dtype=dtype,
+                                     shape=shape)
+
+
+def load_npy_mmap(path: str) -> np.ndarray:
+    """A read-only memmap view of a ``.npy`` file: the bounded-memory
+    source of chunked restores."""
+    return np.load(path, mmap_mode="r")
 
 
 # --------------------------------------------------------------------------- #
@@ -407,6 +486,7 @@ class _ArrayBacking:
     """Shared block API for backings that expose a ``[v, words]`` ndarray."""
 
     arr: np.ndarray
+    checksum: Optional[ChecksumSidecar] = None
 
     def read_block(self, r0: int, r1: int, cols=None,
                    out: Optional[np.ndarray] = None) -> np.ndarray:
@@ -471,12 +551,18 @@ class MemmapBacking(_ArrayBacking):
     Without a ``path`` a temporary file is created and unlinked when the
     backing is garbage-collected.  A memmap cannot be pinned, so the
     executor gathers each round from it into a pinned buffer.
+
+    ``checksum=True`` keeps a CRC sidecar (``<path>.crc``): reads verify
+    the segments they touch, writes re-record them (verifying the pre-image
+    of a segment they cover only in part).  A fresh sidecar is seeded from
+    zeros for a new file and recomputed for an adopted one.
     """
 
     tier = "memmap"
     disk = True
 
-    def __init__(self, v: int, words: int, path: Optional[str] = None):
+    def __init__(self, v: int, words: int, path: Optional[str] = None,
+                 checksum: bool = False):
         owns = path is None
         if path is None:
             fd, path = tempfile.mkstemp(prefix="pems_ctx_", suffix=".bin")
@@ -485,11 +571,20 @@ class MemmapBacking(_ArrayBacking):
         self.v = v
         self.words = words
         self.rowbytes = words * WORD
+        existed = os.path.exists(path) and os.path.getsize(path) > 0
         ensure_file_size(path, v * words * WORD)   # sparse; never truncates
         self.arr = np.memmap(path, dtype=np.uint32, mode="r+",
                              shape=(v, words))
+        if checksum:
+            self.checksum = ChecksumSidecar(path, v, self.rowbytes)
+            if self.checksum.fresh:
+                if existed:        # adopt pre-existing data as it is
+                    self.recompute_checksums()
+                else:              # a fresh sparse file reads as zeros
+                    self.checksum.seed_zero()
         if owns:
             self._finalizer = weakref.finalize(self, _unlink_quiet, path)
+            weakref.finalize(self, _unlink_quiet, path + ".crc")
 
     @property
     def nbytes(self) -> int:
@@ -497,6 +592,58 @@ class MemmapBacking(_ArrayBacking):
 
     def flush(self) -> None:
         self.arr.flush()
+        if self.checksum is not None:
+            self.checksum.flush()
+
+    def _spans(self, cols):
+        cs = self.checksum
+        if cols is None:
+            return [(0, cs.nseg - 1, [])]
+        runs, _ = _cols_runs(cols, self.words)
+        ranges = [(w0 * WORD, (w0 + nw) * WORD) for _, w0, nw in runs]
+        return span_plan(ranges, cs.chk, self.rowbytes)
+
+    def read_block(self, r0: int, r1: int, cols=None,
+                   out: Optional[np.ndarray] = None) -> np.ndarray:
+        if self.checksum is not None:
+            cs, rb = self.checksum, self.arr.view(np.uint8)
+            for s0, s1, _ in self._spans(cols):
+                b0 = s0 * cs.chk
+                b1 = min(self.rowbytes, (s1 + 1) * cs.chk)
+                for i in range(r0, r1):
+                    cs.verify_span(i, s0, rb[i, b0:b1])
+        return super().read_block(r0, r1, cols, out)
+
+    def write_block(self, r0: int, r1: int, value, cols=None,
+                    wait: bool = True) -> list:
+        if self.checksum is None:
+            return super().write_block(r0, r1, value, cols, wait)
+        cs, rb = self.checksum, self.arr.view(np.uint8)
+        spans = self._spans(cols)
+        # Verify partially covered boundary segments before folding them
+        # into fresh checksums: a torn block must never be blessed.
+        for _, _, partial in spans:
+            for s in partial:
+                b0, b1 = cs.seg_bounds(s)
+                for i in range(r0, r1):
+                    cs.verify_span(i, s, rb[i, b0:b1])
+        super().write_block(r0, r1, value, cols, wait)
+        for s0, s1, _ in spans:
+            b0 = s0 * cs.chk
+            b1 = min(self.rowbytes, (s1 + 1) * cs.chk)
+            for i in range(r0, r1):
+                cs.set_span(i, s0, rb[i, b0:b1])
+        return []
+
+    def recompute_checksums(self) -> None:
+        """Re-bless every row's CRCs from the bytes on disk (recovery: after
+        a crash the sidecar may record intended-but-torn writes for rows the
+        resume is about to regenerate anyway)."""
+        if self.checksum is None:
+            return
+        self.checksum.set_rows(0, self.arr.view(np.uint8))
+        self.checksum.flush()
+        self.checksum.fresh = False
 
 
 class FileBacking:
@@ -513,6 +660,11 @@ class FileBacking:
     (the executor waits on them before it refills a staging buffer).  The
     requests are the JAX package's, one for one, so the engine's
     ``syscall_*`` counters equal its.
+
+    ``checksum=True`` keeps a CRC sidecar as :class:`MemmapBacking` does:
+    whole rows are verified after they are read and their CRCs recorded
+    when their write is submitted; column runs widen to checksum-segment
+    bounds.  ``fault_spec`` is handed to a ``faulty:`` driver.
     """
 
     tier = "file"
@@ -524,7 +676,8 @@ class FileBacking:
 
     def __init__(self, v: int, words: int, path: Optional[str] = None,
                  io_driver: str = "buffered", io_queue_depth: int = 8,
-                 stats=None, ledger=None, io_retries: int = 2,
+                 stats=None, ledger=None, checksum: bool = False,
+                 fault_spec: Optional[str] = None, io_retries: int = 2,
                  io_backoff_s: float = 0.002):
         owns = path is None
         if path is None:
@@ -535,10 +688,20 @@ class FileBacking:
         self.words = words
         self.rowbytes = words * WORD
         self.io_driver = io_driver
-        self.file = open_file(path, v * words * WORD, io_driver)
+        existed = os.path.exists(path) and os.path.getsize(path) > 0
+        self.file = open_file(path, v * words * WORD, io_driver,
+                              fault_spec=fault_spec)
         self.engine = IOEngine(self.file, queue_depth=io_queue_depth,
                                stats=stats, ledger=ledger,
                                retries=io_retries, backoff_s=io_backoff_s)
+        self.checksum = None
+        if checksum:
+            self.checksum = ChecksumSidecar(path, v, self.rowbytes)
+            if self.checksum.fresh:
+                if existed:        # adopt pre-existing data as it is
+                    self.recompute_checksums()
+                else:              # a fresh sparse file reads as zeros
+                    self.checksum.seed_zero()
         self._finalizer = weakref.finalize(
             self, _close_quiet, self.engine, path if owns else None)
 
@@ -566,11 +729,18 @@ class FileBacking:
         if cols is not None and self._whole_rows_cheaper(runs):
             whole = self._read_rows(r0, r1, np.empty((rows, self.words),
                                                      np.uint32))
+            if self.checksum is not None:
+                self.checksum.verify_rows(r0, whole.view(np.uint8))
             for j, w0, nw in runs:
                 out[:, j:j + nw] = whole[:, w0:w0 + nw]
             return out
         if cols is None:
-            return self._read_rows(r0, r1, out)
+            self._read_rows(r0, r1, out)
+            if self.checksum is not None:
+                self.checksum.verify_rows(r0, out.view(np.uint8))
+            return out
+        if self.checksum is not None:
+            return self._read_cols_checksummed(r0, r1, runs, out)
         reqs = []
         for i in range(rows):
             base = (r0 + i) * self.rowbytes
@@ -581,7 +751,9 @@ class FileBacking:
         return out
 
     def _read_rows(self, r0: int, r1: int, out: np.ndarray) -> np.ndarray:
-        """Whole rows ``[r0, r1)`` into ``out`` as chunked engine reads."""
+        """Whole rows ``[r0, r1)`` into ``out`` as chunked engine reads, not
+        verified (``read_block`` verifies; ``recompute_checksums`` must
+        not)."""
         flat = out.reshape(-1).view(np.uint8)
         base = r0 * self.rowbytes
         total = (r1 - r0) * self.rowbytes
@@ -590,6 +762,35 @@ class FileBacking:
             nb = min(self.chunk_bytes, total - o)
             reqs.append(self.engine.submit_read(base + o, flat[o:o + nb]))
         self.engine.wait(reqs)
+        return out
+
+    def _read_cols_checksummed(self, r0: int, r1: int, runs,
+                               out: np.ndarray) -> np.ndarray:
+        """Column-run reads widened to checksum-segment bounds, so every
+        returned byte is covered by a verified segment."""
+        cs = self.checksum
+        ranges = [(w0 * WORD, (w0 + nw) * WORD) for _, w0, nw in runs]
+        spans = span_plan(ranges, cs.chk, self.rowbytes)
+        reqs, bufs = [], []
+        for i in range(r1 - r0):
+            base = (r0 + i) * self.rowbytes
+            for s0, s1, _ in spans:
+                b0 = s0 * cs.chk
+                b1 = min(self.rowbytes, (s1 + 1) * cs.chk)
+                scr = np.empty(b1 - b0, np.uint8)
+                reqs.append(self.engine.submit_read(base + b0, scr))
+                bufs.append((i, s0, b0, scr))
+        self.engine.wait(reqs)
+        for i, s0, b0, scr in bufs:
+            cs.verify_span(r0 + i, s0, scr)
+            hi = b0 + len(scr)
+            for j, w0, nw in runs:
+                rb0, rb1 = w0 * WORD, (w0 + nw) * WORD
+                lo2, hi2 = max(rb0, b0), min(rb1, hi)
+                if lo2 < hi2:
+                    src = scr[lo2 - b0:hi2 - b0].view(np.uint32)
+                    o0 = j + (lo2 - rb0) // WORD
+                    out[i, o0:o0 + src.size] = src
         return out
 
     def write_block(self, r0: int, r1: int, value, cols=None,
@@ -604,16 +805,24 @@ class FileBacking:
             # RMW on every row, and immune to shared-boundary-block
             # serialisation.  Callers never write the same rows
             # concurrently (rounds/collectives touch disjoint row ranges).
-            whole = self.read_block(r0, r1, None)
+            whole = self.read_block(r0, r1, None)      # verified
             for j, w0, nw in runs:
                 whole[:, w0:w0 + nw] = value[:, j:j + nw]
             return self.write_block(r0, r1, whole, None, wait=wait)
+        if cols is not None and self.checksum is not None:
+            return self._write_cols_checksummed(r0, r1, value, runs, n,
+                                                wait)
         # Fire-and-forget writebacks auto-reap their completions (errors
         # still surface at the superstep's drain); waited writes are reaped
         # by wait() itself.  Either way the completion list stays bounded.
         reqs = []
         if cols is None:
-            flat = np.ascontiguousarray(value).reshape(-1).view(np.uint8)
+            buf = np.ascontiguousarray(value)
+            if self.checksum is not None:
+                # Record the intended CRCs at submission: a write that dies
+                # midway leaves a detectable mismatch behind.
+                self.checksum.set_rows(r0, buf.view(np.uint8))
+            flat = buf.reshape(-1).view(np.uint8)
             base = r0 * self.rowbytes
             total = rows * self.rowbytes
             for o in range(0, total, self.chunk_bytes):
@@ -633,11 +842,76 @@ class FileBacking:
             return []
         return reqs
 
+    def _write_cols_checksummed(self, r0: int, r1: int, value, runs, n,
+                                wait: bool) -> list:
+        """Column-run writes at checksum-segment granularity: the new bytes
+        come from ``value``; partially covered boundary segments read (and
+        verify) their pre-image first, so neighbouring bytes survive under a
+        CRC that was never blessed over torn data.  Each request writes a
+        scratch buffer of its own."""
+        cs = self.checksum
+        rows = r1 - r0
+        vb = np.ascontiguousarray(value).view(np.uint8).reshape(
+            rows, n * WORD)
+        ranges = [(w0 * WORD, (w0 + nw) * WORD) for _, w0, nw in runs]
+        spans = span_plan(ranges, cs.chk, self.rowbytes)
+        pre_reqs, items = [], []
+        for i in range(rows):
+            base = (r0 + i) * self.rowbytes
+            for s0, s1, partial in spans:
+                b0 = s0 * cs.chk
+                b1 = min(self.rowbytes, (s1 + 1) * cs.chk)
+                buf = np.empty(b1 - b0, np.uint8)
+                for s in partial:
+                    p0, p1 = cs.seg_bounds(s)
+                    pre_reqs.append(self.engine.submit_read(
+                        base + p0, buf[p0 - b0:p1 - b0]))
+                items.append((i, s0, b0, buf, partial))
+        if pre_reqs:
+            self.engine.wait(pre_reqs)
+        wreqs = []
+        for i, s0, b0, buf, partial in items:
+            row = r0 + i
+            for s in partial:
+                p0, p1 = cs.seg_bounds(s)
+                cs.verify_span(row, s, buf[p0 - b0:p1 - b0])
+            hi = b0 + len(buf)
+            for j, w0, nw in runs:
+                rb0, rb1 = w0 * WORD, (w0 + nw) * WORD
+                lo2, hi2 = max(rb0, b0), min(rb1, hi)
+                if lo2 < hi2:
+                    buf[lo2 - b0:hi2 - b0] = vb[
+                        i, j * WORD + (lo2 - rb0):j * WORD + (hi2 - rb0)]
+            cs.set_span(row, s0, buf)
+            wreqs.append(self.engine.submit_write(
+                row * self.rowbytes + b0, buf, auto_reap=not wait))
+        if wait:
+            self.engine.wait(wreqs)
+            return []
+        return wreqs
+
+    def recompute_checksums(self) -> None:
+        """Re-bless every row's CRCs from the bytes on disk (recovery: after
+        a crash the sidecar may record intended-but-torn writes for rows the
+        resume is about to regenerate anyway)."""
+        if self.checksum is None:
+            return
+        step = max(1, self.chunk_bytes // self.rowbytes)
+        for r in range(0, self.v, step):
+            r1 = min(self.v, r + step)
+            rows = self._read_rows(r, r1, np.empty((r1 - r, self.words),
+                                                   np.uint32))
+            self.checksum.set_rows(r, rows.view(np.uint8))
+        self.checksum.flush()
+        self.checksum.fresh = False
+
     def drain(self) -> None:
         self.engine.drain()
 
     def flush(self) -> None:
         self.engine.fsync()
+        if self.checksum is not None:
+            self.checksum.flush()
 
     def close(self) -> None:
         self._finalizer()
@@ -657,6 +931,7 @@ def _close_quiet(engine, unlink_path: Optional[str]) -> None:
         pass
     if unlink_path is not None:
         _unlink_quiet(unlink_path)
+        _unlink_quiet(unlink_path + ".crc")
 
 
 class ShardedBacking:
@@ -670,12 +945,18 @@ class ShardedBacking:
     (``shard_stats``/``shard_ledgers``) receive each shard's measured
     traffic.  The block API takes *global* row ranges and splits them at
     shard boundaries; there is deliberately no whole-population ``arr``.
+
+    Fault injection composes with sharding: a ``fault_spec`` carrying a
+    ``shard=N`` clause reaches shard ``N``'s driver only, and the other
+    shards drop ``faulty`` from their driver chain — the single-disk-failure
+    model that per-process recovery is built for.
     """
 
     def __init__(self, tier: str, v: int, words: int, nshards: int,
                  path: Optional[str] = None, *,
                  io_driver: Optional[str] = None, io_queue_depth: int = 8,
-                 shard_stats=None, shard_ledgers=None, io_retries: int = 2,
+                 shard_stats=None, shard_ledgers=None, checksum: bool = False,
+                 fault_spec: Optional[str] = None, io_retries: int = 2,
                  io_backoff_s: float = 0.002):
         if tier not in ("host", "memmap", "file"):
             raise ValueError(f"cannot shard tier {tier!r}")
@@ -689,14 +970,29 @@ class ShardedBacking:
         self.P = nshards
         self.m = v // nshards
         self.path = path
+        target, spec = split_shard_clause(fault_spec)
+        if target is not None and target >= nshards:
+            raise ValueError(
+                f"fault_spec targets shard {target} but only "
+                f"{nshards} shards exist")
         self.shards = []
         for p in range(nshards):
             sp = None if path is None else f"{path}.shard{p}"
+            drv, fs = io_driver, None
+            if "faulty" in (io_driver or "").split(":")[:-1]:
+                if target is None or target == p:
+                    fs = spec or None
+                else:
+                    # Healthy shards run without the injector; the other
+                    # wrappers of the chain (sanitize:) stay on.
+                    drv = ":".join(w for w in io_driver.split(":")
+                                   if w != "faulty")
             self.shards.append(make_backing(
-                tier, self.m, words, sp, io_driver=io_driver,
+                tier, self.m, words, sp, io_driver=drv,
                 io_queue_depth=io_queue_depth,
                 stats=None if shard_stats is None else shard_stats[p],
                 ledger=None if shard_ledgers is None else shard_ledgers[p],
+                checksum=checksum, fault_spec=fs,
                 io_retries=io_retries, io_backoff_s=io_backoff_s))
             eng = getattr(self.shards[p], "engine", None)
             if eng is not None:
@@ -706,6 +1002,13 @@ class ShardedBacking:
     @property
     def nbytes(self) -> int:
         return sum(s.nbytes for s in self.shards)
+
+    @property
+    def checksum(self):
+        """The shards' sidecars as a tuple, or ``None`` when no shard is
+        checksummed (truthiness as for a single backing)."""
+        cs = tuple(s.checksum for s in self.shards)
+        return cs if any(c is not None for c in cs) else None
 
     # ------------------------------------------------------------- block API
     def read_block(self, r0: int, r1: int, cols=None,
@@ -746,6 +1049,18 @@ class ShardedBacking:
         for s in self.shards:
             s.flush()
 
+    def flush_shard(self, p: int) -> None:
+        """Durability for one shard only: the per-process recovery commit
+        (a stage run with ``procs=[p]`` writes nothing outside shard p)."""
+        self.shards[p].flush()
+
+    def recompute_checksums(self, shard: Optional[int] = None) -> None:
+        """Re-bless CRCs from the bytes on disk — every shard, or just one
+        (per-process recovery touches only the failed shard's sidecar)."""
+        for s in self.shards if shard is None else [self.shards[shard]]:
+            if s.checksum is not None:
+                s.recompute_checksums()
+
     def close(self) -> None:
         for s in self.shards:
             close = getattr(s, "close", None)
@@ -767,31 +1082,32 @@ def make_backing(tier: str, v: int, words: int,
     ``P > 1`` returns a :class:`ShardedBacking` — one inner backing (and on
     the file tier one engine) per process, billing ``shard_stats[p]`` /
     ``shard_ledgers[p]``.  ``P == 1`` returns the plain single backing,
-    billing ``stats``/``ledger``.  ``checksum`` and ``fault_spec`` raise
-    ``NotImplementedError`` (``ROADMAP.md`` queue 1 item 6)."""
+    billing ``stats``/``ledger``; a leading ``shard=`` clause in
+    ``fault_spec`` is stripped (there is only one shard to target).
+    ``checksum`` keeps CRC sidecars on the disk tiers (the host tier has
+    none)."""
     if tier == "device":
         raise ValueError("tier='device' has no backing store")
-    if checksum:
-        raise not_ported("checksums", checksum, RECOVERY_ITEM)
-    if fault_spec is not None:
-        raise not_ported("fault_spec", fault_spec, RECOVERY_ITEM)
     if P > 1:
         return ShardedBacking(tier, v, words, P, path,
                               io_driver=io_driver,
                               io_queue_depth=io_queue_depth,
                               shard_stats=shard_stats,
                               shard_ledgers=shard_ledgers,
+                              checksum=checksum, fault_spec=fault_spec,
                               io_retries=io_retries,
                               io_backoff_s=io_backoff_s)
+    _, fault_spec = split_shard_clause(fault_spec)
     if tier == "host":
         return HostBacking(v, words)
     if tier == "memmap":
-        return MemmapBacking(v, words, path)
+        return MemmapBacking(v, words, path, checksum=checksum)
     if tier == "file":
         return FileBacking(v, words, path,
                            io_driver=io_driver or "buffered",
                            io_queue_depth=io_queue_depth,
-                           stats=stats, ledger=ledger,
+                           stats=stats, ledger=ledger, checksum=checksum,
+                           fault_spec=fault_spec or None,
                            io_retries=io_retries,
                            io_backoff_s=io_backoff_s)
     raise ValueError(f"unknown backing tier {tier!r} (choose from {TIERS})")

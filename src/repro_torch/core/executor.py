@@ -39,9 +39,14 @@ the engine's queue, so both directions overlap compute (the STXXL-file
 driver, §5.1).  With ``P > 1`` the backing is sharded, one shard, engine,
 ledger and stats per real processor; no mesh is needed.  The ledger records
 the measured traffic beside the modeled counters, ``Pems.tier_stats`` the
-wall-clock overlap.  Recovery and tracing are not ported yet: their knobs
-raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
-them.
+wall-clock overlap.  On a disk tier ``checksums`` keeps CRC sidecars on
+the backing, ``io_driver="faulty:<inner>"`` with a ``fault_spec`` injects
+I/O faults and ``"sanitize:<inner>"`` records in-flight races;
+``Pems.cursors`` (durable :class:`~.recovery.SuperstepCursor` objects, one a
+process) receive each round's progress note — the recovery protocol of
+:func:`repro_torch.pems_apps.psrs_run_recoverable`.  Tracing is not ported
+yet: its knobs raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that brings it.
 """
 
 from __future__ import annotations
@@ -54,14 +59,13 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..io.faults import FaultSpec, split_shard_clause
 from .backing import (
     IO_DRIVERS,
-    RECOVERY_ITEM,
     TIERS,
     ColRuns,
     TieredStore,
     make_backing,
-    not_ported,
     shard_row_ranges,
 )
 from .context import (
@@ -79,11 +83,17 @@ DRIVERS = ("explicit", "sliced", "async")
 # Knobs of the JAX PemsConfig that the port does not run yet: their
 # defaults, and the ROADMAP.md item that brings them.
 _NOT_PORTED = {
-    "fault_spec": (None, RECOVERY_ITEM),
-    "checksums": (False, RECOVERY_ITEM),
     "trace": (False, "queue 1 item 9 (observability)"),
     "trace_path": (None, "queue 1 item 9 (observability)"),
 }
+
+
+def not_ported(knob: str, value, item: str) -> NotImplementedError:
+    """The error for a JAX knob the port does not run yet, naming the
+    ``ROADMAP.md`` item that brings it."""
+    return NotImplementedError(
+        f"{knob}={value!r} is not ported to repro_torch yet; ROADMAP.md "
+        f"{item} brings it")
 
 
 @dataclasses.dataclass
@@ -111,9 +121,15 @@ class PemsConfig:
       at ``v·μ`` bytes; existing contents are reused, never zeroed).
     * ``io_driver``/``io_queue_depth``/``io_retries``/``io_backoff_s`` —
       file tier only: positional-I/O driver (``buffered``/``odirect``/
-      ``mmap``, default ``buffered``), bounded in-flight requests,
-      transient-error retries per request, and base backoff seconds
-      (doubles per retry).
+      ``mmap``, default ``buffered``, optionally wrapped as
+      ``"faulty:<driver>"``/``"sanitize:<driver>"``), bounded in-flight
+      requests, transient-error retries per request, and base backoff
+      seconds (doubles per retry).
+    * ``fault_spec`` — what the faulty driver injects (the grammar of
+      :mod:`repro_torch.io.faults`).  A ``shard=N`` clause (``0 <= N <
+      P``) targets one shard's driver only — the single-disk-failure model.
+    * ``checksums`` — disk tiers: per-64 KiB-segment CRC sidecars on the
+      backing, verified on every read (torn-write detection).
     * ``block_bytes`` — B, the *modeled* ledger block size (bytes).
     * ``device_cap_bytes`` — device-memory budget (bytes) for the resident
       contexts: ``v·μ`` on the device tier, the in-flight round blocks on a
@@ -124,16 +140,16 @@ class PemsConfig:
       output tiles, instead of the dense re-sort of the received buckets.
       Bit-identical either way; ``merge_tile`` must be a power of two.
 
-    The other fields keep the JAX package's names (``docs/TUNING.md``
-    documents them) and accept only their defaults here: ``fault_spec``,
-    ``checksums``, the ``faulty:``/``sanitize:`` driver wrappers and the
-    trace knobs raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-    that ports them.
+    The trace knobs keep the JAX package's names and accept only their
+    defaults here: they raise ``NotImplementedError`` naming the
+    ``ROADMAP.md`` item that ports them.
 
     Raises ``ValueError`` at construction for any invalid combination —
     unknown driver, tier or I/O driver names, ``io_driver`` without
-    ``tier="file"``, out-of-range ``io_*`` knobs, a bad ``merge_tile``,
-    indivisible ``v``/``P``/``k``, out-of-range ``alpha``.
+    ``tier="file"``, ``fault_spec`` without a faulty driver or targeting a
+    shard ``>= P``, ``checksums`` on a non-disk tier, out-of-range ``io_*``
+    knobs, a bad ``merge_tile``, indivisible ``v``/``P``/``k``,
+    out-of-range ``alpha``.
     """
 
     v: int                      # total virtual processors
@@ -167,19 +183,41 @@ class PemsConfig:
             if value != default:
                 raise not_ported(knob, value, item)
         # The io knobs fail here, at construction, like every other field.
-        wrappers = (self.io_driver or "").split(":")[:-1]
-        if any(w in ("faulty", "sanitize") for w in wrappers):
-            raise not_ported("io_driver", self.io_driver, RECOVERY_ITEM)
         if self.tier == "file":
             if self.io_driver is None:
                 self.io_driver = "buffered"
-            if self.io_driver not in IO_DRIVERS:
-                raise ValueError(f"unknown io_driver {self.io_driver!r} "
-                                 f"(choose from {IO_DRIVERS})")
+            parts = self.io_driver.split(":")
+            base, wrappers = parts[-1], parts[:-1]
+            if base not in IO_DRIVERS or not all(
+                    w in ("faulty", "sanitize") for w in wrappers):
+                raise ValueError(
+                    f"unknown io_driver {self.io_driver!r} "
+                    f"(choose from {IO_DRIVERS}, optionally wrapped as "
+                    "'faulty:<driver>' / 'sanitize:<driver>')"
+                )
         elif self.io_driver is not None:
             raise ValueError(
                 f"io_driver={self.io_driver!r} requires tier='file' "
                 f"(got tier={self.tier!r})"
+            )
+        if self.fault_spec is not None:
+            if "faulty" not in (self.io_driver or "").split(":")[:-1]:
+                raise ValueError(
+                    "fault_spec requires io_driver='faulty:<driver>' on "
+                    f"tier='file' (got io_driver={self.io_driver!r}, "
+                    f"tier={self.tier!r})"
+                )
+            shard, rest = split_shard_clause(self.fault_spec)
+            if shard is not None and shard >= self.P:
+                raise ValueError(
+                    f"fault_spec targets shard {shard} but P={self.P} "
+                    f"(shard indices are 0..P-1)"
+                )
+            FaultSpec.parse(rest)   # syntax errors fail here
+        if self.checksums and self.tier not in ("memmap", "file"):
+            raise ValueError(
+                f"checksums=True requires a disk tier ('memmap' or 'file'), "
+                f"got tier={self.tier!r}"
             )
         if self.io_retries != int(self.io_retries) or self.io_retries < 0:
             raise ValueError(
@@ -258,6 +296,8 @@ class Pems:
             self.shard_ledgers = [IOLedger() for _ in range(cfg.P)]
             self.shard_stats = [TierStats() for _ in range(cfg.P)]
         self.backing = None   # last backing this executor created (tiered)
+        self.cursors = None   # optional per-process durable SuperstepCursors:
+                              # when set, the tiered round loop notes rounds
         self._bufs = None     # the tiered round loop's staging buffers
         if cfg.P > 1 and cfg.tier == "device" and mesh is None:
             raise ValueError("P > 1 requires a mesh with the vp axis "
@@ -293,6 +333,16 @@ class Pems:
             led.require_disk(cfg.v * layout.mu_bytes // cfg.P)
 
     # ------------------------------------------------------ per-process views
+    @property
+    def cursor(self):
+        """The single-process durable cursor (process 0's at ``P > 1``).
+        Assigning one here wraps it as a one-element ``cursors`` list."""
+        return self.cursors[0] if self.cursors else None
+
+    @cursor.setter
+    def cursor(self, cur):
+        self.cursors = None if cur is None else [cur]
+
     def merged_shard_ledger(self) -> IOLedger:
         """Sum of the per-shard ledgers — equals the ``P == 1`` ledger's
         measured counters for the same workload."""
@@ -349,6 +399,8 @@ class Pems:
                                stats=self.tier_stats, ledger=self.ledger,
                                shard_stats=self.shard_stats,
                                shard_ledgers=self.shard_ledgers,
+                               checksum=cfg.checksums,
+                               fault_spec=cfg.fault_spec,
                                io_retries=cfg.io_retries,
                                io_backoff_s=cfg.io_backoff_s)
         self.backing = backing
@@ -579,6 +631,10 @@ class Pems:
                 led.add_tier_out(out_h.nbytes, disk)
                 stats.swap_out_s += time.perf_counter() - t0
                 stats.rounds += 1
+                if self.cursors and p < len(self.cursors):
+                    # Advisory progress note (atomic, not fsynced): a resume
+                    # restarts the whole in-progress superstep either way.
+                    self.cursors[p].note_round(r)
         finally:
             if pool is not None:
                 pool.shutdown(wait=True)

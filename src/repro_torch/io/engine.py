@@ -233,8 +233,7 @@ class IOEngine:
                 while self._conflicts(req):
                     self._quiet.wait()
             self._inflight.append(req)
-            # Sanitizer hook (duck-typed; the sanitizing driver wrapper comes
-        # with ROADMAP.md queue 1 item 6):
+            # Sanitizer hook (duck-typed, see repro_torch.io.sanitize):
             # fires once the request joins the in-flight set, after any
             # aligned-conflict serialisation above — so ranges the engine
             # serialises never co-exist in the sanitizer's view either.

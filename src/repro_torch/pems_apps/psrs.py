@@ -18,21 +18,37 @@ delivery and the k-way merge tile sort are the hand-written CUDA kernels of
 CPU store.  On a backing tier the population lives in host memory or on
 disk and each round's contexts visit the device, where the stages (and the
 local sort and merge kernels) run; the Alltoallv is then host-side data
-movement.
+movement.  :func:`psrs_run_recoverable` runs the stages on a disk tier
+under a durable cursor with pre-stage snapshots, and survives ``kill -9``.
 """
 
 from __future__ import annotations
 
+import os
+import signal
 from typing import Optional
 
+import numpy as np
 import torch
 
-from ..core import ContextLayout, Pems, PemsConfig, resolve_device
+from ..core import (ContextLayout, Pems, PemsConfig, SuperstepCursor,
+                    atomic_replace_file, resolve_device)
 from ..kernels.bitonic_sort import bitonic_sort
 from ..kernels.kway_merge import kway_merge
 from .common import INT_MAX, group_by_dest
 
 _HI = 1 << 32   # (value, gid) -> value·2^32 + gid
+
+# Fields each stage both reads and writes: rerunning such a stage after a
+# mid-stage crash would compute from possibly-torn rows, so the recoverable
+# runner snapshots them before the stage and restores them on a dirty
+# resume.  Stages absent here have disjoint read/write sets and rerun
+# idempotently.
+STAGE_SNAPSHOT_FIELDS = {
+    "sort_sample": ("data",),
+    "bcast_splitters": ("gsplit",),
+    "merge": ("oflow",),
+}
 
 
 def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
@@ -69,9 +85,8 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
         .add("rcount", (1,), torch.int32)
         .add("oflow", (1,), torch.int32)
     )
-    # Knobs of the JAX signature the port leaves out (fault_spec,
-    # checksums, trace) reach PemsConfig, which names the ROADMAP.md item
-    # that ports each of them.
+    # The trace knobs, which the port leaves out, reach PemsConfig, which
+    # names the ROADMAP.md item that ports them.
     io_kw = {}
     if io_driver is not None:
         io_kw["io_driver"] = io_driver
@@ -328,10 +343,11 @@ def psrs_sort(
     one file (``backing_path + ".shard<p>"``), engine, ledger and stats per
     process.  The output is bit-identical to the ``P == 1`` run.
 
-    ``fault_spec``, ``checksums``, the ``faulty:``/``sanitize:`` I/O
-    drivers and tracing (``trace``/``trace_path``) are not ported yet and
-    raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings
-    each.
+    ``checksums`` keeps CRC sidecars on a disk tier's backing;
+    ``io_driver="faulty:<driver>"`` with ``fault_spec`` injects I/O faults
+    and ``"sanitize:<driver>"`` records in-flight races.  Tracing
+    (``trace``/``trace_path``) is not ported yet and raises
+    ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
 
     Raises ``ValueError`` for n not divisible by v (and for any invalid
     :class:`~repro_torch.core.PemsConfig` combination, or ``P > 1`` on the
@@ -371,3 +387,216 @@ def psrs_sort(
         return out, pems
     return out
 
+
+
+def _snapshot_path(state_dir: str, proc: int = 0, nprocs: int = 1) -> str:
+    """Process ``proc``'s snapshot file; the bare name at ``nprocs == 1``
+    (the JAX package's names, so a state dir resumes in either package)."""
+    if nprocs == 1:
+        return os.path.join(state_dir, "stage_snapshot.npz")
+    return os.path.join(state_dir, f"stage_snapshot.p{proc}.npz")
+
+
+def _save_snapshot(state_dir: str, stage: int, fields: dict,
+                   proc: int = 0, nprocs: int = 1) -> None:
+    """Atomically persist the pre-stage copy of the stage's read∩write
+    fields (numpy arrays; at ``nprocs > 1`` process ``proc``'s shard rows
+    only)."""
+    path = _snapshot_path(state_dir, proc, nprocs)
+    atomic_replace_file(
+        path, lambda f: np.savez(f, __stage__=np.int64(stage), **fields),
+        binary=True)
+
+
+def _load_snapshot(state_dir: str, stage: int,
+                   proc: int = 0, nprocs: int = 1):
+    """The snapshot's field dict, iff it belongs to ``stage``."""
+    try:
+        with np.load(_snapshot_path(state_dir, proc, nprocs)) as z:
+            if int(z["__stage__"]) != stage:
+                return None
+            return {k: z[k] for k in z.files if k != "__stage__"}
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def psrs_run_recoverable(
+    keys,
+    v: int,
+    *,
+    state_dir: str,
+    k: int = 1,
+    P: int = 1,
+    alpha: Optional[int] = None,
+    driver: str = "explicit",
+    mode: str = "direct",
+    cap: Optional[int] = None,
+    rcap: Optional[int] = None,
+    local_sort=None,
+    use_kernel: bool = True,
+    tier: str = "file",
+    io_driver=None,
+    io_queue_depth=None,
+    fault_spec=None,
+    checksums: bool = True,
+    io_retries=None,
+    io_backoff_s=None,
+    device_cap_bytes=None,
+    crash_after_stage=None,
+    crash_in_stage=None,
+    return_pems: bool = False,
+    merge_kernel: Optional[bool] = None,
+    merge_tile: Optional[int] = None,
+    trace: bool = False,
+    trace_path: Optional[str] = None,
+    device=None,
+):
+    """PSRS with durable superstep recovery: survives ``kill -9``.
+
+    Runs the :func:`psrs_plan` stages against a backing file in
+    ``state_dir`` (``ctx.bin``), recording a durable
+    :class:`~repro_torch.core.SuperstepCursor` around every stage and an
+    atomic pre-stage snapshot of the fields the stage both reads and writes
+    (``STAGE_SNAPSHOT_FIELDS``).  Killed at any point — between stages,
+    mid-stage, even mid-``pwrite`` — a rerun with the same arguments
+    resumes from the last completed stage and returns output bit-identical
+    to an uninterrupted run.  The state dir's files (``ctx.bin``, its
+    ``.crc`` sidecar, ``cursor*.json``, ``stage_snapshot*.npz``) are the
+    JAX package's, so a run killed in one package resumes in the other.
+
+    The stages run on ``device`` (CUDA by default: the local sort and merge
+    kernels launch there, ``k`` contexts at a time; ``"cpu"`` runs their
+    plain versions) and the result is a CPU tensor.
+
+    ``P > 1`` runs the parallel disk model: the backing is sharded into
+    ``P`` per-process files and recovery state is per process — one cursor
+    (``cursor.p<p>.json``) and one snapshot per shard, each stage committed
+    shard by shard (run with ``procs=[p]``, flushed through the shard's own
+    backing).  A failure on one shard's disk (``fault_spec="shard=1;..."``)
+    leaves the other processes' cursors at the completed stage, and the
+    rerun re-executes only the failed process's stage.
+
+    ``checksums`` (default on) keeps per-block CRCs on the backing file, so
+    a torn write in the in-progress stage is detected and healed by the
+    rerun; completed stages are flushed before their cursor commits.
+
+    ``crash_after_stage`` / ``crash_in_stage`` (a stage name or index;
+    ``"load"`` is stage 0) SIGKILL the process at the stage boundary /
+    between the stage's compute and its flush (at ``P > 1``: after the last
+    process's compute) — the chaos tests' hooks.
+
+    Raises ``ValueError`` for a non-disk ``tier`` or n not divisible by v,
+    ``RuntimeError`` when CUDA is asked for and missing, and
+    ``OverflowError`` when a bucket exceeds ``cap``/``rcap``.
+    """
+    dev = resolve_device(device)
+    keys = torch.as_tensor(keys).detach().to(device="cpu", dtype=torch.int32)
+    n = keys.numel()
+    if n % v:
+        raise ValueError(f"n={n} must be divisible by v={v}")
+    if tier not in ("memmap", "file"):
+        raise ValueError(
+            f"recovery needs a disk tier ('memmap' or 'file'), got {tier!r}")
+    n_v = n // v
+    os.makedirs(state_dir, exist_ok=True)
+    backing_path = os.path.join(state_dir, "ctx.bin")
+    pems, _, steps, extract = psrs_plan(
+        v, n_v, k=k, P=P, alpha=alpha, driver=driver, mode=mode,
+        cap=cap, rcap=rcap, local_sort=local_sort, use_kernel=use_kernel,
+        tier=tier, backing_path=backing_path,
+        device_cap_bytes=device_cap_bytes, io_driver=io_driver,
+        io_queue_depth=io_queue_depth, fault_spec=fault_spec,
+        checksums=checksums, io_retries=io_retries,
+        io_backoff_s=io_backoff_s, merge_kernel=merge_kernel,
+        merge_tile=merge_tile, trace=trace, trace_path=trace_path,
+        device=dev)
+
+    m_ctx = v // P                        # contexts per process
+    data_blocks = keys.reshape(v, n_v).numpy()
+
+    # "load" is stage 0 (idempotent: it rewrites data from the caller's
+    # input).  pems.init() runs once below, so load writes the field rather
+    # than calling psrs_plan's own load (a second backing on the same file).
+    def load_stage(st, procs=None):
+        for p in (range(P) if procs is None else procs):
+            st = st.with_field_rows(
+                "data", p * m_ctx, data_blocks[p * m_ctx:(p + 1) * m_ctx])
+        return st
+
+    stages = [("load", load_stage)] + list(steps)
+
+    def _stage_index(which):
+        if which is None:
+            return None
+        if isinstance(which, str):
+            for i, (name, _) in enumerate(stages):
+                if name == which:
+                    return i
+            raise ValueError(f"unknown stage {which!r}")
+        return int(which)
+
+    crash_after = _stage_index(crash_after_stage)
+    crash_in = _stage_index(crash_in_stage)
+
+    cursors = [SuperstepCursor(SuperstepCursor.path_for(state_dir, p, P))
+               for p in range(P)]
+    pems.cursors = cursors
+
+    store = pems.init()      # create-or-reuse: committed rows are kept
+    bk = store.backing
+    for p in range(P):
+        st = cursors[p].state()
+        in_prog = None if st is None else st.get("in_progress")
+        if in_prog is None:
+            continue
+        if bk.checksum is not None:
+            # The sidecar records the intended CRCs of writes the crash may
+            # have torn; those rows belong to the in-progress stage and are
+            # about to be regenerated, so re-bless the bytes on disk — only
+            # the dirty process's shard under a sharded backing.
+            if hasattr(bk, "shards"):
+                bk.recompute_checksums(shard=p)
+            else:
+                bk.recompute_checksums()
+        snap = _load_snapshot(state_dir, int(in_prog), p, P)
+        if snap is not None:
+            for fname, val in snap.items():
+                store = store.with_field_rows(fname, p * m_ctx, val)
+
+    for i, (name, fn) in enumerate(stages):
+        todo = [p for p in range(P) if i > cursors[p].completed]
+        for p in todo:
+            fields = STAGE_SNAPSHOT_FIELDS.get(name, ())
+            if fields:
+                _save_snapshot(
+                    state_dir, i,
+                    {f: store.field_rows(f, p * m_ctx,
+                                         (p + 1) * m_ctx).numpy()
+                     for f in fields},
+                    p, P)
+            cursors[p].mark_in_progress(i, name)
+            store = fn(store, procs=[p])
+            if crash_in == i and p == todo[-1]:
+                os.kill(os.getpid(), signal.SIGKILL)
+            # Commit this process's writes only: its shard's backing (and
+            # sidecar) flush before its cursor advances.  Stages write
+            # nothing outside the listed shard.
+            if hasattr(bk, "flush_shard"):
+                bk.flush_shard(p)
+            else:
+                store.flush()
+            cursors[p].mark_completed(i, name)
+        if todo and crash_after == i:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    result, rcount, oflow = extract(store)
+    if bool(oflow.any()):
+        raise OverflowError(
+            "PSRS message capacity exceeded; raise cap/rcap "
+            f"(cap={cap}, rcap={rcap})"
+        )
+    counts = rcount[:, 0].tolist()
+    out = torch.cat([result[i, :counts[i]] for i in range(v)])
+    if return_pems:
+        return out, pems
+    return out

@@ -172,13 +172,43 @@ def test_tiered_store_fields_are_cpu_tensors_and_bill_the_ledger(tmp_path):
 
 @pytest.mark.parametrize("driver", ["faulty:buffered", "sanitize:buffered"])
 def test_wrapped_drivers_and_checksums_name_item_6(tmp_path, driver):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tio.open_file(str(tmp_path / "w.bin"), 4096, driver)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_backing("file", V, WORDS, str(tmp_path / "c.bin"),
-                     checksum=True)
-    with pytest.raises(ValueError, match="unknown io driver"):
-        tio.open_file(str(tmp_path / "w.bin"), 4096, "tape")
+    """The wrapped drivers and checksums of ROADMAP.md queue 1 item 6 run as
+    the JAX package's: the same wrapper chain and block bytes, the same
+    sidecar bytes, and the same ``ValueError`` for an unknown driver or a
+    ``fault_spec`` without a faulty driver."""
+    spec = "eio@1" if driver.startswith("faulty") else None
+    files = [mod.open_file(str(tmp_path / f"{name}.bin"), 4096, driver,
+                           fault_spec=spec)
+             for name, mod in (("j", jio), ("t", tio))]
+    for f in files:
+        f.pwrite(128, np.arange(64, dtype=np.uint8))
+        f.flush()
+    assert files[0].driver == files[1].driver == driver
+    assert _disk_bytes(str(tmp_path / "j.bin")) \
+        == _disk_bytes(str(tmp_path / "t.bin"))
+    for f in files:
+        f.close()
+    made = [make(tier, V, WORDS, str(tmp_path / f"c{name}.bin"),
+                 io_driver=driver, fault_spec=spec, checksum=True)
+            for name, make, tier in (("j", jbacking.make_backing, "file"),
+                                     ("t", make_backing, "file"))]
+    for bk in made:
+        bk.write_block(0, V, _rows(5, V, WORDS))
+        bk.write_block(1, 3, _rows(6, 2, 5), cols=COLS["runs"][:5])
+        bk.flush()
+    np.testing.assert_array_equal(made[1].read_block(0, V),
+                                  made[0].read_block(0, V))
+    for suffix in ("", ".crc"):
+        assert _disk_bytes(str(tmp_path / "cj.bin") + suffix) \
+            == _disk_bytes(str(tmp_path / "ct.bin") + suffix), suffix
+    for bk in made:
+        bk.close()
+    for mod in (jio, tio):
+        with pytest.raises(ValueError, match="unknown io driver"):
+            mod.open_file(str(tmp_path / "w.bin"), 4096, "tape")
+        with pytest.raises(ValueError, match="requires a 'faulty:"):
+            mod.open_file(str(tmp_path / "w.bin"), 4096, "buffered",
+                          fault_spec="eio@*")
 
 
 # --------------------------------------------------------------------------- #

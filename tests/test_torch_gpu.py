@@ -393,6 +393,49 @@ def test_tiered_async_writeback_waits_for_its_pinned_buffer(cuda, tmp_path):
     assert torch.equal(out, torch.sort(keys).values.cpu())
 
 
+def test_recoverable_psrs_killed_on_the_card_resumes_there(cuda, tmp_path):
+    """A recoverable file-tier run on the card, killed (kill -9, with its
+    CUDA context live) in the merge stage in a child; a fresh child resumes
+    it on the card, and the resume here reruns nothing."""
+    import _chaos
+    from repro_torch.pems_apps import psrs_run_recoverable
+
+    sd = str(tmp_path / "state")
+    _chaos.assert_killed(_chaos.run_child(sd, kind="in", stage="merge",
+                                          device="cuda"))
+    _chaos.assert_ok(_chaos.run_child(sd, device="cuda"))
+    keys = torch.from_numpy(_chaos.keys())
+    bs, km = _kernel("bitonic_sort"), _kernel("kway_merge")
+    bs.LAUNCHES = km.SEGMENT_LAUNCHES = 0
+    out = psrs_run_recoverable(keys, v=_chaos.V, k=_chaos.K, state_dir=sd,
+                               io_queue_depth=4, device=cuda)
+    assert torch.equal(out, torch.sort(keys).values)
+    assert bs.LAUNCHES == km.SEGMENT_LAUNCHES == 0
+
+
+def test_checksummed_recoverable_run_on_the_card_matches_the_cpu(
+        cuda, tmp_path):
+    """Checksums on, the file tier, the card against the CPU: the same
+    output, the same backing and sidecar bytes, and the local sort and
+    merge kernels launched once a round."""
+    from repro_torch.pems_apps import psrs_run_recoverable
+
+    bs, km = _kernel("bitonic_sort"), _kernel("kway_merge")
+    keys = _keys((1 << 16,), cuda, 13).cpu()
+    files = []
+    for dev in ("cpu", cuda):
+        bs.LAUNCHES = km.SPLIT_LAUNCHES = km.SEGMENT_LAUNCHES = 0
+        sd = tmp_path / str(dev)
+        out = psrs_run_recoverable(keys, v=16, k=2, state_dir=str(sd),
+                                   driver="async", checksums=True,
+                                   device=dev)
+        assert torch.equal(out, torch.sort(keys).values)
+        files.append([(sd / f).read_bytes()
+                      for f in ("ctx.bin", "ctx.bin.crc", "cursor.json")])
+    assert files[1] == files[0]
+    assert bs.LAUNCHES == km.SPLIT_LAUNCHES == km.SEGMENT_LAUNCHES == 8
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     bs = _kernel("bitonic_sort")
     with pytest.raises(TypeError, match="int32"):

@@ -15,6 +15,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -69,7 +70,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.kernels.ssd_scan, repro_torch.kernels.lru_scan\n"
         "import repro_torch.core.mesh, repro_torch.core.analysis\n"
         "import repro_torch.io, repro_torch.core.backing\n"
-        "repro_torch.io.open_file\n"
+        "import repro_torch.core.recovery, repro_torch.checkpoint\n"
+        "import repro_torch.io.npyio, repro_torch.io.faults\n"
+        "import repro_torch.io.sanitize, repro_torch.io.checksum\n"
+        "repro_torch.io.open_file, repro_torch.io.save_npy_durable\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -114,11 +118,22 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
 ])
 def test_knobs_outside_the_slice_raise_and_name_their_roadmap_item(
         knob, value, item):
+    """Knobs of a ROADMAP.md item the port has not brought raise
+    ``NotImplementedError`` naming it.  Item 6 (recovery) is ported: its
+    knobs on the device tier raise the JAX package's own ``ValueError``."""
     from repro_torch.core import Mesh
     from repro_torch.pems_apps import psrs_sort
 
     keys = torch.arange(64, dtype=torch.int32)
     kw = {knob: value}
+    if item == "item 6":
+        from _jax_ref import apps
+        with pytest.raises(ValueError) as port:
+            psrs_sort(keys, v=4, device="cpu", **kw)
+        with pytest.raises(ValueError) as ref:
+            apps.psrs_sort(keys.numpy(), v=4, **kw)
+        assert str(port.value) == str(ref.value)
+        return
     if knob in ("P", "alpha"):
         # P > 1 runs on a one-device mesh; a mesh over several cards is
         # still to come (ROADMAP.md queue 1 item 7b).
@@ -132,12 +147,26 @@ def test_knobs_outside_the_slice_raise_and_name_their_roadmap_item(
     dict(io_driver="faulty:buffered", fault_spec="eio@1"),
     dict(checksums=True),
 ], ids=["sanitize-wrapper", "faulty-wrapper", "checksums"])
-def test_backing_tier_recovery_knobs_name_item_6(kw):
-    """The backing tiers run (ROADMAP.md queue 1 item 5); on the file tier
-    their recovery knobs and the wrapped I/O drivers still wait for item
-    6."""
+def test_backing_tier_recovery_knobs_name_item_6(tmp_path, kw):
+    """The recovery knobs of ROADMAP.md queue 1 item 6 run on the file
+    tier: the sorted keys and every ledger counter equal the JAX
+    package's, and so do the backing file's bytes (and its checksum
+    sidecar's)."""
+    from _jax_ref import apps
     from repro_torch.pems_apps import psrs_sort
 
-    keys = torch.arange(64, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        psrs_sort(keys, v=4, device="cpu", tier="file", **kw)
+    keys = np.random.default_rng(3).integers(-2**31, 2**31 - 1, 1024,
+                                             dtype=np.int32)
+    jpath, tpath = str(tmp_path / "j.bin"), str(tmp_path / "t.bin")
+    jout, jpems = apps.psrs_sort(keys, v=4, k=2, tier="file",
+                                 backing_path=jpath, return_pems=True, **kw)
+    tout, tpems = psrs_sort(torch.from_numpy(keys), v=4, k=2, tier="file",
+                            backing_path=tpath, device="cpu",
+                            return_pems=True, **kw)
+    np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+    np.testing.assert_array_equal(tout.numpy(), np.sort(keys))
+    assert tpems.ledger.snapshot() == jpems.ledger.snapshot()
+    assert tpems.backing.file.driver == jpems.backing.file.driver
+    for suffix in ("", ".crc") if kw.get("checksums") else ("",):
+        with open(jpath + suffix, "rb") as f, open(tpath + suffix, "rb") as g:
+            assert f.read() == g.read(), suffix
