@@ -80,6 +80,26 @@ What it does, in order; any failure raises and the exit code is non-zero:
    (injected equals retries), a torn write healed, the sanitizer clean, and
    at P = 2 a kill on shard 1's disk after which only process 1 reruns.
    Alone: ``python3 chip_smoke.py --recovery-only``.
+6d. The other BSP apps and the collectives (``run_apps``).  The prefix sum
+   of 2^29 full-range int32 keys (the sums wrap; the store 4 GiB): the
+   device tier at v = 16, k = 4 under each driver, then k = 2 of 16
+   contexts on the card (the budget 3·k·μ, the least the async driver
+   admits) on the host and file tiers, sliced and async; each must equal
+   ``torch.cumsum``, each tiered run's modeled ledger the device tier's,
+   and sliced must swap less than explicit.  List ranking of 2^25 elements
+   (a seeded permutation cut into n/16 lists; the store 12.5 GiB), v = 16,
+   k = 4, direct mode under each driver and indirect mode once: the ranks
+   exact against the construction's, and kernel 2 launched 2·⌈log₂ n⌉ =
+   50 times a direct run; kernel 2 timed at both message shapes (rows 2r,
+   2a) against its plain version and its bound.  The Euler tour of a
+   46,340-node forest of 4 trees: the CPU run's five arrays bit for bit,
+   each tree's edges in DFS order, kernels 1, 3s, 3m and 2 launched.
+   ``allgather``, ``reduce`` (add, max, min; root 3) and ``allreduce`` at
+   v = 16 on 2^20-word fields in int32, uint32 (past 2^31) and float32 on
+   the device tier at P = 1 and 4 and the host tier (with ``procs=``):
+   integers equal a plain reference, float32 sums within 1e-6 of the sum
+   of their terms' magnitudes, the host tier the device tier's bits, every
+   ledger the CPU run's.  Alone: ``python3 chip_smoke.py --apps-only``.
 7. The LM serving path.  Holds flash attention, the SSD scan and the LRU
    scan against their plain versions at the CPU tests' edge shapes, at
    qwen2's head dim 128 and at recurrentgemma's sliding window and head dim
@@ -642,6 +662,9 @@ def main(argv=None) -> int:
     ap.add_argument("--recovery-only", action="store_true",
                     help="build and run the recovery phase alone (no "
                          "kernels line, no ok line)")
+    ap.add_argument("--apps-only", action="store_true",
+                    help="build and run the other BSP apps and collectives "
+                         "phase alone (no kernels line, no ok line)")
     ap.add_argument("--recovery-child", metavar="SPEC",
                     help="one leg of the recovery phase (a JSON spec); the "
                          "phase starts these itself")
@@ -672,11 +695,16 @@ def main(argv=None) -> int:
     if args.recovery_only:
         run_recovery(dev, args)
         return 0
+    if args.apps_only:
+        run_apps(dev, args)
+        return 0
     rows = run(dev, args)
     torch.cuda.empty_cache()
     run_tiered(dev, args)
     torch.cuda.empty_cache()
     run_recovery(dev, args)
+    torch.cuda.empty_cache()
+    rows += run_apps(dev, args)
     torch.cuda.empty_cache()
     rows += run_lm(dev, args)
     print(card)
@@ -1686,6 +1714,426 @@ def print_recovery(what: str, rep: dict) -> None:
           f"{st['swap_in_s']:.3f}, swap_out_s {st['swap_out_s']:.3f}, "
           f"compute_s {st['compute_s']:.3f}, stall_s {st['stall_s']:.3f}, "
           f"merge_prefetch_events {st['merge_prefetch_events']}")
+
+
+# --------------------------------------------------------------------------- #
+# The other BSP apps and the collectives (phase 6d).                          #
+# --------------------------------------------------------------------------- #
+
+# The prefix sum's keys (the store 4 GiB), list ranking's elements (the
+# store (4 + 6v)·n words, 12.5 GiB), the Euler tour's forest (the largest
+# the packed 32-bit keys allow), the collectives' field words, and where
+# the prefix sum's file backings go (inside the checkout, git-ignored).
+APPS_PREFIX_LOG_N, APPS_LR_LOG_N = 29, 25
+APPS_EULER_N, APPS_EULER_TREES = 46340, 4
+APPS_COLL_WORDS = 1 << 20
+APPS_DIR = ROOT / "build" / "apps"
+
+
+def timed(fn):
+    """``(fn()'s result, wall ms)``, synchronised at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def apps_prefix_sum(dev, args, gen) -> None:
+    """The prefix sum of 2^29 full-range int32 keys (the sums wrap): the
+    device tier (k = 4) under each driver, and k = 2 of v = 16 contexts on
+    the card, under a budget that holds the async driver's three round
+    blocks of them, on the host and file tiers, sliced and async."""
+    import gc
+
+    from repro_torch.pems_apps import prefix_sum
+    n, v, k = 1 << APPS_PREFIX_LOG_N, args.v, args.k
+    x = rand_int32((n,), gen)
+    want = torch.cumsum(x.to(torch.int64), 0).to(torch.int32)
+    swap, led2 = {}, {}
+    for kk, driver in ([(k, d) for d in ("explicit", "sliced", "async")]
+                       + [(TIER_K, "sliced"), (TIER_K, "async")]):
+        reset_peak()
+        (out, pems), ms = timed(lambda: prefix_sum(
+            x, v=v, k=kk, driver=driver, return_pems=True, device=dev))
+        peak = torch.cuda.max_memory_allocated()
+        check(torch.equal(out, want),
+              f"prefix_sum device k={kk} {driver} == torch.cumsum")
+        if kk == k:
+            swap[driver] = pems.ledger.swap_total
+        else:
+            led2[driver] = modeled(pems.ledger)
+        mu = pems.layout.mu_bytes
+        print(f"prefix_sum n=2^{APPS_PREFIX_LOG_N} v={v} k={kk} device "
+              f"{driver}: {ms:.3f} ms wall, peak {peak / 2**30:.2f} GiB "
+              f"(store {v * mu / 2**30:.2f} GiB), swap_total "
+              f"{pems.ledger.swap_total / 2**30:.2f} GiB")
+        del out, pems
+    check(swap["sliced"] < swap["explicit"],
+          f"prefix_sum: sliced swaps less than explicit ({swap})")
+    # The least budget the async driver admits at k = 2: its input, output
+    # and prefetched round blocks.
+    cap = 3 * TIER_K * mu
+    x_cpu, want_cpu = x.cpu(), want.cpu()
+    del x, want
+    torch.cuda.empty_cache()
+    APPS_DIR.mkdir(parents=True, exist_ok=True)
+    for tier in ("host", "file"):
+        for driver in ("sliced", "async"):
+            path = None if tier == "host" else str(APPS_DIR / "prefix.bin")
+            reset_peak()
+            (out, pems), ms = timed(lambda: prefix_sum(
+                x_cpu, v=v, k=TIER_K, driver=driver, tier=tier,
+                backing_path=path, device_cap_bytes=cap, return_pems=True,
+                device=dev))
+            peak = torch.cuda.max_memory_allocated()
+            led, st = pems.ledger, pems.tier_stats
+            what = f"prefix_sum {tier} {driver}"
+            check(out.device.type == "cpu" and torch.equal(out, want_cpu),
+                  f"{what} == torch.cumsum")
+            check(modeled(led) == led2[driver],
+                  f"{what}: modeled ledger == the device tier's")
+            print(f"{what} (k={TIER_K} of {v}, cap {cap / 2**30:.2f} GiB): "
+                  f"{ms:.3f} ms wall, h2d {led.h2d_bytes / 2**30:.2f} GiB in "
+                  f"{st.swap_in_s:.3f} s "
+                  f"({led.h2d_bytes / max(st.swap_in_s, 1e-9) / 1e9:.2f} "
+                  f"GB/s), d2h {led.d2h_bytes / 2**30:.2f} GiB in "
+                  f"{st.swap_out_s:.3f} s "
+                  f"({led.d2h_bytes / max(st.swap_out_s, 1e-9) / 1e9:.2f} "
+                  f"GB/s), disk read {led.disk_read_bytes / 2**30:.2f} GiB, "
+                  f"written {led.disk_write_bytes / 2**30:.2f} GiB, "
+                  f"overlap {st.overlap_fraction:.3f}, peak device "
+                  f"{peak / 2**30:.2f} GiB")
+            if tier == "file":
+                pems.backing.close()
+                Path(path).unlink()
+            del out, pems
+            gc.collect()
+
+
+def lists_from_permutation(n: int, gen):
+    """``tests/test_pems_apps.py``'s lists on the card: a seeded permutation
+    cut at n/16 distinct random positions, each piece a list in permutation
+    order ending in a self-loop.  Returns ``(succ, rank)``: the successor
+    array and each element's exact rank (its hops to its list's end), from
+    the construction in O(n)."""
+    dev = gen.device
+    perm = torch.randperm(n, generator=gen, device=dev)
+    cuts = torch.randperm(n, generator=gen, device=dev)[:max(1, n // 16)]
+    ends = torch.cat([torch.sort(cuts).values,
+                      torch.tensor([n], device=dev)])
+    pos = torch.arange(n, device=dev)
+    end = ends[torch.searchsorted(ends, pos, right=True)]
+    nxt = torch.clamp(pos + 1, max=n - 1)
+    succ = torch.empty(n, dtype=torch.int64, device=dev)
+    succ[perm] = torch.where(pos + 1 < end, perm[nxt], perm)
+    rank = torch.empty(n, dtype=torch.int32, device=dev)
+    rank[perm] = (end - 1 - pos).to(torch.int32)
+    return succ.to(torch.int32), rank
+
+
+def apps_list_rank(dev, args, gen, kern) -> list:
+    """List ranking of 2^25 elements in n/16 lists, v = 16, k = 4: direct
+    mode under each driver and indirect mode once; kernel 2 timed at both
+    message shapes of the explicit run.  Returns rows 2r and 2a."""
+    import collections
+
+    import repro_torch.core.collectives as coll
+    from repro_torch.pems_apps import list_rank
+    dv = kern["deliver"]
+    n, v, k = 1 << APPS_LR_LOG_N, args.v, args.k
+    n_v = n // v
+    rounds = math.ceil(math.log2(n))
+    succ, want = lists_from_permutation(n, gen)
+    store_b = (4 + 6 * v) * n * 4
+    # Count kernel 2's launches by message width, and keep the last call
+    # of each: after the run its operands still hold that exchange's input.
+    by_ww, last = collections.Counter(), {}
+    real = coll.deliver_words
+
+    def spy(*a):
+        by_ww[a[5]] += 1
+        last[a[5]] = a
+        return real(*a)
+
+    rows = []
+    for driver, mode in (("explicit", "direct"), ("sliced", "direct"),
+                         ("async", "direct"), ("explicit", "indirect")):
+        by_ww.clear()
+        last.clear()
+        set_counts(kern)
+        coll.deliver_words = spy
+        reset_peak()
+        try:
+            (rank, pems), ms = timed(lambda: list_rank(
+                succ, v=v, k=k, driver=driver, mode=mode, return_pems=True,
+                device=dev))
+        finally:
+            coll.deliver_words = real
+        peak = torch.cuda.max_memory_allocated()
+        what = f"list_rank n=2^{APPS_LR_LOG_N} v={v} k={k} {driver} {mode}"
+        check(torch.equal(rank, want), f"{what}: ranks exact")
+        launches = dv.LAUNCHES
+        expect = 2 * rounds if mode == "direct" else 0
+        check(launches == expect and sum(by_ww.values()) == launches,
+              f"{what}: kernel 2 launched {launches} times ({dict(by_ww)}),"
+              f" 2·⌈log₂ n⌉ = {expect} expected")
+        print(f"{what}: {ms:.3f} ms wall, {ms / rounds:.3f} ms a round "
+              f"({rounds} rounds), kernel 2 launches {launches} "
+              f"(by message words {dict(by_ww)}), peak device "
+              f"{peak / 2**30:.2f} GiB against the store's "
+              f"{store_b / 2**30:.2f} GiB")
+        if driver == "explicit" and mode == "direct":
+            for tag, ww, what_ in (("2r", n_v, "requests"),
+                                   ("2a", 2 * n_v, "answers")):
+                rows.append(deliver_row(dv, last[ww], tag, what_,
+                                        by_ww[ww], args.reps))
+        del rank, pems
+        last.clear()
+        torch.cuda.empty_cache()
+    return rows
+
+
+def deliver_row(dv, call, tag: str, what: str, launches: int, reps: int):
+    """Kernel 2 on list ranking's last ``what`` exchange as the main path
+    gave it (counts transposed, no fill: whole lanes move), against its
+    plain version, timed beside it and its bound."""
+    src, src_off, dst, dst_off, v, ww = call[:6]
+    cp, cp_off, ct, ct_off = call[9:13]
+    check(call[8] is None, f"kernel 2 {what}: no fill")
+
+    def run(fn):
+        return lambda: fn(*call[:6], None, 0, None, cp, cp_off, ct, ct_off)
+
+    run(dv.deliver_words)()
+    got = dst[:, dst_off:dst_off + v * ww].clone()
+    got_ct = ct[:, ct_off:ct_off + v].clone()
+    run(dv.deliver_words_plain)()
+    err = max(same(got, dst[:, dst_off:dst_off + v * ww], f"kernel 2 {what}"),
+              same(got_ct, ct[:, ct_off:ct_off + v], f"kernel 2 {what} ct"))
+    del got, got_ct
+    b_ms, b_by = bound(4 * (2 * v * v * ww + 2 * v * v))
+    row = dict(
+        name=f"alltoallv_deliver_{what}", route="cuda",
+        source="src/repro_torch/csrc/alltoallv_deliver.cu",
+        replaces="src/repro/kernels/alltoallv_deliver/"
+                 "alltoallv_deliver.py:79",
+        launches=launches, max_abs_err=err,
+        ms=cuda_ms(run(dv.deliver_words), reps),
+        plain_ms=cuda_ms(run(dv.deliver_words_plain), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"row {tag}, list ranking's {what}: v={v}, ww={ww} int32 "
+              "words, counts transposed, no fill")
+    print(f"kernel {row['name']} ({tag}) {row['shape']}: {row['ms']:.4f} ms, "
+          f"launches {launches}, plain {row['plain_ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    return row
+
+
+def forest(n: int, trees: int, seed: int):
+    """``benchmarks/bench_euler.py``'s forest: roots 0..trees-1, node i's
+    parent uniform below i."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    parent = np.arange(n)
+    parent[trees:] = rng.integers(0, np.arange(trees, n))
+    return parent
+
+
+def dfs_tours(parent) -> list:
+    """Each tree's Euler tour by a numpy-side DFS, children in index order:
+    a list of edge-id arrays (down 2i, up 2i + 1), one a root."""
+    import numpy as np
+    n = len(parent)
+    nonroot = np.flatnonzero(parent != np.arange(n))
+    order = nonroot[np.argsort(parent[nonroot], kind="stable")]
+    start = np.searchsorted(parent[order], np.arange(n + 1))
+    tours = []
+    for r in np.flatnonzero(parent == np.arange(n)):
+        tour, stack = [], [(r, start[r])]
+        while stack:
+            u, i = stack[-1]
+            if i < start[u + 1]:
+                c = order[i]
+                stack[-1] = (u, i + 1)
+                tour.append(2 * c)
+                stack.append((c, start[c]))
+            else:
+                stack.pop()
+                if stack:
+                    tour.append(2 * u + 1)
+        tours.append(np.asarray(tour, np.int64))
+    return tours
+
+
+def apps_euler(dev, args, kern) -> None:
+    """The Euler tour of a 46,340-node forest of 4 trees, v = 16, k = 4:
+    equal to the CPU run bit for bit, each tree's edges in DFS order, and
+    every kernel of its PSRS and list ranking launched."""
+    import numpy as np
+
+    from repro_torch.pems_apps import euler_tour
+    parent = forest(APPS_EULER_N, APPS_EULER_TREES, args.seed)
+    set_counts(kern)
+    res, ms = timed(lambda: euler_tour(parent, v=args.v, k=args.k,
+                                       device=dev))
+    launches = read_counts(kern, ("radix_sort", "kway_splitters",
+                                  "kway_merge_segments",
+                                  "alltoallv_deliver"))
+    t0 = time.perf_counter()
+    ref = euler_tour(parent, v=args.v, k=args.k, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for key, want in ref.items():
+        check(torch.equal(res[key].cpu(), want),
+              f"euler_tour {key}: card == CPU")
+    check(all(c > 0 for c in launches.values()),
+          f"euler_tour: kernels 1, 3s, 3m and 2 launched: {launches}")
+    rank = res["rank"].cpu().numpy()
+    for tour in dfs_tours(parent):
+        check((rank[tour] == np.arange(len(tour) - 1, -1, -1)).all(),
+              "euler_tour: each tree's ranks count down its DFS tour")
+    print(f"euler_tour n={APPS_EULER_N} trees={APPS_EULER_TREES} "
+          f"v={args.v} k={args.k}: {ms:.3f} ms wall on the card "
+          f"({cpu_s:.2f} s on the CPU), launches {launches}")
+
+
+def plain_reduce(op: str, x: torch.Tensor) -> torch.Tensor:
+    """The reduction over axis 0, plainly: integers widened to int64 (uint32
+    words as their unsigned values) and cut back to 32 bits, float32 summed
+    in float64."""
+    if x.dtype == torch.float32:
+        if op == "add":
+            return x.to(torch.float64).sum(0).to(torch.float32)
+        return getattr(x, "a" + op)(0)
+    wide = x.view(torch.int32).to(torch.int64)
+    if x.dtype == torch.uint32:
+        wide = wide & 0xFFFFFFFF
+    red = wide.sum(0) if op == "add" else getattr(wide, "a" + op)(0)
+    red = (red & 0xFFFFFFFF) - ((red & 0x80000000) << 1)   # the low word
+    return red.to(torch.int32).view(x.dtype)
+
+
+def apps_collectives(dev, args, gen) -> None:
+    """allgather, reduce (add, max, min; root 3) and allreduce at v = 16 on
+    fields of 2^20 words in int32, uint32 (half past 2^31) and float32: on
+    the device tier at P = 1 and P = 4 (a one-card mesh) and on the host
+    tier (P = 1, and P = 4 writing shards 1 and 3 alone), each beside the
+    same calls on the CPU, whose ledger it must equal."""
+    from repro_torch.core import ContextLayout, Pems, PemsConfig, make_mesh
+    v, w, root = args.v, APPS_COLL_WORDS, 3
+    configs = [("device", 1, None), ("device", MESH_P, None),
+               ("host", 1, None), ("host", MESH_P, [1, 3])]
+    calls = [("allgather", ("x", "g"), {})]
+    for op in ("add", "max", "min"):
+        calls += [("reduce", ("x", "o"), dict(op=op, root=root)),
+                  ("allreduce", ("x", "o"), dict(op=op))]
+    ms = {}
+    for dtype in (torch.int32, torch.uint32, torch.float32):
+        if dtype == torch.float32:
+            x = torch.randn((v, w), generator=gen, device=dev)
+        else:
+            x = rand_int32((v, w), gen).view(dtype)
+        lo = (ContextLayout().add("x", (w,), dtype).add("o", (w,), dtype)
+              .add("g", (v, w), dtype))
+        device_out = None               # the device tier P = 1's outputs
+        for tier, P, procs in configs:
+            cfg = f"{tier} P={P}" + (f" procs {procs}" if procs else "")
+            ledgers, outs = [], []
+            for leg, where in (("card", dev), ("cpu", torch.device("cpu"))):
+                mesh = (make_mesh(P, device=where)
+                        if tier == "device" and P > 1 else None)
+                pems = Pems(PemsConfig(v=v, k=2, P=P, tier=tier), lo,
+                            mesh=mesh, device=where)
+                store = pems.init().with_field("x", x.to(where))
+                for i, (name, a, kw) in enumerate(calls):
+                    kw = dict(kw, procs=procs) if procs else kw
+                    store, t = timed(lambda: getattr(pems, name)(
+                        store, *a, **kw))
+                    if leg == "cpu":
+                        continue
+                    ms.setdefault(f"{cfg} {name}", []).append(t)
+                    # A copy: the next call rewrites the field in place.
+                    got = store.field(a[1]).to(dev, copy=True)
+                    coll_check(f"{name} {kw} {dtype} {cfg}", x, name, kw,
+                               got, procs and (v // P, procs),
+                               None if device_out is None else device_out[i])
+                    if device_out is None:
+                        outs.append(got)
+                ledgers.append(pems.ledger.snapshot())
+                del store, pems
+            check(ledgers[0] == ledgers[1],
+                  f"collectives {dtype} {cfg}: ledger == the CPU run's")
+            if device_out is None:
+                device_out = outs
+        del device_out, outs
+    print("collectives at v=16 on 2^20-word fields, ms a call over int32, "
+          "uint32 and float32 (median, min, max):")
+    for key, t in ms.items():
+        print(f"  {key}: {statistics.median(t):.3f} ({min(t):.3f}, "
+              f"{max(t):.3f})")
+
+
+def coll_check(what, x, name, kw, got, shards, device_got) -> None:
+    """One collective's output field against the plain reference; on the
+    host tier against the device tier's too, bit for bit.  Under
+    ``shards = (m, procs)`` only the listed processes' rows are written,
+    and every other row keeps its zeros.  A float32 sum is held within
+    1e-6 of the sum of its terms' magnitudes: 16 float32 additions in any
+    order stay within 15·2^-24 of it."""
+    v = x.shape[0]
+    rows = range(v)
+    if shards:
+        m, procs = shards
+        rows = [r for p in procs for r in range(p * m, (p + 1) * m)]
+        for r in set(range(v)) - set(rows):
+            check(not bool(got[r].view(torch.int32).any()),
+                  f"{what}: row {r} of an unlisted shard untouched")
+    if name == "allgather":
+        want = x[None].expand(v, *x.shape)
+    else:
+        want = plain_reduce(kw["op"], x)[None].expand_as(x)
+    if name == "reduce":
+        rows = [r for r in rows if r == kw["root"]]
+    for r in rows:
+        if x.dtype == torch.float32 and kw.get("op") == "add":
+            err = float(((got[r] - want[r]).abs()
+                         / x.abs().sum(0)).max())
+            check(err <= 1e-6, f"{what} row {r}: error {err:.3g} of the "
+                               "terms' magnitudes")
+        else:
+            check(torch.equal(got[r].view(torch.int32),
+                              want[r].reshape(got[r].shape).view(
+                                  torch.int32)),
+                  f"{what} row {r} == the plain reference")
+        if device_got is not None:
+            check(torch.equal(got[r].view(torch.int32),
+                              device_got[r].view(torch.int32)),
+                  f"{what} row {r} == the device tier's, bit for bit")
+
+
+def run_apps(dev, args) -> list:
+    """Phase 6d: the prefix sum, list ranking, the Euler tour and the
+    collectives allgather, reduce and allreduce; returns rows 2r and 2a."""
+    kern = kernel_modules()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 30)
+
+    def lap(name, t0):
+        torch.cuda.empty_cache()
+        print(f"apps {name}: {time.perf_counter() - t0:.2f} s")
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    apps_prefix_sum(dev, args, gen)
+    t0 = lap("prefix sum", t0)
+    rows = apps_list_rank(dev, args, gen, kern)
+    t0 = lap("list ranking", t0)
+    apps_euler(dev, args, kern)
+    t0 = lap("euler tour", t0)
+    apps_collectives(dev, args, gen)
+    lap("collectives", t0)
+    print(f"apps phase: {time.perf_counter() - t_phase:.2f} s")
+    return [{key: r[key] for key in r if key != "shape"} for r in rows]
 
 
 # --------------------------------------------------------------------------- #

@@ -37,12 +37,17 @@ recv rows through a bounded host buffer, α-chunked and clamped under
 
 Both are bit-identical.  The I/O ledger is updated with the thesis' event
 counts, independent of the implementation; it equals the JAX package's.
-``allgather``/``reduce``/``allreduce`` are not on the PSRS path and are not
-ported yet (``ROADMAP.md``).
+
+``allgather``/``reduce``/``allreduce`` are one in-place write into the store
+on the device tier (at ``P > 1`` on a one-device mesh only the ledger's
+network terms differ); on a backing tier they stage host-side as the JAX
+package does, and a reduction runs on the executor's device, the same torch
+op as the device tier's, so both tiers give the same bits.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -50,7 +55,7 @@ import torch
 
 from ..kernels.alltoallv_deliver import assemble_words, check_fill_range, \
     deliver_words
-from .backing import TieredStore, np_dtype
+from .backing import TieredStore, _field_words, np_dtype
 from .context import WORD, ContextStore, _from_words, _to_words
 
 
@@ -562,3 +567,148 @@ def gather(self, store: ContextStore, send: str, recv: str, root: int = 0,
         self.ledger.add_network((cfg.v - cfg.v_local) * omega_b)
     self.ledger.add_barrier()
     return store
+
+
+def allgather(self, store: ContextStore, send: str, recv: str,
+              procs=None) -> ContextStore:
+    """Every VP receives every VP's ``send`` into ``recv`` ([v, ω]), in
+    place.
+
+    On a tiered store ``procs`` restricts the write side to the listed
+    processes' shards (sources are read from every shard)."""
+    cfg = self.cfg
+    tiered = isinstance(store, TieredStore)
+    if procs is not None and not tiered:
+        raise ValueError("procs= requires a backing-tier store")
+    if tiered:
+        # Stage only the gathered [v, ω] row (every receiver gets the same
+        # bytes) and write it per destination shard — never the dense
+        # [v, v·ω] broadcast the tier cannot afford.
+        m = cfg.v_local
+        w = _field_words(store.field(send), store.layout.field(recv))
+        off = store.layout.offset(recv)
+        for p in (range(cfg.P) if procs is None else procs):
+            store.backing.write_block(p * m, (p + 1) * m, w[None],
+                                      cols=slice(off, off + w.size))
+            if store.on_disk:
+                self._account_disk(p * m, (p + 1) * m, w.nbytes, write=True)
+            st = self.shard_stats[p]
+            st.peak_stage_bytes = max(st.peak_stage_bytes, w.nbytes)
+    else:
+        A = store.field(send)                  # [v, ...]
+        R = store.field(recv)                  # [v, v, ...]
+        R.copy_(A.to(R.dtype)[None].expand_as(R))
+    # An allgather is an Alltoallv with equal messages — same ledger shape.
+    _ledger_alltoallv(self, self.layout.field_bytes(send), "direct")
+    return store
+
+
+def reduce(self, store: ContextStore, field: str, out_field: str,
+           op: str = "add", root: int = 0, procs=None) -> ContextStore:
+    """EM-Reduce (Alg 7.4.1): vectorised reduction of each VP's ``field``
+    ([n]) into the root's ``out_field`` ([n]), in place.  ``op`` is
+    ``add`` (wrapping for the integer types), ``max`` or ``min``.
+
+    On a tiered store ``procs`` gates the root write like :func:`gather`.
+    Raises ``ValueError`` for any other ``op``."""
+    if procs is not None and not isinstance(store, TieredStore):
+        raise ValueError("procs= requires a backing-tier store")
+    if isinstance(store, TieredStore):
+        red = _tiered_reduce(self, store, field, op)
+        w = _field_words(red, store.layout.field(out_field))
+        off = store.layout.offset(out_field)
+        if procs is None or root // self.cfg.v_local in procs:
+            store.backing.write_block(root, root + 1, w[None],
+                                      cols=slice(off, off + w.size))
+            if store.on_disk:
+                self._account_disk(root, root + 1, w.nbytes, write=True)
+    else:
+        red = _reduce_op(op)(store.field(field))
+        R = store.field(out_field)
+        R[root] = red.to(R.dtype).reshape(R.shape[1:])
+    _ledger_reduce(self, self.layout.field_bytes(out_field))
+    return store
+
+
+def allreduce(self, store: ContextStore, field: str, out_field: str,
+              op: str = "add", procs=None) -> ContextStore:
+    """:func:`reduce`, then the result lands in every VP's ``out_field``
+    (in place).  On a tiered store ``procs`` restricts the write side to
+    the listed processes' shards."""
+    if procs is not None and not isinstance(store, TieredStore):
+        raise ValueError("procs= requires a backing-tier store")
+    if isinstance(store, TieredStore):
+        m = self.cfg.v_local
+        red = _tiered_reduce(self, store, field, op)
+        out = red[None].expand((m,) + red.shape)
+        for p in (range(self.cfg.P) if procs is None else procs):
+            store.with_field_rows(out_field, p * m, out)
+    else:
+        red = _reduce_op(op)(store.field(field))
+        R = store.field(out_field)
+        R.copy_(red.to(R.dtype).reshape(R.shape[1:])[None].expand_as(R))
+    _ledger_reduce(self, self.layout.field_bytes(out_field))
+    # The rebroadcast delivers n·ω to every context.
+    self.ledger.add_msg_direct(
+        (self.cfg.v - 1) * self.layout.field_bytes(out_field),
+        self.cfg.block_bytes,
+    )
+    return store
+
+
+def _tiered_reduce(self, store, field: str, op: str) -> torch.Tensor:
+    """Reduce a backing-tier field.  The reduction itself runs on the
+    executor's device (the device tier's torch op, on a contiguous ``[v,
+    n]`` operand as there) so the result is bit-identical to the device
+    tier even for float32 fields; the field matrix is assumed to fit the
+    device budget (reduce operands are collective-sized, not data-sized).
+    Returns a CPU tensor."""
+    vals = store.field(field)
+    red = _reduce_op(op)(vals.to(self.device)).cpu()
+    self.ledger.add_tier_in(vals.numel() * vals.element_size(), disk=False)
+    self.ledger.add_tier_out(red.numel() * red.element_size(), disk=False)
+    return red
+
+
+_SIGN = -2**31   # the int32 word 0x80000000
+
+
+def _reduce_op(op: str):
+    """The reduction over axis 0 as ``jnp.sum``/``max``/``min`` compute it,
+    in the operand's dtype: integer sums wrap at 32 bits (torch sums int32
+    into int64; the cast back keeps the low word, and a uint32 sum is the
+    int32 sum of its words), and uint32 max/min compare the words with the
+    sign bit flipped (torch has no uint32 max on the CPU).  The operand is
+    made contiguous, so a strided store view and a staged copy reduce in
+    the same order."""
+    def add(x):
+        if x.dtype == torch.float32:
+            return x.contiguous().sum(dim=0)
+        w = x.contiguous().view(torch.int32)
+        return w.sum(dim=0).to(torch.int32).view(x.dtype)
+
+    def extreme(fn):
+        def red(x):
+            x = x.contiguous()
+            if x.dtype != torch.uint32:
+                return fn(x, dim=0)
+            flip = x.view(torch.int32) ^ _SIGN
+            return (fn(flip, dim=0) ^ _SIGN).view(torch.uint32)
+        return red
+
+    ops = {"add": add, "max": extreme(torch.amax),
+           "min": extreme(torch.amin)}
+    if op not in ops:
+        raise ValueError(f"unsupported reduce op {op!r} (PEMS requires "
+                         "commutative+associative operators, §7.4)")
+    return ops[op]
+
+
+def _ledger_reduce(self, n_bytes: int) -> None:
+    cfg = self.cfg
+    # Lemma 7.4.2: the root delivers the n-vector result to its context; the
+    # network phase is a logarithmic tree (Lemma 7.4.3).
+    self.ledger.add_msg_direct(n_bytes, cfg.block_bytes)
+    if cfg.P > 1:
+        self.ledger.add_network(n_bytes * math.ceil(math.log2(cfg.P)))
+    self.ledger.add_barrier(2)

@@ -793,3 +793,6 @@ from . import collectives as _collectives  # noqa: E402
 Pems.alltoallv = _collectives.alltoallv
 Pems.bcast = _collectives.bcast
 Pems.gather = _collectives.gather
+Pems.allgather = _collectives.allgather
+Pems.reduce = _collectives.reduce
+Pems.allreduce = _collectives.allreduce

@@ -57,3 +57,13 @@ def group_by_dest(
     if values.dim() == 2:
         msgs = msgs[..., 0]
     return msgs, counts, slot_pos, ok
+
+
+def take_from_slots(msgs: torch.Tensor, dests: torch.Tensor,
+                    slot_pos: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`group_by_dest` for response routing, for each of
+    the ``k`` contexts: element ``i`` of context ``b`` gets ``msgs[b,
+    dests[b, i], slot_pos[b, i]]``.  ``msgs`` is ``[k, v, cap(, w)]``,
+    ``dests``/``slot_pos`` ``[k, n]``; returns ``[k, n(, w)]``."""
+    rows = torch.arange(dests.shape[0], device=dests.device)[:, None]
+    return msgs[rows, dests.to(torch.int64), slot_pos.to(torch.int64)]

@@ -436,6 +436,130 @@ def test_checksummed_recoverable_run_on_the_card_matches_the_cpu(
     assert bs.LAUNCHES == km.SPLIT_LAUNCHES == km.SEGMENT_LAUNCHES == 8
 
 
+@pytest.mark.parametrize("tier, driver", [
+    ("device", "explicit"), ("device", "sliced"), ("device", "async"),
+    ("host", "sliced"), ("file", "async")])
+def test_prefix_sum_on_the_card_matches_the_cpu(cuda, tmp_path, tier,
+                                                driver):
+    """The prefix sum of full-range keys (the sums wrap) on the card: the
+    CPU run's output and ledger, on the device tier and on a backing tier
+    with k = 2 of 16 contexts on the card."""
+    from repro_torch.pems_apps import prefix_sum
+
+    x = _keys((1 << 16,), cuda, 14)
+    want = torch.cumsum(x.to(torch.int64), 0).to(torch.int32)
+    runs = []
+    for i, dev in enumerate((cuda, "cpu")):
+        path = None if tier != "file" else str(tmp_path / f"{i}.bin")
+        out, pems = prefix_sum(x.to(dev), v=16, k=2, driver=driver,
+                               tier=tier, backing_path=path, device=dev,
+                               return_pems=True)
+        runs.append((out.cpu(), pems.ledger.snapshot()))
+    assert torch.equal(runs[0][0], want.cpu())
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1]
+
+
+@pytest.mark.parametrize("mode, driver", [
+    ("direct", "explicit"), ("direct", "async"), ("indirect", "sliced")])
+def test_list_rank_on_the_card_matches_the_cpu(cuda, mode, driver):
+    """List ranking on the card: the CPU run's ranks and ledger, and in
+    direct mode two launches of the delivery kernel a round."""
+    import math
+
+    from repro_torch.pems_apps import list_rank
+
+    dv = _kernel("alltoallv_deliver")
+    n = 1 << 12
+    g = torch.Generator().manual_seed(15)
+    perm = torch.randperm(n, generator=g)
+    succ = torch.empty(n, dtype=torch.int64)
+    succ[perm[:-1]] = perm[1:]
+    succ[perm[-1]] = perm[-1]                 # one list through them all
+    want = torch.empty(n, dtype=torch.int32)
+    want[perm] = torch.arange(n - 1, -1, -1, dtype=torch.int32)
+    dv.LAUNCHES = 0
+    got, gp = list_rank(succ.to(cuda), v=16, k=4, mode=mode, driver=driver,
+                        return_pems=True, device=cuda)
+    launches = dv.LAUNCHES
+    ref, cp = list_rank(succ, v=16, k=4, mode=mode, driver=driver,
+                        device="cpu", return_pems=True)
+    assert torch.equal(got.cpu(), want) and torch.equal(ref, want)
+    assert gp.ledger.snapshot() == cp.ledger.snapshot()
+    rounds = math.ceil(math.log2(n))
+    assert launches == (2 * rounds if mode == "direct" else 0)
+
+
+def test_euler_tour_on_the_card_matches_the_cpu(cuda):
+    """The Euler tour of a forest on the card: the CPU run's five arrays
+    bit for bit, with the local sort, the merge and the delivery kernels
+    launched."""
+    import numpy as np
+
+    from repro_torch.pems_apps import euler_tour
+
+    rng = np.random.default_rng(16)
+    n = 3000
+    parent = np.arange(n)
+    parent[4:] = rng.integers(0, np.arange(4, n))
+    bs, km, dv = (_kernel(m) for m in ("bitonic_sort", "kway_merge",
+                                       "alltoallv_deliver"))
+    bs.LAUNCHES = km.SPLIT_LAUNCHES = km.SEGMENT_LAUNCHES = dv.LAUNCHES = 0
+    got = euler_tour(parent, v=16, k=4, device=cuda)
+    assert all(c > 0 for c in (bs.LAUNCHES, km.SPLIT_LAUNCHES,
+                               km.SEGMENT_LAUNCHES, dv.LAUNCHES))
+    ref = euler_tour(parent, v=16, k=4, device="cpu")
+    for key, want in ref.items():
+        assert got[key].device.type == "cuda"
+        assert torch.equal(got[key].cpu(), want), key
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
+@pytest.mark.parametrize("tier, P", [("device", 1), ("device", 4),
+                                     ("host", 1), ("host", 2)])
+def test_collectives_on_the_card_match_the_cpu(cuda, dtype, tier, P):
+    """allgather, reduce and allreduce on the card: integer results equal
+    the CPU run's, float32 sums within 1e-6 of the sum of their terms'
+    magnitudes (16 float32 additions in any order stay within 15·2^-24 of
+    it); the ledger equals the CPU run's; a backing tier's results equal
+    the card's device tier's bit for bit."""
+    from repro_torch.core import ContextLayout, Pems, PemsConfig, make_mesh
+
+    v, w = 16, 1000
+    g = torch.Generator().manual_seed(17)
+    x = (torch.randn((v, w), generator=g) if dtype == torch.float32 else
+         torch.randint(INT_MIN, INT_MAX + 1, (v, w), generator=g,
+                       dtype=torch.int64).to(torch.int32).view(dtype))
+    lo = (ContextLayout().add("x", (w,), dtype).add("o", (w,), dtype)
+          .add("g", (v, w), dtype))
+    words = {}
+    for where, t, p in ((cuda, tier, P), ("cpu", tier, P),
+                        (cuda, "device", 1)):
+        mesh = make_mesh(p, device=where) if t == "device" and p > 1 \
+            else None
+        pems = Pems(PemsConfig(v=v, k=2, P=p, tier=t), lo, mesh=mesh,
+                    device=where)
+        store = pems.init().with_field("x", x.to(where))
+        outs = []
+        for op in ("add", "max", "min"):
+            store = pems.allgather(store, "x", "g")
+            store = pems.reduce(store, "x", "o", op=op, root=3)
+            outs.append(store.field("o")[3].cpu().clone())
+            store = pems.allreduce(store, "x", "o", op=op)
+            outs.append(store.field("o").cpu().clone())
+        outs.append(store.field("g").cpu().clone())
+        words[(str(where), t, p)] = (outs, pems.ledger.snapshot())
+    card, cpu = words[(str(cuda), tier, P)], words[("cpu", tier, P)]
+    assert card[1] == cpu[1]
+    for i, (a, b) in enumerate(zip(card[0], cpu[0])):
+        if dtype == torch.float32 and i in (0, 1):
+            assert ((a - b).abs() <= 1e-6 * x.abs().sum(0)).all()
+        else:
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), i
+    for a, b in zip(card[0], words[(str(cuda), "device", 1)][0]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     bs = _kernel("bitonic_sort")
     with pytest.raises(TypeError, match="int32"):

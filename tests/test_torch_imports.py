@@ -66,6 +66,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     code = (
         "import sys\n"
         "import repro_torch.pems_apps.psrs, repro_torch.interop\n"
+        "import repro_torch.pems_apps.prefix_sum\n"
+        "import repro_torch.pems_apps.list_ranking\n"
+        "import repro_torch.pems_apps.euler_tour\n"
         "import repro_torch.launch.serve, repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.kernels.lru_scan\n"
         "import repro_torch.core.mesh, repro_torch.core.analysis\n"
@@ -91,7 +94,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     from repro_torch.core import ContextLayout, Pems, PemsConfig, make_mesh
-    from repro_torch.pems_apps import psrs_plan, psrs_sort
+    from repro_torch.pems_apps import (euler_tour, list_rank, prefix_sum,
+                                       psrs_plan, psrs_sort)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -104,9 +108,22 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     lo = ContextLayout().add("x", (4,), torch.int32)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Pems(PemsConfig(v=4), lo)
+    for app, arg in ((prefix_sum, keys), (list_rank, keys),
+                     (euler_tour, torch.zeros(8, dtype=torch.int64))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            app(arg, v=4)
     out = psrs_sort(keys.flip(0), v=4, device="cpu")
     assert out.device.type == "cpu"
     assert torch.equal(out, keys)
+    out = prefix_sum(torch.ones(64, dtype=torch.int32), v=4, device="cpu")
+    assert out.device.type == "cpu"
+    assert torch.equal(out, keys + 1)
+    out = list_rank(torch.minimum(keys + 1, keys[-1]), v=4, device="cpu")
+    assert out.device.type == "cpu"
+    assert torch.equal(out, keys.flip(0))
+    tour = euler_tour(torch.tensor([0, 0, 1, 2]), v=4, device="cpu")
+    assert all(t.device.type == "cpu" for t in tour.values())
+    assert tour["rank"][[2, 4, 6, 7, 5, 3]].tolist() == [5, 4, 3, 2, 1, 0]
 
 
 @pytest.mark.parametrize("knob, value, item", [
