@@ -59,6 +59,20 @@ What it does, in order; any failure raises and the exit code is non-zero:
    and the buffer layout), with the buffer layout's time beside it, and
    kernel 4 on the unchunked run's one chunk (8 GiB) beside kernel 2 on the
    same words.
+5c. Tracing (``run_trace``, ``PemsConfig(trace=True)``): (a) the main path
+   traced, 2^27 keys, v = 16 on the device tier at P = 1 under the explicit
+   driver, untraced and traced in turns (host clock, synchronised), its
+   local sort's launches between CUDA events; the keys must equal the
+   untraced run's, every kernel of the path must launch, and the
+   ``sort_sample`` span must last at least its kernel-1 launches' CUDA-event
+   time (a span closed at launch would not).  (b) The same at P = 4 on the
+   one-card mesh (α = 1, kernel 4).  (c) The file tier traced: 2^24 keys,
+   k = 2 of v = 16 under the async driver; keys and ledger equal to the
+   untraced run's, the report's span-derived overlap equal to
+   ``TierStats.overlap_fraction`` within 1e-9 (the spans are billed from
+   the same clock readings), engine request spans and ``queue_depth``
+   counters present.  (d) Prints ``python -m repro_torch.obs report`` of
+   (a) and (c).  Alone: ``python3 chip_smoke.py --trace-only``.
 6. Runs a smaller matrix at 2^20 keys: all drivers, direct and indirect,
    random and duplicate-heavy keys, the dense routes, P of 2 and 4 over
    every driver, mode and α in {None, 1}, and CPU-vs-GPU bit-for-bit
@@ -159,6 +173,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -665,6 +680,9 @@ def main(argv=None) -> int:
     ap.add_argument("--apps-only", action="store_true",
                     help="build and run the other BSP apps and collectives "
                          "phase alone (no kernels line, no ok line)")
+    ap.add_argument("--trace-only", action="store_true",
+                    help="build and run the tracing phase alone (no "
+                         "kernels line, no ok line)")
     ap.add_argument("--recovery-child", metavar="SPEC",
                     help="one leg of the recovery phase (a JSON spec); the "
                          "phase starts these itself")
@@ -698,7 +716,12 @@ def main(argv=None) -> int:
     if args.apps_only:
         run_apps(dev, args)
         return 0
+    if args.trace_only:
+        run_trace(dev, args, card)
+        return 0
     rows = run(dev, args)
+    torch.cuda.empty_cache()
+    run_trace(dev, args, card)
     torch.cuda.empty_cache()
     run_tiered(dev, args)
     torch.cuda.empty_cache()
@@ -1083,6 +1106,187 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
 # --------------------------------------------------------------------------- #
 # The backing tiers: PSRS with its population off the card.                   #
 # --------------------------------------------------------------------------- #
+
+# The tracing phase's file-tier run: log2 of its key count, and where its
+# backing goes (inside the checkout, git-ignored).
+TRACE_FILE_LOG_N = 24
+TRACE_DIR = ROOT / "build" / "trace"
+# The kernels of PSRS's path on the device tier at P == 1, and at P > 1.
+PATH_P1 = ("radix_sort", "alltoallv_deliver", "kway_splitters",
+           "kway_merge_segments")
+PATH_MESH = ("radix_sort", "assemble_proc_tiles", "kway_splitters",
+             "kway_merge_segments")
+
+
+def traced_sort(dev, kern, keys, trace_path=None, **kw):
+    """``psrs_sort`` with tracing on when ``trace_path`` is given, its
+    local sort's kernel launches between CUDA events, every kernel count
+    reset just before it.  Returns ``(keys, pems, host ms, the local
+    sort's CUDA-event ms, launches)``."""
+    from repro_torch.kernels.bitonic_sort import bitonic_sort
+    from repro_torch.pems_apps import psrs_sort
+    events = []
+
+    def timed_sort(x):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        y = bitonic_sort(x)
+        b.record()
+        events.append((a, b))
+        return y
+
+    if trace_path is not None:
+        kw.update(trace=True, trace_path=trace_path)
+    set_counts(kern)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, pems = psrs_sort(keys, local_sort=timed_sort, return_pems=True,
+                          device=dev, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts(kern, COUNTERS)
+    return out, pems, ms, sum(a.elapsed_time(b) for a, b in events), launches
+
+
+def stage_spans(trace) -> dict:
+    """{stage: ms} of a trace's ``stage:`` spans."""
+    return {e["name"].split(":", 1)[1]: e["dur"] / 1e3
+            for e in trace["traceEvents"] if e.get("cat") == "stage"}
+
+
+def trace_pair(dev, kern, keys, ref, tp, path, what, turns=2, backing=None,
+               **kw):
+    """``turns`` untraced and traced runs in turns (each on a new backing
+    file under ``backing``, deleted after it, on a disk tier); checks the
+    keys of both against ``ref``, the path's kernels launched, the traced
+    ledger equal to the untraced one, and the ``sort_sample`` span at least
+    its kernel-1 launches' CUDA-event time.  Returns the last traced run's
+    ``(trace, pems)``."""
+    from repro_torch.obs import load_trace
+    walls = {False: [], True: []}
+    ledgers = {}
+    for turn in range(turns):
+        for traced in (False, True):
+            tag = f"{what} {'traced' if traced else 'untraced'} {turn}"
+            if backing is not None:
+                kw["backing_path"] = str(backing / f"{turn}{traced}.bin")
+            out, pems, ms, sort_ms, launches = traced_sort(
+                dev, kern, keys, tp if traced else None, **kw)
+            if backing is not None:
+                Path(kw["backing_path"]).unlink()
+                st = pems.tier_stats
+                print(f"trace {tag}: {ms:.1f} ms; swap_in / swap_out / "
+                      f"compute / stall {st.swap_in_s:.3f} / "
+                      f"{st.swap_out_s:.3f} / {st.compute_s:.3f} / "
+                      f"{st.stall_s:.3f} s, overlap "
+                      f"{st.overlap_fraction:.4f}")
+            check(torch.equal(out.to(ref.device), ref),
+                  f"{tag}: keys == torch.sort")
+            check(all(launches[name] > 0 for name in path),
+                  f"{tag}: every kernel of the path launched: {launches}")
+            walls[traced].append(ms)
+            ledgers[traced] = pems.merged_shard_ledger().snapshot()
+            del out
+            if traced:
+                t0 = time.perf_counter()
+                pems.export_trace(tp)           # again, timed alone
+                export_ms = (time.perf_counter() - t0) * 1e3
+                trace = load_trace(tp)
+                spans = stage_spans(trace)
+                check(spans["sort_sample"] >= sort_ms,
+                      f"{tag}: sort_sample span {spans['sort_sample']:.3f} "
+                      f"ms >= its kernel-1 launches' {sort_ms:.3f} ms")
+    check(ledgers[True] == ledgers[False],
+          f"{what}: traced ledger == untraced ledger")
+    print(f"trace {what}: host ms untraced " + ", ".join(
+        f"{t:.3f}" for t in walls[False]) + "; traced " + ", ".join(
+        f"{t:.3f}" for t in walls[True]) + f" (the export included; alone "
+        f"{export_ms:.3f} ms for {len(trace['traceEvents'])} events); stage "
+        f"spans ms " + ", ".join(f"{k} {t:.3f}" for k, t in spans.items())
+        + f"; sort_sample's kernel-1 launches {sort_ms:.3f} ms")
+    return trace, pems
+
+
+def run_trace(dev, args, card: str) -> None:
+    """The tracing phase: the main path traced on the device tier at P = 1
+    and 4, the file tier traced, and the report of both."""
+    from repro_torch.core import make_mesh
+    from repro_torch.obs import summarize
+    from repro_torch.obs import NOOP, Tracer
+    kern = kernel_modules()
+    t_phase = time.perf_counter()
+    # What recording costs the host: a round-loop span, as the executor
+    # records it, into a live ring and into the no-op tracer.
+    calls = 100_000
+    for tr in (Tracer(), NOOP):
+        t0 = time.perf_counter()
+        for r in range(calls):
+            tr.complete("swap_in", t0, t0, tid="prefetch", cat="io",
+                        round=r, bytes=4096)
+        us = (time.perf_counter() - t0) / calls * 1e6
+        print(f"trace: {type(tr).__name__}.complete {us:.3f} us a call on "
+              f"the host ({calls} calls)")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 40)
+    v = args.v
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # ---- (a) the main path, traced, and (b) at P = 4 on the mesh -----
+        keys = rand_int32((1 << args.log_n,), gen)
+        ref = torch.sort(keys).values
+        trace_pair(dev, kern, keys, ref, str(tmp / "a.json"), PATH_P1,
+                   f"(a) n=2^{args.log_n} v={v} k={args.k} P=1 explicit",
+                   k=args.k, v=v, driver="explicit")
+        trace_pair(dev, kern, keys, ref, str(tmp / "b.json"), PATH_MESH,
+                   f"(b) P={MESH_P} k={MESH_K} alpha=1 explicit", turns=1,
+                   v=v, k=MESH_K, P=MESH_P, alpha=1, driver="explicit",
+                   mesh=make_mesh(MESH_P, device=dev))
+        del keys, ref
+        torch.cuda.empty_cache()
+
+        # ---- (c) the file tier, traced ------------------------------------
+        TRACE_DIR.mkdir(parents=True, exist_ok=True)
+        try:
+            keys = rand_int32((1 << TRACE_FILE_LOG_N,), gen)
+            ref = torch.sort(keys).values.cpu()
+            what = (f"(c) file n=2^{TRACE_FILE_LOG_N} v={v} k={TIER_K} "
+                    "async")
+            trace, pems = trace_pair(
+                dev, kern, keys, ref, str(tmp / "c.json"),
+                ("radix_sort", "kway_splitters", "kway_merge_segments"),
+                what, backing=TRACE_DIR, v=v, k=TIER_K, driver="async",
+                tier="file")
+        finally:
+            shutil.rmtree(TRACE_DIR, ignore_errors=True)
+        s = summarize(trace)
+        stats = pems.tier_stats
+        check(s["metrics_overlap"] == stats.overlap_fraction,
+              f"{what}: the trace's metrics carry TierStats' overlap")
+        delta = abs(s["overlap_fraction"] - s["metrics_overlap"])
+        check(delta <= 1e-9, f"{what}: span overlap "
+              f"{s['overlap_fraction']:.6f} == TierStats' "
+              f"{stats.overlap_fraction:.6f} (delta {delta:.3g})")
+        evs = trace["traceEvents"]
+        reqs = sum(e.get("cat") == "request" for e in evs)
+        depth = sum(e["ph"] == "C" and e["name"] == "queue_depth"
+                    for e in evs)
+        check(reqs > 0 and depth > 0, f"{what}: {reqs} engine request spans "
+              f"and {depth} queue_depth samples")
+        print(f"trace {what}: overlap {s['overlap_fraction']:.4f} (spans) "
+              f"vs {stats.overlap_fraction:.4f} (TierStats), {reqs} request "
+              f"spans, {depth} queue_depth samples, {len(evs)} events")
+
+        # ---- (d) the report ------------------------------------------------
+        env = dict(PYTHONPATH=str(ROOT / "src"), PATH="/usr/bin:/bin")
+        for name in ("a", "c"):
+            r = subprocess.run(
+                [sys.executable, "-m", "repro_torch.obs", "report",
+                 str(tmp / f"{name}.json"), "--top", "5"],
+                capture_output=True, text=True, env=env, check=True)
+            print(f"trace ({name}) report:")
+            print(r.stdout.rstrip())
+    print(f"trace phase: {time.perf_counter() - t_phase:.1f} s on {card}")
+
 
 def host_link(dev) -> dict:
     """GB/s of a 1 GiB copy to and from the card, from pinned and from

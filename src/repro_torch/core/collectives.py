@@ -388,9 +388,14 @@ def _alltoallv_host(self, store, send, recv, send_counts, recv_counts, fill,
             self._account_disk(0, v, v * ww * WORD, write=False)
 
     for p in procs:
-        _alltoallv_proc_chunks(
-            self, p, m, v, ww, alpha, arr, full, disk, off_s, off_r,
-            fill_word, Ct, bk, self.shard_stats[p], chunk_copies)
+        # One span per destination process's network phase, one per α-chunk
+        # inside it (Alg 7.1.3 made visible): the trace shows which chunk of
+        # which shard's delivery the run spent its time in.
+        with self.tracer.span(f"alltoallv.p{p}", tid="collective",
+                              cat="collective", alpha=alpha):
+            _alltoallv_proc_chunks(
+                self, p, m, v, ww, alpha, arr, full, disk, off_s, off_r,
+                fill_word, Ct, bk, self.shard_stats[p], chunk_copies)
     if Ct is not None:
         ct = torch.from_numpy(Ct).to(lo.field(recv_counts).dtype)
         for p in procs:
@@ -402,40 +407,42 @@ def _alltoallv_proc_chunks(self, p, m, v, ww, alpha, arr, full, disk,
                            off_s, off_r, fill_word, Ct, bk, stats,
                            chunk_copies):
     """The α-chunk loop of :func:`_alltoallv_host` for one destination
-    process ``p``."""
+    process ``p``, each chunk under its own trace span."""
     for c0 in range(p * m, (p + 1) * m, alpha):
-        c1 = min(c0 + alpha, (p + 1) * m)
-        if full is not None:
-            cols = full[:, c0 * ww:c1 * ww]
-        elif arr is not None:
-            cols = arr[:, off_s + c0 * ww:off_s + c1 * ww]
-        else:
-            cols = bk.read_block(
-                0, v, cols=slice(off_s + c0 * ww, off_s + c1 * ww))
-        blk = np.empty((c1 - c0, v, ww), np.uint32)  # staging buffer
-        blk[...] = np.swapaxes(cols.reshape(v, c1 - c0, ww), 0, 1)
-        if disk and full is None:
-            # The chunk reads (c1-c0)·ω columns of every source row — split
-            # across the source shards' ledgers.
-            self._account_disk(0, v, (c1 - c0) * ww * WORD, write=False)
-        stats.peak_stage_bytes = max(
-            stats.peak_stage_bytes,
-            chunk_copies * blk.nbytes
-            + (full.nbytes if full is not None else 0),
-        )
-        if fill_word is not None:
-            # Lanes at or past each message's count arrive as the fill: a
-            # slice fill a message (the JAX package's broadcast mask,
-            # without its [αd, v, ω] boolean temporary).
-            cnt = np.clip(Ct[c0:c1].astype(np.int64), 0, ww)
-            for d in range(c1 - c0):
-                for src in range(v):
-                    blk[d, src, cnt[d, src]:] = fill_word
-        bk.write_block(c0, c1, blk.reshape(c1 - c0, v * ww),
-                       cols=slice(off_r, off_r + v * ww))
-        if disk:
-            # The writes land entirely in destination shard p.
-            self._account_disk(c0, c1, v * ww * WORD, write=True)
+        with self.tracer.span("chunk", tid="collective", cat="collective",
+                              dst=p, c0=c0):
+            c1 = min(c0 + alpha, (p + 1) * m)
+            if full is not None:
+                cols = full[:, c0 * ww:c1 * ww]
+            elif arr is not None:
+                cols = arr[:, off_s + c0 * ww:off_s + c1 * ww]
+            else:
+                cols = bk.read_block(
+                    0, v, cols=slice(off_s + c0 * ww, off_s + c1 * ww))
+            blk = np.empty((c1 - c0, v, ww), np.uint32)  # staging buffer
+            blk[...] = np.swapaxes(cols.reshape(v, c1 - c0, ww), 0, 1)
+            if disk and full is None:
+                # The chunk reads (c1-c0)·ω columns of every source row —
+                # split across the source shards' ledgers.
+                self._account_disk(0, v, (c1 - c0) * ww * WORD, write=False)
+            stats.peak_stage_bytes = max(
+                stats.peak_stage_bytes,
+                chunk_copies * blk.nbytes
+                + (full.nbytes if full is not None else 0),
+            )
+            if fill_word is not None:
+                # Lanes at or past each message's count arrive as the fill:
+                # a slice fill a message (the JAX package's broadcast mask,
+                # without its [αd, v, ω] boolean temporary).
+                cnt = np.clip(Ct[c0:c1].astype(np.int64), 0, ww)
+                for d in range(c1 - c0):
+                    for src in range(v):
+                        blk[d, src, cnt[d, src]:] = fill_word
+            bk.write_block(c0, c1, blk.reshape(c1 - c0, v * ww),
+                           cols=slice(off_r, off_r + v * ww))
+            if disk:
+                # The writes land entirely in destination shard p.
+                self._account_disk(c0, c1, v * ww * WORD, write=True)
 
 
 def _ledger_alltoallv(self, omega_b: int, mode: str) -> None:

@@ -44,14 +44,16 @@ the backing, ``io_driver="faulty:<inner>"`` with a ``fault_spec`` injects
 I/O faults and ``"sanitize:<inner>"`` records in-flight races;
 ``Pems.cursors`` (durable :class:`~.recovery.SuperstepCursor` objects, one a
 process) receive each round's progress note — the recovery protocol of
-:func:`repro_torch.pems_apps.psrs_run_recoverable`.  Tracing is not ported
-yet: its knobs raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that brings it.
+:func:`repro_torch.pems_apps.psrs_run_recoverable`.  With ``trace=True``
+the executor records the JAX package's spans (:mod:`repro_torch.obs`):
+supersteps, rounds, engine requests, collective chunks and recovery
+windows, exported as one Chrome/Perfetto trace by :meth:`Pems.export_trace`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence
@@ -60,6 +62,7 @@ import numpy as np
 import torch
 
 from ..io.faults import FaultSpec, split_shard_clause
+from ..obs import NOOP, Tracer, merge_trace_files, trace_events, write_trace
 from .backing import (
     IO_DRIVERS,
     TIERS,
@@ -79,21 +82,6 @@ from .iostats import IOLedger, TierStats
 from .mesh import Mesh, canonical
 
 DRIVERS = ("explicit", "sliced", "async")
-
-# Knobs of the JAX PemsConfig that the port does not run yet: their
-# defaults, and the ROADMAP.md item that brings them.
-_NOT_PORTED = {
-    "trace": (False, "queue 1 item 9 (observability)"),
-    "trace_path": (None, "queue 1 item 9 (observability)"),
-}
-
-
-def not_ported(knob: str, value, item: str) -> NotImplementedError:
-    """The error for a JAX knob the port does not run yet, naming the
-    ``ROADMAP.md`` item that brings it."""
-    return NotImplementedError(
-        f"{knob}={value!r} is not ported to repro_torch yet; ROADMAP.md "
-        f"{item} brings it")
 
 
 @dataclasses.dataclass
@@ -139,17 +127,19 @@ class PemsConfig:
       the merge through the tiled k-way merge kernel in ``merge_tile``-wide
       output tiles, instead of the dense re-sort of the received buckets.
       Bit-identical either way; ``merge_tile`` must be a power of two.
-
-    The trace knobs keep the JAX package's names and accept only their
-    defaults here: they raise ``NotImplementedError`` naming the
-    ``ROADMAP.md`` item that ports them.
+    * ``trace``/``trace_path`` — :mod:`repro_torch.obs` span tracing: record
+      superstep/round/engine/collective/recovery spans into per-process
+      ring buffers (results are bit-identical; off, the path pays one
+      attribute check and adds no device synchronisation).  ``trace_path``
+      is where :meth:`Pems.export_trace` writes the merged Perfetto JSON
+      (and requires ``trace``).
 
     Raises ``ValueError`` at construction for any invalid combination —
     unknown driver, tier or I/O driver names, ``io_driver`` without
     ``tier="file"``, ``fault_spec`` without a faulty driver or targeting a
     shard ``>= P``, ``checksums`` on a non-disk tier, out-of-range ``io_*``
-    knobs, a bad ``merge_tile``, indivisible ``v``/``P``/``k``,
-    out-of-range ``alpha``.
+    knobs, a bad ``merge_tile``, ``trace_path`` without ``trace``,
+    indivisible ``v``/``P``/``k``, out-of-range ``alpha``.
     """
 
     v: int                      # total virtual processors
@@ -178,10 +168,6 @@ class PemsConfig:
             raise ValueError(f"unknown driver {self.driver!r}")
         if self.tier not in TIERS:
             raise ValueError(f"unknown tier {self.tier!r} (choose from {TIERS})")
-        for knob, (default, item) in _NOT_PORTED.items():
-            value = getattr(self, knob)
-            if value != default:
-                raise not_ported(knob, value, item)
         # The io knobs fail here, at construction, like every other field.
         if self.tier == "file":
             if self.io_driver is None:
@@ -240,6 +226,11 @@ class PemsConfig:
                 "integer >= 2 (one k-way merge grid step per tile)"
             )
         self.merge_tile = int(self.merge_tile)
+        if self.trace_path is not None and not self.trace:
+            raise ValueError(
+                f"trace_path={self.trace_path!r} requires trace=True "
+                "(nothing records spans to export otherwise)"
+            )
         if self.v % self.P:
             raise ValueError("v must be divisible by P")
         if (self.v // self.P) % self.k:
@@ -299,6 +290,24 @@ class Pems:
         self.cursors = None   # optional per-process durable SuperstepCursors:
                               # when set, the tiered round loop notes rounds
         self._bufs = None     # the tiered round loop's staging buffers
+        # Span tracing: the main tracer (stage/superstep/collective lanes,
+        # pid 0 on export) plus one tracer per process for the round loop
+        # and its shard's engine (pid p+1), all on one shared epoch so the
+        # merged trace has comparable timestamps.  Disabled, everything
+        # aliases the NOOP singleton: instrumented code pays one attribute
+        # check, and results are bit-identical either way.
+        if cfg.trace:
+            self.tracer = Tracer(name="main")
+            if cfg.tier == "device":
+                self.shard_tracers = [self.tracer]
+            else:
+                self.shard_tracers = [
+                    Tracer(epoch=self.tracer.epoch, name=f"shard{p}")
+                    for p in range(cfg.P)
+                ]
+        else:
+            self.tracer = NOOP
+            self.shard_tracers = [NOOP] * max(1, cfg.P)
         if cfg.P > 1 and cfg.tier == "device" and mesh is None:
             raise ValueError("P > 1 requires a mesh with the vp axis "
                              "(device tier; backing tiers shard instead)")
@@ -357,6 +366,77 @@ class Pems:
             out = out.merge(st)
         return out
 
+    # -------------------------------------------------------- observability
+    def device_span(self, name: str, tid: str, cat: Optional[str] = None,
+                    **args):
+        """A span of the main tracer over work that may run on the device.
+
+        CUDA kernels return before they finish, so on a CUDA executor the
+        span begins and ends on a drained stream: it bills its own work on
+        the device, not its launches, nor the tail of the work queued
+        before it.  With tracing off this is the no-op span and adds no
+        synchronisation."""
+        span = self.tracer.span(name, tid=tid, cat=cat, **args)
+        if self.tracer.enabled and self.device.type == "cuda":
+            return _DrainedSpan(span, self.device)
+        return span
+
+    def metrics_snapshot(self) -> dict:
+        """Flat metric-name dict subsuming ``TierStats`` and ``IOLedger``:
+        ``tier.*``/``ledger.*`` are the run totals (per-shard entries merged
+        at ``P > 1``), ``shard<p>.tier.*`` the per-process breakdown.
+        Embedded under ``"metrics"`` in exported traces, so the report CLI
+        can cross-check span-derived numbers against the counters."""
+        m = {}
+        stats = (self.merged_shard_stats() if len(self.shard_stats) > 1
+                 else self.tier_stats)
+        m.update(stats.snapshot())
+        led = self.ledger
+        for sl in self.shard_ledgers:
+            if sl is not led:
+                led = led.merge(sl)
+        m.update(led.snapshot())
+        if len(self.shard_stats) > 1:
+            for p, st in enumerate(self.shard_stats):
+                m.update(st.snapshot(prefix=f"shard{p}.tier"))
+        return m
+
+    def export_trace(self, path: Optional[str] = None) -> str:
+        """Write the recorded spans as one Perfetto-loadable JSON trace.
+
+        Under a sharded backing each per-process tracer is first written to
+        its own ``<path>.p<p>`` part file, then the parts are merged (each
+        keeping its own process lane) with the main tracer's events and the
+        :meth:`metrics_snapshot` into ``path`` (default: the config's
+        ``trace_path``).  Load the result in https://ui.perfetto.dev or
+        summarize it with ``python -m repro_torch.obs report <path>`` (or
+        the JAX package's ``python -m repro.obs report``)."""
+        path = self.cfg.trace_path if path is None else path
+        if path is None:
+            raise ValueError(
+                "export_trace needs a path (argument or "
+                "PemsConfig.trace_path)")
+        if not self.cfg.trace:
+            raise ValueError(
+                "export_trace requires PemsConfig(trace=True) — nothing "
+                "recorded spans")
+        parts = []
+        if self.shard_tracers[0] is not self.tracer:
+            for p, tr in enumerate(self.shard_tracers):
+                pp = f"{path}.p{p}"
+                write_trace(pp, trace_events(tr, pid=p + 1,
+                                             process_name=tr.name))
+                parts.append(pp)
+        main_events = trace_events(self.tracer, pid=0, process_name="main")
+        out = merge_trace_files(path, parts, extra_events=main_events,
+                                metrics=self.metrics_snapshot())
+        for pp in parts:                     # merged: the parts are spent
+            try:
+                os.unlink(pp)
+            except OSError:
+                pass
+        return out
+
     def _account_disk(self, r0: int, r1: int, row_bytes: int,
                       write: bool) -> None:
         """Bill measured disk traffic for global rows ``[r0, r1)`` to the
@@ -404,6 +484,21 @@ class Pems:
                                io_retries=cfg.io_retries,
                                io_backoff_s=cfg.io_backoff_s)
         self.backing = backing
+        if cfg.trace:
+            # Attach each shard's tracer to its engine and down the driver
+            # wrapper chain (faulty/sanitize proxies), duck-typed like the
+            # note_submit/note_complete hooks.
+            shards = getattr(backing, "shards", None) or [backing]
+            for p, sh in enumerate(shards):
+                tr = self.shard_tracers[min(p, len(self.shard_tracers) - 1)]
+                eng = getattr(sh, "engine", None)
+                if eng is not None:
+                    eng.tracer = tr
+                f = getattr(sh, "file", None)
+                while f is not None:
+                    if hasattr(f, "tracer"):
+                        f.tracer = tr
+                    f = getattr(f, "inner", None)
         store = TieredStore(lo, backing, self.ledger,
                             shard_ledgers=self.shard_ledgers)
         if init_fn is not None:
@@ -439,10 +534,16 @@ class Pems:
         stage — PSRS's merge — whose round swap-ins are prefetched while the
         previous round computes under every driver
         (``TierStats.merge_prefetch_events`` counts them); it changes
-        nothing elsewhere.  ``name`` labels the superstep's trace span in
-        the JAX package; the port records no spans yet (``ROADMAP.md``
-        queue 1 item 9).
+        nothing elsewhere.  ``name`` labels the superstep's
+        ``superstep:<name>`` trace span.
         """
+        with self.device_span(f"superstep:{name}", tid="supersteps",
+                              cat="superstep", driver=self.cfg.driver,
+                              stream=stream):
+            return self._superstep_impl(store, fn, reads, writes, procs,
+                                        stream)
+
+    def _superstep_impl(self, store, fn, reads, writes, procs, stream):
         cfg = self.cfg
         sliced = (cfg.driver == "sliced" and reads is not None
                   and writes is not None)
@@ -564,6 +665,12 @@ class Pems:
         host_out = [bufs.get("host_out", i, (k, n_out))
                     for i in range(n_outs)]
         pending = [[] for _ in range(n_outs)]
+        # Span lane for this process: the prefetch thread's swap_in spans
+        # land on their own tid, so the Perfetto view shows them overlapping
+        # the rounds lane's compute spans.  Every complete() below reuses
+        # the exact t0/t1 the stats were billed with, so the trace and
+        # TierStats can never disagree.
+        tracer = self.shard_tracers[min(p, len(self.shard_tracers) - 1)]
 
         def fetch(r):
             t0 = time.perf_counter()
@@ -580,8 +687,12 @@ class Pems:
                 ready.synchronize()
             else:
                 d.copy_(h)
-            led.add_tier_in(h.numel() * h.element_size(), disk)
-            stats.swap_in_s += time.perf_counter() - t0
+            nbytes = h.numel() * h.element_size()
+            led.add_tier_in(nbytes, disk)
+            t1 = time.perf_counter()
+            stats.swap_in_s += t1 - t0
+            tracer.complete("swap_in", t0, t1, tid="prefetch", cat="io",
+                            round=r, bytes=nbytes)
             return d, ready
 
         pool = ThreadPoolExecutor(max_workers=1) if use_async else None
@@ -591,9 +702,9 @@ class Pems:
                 t0 = time.perf_counter()
                 if use_async:
                     blk, ready = nxt.result()
-                    dt = time.perf_counter() - t0
+                    t1 = time.perf_counter()
                     if streamed:
-                        stats.merge_stall_s += dt
+                        stats.merge_stall_s += t1 - t0
                     if r + 1 < rounds:
                         # Overlaps round r's compute and writeback: rounds
                         # touch disjoint context rows.
@@ -602,8 +713,10 @@ class Pems:
                             stats.merge_prefetch_events += 1
                 else:
                     blk, ready = fetch(r)
-                    dt = time.perf_counter() - t0
-                stats.stall_s += dt
+                    t1 = time.perf_counter()
+                stats.stall_s += t1 - t0
+                tracer.complete("stall", t0, t1, tid="rounds", cat="stall",
+                                round=r)
 
                 t0 = time.perf_counter()
                 if ready is not None:
@@ -612,15 +725,24 @@ class Pems:
                 ho = host_out[r % n_outs]
                 if pending[r % n_outs]:
                     # The buffer's last writeback must have left it first.
-                    t1 = time.perf_counter()
+                    # The wait is billed to swap_out_s and, as part of the
+                    # compute window, to compute_s: its span nests inside
+                    # the round's compute span.
+                    w0 = time.perf_counter()
                     shard.engine.wait(pending[r % n_outs])
-                    stats.swap_out_s += time.perf_counter() - t1
+                    w1 = time.perf_counter()
+                    stats.swap_out_s += w1 - w0
+                    tracer.complete("writeback_wait", w0, w1, tid="rounds",
+                                    cat="io", round=r)
                 ho.copy_(out, non_blocking=cuda)
                 if cuda:
                     done = torch.cuda.Event()
                     done.record(main)
                     done.synchronize()          # blocks on the compute
-                stats.compute_s += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                stats.compute_s += t1 - t0
+                tracer.complete("compute", t0, t1, tid="rounds",
+                                cat="compute", round=r)
 
                 t0 = time.perf_counter()
                 r0 = base + r * k
@@ -629,7 +751,10 @@ class Pems:
                     r0, r0 + k, out_h, cols=out_idx,
                     wait=not async_writeback)
                 led.add_tier_out(out_h.nbytes, disk)
-                stats.swap_out_s += time.perf_counter() - t0
+                t1 = time.perf_counter()
+                stats.swap_out_s += t1 - t0
+                tracer.complete("swap_out", t0, t1, tid="rounds", cat="io",
+                                round=r, bytes=out_h.nbytes)
                 stats.rounds += 1
                 if self.cursors and p < len(self.cursors):
                     # Advisory progress note (atomic, not fsynced): a resume
@@ -733,6 +858,28 @@ class Pems:
         self.ledger.add_swap_in(rbytes * nctx, B)
         self.ledger.add_swap_out(wbytes * nctx, B)
         self.ledger.add_barrier()
+
+
+class _DrainedSpan:
+    """A span that opens and closes on a drained CUDA stream of ``device``:
+    the device work queued inside it is billed to it, and the work queued
+    before it is not.  Used by :meth:`Pems.device_span` with tracing on; an
+    exception closes the span at once."""
+
+    __slots__ = ("_span", "_stream")
+
+    def __init__(self, span, device: torch.device):
+        self._span = span
+        self._stream = torch.cuda.current_stream(device)
+
+    def __enter__(self):
+        self._stream.synchronize()
+        return self._span.__enter__()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is None:
+            self._stream.synchronize()
+        return self._span.__exit__(exc_type, exc, tb)
 
 
 class _RoundBuffers:

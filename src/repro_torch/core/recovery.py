@@ -29,9 +29,9 @@ committed flush or from the snapshot.
 
 The file names (``cursor.json``, ``cursor.p<p>.json``) and JSON keys are the
 JAX package's, and the same marks write the same bytes, so a state dir
-written by one package resumes in the other.  The JAX package's
-``in_progress`` trace spans wait for the port's tracer (``ROADMAP.md``
-queue 1 item 9).
+written by one package resumes in the other.  With a tracer attached, each
+stage's in-progress window is an ``in_progress:<stage>`` span on the
+``recovery`` lane, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +39,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Optional
+
+from ..obs import NOOP
 
 __all__ = ["atomic_replace_file", "atomic_write_json", "fsync_dir",
            "SuperstepCursor"]
@@ -104,6 +106,13 @@ class SuperstepCursor:
     reruns (``procs=[p]``).
     """
 
+    # Span tracing (attached post-construction by the runner, like the
+    # engine's): mark_in_progress opens a span on the recovery lane that
+    # mark_completed closes, so the trace shows each stage's durable
+    # in-progress window — exactly what a resume decision is made from.
+    tracer = NOOP
+    trace_tid = "recovery"
+
     def __init__(self, path: str):
         self.path = path
         self._cur = self._load()
@@ -139,11 +148,18 @@ class SuperstepCursor:
         self._cur = {"completed": self.completed, "in_progress": stage,
                      "stage": name, "round": None}
         atomic_write_json(self.path, self._cur, durable=True)
+        # Audited cross-call pair: the matching end() is in mark_completed —
+        # the in-progress window *is* the span, and a crash inside it is
+        # closed at export by the balance sanitizer.
+        # pems-lint: disable=trace-balance
+        self.tracer.begin(f"in_progress:{name or stage}", tid=self.trace_tid,
+                          cat="recovery", stage=stage)
 
     def mark_completed(self, stage: int, name: Optional[str] = None) -> None:
         self._cur = {"completed": stage, "in_progress": None,
                      "stage": name, "round": None}
         atomic_write_json(self.path, self._cur, durable=True)
+        self.tracer.end(f"in_progress:{name or stage}", tid=self.trace_tid)
 
     def note_round(self, r: int) -> None:
         """Advisory executor-round progress (atomic but not fsynced — a

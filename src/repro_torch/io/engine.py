@@ -50,6 +50,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
+from ..obs import NOOP
 from .aligned import align_down, align_up
 
 _MAX_WORKERS = 16
@@ -58,25 +59,6 @@ _MAX_WORKERS = 16
 # Everything else (EINVAL, ENOSPC, EBADMSG/IntegrityError, ...) is permanent.
 TRANSIENT_ERRNOS = frozenset(
     {errno.EIO, errno.EINTR, errno.EAGAIN, errno.ETIMEDOUT})
-
-
-class _NoopTracer:
-    """Stands in for a span tracer until the port has one (``ROADMAP.md``
-    queue 1 item 9): disabled, and every recording call does nothing."""
-
-    enabled = False
-
-    def counter(self, *args, **kwargs) -> None:
-        pass
-
-    def complete(self, *args, **kwargs) -> None:
-        pass
-
-    def instant(self, *args, **kwargs) -> None:
-        pass
-
-
-NOOP = _NoopTracer()
 
 
 class IORequest:
@@ -179,10 +161,9 @@ class IOEngine:
         self.retries = 0                # transient re-attempts issued
         self.backoff_s = 0.0            # scheduled backoff (deterministic)
         self.permanent_errors = 0       # requests that finally errored
-        # Span tracing: a tracer is attached after construction (like the
-        # duck-typed stats/ledger mirrors) once the port has one; NOOP
-        # until then, so the per-request instrumentation costs one
-        # attribute check.
+        # Span tracing: attached post-construction by the executor (like
+        # the duck-typed stats/ledger mirrors).  NOOP by default, so the
+        # per-request instrumentation costs one attribute check.
         self.tracer = NOOP
         # Test hook: workers block here before touching the file, so tests
         # can hold requests in flight deterministically.  Set by default.

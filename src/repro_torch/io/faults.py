@@ -64,6 +64,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import NOOP
+
 _KINDS = ("eio", "torn", "lat", "enospc", "kill")
 
 _SEL_RE = re.compile(
@@ -208,6 +210,11 @@ class FaultyFile:
     ``injected`` counts faults by kind for assertions and reporting.
     """
 
+    # Span tracing (attached post-construction by the executor): each
+    # injected fault is an instant event on the owning shard's lane, so a
+    # trace answers "which injection caused this retry/stall".
+    tracer = NOOP
+
     def __init__(self, inner, spec: FaultSpec):
         self.inner = inner
         self.spec = spec
@@ -282,6 +289,11 @@ class FaultyFile:
                 elif cl.kind == "torn":
                     torn = cl.param if torn is None else min(torn, cl.param)
         # Effects outside the lock so concurrent workers aren't serialised.
+        if self.tracer.enabled:
+            for cl in fire:
+                self.tracer.instant(f"fault:{cl.kind}", tid="events",
+                                    cat="fault", op=op, offset=offset,
+                                    nbytes=nbytes)
         if sleep_s:
             time.sleep(sleep_s)
         for cl in fire:

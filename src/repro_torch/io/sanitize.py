@@ -37,6 +37,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..obs import NOOP
+
 __all__ = ["SanitizeFinding", "SanitizingFile", "collect_findings"]
 
 
@@ -97,6 +99,11 @@ class SanitizingFile:
     ``findings`` holds :class:`SanitizeFinding` records.
     """
 
+    # Span tracing (attached post-construction by the executor): each
+    # finding doubles as an instant event, so a trace timeline shows *when*
+    # the race was detected relative to the spans around it.
+    tracer = NOOP
+
     def __init__(self, inner):
         self.inner = inner
         self._lock = threading.Lock()
@@ -142,9 +149,11 @@ class SanitizingFile:
         crc = (_crc(req.data)
                if req.op == "write" and req.data is not None else None)
         stack = _submit_stack()
+        hit = False
         with self._lock:
             for t in self._inflight.values():
                 if t.lo < hi and lo < t.hi and "write" in (t.op, req.op):
+                    hit = True
                     self.findings.append(SanitizeFinding(
                         kind="overlap", op=req.op, offset=req.offset,
                         nbytes=req.nbytes, path=self.path,
@@ -155,6 +164,10 @@ class SanitizingFile:
                         stack=stack))
             self._inflight[id(req)] = _Track(req.op, lo, hi, crc, stack)
             self.tracked += 1
+        if hit and self.tracer.enabled:
+            self.tracer.instant("sanitize:overlap", tid="events",
+                                cat="sanitize", op=req.op,
+                                offset=req.offset, nbytes=req.nbytes)
 
     def note_complete(self, req) -> None:
         """Engine hook: called from the worker after the driver op, while
@@ -174,6 +187,9 @@ class SanitizingFile:
                 stack=t.stack)
             with self._lock:
                 self.findings.append(f)
+            self.tracer.instant("sanitize:mutate-in-flight", tid="events",
+                                cat="sanitize", op=req.op,
+                                offset=req.offset, nbytes=req.nbytes)
 
     # ---------------------------------------------------------------- reports
     def format_findings(self) -> str:

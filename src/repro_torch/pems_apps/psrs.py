@@ -85,8 +85,6 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
         .add("rcount", (1,), torch.int32)
         .add("oflow", (1,), torch.int32)
     )
-    # The trace knobs, which the port leaves out, reach PemsConfig, which
-    # names the ROADMAP.md item that ports them.
     io_kw = {}
     if io_driver is not None:
         io_kw["io_driver"] = io_driver
@@ -206,6 +204,20 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
             writes=["result", "rcount", "oflow"], procs=procs,
             stream=True)),
     ]
+
+    # Stage spans on the main tracer's "stages" lane: one per plan stage,
+    # the unit the obs report attributes compute/I-O/stall time to.  On a
+    # CUDA executor a traced stage span begins and ends on a drained
+    # stream; with tracing off pems.tracer is the no-op singleton, so the
+    # wrapper costs one attribute check per stage.
+    def _staged(name, fn):
+        def run(st, procs=None):
+            with pems.device_span(f"stage:{name}", tid="stages",
+                                  cat="stage"):
+                return fn(st, procs=procs)
+        return run
+
+    steps = [(name, _staged(name, fn)) for name, fn in steps]
 
     def load(data_blocks):                  # [v, n_v] int32
         return pems.init().with_field("data", data_blocks)
@@ -345,9 +357,16 @@ def psrs_sort(
 
     ``checksums`` keeps CRC sidecars on a disk tier's backing;
     ``io_driver="faulty:<driver>"`` with ``fault_spec`` injects I/O faults
-    and ``"sanitize:<driver>"`` records in-flight races.  Tracing
-    (``trace``/``trace_path``) is not ported yet and raises
-    ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it.
+    and ``"sanitize:<driver>"`` records in-flight races.
+
+    ``trace=True`` records the JAX package's structured spans for the whole
+    run — per stage and per superstep, executor rounds (compute vs
+    swap_in/swap_out vs stall), per-request engine I/O, collective chunks —
+    in ``pems.tracer`` (on CUDA the stage and superstep spans begin and end
+    on a drained stream; results are bit-identical).  With ``trace_path``
+    set the merged Chrome/Perfetto trace (plus a metrics snapshot) is
+    written there on completion; inspect with ``python -m repro_torch.obs
+    report <path>``.
 
     Raises ``ValueError`` for n not divisible by v (and for any invalid
     :class:`~repro_torch.core.PemsConfig` combination, or ``P > 1`` on the
@@ -376,6 +395,8 @@ def psrs_sort(
                               trace=trace, trace_path=trace_path,
                               device=dev)
     result, rcount, oflow = program(keys.reshape(v, n_v))
+    if pems.cfg.trace_path is not None:
+        pems.export_trace()
     if bool(oflow.any()):
         raise OverflowError(
             "PSRS message capacity exceeded; raise cap/rcap "
@@ -540,6 +561,9 @@ def psrs_run_recoverable(
 
     cursors = [SuperstepCursor(SuperstepCursor.path_for(state_dir, p, P))
                for p in range(P)]
+    for p, cur in enumerate(cursors):
+        cur.tracer = pems.tracer
+        cur.trace_tid = f"recovery.p{p}" if P > 1 else "recovery"
     pems.cursors = cursors
 
     store = pems.init()      # create-or-reuse: committed rows are kept
@@ -560,20 +584,25 @@ def psrs_run_recoverable(
                 bk.recompute_checksums()
         snap = _load_snapshot(state_dir, int(in_prog), p, P)
         if snap is not None:
-            for fname, val in snap.items():
-                store = store.with_field_rows(fname, p * m_ctx, val)
+            with pems.tracer.span("snapshot:restore", tid="recovery",
+                                  cat="recovery", proc=p,
+                                  stage=int(in_prog)):
+                for fname, val in snap.items():
+                    store = store.with_field_rows(fname, p * m_ctx, val)
 
     for i, (name, fn) in enumerate(stages):
         todo = [p for p in range(P) if i > cursors[p].completed]
         for p in todo:
             fields = STAGE_SNAPSHOT_FIELDS.get(name, ())
             if fields:
-                _save_snapshot(
-                    state_dir, i,
-                    {f: store.field_rows(f, p * m_ctx,
-                                         (p + 1) * m_ctx).numpy()
-                     for f in fields},
-                    p, P)
+                with pems.tracer.span("snapshot:save", tid="recovery",
+                                      cat="recovery", proc=p, stage=i):
+                    _save_snapshot(
+                        state_dir, i,
+                        {f: store.field_rows(f, p * m_ctx,
+                                             (p + 1) * m_ctx).numpy()
+                         for f in fields},
+                        p, P)
             cursors[p].mark_in_progress(i, name)
             store = fn(store, procs=[p])
             if crash_in == i and p == todo[-1]:
@@ -589,6 +618,8 @@ def psrs_run_recoverable(
         if todo and crash_after == i:
             os.kill(os.getpid(), signal.SIGKILL)
 
+    if pems.cfg.trace_path is not None:
+        pems.export_trace()
     result, rcount, oflow = extract(store)
     if bool(oflow.any()):
         raise OverflowError(

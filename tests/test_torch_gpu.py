@@ -560,6 +560,58 @@ def test_collectives_on_the_card_match_the_cpu(cuda, dtype, tier, P):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+@pytest.mark.parametrize("tier, P", [("device", 1), ("device", 4),
+                                     ("file", 1), ("file", 2)])
+def test_traced_psrs_on_the_card_matches_untraced(cuda, tmp_path, tier, P):
+    """Tracing on the card: the keys and every ledger counter equal the
+    untraced run's, and each stage span begins and ends on a drained
+    stream, so ``sort_sample``'s lasts at least its local-sort launches'
+    CUDA-event time; on the file tier the report's overlap is
+    TierStats'."""
+    from repro_torch.core import make_mesh
+    from repro_torch.kernels.bitonic_sort import bitonic_sort
+    from repro_torch.obs import load_trace, summarize
+    from repro_torch.pems_apps import psrs_sort
+
+    keys = _keys((1 << 20,), cuda, 11)
+    events = []
+
+    def timed_sort(x):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        y = bitonic_sort(x)
+        b.record()
+        events.append((a, b))
+        return y
+
+    kw = dict(v=16, k=2, P=P, driver="async", device=cuda, tier=tier,
+              return_pems=True, local_sort=timed_sort)
+    if tier == "device" and P > 1:
+        kw["mesh"] = make_mesh(P, device=cuda)
+    runs = []
+    for trace in (False, True):
+        events.clear()
+        tp = str(tmp_path / f"t{trace}.json")
+        extra = dict(trace=True, trace_path=tp) if trace else {}
+        if tier == "file":
+            extra["backing_path"] = str(tmp_path / f"b{trace}.bin")
+        out, pems = psrs_sort(keys, **kw, **extra)
+        runs.append((out.cpu(), pems.merged_shard_ledger().snapshot()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[1][0], torch.sort(keys).values.cpu())
+    assert runs[0][1] == runs[1][1]
+    trace = load_trace(tp)
+    stage = {e["name"]: e["dur"] / 1e3 for e in trace["traceEvents"]
+             if e.get("cat") == "stage"}
+    assert len(stage) == 7
+    kernel_ms = sum(a.elapsed_time(b) for a, b in events)
+    assert stage["stage:sort_sample"] >= kernel_ms > 0
+    if tier == "file":
+        s = summarize(trace)
+        assert abs(s["overlap_fraction"] - s["metrics_overlap"]) <= 1e-9
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     bs = _kernel("bitonic_sort")
     with pytest.raises(TypeError, match="int32"):

@@ -76,6 +76,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.core.recovery, repro_torch.checkpoint\n"
         "import repro_torch.io.npyio, repro_torch.io.faults\n"
         "import repro_torch.io.sanitize, repro_torch.io.checksum\n"
+        "import repro_torch.obs, repro_torch.obs.__main__\n"
         "repro_torch.io.open_file, repro_torch.io.save_npy_durable\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -131,19 +132,20 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     ("fault_spec", "eio@1", "item 6"),
     ("P", 2, "item 7"),
     ("alpha", 1, "item 7"),
-    ("trace", True, "item 9"),
+    ("trace_path", "run.json", "item 9"),
 ])
 def test_knobs_outside_the_slice_raise_and_name_their_roadmap_item(
         knob, value, item):
     """Knobs of a ROADMAP.md item the port has not brought raise
-    ``NotImplementedError`` naming it.  Item 6 (recovery) is ported: its
-    knobs on the device tier raise the JAX package's own ``ValueError``."""
+    ``NotImplementedError`` naming it.  Items 6 (recovery) and 9 (tracing)
+    are ported: their knobs misused on the device tier (``trace_path``
+    without ``trace``) raise the JAX package's own ``ValueError``."""
     from repro_torch.core import Mesh
     from repro_torch.pems_apps import psrs_sort
 
     keys = torch.arange(64, dtype=torch.int32)
     kw = {knob: value}
-    if item == "item 6":
+    if item in ("item 6", "item 9"):
         from _jax_ref import apps
         with pytest.raises(ValueError) as port:
             psrs_sort(keys, v=4, device="cpu", **kw)
