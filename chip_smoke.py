@@ -120,18 +120,28 @@ What it does, in order; any failure raises and the exit code is non-zero:
    256 (float32, atol 1e-5; SSD within 1e-4 (1 + |plain|), LRU within
    1e-5 (1 + |plain|)), then the same flash calls in bf16, on the
    tensor-core kernel, within 2^-10 + 2^-7 |plain| (``sk_valid`` 0, 1 and
-   sk/2 + 1, decode ``q_offset``, windows 1, 16 and 100).  Runs the
-   smoke-width qwen2-1.5b, mamba2-130m and recurrentgemma-2b in float32
-   with TF32 off on the card and on the CPU from the same parameters
-   (40-token prompts, past recurrentgemma's smoke window of 16): prefill
-   logits within 1e-4, greedy tokens equal.
-8. Serves qwen2-1.5b, mamba2-130m and recurrentgemma-2b at full width
-   (bf16, random weights from ``--seed``): ``REQUESTS`` (8) prompts of
-   ``PROMPT_LEN`` (1024) tokens, or ``HYBRID_PROMPT_LEN`` (3072, so that
-   its 2048-token window masks keys) for recurrentgemma, ``GEN_LEN`` (64)
-   greedy tokens, every kernel's count reset just before each run and the
-   model's own kernels (recurrentgemma: the LRU scan and flash attention)
-   required above zero after it.  Prints prefill ms, decode ms per step
+   sk/2 + 1, decode ``q_offset``, windows 1, 16 and 100, prefix-LM masks
+   of 1, 37 and 70 keys alone and under a window of 16, at arctic's GQA
+   group of 7 and paligemma's group of 8 at head dim 256).  Runs the
+   smoke-width qwen2-1.5b, mamba2-130m, recurrentgemma-2b, kimi-k2,
+   arctic and paligemma (with 8 patch embeddings) in float32 with TF32
+   off on the card and on the CPU from the same parameters (40-token
+   prompts, past recurrentgemma's smoke window of 16): prefill logits
+   within 1e-4, greedy tokens equal.
+8. Serves qwen2-1.5b, mamba2-130m, recurrentgemma-2b, kimi-k2-1t-a32b and
+   arctic-480b (each cut to its first ``MOE_DEPTH`` (2) layers: kimi's
+   dense first layer and one MoE layer, arctic's two MoE layers, 19.9 and
+   27.7 G parameters) and paligemma-3b at full width (bf16, random weights
+   from ``--seed``): ``REQUESTS`` (8) prompts of ``PROMPT_LEN`` (1024)
+   positions (paligemma: 256 random patch embeddings and 768 tokens,
+   through the engine's ``extra_batch``), or ``HYBRID_PROMPT_LEN`` (3072,
+   so that its 2048-token window masks keys) for recurrentgemma,
+   ``GEN_LEN`` (64) greedy tokens, every kernel's count reset just before
+   each run and the model's own kernels (recurrentgemma: the LRU scan and
+   flash attention) required above zero after it.  On kimi's MoE layer
+   at full width, holds the capacity dispatch against the dense oracle
+   on 64 tokens (bf16), with nothing dropped and at the published
+   capacity factor, which drops (``moe_oracle_check``).  Prints prefill ms, decode ms per step
    (median), generated tokens/s and peak memory, checks the tokens and that
    the prefill logits keep a cosine of 0.99 with the same model on the
    kernels' plain versions, and times the prefill and one decode step on
@@ -139,14 +149,16 @@ What it does, in order; any failure raises and the exit code is non-zero:
    the device's busy share.
 9. Holds each float kernel against its plain version at the serve shapes
    (flash: qwen2's causal prefill over the cache and a decode call whose
-   ``sk_valid`` is no tile multiple, and recurrentgemma's windowed ones,
+   ``sk_valid`` is no tile multiple, recurrentgemma's windowed ones, and
+   kimi's, arctic's and paligemma's prefills, the last under its 256-key
+   prefix,
    bf16 within 2^-10 + 2^-7 |plain|: both sum in fp32 and round once, the
    kernel's P entering P·V as bf16 hi + lo, so they differ by one bf16 ulp
    at most; SSD: the prompt length and a ragged
    one; LRU: the prompt length and a ragged one) and times it beside its
    plain version and ``scaled_dot_product_attention`` (never called by the
    port); the short decode calls, and their library calls, on the device
-   alone.
+   alone.  Alone, phases 7-9: ``python3 chip_smoke.py --lm-only``.
 10. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
 
@@ -166,6 +178,7 @@ algorithm, not the function, and is printed beside it for information.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import math
@@ -683,6 +696,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-only", action="store_true",
                     help="build and run the tracing phase alone (no "
                          "kernels line, no ok line)")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="build and run the LM serving phase alone (no "
+                         "kernels line, no ok line)")
     ap.add_argument("--recovery-child", metavar="SPEC",
                     help="one leg of the recovery phase (a JSON spec); the "
                          "phase starts these itself")
@@ -718,6 +734,9 @@ def main(argv=None) -> int:
         return 0
     if args.trace_only:
         run_trace(dev, args, card)
+        return 0
+    if args.lm_only:
+        run_lm(dev, args)
         return 0
     rows = run(dev, args)
     torch.cuda.empty_cache()
@@ -2356,6 +2375,13 @@ FLASH_EDGES = [(2, 2, 2, 16, 16, 16), (1, 4, 2, 13, 29, 16),
                (2, 6, 1, 1, 37, 32), (1, 12, 2, 24, 24, 16),
                (2, 2, 1, 5, 70, 16), (2, 6, 2, 16, 32, 16),
                (2, 12, 2, 70, 150, 128), (2, 12, 2, 1, 1062, 128)]
+# Flash edge shapes under the prefix-LM mask (paligemma's patches), (b, hq,
+# hkv, sq, sk, d): small heads, arctic's GQA group of 7 (56 query heads over
+# 8), paligemma's group of 8 at head dim 256 in a prefill and a decode call;
+# each with prefixes of 1, 37 (inside a key tile) and 70 (past one), alone
+# and with a window of 16.
+FLASH_PREFIX_EDGES = [(2, 4, 2, 70, 90, 16), (2, 56, 8, 70, 80, 128),
+                      (2, 8, 1, 100, 110, 256), (2, 8, 1, 1, 300, 256)]
 # Windowed flash edge shapes, (b, hq, hkv, sq, sk, d): recurrentgemma's heads
 # (10 of 256 over one KV head) in a prefill and a decode call, and smaller
 # ones; each is called with windows of 1, 16 and 100 (fp32 and bf16).
@@ -2421,10 +2447,11 @@ def lru_inputs(gen, b, s, d):
 
 
 def flash_edge_checks(gen, fa, dtype, rtol: float, atol: float) -> int:
-    """Flash attention against its plain version at ``FLASH_EDGES`` and
-    ``FLASH_WINDOW_EDGES`` in ``dtype`` (float32 takes the FMA kernel,
-    bfloat16 the tensor-core kernel): causal and not, ``sk_valid`` 0, 1 and
-    sk/2 + 1, decode calls at ``q_offset``, windows of 1, 16 and 100.
+    """Flash attention against its plain version at ``FLASH_EDGES``,
+    ``FLASH_WINDOW_EDGES`` and ``FLASH_PREFIX_EDGES`` in ``dtype`` (float32
+    takes the FMA kernel, bfloat16 the tensor-core kernel): causal and not,
+    ``sk_valid`` 0, 1 and sk/2 + 1, decode calls at ``q_offset``, windows
+    of 1, 16 and 100, prefixes of 1, 37 and 70 alone and with a window.
     Returns the number of calls checked."""
     n = 0
     for b, hq, hkv, sq, sk, d in FLASH_EDGES:
@@ -2447,6 +2474,19 @@ def flash_edge_checks(gen, fa, dtype, rtol: float, atol: float) -> int:
                       [dict(causal=True), dict(causal=True, q_offset=sk - sq)])
             for kw in calls:
                 kw["window"] = w
+                close(fa.attend(q, k, v, **kw), fa.attend_plain(q, k, v, **kw),
+                      rtol, atol,
+                      f"flash {dtype} {b, hq, hkv, sq, sk, d} {kw}")
+                n += 1
+    for b, hq, hkv, sq, sk, d in FLASH_PREFIX_EDGES:
+        q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
+        for pre in (1, 37, 70):
+            calls = ([dict(sk_valid=pos + 1, q_offset=pos)
+                      for pos in (sk // 3, sk - 1)] if sq == 1 else
+                     [dict(sk_valid=sq), dict(sk_valid=sk - 3,
+                                              q_offset=sk - sq)])
+            for kw in calls + [dict(c, window=16) for c in calls]:
+                kw.update(causal=True, prefix=pre)
                 close(fa.attend(q, k, v, **kw), fa.attend_plain(q, k, v, **kw),
                       rtol, atol,
                       f"flash {dtype} {b, hq, hkv, sq, sk, d} {kw}")
@@ -2490,7 +2530,9 @@ def lm_edge_checks(gen, fa, ss, ls) -> None:
 
 def glue_check(dev, seed: int) -> None:
     """The models' glue around the kernels on the card, in float32 with TF32
-    off: smoke-width prefill logits and greedy tokens equal the CPU's."""
+    off: smoke-width prefill logits and greedy tokens equal the CPU's
+    (paligemma with its 8 patch embeddings before the prompt; the MoE
+    models' routing from the same float32 router logits)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models.model import init_params
@@ -2500,19 +2542,28 @@ def glue_check(dev, seed: int) -> None:
     torch.backends.cudnn.allow_tf32 = False
     print("glue: float32, torch.backends.cuda.matmul.allow_tf32 = False, "
           "torch.backends.cudnn.allow_tf32 = False")
-    for arch in ("qwen2-1.5b", "mamba2-130m", "recurrentgemma-2b"):
+    for arch in ("qwen2-1.5b", "mamba2-130m", "recurrentgemma-2b",
+                 "kimi-k2-1t-a32b", "arctic-480b", "paligemma-3b"):
         cfg = get_config(arch).smoke()
         params = init_params(cfg, torch.Generator().manual_seed(seed))
         gpu = Model(cfg, device=dev, params=params)
         cpu = Model(cfg, device="cpu", params=params)
         prompts = torch.randint(0, cfg.vocab, (4, 40),
                                 generator=torch.Generator().manual_seed(seed))
-        lg, _ = gpu.prefill({"tokens": prompts.to(dev)},
+        extra = ({"patches": torch.randn(
+            (4, cfg.n_frontend_tokens, cfg.d_model),
+            generator=torch.Generator().manual_seed(seed + 1))}
+            if cfg.n_frontend_tokens else {})
+        lg, _ = gpu.prefill({"tokens": prompts.to(dev),
+                             **{k: t.to(dev) for k, t in extra.items()}},
                             gpu.init_cache(4, 64))
-        lc, _ = cpu.prefill({"tokens": prompts}, cpu.init_cache(4, 64))
+        lc, _ = cpu.prefill({"tokens": prompts, **extra},
+                            cpu.init_cache(4, 64))
         err = close(lg.cpu(), lc, 1e-4, 1e-4, f"glue {cfg.name} prefill")
-        tg = ServeEngine(gpu, max_seq=64).generate(prompts, steps=16)
-        tc = ServeEngine(cpu, max_seq=64).generate(prompts, steps=16)
+        tg = ServeEngine(gpu, max_seq=64).generate(prompts, steps=16,
+                                                   extra_batch=extra)
+        tc = ServeEngine(cpu, max_seq=64).generate(prompts, steps=16,
+                                                   extra_batch=extra)
         check(torch.equal(tg.cpu(), tc), f"glue {cfg.name}: greedy tokens "
                                          "on the card == CPU")
         print(f"glue {cfg.name}: prefill logits max |gpu - cpu| = {err:.3g}, "
@@ -2520,12 +2571,18 @@ def glue_check(dev, seed: int) -> None:
 
 
 def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
-               prompt_len: int = PROMPT_LEN) -> dict:
+               prompt_len: int = PROMPT_LEN, depth: int | None = None,
+               after=None) -> dict:
     """Serve ``arch`` at full width (bf16, weights from the seed): a short
     warm-up, then the main run with every kernel's count (``mods``) set to 0
     just before it; each of ``mods[kernels]`` must have launched.  Checks
     the tokens and, on two prompts, the prefill logits with the kernels
-    against the same model with their plain versions."""
+    against the same model with their plain versions.  ``depth`` cuts the
+    model to its first ``depth`` layers (``dataclasses.replace(cfg,
+    n_layers=depth)``, printed); a patches model takes ``prompt_len``
+    positions, its ``n_frontend_tokens`` random patch embeddings (from the
+    seed) and the rest prompt tokens, through the engine's ``extra_batch``.
+    ``after(model)``, if given, runs before the model is freed."""
     import repro_torch.models.blocks as blocks
     import repro_torch.models.layers as layers
     from repro_torch.configs import get_config
@@ -2536,19 +2593,28 @@ def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
     from repro_torch.serve import ServeEngine
 
     cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     b, s, g = REQUESTS, prompt_len, GEN_LEN
+    pre = cfg.n_frontend_tokens if cfg.frontend == "patches" else 0
     torch.cuda.reset_peak_memory_stats()
     model = Model(cfg, device=dev, seed=args.seed)
     n_params = sum(p.numel() for p in model.parameters())
     eng = ServeEngine(model, max_seq=s + g + 8)
-    prompts = torch.randint(0, cfg.vocab, (b, s),
-                            generator=torch.Generator().manual_seed(args.seed))
-    eng.generate(prompts[:2, :64], steps=2)                      # warm-up
+    cpu_gen = torch.Generator().manual_seed(args.seed)
+    prompts = torch.randint(0, cfg.vocab, (b, s - pre), generator=cpu_gen)
+    patches = (torch.randn((b, pre, cfg.d_model), generator=cpu_gen)
+               .to(dev, torch.bfloat16) if pre else None)
+
+    def extra(rows):
+        return {"patches": patches[:rows]} if pre else {}
+
+    eng.generate(prompts[:2, :64], steps=2, extra_batch=extra(2))  # warm-up
     torch.cuda.synchronize()
     for mod in mods.values():
         mod.LAUNCHES = 0
     t0 = time.perf_counter()
-    out = eng.generate(prompts, steps=g)
+    out = eng.generate(prompts, steps=g, extra_batch=extra(b))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: mod.LAUNCHES for name, mod in mods.items()}
@@ -2562,14 +2628,14 @@ def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
     t = eng.timing
 
     # The same prefill with the kernels and with their plain versions.
-    two = prompts[:2].to(dev)
-    lk, _ = model.prefill({"tokens": two}, model.init_cache(2, s))
+    two = {"tokens": prompts[:2].to(dev), **extra(2)}
+    lk, _ = model.prefill(two, model.init_cache(2, s))
     saved = layers.attend, blocks.ssd_scan_chunked, blocks.lru_scan_chunked
     layers.attend = attend_plain
     blocks.ssd_scan_chunked = (lambda *a, chunk: ssd_chunked_plain(*a, chunk))
     blocks.lru_scan_chunked = (lambda *a, chunk: lru_chunked_plain(*a, chunk))
     try:
-        lp, _ = model.prefill({"tokens": two}, model.init_cache(2, s))
+        lp, _ = model.prefill(two, model.init_cache(2, s))
     finally:
         (layers.attend, blocks.ssd_scan_chunked,
          blocks.lru_scan_chunked) = saved
@@ -2584,8 +2650,17 @@ def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
                decode_ms=statistics.median(t["decode_ms"]),
                tok_s=b * g / ((t["prefill_ms"] + sum(t["decode_ms"])) / 1e3),
                wall_s=wall, peak_gib=peak / 2**30)
-    print(f"serve {arch} ({n_params / 1e9:.3f} B params, bf16) requests={b} "
-          f"prompt={s} generated={g}: prefill {res['prefill_ms']:.3f} ms, "
+    cut = ("" if depth is None else
+           f", depth cut to {depth} of {get_config(arch).n_layers} layers "
+           f"(dataclasses.replace(cfg, n_layers={depth}))")
+    if cfg.is_moe:   # the expert capacity of a prefill and a decode step
+        from repro_torch.models.blocks import moe_groups
+        cut += (f", expert capacity {moe_groups(cfg, b * s)[2]} prefill, "
+                f"{moe_groups(cfg, b)[2]} decode")
+    prompt = f"{pre} patches + {s - pre} tokens" if pre else f"{s}"
+    print(f"serve {arch} ({n_params / 1e9:.3f} B params, bf16{cut}) "
+          f"requests={b} prompt={prompt} generated={g}: prefill "
+          f"{res['prefill_ms']:.3f} ms, "
           f"decode {res['decode_ms']:.3f} ms/step (median of {g}), "
           f"{res['tok_s']:.1f} generated tok/s, {wall:.3f} s host clock, "
           f"peak {res['peak_gib']:.2f} GiB, launches {counts}; prefill "
@@ -2595,9 +2670,11 @@ def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
     # The device's own time for the prefill and one decode step, against
     # the times above, which the host paces: the rest is the device idle.
     cache = model.init_cache(b, s + g + 8)
-    pre_dev = stack_device_ms(model, model._embed(prompts.to(dev)), cache, 0)
+    x, prefix = model._embed_inputs({"tokens": prompts.to(dev), **extra(b)})
+    pre_dev = stack_device_ms(model, x, cache, 0, prefix)
     dec_dev = stack_device_ms(model, model._embed(out[:, :1].to(dev)), cache,
                               s)
+    del x
     for name, dev_ms, paced in (("prefill", pre_dev, res["prefill_ms"]),
                                 ("decode step", dec_dev, res["decode_ms"])):
         busy = ("not measured (the host did not finish queueing first)"
@@ -2607,9 +2684,100 @@ def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
                 "paced; by layer kind " + ", ".join(
                     f"{k} {t:.3f} ms" for k, t in dev_ms[1].items()))
         print(f"serve {arch} {name}: {busy}")
-    del model, eng
+    res.update(prefill_device_ms=None if pre_dev is None else pre_dev[0],
+               decode_device_ms=None if dec_dev is None else dec_dev[0])
+    if after is not None:
+        after(model)
+    del model, eng, cache
     torch.cuda.empty_cache()
     return res
+
+
+# The MoE serving cells: each model cut to its first two layers at full
+# width (kimi's dense first layer and one MoE layer; arctic's two MoE
+# layers), and the dense-oracle check's tokens.
+MOE_DEPTH = 2
+MOE_ORACLE_TOKENS = 64
+
+
+def moe_oracle_check(model) -> dict:
+    """The capacity dispatch against the dense oracle on the card, at full
+    width, on the first MoE layer of ``model`` (bf16) and
+    ``MOE_ORACLE_TOKENS`` tokens of unit scale.
+
+    (1) ``capacity_factor`` raised until ``cap`` takes every token (nothing
+    drops): ``moe_apply`` against ``moe_apply_dense_oracle``.  (2) The
+    published ``capacity_factor``, which drops: ``moe_apply`` against the
+    oracle's sum over the entries the dispatch serves (an expert past its
+    capacity serves only its first ``cap - 1``, as the JAX package's
+    scatter leaves it).  Both sides route from the same float32 logits (one
+    call, the same bits).  They differ by bf16 roundings, each at most 2^-8
+    of what it rounds: the capacity path rounds each of the K weighted
+    expert outputs and each partial sum, the oracle each gate weight and
+    its fp32 sum, both the shared or dense MLP's add, and the two expert
+    products may round their bf16 outputs apart (other matrix shapes).  So
+    each element is held within (2K + 3)·2^-8·S, S the magnitudes it sums
+    down to the expert products' terms: Σ_k |w_k|·(|h_k|·|w_out_k|) +
+    |shared| + |dense|."""
+    import repro_torch.models.blocks as blocks
+    from repro_torch.models.layers import mlp
+    from repro_torch.models.model import layer_kinds
+    cfg = model.cfg
+    layer = model.layers[layer_kinds(cfg).index("moe")]["moe"]
+    dev = model.device
+    t, e, k, d = MOE_ORACLE_TOKENS, cfg.n_experts, cfg.top_k, cfg.d_model
+    x = torch.randn((1, t, d), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7)
+                    ).to(torch.bfloat16)
+    xe = x.reshape(t, d).expand(e, -1, -1)
+    ye = blocks._experts(cfg, layer, xe).float()                # [E, T, d]
+    w_in, w_out = layer["w_in"], layer["w_out"]
+    hh = torch.bmm(xe, w_in.view(e, d, -1)).unflatten(-1, w_in.shape[2:])
+    act = (torch.nn.functional.silu if cfg.act == "swiglu" else
+           lambda z: torch.nn.functional.gelu(z, approximate="tanh"))
+    h = (act(hh[..., 0, :]) * hh[..., 1, :] if w_in.shape[2] == 2
+         else act(hh[..., 0, :]))
+    terms = torch.cat([torch.bmm(h[c:c + 64].abs(), w_out[c:c + 64].abs())
+                       for c in range(0, e, 64)]).float()       # [E, T, d]
+    del hh, h
+    side = [mlp(x, layer[n], cfg.act)[0].float() for n in ("shared", "dense")
+            if n in layer]
+
+    out = {}
+    for name, cf in (("no drop", e / k * 0.9999),
+                     ("published", cfg.capacity_factor)):
+        cap_cfg = dataclasses.replace(cfg, capacity_factor=cf)
+        _, _, cap = blocks.moe_groups(cap_cfg, t)
+        r = blocks.moe_dispatch(cap_cfg, layer["router"], x, cap)
+        served = r["served"][0]
+        comb = torch.zeros((t, e), device=dev)
+        comb[r["tok_sorted"][0], r["se"][0]] = (
+            r["w_sorted"][0] * served).to(torch.bfloat16).float()
+        mags = torch.einsum("te,etd->td", comb.abs(), terms)
+        mags = mags + sum(m.abs() for m in side)
+        y, aux = blocks.moe_apply(cap_cfg, layer, x)
+        if name == "no drop":
+            check(cap == t and bool(served.all()), f"moe oracle: cap {cap} "
+                  f"takes all {t} tokens, nothing dropped")
+            want = blocks.moe_apply_dense_oracle(cfg, layer, x)[0].float()
+        else:
+            check(not bool(served.all()), f"moe: capacity factor {cf} (cap "
+                  f"{cap}) drops entries")
+            want = torch.einsum("te,etd->td", comb, ye) + sum(side)
+        diff = (y[0].float() - want).abs()
+        ratio = float((diff / ((2 * k + 3) * 2**-8 * mags)).max())
+        check(bool(torch.isfinite(y).all()) and ratio <= 1.0,
+              f"moe {name}: |capacity - oracle| within (2K + 3)·2^-8·S, "
+              f"max ratio {ratio:.3g}")
+        out[name] = dict(cap=cap, dropped=int((~served).sum()),
+                         max_abs_err=float(diff.max()), max_ratio=ratio,
+                         aux=float(aux))
+        print(f"moe oracle {cfg.name} ({name}, capacity factor {cf:.6g}, cap "
+              f"{cap}, {t} tokens, bf16): {out[name]['dropped']} of {t * k} "
+              f"entries not served, max |capacity - oracle| "
+              f"{out[name]['max_abs_err']:.4g}, at most {ratio:.4f} of the "
+              f"(2K + 3)·2^-8·S bound; aux {float(aux):.6f}")
+    return out
 
 
 def device_ms(fn, reps: int = 1):
@@ -2632,17 +2800,19 @@ def device_ms(fn, reps: int = 1):
     return start.elapsed_time(end) / reps if queued_first else None
 
 
-def stack_device_ms(model, x, cache, pos: int):
+def stack_device_ms(model, x, cache, pos: int, prefix: int = 0):
     """Device milliseconds of one pass of ``x`` through ``model``'s layers
     and its unembedding, timed layer by layer with :func:`device_ms` (a
     whole step's ~1,700 launches overflow the launch queue): ``(total,
     {kind: ms})`` summed by layer kind (a hybrid model's rec and windowed
-    attn layers are one flat list, as are their caches), or ``None``."""
+    attn layers are one flat list, as are their caches; an MoE model's
+    dense and MoE layers), or ``None``."""
     from repro_torch.models.model import layer_kinds
     times = [("unembed", device_ms(lambda: model._unembed(x[:, -1:])))]
     for kind, lp, c in zip(layer_kinds(model.cfg), model.layers,
                            cache["layers"]):
-        times.append((kind, device_ms(lambda: model._layer(lp, x, c, pos))))
+        times.append((kind, device_ms(
+            lambda: model._layer(lp, x, c, pos, prefix))))
     if any(t is None for _, t in times):
         return None
     by_kind = {}
@@ -2659,19 +2829,63 @@ def sdpa_fn(q, k, v, causal: bool):
         qh, kh, vh, is_causal=causal, enable_gqa=True)
 
 
-def sdpa_window_fn(q, k, v, window: int):
+def sdpa_mask_fn(q, k, v, window: int = 0, prefix: int = 0):
     """One scaled_dot_product_attention call over [B, H, S, d] copies of the
-    same inputs, the KV head expanded to the query heads, with the causal
-    window as a boolean mask (the yardstick; the port never calls it)."""
+    same inputs, the KV head expanded to the query heads, with the model's
+    causal mask as a boolean mask: the prefix-LM mask ``(j <= i) | (j <
+    prefix)`` and with a ``window`` the keys ``j > i - window`` (the
+    yardstick; the port never calls it)."""
     hq, hkv = q.shape[2], k.shape[2]
     qh = q.transpose(1, 2).contiguous()
     kh, vh = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
               .contiguous() for t in (k, v))
     i = torch.arange(q.shape[1], device=q.device)[:, None]
     j = torch.arange(k.shape[1], device=q.device)[None, :]
-    mask = (j <= i) & (j > i - window)
+    mask = (j <= i) | (j < prefix)
+    if window:
+        mask = mask & (j > i - window)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=mask)
+
+
+def flash_model_row(gen, fa, name: str, arch: str, launches: int, reps: int,
+                    prompt_len: int = PROMPT_LEN, window: int = 0,
+                    prefix: int = 0):
+    """Kernel 5 at ``arch``'s prefill (bf16): ``REQUESTS`` × ``prompt_len``
+    queries of its heads over its serve cache, causal, ``sk_valid`` the
+    prompt, with the model's ``window`` or ``prefix`` mask; held against
+    the plain version and timed beside it and the library call.  Returns
+    the row and its ``(q, k, v)``, the cache for a decode row."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    b, s, g = REQUESTS, prompt_len, GEN_LEN
+    cache = s + g + 8
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = flash_inputs(gen, b, s, cache, hq, hkv, d, torch.bfloat16)
+    pre = dict(causal=True, sk_valid=s, window=window, prefix=prefix)
+    err = close(fa.attend(q, k, v, **pre), fa.attend_plain(q, k, v, **pre),
+                BF16_RTOL, BF16_ATOL, f"flash {name} prefill")
+    # The keys each query sees: up to max(i, prefix - 1), past i - window.
+    seen = sum(max(i, prefix - 1) + 1 - (max(0, i - window + 1) if window
+                                          else 0) for i in range(s))
+    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * s * hkv * d),
+                       4 * b * hq * d * seen, BF16_FLOPS_PER_S)
+    kv = k[:, :s], v[:, :s]
+    lib = (sdpa_mask_fn(q, *kv, window, prefix) if window or prefix else
+           sdpa_fn(q, *kv, True))
+    masks = (f", window {window}" if window else "") + (
+        f", prefix {prefix}" if prefix else "")
+    row = dict(
+        name=name, route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:78",
+        launches=launches, max_abs_err=err,
+        ms=cuda_ms(lambda: fa.attend(q, k, v, **pre), reps),
+        plain_ms=cuda_ms(lambda: fa.attend_plain(q, k, v, **pre), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, reps),
+        shape=f"{arch} prefill q [{b}, {s}, {hq}, {d}] bf16 over a [{b}, "
+              f"{cache}, {hkv}, {d}] cache, causal{masks}, sk_valid {s}")
+    return row, (q, k, v)
 
 
 def flash_decode_row(fa, row, q1, k, v, dec, live, reps):
@@ -2703,39 +2917,19 @@ def lm_kernel_rows(gen, fa, ss, ls, launches, args) -> list:
     from repro_torch.configs import get_config
     reps = args.reps
     b, s, g = REQUESTS, PROMPT_LEN, GEN_LEN
-    cache = s + g + 8
-    qwen, mamba = get_config("qwen2-1.5b"), get_config("mamba2-130m")
-    hq, hkv, d = qwen.n_heads, qwen.n_kv_heads, qwen.head_dim
-    # Prefill: q over the whole cache, causal, sk_valid = s.
-    q, k, v = flash_inputs(gen, b, s, cache, hq, hkv, d, torch.bfloat16)
-    pre = dict(causal=True, sk_valid=s)
-    err = close(fa.attend(q, k, v, **pre), fa.attend_plain(q, k, v, **pre),
-                BF16_RTOL, BF16_ATOL, "flash prefill")
-    pairs = s * (s + 1) // 2
-    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * s * hkv * d),
-                       4 * b * hq * d * pairs, BF16_FLOPS_PER_S)
-    kv = k[:, :s], v[:, :s]
-    row = dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:78",
-        launches=launches["flash"], max_abs_err=err,
-        ms=cuda_ms(lambda: fa.attend(q, k, v, **pre), reps),
-        plain_ms=cuda_ms(lambda: fa.attend_plain(q, k, v, **pre), 2),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(sdpa_fn(q, *kv, True), reps),
-        shape=f"prefill q [{b}, {s}, {hq}, {d}] bf16 over a [{b}, {cache}, "
-              f"{hkv}, {d}] cache, causal, sk_valid {s}")
-    # Decode: one query row at pos, sk_valid = pos + 1 (not a tile multiple).
+    mamba = get_config("mamba2-130m")
+    # qwen2's prefill over its cache, then a decode call at pos, sk_valid =
+    # pos + 1 (not a tile multiple).
+    row, (q, k, v) = flash_model_row(gen, fa, "flash_attention", "qwen2-1.5b",
+                                     launches["flash"], reps)
     pos = s + g // 2 + 5
     q1 = q[:, :1].contiguous()
     flash_decode_row(fa, row, q1, k, v, dict(causal=True, sk_valid=pos + 1,
                                              q_offset=pos), pos + 1, reps)
-    row["decode_shape"] = (f"q [{b}, 1, {hq}, {d}] bf16 at pos {pos} over the "
-                           f"[{b}, {cache}, {hkv}, {d}] cache, sk_valid "
-                           f"{pos + 1}")
+    row["decode_shape"] = (f"q {list(q1.shape)} bf16 at pos {pos} over the "
+                           f"{list(k.shape)} cache, sk_valid {pos + 1}")
     rows = [row]
-    del q, k, v, q1, kv
+    del q, k, v, q1
 
     h, p, n = mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_state
     for length in (s, s - 24):                           # and a ragged one
@@ -2767,34 +2961,17 @@ def lm_kernel_rows(gen, fa, ss, ls, launches, args) -> list:
     # past the window.
     rg = get_config("recurrentgemma-2b")
     s, w = HYBRID_PROMPT_LEN, rg.local_window
-    cache = s + g + 8
-    hq, hkv, d = rg.n_heads, rg.n_kv_heads, rg.head_dim
-    q, k, v = flash_inputs(gen, b, s, cache, hq, hkv, d, torch.bfloat16)
-    pre = dict(causal=True, sk_valid=s, window=w)
-    err = close(fa.attend(q, k, v, **pre), fa.attend_plain(q, k, v, **pre),
-                BF16_RTOL, BF16_ATOL, "flash windowed prefill")
-    seen = sum(min(p + 1, w) for p in range(s))     # keys the queries see
-    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * s * hkv * d),
-                       4 * b * hq * d * seen, BF16_FLOPS_PER_S)
-    row = dict(
-        name="flash_attention_window_d256", route="cuda",
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/flash_attention.py:78",
-        launches=launches["flash_window"], max_abs_err=err,
-        ms=cuda_ms(lambda: fa.attend(q, k, v, **pre), reps),
-        plain_ms=cuda_ms(lambda: fa.attend_plain(q, k, v, **pre), 2),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=cuda_ms(sdpa_window_fn(q, k[:, :s], v[:, :s], w), reps),
-        shape=f"prefill q [{b}, {s}, {hq}, {d}] bf16 over a [{b}, {cache}, "
-              f"{hkv}, {d}] cache, causal, window {w}, sk_valid {s}")
+    row, (q, k, v) = flash_model_row(
+        gen, fa, "flash_attention_window_d256", "recurrentgemma-2b",
+        launches["flash_window"], reps, prompt_len=s, window=w)
     pos = s + g // 2 + 5
     q1 = q[:, :1].contiguous()
     flash_decode_row(fa, row, q1, k, v, dict(causal=True, sk_valid=pos + 1,
                                              q_offset=pos, window=w),
                      min(pos + 1, w), reps)
-    row["decode_shape"] = (f"q [{b}, 1, {hq}, {d}] bf16 at pos {pos} over the "
-                           f"[{b}, {cache}, {hkv}, {d}] cache, window {w}, "
-                           f"sk_valid {pos + 1}")
+    row["decode_shape"] = (f"q {list(q1.shape)} bf16 at pos {pos} over the "
+                           f"{list(k.shape)} cache, window {w}, sk_valid "
+                           f"{pos + 1}")
     rows.append(row)
     del q, k, v, q1
 
@@ -2845,11 +3022,25 @@ def run_lm(dev: torch.device, args) -> list:
     mamba = serve_full(dev, "mamba2-130m", ("ssd_scan",), mods, args)
     rg = serve_full(dev, "recurrentgemma-2b", ("lru_scan", "flash_attention"),
                     mods, args, prompt_len=HYBRID_PROMPT_LEN)
+    from repro_torch.configs import get_config
+    kimi = serve_full(dev, "kimi-k2-1t-a32b", ("flash_attention",), mods,
+                      args, depth=MOE_DEPTH, after=moe_oracle_check)
+    arctic = serve_full(dev, "arctic-480b", ("flash_attention",), mods, args,
+                        depth=MOE_DEPTH)
+    pali = serve_full(dev, "paligemma-3b", ("flash_attention",), mods, args)
     launches = {"flash": qwen["launches"]["flash_attention"],
                 "ssd": mamba["launches"]["ssd_scan"],
                 "flash_window": rg["launches"]["flash_attention"],
                 "lru": rg["launches"]["lru_scan"]}
     rows = lm_kernel_rows(gen, fa, ss, ls, launches, args)
+    for name, arch, res, prefix in (
+            ("flash_attention_kimi", "kimi-k2-1t-a32b", kimi, 0),
+            ("flash_attention_arctic", "arctic-480b", arctic, 0),
+            ("flash_attention_prefix_d256", "paligemma-3b", pali,
+             get_config("paligemma-3b").n_frontend_tokens)):
+        rows.append(flash_model_row(gen, fa, name, arch,
+                                    res["launches"]["flash_attention"],
+                                    args.reps, prefix=prefix)[0])
     for r in rows:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms, launches "

@@ -14,6 +14,9 @@
 // q_offset = pos, sk_valid = pos + 1) is the same call as prefill.  window > 0
 // adds the JAX model's local mask (src/repro/models/layers.py:54): a query at
 // position p sees the keys k > p - window, itself and the window - 1 before it.
+// prefix > 0 adds the prefix-LM mask under causal (layers.py:49-51, the patches
+// frontend): every query also sees the keys k < prefix, so a row's causal
+// limit is max(p, prefix - 1); the window still applies after it.
 //
 // Layout, both kernels.  One block owns one (batch, KV head, tile of query
 // rows).  The rows of a tile are (position i, query head g of the KV head's
@@ -21,9 +24,9 @@
 // tile a block loads (qwen2's group of 6, recurrentgemma's 10).  A loop inside
 // the block runs over key tiles and takes the place of the TPU's sequential
 // KV grid axis; it stops at the tile holding the last key any row of the
-// block may see, min(sk_valid, q_offset + last position + 1), and with a
-// window starts at the tile holding the first key its first row may see, so
-// tiles wholly masked are never loaded.  When the row tiles alone give too
+// block may see, min(sk_valid, max(q_offset + last position, prefix - 1) + 1),
+// and with a window starts at the tile holding the first key its first row may
+// see, so tiles wholly masked are never loaded.  When the row tiles alone give too
 // few blocks to fill the card (decode: batch * KV heads = 16 for qwen2, 8 for
 // recurrentgemma), the wrapper cuts the live keys into ranges, one block
 // each; every block writes its unnormalised (acc, m, l) to fp32 scratch (l = 0
@@ -119,8 +122,15 @@ __device__ __forceinline__ int64_t first_key_tile(int64_t pos, int64_t window) {
   return first > 0 ? first / BK * BK : 0;
 }
 
+// The last key a query at position pos sees under the causal mask: pos itself,
+// or with a prefix every key before it (the prefix-LM mask).
+__device__ __forceinline__ int64_t causal_limit(int64_t pos, int64_t prefix) {
+  return pos > prefix - 1 ? pos : prefix - 1;
+}
+
 // The keys a block attends: [k_lo, k_hi).  Keys past kv_lim are masked for
-// every row; past the causal end for this block, whose rows are [r0, r_end).
+// every row; past the causal end for this block, whose rows are [r0, r_end):
+// its last row's causal limit, max(position, prefix - 1).
 // The splits cut the keys from k_base, the tile holding the first key row 0
 // may see (0 without a window); the block starts at the tile holding its
 // first row's first key.
@@ -128,11 +138,12 @@ template <int BK>
 __device__ __forceinline__ void key_range(int64_t r0, int64_t r_end, int64_t split,
                                           int64_t split_len, int64_t sk, int64_t group,
                                           int64_t sk_valid, int64_t q_offset, int causal,
-                                          int64_t window, int64_t& k_lo, int64_t& k_hi) {
+                                          int64_t window, int64_t prefix, int64_t& k_lo,
+                                          int64_t& k_hi) {
   const int64_t kv_lim = sk_valid < sk ? sk_valid : sk;
   int64_t kv_end = kv_lim;
   if (causal) {
-    const int64_t last = q_offset + (r_end - 1) / group + 1;
+    const int64_t last = causal_limit(q_offset + (r_end - 1) / group, prefix) + 1;
     kv_end = last < kv_end ? last : kv_end;
   }
   const int64_t k_base = window > 0 ? first_key_tile<BK>(q_offset, window) : 0;
@@ -165,7 +176,7 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
              const T* __restrict__ v, Strides vs, T* __restrict__ o, Strides os,
              float* __restrict__ part, int64_t tiles, int64_t split_len, int64_t sq,
              int64_t sk, int64_t group, int64_t sk_valid, int64_t q_offset, int causal,
-             int64_t window, float scale) {
+             int64_t window, int64_t prefix, float scale) {
   using L = Tile<D, RT>;
   constexpr int BQ = L::BQ, QP = L::QP, KP = L::KP, VP = L::VP;
   constexpr int VEC = L::VEC, NCG = L::NCG;
@@ -199,9 +210,9 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
   const int64_t kv_lim = sk_valid < sk ? sk_valid : sk;
   int64_t k_lo, k_hi;
   key_range<kBK>(r0, r_end, split, split_len, sk, group, sk_valid, q_offset, causal, window,
-                 k_lo, k_hi);
+                 prefix, k_lo, k_hi);
 
-  int64_t pos[RT];
+  int64_t pos[RT], cl[RT];  // each row's position and causal limit
   bool alive[RT];
   float m[RT], l[RT], acc[RT][NCG * VEC];
 #pragma unroll
@@ -209,6 +220,7 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
     const int64_t r = r0 + ty * RT + i;
     alive[i] = r < rows;
     pos[i] = q_offset + r / group;
+    cl[i] = causal_limit(pos[i], prefix);
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -253,7 +265,7 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int64_t kp = k0 + tx * 4 + j;
-        ok[j] = alive[i] && kp < kv_lim && (!causal || kp <= pos[i]) &&
+        ok[j] = alive[i] && kp < kv_lim && (!causal || kp <= cl[i]) &&
                 (window <= 0 || kp > pos[i] - window);
         s[i][j] = ok[j] ? s[i][j] : kNegInf;
         mx = fmaxf(mx, s[i][j]);
@@ -411,7 +423,7 @@ struct MmaArgs {
   bf16* o;
   float* part;
   Strides qs, ks, vs, os;
-  int64_t tiles, split_len, sq, sk, group, sk_valid, q_offset, window;
+  int64_t tiles, split_len, sq, sk, group, sk_valid, q_offset, window, prefix;
   int causal;
   float scale;
 };
@@ -443,7 +455,7 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
   const bf16* vb = a.v + b * a.vs.b + hk * a.vs.h;
   int64_t k_lo, k_hi;
   key_range<BK>(r0, r_end, split, a.split_len, a.sk, group, a.sk_valid, q_offset, causal,
-                window, k_lo, k_hi);
+                window, a.prefix, k_lo, k_hi);
   const int ntiles = k_hi > k_lo ? static_cast<int>((k_hi - k_lo + BK - 1) / BK) : 0;
 
   // Q (zeros past the last row) goes with the first K/V stage.
@@ -486,6 +498,10 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
   const int64_t wr_last = (wr0 + 16 < rows ? wr0 + 16 : rows) - 1;
   const int64_t pos_lo = q_offset + wr0 / group, pos_hi = q_offset + wr_last / group;
   const int64_t pos[2] = {q_offset + (wr0 + g) / group, q_offset + (wr0 + g + 8) / group};
+  // The causal limits (with a prefix, max(position, prefix - 1)); the window
+  // reads the positions themselves.
+  const int64_t cl_lo = causal_limit(pos_lo, a.prefix), cl_hi = causal_limit(pos_hi, a.prefix);
+  const int64_t cl_row[2] = {causal_limit(pos[0], a.prefix), causal_limit(pos[1], a.prefix)};
   const float sl = a.scale * kLog2e;
 
   float acc[DT][4];
@@ -514,10 +530,10 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
     const int64_t k0 = k_lo + static_cast<int64_t>(t) * BK + kw;  // the warp's first key
     // A sub-tile no row of the warp sees is skipped; one every row sees
     // whole is not masked.
-    if (!live || k0 >= k_hi || (causal && k0 > pos_hi) ||
+    if (!live || k0 >= k_hi || (causal && k0 > cl_hi) ||
         (window > 0 && k0 + KW - 1 <= pos_lo - window))
       continue;
-    const bool full = k0 + KW <= k_hi && (!causal || k0 + KW - 1 <= pos_lo) &&
+    const bool full = k0 + KW <= k_hi && (!causal || k0 + KW - 1 <= cl_lo) &&
                       (window <= 0 || k0 > pos_hi - window);
     const bf16* kt = sK + (t % NS) * BK * RS + kw * RS;
     const bf16* vt = sV + (t % NS) * BK * RS + kw * RS;
@@ -551,7 +567,7 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
       hi = k_hi - k0 < KW ? static_cast<int>(k_hi - k0) : KW;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int64_t c = pos[i] - k0, w = pos[i] - window - k0;
+        const int64_t c = cl_row[i] - k0, w = pos[i] - window - k0;
         if (causal) cl[i] = c < -1 ? -1 : (c > KW ? KW : static_cast<int>(c));
         if (window > 0) wl[i] = w < -1 ? -1 : (w > KW ? KW : static_cast<int>(w));
       }
@@ -746,7 +762,7 @@ struct Call {
   void* o;
   float* part;
   Strides qs, ks, vs, os;
-  int64_t splits, split_len, batch, sq, sk, hq, hkv, d, sk_valid, q_offset, window;
+  int64_t splits, split_len, batch, sq, sk, hq, hkv, d, sk_valid, q_offset, window, prefix;
   int causal, device;
   float scale;
   cudaStream_t stream;
@@ -792,7 +808,7 @@ cudaError_t run_fma(const Call& c) {
       static_cast<const float*>(c.q), c.qs, static_cast<const float*>(c.k), c.ks,
       static_cast<const float*>(c.v), c.vs, static_cast<float*>(c.o), c.os,
       c.splits > 1 ? c.part : nullptr, tiles, c.split_len, c.sq, c.sk, group, c.sk_valid,
-      c.q_offset, c.causal, c.window, c.scale);
+      c.q_offset, c.causal, c.window, c.prefix, c.scale);
   err = cudaGetLastError();
   return err != cudaSuccess ? err : combine<float>(c);
 }
@@ -814,7 +830,8 @@ cudaError_t run_mma(const Call& c) {
   a.group = c.hq / c.hkv;
   a.tiles = (c.sq * a.group + L::BQ - 1) / L::BQ;
   a.split_len = c.split_len; a.sq = c.sq; a.sk = c.sk; a.sk_valid = c.sk_valid;
-  a.q_offset = c.q_offset; a.window = c.window; a.causal = c.causal; a.scale = c.scale;
+  a.q_offset = c.q_offset; a.window = c.window; a.prefix = c.prefix; a.causal = c.causal;
+  a.scale = c.scale;
   dim3 grid(static_cast<unsigned>(a.tiles * c.splits), static_cast<unsigned>(c.hkv),
             static_cast<unsigned>(c.batch));
   kern<<<grid, kThreads, L::kSmemBytes, c.stream>>>(a);
@@ -857,7 +874,8 @@ cudaError_t dispatch(int64_t dtype, int64_t bq, int64_t bk, const Call& c) {
 // o [batch, sq, hq, d]; each tensor given by its pointer and its batch,
 // position and head strides in elements (d contiguous; for bf16 the pointers
 // 16-byte aligned and the strides multiples of 8).  dtype 0 is fp32, 1 is
-// bf16; hq is a multiple of hkv; window 0 is none.  (bq, bk) is the tile of
+// bf16; hq is a multiple of hkv; window 0 is none; prefix 0 is none (with causal,
+// the queries also see the keys before prefix).  (bq, bk) is the tile of
 // query rows and keys, one of those `dispatch` lists.  The keys from the bk
 // tile holding max(0, q_offset - window + 1) (0 without a window) are cut
 // into `splits` ranges of split_len (a multiple of bk) keys, one block each;
@@ -868,12 +886,13 @@ extern "C" int repro_flash_attention(
     int64_t ksb, int64_t kss, int64_t ksh, const void* v, int64_t vsb, int64_t vss,
     int64_t vsh, void* o, int64_t osb, int64_t oss, int64_t osh, void* part,
     int64_t batch, int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t d,
-    int64_t sk_valid, int64_t q_offset, int64_t causal, int64_t window, int64_t dtype,
+    int64_t sk_valid, int64_t q_offset, int64_t causal, int64_t window, int64_t prefix,
+    int64_t dtype,
     int64_t bq, int64_t bk, int64_t splits, int64_t split_len, double scale, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || sq <= 0 || hq <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || window < 0 || splits < 1 || bk <= 0 ||
+  if (hkv <= 0 || hq % hkv != 0 || window < 0 || prefix < 0 || splits < 1 || bk <= 0 ||
       (splits > 1 && (part == nullptr || split_len <= 0 || split_len % bk != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   Call c;
@@ -883,7 +902,7 @@ extern "C" int repro_flash_attention(
   c.splits = splits;
   c.split_len = splits == 1 ? sk : split_len;  // one range: every key
   c.batch = batch; c.sq = sq; c.sk = sk; c.hq = hq; c.hkv = hkv; c.d = d;
-  c.sk_valid = sk_valid; c.q_offset = q_offset; c.window = window;
+  c.sk_valid = sk_valid; c.q_offset = q_offset; c.window = window; c.prefix = prefix;
   c.causal = causal ? 1 : 0;
   c.device = static_cast<int>(device);
   c.scale = static_cast<float>(scale);

@@ -75,8 +75,11 @@ def params_from_jax(cfg, tree, device=None):
     into its ``L`` layers.  A hybrid tree stacks groups of ``block_pattern``
     blocks (``layers["b<j>"][g]``) and the rec layers left over
     (``extra[e]``): group ``g``'s block ``j`` becomes layer ``3g + j`` (for a
-    pattern of 3) and ``extra[e]`` follows the groups, the order the JAX
-    model runs them.  bfloat16 arrays carry over bit for bit."""
+    pattern of 3) and ``extra[e]`` follows the groups; an MoE tree's leading
+    dense layers (``dense0``, a stack of its own) come before its MoE stack
+    (``layers``): the order the JAX model runs them.  Every array keeps its
+    dtype (an MoE router stays float32 in a bfloat16 model), and bfloat16
+    arrays carry over bit for bit."""
     from .models.model import Model
 
     def tensor(a):
@@ -103,12 +106,14 @@ def params_from_jax(cfg, tree, device=None):
             flat += [layer(tree["extra"], e)
                      for e in range(depth(tree["extra"]))]
     else:
-        flat = [layer(stack, i) for i in range(depth(stack))]
+        flat = [layer(tree["dense0"], i) for i in range(depth(tree["dense0"]))
+                ] if "dense0" in tree else []
+        flat += [layer(stack, i) for i in range(depth(stack))]
     if len(flat) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: the tree stacks {len(flat)} layers, "
                          f"the config has {cfg.n_layers}")
     params = {k: tensor(v) for k, v in tree.items()
-              if k not in ("layers", "extra")}
+              if k not in ("layers", "extra", "dense0")}
     params["layers"] = flat
     return Model(cfg, device=device, params=params)
 

@@ -62,9 +62,10 @@ _SIGNATURES = {
                                  "piiii" "i" "p",
     # device, q, q strides (b, s, h), k, k strides, v, v strides, o,
     # o strides, part, batch, sq, sk, hq, hkv, d, sk_valid, q_offset,
-    # causal, window, dtype, bq, bk, splits, split_len, scale, stream
+    # causal, window, prefix, dtype, bq, bk, splits, split_len, scale,
+    # stream
     "repro_flash_attention": "i" "piii" "piii" "piii" "piii" "p"
-                             "iiiiiiiiiiiiiii" "f" "p",
+                             "iiiiiiiiiiiiiiii" "f" "p",
     # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
     # B strides (b, s), C, C strides (b, s), y, y strides (b, h, s), s_fin,
     # g, states, batch, heads, seq, n, p, q, stream

@@ -34,12 +34,16 @@ source's note.
 
 :func:`attend` is the entry: ``[B, Sq, Hq, d]`` queries over ``[B, Sk, Hkv,
 d]`` keys and values, with ``q_offset`` (the absolute position of query row
-0), ``sk_valid`` and ``window`` (the JAX model's local mask: a query at
-position ``p`` sees the keys ``k > p - window``; 0 is none).  The model's
+0), ``sk_valid``, ``window`` (the JAX model's local mask: a query at
+position ``p`` sees the keys ``k > p - window``; 0 is none) and ``prefix``
+(the JAX model's prefix-LM mask under ``causal``, ``(k <= p) | (k <
+prefix)``, for the patches frontend's prefill: a row's causal limit becomes
+``max(p, prefix - 1)``, and the window still applies after it).  The model's
 decode step (``Sq = 1``, ``q_offset = pos``, ``sk_valid = pos + 1``) is thus
 the same call as its prefill.  :func:`attend_plain` is its plain PyTorch
 version (the masked softmax of ``ref.attention_ref`` extended to
-``q_offset``, ``sk_valid``, ``window`` and any strides), which a CPU tensor
+``q_offset``, ``sk_valid``, ``window``, ``prefix`` and any strides), which a
+CPU tensor
 takes.  :func:`flash_attention_bh` keeps the TPU kernel's ``[B·H, S, d]``
 signature for the parity tests only.
 """
@@ -63,12 +67,13 @@ D256_PREFILL_BK = 32
 
 def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool, sk_valid: int | None = None, q_offset: int = 0,
-                 scale: float | None = None, window: int = 0) -> torch.Tensor:
+                 scale: float | None = None, window: int = 0,
+                 prefix: int = 0) -> torch.Tensor:
     """Masked-softmax attention of q ``[B, Sq, Hq, d]`` over k, v ``[B, Sk,
     Hkv, d]``: query row ``i`` sits at position ``q_offset + i``; keys at or
-    past ``sk_valid``, if ``causal`` after the row's position, and with a
-    ``window`` at or before the row's position minus ``window`` are masked;
-    a row with no key left gives zeros."""
+    past ``sk_valid``, if ``causal`` after the row's position and not before
+    ``prefix``, and with a ``window`` at or before the row's position minus
+    ``window`` are masked; a row with no key left gives zeros."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     group = hq // hkv
@@ -80,7 +85,7 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     row = q_offset + torch.arange(sq, device=q.device)
     mask = (col < sk_valid)[None, :]
     if causal:
-        mask = mask & (col[None, :] <= row[:, None])
+        mask = mask & ((col[None, :] <= row[:, None]) | (col < prefix)[None, :])
     if window > 0:
         mask = mask & (col[None, :] > row[:, None] - window)
     s = torch.where(mask, s, -1e30)
@@ -94,7 +99,8 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, sk_valid: int | None = None, q_offset: int = 0,
-           scale: float | None = None, window: int = 0) -> torch.Tensor:
+           scale: float | None = None, window: int = 0,
+           prefix: int = 0) -> torch.Tensor:
     """Attention of q ``[B, Sq, Hq, d]`` over k, v ``[B, Sk, Hkv, d]`` (any
     strides, ``d`` contiguous on the GPU) → ``[B, Sq, Hq, d]``.  A CPU tensor
     takes :func:`attend_plain`; a CUDA tensor launches the kernel or
@@ -107,15 +113,19 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"attend: q {tuple(q.shape)} with k {tuple(k.shape)}"
                          f" and v {tuple(v.shape)}: need [B, Sk, Hkv, d] "
                          "keys and values with Hq a multiple of Hkv")
-    window, q_offset = int(window), int(q_offset)
+    window, q_offset, prefix = int(window), int(q_offset), int(prefix)
     if window < 0:
         raise ValueError(f"attend: window must be 0 (none) or positive, got "
                          f"{window}")
+    if prefix < 0:
+        raise ValueError(f"attend: prefix must be 0 (none) or positive, got "
+                         f"{prefix}")
     scale = (1.0 / math.sqrt(d)) if scale is None else float(scale)
     sk_valid = sk if sk_valid is None else int(sk_valid)
     if q.device.type == "cpu":
         return attend_plain(q, k, v, causal=causal, sk_valid=sk_valid,
-                            q_offset=q_offset, scale=scale, window=window)
+                            q_offset=q_offset, scale=scale, window=window,
+                            prefix=prefix)
     for t in (q, k, v):
         if not t.is_cuda or t.dtype != q.dtype:
             raise ValueError(f"attend: q, k and v must be CUDA tensors of one "
@@ -142,7 +152,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            ptr(q), *q.stride()[:3], ptr(k), *k.stride()[:3],
            ptr(v), *v.stride()[:3], ptr(out), *out.stride()[:3], ptr(part),
            b, sq, sk, hq, hkv, d, sk_valid, q_offset, int(bool(causal)),
-           window, _DTYPES[q.dtype], bq, bk, splits, split_len, scale)
+           window, prefix, _DTYPES[q.dtype], bq, bk, splits, split_len, scale)
     LAUNCHES += 1
     return out
 
@@ -195,7 +205,10 @@ def _plan(sms: int, dtype: torch.dtype, b: int, rows: int, hkv: int, d: int,
     fewer than ``sms`` blocks: the longest ranges of whole tiles that still
     give at least ``sms`` blocks, where there are key tiles enough (fewer
     ranges, fewer partial results for the merge to read).  One range
-    (``splits`` 1, ``split_len`` 0) takes every key."""
+    (``splits`` 1, ``split_len`` 0) takes every key.  A ``prefix`` changes
+    nothing here: the live keys end at ``sk_valid`` with or without it (a
+    split past a block's causal limit gives it no key, ``l = 0`` in the
+    merge)."""
     bq, bk = _tiles(dtype, d, rows)
     keys = max(0, min(max(sk_valid, 0), sk) - _key_base(q_offset, window, bk))
     blocks = -(-rows // bq) * hkv * b

@@ -1,5 +1,6 @@
 """Per-family layer blocks of the serving path — the port of the GQA
-attention, Mamba-2 (SSD) and RG-LRU blocks of ``repro/models/blocks.py``.
+attention, MoE (capacity dispatch), Mamba-2 (SSD) and RG-LRU blocks of
+``repro/models/blocks.py``.
 
 Every block has ``<name>_params(gen, cfg)``, ``<name>_apply`` and
 ``<name>_cache``.  Parameters are mappings of tensors named as in the JAX
@@ -9,12 +10,12 @@ into ``cache["k"]``/``cache["v"]`` and ``mamba_apply`` overwrites
 ``cache["ssm"]``/``cache["conv"]`` and ``rglru_apply`` ``cache["h"]``/
 ``cache["conv"]``; each returns the same dict.  At full width a functional
 copy of the KV cache per decode step would move the whole cache twice a
-layer.  The MoE block comes with its family (``ROADMAP.md`` queue 1 item
-10).
+layer.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 
 from ..kernels.lru_scan.lru_scan import lru_scan_chunked
 from ..kernels.ssd_scan.ssd_scan import ssd_scan_chunked
-from .layers import _init, attention, rmsnorm, rope
+from .layers import _init, attention, mlp, mlp_params, rmsnorm, rope
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -94,6 +95,209 @@ def attn_cache(cfg, batch: int, max_seq: int, device) -> dict:
     shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=_dtype(cfg), device=device),
             "v": torch.zeros(shape, dtype=_dtype(cfg), device=device)}
+
+
+# =========================================================================== #
+# MoE block — PEMS-style capacity dispatch                                     #
+# =========================================================================== #
+#
+# The experts are the thesis' virtual processors: each group's tokens are
+# bucketed by destination expert under a capacity ω (``cap``), delivered
+# straight into per-expert buffers, processed expert by expert (one batched
+# matrix product over the experts) and combined back; tokens past the
+# capacity are dropped.  The JAX package does all of it in plain XLA, no
+# Pallas kernel, so the port keeps it plain PyTorch: a stable sort,
+# ``searchsorted``, gathers and ``torch.bmm``.
+
+def _init_experts(gen: torch.Generator, shape, fan_in: int,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """:func:`~.layers._init` of an ``[E, ...]`` expert stack, made one
+    expert at a time into a preallocated ``dtype`` tensor: at full width a
+    stack made whole in float32 first would not fit beside the model (kimi's
+    ``w_in`` is 11.3 G elements)."""
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for e in range(shape[0]):
+        out[e] = _init(gen, shape[1:], fan_in, dtype)
+    return out
+
+
+def moe_params(gen: torch.Generator, cfg) -> dict:
+    d, e, ff = cfg.d_model, cfg.n_experts, cfg.d_ff
+    dt = _dtype(cfg)
+    gates = 1 if cfg.act == "gelu" else 2
+    p = {
+        "router": _init(gen, (d, e), d, torch.float32),
+        "w_in": _init_experts(gen, (e, d, gates, ff), d, dt),
+        "w_out": _init_experts(gen, (e, ff, d), ff, dt),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_params(gen, d, cfg.d_ff * cfg.n_shared_experts,
+                                 cfg.act, dt)
+    if cfg.moe_dense_residual:
+        p["dense"] = mlp_params(gen, d, cfg.moe_dense_d_ff or cfg.d_ff,
+                                cfg.act, dt)
+    return p
+
+
+def moe_groups(cfg, t: int, n_groups: int = 0) -> Tuple[int, int, int]:
+    """``(n_groups, tg, cap)`` for ``t`` tokens, as the JAX ``moe_apply``
+    picks them: ``n_groups`` (``cfg.moe_groups`` unless given) reduced until
+    it divides ``t``, ``tg = t / n_groups`` tokens a group and the capacity
+    ``max(1, ceil(tg·K/E·capacity_factor))`` slots an expert a group."""
+    n_groups = n_groups or getattr(cfg, "moe_groups", 1) or 1
+    n_groups = min(n_groups, t)
+    while t % n_groups:
+        n_groups -= 1
+    tg = t // n_groups
+    cap = max(1, int(math.ceil(tg * cfg.top_k / cfg.n_experts
+                               * cfg.capacity_factor)))
+    return n_groups, tg, cap
+
+
+def _top_k(logits: torch.Tensor, k: int):
+    """``lax.top_k``: the ``k`` largest along the last axis, descending, the
+    lower index first among equal values (``torch.topk`` promises no order
+    among them)."""
+    vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_dispatch(cfg, router: torch.Tensor, xg: torch.Tensor,
+                 cap: int) -> dict:
+    """The JAX ``group_dispatch`` of every group at once: ``xg [G, tg, d]``
+    → the routing and the dispatch indices, named as in the JAX package,
+    each with a leading group dim.  ``sel``/``weights`` ``[G, tg, K]``: the
+    top-K experts of each token from its float32 router logits and the
+    softmax over the K chosen; ``aux [G]``, the load-balance loss; over the
+    ``tg·K`` (token, choice) entries sorted stably by expert (``order``):
+    ``se`` the expert, ``pos_c`` the slot (``pos = i - start[se]`` clamped
+    to ``cap - 1``), ``keep = pos < cap``, ``tok_sorted`` the token and
+    ``w_sorted`` the gate weight.  The integers equal the JAX package's bit
+    for bit.  ``served``: the entries whose slot still holds their token
+    after the JAX scatter ``xe.at[se, pos_c].set(src)``, in the order XLA
+    keeps on the CPU, where the last write to a slot wins: every dropped
+    entry writes zeros to its expert's slot ``cap - 1`` after the kept
+    entry there, so an expert past its capacity serves only its first
+    ``cap - 1`` entries (each expert's last entry writes that slot
+    last)."""
+    g, tg, _ = xg.shape
+    e, k = cfg.n_experts, cfg.top_k
+    logits = xg.float() @ router                                # [G, tg, E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, sel = _top_k(logits, k)                          # [G, tg, K]
+    weights = torch.softmax(gate_vals, dim=-1)
+
+    density = F.one_hot(sel[..., 0], e).float().mean(dim=1)     # [G, E]
+    aux = e * (density * probs.mean(dim=1)).sum(dim=-1)         # [G]
+
+    flat_e = sel.reshape(g, tg * k)
+    order = torch.sort(flat_e, dim=-1, stable=True).indices
+    se = flat_e.gather(1, order)
+    start = torch.searchsorted(
+        se, torch.arange(e, device=xg.device).expand(g, e).contiguous())
+    pos = torch.arange(tg * k, device=xg.device) - start.gather(1, se)
+    keep = pos < cap
+    last = torch.ones_like(keep)
+    last[:, :-1] = se[:, 1:] != se[:, :-1]      # the expert's last entry
+    return dict(sel=sel, weights=weights, aux=aux, order=order, se=se,
+                pos_c=pos.clamp(max=cap - 1), keep=keep,
+                served=keep & ((pos < cap - 1) | last), tok_sorted=order // k,
+                w_sorted=weights.reshape(g, tg * k).gather(1, order))
+
+
+def _experts(cfg, p, xe: torch.Tensor) -> torch.Tensor:
+    """The grouped expert MLP: ``xe [E, n, d]`` → ``[E, n, d]``, one batched
+    matrix product a projection (``einsum("gecd,edGf->gecGf")`` and
+    ``("gecf,efd->gecd")`` in the JAX package)."""
+    w_in, w_out = p["w_in"], p["w_out"]
+    e, d, gates, ff = w_in.shape
+    h = torch.bmm(xe, w_in.view(e, d, gates * ff)).unflatten(-1, (gates, ff))
+    if gates == 2:
+        gate = (F.silu(h[..., 0, :]) if cfg.act == "swiglu"
+                else F.gelu(h[..., 0, :], approximate="tanh"))
+        h = gate * h[..., 1, :]
+    else:
+        h = F.gelu(h[..., 0, :], approximate="tanh")
+    return torch.bmm(h, w_out)
+
+
+def moe_apply(cfg, p, x: torch.Tensor,
+              n_groups: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] → (out [B, S, d], aux load-balance loss): the JAX
+    ``moe_apply``.  Tokens are cut into ``n_groups`` groups
+    (:func:`moe_groups`); each group bucketises its tokens by expert under
+    the capacity ``cap`` (:func:`moe_dispatch`), the experts run on their
+    ``[E, G·cap, d]`` buffers, and each token's K contributions come back
+    weighted, dropped entries weighing 0.
+
+    Two writes the JAX package leaves to XLA's order are made
+    deterministic here, in the order XLA keeps on the CPU:
+
+    - the dispatch ``xe.at[se, pos_c].set(src)``: only the ``served``
+      entries' rows are written (:func:`moe_dispatch`); an expert past its
+      capacity keeps its last slot zero, so the kept token there gets the
+      expert's output of zeros, as in the JAX package;
+    - the combine ``.at[tok].add``: a token's K contributions are summed in
+      the sorted order (ascending expert) in the model's dtype, one after
+      the other from zero, never by an ``index_add_`` whose order on CUDA
+      changes from run to run."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    n_groups, tg, cap = moe_groups(cfg, b * s, n_groups)
+    xg = x.reshape(n_groups, tg, d)
+    r = moe_dispatch(cfg, p["router"], xg, cap)
+
+    # Dispatch: slot (expert se, group g, pos_c) is row se·G·cap + g·cap +
+    # pos_c of the expert buffers; entries that write no slot go to one
+    # spare row past them, dropped after.
+    group = torch.arange(n_groups, device=x.device)[:, None]
+    slot = r["se"] * (n_groups * cap) + group * cap + r["pos_c"]  # [G, tg·K]
+    spare = e * n_groups * cap
+    xe = x.new_zeros((spare + 1, d))
+    src = xg.gather(1, r["tok_sorted"][..., None].expand(-1, -1, d))
+    xe[torch.where(r["served"], slot, spare).flatten()] = src.flatten(0, 1)
+    ye = _experts(cfg, p, xe[:spare].view(e, n_groups * cap, d))
+    ye = ye.reshape(spare, d)
+
+    # Combine: entry i of the sorted order weighs w_sorted·keep (in x's
+    # dtype, as JAX casts it); each token's K entries in their sorted order.
+    wk = (r["w_sorted"] * r["keep"]).to(x.dtype)
+    inv = torch.empty_like(r["order"])
+    inv.scatter_(1, r["order"], torch.arange(tg * k, device=x.device)
+                 .expand(n_groups, -1).contiguous())
+    mine = inv.view(n_groups, tg, k).sort(dim=-1).values       # [G, tg, K]
+    y = x.new_zeros((n_groups, tg, d))
+    for j in range(k):
+        i = mine[..., j]
+        y = y + ye[slot.gather(1, i)] * wk.gather(1, i)[..., None]
+    y = y.reshape(b, s, d)
+
+    if "shared" in p:
+        y = y + mlp(x, p["shared"], cfg.act)
+    if "dense" in p:
+        y = y + mlp(x, p["dense"], cfg.act)
+    return y.to(x.dtype), r["aux"].mean()
+
+
+def moe_apply_dense_oracle(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    """The JAX ``moe_apply_dense_oracle``: every token through every expert
+    (O(E) compute; checks only), combined with its top-K gate weights and no
+    capacity."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    xf = x.reshape(-1, d)
+    logits = xf.float() @ p["router"]
+    gate_vals, sel = _top_k(logits, cfg.top_k)
+    weights = torch.softmax(gate_vals, dim=-1)
+    ye = _experts(cfg, p, xf.expand(e, -1, -1))                 # [E, T, d]
+    comb = torch.zeros(logits.shape, dtype=ye.dtype, device=x.device)
+    comb.scatter_(1, sel, weights.to(ye.dtype))
+    y = torch.einsum("te,etd->td", comb, ye).reshape(b, s, d)
+    if "shared" in p:
+        y = y + mlp(x, p["shared"], cfg.act)
+    if "dense" in p:
+        y = y + mlp(x, p["dense"], cfg.act)
+    return y.to(x.dtype)
 
 
 # =========================================================================== #

@@ -1,5 +1,6 @@
 """Shared transformer building blocks: RMSNorm, RoPE, GQA attention (with
-the sliding window), gated MLPs — the port of ``repro/models/layers.py``.
+the sliding window and the prefix-LM mask), gated MLPs — the port of
+``repro/models/layers.py``.
 
 Parameters are tensors in plain mappings (the JAX package's dicts, or the
 port's :class:`repro_torch.models.model.ParamTree`).  :func:`attention` keeps
@@ -45,16 +46,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               chunk: int = 0) -> torch.Tensor:
     """GQA attention of q ``[B, Sq, Hq, d]`` over k, v ``[B, Sk, Hkv, d]``:
     query row ``i`` sits at position ``q_offset + i``, keys at or past
-    ``kv_valid`` are masked, and with ``window > 0`` so are the keys at or
+    ``kv_valid`` are masked, with ``causal`` so are the keys after the row's
+    position but those before ``prefix`` (the JAX prefix-LM mask ``(k_pos <=
+    q_pos) | (k_pos < prefix)``), and with ``window > 0`` the keys at or
     before the row's position minus ``window`` (the JAX mask ``k_pos > q_pos
     - window``).  ``chunk`` is accepted for the JAX signature: the kernel
     always streams KV tiles, so it never builds the S×S scores."""
-    if prefix > 0:
-        raise NotImplementedError(
-            "prefix > 0 (the patches frontend) comes with the frontend "
-            "families: ROADMAP.md queue 1 item 10")
     return attend(q, k, v, causal=causal, sk_valid=kv_valid,
-                  q_offset=q_offset, window=window)
+                  q_offset=q_offset, window=window, prefix=prefix)
 
 
 def mlp(x: torch.Tensor, p, act: str) -> torch.Tensor:

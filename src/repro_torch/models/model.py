@@ -1,23 +1,27 @@
-"""The serving model: the port of ``repro/models/model.py`` for the ``dense``
-family without experts, for ``ssm`` and for ``hybrid``.
+"""The serving model: the port of ``repro/models/model.py`` for every family
+with a decode step: ``dense``, ``moe``, ``ssm``, ``hybrid`` and ``vlm`` (the
+patches frontend).
 
 A :class:`Model` is an ``nn.Module`` holding its weights; its layers are an
 ``nn.ModuleList`` run in a Python loop (the JAX package scans a stacked
-pytree).  A hybrid model's layers are one flat list in the order the JAX
-package runs them: each ``block_pattern`` group's blocks (``b0, b1, b2``),
-group after group, then the rec layers left over (its ``extra`` stack); see
-:func:`layer_kinds`.  Weights are made on the device from ``seed`` with an
-explicit ``torch.Generator``, or carried over from the JAX package with
-:func:`repro_torch.interop.params_from_jax`.
+pytree).  The layers are one flat list in the order the JAX package runs
+them: an MoE model's leading dense layers (its ``dense0`` stack) and then
+its MoE layers; a hybrid model's ``block_pattern`` groups' blocks (``b0,
+b1, b2``), group after group, then the rec layers left over (its ``extra``
+stack); see :func:`layer_kinds`.  Weights are made on the device from
+``seed`` with an explicit ``torch.Generator``, or carried over from the JAX
+package with :func:`repro_torch.interop.params_from_jax`.
 
 API (the JAX package's, with the parameters held by the module):
   init_cache(batch, max_seq) → cache
   prefill(batch, cache) → (logits_last [B, 1, V] float32, cache)
   decode(tokens, pos, cache) → (logits [B, 1, V] float32, cache)
 
-Caches are updated in place (see :mod:`.blocks`).  Families, knobs and
-methods outside the slice raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.
+A patches model's prefill takes ``batch["patches"]`` ``[B,
+n_frontend_tokens, d]`` (the stubbed frontend's embeddings) before the
+tokens and attends over them with the prefix-LM mask.  Caches are updated in
+place (see :mod:`.blocks`).  The frames frontend (encoder-only hubert) and
+training raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from torch import nn
 
 from ..core.context import resolve_device
 from .blocks import (attn_apply, attn_cache, attn_params, mamba_apply,
-                     mamba_cache, mamba_params, rglru_apply, rglru_cache,
-                     rglru_params)
+                     mamba_cache, mamba_params, moe_apply, moe_params,
+                     rglru_apply, rglru_cache, rglru_params)
 from .layers import _init, mlp, mlp_params, rmsnorm
 
 _LATER = "ROADMAP.md queue 1 item 10"
@@ -40,14 +44,12 @@ _LATER = "ROADMAP.md queue 1 item 10"
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not
     serve yet."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"({_LATER}); the port serves 'dense', 'ssm' and 'hybrid'")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  f"yet ({_LATER})")
-    if cfg.frontend != "none":
+            f"({_LATER}); the port serves 'dense', 'moe', 'ssm', 'hybrid' "
+            "and 'vlm'")
+    if cfg.frontend not in ("none", "patches"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend "
                                   f"is not ported yet ({_LATER})")
     if cfg.is_encoder_only:
@@ -57,12 +59,17 @@ def check_supported(cfg) -> None:
 
 def layer_kinds(cfg) -> list:
     """Each layer's kind, in the order the model runs them: ``"ssm"``,
-    ``"attn"`` or, for the hybrid family, ``block_pattern[i % len]`` for the
-    layers of whole groups and ``"rec"`` for those left over.  A hybrid
-    ``"attn"`` layer attends within ``cfg.local_window`` (the JAX package's
-    ``attn_local``); a dense one sees every earlier key."""
+    ``"attn"`` (attention and an MLP), ``"moe"`` (attention and the MoE
+    block: an MoE model's layers after its ``first_dense_layers``) or, for
+    the hybrid family, ``block_pattern[i % len]`` for the layers of whole
+    groups and ``"rec"`` for those left over.  A hybrid ``"attn"`` layer
+    attends within ``cfg.local_window`` (the JAX package's ``attn_local``);
+    the others see every earlier key."""
     if cfg.family == "ssm":
         return ["ssm"] * cfg.n_layers
+    if cfg.is_moe:
+        n_dense = min(cfg.first_dense_layers, cfg.n_layers)
+        return ["attn"] * n_dense + ["moe"] * (cfg.n_layers - n_dense)
     if cfg.family != "hybrid":
         return ["attn"] * cfg.n_layers
     pat = cfg.block_pattern
@@ -89,13 +96,21 @@ def init_params(cfg, gen: torch.Generator) -> Dict:
             layers.append({"ln": zeros(cfg.d_model),
                            "mamba": mamba_params(gen, cfg)})
             continue
-        mixer = rglru_params(gen, cfg) if kind == "rec" else attn_params(gen, cfg)
-        layers.append({
-            "ln1": zeros(cfg.d_model),
-            kind: mixer,
-            "ln2": zeros(cfg.d_model),
-            "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, dt),
-        })
+        if kind == "rec":
+            layer = {"ln1": zeros(cfg.d_model), "rec": rglru_params(gen, cfg),
+                     "ln2": zeros(cfg.d_model),
+                     "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                                       dt)}
+        else:
+            layer = {"ln1": zeros(cfg.d_model), "attn": attn_params(gen, cfg),
+                     "ln2": zeros(cfg.d_model)}
+            if kind == "moe":
+                layer["moe"] = moe_params(gen, cfg)
+            else:   # a transformer layer's MLP: moe_dense_d_ff where set
+                layer["mlp"] = mlp_params(gen, cfg.d_model,
+                                          cfg.moe_dense_d_ff or cfg.d_ff,
+                                          cfg.act, dt)
+        layers.append(layer)
     params["layers"] = layers
     return params
 
@@ -148,13 +163,29 @@ class Model(nn.Module):
             emb = emb * math.sqrt(self.cfg.d_model)
         return emb
 
+    def _embed_inputs(self, batch: Dict) -> Tuple[torch.Tensor, int]:
+        """``(x [B, S, d], prefix)``: the token embeddings, after the
+        ``patches`` ``[B, n_frontend_tokens, d]`` where a patches model is
+        given them (then ``prefix`` is ``n_frontend_tokens``, else 0)."""
+        cfg = self.cfg
+        emb = self._embed(batch["tokens"])
+        if cfg.frontend != "patches" or "patches" not in batch:
+            return emb, 0
+        patches = batch["patches"]
+        want = (emb.shape[0], cfg.n_frontend_tokens, cfg.d_model)
+        if tuple(patches.shape) != want:
+            raise ValueError(f"{cfg.name}: patches must be {list(want)}, got "
+                             f"{list(patches.shape)}")
+        return (torch.cat([patches.to(emb.dtype), emb], dim=1),
+                cfg.n_frontend_tokens)
+
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = rmsnorm(x, self.top["final_norm"], cfg.norm_eps)
         w = self.top["embed"].T if cfg.tie_embeddings else self.top["head"]
         return (x @ w).float()
 
-    def _layer(self, lp, x, cache, pos):
+    def _layer(self, lp, x, cache, pos, prefix: int = 0):
         cfg = self.cfg
         if "mamba" in lp:
             h, nc = mamba_apply(cfg, lp["mamba"],
@@ -166,15 +197,17 @@ class Model(nn.Module):
             h, nc = rglru_apply(cfg, lp["rec"], y, cache=cache, cache_pos=pos)
         else:
             window = cfg.local_window if cfg.family == "hybrid" else 0
-            h, nc = attn_apply(cfg, lp["attn"], y, window=window, cache=cache,
-                               cache_pos=pos)
+            h, nc = attn_apply(cfg, lp["attn"], y, window=window,
+                               prefix=prefix, cache=cache, cache_pos=pos)
         x = x + h
-        return x + mlp(rmsnorm(x, lp["ln2"], cfg.norm_eps), lp["mlp"],
-                       cfg.act), nc
+        y = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        if "moe" in lp:   # the aux loss is training's; serving drops it
+            return x + moe_apply(cfg, lp["moe"], y)[0], nc
+        return x + mlp(y, lp["mlp"], cfg.act), nc
 
-    def _run_stack(self, x, cache, pos):
+    def _run_stack(self, x, cache, pos, prefix: int = 0):
         for lp, c in zip(self.layers, cache["layers"]):
-            x, _ = self._layer(lp, x, c, pos)
+            x, _ = self._layer(lp, x, c, pos, prefix)
         return x
 
     # ----------------------------------------------------------------- serve
@@ -182,13 +215,16 @@ class Model(nn.Module):
         cfg, dev = self.cfg, self.device
         one = {"ssm": lambda: mamba_cache(cfg, batch, dev),
                "rec": lambda: rglru_cache(cfg, batch, dev),
-               "attn": lambda: attn_cache(cfg, batch, max_seq, dev)}
+               "attn": lambda: attn_cache(cfg, batch, max_seq, dev),
+               "moe": lambda: attn_cache(cfg, batch, max_seq, dev)}
         return {"layers": [one[kind]() for kind in layer_kinds(cfg)]}
 
     def prefill(self, batch: Dict, cache: Dict) -> Tuple[torch.Tensor, Dict]:
-        """The prompt ``batch["tokens"] [B, S]`` from position 0: fills the
-        cache and returns the last position's logits."""
-        x = self._run_stack(self._embed(batch["tokens"]), cache, 0)
+        """The prompt ``batch["tokens"] [B, S]`` from position 0, after
+        ``batch["patches"]`` for a patches model (the prefix-LM mask over
+        them): fills the cache and returns the last position's logits."""
+        x, prefix = self._embed_inputs(batch)
+        x = self._run_stack(x, cache, 0, prefix)
         return self._unembed(x[:, -1:]), cache
 
     def decode(self, tokens: torch.Tensor, pos: int,

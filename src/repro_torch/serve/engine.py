@@ -24,24 +24,39 @@ class ServeEngine:
 
     @torch.inference_mode()
     def generate(self, prompts, steps: int, temperature: float = 0.0,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 extra_batch: Optional[Dict] = None) -> torch.Tensor:
         """Greedy (or, with ``temperature > 0`` and a ``generator``, sampled)
         continuation of a batch of equal-length prompts ``[B, S_prompt]``;
         returns the ``[B, steps]`` generated tokens (int64, on the model's
-        device).  ``timing`` then holds ``prefill_ms`` and ``decode_ms``
-        (one entry per step)."""
+        device).  ``extra_batch`` joins the prefill's batch: a patches model
+        needs ``{"patches": [B, n_frontend_tokens, d]}``, and decoding then
+        starts at ``S_prompt + n_frontend_tokens``.  ``timing`` then holds
+        ``prefill_ms`` and ``decode_ms`` (one entry per step)."""
         model = self.model
+        cfg = model.cfg
         prompts = torch.as_tensor(prompts, device=model.device)
         b, s_prompt = prompts.shape
-        if s_prompt + steps > self.max_seq:
-            raise ValueError(f"{s_prompt} prompt + {steps} generated tokens "
-                             f"exceed max_seq={self.max_seq}")
+        batch = {"tokens": prompts}
+        batch.update({k: torch.as_tensor(v, device=model.device)
+                      for k, v in (extra_batch or {}).items()})
+        prefix = cfg.n_frontend_tokens if cfg.frontend == "patches" else 0
+        if prefix and "patches" not in batch:
+            # The JAX engine decodes from S_prompt + n_frontend_tokens here
+            # too, past the positions its prefill filled (and at full width
+            # past max_seq, where its cache writes clamp): ROADMAP.md queue 3.
+            raise ValueError(f"{cfg.name} takes {prefix} patch embeddings "
+                             "before the prompt: pass extra_batch={'patches': "
+                             f"[B, {prefix}, {cfg.d_model}]}}")
+        if prefix + s_prompt + steps > self.max_seq:
+            raise ValueError(f"{prefix + s_prompt} prompt positions + {steps} "
+                             f"generated tokens exceed max_seq={self.max_seq}")
         cache = model.init_cache(b, self.max_seq)
         marks = _Marks(model.device)
-        logits, cache = model.prefill({"tokens": prompts}, cache)
+        logits, cache = model.prefill(batch, cache)
         tok = self._pick(logits[:, -1], temperature, generator)
         marks.mark()
-        pos = s_prompt
+        pos = prefix + s_prompt
         out = []
         for _ in range(steps):
             out.append(tok)

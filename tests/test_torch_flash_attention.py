@@ -2,8 +2,9 @@
 package's Pallas kernel in interpret mode and against both packages' oracles
 (``ref.attention_ref``), on small shapes with the edge cases: causal and not,
 GQA groups 1, 2 and 6, ``sk_valid`` below ``Sk``, one query row, lengths that
-are not tile multiples, the model's decode call (``q_offset``), and the
-sliding window (against the JAX model's attention and its mask).
+are not tile multiples, the model's decode call (``q_offset``), the
+sliding window and the prefix-LM mask (against the JAX model's attention
+and its mask).
 
 float32 throughout; the tolerance is atol 1e-5 because only the order of the
 float sums differs.  On the CPU the wrapper takes its plain version; the CUDA
@@ -170,13 +171,15 @@ WINDOWED = [
 ]
 
 
-def _masked_softmax_ref(q, k, v, *, window, q_offset, kv_valid, causal):
+def _masked_softmax_ref(q, k, v, *, window, q_offset, kv_valid, causal,
+                        prefix=0):
     """Attention from the JAX model's own mask (``layers._mask_block``) and
     a numpy softmax, without Pallas and without the model's attention."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     mask = np.asarray(j_mask_block(q_offset + jnp.arange(sq), jnp.arange(sk),
-                                   causal=causal, window=window, prefix=0))
+                                   causal=causal, window=window,
+                                   prefix=prefix))
     if kv_valid is not None:
         mask = mask & (np.arange(sk) < kv_valid)[None, :]
     kr = np.repeat(k, hq // hkv, axis=2).astype(np.float64)
@@ -205,6 +208,130 @@ def test_window_matches_the_jax_model_attention_and_its_mask(case):
     _close(attend_plain(_t(q), _t(k), _t(v), causal=causal,
                         sk_valid=kv_valid, q_offset=q_offset, window=window),
            got.numpy())
+
+
+# (b, hq, hkv, sq, sk, d, prefix, window, q_offset, kv_valid): the prefix-LM
+# mask of the patches frontend: a prefix of one key, one ending inside a
+# 16-key tile and one past it, every key, with a window (applied after it),
+# a decode call, arctic's GQA group of 7 and paligemma's group of 8 at head
+# dim 256.
+PREFIXED = [
+    (2, 4, 2, 20, 20, 16, 1, 0, 0, None),
+    (2, 4, 2, 40, 40, 16, 7, 0, 0, None),
+    (1, 4, 1, 40, 40, 16, 21, 0, 0, None),
+    (1, 2, 2, 12, 12, 16, 12, 0, 0, None),
+    (2, 4, 2, 40, 40, 16, 21, 6, 0, None),
+    (2, 4, 1, 1, 40, 32, 25, 0, 10, 11),
+    (1, 7, 1, 9, 30, 16, 13, 0, 0, 20),
+    (2, 8, 1, 19, 24, 256, 11, 0, 0, 19),
+]
+
+
+@pytest.mark.parametrize("case", PREFIXED, ids=str)
+def test_prefix_matches_the_jax_model_attention_and_its_mask(case):
+    """``attend`` and ``attend_plain`` with ``prefix`` equal the JAX model's
+    ``layers.attention`` (unchunked and streamed) and a numpy softmax under
+    its own mask ``(k <= q) | (k < prefix)``."""
+    b, hq, hkv, sq, sk, d, prefix, window, q_offset, kv_valid = case
+    rng = np.random.default_rng(sum(x or 0 for x in case))
+    q = rng.standard_normal((b, sq, hq, d), dtype=np.float32)
+    k = rng.standard_normal((b, sk, hkv, d), dtype=np.float32)
+    v = rng.standard_normal((b, sk, hkv, d), dtype=np.float32)
+    kw = dict(causal=True, q_offset=q_offset, kv_valid=kv_valid)
+    got = attend(_t(q), _t(k), _t(v), causal=True, sk_valid=kv_valid,
+                 q_offset=q_offset, window=window, prefix=prefix)
+    for chunk in (0, 4):
+        _close(got, np.asarray(j_attention(q, k, v, window=window,
+                                           prefix=prefix, chunk=chunk, **kw)))
+    _close(got, _masked_softmax_ref(q, k, v, window=window, prefix=prefix,
+                                    **kw))
+    _close(attend_plain(_t(q), _t(k), _t(v), causal=True, sk_valid=kv_valid,
+                        q_offset=q_offset, window=window, prefix=prefix),
+           got.numpy())
+    if prefix <= q_offset + 1:   # every row sees the prefix anyway
+        _close(got, attend(_t(q), _t(k), _t(v), causal=True,
+                           sk_valid=kv_valid, q_offset=q_offset,
+                           window=window).numpy())
+
+
+def test_a_prefix_without_causal_changes_nothing():
+    q, k, v = (_t(x).transpose(1, 2) for x in _qkv(5, 2, 4, 2, 10, 10, 16))
+    assert torch.equal(attend(q, k, v, causal=False, prefix=6),
+                       attend(q, k, v, causal=False))
+    with pytest.raises(ValueError, match="prefix"):
+        attend(q, k, v, causal=True, prefix=-1)
+
+
+def _kernel_keys(rows, group, bq, bk, kw_keys, *, sk, sk_valid, q_offset,
+                 window, prefix, split_len=0, splits=1):
+    """The keys ``flash_attention.cu`` computes for each query row, from its
+    ``key_range`` (the causal end at the block's last row's limit ``max(pos,
+    prefix - 1)``, the window's first tile) and the tensor-core kernel's
+    sub-tile skip (``k0 > cl_hi``, or wholly before the window), per
+    split: ``{row: set of keys}``, masked keys left out as the kernel's
+    per-row test leaves them."""
+    def limit(pos):
+        return max(pos, prefix - 1)
+
+    def first_tile(pos):
+        first = pos - window + 1
+        return first // bk * bk if first > 0 else 0
+
+    kv_lim = min(sk_valid, sk)
+    seen = {r: set() for r in range(rows)}
+    split_len = split_len or sk
+    for r0 in range(0, rows, bq):
+        r_end = min(r0 + bq, rows)
+        kv_end = min(limit(q_offset + (r_end - 1) // group) + 1, kv_lim)
+        base = first_tile(q_offset) if window else 0
+        for split in range(splits):
+            lo = base + split * split_len
+            hi = min(lo + split_len, kv_end)
+            if window:
+                lo = max(lo, first_tile(q_offset + r0 // group))
+            for t0 in range(lo, hi, bk):
+                for w0 in range(r0, r_end, 16):        # a warp's 16 rows
+                    w_last = min(w0 + 16, r_end) - 1
+                    pos_lo = q_offset + w0 // group
+                    cl_hi = limit(q_offset + w_last // group)
+                    for k0 in range(t0, t0 + bk, kw_keys):
+                        if (k0 >= hi or k0 > cl_hi or (
+                                window and k0 + kw_keys - 1
+                                <= pos_lo - window)):
+                            continue
+                        for r in range(w0, w_last + 1):
+                            pos = q_offset + r // group
+                            for kp in range(k0, min(k0 + kw_keys, hi)):
+                                if kp <= limit(pos) and (
+                                        not window or kp > pos - window):
+                                    seen[r].add(kp)
+    return seen
+
+
+@pytest.mark.parametrize("case", [
+    (1, 256, 8, 64, 64, 300, 300, 0, 0, 256),      # paligemma-like prefill
+    (12, 0, 7, 64, 64, 200, 150, 0, 0, 40),       # arctic's group of 7
+    (20, 0, 8, 64, 32, 100, 100, 0, 16, 70),      # prefix with a window
+    (1, 0, 8, 16, 16, 300, 301, 300, 0, 256),     # decode, keys split
+    (3, 5, 1, 64, 64, 200, 200, 5, 0, 130),       # past 2 key tiles
+], ids=str)
+def test_kernel_key_ranges_give_each_row_its_prefix_keys(case):
+    """The CUDA kernel's key ranges and sub-tile skips, mirrored in Python:
+    with a prefix every row is given exactly the keys the JAX mask lets it
+    see, each once."""
+    sq, extra, group, bq, kw_keys, sk, sk_valid, q_offset, window, prefix         = case
+    sq += extra
+    rows = sq * group
+    splits, split_len = (1, 0) if sq > 1 else (5, 64)
+    seen = _kernel_keys(rows, group, bq, 64, kw_keys, sk=sk,
+                        sk_valid=sk_valid, q_offset=q_offset, window=window,
+                        prefix=prefix, split_len=split_len, splits=splits)
+    for r in range(rows):
+        pos = q_offset + r // group
+        want = {kp for kp in range(min(sk, sk_valid))
+                if (kp <= pos or kp < prefix)
+                and (not window or kp > pos - window)}
+        assert seen[r] == want, r
 
 
 def test_a_window_wider_than_every_key_changes_nothing():
@@ -247,6 +374,9 @@ PLANS = [
     ("ragged prefill", 2, 70, 6, 2, 64, 150, 76, 5, 0),
     ("small", 1, 3, 4, 1, 32, 80, 61, 58, 0),
     ("no valid key", 1, 1, 6, 1, 64, 100, 0, 0, 0),
+    ("paligemma prefill", 8, 1024, 8, 1, 256, 1096, 1024, 0, 0),
+    ("paligemma decode", 8, 1, 8, 1, 256, 1096, 1062, 1061, 0),
+    ("arctic decode", 8, 1, 56, 8, 128, 1096, 1062, 1061, 0),
 ]
 
 
@@ -306,7 +436,7 @@ def test_plan_of_the_serve_calls(case):
 
 
 def _kernel_rounding(q, k, v, *, causal, sk_valid, q_offset=0, window=0,
-                     bk=64, split=True):
+                     prefix=0, bk=64, split=True):
     """The bf16 kernel's arithmetic in plain PyTorch: S = Q·Kᵀ of the bf16
     values summed in float32 and scaled after the product (log2 units), an
     online softmax over ``bk``-key tiles with exp2, P split into bf16
@@ -328,7 +458,8 @@ def _kernel_rounding(q, k, v, *, causal, sk_valid, q_offset=0, window=0,
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf[:, col]) * sl
         mask = (col < sk_valid)[None, :].expand(sq, -1)
         if causal:
-            mask = mask & (col[None, :] <= row[:, None])
+            mask = mask & ((col[None, :] <= row[:, None])
+                           | (col < prefix)[None, :])
         if window:
             mask = mask & (col[None, :] > row[:, None] - window)
         s = torch.where(mask, s, -1e30)
@@ -346,27 +477,31 @@ def _kernel_rounding(q, k, v, *, causal, sk_valid, q_offset=0, window=0,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).bfloat16()
 
 
-# (b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, window, bk): qwen2's
-# and recurrentgemma's heads in prefill and decode, with the window's edge
-# inside a key tile.
+# (b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, window, bk, prefix):
+# qwen2's and recurrentgemma's heads in prefill and decode, with the window's
+# edge inside a key tile; paligemma's (8 of 256 over one KV head) and
+# arctic's (56 over 8) prefills under the prefix-LM mask.
 ROUNDING = [
-    (2, 80, 150, 12, 2, 128, True, 140, 60, 0, 64),
-    (2, 1, 300, 12, 2, 128, True, 201, 200, 0, 64),
-    (1, 48, 120, 10, 1, 256, True, 120, 72, 40, 32),
-    (2, 1, 200, 10, 1, 256, True, 180, 179, 100, 64),
+    (2, 80, 150, 12, 2, 128, True, 140, 60, 0, 64, 0),
+    (2, 1, 300, 12, 2, 128, True, 201, 200, 0, 64, 0),
+    (1, 48, 120, 10, 1, 256, True, 120, 72, 40, 32, 0),
+    (2, 1, 200, 10, 1, 256, True, 180, 179, 100, 64, 0),
+    (1, 90, 100, 8, 1, 256, True, 90, 0, 0, 32, 40),
+    (1, 40, 50, 56, 8, 128, True, 40, 0, 0, 64, 17),
 ]
 
 
 def _rounding_error(case, split=True):
     """max |model - plain| / (2^-10 + 2^-7 |plain|) at a ``ROUNDING``
     case, over seeded bf16 inputs."""
-    b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, window, bk = case
+    b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, window, bk, prefix = \
+        case
     rng = np.random.default_rng(sum(case[:6]))
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
                .bfloat16() for shape in ((b, sq, hq, d), (b, sk, hkv, d),
                                          (b, sk, hkv, d)))
     kw = dict(causal=causal, sk_valid=sk_valid, q_offset=q_offset,
-              window=window)
+              window=window, prefix=prefix)
     got = _kernel_rounding(q, k, v, bk=bk, split=split, **kw).float()
     want = attend_plain(q, k, v, **kw).float()
     assert torch.isfinite(got).all()

@@ -720,6 +720,42 @@ def test_windowed_flash_attention_kernel_matches_plain(cuda, case):
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
 
 
+# (b, sq, sk, hq, hkv, d, sk_valid, q_offset, window, prefix, dtype): the
+# prefix-LM mask (paligemma's patches) on both kernels: a prefix of 1, one
+# ending inside a key tile and one past a tile, with a window, a decode
+# call split over the keys, arctic's group of 7 (56 query heads over 8) and
+# paligemma's group of 8 at head dim 256.
+_PREFIXED = [
+    (b, sq, sk, hq, hkv, d, kv, off, w, pre, dtype)
+    for dtype in (torch.float32, torch.bfloat16)
+    for b, sq, sk, hq, hkv, d, kv, off, w, pre in (
+        (2, 40, 40, 4, 2, 16, 40, 0, 0, 1),
+        (2, 100, 130, 6, 1, 64, 100, 0, 0, 37),
+        (2, 100, 130, 6, 1, 64, 100, 0, 0, 70),
+        (2, 90, 100, 4, 1, 128, 90, 0, 20, 50),
+        (8, 1, 400, 8, 1, 256, 301, 300, 0, 256),
+        (2, 70, 80, 56, 8, 128, 70, 0, 0, 33),
+        (2, 300, 320, 8, 1, 256, 300, 0, 0, 256))]
+
+
+@pytest.mark.parametrize("case", _PREFIXED, ids=str)
+def test_prefix_flash_attention_kernel_matches_plain(cuda, case):
+    b, sq, sk, hq, hkv, d, sk_valid, q_offset, window, prefix, dtype = case
+    fa = _kernel("flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(sq * sk + prefix)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d)))
+    kw = dict(causal=True, sk_valid=sk_valid, q_offset=q_offset,
+              window=window, prefix=prefix)
+    before = fa.LAUNCHES
+    got = fa.attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    want = fa.attend_plain(q, k, v, **kw)
+    rtol, atol = (0, 1e-5) if dtype == torch.float32 else (2**-7, 2**-10)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
 def test_bf16_flash_attention_rejects_misaligned_tensors(cuda):
     """The tensor-core kernel copies K/V tiles in 16-byte pieces: a bf16
     tensor whose data or strides are not 16-byte aligned raises, and
@@ -814,11 +850,13 @@ def test_ssd_kernel_reads_views_not_16_byte_aligned(cuda):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "kimi-k2-1t-a32b",
+                                  "arctic-480b", "paligemma-3b"])
 def test_smoke_models_on_the_card_match_the_cpu(cuda, arch, monkeypatch):
     """The model's glue around the kernels, in float32 with TF32 off: the
     card's prefill logits and greedy tokens equal the CPU's (40-token
-    prompts and 16 steps: past recurrentgemma's smoke window of 16)."""
+    prompts and 16 steps: past recurrentgemma's smoke window of 16;
+    paligemma's 8 patches before them)."""
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.models.model import init_params
@@ -832,12 +870,57 @@ def test_smoke_models_on_the_card_match_the_cpu(cuda, arch, monkeypatch):
     cpu = Model(cfg, device="cpu", params=params)
     prompts = torch.randint(0, cfg.vocab, (4, 40),
                             generator=torch.Generator().manual_seed(2))
-    lg, _ = gpu.prefill({"tokens": prompts.to(cuda)}, gpu.init_cache(4, 64))
-    lc, _ = cpu.prefill({"tokens": prompts}, cpu.init_cache(4, 64))
+    extra = ({"patches": torch.randn(
+        (4, cfg.n_frontend_tokens, cfg.d_model),
+        generator=torch.Generator().manual_seed(3))}
+        if cfg.n_frontend_tokens else {})
+    lg, _ = gpu.prefill({"tokens": prompts.to(cuda),
+                         **{k: t.to(cuda) for k, t in extra.items()}},
+                        gpu.init_cache(4, 64))
+    lc, _ = cpu.prefill({"tokens": prompts, **extra}, cpu.init_cache(4, 64))
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
-    tg = ServeEngine(gpu, max_seq=64).generate(prompts, steps=16)
-    tc = ServeEngine(cpu, max_seq=64).generate(prompts, steps=16)
+    tg = ServeEngine(gpu, max_seq=64).generate(prompts, steps=16,
+                                               extra_batch=extra)
+    tc = ServeEngine(cpu, max_seq=64).generate(prompts, steps=16,
+                                               extra_batch=extra)
     assert torch.equal(tg.cpu(), tc)
+
+
+@pytest.mark.parametrize("cf", [8.0, 1.25])
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "arctic-480b"])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, arch, cf, monkeypatch):
+    """The MoE block's dispatch, experts and combine at smoke width, in
+    float32 with TF32 off, on 96 tokens in 2 groups: the dispatch indices
+    equal the CPU's, ``y`` within 1e-5 and aux within 1e-6 (float sums in
+    another order), at the smoke's capacity factor and the published 1.25,
+    which drops tokens; and two runs on the card give the same bits."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config(arch).smoke(), capacity_factor=cf,
+                              moe_groups=2)
+    p = blocks.moe_params(torch.Generator().manual_seed(4), cfg)
+    x = torch.randn((8, 12, cfg.d_model),
+                    generator=torch.Generator().manual_seed(5))
+    pg = {k: (t.to(cuda) if isinstance(t, torch.Tensor) else
+              {n: w.to(cuda) for n, w in t.items()}) for k, t in p.items()}
+    yc, auxc = blocks.moe_apply(cfg, p, x)
+    yg, auxg = blocks.moe_apply(cfg, pg, x.to(cuda))
+    yg2, _ = blocks.moe_apply(cfg, pg, x.to(cuda))
+    torch.testing.assert_close(yg.cpu(), yc, rtol=0, atol=1e-5)
+    torch.testing.assert_close(auxg.cpu(), auxc, rtol=1e-6, atol=0)
+    assert torch.equal(yg, yg2)
+    n_groups, tg, cap = blocks.moe_groups(cfg, 96)
+    dc = blocks.moe_dispatch(cfg, p["router"], x.reshape(n_groups, tg, -1),
+                             cap)
+    dg = blocks.moe_dispatch(cfg, pg["router"],
+                             x.to(cuda).reshape(n_groups, tg, -1), cap)
+    for name in ("sel", "se", "pos_c", "keep", "tok_sorted"):
+        assert torch.equal(dg[name].cpu(), dc[name]), name
+    assert bool((~dc["keep"]).any()) == (cf != 8.0)
 
 
 def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):

@@ -72,18 +72,20 @@ def test_config_copies_equal_the_jax_package(name):
 
 
 SERVED = {"qwen2-1.5b", "qwen2.5-3b", "yi-6b", "qwen3-14b", "mamba2-130m",
-          "recurrentgemma-2b"}
+          "recurrentgemma-2b", "kimi-k2-1t-a32b", "arctic-480b",
+          "paligemma-3b"}
 
 
 @pytest.mark.parametrize("name", jconfigs.ARCH_NAMES)
 def test_model_serves_dense_and_ssm_and_raises_for_the_rest(name):
+    """Every decoder of the JAX package is served; encoder-only hubert (the
+    frames frontend, no decode step) raises, naming its ROADMAP.md item."""
     cfg = configs.get_config(name).smoke()
     if name in SERVED:
         m = Model(cfg, device="cpu")
         assert len(m.layers) == cfg.n_layers
     else:
-        with pytest.raises(NotImplementedError, match="queue 1 item 10|"
-                                                      "encoder-only"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
             Model(cfg, device="cpu")
 
 
@@ -128,15 +130,29 @@ def test_attention_matches(kw):
 @pytest.mark.parametrize("kw, what", [(dict(window=4), "local_window"),
                                       (dict(prefix=2), "prefix")])
 def test_attention_knobs_outside_the_slice_raise(kw, what):
-    """``prefix`` (the patches frontend) is outside the slice and raises;
-    ``window`` (recurrentgemma's local attention) came with the hybrid
-    family and now matches the JAX attention."""
-    if what == "prefix":
-        q = torch.zeros((1, 3, 2, 16))
-        with pytest.raises(NotImplementedError, match=what):
-            layers.attention(q, q, q, **kw)
-        return
+    """Both knobs once outside the slice now match the JAX attention:
+    ``window`` (recurrentgemma's local attention, with the hybrid family)
+    and ``prefix`` (the patches frontend's prefix-LM mask, with the vlm
+    family)."""
     q, k, v = _x(0, 2, 9, 4, 16), _x(1, 2, 9, 2, 16), _x(2, 2, 9, 2, 16)
+    for chunk in (0, 4):
+        _close(layers.attention(*map(torch.from_numpy, (q, k, v)), **kw),
+               jlayers.attention(q, k, v, chunk=chunk, **kw))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(prefix=1), dict(prefix=5), dict(prefix=9), dict(prefix=20),
+    dict(prefix=5, window=3), dict(prefix=5, causal=False),
+    dict(prefix=6, q_offset=6, kv_valid=9),
+    dict(prefix=8, q_offset=2, kv_valid=11, window=4)], ids=str)
+def test_attention_with_a_prefix_matches_the_jax_attention(kw):
+    """The prefix-LM mask ``(k <= q) | (k < prefix)`` under ``causal``: a
+    prefix of one key, inside the keys, all of them and past them; with a
+    window (applied after it), without ``causal`` (no effect), and at a
+    decode-like ``q_offset`` with ``kv_valid``."""
+    sk = 11
+    q, k, v = _x(3, 2, 11 - kw.get("q_offset", 0), 4, 16), _x(4, 2, sk, 2, 16), \
+        _x(5, 2, sk, 2, 16)
     for chunk in (0, 4):
         _close(layers.attention(*map(torch.from_numpy, (q, k, v)), **kw),
                jlayers.attention(q, k, v, chunk=chunk, **kw))
@@ -254,6 +270,43 @@ def test_rglru_block_prefill_and_decode_match():
     _close(tc["conv"], jc["conv"])
 
 
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "arctic-480b",
+                                  "paligemma-3b"])
+def test_init_params_have_the_jax_trees_shapes(arch):
+    """The port's random init has the JAX ``Model.init`` tree's shapes and
+    dtypes, layer for layer: kimi's leading dense layer (JAX's ``dense0``)
+    with the MLP width ``moe_dense_d_ff`` (96 here, not ``d_ff``), the MoE
+    layers' experts, shared expert, dense residual and float32 router."""
+    from repro.models import Model as JModel
+    from repro_torch.models.model import init_params
+    kw = dict(dtype="bfloat16")
+    if arch == "kimi-k2-1t-a32b":
+        kw["moe_dense_d_ff"] = 96
+    jcfg = dataclasses.replace(jconfigs.get_config(arch).smoke(), **kw)
+    cfg = dataclasses.replace(configs.get_config(arch).smoke(), **kw)
+    tree = jax.eval_shape(JModel(jcfg).init, jax.random.PRNGKey(0))
+    got = init_params(cfg, torch.Generator().manual_seed(0))
+    stacks = ([(tree["dense0"], i) for i in range(cfg.first_dense_layers)]
+              + [(tree["layers"], i)
+                 for i in range(cfg.n_layers - cfg.first_dense_layers)])
+
+    def shapes(t, one=None):
+        if isinstance(t, dict):
+            return {k: shapes(v, one) for k, v in t.items()}
+        if isinstance(t, torch.Tensor):
+            return tuple(t.shape), str(t.dtype).split(".")[-1]
+        return tuple(t.shape[1:] if one else t.shape), str(t.dtype)
+
+    assert len(got["layers"]) == len(stacks)
+    for layer, (stack, _) in zip(got["layers"], stacks):
+        assert shapes(layer) == shapes(stack, one=True)
+    top = {k: v for k, v in tree.items() if k not in ("layers", "dense0")}
+    assert shapes({k: v for k, v in got.items() if k != "layers"}) == \
+        shapes(top)
+    if arch == "kimi-k2-1t-a32b":
+        assert got["layers"][0]["mlp"]["w_in"].shape == (cfg.d_model, 2, 96)
+
+
 def test_hybrid_layers_follow_the_jax_groups():
     """recurrentgemma-2b's 26 layers: 8 (rec, rec, attn) groups, then the 2
     rec layers of the JAX ``extra`` stack."""
@@ -263,6 +316,11 @@ def test_hybrid_layers_follow_the_jax_groups():
     smoke = layer_kinds(configs.get_config("recurrentgemma-2b").smoke())
     assert smoke == ["rec", "rec", "attn", "rec"]
     assert layer_kinds(configs.get_config("qwen2-1.5b").smoke()) == ["attn"] * 2
+    assert layer_kinds(configs.get_config("kimi-k2-1t-a32b")) == \
+        ["attn"] + ["moe"] * 60
+    assert layer_kinds(configs.get_config("arctic-480b").smoke()) == \
+        ["moe"] * 2
+    assert layer_kinds(configs.get_config("paligemma-3b")) == ["attn"] * 18
 
 
 def test_hybrid_model_prefill_and_decode_past_the_window_match():
@@ -337,3 +395,45 @@ def test_params_from_jax_unstacks_layers_bit_for_bit(arch):
     short = dataclasses.replace(cfg, n_layers=cfg.n_layers + 1)
     with pytest.raises(ValueError, match="stacks"):
         params_from_jax(short, tree, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "arctic-480b"])
+def test_params_from_jax_carries_dense0_and_the_moe_stack_bit_for_bit(
+        arch, dtype):
+    """An MoE tree: ``dense0`` (kimi's leading dense layer) becomes the
+    first layers and the MoE stack follows; every expert array, the shared
+    expert, the dense residual and the router (float32 in a bfloat16
+    model) carry over with the same bits."""
+    jcfg = dataclasses.replace(jconfigs.get_config(arch).smoke(), dtype=dtype)
+    cfg = dataclasses.replace(configs.get_config(arch).smoke(), dtype=dtype)
+    from repro.models import Model as JModel
+    tree = jax.tree.map(np.asarray, JModel(jcfg).init(jax.random.PRNGKey(1)))
+    m = params_from_jax(cfg, tree, device="cpu")
+
+    def bits(a):
+        a = a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+                   ) if isinstance(a, torch.Tensor) else a
+        return np.asarray(a.numpy() if isinstance(a, torch.Tensor) else
+                          a.view(np.int16 if a.dtype.itemsize == 2
+                                 else np.int32))
+
+    n_dense = cfg.first_dense_layers
+    assert ("dense0" in tree) == bool(n_dense)
+    for i in range(n_dense):
+        layer = m.layers[i]
+        assert "moe" not in layer
+        for name in ("w_in", "w_out"):
+            np.testing.assert_array_equal(
+                bits(layer["mlp"][name]), bits(tree["dense0"]["mlp"][name][i]))
+    for i in range(cfg.n_layers - n_dense):
+        layer, jl = m.layers[n_dense + i]["moe"], tree["layers"]["moe"]
+        assert layer["router"].dtype == torch.float32
+        for name in ("router", "w_in", "w_out"):
+            np.testing.assert_array_equal(bits(layer[name]),
+                                          bits(jl[name][i]), err_msg=name)
+        for part in ("shared", "dense"):
+            assert (part in layer) == (part in jl)
+            if part in jl:
+                np.testing.assert_array_equal(bits(layer[part]["w_in"]),
+                                              bits(jl[part]["w_in"][i]))

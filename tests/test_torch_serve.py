@@ -103,7 +103,8 @@ def test_sampling_is_seeded_and_in_range():
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-130m",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "kimi-k2-1t-a32b",
+                                  "arctic-480b"])
 def test_launch_serve_runs_on_the_cpu(arch, capsys):
     # recurrentgemma's prompt runs past its smoke window of 16.
     prompt = 20 if arch == "recurrentgemma-2b" else 6
@@ -113,6 +114,17 @@ def test_launch_serve_runs_on_the_cpu(arch, capsys):
     assert out.shape == (2, 4)
     text = capsys.readouterr().out
     assert "prefill" in text and "ms/step" in text and "tok/s" in text
+
+
+def test_launch_serve_names_the_patches_a_patches_model_needs():
+    """The launcher passes no patches, as the JAX package's does; the
+    port's engine raises for paligemma there rather than decode past the
+    positions its prefill filled (``tests/test_torch_moe.py`` serves it
+    with patches through ``extra_batch``)."""
+    with pytest.raises(ValueError, match="patches"):
+        launch_serve.main(["--arch", "paligemma-3b", "--smoke", "--device",
+                           "cpu", "--requests", "2", "--prompt-len", "6",
+                           "--gen-len", "4"])
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
