@@ -159,7 +159,33 @@ What it does, in order; any failure raises and the exit code is non-zero:
    plain version and ``scaled_dot_product_attention`` (never called by the
    port); the short decode calls, and their library calls, on the device
    alone.  Alone, phases 7-9: ``python3 chip_smoke.py --lm-only``.
-10. Prints the stage and kernel times, peak device memory, one ``kernels``
+10. Training (``run_train``).  (a) Kernel 5's lse and kernel 5b (the
+   backward, ``csrc/flash_attention_bwd.cu``) against their plain versions
+   at ``BWD_EDGES`` in fp32 and bf16: head dims 16, 64, 80, 128 and 256,
+   causal, non-causal, the prefix-LM mask, windows, GQA groups 1, 6, 7
+   and 8, one query row, ragged lengths, sk_valid, q_offset and forward
+   plans that split the keys (``BWD_FP32_TOL``, ``BWD_BF16_TOL``,
+   ``LSE_TOL``); kernel 5b twice gives the same bits.  (b) hubert-xlarge
+   whole (48 layers, d 1280, bf16, remat per layer, 0.947 G parameters) for
+   5 AdamW steps of 16 x 1024 frames in 2 microbatches, through the API
+   ``python -m repro_torch.launch.train`` drives, each step's loss, gnorm,
+   ms, frames/s, peak memory and kernel 5 and 5b launches and device ms
+   (``KernelClock``: CUDA events around each wrapper call); then 5 steps on
+   one fixed batch at peak lr ``FIXED_LR``, whose loss must fall.  (c) One
+   full-width hubert layer in fp32 (TF32 off): its gradients with kernels
+   5 and 5b against attention differentiated through ``attend_plain``,
+   every leaf within ``LAYER_GRAD_TOL`` of its largest element.  (d)
+   qwen2-1.5b whole, 3 steps of 8 x 1024 tokens.  (e) paligemma-3b's and
+   kimi-k2's smoke configs, 3 steps on the card and on the CPU from the
+   same weights (the prefix-LM mask and the MoE block's backward), losses
+   within ``SMOKE_LOSS_RTOL``.  Then, at the shapes, dtype and mask of the
+   last kernel-5b call in a step of hubert, qwen2 and paligemma's smoke
+   config (prefix 8), kernel 5's output and lse against the plain version
+   and kernel 5b beside its plain version, its bound and
+   ``scaled_dot_product_attention``'s forward plus backward (rows
+   ``flash_attention_bwd``, ``_qwen2``, ``_prefix``).  Alone:
+   ``python3 chip_smoke.py --train-only``.
+11. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
 
 A kernel's bound is the larger of two times: the bytes the function must
@@ -699,6 +725,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-only", action="store_true",
                     help="build and run the LM serving phase alone (no "
                          "kernels line, no ok line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build and run the training phase alone (no "
+                         "kernels line, no ok line)")
     ap.add_argument("--recovery-child", metavar="SPEC",
                     help="one leg of the recovery phase (a JSON spec); the "
                          "phase starts these itself")
@@ -738,6 +767,9 @@ def main(argv=None) -> int:
     if args.lm_only:
         run_lm(dev, args)
         return 0
+    if args.train_only:
+        run_train(dev, args)
+        return 0
     rows = run(dev, args)
     torch.cuda.empty_cache()
     run_trace(dev, args, card)
@@ -749,6 +781,8 @@ def main(argv=None) -> int:
     rows += run_apps(dev, args)
     torch.cuda.empty_cache()
     rows += run_lm(dev, args)
+    torch.cuda.empty_cache()
+    rows += run_train(dev, args)
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -3058,6 +3092,529 @@ def run_lm(dev: torch.device, args) -> list:
     return [{key: r[key] for key in r if not key.endswith("shape")}
             for r in rows]
 
+
+
+# --------------------------------------------------------------------------- #
+# 10. Training                                                                 #
+# --------------------------------------------------------------------------- #
+
+# Kernel 5b's edge matrix, (b, sq, sk, hq, hkv, d, mask keywords): head dims
+# 16, 64, 80, 128 and 256; causal, non-causal, the prefix-LM mask (256 keys,
+# and 37 under a window), windows of 16 and 100; GQA groups 1, 6, 7 and 8;
+# one query row, ragged lengths, sk_valid and q_offset; the last two with
+# so few blocks that the forward's plan splits the keys (its merge writes
+# lse).  Each case runs in fp32 and in bf16.
+BWD_EDGES = [
+    (2, 1, 1, 2, 2, 16, dict(causal=True)),
+    (2, 37, 37, 6, 1, 16, dict(causal=True)),
+    (1, 70, 70, 7, 1, 64, dict(causal=False)),
+    (2, 300, 300, 8, 1, 80, dict(causal=True)),
+    (2, 130, 130, 16, 16, 80, dict(causal=False)),
+    (1, 300, 300, 12, 2, 128, dict(causal=True)),
+    (2, 300, 300, 8, 1, 256, dict(causal=True, prefix=256)),
+    (1, 90, 90, 4, 2, 256, dict(causal=True, window=16)),
+    (1, 300, 300, 6, 2, 64, dict(causal=True, window=100)),
+    (2, 70, 90, 4, 2, 16, dict(causal=True, prefix=37, window=16,
+                               sk_valid=85, q_offset=20)),
+    (1, 1, 1062, 12, 2, 128, dict(causal=True, sk_valid=1000, q_offset=999)),
+    (1, 200, 1062, 2, 1, 80, dict(causal=True, q_offset=862)),
+]
+# Kernel 5b against attend_backward_plain from the same inputs: both sum in
+# fp32 in other orders, so |kernel - plain| <= rtol |plain| + atol
+# max(1, max |plain|) per gradient; bf16 rounds each gradient once more (one
+# bf16 ulp, 2^-7 of |plain| at most).  The forward's lse within 1e-5 (1 +
+# |plain|): fp32 sums of the same products.
+BWD_FP32_TOL = (1e-4, 1e-5)
+BWD_BF16_TOL = (2**-7, 1e-4)
+LSE_TOL = 1e-5
+# A full-width hubert-xlarge layer's gradients with the kernels against the
+# plain path (attention differentiated through attend_plain), fp32 with TF32
+# off: every leaf within 1e-4 of its largest element (other sum orders over
+# 1024 frames and 1280-wide products).
+LAYER_GRAD_TOL = 1e-4
+# The smoke models trained on the card against the CPU, fp32, TF32 off.
+SMOKE_LOSS_RTOL = 1e-4
+# hubert-xlarge whole, as python -m repro_torch.launch.train
+# --arch hubert-xlarge --steps 5 --seq 1024 --batch 16 --microbatches 2;
+# qwen2-1.5b whole, 3 steps of 8 x 1024 tokens.
+HUBERT_RUN = dict(steps=5, seq=1024, batch=16, microbatches=2)
+QWEN_RUN = dict(steps=3, seq=1024, batch=8, microbatches=1)
+# The fixed-batch run's peak lr: at the default 3e-4 the first Adam step
+# (every weight moved by about lr) lifts hubert's loss before it falls, so
+# the fall is checked at a tenth of it.
+FIXED_LR = 3e-5
+
+
+def grad_close(got, want, tol, what: str) -> float:
+    """max |got - want| / max(1, max |want|), failing unless every element is
+    within ``rtol |want| + atol max(1, max |want|)``."""
+    torch.cuda.synchronize()
+    rtol, atol = tol
+    check(got.shape == want.shape, f"{what}: shapes {got.shape} vs "
+                                   f"{want.shape}")
+    want = want.float()
+    diff = (got.float() - want).abs()
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    ok = bool((diff <= rtol * want.abs() + atol * scale).all())
+    err = float(diff.max()) / scale if diff.numel() else 0.0
+    check(ok and math.isfinite(err), f"{what}: max |kernel - plain| = "
+                                     f"{err * scale} (scale {scale})")
+    return err
+
+
+class KernelClock:
+    """Counts kernel 5's and 5b's launches and sums their device time in a
+    run, between CUDA events recorded around each wrapper call (the events
+    add no synchronisation; :meth:`read` synchronises once)."""
+
+    def __init__(self, fa):
+        self.fa = fa
+        self.events = {"5": [], "5b": []}
+        self.bwd_call = None
+        self._launch, self._bwd = fa._launch, fa.attend_backward
+
+        def timed(key, fn):
+            def call(*a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                self.events[key].append((e0, e1))
+                if key == "5b":
+                    self.bwd_call = dict(q=tuple(a[0].shape),
+                                         k=tuple(a[1].shape),
+                                         dtype=a[0].dtype, kw=dict(kw))
+                return out
+            return call
+
+        fa._launch = timed("5", self._launch)
+        fa.attend_backward = timed("5b", self._bwd)
+
+    def reset(self) -> None:
+        self.events = {"5": [], "5b": []}
+        self.bwd_call = None
+        self.fa.LAUNCHES = self.fa.BWD_LAUNCHES = 0
+
+    def read(self) -> dict:
+        """Launches and device ms since :meth:`reset`, and ``bwd_call``:
+        the shapes, dtype and keywords of the last kernel-5b call (None if
+        there was none)."""
+        torch.cuda.synchronize()
+        ms = {k: sum(a.elapsed_time(b) for a, b in ev)
+              for k, ev in self.events.items()}
+        return {"fwd_launches": self.fa.LAUNCHES,
+                "bwd_launches": self.fa.BWD_LAUNCHES,
+                "fwd_ms": ms["5"], "bwd_ms": ms["5b"],
+                "bwd_call": self.bwd_call}
+
+    def close(self) -> None:
+        self.fa._launch, self.fa.attend_backward = self._launch, self._bwd
+
+
+def fwd_lse_check(fa, q, k, v, kw: dict, what: str):
+    """Kernel 5 with lse against attend_plain_with_lse on the same inputs:
+    the output within the forward's tolerance of its dtype, lse +inf on the
+    same rows and within ``LSE_TOL`` elsewhere.  Returns the kernel's
+    ``(out, lse)`` and the largest differences ``(out, lse)``."""
+    out, lse = fa.attend_with_lse(q, k, v, **kw)
+    out_p, lse_p = fa.attend_plain_with_lse(q, k, v, **kw)
+    if q.dtype == torch.float32:
+        e_out = close(out, out_p, 0, FP32_ATOL, f"{what} out")
+    else:
+        e_out = close(out, out_p, BF16_RTOL, BF16_ATOL, f"{what} out")
+    live = torch.isfinite(lse_p)
+    check(torch.equal(live, torch.isfinite(lse)),
+          f"{what}: lse +inf on the same rows")
+    e_lse = close(lse[live], lse_p[live], LSE_TOL, LSE_TOL, f"{what} lse")
+    return out, lse, (e_out, e_lse)
+
+
+def bwd_edge_checks(gen, fa) -> int:
+    """Kernel 5 with lse and kernel 5b against their plain versions at
+    ``BWD_EDGES`` in fp32 and bf16; kernel 5b twice gives the same bits.
+    Returns the number of cases."""
+    n = 0
+    for dtype, tol in ((torch.float32, BWD_FP32_TOL),
+                       (torch.bfloat16, BWD_BF16_TOL)):
+        for b, sq, sk, hq, hkv, d, kw in BWD_EDGES:
+            q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
+            dout = torch.randn((b, sq, hq, d), generator=gen,
+                               device=gen.device).to(dtype)
+            what = f"5b {dtype} {b, sq, sk, hq, hkv, d} {kw}"
+            out, lse, _ = fwd_lse_check(fa, q, k, v, kw, what)
+            got = fa.attend_backward(q, k, v, out, dout, lse, **kw)
+            want = fa.attend_backward_plain(q, k, v, out, dout, **kw)
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                grad_close(g, w, tol, f"{what} {name}")
+            again = fa.attend_backward(q, k, v, out, dout, lse, **kw)
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"{what}: two runs of kernel 5b give equal bits")
+            n += 1
+    return n
+
+
+# Kernel names of a training step's device time, by what launched them.
+STEP_PARTS = (("kernel 5", ("flash_mma_kernel", "flash_kernel",
+                            "combine_kernel")),
+              ("kernel 5b", ("dkdv_kernel", "dq_kernel", "row_dot_kernel")),
+              ("matmuls", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")))
+
+
+def profile_step(step_fn, state, batch) -> dict:
+    """One more training step under ``torch.profiler`` (CUDA activity): the
+    device ms of its kernels summed by ``STEP_PARTS`` (the rest "other"),
+    the step's wall ms around it and the device's busy share of that wall
+    time (the profiler's own cost included)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    parts = dict.fromkeys([p for p, _ in STEP_PARTS] + ["other"], 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        part = next((p for p, names in STEP_PARTS
+                     if any(n in e.key for n in names)), "other")
+        parts[part] += us / 1e3
+    busy = sum(parts.values())
+    return dict(wall_ms=wall, device_ms=busy, busy=busy / wall, parts=parts)
+
+
+def train_steps(model, tcfg, batches, clock, what: str,
+                profile: bool = False):
+    """``tcfg``'s train step over ``batches`` on ``model``, each step timed
+    on the host clock (synchronised) with its loss, gnorm, peak memory and
+    kernel 5 and 5b launches and device ms; returns the per-step dicts and,
+    with ``profile``, :func:`profile_step` of one more step on the last
+    batch (else None)."""
+    from repro_torch.train import init_train_state, make_train_step
+    state = init_train_state(model.params(), tcfg)
+    step_fn = make_train_step(model, tcfg)
+    out = []
+    for i, batch in enumerate(batches):
+        reset_peak()
+        clock.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = dict(step=i + 1, loss=float(m["loss"]), gnorm=float(m["gnorm"]),
+                   lr=float(m["lr"]), ms=ms,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   **clock.read())
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["gnorm"]),
+              f"{what} step {i + 1}: finite loss and gnorm")
+        out.append(rec)
+    prof = profile_step(step_fn, state, batches[-1]) if profile else None
+    del state
+    return out, prof
+
+
+def print_steps(what: str, recs: list, positions: int) -> None:
+    for r in recs:
+        print(f"train {what} step {r['step']}: loss {r['loss']:.4f}, gnorm "
+              f"{r['gnorm']:.3f}, lr {r['lr']:.3g}, {r['ms']:.1f} ms, "
+              f"{positions / r['ms'] * 1e3:,.0f} positions/s, peak "
+              f"{r['peak_gib']:.2f} GiB; kernel 5: {r['fwd_launches']} "
+              f"launches, {r['fwd_ms']:.1f} ms; kernel 5b: "
+              f"{r['bwd_launches']} launches, {r['bwd_ms']:.1f} ms")
+
+
+def train_full(dev, arch: str, run: dict, clock, seed: int,
+               fixed_steps: int = 0) -> dict:
+    """``arch`` whole at full width (bf16, random weights from ``seed``):
+    ``run["steps"]`` steps of the synthetic pipeline's batches through the
+    training API ``launch.train`` drives (``Model``, ``init_train_state``,
+    ``make_train_step``, ``synthetic_batches``), then, with
+    ``fixed_steps``, that many steps on one fixed batch from a fresh
+    optimizer state at peak lr ``FIXED_LR``, whose loss must fall."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batches
+    from repro_torch.models import Model
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import TrainConfig
+    cfg = get_config(arch)
+    reset_peak()
+    model = Model(cfg, device=dev, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    steps = run["steps"]
+    tcfg = TrainConfig(opt=OptConfig(), microbatches=run["microbatches"],
+                       warmup_steps=max(steps // 20, 1), total_steps=steps)
+    dcfg = DataConfig(seq_len=run["seq"], global_batch=run["batch"],
+                      vocab=cfg.vocab, seed=seed, frontend=cfg.frontend,
+                      n_frontend_tokens=cfg.n_frontend_tokens,
+                      d_model=cfg.d_model)
+    batches = [b for _, b in zip(range(steps),
+                                 synthetic_batches(dcfg, device=dev))]
+    positions = run["batch"] * run["seq"]
+    print(f"train {arch}: {n_params / 1e9:.4f} G params, {cfg.n_layers} "
+          f"layers, d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} "
+          f"({cfg.n_kv_heads} KV), {cfg.dtype}, remat {cfg.remat}; "
+          f"{steps} steps of {run['batch']} x {run['seq']}, microbatches "
+          f"{run['microbatches']}")
+    recs, prof = train_steps(model, tcfg, batches, clock, arch,
+                             profile=True)
+    print_steps(arch, recs, positions)
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in prof["parts"].items())
+    print(f"train {arch} profiled step: {prof['wall_ms']:.1f} ms wall, "
+          f"{prof['device_ms']:.1f} ms on the device ({parts}), busy "
+          f"{prof['busy']:.1%}")
+    res = dict(steps=recs, params=n_params, profile=prof)
+    if fixed_steps:
+        fixed = TrainConfig(opt=OptConfig(lr=FIXED_LR),
+                            microbatches=run["microbatches"], warmup_steps=1,
+                            total_steps=100)
+        recs, _ = train_steps(model, fixed, [batches[0]] * fixed_steps,
+                              clock, f"{arch} fixed batch")
+        print_steps(f"{arch} fixed batch", recs, positions)
+        losses = [r["loss"] for r in recs]
+        check(losses[-1] < losses[0], f"{arch}: the loss on one fixed batch "
+                                      f"falls over {fixed_steps} steps "
+                                      f"({losses})")
+        res["fixed"] = recs
+    del model, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def layer_grad_check(dev, seed: int) -> dict:
+    """One full-width hubert-xlarge layer (fp32, TF32 off): the loss's
+    gradients with kernels 5 and 5b against the same model with attention
+    differentiated through ``attend_plain`` (PyTorch autograd), every leaf
+    within ``LAYER_GRAD_TOL`` of its largest element."""
+    import repro_torch.models.layers as layers
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.tree import leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), n_layers=1,
+                              dtype="float32")
+    model = Model(cfg, device=dev, seed=seed)
+    flat = list(leaves(model.params()))
+    for p in flat:
+        p.requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = {"frames": torch.randn((2, 1024, cfg.d_model), generator=gen,
+                                   device=dev),
+             "labels": torch.randint(0, cfg.vocab, (2, 1024), generator=gen,
+                                     device=dev)}
+
+    def grads():
+        loss, _ = model.loss(batch)
+        got = torch.autograd.grad(loss, flat, allow_unused=True)
+        return float(loss.detach()), [torch.zeros_like(p) if g is None else g
+                             for p, g in zip(flat, got)]
+
+    fa = layers.attend
+    before = (sys.modules[fa.__module__].LAUNCHES,
+              sys.modules[fa.__module__].BWD_LAUNCHES)
+    loss_k, g_k = grads()
+    after = (sys.modules[fa.__module__].LAUNCHES,
+             sys.modules[fa.__module__].BWD_LAUNCHES)
+    check(after[0] - before[0] == 2 and after[1] - before[1] == 1,
+          f"hubert layer: kernel 5 twice (remat) and 5b once, got "
+          f"{after[0] - before[0]} and {after[1] - before[1]}")
+    layers.attend = sys.modules[fa.__module__].attend_plain
+    try:
+        loss_p, g_p = grads()
+    finally:
+        layers.attend = fa
+    check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
+          f"hubert layer loss {loss_k} vs plain {loss_p}")
+    worst = 0.0
+    for a, b in zip(g_k, g_p):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max()) / max(scale, 1e-30)
+        check(err <= LAYER_GRAD_TOL, f"hubert layer gradient {tuple(a.shape)}"
+                                     f": max |kernel - plain| / max |plain| "
+                                     f"= {err}")
+        worst = max(worst, err)
+    print(f"train hubert-xlarge, one full-width layer (fp32): loss {loss_k:.6f}"
+          f" (plain {loss_p:.6f}), {len(g_k)} gradient leaves within "
+          f"{worst:.3g} of their largest element (bound {LAYER_GRAD_TOL})")
+    del model, flat, g_k, g_p
+    torch.cuda.empty_cache()
+    return dict(loss=loss_k, worst=worst)
+
+
+def smoke_train_check(dev, arch: str, seed: int, clock) -> dict:
+    """``arch``'s smoke config (fp32, TF32 off) trained 3 steps on the card
+    and on the CPU from the same weights and batches: the losses within
+    ``SMOKE_LOSS_RTOL``, the card's run through kernels 5 and 5b.  The
+    launches returned are those of the card's last step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.tree import map_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).smoke()
+    params = init_params(cfg, torch.Generator().manual_seed(seed))
+    tcfg = TrainConfig(warmup_steps=1, total_steps=10)
+    dcfg = DataConfig(seq_len=48, global_batch=4, vocab=cfg.vocab, seed=seed,
+                      frontend=cfg.frontend,
+                      n_frontend_tokens=cfg.n_frontend_tokens,
+                      d_model=cfg.d_model)
+    batches = [synthetic_batch(dcfg, i, device=dev) for i in range(3)]
+    losses = []
+    for where in (dev, torch.device("cpu")):
+        model = Model(cfg, device=where,
+                      params=map_tree(lambda t: t.clone(), params))
+        state = init_train_state(model.params(), tcfg)
+        step = make_train_step(model, tcfg)
+        got = []
+        for i, b in enumerate(batches):
+            if where.type == "cuda" and i == len(batches) - 1:
+                clock.reset()
+            state, m = step(state, {k: t.to(where) for k, t in b.items()})
+            got.append(float(m["loss"]))
+        losses.append(got)
+        if where.type == "cuda":
+            counts = clock.read()
+    card, cpu = losses
+    for a, b in zip(card, cpu):
+        check(abs(a - b) <= SMOKE_LOSS_RTOL * abs(b),
+              f"{arch} smoke: card losses {card} vs CPU {cpu}")
+    check(counts["fwd_launches"] > 0 and counts["bwd_launches"] > 0,
+          f"{arch} smoke: kernels 5 and 5b launched ({counts})")
+    print(f"train {cfg.name} (fp32) 3 steps: card losses "
+          f"{[round(x, 6) for x in card]}, CPU {[round(x, 6) for x in cpu]}; "
+          f"its last step: kernel 5 {counts['fwd_launches']} launches, 5b "
+          f"{counts['bwd_launches']}")
+    return dict(losses=card, **counts)
+
+
+def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
+            reps: int) -> dict:
+    """Kernel 5b at the shapes, dtype and mask of ``call``, the last kernel-5b
+    call of ``arch``'s training step (:meth:`KernelClock.read`), on fresh
+    inputs: kernel 5 with lse held against attend_plain_with_lse, kernel 5b
+    against attend_backward_plain, each timed beside its plain version, its
+    bound and scaled_dot_product_attention's forward plus backward (the
+    library call; never called by the port)."""
+    b, s, hq, d = call["q"]
+    _, sk, hkv, _ = call["k"]
+    dtype, kw = call["dtype"], call["kw"]
+    check(sk == s and kw["sk_valid"] == s and kw["q_offset"] == 0
+          and kw["window"] == 0, f"{name}: a training call ({call})")
+    causal, prefix = kw["causal"], kw["prefix"]
+    q, k, v = flash_inputs(gen, b, s, s, hq, hkv, d, dtype)
+    dout = torch.randn((b, s, hq, d), generator=gen,
+                       device=gen.device).to(dtype)
+    out, lse, (e_out, e_lse) = fwd_lse_check(fa, q, k, v, kw, name)
+    got = fa.attend_backward(q, k, v, out, dout, lse, **kw)
+    want = fa.attend_backward_plain(q, k, v, out, dout, **kw)
+    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_FP32_TOL
+    err = max(grad_close(g, w, tol, f"{name} {nm}")
+              for nm, g, w in zip(("dq", "dk", "dv"), got, want))
+    del got, want
+    # The pairs (query, key) the mask lets through; five products of
+    # 2 d FLOP a pair and head.
+    pairs = (sum(min(s, max(i, prefix - 1) + 1) for i in range(s))
+             if causal else s * s)
+    # Read q, k, v, out, dout and lse once; write dq, dk and dv once.
+    nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
+              + 4 * lse.numel())
+    b_ms, b_by = bound(nbytes, 5 * 2 * b * hq * d * pairs,
+                       BF16_FLOPS_PER_S if dtype == torch.bfloat16
+                       else FP32_FLOPS_PER_S)
+    qh = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kh, vh = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+              .contiguous().requires_grad_(True) for t in (k, v))
+    doh = dout.transpose(1, 2).contiguous()
+    if prefix:
+        i = torch.arange(s, device=q.device)[:, None]
+        j = torch.arange(s, device=q.device)[None, :]
+        sdpa_kw = dict(attn_mask=(j <= i) | (j < prefix))
+    else:
+        sdpa_kw = dict(is_causal=causal)
+
+    def lib():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, scale=kw["scale"], **sdpa_kw)
+        torch.autograd.grad(o, (qh, kh, vh), doh)
+
+    masks = "causal" if causal else "non-causal"
+    masks += f", prefix {prefix}" if prefix else ""
+    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+    row = dict(
+        name=name, route="cuda",
+        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        # No TPU kernel: it replaces XLA's autodiff of the JAX model's
+        # attention, src/repro/models/layers.py:99-174.
+        replaces="src/repro/models/layers.py:99",
+        launches=launches, max_abs_err=err,
+        ms=cuda_ms(lambda: fa.attend_backward(q, k, v, out, dout, lse, **kw),
+                   reps),
+        plain_ms=cuda_ms(lambda: fa.attend_backward_plain(q, k, v, out, dout,
+                                                          **kw), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, reps),
+        fwd_ms=cuda_ms(lambda: fa.attend_with_lse(q, k, v, **kw), reps),
+        shape=f"{arch} training: q [{b}, {s}, {hq}, {d}] {kind} over k, v "
+              f"[{b}, {s}, {hkv}, {d}], {masks}",
+        fwd_err=(e_out, e_lse))
+    return row
+
+
+def run_train(dev: torch.device, args) -> list:
+    """The training phase: kernel 5b's edge checks, hubert-xlarge and
+    qwen2-1.5b whole, one full-width hubert layer against the plain path,
+    paligemma's and kimi's smoke configs against the CPU; returns the
+    ``kernels`` rows 5b, 5bq and 5bp."""
+    t_phase = time.perf_counter()
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    n = bwd_edge_checks(gen, fa)
+    print(f"train: kernel 5 lse and kernel 5b edge checks, {n} cases (fp32 "
+          f"within {BWD_FP32_TOL}, bf16 within {BWD_BF16_TOL} as (rtol, atol "
+          f"of max(1, max |plain|))), two runs bit-equal, passed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    clock = KernelClock(fa)
+    try:
+        hub = train_full(dev, "hubert-xlarge", HUBERT_RUN, clock, args.seed,
+                         fixed_steps=5)
+        layer_grad_check(dev, args.seed)
+        qwen = train_full(dev, "qwen2-1.5b", QWEN_RUN, clock, args.seed)
+        pali = smoke_train_check(dev, "paligemma-3b", args.seed, clock)
+        smoke_train_check(dev, "kimi-k2-1t-a32b", args.seed, clock)
+    finally:
+        clock.close()
+    for what, res in (("hubert-xlarge", hub), ("qwen2-1.5b", qwen)):
+        for r in res["steps"]:
+            check(r["fwd_launches"] > 0 and r["bwd_launches"] > 0,
+                  f"{what} step {r['step']}: kernels 5 and 5b launched")
+    rows = []
+    for name, arch, step in (
+            ("flash_attention_bwd", "hubert-xlarge", hub["steps"][-1]),
+            ("flash_attention_bwd_qwen2", "qwen2-1.5b", qwen["steps"][-1]),
+            ("flash_attention_bwd_prefix", "paligemma-3b smoke", pali)):
+        rows.append(bwd_row(gen, fa, name, arch, step["bwd_call"],
+                            step["bwd_launches"], args.reps))
+        rows[-1]["fwd_launches"] = step["fwd_launches"]
+    for r in rows:
+        print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms, launches "
+              f"{r['launches']} a step (forward {r['fwd_launches']}, under "
+              f"remat twice a layer), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4g} ms ({r['bound_by']}), library (sdpa "
+              f"forward + backward) {r['library_ms']:.4f} ms, forward with "
+              f"lse {r['fwd_ms']:.4f} ms (max |out - plain| "
+              f"{r['fwd_err'][0]:.3g}, |lse - plain| "
+              f"{r['fwd_err'][1]:.3g}), max |kernel - plain| / max(1, "
+              f"max |plain|) {r['max_abs_err']:.3g}")
+    print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
+    return [{key: r[key] for key in r if key not in ("shape", "fwd_err")}
+            for r in rows]
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -22,7 +22,10 @@
   falls back to an older step.
 
 State is any nest of dicts, lists, tuples and namedtuples over torch
-tensors, numpy arrays, ``np.memmap`` arrays and scalars.  Its own flatten
+tensors, numpy arrays, ``np.memmap`` arrays and scalars.  A bfloat16 tensor,
+which numpy has no type for, is saved as its bits (``uint16``) and restored
+as bfloat16 onto a bfloat16 ``like`` leaf (the training state of a bf16
+model); such a checkpoint is the port's own.  Its own flatten
 gives the manifest the key strings and leaf order of ``jax.tree_util``
 (dict keys sorted, ``['key']``, ``[i]`` and ``.field`` paths), so a
 checkpoint written by either package restores in the other.  Tensor leaves
@@ -47,6 +50,8 @@ from ..io.checksum import CHECKSUM_ALGO, crc_bytes
 from ..io.engine import IOEngine
 from ..io.npyio import (create_npy_memmap, fsync_file, load_npy_mmap,
                         save_npy_durable)
+from ..tree import flatten_with_keys as _flatten
+from ..tree import is_namedtuple as _is_namedtuple
 
 __all__ = ["CheckpointManager"]
 
@@ -180,7 +185,11 @@ class CheckpointManager:
                 raise IOError(f"shape mismatch in {meta['file']}")
             _verify(arr, meta, verify)
             if isinstance(leaf, torch.Tensor):
-                arrays.append(torch.from_numpy(arr).to(leaf.device))
+                t = torch.from_numpy(arr)
+                if leaf.dtype == torch.bfloat16 and arr.dtype == np.uint16:
+                    t = torch.from_numpy(arr.view(np.int16)).view(
+                        torch.bfloat16)
+                arrays.append(t.to(leaf.device))
             else:
                 arrays.append(arr)
         return _unflatten(like, iter(arrays))
@@ -206,29 +215,6 @@ class CheckpointManager:
 # State nests                                                                  #
 # --------------------------------------------------------------------------- #
 
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
-def _flatten(tree, path: str = "") -> Iterator[Tuple[str, Any]]:
-    """``(key string, leaf)`` pairs in ``jax.tree_util`` order, the key
-    strings as ``jax.tree_util.keystr`` writes them; ``None`` holds no
-    leaf."""
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _flatten(tree[k], f"{path}[{k!r}]")
-    elif _is_namedtuple(tree):
-        for name in tree._fields:
-            yield from _flatten(getattr(tree, name), f"{path}.{name}")
-    elif isinstance(tree, (list, tuple)):
-        for i, x in enumerate(tree):
-            yield from _flatten(x, f"{path}[{i}]")
-    else:
-        yield path, tree
-
-
 def _unflatten(like, leaves: Iterator):
     """``like``'s structure with its leaves taken from ``leaves`` in
     :func:`_flatten`'s order."""
@@ -249,7 +235,10 @@ def _snapshot(leaf):
     if isinstance(leaf, np.memmap):
         return leaf
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
     arr = np.asarray(leaf)
     return arr.copy() if arr is leaf else arr
 

@@ -72,88 +72,24 @@
 // the score tile, D/8 columns of the accumulator), 64 rows (RT 4) up to head
 // dim 128, 32 (RT 2) at 256, 16 (RT 1) for 16 rows or fewer.  It serves the
 // float32 checks; the model serves in bf16.
+//
+// Head dim 80 (hubert-xlarge) is built in both: five 16-deep k-steps and ten
+// 8-column output tiles on the tensor cores, 2-column accumulator groups in
+// the FMA kernel.  For training, either kernel (or, when the keys are split,
+// the merge) also writes each row's natural log-sum-exp lse = m + log l of the
+// scaled, masked scores (the bf16 kernel's m and l are in log2 units and are
+// converted); the backward, flash_attention_bwd.cu, rebuilds P = e^(s - lse)
+// from it without a second softmax.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <math.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 128;
 constexpr int kBK = 32;          // keys per KV tile of the fp32 kernel
-constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// n consecutive floats from 16-, 8- or 4-byte aligned shared memory.
-template <int NV>
-__device__ __forceinline__ void ld(const float* p, float* out) {
-  if constexpr (NV == 4) {
-    float4 t = *reinterpret_cast<const float4*>(p);
-    out[0] = t.x; out[1] = t.y; out[2] = t.z; out[3] = t.w;
-  } else if constexpr (NV == 2) {
-    float2 t = *reinterpret_cast<const float2*>(p);
-    out[0] = t.x; out[1] = t.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) out[i] = p[i];
-  }
-}
-
-struct Strides {
-  int64_t b, s, h;  // elements per batch, position, head; d is contiguous
-};
-
-// The first key of the BK-key tile holding the first key a query at position
-// pos sees under a window: max(0, pos - window + 1), rounded down to the tile.
-template <int BK>
-__device__ __forceinline__ int64_t first_key_tile(int64_t pos, int64_t window) {
-  const int64_t first = pos - window + 1;
-  return first > 0 ? first / BK * BK : 0;
-}
-
-// The last key a query at position pos sees under the causal mask: pos itself,
-// or with a prefix every key before it (the prefix-LM mask).
-__device__ __forceinline__ int64_t causal_limit(int64_t pos, int64_t prefix) {
-  return pos > prefix - 1 ? pos : prefix - 1;
-}
-
-// The keys a block attends: [k_lo, k_hi).  Keys past kv_lim are masked for
-// every row; past the causal end for this block, whose rows are [r0, r_end):
-// its last row's causal limit, max(position, prefix - 1).
-// The splits cut the keys from k_base, the tile holding the first key row 0
-// may see (0 without a window); the block starts at the tile holding its
-// first row's first key.
-template <int BK>
-__device__ __forceinline__ void key_range(int64_t r0, int64_t r_end, int64_t split,
-                                          int64_t split_len, int64_t sk, int64_t group,
-                                          int64_t sk_valid, int64_t q_offset, int causal,
-                                          int64_t window, int64_t prefix, int64_t& k_lo,
-                                          int64_t& k_hi) {
-  const int64_t kv_lim = sk_valid < sk ? sk_valid : sk;
-  int64_t kv_end = kv_lim;
-  if (causal) {
-    const int64_t last = causal_limit(q_offset + (r_end - 1) / group, prefix) + 1;
-    kv_end = last < kv_end ? last : kv_end;
-  }
-  const int64_t k_base = window > 0 ? first_key_tile<BK>(q_offset, window) : 0;
-  k_lo = k_base + split * split_len;
-  k_hi = k_lo + split_len < kv_end ? k_lo + split_len : kv_end;
-  if (window > 0) {
-    const int64_t own = first_key_tile<BK>(q_offset + r0 / group, window);
-    k_lo = own > k_lo ? own : k_lo;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // fp32: FMA with shared-memory operands.
@@ -165,7 +101,8 @@ struct Tile {
   static constexpr int QP = BQ + 4;                  // padded rows of Q^T, P^T
   static constexpr int KP = kBK + 4;                 // padded rows of K^T
   static constexpr int VP = D + 4;                   // padded rows of V
-  static constexpr int VEC = D >= 32 ? 4 : D / 8;    // accumulator columns per load
+  // accumulator columns per load: D = 8 VEC NCG (head dim 80: 2 of 5 groups)
+  static constexpr int VEC = D % 32 == 0 ? 4 : (D % 16 == 0 ? 2 : 1);
   static constexpr int NCG = D / (8 * VEC);          // column groups per thread
   static constexpr int kSmemFloats = D * QP + D * KP + kBK * VP + kBK * QP;
 };
@@ -174,7 +111,8 @@ template <typename T, int D, int RT>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strides ks,
              const T* __restrict__ v, Strides vs, T* __restrict__ o, Strides os,
-             float* __restrict__ part, int64_t tiles, int64_t split_len, int64_t sq,
+             float* __restrict__ part, float* __restrict__ lse, int64_t tiles,
+             int64_t split_len, int64_t sq,
              int64_t sk, int64_t group, int64_t sk_valid, int64_t q_offset, int causal,
              int64_t window, int64_t prefix, float scale) {
   using L = Tile<D, RT>;
@@ -324,6 +262,8 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
       continue;
     }
     const int64_t pi = r / group, h = hk * group + r % group;
+    if (lse != nullptr && tx == 0)  // natural log-sum-exp of the scaled scores
+      lse[(b * gridDim.y * group + h) * sq + pi] = l[i] == 0.f ? INFINITY : m[i] + logf(l[i]);
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
     T* orow = o + b * os.b + pi * os.s + h * os.h;
 #pragma unroll
@@ -422,6 +362,7 @@ struct MmaArgs {
   const bf16* v;
   bf16* o;
   float* part;
+  float* lse;
   Strides qs, ks, vs, os;
   int64_t tiles, split_len, sq, sk, group, sk_valid, q_offset, window, prefix;
   int causal;
@@ -658,6 +599,9 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
         }
         continue;
       }
+      if (a.lse != nullptr && tig == 0)  // m and l are in log2 units: back to nats
+        a.lse[(b * gridDim.y * group + hk * group + r % group) * a.sq + r / group] =
+            l[i] == 0.f ? INFINITY : (m[i] + log2f(l[i])) * kLn2;
       const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
       bf16* orow = a.o + b * a.os.b + (r / group) * a.os.s + (hk * group + r % group) * a.os.h;
 #pragma unroll
@@ -717,6 +661,9 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
       } else {
         a.o[b * a.os.b + (r / group) * a.os.s + (hk * group + r % group) * a.os.h + c] =
             __float2bfloat16(num / (den == 0.f ? 1.f : den));
+        if (a.lse != nullptr && c == 0)
+          a.lse[(b * gridDim.y * group + hk * group + r % group) * a.sq + r / group] =
+              den == 0.f ? INFINITY : (top + log2f(den)) * kLn2;
       }
     }
   }
@@ -728,12 +675,14 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
 
 // Merge the splits' (acc, m, l) of one (batch, KV head, row): out =
 // sum_s e^(m_s - M) acc_s / sum_s e^(m_s - M) l_s, M = max_s m_s, with the
-// l == 0 guard.  One block per (row, KV head, batch), one thread per column;
+// l == 0 guard, and with lse its log-sum-exp M + log(sum_s e^(m_s - M) l_s).  One block per (row, KV head, batch), one thread per column;
 // the loops over the splits are unrolled so that their loads are in flight
 // together.
 template <typename T>
 __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ o, Strides os,
-                               int64_t splits, int64_t rows, int64_t group, int d) {
+                               float* __restrict__ lse, int64_t splits, int64_t sq,
+                               int64_t group, int d) {
+  const int64_t rows = sq * group;
   const int64_t r = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int64_t stride = static_cast<int64_t>(gridDim.z) * gridDim.y * rows * (d + 2);
   const float* p0 = part + ((b * gridDim.y + hk) * rows + r) * (d + 2);
@@ -751,6 +700,8 @@ __global__ void combine_kernel(const float* __restrict__ part, T* __restrict__ o
       den += w * ps[d + 1];
     }
     o[b * os.b + pi * os.s + h * os.h + c] = from_f<T>(num / (den == 0.f ? 1.f : den));
+    if (lse != nullptr && c == 0)
+      lse[(b * gridDim.y * group + h) * sq + pi] = den == 0.f ? INFINITY : mx + logf(den);
   }
 }
 
@@ -761,6 +712,7 @@ struct Call {
   const void* v;
   void* o;
   float* part;
+  float* lse;
   Strides qs, ks, vs, os;
   int64_t splits, split_len, batch, sq, sk, hq, hkv, d, sk_valid, q_offset, window, prefix;
   int causal, device;
@@ -776,20 +728,8 @@ cudaError_t combine(const Call& c) {
             static_cast<unsigned>(c.batch));
   const unsigned threads = static_cast<unsigned>(c.d < kThreads ? c.d : kThreads);
   combine_kernel<T><<<grid, threads, 0, c.stream>>>(
-      c.part, static_cast<T*>(c.o), c.os, c.splits, c.sq * group, group, static_cast<int>(c.d));
+      c.part, static_cast<T*>(c.o), c.os, c.lse, c.splits, c.sq, group, static_cast<int>(c.d));
   return cudaGetLastError();
-}
-
-// Let kern take smem bytes of dynamic shared memory on the current device, once
-// a device (done: the caller's flags for kern), since a decode step's host
-// time is a cost of its own.
-template <typename K>
-cudaError_t allow_smem(K* kern, size_t smem, int device, bool (&done)[64]) {
-  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
-  return err;
 }
 
 template <int D, int RT>
@@ -807,7 +747,8 @@ cudaError_t run_fma(const Call& c) {
   kern<<<grid, kThreads, smem, c.stream>>>(
       static_cast<const float*>(c.q), c.qs, static_cast<const float*>(c.k), c.ks,
       static_cast<const float*>(c.v), c.vs, static_cast<float*>(c.o), c.os,
-      c.splits > 1 ? c.part : nullptr, tiles, c.split_len, c.sq, c.sk, group, c.sk_valid,
+      c.splits > 1 ? c.part : nullptr, c.splits > 1 ? nullptr : c.lse, tiles, c.split_len,
+      c.sq, c.sk, group, c.sk_valid,
       c.q_offset, c.causal, c.window, c.prefix, c.scale);
   err = cudaGetLastError();
   return err != cudaSuccess ? err : combine<float>(c);
@@ -826,6 +767,7 @@ cudaError_t run_mma(const Call& c) {
   a.v = static_cast<const bf16*>(c.v);
   a.o = static_cast<bf16*>(c.o);
   a.part = c.splits > 1 ? c.part : nullptr;
+  a.lse = c.splits > 1 ? nullptr : c.lse;  // with splits the merge writes it
   a.qs = c.qs; a.ks = c.ks; a.vs = c.vs; a.os = c.os;
   a.group = c.hq / c.hkv;
   a.tiles = (c.sq * a.group + L::BQ - 1) / L::BQ;
@@ -842,7 +784,8 @@ cudaError_t run_mma(const Call& c) {
 // The tiles built.  fp32: key tile 32; 16 query rows (RT 1) for every head
 // dim, and for prefill 64 (RT 4) up to 128 and 32 (RT 2) at 256.  bf16: 16
 // rows (decode) over 64-key tiles for every head dim; 64 rows over 64-key
-// tiles for prefill, and at head dim 256 over 32- or 64-key tiles.
+// tiles for prefill, and at head dim 256 over 32- or 64-key tiles.  Head dims
+// 16, 32, 64, 80, 128 and 256.
 cudaError_t dispatch(int64_t dtype, int64_t bq, int64_t bk, const Call& c) {
   const int64_t d = c.d;
   if (dtype == 0 && bk == kBK) {
@@ -851,6 +794,7 @@ cudaError_t dispatch(int64_t dtype, int64_t bq, int64_t bk, const Call& c) {
     REPRO_FLASH_FMA(16, 1) REPRO_FLASH_FMA(16, 4)
     REPRO_FLASH_FMA(32, 1) REPRO_FLASH_FMA(32, 4)
     REPRO_FLASH_FMA(64, 1) REPRO_FLASH_FMA(64, 4)
+    REPRO_FLASH_FMA(80, 1) REPRO_FLASH_FMA(80, 4)
     REPRO_FLASH_FMA(128, 1) REPRO_FLASH_FMA(128, 4)
     REPRO_FLASH_FMA(256, 1) REPRO_FLASH_FMA(256, 2)
 #undef REPRO_FLASH_FMA
@@ -860,6 +804,7 @@ cudaError_t dispatch(int64_t dtype, int64_t bq, int64_t bk, const Call& c) {
     REPRO_FLASH_MMA(16, 64, true) REPRO_FLASH_MMA(16, 64, false)
     REPRO_FLASH_MMA(32, 64, true) REPRO_FLASH_MMA(32, 64, false)
     REPRO_FLASH_MMA(64, 64, true) REPRO_FLASH_MMA(64, 64, false)
+    REPRO_FLASH_MMA(80, 64, true) REPRO_FLASH_MMA(80, 64, false)
     REPRO_FLASH_MMA(128, 64, true) REPRO_FLASH_MMA(128, 64, false)
     REPRO_FLASH_MMA(256, 64, true) REPRO_FLASH_MMA(256, 32, false)
     REPRO_FLASH_MMA(256, 64, false)
@@ -880,11 +825,14 @@ cudaError_t dispatch(int64_t dtype, int64_t bq, int64_t bk, const Call& c) {
 // tile holding max(0, q_offset - window + 1) (0 without a window) are cut
 // into `splits` ranges of split_len (a multiple of bk) keys, one block each;
 // with splits > 1, part is fp32 scratch of [splits, batch, hkv, sq * hq / hkv,
-// d + 2] for their partial results, merged by a second launch.
+// d + 2] for their partial results, merged by a second launch.  lse, when not
+// null, takes each query row's natural log-sum-exp of its scaled, masked scores,
+// fp32 [batch, hq, sq] (+inf for a row that sees no key): what the backward
+// (flash_attention_bwd.cu) rebuilds the probabilities from.
 extern "C" int repro_flash_attention(
     int64_t device, const void* q, int64_t qsb, int64_t qss, int64_t qsh, const void* k,
     int64_t ksb, int64_t kss, int64_t ksh, const void* v, int64_t vsb, int64_t vss,
-    int64_t vsh, void* o, int64_t osb, int64_t oss, int64_t osh, void* part,
+    int64_t vsh, void* o, int64_t osb, int64_t oss, int64_t osh, void* part, void* lse,
     int64_t batch, int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t d,
     int64_t sk_valid, int64_t q_offset, int64_t causal, int64_t window, int64_t prefix,
     int64_t dtype,
@@ -897,6 +845,7 @@ extern "C" int repro_flash_attention(
     return static_cast<int>(cudaErrorInvalidValue);
   Call c;
   c.q = q; c.k = k; c.v = v; c.o = o; c.part = static_cast<float*>(part);
+  c.lse = static_cast<float*>(lse);
   c.qs = {qsb, qss, qsh}; c.ks = {ksb, kss, ksh}; c.vs = {vsb, vss, vsh};
   c.os = {osb, oss, osh};
   c.splits = splits;

@@ -1,5 +1,5 @@
-"""Carry state between the JAX package and the port: a context store, and a
-model's parameters.
+"""Carry state between the JAX package and the port: a context store, a
+model's parameters, and a training state (and back to numpy, to compare).
 
 The JAX package keeps its ``[v, words]`` store as ``uint32`` words; the port
 keeps the same bits as ``int32`` words.  Converting is a reinterpretation of
@@ -77,45 +77,125 @@ def params_from_jax(cfg, tree, device=None):
     (``extra[e]``): group ``g``'s block ``j`` becomes layer ``3g + j`` (for a
     pattern of 3) and ``extra[e]`` follows the groups; an MoE tree's leading
     dense layers (``dense0``, a stack of its own) come before its MoE stack
-    (``layers``): the order the JAX model runs them.  Every array keeps its
-    dtype (an MoE router stays float32 in a bfloat16 model), and bfloat16
-    arrays carry over bit for bit."""
+    (``layers``): the order the JAX model runs them.  Every other top-level
+    entry (``embed``, ``head``, ``final_norm``, a frames model's
+    ``frontend_proj``) carries over as it is.  Every array keeps its dtype
+    (an MoE router stays float32 in a bfloat16 model), and bfloat16 arrays
+    carry over bit for bit."""
     from .models.model import Model
+    return Model(cfg, device=device, params=_port_layout(cfg, tree))
 
-    def tensor(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.view(np.uint16).copy()).view(
-                torch.bfloat16)
-        return torch.from_numpy(a.copy())
+
+def train_state_from_jax(cfg, state, device=None):
+    """``(model, state)``: the port's model and
+    :class:`~repro_torch.train.TrainState` holding the JAX package's
+    training state (its ``TrainState`` as numpy arrays,
+    ``jax.tree.map(np.asarray, state)``): the parameters as
+    :func:`params_from_jax` carries them, the moments ``m`` and ``v``
+    (float32, or int8 blocks with their scales) and the error-feedback
+    residuals ``ef`` with their layers cut the same way, and the step.  The
+    parameters are trainable, as :func:`~repro_torch.train.init_train_state`
+    leaves them."""
+    from .train import TrainState
+    from .tree import leaves, map_tree
+    model = params_from_jax(cfg, state.params, device)
+    dev = model.device
+    on_dev = lambda t: map_tree(lambda x: x.to(dev), _port_layout(cfg, t))
+    opt = {"step": _tensor(state.opt["step"]).to(dev),
+           "m": on_dev(state.opt["m"]), "v": on_dev(state.opt["v"])}
+    ef = None if state.ef is None else on_dev(state.ef)
+    params = model.params()
+    for p in leaves(params):
+        p.requires_grad_(True)
+    return model, TrainState(params, opt, ef)
+
+
+def train_state_to_numpy(cfg, state) -> dict:
+    """The inverse of :func:`train_state_from_jax`, for comparing the two
+    packages after steps: ``{"params", "opt": {"step", "m", "v"}, "ef"}`` as
+    numpy arrays in the JAX package's stacked layout (``layers``, and
+    ``dense0`` or ``extra`` where the JAX model has them).  bfloat16 leaves
+    come back as float32 arrays (exact)."""
+    def numpy(t):
+        if isinstance(t, dict):
+            return {k: numpy(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [numpy(v) for v in t]
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def jax_layout(tree):
+        return None if tree is None else _jax_layout(cfg, numpy(tree))
+
+    return {"params": jax_layout(state.params),
+            "opt": {"step": numpy(state.opt["step"]),
+                    "m": jax_layout(state.opt["m"]),
+                    "v": jax_layout(state.opt["v"])},
+            "ef": jax_layout(state.ef)}
+
+
+def _tensor(a):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _convert(t):
+    return ({k: _convert(v) for k, v in t.items()} if isinstance(t, dict)
+            else _tensor(t))
+
+
+def _port_layout(cfg, tree) -> dict:
+    """A JAX-layout tree of ``cfg`` (parameters, or moments of the same
+    structure) in :func:`repro_torch.models.model.init_params`' layout: the
+    top-level entries as tensors and ``"layers"`` the list of per-layer
+    dicts, cut from the stacks that
+    :func:`repro_torch.models.model.layer_stacks` names (see
+    :func:`params_from_jax`)."""
+    from .models.model import layer_stacks
 
     def layer(t, i):
         if isinstance(t, dict):
             return {k: layer(v, i) for k, v in t.items()}
-        return tensor(t[i])
+        return _tensor(t[i])
 
-    def depth(stack):
-        return len(next(iter(_leaves(stack))))
-
-    stack = tree["layers"]
-    if cfg.family == "hybrid":
-        blocks = [f"b{j}" for j in range(len(cfg.block_pattern))]
-        flat = [layer(stack[bj], g) for g in range(depth(stack[blocks[0]]))
-                for bj in blocks]
-        if "extra" in tree:
-            flat += [layer(tree["extra"], e)
-                     for e in range(depth(tree["extra"]))]
-    else:
-        flat = [layer(tree["dense0"], i) for i in range(depth(tree["dense0"]))
-                ] if "dense0" in tree else []
-        flat += [layer(stack, i) for i in range(depth(stack))]
-    if len(flat) != cfg.n_layers:
-        raise ValueError(f"{cfg.name}: the tree stacks {len(flat)} layers, "
-                         f"the config has {cfg.n_layers}")
-    params = {k: tensor(v) for k, v in tree.items()
+    flat = [None] * cfg.n_layers
+    for keys, idx in layer_stacks(cfg):
+        stack = tree
+        for k in keys:
+            stack = stack.get(k, {}) if isinstance(stack, dict) else {}
+        depth = len(next(iter(_leaves(stack)), ()))
+        if depth != len(idx):
+            raise ValueError(f"{cfg.name}: the tree's {'/'.join(keys)} "
+                             f"stacks {depth} layers, the config has "
+                             f"{len(idx)} there")
+        for n, i in enumerate(idx):
+            flat[i] = layer(stack, n)
+    params = {k: _convert(v) for k, v in tree.items()
               if k not in ("layers", "extra", "dense0")}
     params["layers"] = flat
-    return Model(cfg, device=device, params=params)
+    return params
+
+
+def _jax_layout(cfg, tree) -> dict:
+    """The inverse of :func:`_port_layout` on numpy leaves: the per-layer
+    list stacked as the JAX model stacks it
+    (:func:`repro_torch.models.model.layer_stacks`)."""
+    from .models.model import layer_stacks
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([t[k] for t in layers]) for k in layers[0]}
+        return np.stack(layers)
+
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for keys, idx in layer_stacks(cfg):
+        node = out
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = stack([tree["layers"][i] for i in idx])
+    return out
 
 
 def _leaves(tree):

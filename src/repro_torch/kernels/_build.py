@@ -30,8 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("bitonic_sort.cu", "radix_sort.cu", "kway_merge.cu",
-           "alltoallv_deliver.cu", "flash_attention.cu", "ssd_scan.cu",
-           "lru_scan.cu")
+           "alltoallv_deliver.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu", "ssd_scan.cu", "lru_scan.cu")
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -61,11 +61,17 @@ _SIGNATURES = {
     "repro_assemble_proc_words": "ipii" "iiiiiiii" "piiii" "piii" "pii"
                                  "piiii" "i" "p",
     # device, q, q strides (b, s, h), k, k strides, v, v strides, o,
-    # o strides, part, batch, sq, sk, hq, hkv, d, sk_valid, q_offset,
+    # o strides, part, lse, batch, sq, sk, hq, hkv, d, sk_valid, q_offset,
     # causal, window, prefix, dtype, bq, bk, splits, split_len, scale,
     # stream
-    "repro_flash_attention": "i" "piii" "piii" "piii" "piii" "p"
+    "repro_flash_attention": "i" "piii" "piii" "piii" "piii" "pp"
                              "iiiiiiiiiiiiiiii" "f" "p",
+    # device, q, k, v, o, dout (each with strides b, s, h), lse, dsum, dq,
+    # dk, dv (with strides), batch, sq, sk, hq, hkv, d, sk_valid,
+    # q_offset, causal, window, prefix, dtype, scale, stream
+    "repro_flash_attention_bwd": "i" "piii" "piii" "piii" "piii" "piii"
+                                 "pp" "piii" "piii" "piii"
+                                 "iiiiiiiiiiii" "f" "p",
     # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
     # B strides (b, s), C, C strides (b, s), y, y strides (b, h, s), s_fin,
     # g, states, batch, heads, seq, n, p, q, stream

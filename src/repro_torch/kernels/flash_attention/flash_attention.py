@@ -16,8 +16,8 @@ either.  It reads every tensor through its strides, so the model's ``[B, S,
 H, d]`` KV cache is attended in place.  When the row tiles alone give too few
 blocks to fill the card, as in decode, the live keys are cut into ranges, one
 block each, and a second launch merges their partial results (:func:`_plan`
-decides; flash-decoding's split).  Head dims 16, 32, 64, 128 and 256 are
-built.
+decides; flash-decoding's split).  Head dims 16, 32, 64, 80, 128 and 256
+are built.
 
 bfloat16, what the model serves in, runs on the tensor cores: ``mma.sync``
 products of bf16 fragments summed in float32, 64 query rows (4 warps of 16)
@@ -46,6 +46,16 @@ version (the masked softmax of ``ref.attention_ref`` extended to
 CPU tensor
 takes.  :func:`flash_attention_bh` keeps the TPU kernel's ``[B·H, S, d]``
 signature for the parity tests only.
+
+Training: when autograd needs a gradient of ``attend``'s inputs, the call
+goes through :class:`_Attend`.  On a CUDA tensor its forward launches the
+kernel with the per-row log-sum-exp ``lse`` (:func:`attend_with_lse`) and its
+backward launches kernel 5b, the hand-written backward
+(``csrc/flash_attention_bwd.cu``, :func:`attend_backward`), or raises; on a
+CPU tensor it takes :func:`attend_plain` and :func:`attend_backward_plain`,
+the explicit gradient formula.  The JAX package has no backward kernel: its
+gradient is XLA's autodiff of ``layers.attention``
+(``src/repro/models/layers.py:99-174``), what the tests hold both against.
 """
 
 from __future__ import annotations
@@ -57,23 +67,21 @@ import torch
 
 from .._build import launch, ptr
 
-LAUNCHES = 0   # calls of attend that launched the CUDA kernel
-HEAD_DIMS = (16, 32, 64, 128, 256)   # head dims the CUDA kernel is built for
+LAUNCHES = 0   # calls that launched the CUDA kernel (the forward)
+BWD_LAUNCHES = 0   # calls of attend_backward that launched kernel 5b
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # head dims the CUDA kernels take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Keys per K/V tile of the bf16 prefill kernel at head dim 256; the kernel is
 # built for 32 and 64 (``scripts/flash_d256_tiles.py`` compares them).
 D256_PREFILL_BK = 32
 
 
-def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 causal: bool, sk_valid: int | None = None, q_offset: int = 0,
-                 scale: float | None = None, window: int = 0,
-                 prefix: int = 0) -> torch.Tensor:
-    """Masked-softmax attention of q ``[B, Sq, Hq, d]`` over k, v ``[B, Sk,
-    Hkv, d]``: query row ``i`` sits at position ``q_offset + i``; keys at or
-    past ``sk_valid``, if ``causal`` after the row's position and not before
-    ``prefix``, and with a ``window`` at or before the row's position minus
-    ``window`` are masked; a row with no key left gives zeros."""
+def _probs_plain(q, k, *, causal: bool, sk_valid: int | None, q_offset: int,
+                 scale: float | None, window: int, prefix: int):
+    """``(p, lse)``: the masked softmax ``p [B, Hkv, group, Sq, Sk]`` (fp32,
+    zero rows where no key is left) of q ``[B, Sq, Hq, d]`` over k ``[B, Sk,
+    Hkv, d]``, and each row's natural log-sum-exp of its scaled, masked
+    scores ``lse [B, Hq, Sq]`` (+inf where no key is left)."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     group = hq // hkv
@@ -89,12 +97,71 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window > 0:
         mask = mask & (col[None, :] > row[:, None] - window)
     s = torch.where(mask, s, -1e30)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = torch.where(mask, p, 0.0)
+    top = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - top), 0.0)
     denom = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(denom == 0.0, 1.0, denom)
+    lse = torch.where(denom == 0.0, math.inf, top + torch.log(denom))
+    return p, lse.reshape(b, hq, sq)
+
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, sk_valid: int | None = None, q_offset: int = 0,
+                 scale: float | None = None, window: int = 0,
+                 prefix: int = 0) -> torch.Tensor:
+    """Masked-softmax attention of q ``[B, Sq, Hq, d]`` over k, v ``[B, Sk,
+    Hkv, d]``: query row ``i`` sits at position ``q_offset + i``; keys at or
+    past ``sk_valid``, if ``causal`` after the row's position and not before
+    ``prefix``, and with a ``window`` at or before the row's position minus
+    ``window`` are masked; a row with no key left gives zeros."""
+    return attend_plain_with_lse(q, k, v, causal=causal, sk_valid=sk_valid,
+                                 q_offset=q_offset, scale=scale, window=window,
+                                 prefix=prefix)[0]
+
+
+def attend_plain_with_lse(q, k, v, *, causal: bool,
+                          sk_valid: int | None = None, q_offset: int = 0,
+                          scale: float | None = None, window: int = 0,
+                          prefix: int = 0):
+    """:func:`attend_plain` and each row's log-sum-exp ``lse [B, Hq, Sq]``
+    (fp32; +inf for a row with no key): the plain version of
+    :func:`attend_with_lse`."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    p, lse = _probs_plain(q, k, causal=causal, sk_valid=sk_valid,
+                          q_offset=q_offset, scale=scale, window=window,
+                          prefix=prefix)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    return out.reshape(b, sq, hq, d).to(q.dtype), lse
+
+
+def attend_backward_plain(q, k, v, out, dout, *, causal: bool,
+                          sk_valid: int | None = None, q_offset: int = 0,
+                          scale: float | None = None, window: int = 0,
+                          prefix: int = 0):
+    """The gradients ``(dq, dk, dv)`` of :func:`attend_plain` at ``(q, k,
+    v)`` given its output ``out`` and the output's gradient ``dout``, by the
+    explicit formula in fp32: ``dV = Pᵀ dO``, ``dP = dO Vᵀ``, ``D = rowsum(dO
+    ∘ O)``, ``dS = P ∘ (dP − D)``, ``dQ = dS K · scale``, ``dK = dSᵀ Q ·
+    scale``, a KV head's dK and dV summed over its group's query heads; each
+    in its input's dtype.  ``P`` is the masked softmax, recomputed here."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    group = hq // hkv
+    scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    p, _ = _probs_plain(q, k, causal=causal, sk_valid=sk_valid,
+                        q_offset=q_offset, scale=scale, window=window,
+                        prefix=prefix)
+    do = dout.reshape(b, sq, hkv, group, d).float()
+    dsum = (do * out.reshape(b, sq, hkv, group, d).float()).sum(-1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, v.float())
+    ds = p * (dp - dsum.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                      q.reshape(b, sq, hkv, group, d).float()) * scale
+    return (dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -104,8 +171,39 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q ``[B, Sq, Hq, d]`` over k, v ``[B, Sk, Hkv, d]`` (any
     strides, ``d`` contiguous on the GPU) → ``[B, Sq, Hq, d]``.  A CPU tensor
     takes :func:`attend_plain`; a CUDA tensor launches the kernel or
-    raises."""
-    global LAUNCHES
+    raises.  When autograd needs a gradient of q, k or v, the call goes
+    through :class:`_Attend` (kernel 5b backward on the card)."""
+    kw = _options(q, k, v, causal=causal, sk_valid=sk_valid,
+                  q_offset=q_offset, scale=scale, window=window,
+                  prefix=prefix)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attend.apply(q, k, v, kw)
+    if q.device.type == "cpu":
+        return attend_plain(q, k, v, **kw)
+    return _launch(q, k, v, kw, with_lse=False)[0]
+
+
+def attend_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, sk_valid: int | None = None,
+                    q_offset: int = 0, scale: float | None = None,
+                    window: int = 0, prefix: int = 0):
+    """:func:`attend`'s output and each query row's natural log-sum-exp of
+    its scaled, masked scores, ``lse [B, Hq, Sq]`` fp32 (+inf for a row that
+    sees no key), what the backward rebuilds the probabilities from.  A CPU
+    tensor takes :func:`attend_plain_with_lse`; a CUDA tensor launches the
+    kernel (and, when the keys are split, the merge writes ``lse``)."""
+    kw = _options(q, k, v, causal=causal, sk_valid=sk_valid,
+                  q_offset=q_offset, scale=scale, window=window,
+                  prefix=prefix)
+    if q.device.type == "cpu":
+        return attend_plain_with_lse(q, k, v, **kw)
+    return _launch(q, k, v, kw, with_lse=True)
+
+
+def _options(q, k, v, *, causal, sk_valid, q_offset, scale, window,
+             prefix) -> dict:
+    """Check the shapes and masks of an attention call; its keywords with
+    every default filled in."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
@@ -122,39 +220,118 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{prefix}")
     scale = (1.0 / math.sqrt(d)) if scale is None else float(scale)
     sk_valid = sk if sk_valid is None else int(sk_valid)
-    if q.device.type == "cpu":
-        return attend_plain(q, k, v, causal=causal, sk_valid=sk_valid,
-                            q_offset=q_offset, scale=scale, window=window,
-                            prefix=prefix)
-    for t in (q, k, v):
+    return dict(causal=bool(causal), sk_valid=sk_valid, q_offset=q_offset,
+                scale=scale, window=window, prefix=prefix)
+
+
+def _check_cuda(what: str, q: torch.Tensor, *tensors) -> None:
+    """Raise unless q and ``tensors`` are CUDA tensors of q's dtype, which
+    the kernels take, with the head dim contiguous (bf16: aligned for the
+    16-byte copies) and a head dim the kernels are built for."""
+    d = q.shape[-1]
+    for t in (q, *tensors):
         if not t.is_cuda or t.dtype != q.dtype:
-            raise ValueError(f"attend: q, k and v must be CUDA tensors of one "
+            raise ValueError(f"{what}: q, k and v must be CUDA tensors of one "
                              f"dtype, got {t.device} {t.dtype}")
         if t.stride(-1) != 1:
-            raise ValueError("attend: the head dim must be contiguous")
+            raise ValueError(f"{what}: the head dim must be contiguous")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"attend: the kernel takes {list(_DTYPES)}, got "
+        raise TypeError(f"{what}: the kernel takes {list(_DTYPES)}, got "
                         f"{q.dtype}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"attend: the kernel is built for head dims "
+        raise ValueError(f"{what}: the kernel is built for head dims "
                          f"{HEAD_DIMS}, got {d}")
     if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
+        for name, t in zip(("q", "k", "v", "out", "dout"), (q, *tensors)):
             _check_aligned(name, t)
+
+
+def _launch(q, k, v, kw: dict, *, with_lse: bool):
+    """Kernel 5 on CUDA tensors: ``(out, lse or None)``."""
+    global LAUNCHES
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    _check_cuda("attend", q, k, v)
+    causal, sk_valid, q_offset = kw["causal"], kw["sk_valid"], kw["q_offset"]
+    window, prefix, scale = kw["window"], kw["prefix"], kw["scale"]
     bq, bk, splits, split_len = _plan(
         _sms(q.device), q.dtype, b, sq * (hq // hkv), hkv, d, sk=sk,
         sk_valid=sk_valid, q_offset=q_offset, window=window)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     part = (torch.empty((splits, b, hkv, sq * (hq // hkv), d + 2),
                         dtype=torch.float32, device=q.device)
             if splits > 1 else None)
     launch("repro_flash_attention", q.device,
            ptr(q), *q.stride()[:3], ptr(k), *k.stride()[:3],
            ptr(v), *v.stride()[:3], ptr(out), *out.stride()[:3], ptr(part),
-           b, sq, sk, hq, hkv, d, sk_valid, q_offset, int(bool(causal)),
-           window, prefix, _DTYPES[q.dtype], bq, bk, splits, split_len, scale)
+           ptr(lse), b, sq, sk, hq, hkv, d, sk_valid, q_offset,
+           int(causal), window, prefix, _DTYPES[q.dtype], bq, bk, splits,
+           split_len, scale)
     LAUNCHES += 1
-    return out
+    return out, lse
+
+
+def attend_backward(q, k, v, out, dout, lse, *, causal: bool,
+                    sk_valid: int | None = None, q_offset: int = 0,
+                    scale: float | None = None, window: int = 0,
+                    prefix: int = 0):
+    """Kernel 5b: the gradients ``(dq, dk, dv)`` of :func:`attend` at ``(q,
+    k, v)`` given its output ``out``, the output's gradient ``dout`` and the
+    forward's ``lse`` (:func:`attend_with_lse`), on CUDA tensors (the
+    forward's dtypes, layouts and alignment; ``dout`` is made contiguous, as
+    autograd may hand in a strided one).  A CPU tensor takes
+    :func:`attend_backward_plain` (which recomputes the probabilities and
+    needs no ``lse``)."""
+    global BWD_LAUNCHES
+    kw = _options(q, k, v, causal=causal, sk_valid=sk_valid,
+                  q_offset=q_offset, scale=scale, window=window,
+                  prefix=prefix)
+    if q.device.type == "cpu":
+        return attend_backward_plain(q, k, v, out, dout, **kw)
+    dout = dout.contiguous()
+    _check_cuda("attend_backward", q, k, v, out, dout)
+    b, sq, hq, d = q.shape
+    _, sk, hkv, _ = k.shape
+    if (tuple(out.shape) != tuple(q.shape) or dout.shape != out.shape
+            or lse is None or tuple(lse.shape) != (b, hq, sq)
+            or lse.dtype != torch.float32 or not lse.is_contiguous()):
+        raise ValueError("attend_backward: out and dout must be [B, Sq, Hq, "
+                         "d] and lse the forward's fp32 [B, Hq, Sq]")
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty_like(k, memory_format=torch.contiguous_format)
+    dv = torch.empty_like(v, memory_format=torch.contiguous_format)
+    if sq == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    launch("repro_flash_attention_bwd", q.device,
+           ptr(q), *q.stride()[:3], ptr(k), *k.stride()[:3],
+           ptr(v), *v.stride()[:3], ptr(out), *out.stride()[:3],
+           ptr(dout), *dout.stride()[:3], ptr(lse), ptr(dsum),
+           ptr(dq), *dq.stride()[:3], ptr(dk), *dk.stride()[:3],
+           ptr(dv), *dv.stride()[:3], b, sq, sk, hq, hkv, d, kw["sk_valid"],
+           kw["q_offset"], int(kw["causal"]), kw["window"], kw["prefix"],
+           _DTYPES[q.dtype], kw["scale"])
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _Attend(torch.autograd.Function):
+    """:func:`attend` with its gradient: on CUDA kernel 5 with ``lse``, then
+    kernel 5b; on the CPU the plain versions.  No ``try`` falls back."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw):
+        out, lse = attend_with_lse(q, k, v, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*attend_backward(q, k, v, out, dout, lse, **ctx.kw), None)
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:

@@ -23,6 +23,7 @@ import torch
 from ..configs import ARCH_NAMES, get_config
 from ..core.context import resolve_device
 from ..models import Model
+from ..models.model import check_servable
 from ..serve import ServeEngine
 
 
@@ -46,6 +47,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    check_servable(cfg)
     dev = resolve_device(args.device)
     model = Model(cfg, device=dev, seed=args.seed)
     eng = ServeEngine(model, max_seq=args.prompt_len + args.gen_len + 8)

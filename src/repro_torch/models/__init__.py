@@ -1,6 +1,6 @@
-"""The serving path's models: dense GQA transformers, Mamba-2 SSMs and the
-RG-LRU/local-attention hybrid (the port of ``repro.models`` for those three
-families)."""
+"""The models: dense GQA transformers, MoE, Mamba-2 SSMs, the RG-LRU/local-
+attention hybrid and the patches and frames frontends (the port of
+``repro.models``), served and, but for ssm and hybrid, trained."""
 
 from .model import Model
 

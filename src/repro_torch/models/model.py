@@ -1,6 +1,7 @@
-"""The serving model: the port of ``repro/models/model.py`` for every family
-with a decode step: ``dense``, ``moe``, ``ssm``, ``hybrid`` and ``vlm`` (the
-patches frontend).
+"""The model: the port of ``repro/models/model.py``.  It serves every family
+with a decode step (``dense``, ``moe``, ``ssm``, ``hybrid`` and ``vlm``, the
+patches frontend) and trains every family whose forward runs only kernel 5
+(``dense``, ``moe``, ``vlm`` and ``audio``, the frames frontend).
 
 A :class:`Model` is an ``nn.Module`` holding its weights; its layers are an
 ``nn.ModuleList`` run in a Python loop (the JAX package scans a stacked
@@ -13,15 +14,27 @@ stack); see :func:`layer_kinds`.  Weights are made on the device from
 package with :func:`repro_torch.interop.params_from_jax`.
 
 API (the JAX package's, with the parameters held by the module):
+  loss(batch) → (loss, {"ce", "aux"})      train forward
+  logits(batch) → (logits [B, S, V] float32, aux)
   init_cache(batch, max_seq) → cache
   prefill(batch, cache) → (logits_last [B, 1, V] float32, cache)
   decode(tokens, pos, cache) → (logits [B, 1, V] float32, cache)
+  params() → the parameters as :func:`init_params` lays them out
 
-A patches model's prefill takes ``batch["patches"]`` ``[B,
-n_frontend_tokens, d]`` (the stubbed frontend's embeddings) before the
-tokens and attends over them with the prefix-LM mask.  Caches are updated in
-place (see :mod:`.blocks`).  The frames frontend (encoder-only hubert) and
-training raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+A patches model takes ``batch["patches"]`` ``[B, n_frontend_tokens, d]``
+(the stubbed frontend's embeddings) before the tokens and attends over them
+with the prefix-LM mask; a frames model (hubert) takes ``batch["frames"]``
+``[B, S, d]`` through ``frontend_proj`` and, in training, ``batch["labels"]
+[B, S]``.  Caches are updated in place (see :mod:`.blocks`).  Serving an
+encoder-only model raises (no decode step), as does training the ssm and
+hybrid families, whose kernels 6 and 7 have no backward kernel yet
+(``ROADMAP.md`` queue 1 item 11).
+
+The weights are made with ``requires_grad=False``; the training step
+(:func:`repro_torch.train.init_train_state`) makes them trainable.  With
+``cfg.remat == "layer"`` a training forward checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant), so the backward reruns the
+layer's forward, kernel 5 included, as ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.context import resolve_device
 from .blocks import (attn_apply, attn_cache, attn_params, mamba_apply,
@@ -38,23 +52,25 @@ from .blocks import (attn_apply, attn_cache, attn_params, mamba_apply,
                      rglru_apply, rglru_cache, rglru_params)
 from .layers import _init, mlp, mlp_params, rmsnorm
 
-_LATER = "ROADMAP.md queue 1 item 10"
+_BACKWARD = "ROADMAP.md queue 1 item 11"
 
 
-def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port does not
-    serve yet."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"({_LATER}); the port serves 'dense', 'moe', 'ssm', 'hybrid' "
-            "and 'vlm'")
-    if cfg.frontend not in ("none", "patches"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend "
-                                  f"is not ported yet ({_LATER})")
+def check_servable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a configuration with no decode step
+    (encoder-only hubert, which ``repro/launch/serve.py`` refuses too)."""
     if cfg.is_encoder_only:
         raise NotImplementedError(f"{cfg.name} is encoder-only: no decode "
                                   "step to serve")
+
+
+def check_trainable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a family the port does not train:
+    ssm and hybrid, whose scans (kernels 6 and 7) have no backward kernel
+    yet."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family needs backward "
+            f"kernels for the SSD and RG-LRU scans ({_BACKWARD})")
 
 
 def layer_kinds(cfg) -> list:
@@ -78,6 +94,28 @@ def layer_kinds(cfg) -> list:
             for i in range(cfg.n_layers)]
 
 
+def layer_stacks(cfg) -> list:
+    """The JAX package's layer stacks, ``[(keys, layer indices), ...]`` in
+    its tree's order: the key path of each stacked leaf group in the JAX
+    tree (``("layers",)``; an MoE model's leading dense layers
+    ``("dense0",)``; a hybrid model's ``("layers", "b<j>")`` over its
+    groups and ``("extra",)``) and the indices of the port's layers it
+    stacks, in stack order."""
+    n = cfg.n_layers
+    if cfg.family == "hybrid":
+        p = len(cfg.block_pattern)
+        grouped = n // p * p
+        out = [(("layers", f"b{j}"), list(range(j, grouped, p)))
+               for j in range(p)]
+        return out + ([(("extra",), list(range(grouped, n)))]
+                      if grouped < n else [])
+    if cfg.family != "ssm" and cfg.first_dense_layers:
+        k = cfg.first_dense_layers
+        return [(("dense0",), list(range(k))), (("layers",),
+                                                 list(range(k, n)))]
+    return [(("layers",), list(range(n)))]
+
+
 def init_params(cfg, gen: torch.Generator) -> Dict:
     """Random weights of ``cfg`` on ``gen``'s device, the JAX package's
     initialisation (normal / sqrt(fan_in), norms and biases zero) with the
@@ -90,6 +128,9 @@ def init_params(cfg, gen: torch.Generator) -> Dict:
     }
     if not cfg.tie_embeddings:
         params["head"] = _init(gen, (cfg.d_model, cfg.vocab), cfg.d_model, dt)
+    if cfg.frontend == "frames":
+        params["frontend_proj"] = _init(gen, (cfg.d_model, cfg.d_model),
+                                        cfg.d_model, dt)
     layers = []
     for kind in layer_kinds(cfg):
         if kind == "ssm":
@@ -116,8 +157,8 @@ def init_params(cfg, gen: torch.Generator) -> Dict:
 
 
 class ParamTree(nn.Module):
-    """Nested frozen parameters addressed like the JAX package's dicts
-    (``layer["attn"]["wq"]``)."""
+    """Nested parameters addressed like the JAX package's dicts
+    (``layer["attn"]["wq"]``), frozen until training asks for gradients."""
 
     def __init__(self, tree: Dict):
         super().__init__()
@@ -134,6 +175,12 @@ class ParamTree(nn.Module):
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
 
+    def tree(self) -> Dict:
+        """The parameters as a nested dict (the module's own tensors)."""
+        out = dict(self._parameters)
+        out.update((k, m.tree()) for k, m in self._modules.items())
+        return out
+
 
 class Model(nn.Module):
     def __init__(self, cfg, *, device=None, seed: int = 0,
@@ -142,7 +189,6 @@ class Model(nn.Module):
         another), with weights made from ``seed`` or, when given, ``params``
         (:func:`init_params`'s layout)."""
         super().__init__()
-        check_supported(cfg)
         dev = resolve_device(device)
         if params is None:
             params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
@@ -156,6 +202,12 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.top["embed"].device
 
+    def params(self) -> Dict:
+        """The model's parameters (its own tensors, not copies) laid out as
+        :func:`init_params` makes them: the top-level weights and
+        ``"layers"``, a list of per-layer dicts."""
+        return {**self.top.tree(), "layers": [lp.tree() for lp in self.layers]}
+
     # --------------------------------------------------------------- forward
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         emb = self.top["embed"][tokens]
@@ -164,10 +216,14 @@ class Model(nn.Module):
         return emb
 
     def _embed_inputs(self, batch: Dict) -> Tuple[torch.Tensor, int]:
-        """``(x [B, S, d], prefix)``: the token embeddings, after the
+        """``(x [B, S, d], prefix)``: a frames model's ``frames [B, S, d]``
+        through ``frontend_proj``; else the token embeddings, after the
         ``patches`` ``[B, n_frontend_tokens, d]`` where a patches model is
         given them (then ``prefix`` is ``n_frontend_tokens``, else 0)."""
         cfg = self.cfg
+        if cfg.frontend == "frames":
+            dt = self.top["frontend_proj"].dtype
+            return batch["frames"].to(dt) @ self.top["frontend_proj"], 0
         emb = self._embed(batch["tokens"])
         if cfg.frontend != "patches" or "patches" not in batch:
             return emb, 0
@@ -186,12 +242,14 @@ class Model(nn.Module):
         return (x @ w).float()
 
     def _layer(self, lp, x, cache, pos, prefix: int = 0):
+        """One layer: ``(x, cache, aux)``, aux the MoE block's load-balance
+        loss (None for other layers)."""
         cfg = self.cfg
         if "mamba" in lp:
             h, nc = mamba_apply(cfg, lp["mamba"],
                                 rmsnorm(x, lp["ln"], cfg.norm_eps),
                                 cache=cache, cache_pos=pos)
-            return x + h, nc
+            return x + h, nc, None
         y = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         if "rec" in lp:
             h, nc = rglru_apply(cfg, lp["rec"], y, cache=cache, cache_pos=pos)
@@ -201,17 +259,34 @@ class Model(nn.Module):
                                prefix=prefix, cache=cache, cache_pos=pos)
         x = x + h
         y = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        if "moe" in lp:   # the aux loss is training's; serving drops it
-            return x + moe_apply(cfg, lp["moe"], y)[0], nc
-        return x + mlp(y, lp["mlp"], cfg.act), nc
+        if "moe" in lp:
+            h2, aux = moe_apply(cfg, lp["moe"], y)
+            return x + h2, nc, aux
+        return x + mlp(y, lp["mlp"], cfg.act), nc, None
 
     def _run_stack(self, x, cache, pos, prefix: int = 0):
         for lp, c in zip(self.layers, cache["layers"]):
-            x, _ = self._layer(lp, x, c, pos, prefix)
+            x, _, _ = self._layer(lp, x, c, pos, prefix)
         return x
+
+    def _train_stack(self, x, prefix: int = 0):
+        """Every layer without a cache: ``(x, aux)``, aux the MoE layers'
+        load-balance losses summed in float32 (0 without MoE).  Under
+        ``remat == "layer"`` and autograd each layer is checkpointed."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = self.cfg.remat == "layer" and torch.is_grad_enabled()
+        for lp in self.layers:
+            def one(x, lp=lp):
+                x, _, a = self._layer(lp, x, None, None, prefix)
+                return x, (a if a is not None else torch.zeros_like(aux))
+            x, a = (checkpoint(one, x, use_reentrant=False) if remat
+                    else one(x))
+            aux = aux + a
+        return x, aux
 
     # ----------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_seq: int) -> Dict:
+        check_servable(self.cfg)
         cfg, dev = self.cfg, self.device
         one = {"ssm": lambda: mamba_cache(cfg, batch, dev),
                "rec": lambda: rglru_cache(cfg, batch, dev),
@@ -234,9 +309,43 @@ class Model(nn.Module):
         return self._unembed(x), cache
 
     # ----------------------------------------------------------------- train
-    def loss(self, batch):
-        raise NotImplementedError(
-            f"training (loss, remat, optim) is not ported yet ({_LATER})")
+    def logits(self, batch: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(logits [B, S, V] float32, aux)`` of a training batch."""
+        x, prefix = self._embed_inputs(batch)
+        x, aux = self._train_stack(x, prefix)
+        return self._unembed(x), aux
+
+    def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict]:
+        """``(loss, {"ce", "aux"})``, the JAX ``Model.loss``: the cross
+        entropy over ``labels`` (frames), over the text positions after the
+        patches (patches), else of each token's next; plus ``1e-2`` times
+        the MoE layers' summed load-balance loss."""
+        cfg = self.cfg
+        check_trainable(cfg)
+        if cfg.frontend == "patches" and "patches" not in batch:
+            raise ValueError(f"{cfg.name} trains on {cfg.n_frontend_tokens} "
+                             "patch embeddings before the tokens: the batch "
+                             f"needs 'patches' [B, {cfg.n_frontend_tokens}, "
+                             f"{cfg.d_model}]")
+        logits, aux = self.logits(batch)
+        if cfg.frontend == "frames":
+            ce = _xent(logits, batch["labels"]).mean()
+        else:
+            tokens = batch["tokens"]
+            txt = (logits[:, cfg.n_frontend_tokens:]
+                   if cfg.frontend == "patches" else logits)
+            ce = _xent(txt[:, :-1], tokens[:, 1:]).mean()
+        return ce + 1e-2 * aux, {"ce": ce, "aux": aux}
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position cross entropy of float32 ``logits [..., V]`` against
+    ``labels [...]``: ``logsumexp - gold``.  No softmax copy is kept beyond
+    what autograd saves of the logits (at qwen2-1.5b's full vocabulary the
+    float32 logits of a batch of 8 × 1024 are 5.0 GB)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return logz - gold
 
 
 def _to(tree, dev):

@@ -520,3 +520,120 @@ def test_p_rounded_once_would_leave_the_tolerance():
     """Why P is split: rounded once to bf16 it errs by up to 2^-8 max|v|,
     and the same model then leaves the card's tolerance."""
     assert max(_rounding_error(case, split=False) for case in ROUNDING) > 1
+
+
+# --------------------------------------------------------------------------- #
+# The backward (kernel 5b's plain version and the autograd path)              #
+# --------------------------------------------------------------------------- #
+
+# (b, sq, hq, hkv, d, mask keywords): causal, non-causal, the prefix-LM mask,
+# windows, GQA groups 1, 2 and 6, head dims 16 and 80 (hubert's); 40 and 70
+# positions over the JAX attention's 32-key chunks, so its chunked,
+# checkpointed path (``_attention_chunked``) is what jax.grad differentiates.
+BWD_CASES = [
+    (2, 40, 2, 2, 16, dict(causal=True)),
+    (2, 40, 4, 2, 16, dict(causal=False)),
+    (1, 70, 6, 1, 16, dict(causal=True, prefix=37)),
+    (2, 40, 4, 2, 16, dict(causal=True, window=16)),
+    (1, 70, 6, 1, 16, dict(causal=True, prefix=9, window=20)),
+    (1, 40, 4, 4, 80, dict(causal=False)),
+    (1, 40, 6, 2, 80, dict(causal=True)),
+]
+
+
+def _bwd_inputs(seed, b, sq, hq, hkv, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape, dtype=np.float32) for shape in
+            ((b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d),
+             (b, sq, hq, d))]
+
+
+def _jax_grads(q, k, v, dout, kw):
+    """jax.grad of the JAX model's attention (chunk 32) against dout."""
+    f = lambda q, k, v: jnp.vdot(
+        j_attention(q, k, v, chunk=32, **kw), dout)
+    return jax.grad(f, argnums=(0, 1, 2))(q, k, v)
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_backward_plain_and_autograd_match_jax_grad(case):
+    """``attend_backward_plain`` (the explicit formula) and the autograd
+    path through ``attend`` (on the CPU: ``attend_plain`` then
+    ``attend_backward_plain``) against ``jax.grad`` of
+    ``repro.models.layers.attention``, within 1e-5 (1 + |jax|)."""
+    b, sq, hq, hkv, d, kw = case
+    q, k, v, dout = _bwd_inputs(sum(case[:5]), b, sq, hq, hkv, d)
+    want = _jax_grads(q, k, v, dout, kw)
+    tq, tk, tv, tdo = map(_t, (q, k, v, dout))
+    out = attend(tq, tk, tv, **kw)
+    plain = j_fa_t.attend_backward_plain(tq, tk, tv, out, tdo, **kw)
+    leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+    got = torch.autograd.grad(attend(*leaves, **kw), leaves, tdo)
+    for grads in (plain, got):
+        for g, w in zip(grads, want):
+            w = np.asarray(w)
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                       atol=1e-5 * (1 + np.abs(w).max()))
+
+
+def test_attend_goes_through_the_backward_only_when_autograd_needs_it(
+        monkeypatch):
+    """Serving (no gradient wanted) takes the plain forward alone; a call
+    whose inputs require grad takes the autograd function, whose backward
+    is ``attend_backward``."""
+    calls = []
+    real = j_fa_t.attend_backward
+    monkeypatch.setattr(j_fa_t, "attend_backward",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    q, k, v, dout = map(_t, _bwd_inputs(0, 1, 8, 2, 1, 16))
+    out = attend(q, k, v, causal=True)
+    assert out.grad_fn is None
+    with torch.no_grad():
+        assert attend(q.requires_grad_(True), k, v, causal=True).grad_fn is None
+    out = attend(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    out.backward(dout)
+    assert calls == [1] and q.grad is not None and k.grad is None
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, prefix=5, window=4),
+                                dict(causal=True, sk_valid=0),
+                                dict(causal=True, sk_valid=7, q_offset=3)],
+                         ids=str)
+def test_lse_is_each_rows_log_normaliser(kw):
+    """``attend_plain_with_lse``: the output with each row's natural
+    log-sum-exp of its scaled, masked scores (+inf for a row that sees no
+    key), against ``torch.logsumexp`` over the mask written out."""
+    q, k, v = (_t(x) for x in _bwd_inputs(1, 2, 9, 4, 2, 16)[:3])
+    out, lse = j_fa_t.attend_plain_with_lse(q, k, v, **kw)
+    assert torch.equal(out, attend_plain(q, k, v, **kw))
+    assert lse.shape == (2, 4, 9) and lse.dtype == torch.float32
+    pos = kw.get("q_offset", 0) + torch.arange(9)[:, None]
+    col = torch.arange(9)[None, :]
+    mask = col < kw.get("sk_valid", 9)
+    if kw["causal"]:
+        mask = mask & ((col <= pos) | (col < kw.get("prefix", 0)))
+    if kw.get("window"):
+        mask = mask & (col > pos - kw["window"])
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(2, 9, 2, 2, 16), k) / 4.0
+    ref = torch.logsumexp(torch.where(mask, s, -math.inf), dim=-1)
+    ref = ref.reshape(2, 4, 9)
+    live = mask.any(-1).expand(2, 4, 9)
+    assert torch.equal(torch.isfinite(lse), live)
+    assert (lse[~live] == math.inf).all()
+    torch.testing.assert_close(lse[live], ref[live], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", [
+    ("hubert layer, small batch", 1, 40, 16, 16, 80, 40),
+    ("one row over many keys", 1, 1, 12, 2, 128, 1062),
+    ("two heads, long keys", 1, 200, 2, 1, 80, 1062)], ids=lambda c: c[0])
+def test_plan_splits_at_the_cards_training_edge_shapes(case):
+    """Shapes the card's backward edge checks run (``chip_smoke.py``
+    ``BWD_EDGES``): with so few blocks the forward's plan splits the keys,
+    so the merge launch writes ``lse`` there."""
+    _, b, sq, hq, hkv, d, sk = case
+    _, _, splits, _ = j_fa_t._plan(SMS, torch.float32, b, sq * (hq // hkv), hkv,
+                                 d, sk=sk, sk_valid=sk)
+    assert splits > 1

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import importlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -951,3 +952,134 @@ def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):
         ss.ssd_scan_chunked(x.bfloat16(), dt, A, Bm, Bm)
     with pytest.raises(ValueError, match="built for"):
         ss.ssd_scan_chunked(x, dt, A, Bm[..., :8], Bm[..., :8])
+
+
+# Kernel 5b (the backward) and the forward's lse: (b, sq, sk, hq, hkv, d,
+# mask keywords), each in fp32 and bf16.  Head dims 16, 64, 80 (hubert's),
+# 128 and 256; causal, non-causal, the prefix-LM mask, windows, sk_valid and
+# q_offset; GQA groups 1, 6, 7 and 8; one query row, and shapes whose plan
+# splits the keys (the merge writes lse).
+_BWD = [
+    (2, 1, 1, 2, 2, 16, dict(causal=True)),
+    (2, 37, 37, 6, 1, 16, dict(causal=True)),
+    (1, 70, 70, 7, 1, 64, dict(causal=False)),
+    (2, 130, 130, 16, 16, 80, dict(causal=False)),
+    (2, 300, 300, 8, 1, 80, dict(causal=True)),
+    (1, 300, 300, 12, 2, 128, dict(causal=True)),
+    (2, 300, 300, 8, 1, 256, dict(causal=True, prefix=256)),
+    (1, 90, 90, 4, 2, 256, dict(causal=True, window=16)),
+    (2, 70, 90, 4, 2, 16, dict(causal=True, prefix=37, window=16,
+                               sk_valid=85, q_offset=20)),
+    (1, 1, 1062, 12, 2, 128, dict(causal=True, sk_valid=1000, q_offset=999)),
+    (1, 200, 1062, 2, 1, 80, dict(causal=True, q_offset=862)),
+]
+
+
+def _bwd_close(got, want, rtol, atol):
+    """|got - want| <= rtol |want| + atol max(1, max |want|): both sum in
+    fp32 in other orders (bf16 rounds once more, one ulp)."""
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", _BWD, ids=str)
+def test_flash_attention_backward_kernel_matches_plain(cuda, case, dtype):
+    """Kernel 5 with lse and kernel 5b against their plain versions; two
+    runs of kernel 5b give the same bits (no atomics)."""
+    b, sq, sk, hq, hkv, d, kw = case
+    fa = _kernel("flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(sq * sk + d)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                   for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, d), (b, sq, hq, d)))
+    out, lse = fa.attend_with_lse(q, k, v, **kw)
+    out_p, lse_p = fa.attend_plain_with_lse(q, k, v, **kw)
+    live = torch.isfinite(lse_p)
+    assert torch.equal(torch.isfinite(lse), live)
+    torch.testing.assert_close(lse[live], lse_p[live], rtol=1e-5, atol=1e-5)
+    before = fa.BWD_LAUNCHES
+    got = fa.attend_backward(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == before + 1
+    want = fa.attend_backward_plain(q, k, v, out, do, **kw)
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (2**-7, 1e-4)
+    for a, w in zip(got, want):
+        _bwd_close(a, w, rtol, atol)
+    again = fa.attend_backward(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_attend_under_autograd_launches_kernels_5_and_5b(cuda):
+    """``attend`` on inputs that require grad: kernel 5 (with lse) forward,
+    kernel 5b backward, a strided output gradient made contiguous; the
+    gradients equal ``attend_backward``'s."""
+    fa = _kernel("flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn((2, 64, 4, 80), generator=g, device=cuda)
+               .bfloat16().requires_grad_(True) for _ in range(3))
+    f0, b0 = fa.LAUNCHES, fa.BWD_LAUNCHES
+    out = fa.attend(q, k, v, causal=False)
+    wide = torch.randn((2, 64, 4, 160), generator=g, device=cuda).bfloat16()
+    dout = wide[..., :80]                  # strided, as autograd may give it
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    assert (fa.LAUNCHES - f0, fa.BWD_LAUNCHES - b0) == (1, 1)
+    with torch.no_grad():
+        o2, lse = fa.attend_with_lse(q, k, v, causal=False)
+        want = fa.attend_backward(q, k, v, o2, dout, lse, causal=False)
+    for a, w in zip((dq, dk, dv), want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "paligemma-3b",
+                                  "kimi-k2-1t-a32b"])
+def test_smoke_training_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
+    """Three train steps of a smoke config (fp32, TF32 off) on the card and
+    on the CPU from the same weights and batches: the losses within 1e-4
+    relative, and the card's run through kernels 5 and 5b."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.models import Model
+    from repro_torch.models.model import init_params
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.tree import map_tree
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    fa = _kernel("flash_attention")
+    cfg = get_config(arch).smoke()
+    params = init_params(cfg, torch.Generator().manual_seed(1))
+    tcfg = TrainConfig(warmup_steps=1, total_steps=10, microbatches=2)
+    dcfg = DataConfig(seq_len=48, global_batch=4, vocab=cfg.vocab,
+                      frontend=cfg.frontend,
+                      n_frontend_tokens=cfg.n_frontend_tokens,
+                      d_model=cfg.d_model)
+    losses = []
+    for dev in (cuda, torch.device("cpu")):
+        model = Model(cfg, device=dev,
+                      params=map_tree(lambda t: t.clone(), params))
+        state = init_train_state(model.params(), tcfg)
+        step = make_train_step(model, tcfg)
+        b0 = fa.BWD_LAUNCHES
+        got = []
+        for i in range(3):
+            batch = {k: t.to(dev) for k, t in synthetic_batch(dcfg, i).items()}
+            state, m = step(state, batch)
+            got.append(float(m["loss"]))
+        if dev.type == "cuda":
+            assert fa.BWD_LAUNCHES - b0 == 3 * 2 * cfg.n_layers
+        losses.append(got)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+
+
+def test_bf16_backward_rejects_misaligned_tensors(cuda):
+    fa = _kernel("flash_attention")
+    x = torch.zeros((1, 8, 2, 16 + 1), device=cuda, dtype=torch.bfloat16)
+    q = x[..., 1:]                           # starts 2 bytes past 16
+    ok = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros((1, 2, 8), device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.attend_backward(q, ok, ok, ok, ok, lse, causal=True)
+    with pytest.raises(ValueError, match="lse"):
+        fa.attend_backward(ok, ok, ok, ok, ok, lse[..., :4], causal=True)

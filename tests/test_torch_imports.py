@@ -77,6 +77,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "import repro_torch.io.npyio, repro_torch.io.faults\n"
         "import repro_torch.io.sanitize, repro_torch.io.checksum\n"
         "import repro_torch.obs, repro_torch.obs.__main__\n"
+        "import repro_torch.launch.train, repro_torch.train\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.tree\n"
         "repro_torch.io.open_file, repro_torch.io.save_npy_durable\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -125,6 +127,21 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     tour = euler_tour(torch.tensor([0, 0, 1, 2]), v=4, device="cpu")
     assert all(t.device.type == "cpu" for t in tour.values())
     assert tour["rank"][[2, 4, 6, 7, 5, 3]].tolist() == [5, 4, 3, 2, 1, 0]
+    from repro_torch.data import DataConfig, synthetic_batch
+    dcfg = DataConfig(seq_len=8, global_batch=2, vocab=16, frontend="frames",
+                      d_model=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        synthetic_batch(dcfg, 0)
+    batch = synthetic_batch(dcfg, 0, device="cpu")
+    assert all(t.device.type == "cpu" for t in batch.values())
+    from repro_torch.launch import train
+    argv = ["--arch", "hubert-xlarge", "--smoke", "--steps", "1", "--seq",
+            "8", "--batch", "2"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(argv)
+    state = train.main(argv + ["--device", "cpu"])
+    assert all(p.device.type == "cpu" for p in state.params["layers"][0]
+               ["attn"].values())
 
 
 @pytest.mark.parametrize("knob, value, item", [
