@@ -163,8 +163,9 @@ What it does, in order; any failure raises and the exit code is non-zero:
    backward, ``csrc/flash_attention_bwd.cu``) against their plain versions
    at ``BWD_EDGES`` in fp32 and bf16: head dims 16, 64, 80, 128 and 256,
    causal, non-causal, the prefix-LM mask, windows, GQA groups 1, 6, 7
-   and 8, one query row, ragged lengths, sk_valid, q_offset and forward
-   plans that split the keys (``BWD_FP32_TOL``, ``BWD_BF16_TOL``,
+   and 8, one query row, ragged lengths, sk_valid, q_offset, forward
+   plans that split the keys and the bf16 tensor-core passes' ragged
+   64-key and 64-row tiles (``BWD_FP32_TOL``, ``BWD_BF16_TOL``,
    ``LSE_TOL``); kernel 5b twice gives the same bits.  (b) hubert-xlarge
    whole (48 layers, d 1280, bf16, remat per layer, 0.947 G parameters) for
    5 AdamW steps of 16 x 1024 frames in 2 microbatches, through the API
@@ -181,9 +182,11 @@ What it does, in order; any failure raises and the exit code is non-zero:
    within ``SMOKE_LOSS_RTOL``.  Then, at the shapes, dtype and mask of the
    last kernel-5b call in a step of hubert, qwen2 and paligemma's smoke
    config (prefix 8), kernel 5's output and lse against the plain version
-   and kernel 5b beside its plain version, its bound and
-   ``scaled_dot_product_attention``'s forward plus backward (rows
-   ``flash_attention_bwd``, ``_qwen2``, ``_prefix``).  Alone:
+   and kernel 5b beside its plain version, its bound,
+   ``scaled_dot_product_attention``'s forward plus backward
+   (``library_ms``) and its backward alone (``library_bwd_ms``, the same
+   function as kernel 5b) (rows ``flash_attention_bwd``, ``_qwen2``,
+   ``_prefix``).  Alone:
    ``python3 chip_smoke.py --train-only``.
 11. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
@@ -3101,9 +3104,11 @@ def run_lm(dev: torch.device, args) -> list:
 # Kernel 5b's edge matrix, (b, sq, sk, hq, hkv, d, mask keywords): head dims
 # 16, 64, 80, 128 and 256; causal, non-causal, the prefix-LM mask (256 keys,
 # and 37 under a window), windows of 16 and 100; GQA groups 1, 6, 7 and 8;
-# one query row, ragged lengths, sk_valid and q_offset; the last two with
-# so few blocks that the forward's plan splits the keys (its merge writes
-# lse).  Each case runs in fp32 and in bf16.
+# one query row, ragged lengths, sk_valid and q_offset; two with so few
+# blocks that the forward's plan splits the keys (its merge writes lse);
+# the last three at the bf16 kernels' 64-key and 64-row tiles: ragged tiles
+# at hubert's heads, a position's group of 6 across two row tiles (258
+# rows), a prefix at qwen2's heads.  Each case runs in fp32 and in bf16.
 BWD_EDGES = [
     (2, 1, 1, 2, 2, 16, dict(causal=True)),
     (2, 37, 37, 6, 1, 16, dict(causal=True)),
@@ -3118,6 +3123,9 @@ BWD_EDGES = [
                                sk_valid=85, q_offset=20)),
     (1, 1, 1062, 12, 2, 128, dict(causal=True, sk_valid=1000, q_offset=999)),
     (1, 200, 1062, 2, 1, 80, dict(causal=True, q_offset=862)),
+    (1, 1023, 1023, 16, 16, 80, dict(causal=False)),
+    (1, 43, 43, 6, 1, 128, dict(causal=True)),
+    (1, 200, 200, 12, 2, 128, dict(causal=True, prefix=37)),
 ]
 # Kernel 5b against attend_backward_plain from the same inputs: both sum in
 # fp32 in other orders, so |kernel - plain| <= rtol |plain| + atol
@@ -3257,7 +3265,8 @@ def bwd_edge_checks(gen, fa) -> int:
 # Kernel names of a training step's device time, by what launched them.
 STEP_PARTS = (("kernel 5", ("flash_mma_kernel", "flash_kernel",
                             "combine_kernel")),
-              ("kernel 5b", ("dkdv_kernel", "dq_kernel", "row_dot_kernel")),
+              ("kernel 5b", ("dkdv_mma_kernel", "dq_mma_kernel", "dkdv_kernel",
+                             "dq_kernel", "row_dot_kernel")),
               ("matmuls", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")))
 
 
@@ -3499,8 +3508,10 @@ def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
     call of ``arch``'s training step (:meth:`KernelClock.read`), on fresh
     inputs: kernel 5 with lse held against attend_plain_with_lse, kernel 5b
     against attend_backward_plain, each timed beside its plain version, its
-    bound and scaled_dot_product_attention's forward plus backward (the
-    library call; never called by the port)."""
+    bound, scaled_dot_product_attention's forward plus backward (the
+    library call; never called by the port) and its backward alone
+    (``library_bwd_ms``: ``torch.autograd.grad`` with ``retain_graph`` on
+    one forward run outside the timer), the same function as kernel 5b."""
     b, s, hq, d = call["q"]
     _, sk, hkv, _ = call["k"]
     dtype, kw = call["dtype"], call["kw"]
@@ -3538,10 +3549,14 @@ def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
     else:
         sdpa_kw = dict(is_causal=causal)
 
-    def lib():
-        o = torch.nn.functional.scaled_dot_product_attention(
+    def lib_fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
             qh, kh, vh, scale=kw["scale"], **sdpa_kw)
-        torch.autograd.grad(o, (qh, kh, vh), doh)
+
+    def lib():
+        torch.autograd.grad(lib_fwd(), (qh, kh, vh), doh)
+
+    o_lib = lib_fwd()
 
     masks = "causal" if causal else "non-causal"
     masks += f", prefix {prefix}" if prefix else ""
@@ -3558,6 +3573,8 @@ def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
         plain_ms=cuda_ms(lambda: fa.attend_backward_plain(q, k, v, out, dout,
                                                           **kw), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, reps),
+        library_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+            o_lib, (qh, kh, vh), doh, retain_graph=True), reps),
         fwd_ms=cuda_ms(lambda: fa.attend_with_lse(q, k, v, **kw), reps),
         shape=f"{arch} training: q [{b}, {s}, {hq}, {d}] {kind} over k, v "
               f"[{b}, {s}, {hkv}, {d}], {masks}",
@@ -3607,7 +3624,8 @@ def run_train(dev: torch.device, args) -> list:
               f"{r['launches']} a step (forward {r['fwd_launches']}, under "
               f"remat twice a layer), plain {r['plain_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4g} ms ({r['bound_by']}), library (sdpa "
-              f"forward + backward) {r['library_ms']:.4f} ms, forward with "
+              f"forward + backward) {r['library_ms']:.4f} ms, sdpa backward "
+              f"alone {r['library_bwd_ms']:.4f} ms, forward with "
               f"lse {r['fwd_ms']:.4f} ms (max |out - plain| "
               f"{r['fwd_err'][0]:.3g}, |lse - plain| "
               f"{r['fwd_err'][1]:.3g}), max |kernel - plain| / max(1, "

@@ -88,8 +88,6 @@
 namespace {
 
 constexpr int kBK = 32;          // keys per KV tile of the fp32 kernel
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
 // fp32: FMA with shared-memory operands.
@@ -277,65 +275,6 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16) fed by cp.async and ldmatrix.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros when !ok
-// (src-size 0: nothing is read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
-// and register i holds matrix i's (row lane / 4, columns 2 (lane % 4) + {0, 1}).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// The same, transposed: register i holds matrix i's (rows 2 (lane % 4) + {0, 1},
-// column lane / 4).
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a b: a 16x16 bf16 (row-major fragments), b 16x8 bf16 (column-major), c fp32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x, y) as two bf16 pairs, hi = bf16(x, y) and lo = bf16((x, y) - hi): hi + lo
-// is (x, y) to about 2^-16 of each.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
 
 // The tensor-core kernel's tiles: BQ query rows (4 warps of 16 in prefill; one
 // m16 tile that all 4 warps share in decode), BK keys a K/V stage, KW of them

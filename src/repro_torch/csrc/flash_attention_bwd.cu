@@ -4,40 +4,80 @@
 // forward's mask (causal, the prefix-LM mask, the sliding window, sk_valid,
 // q_offset) and GQA.
 //
-// It has no TPU counterpart: the JAX model calls no Pallas kernel in
+// It replaces no TPU kernel: the JAX model calls no Pallas kernel in
 // training.  Its attention is layers.attention, "the XLA twin of the Pallas
 // flash kernel" (src/repro/models/layers.py:99-174, _attention_chunked), and
 // its gradient is XLA's autodiff of that twin, each KV chunk's scores
 // rematerialised under jax.checkpoint.  This is what the port's backward is
 // held against; the forward, flash_attention.cu, replaces flash_attention_bh.
 //
+// Bound.  The function does five products of the score matrix's size (the
+// forward's two, Q K^T and P V, are 4.29e10 FLOP for a hubert-xlarge layer at
+// batch 8, 1024 frames, 16 heads of 80): 2.5 times the forward, 1.07e11 FLOP,
+// 0.1086 ms at 989 TFLOP/s of bf16 tensor cores; its bytes (q, k, v, o, do,
+// lse in, dq, dk, dv out: 0.17 GB) take 0.05 ms at 3.35 TB/s.
+//
 // FlashAttention-2's split, with no atomics, so the gradients are the same
 // bits run to run:
 //   1. row_dot_kernel: D_i = sum_d dO_id O_id for every query row (fp32).
-//   2. dkdv_kernel: one block a (batch, KV head, tile of BK keys), dK and dV
+//   2. the dK/dV pass: one block a (batch, KV head, tile of keys), dK and dV
 //      of its keys in registers; a loop over the query rows that may see the
 //      tile (every query head of the KV head's group, position-major as in
 //      the forward) rebuilds S = Q K^T * scale and P = e^(S - lse) (no
 //      softmax: lse holds its normaliser) and dP = dO V^T, then dS = P (dP -
 //      D), dV += P^T dO and dK += dS^T Q.  A KV head's dK and dV thus sum
 //      over its group's query heads inside one block.
-//   3. dq_kernel: one block a (batch, KV head, tile of BQ query rows), dQ in
+//   3. the dQ pass: one block a (batch, KV head, tile of query rows), dQ in
 //      registers; a loop over the key tiles its rows may see (the forward's
 //      key range) rebuilds S, P, dP and dS and adds dS K.
-// dQ and dK are scaled at the end.  Every sum is fp32; the inputs are fp32 or
-// bf16 (read as fp32), the gradients are written in the inputs' type.
+// dQ and dK are scaled at the end.  Every sum is fp32; the gradients are
+// written in the inputs' type.  S and dP are built in both passes: seven
+// products against the function's five.
 //
-// Bound.  The function does five products of the score matrix's size (the
-// forward's two, Q K^T and P V, are 4.29e10 FLOP for a hubert-xlarge layer at
-// batch 8, 1024 frames, 16 heads of 80): 2.5 times the forward, 1.07e11 FLOP,
-// 0.108 ms at 989 TFLOP/s of bf16 tensor cores.  This first port is a plain
-// shared-memory FMA kernel (67 TFLOP/s at best, fp32) that recomputes S and
-// dP in both passes (seven products): it is far from that bound, and the
-// tensor-core redesign (the forward's mma.sync and ldmatrix helpers, then
-// wgmma) is later work.  Operands sit in shared memory as fp32 in the layout
-// each product reads along: Q^T, dO^T, K^T and V^T for the score products
-// (float4 loads along rows and keys), Q, dO and K rows for the gradient
-// products.  Rows are padded by 4 floats.
+// bf16, head dims 16-128: dkdv_mma_kernel and dq_mma_kernel, on the tensor
+// cores (the first port's fp32 FMA ran at 16.5 TFLOP/s, 1.2 % of this bound).
+// Every product is mma.sync m16n8k16 (bf16 in, fp32 sums) with operands read
+// by ldmatrix from bf16 shared rows padded by 16 bytes (the 8 row addresses
+// of an ldmatrix fall on distinct banks), so nothing is widened or
+// transposed on its way in.  Each of 4 warps owns 16 keys of a 64-key tile
+// (dK/dV) or 16 rows of a 64-row tile (dQ); K and V (Q and dO) are loaded
+// once, and 64-row Q and dO tiles with their lse and D (64-key K and V tiles)
+// stream through a 2-stage ring of cp.async copies, tile j + 1 in flight
+// while tile j is computed; rows and keys past the range are zero-filled
+// (src-size 0), so nothing masked holds NaN.  The dK/dV pass computes the
+// transposed scores, S^T = K Q^T and dP^T = V dO^T, with K and V as the A
+// operand and Q and dO as the column-major B operand (their rows, read as
+// the forward reads K), so that P^T and dS^T = P^T (dP^T - D) land in the
+// m16n8 accumulator layout, which is the m16n8k16 A layout: they go straight
+// into A fragments for dV += P^T dO and dK += dS^T Q, with dO and Q read by
+// ldmatrix.trans as the forward reads V.  The dQ pass computes S = Q K^T and
+// dP = dO V^T and adds dS K, K read by ldmatrix.trans.  P and dS enter their
+// products as bf16 hi + lo (two products into one fp32 sum, exact to about
+// 2^-16): rounded once, either alone takes the gradients out of the card's
+// bf16 tolerance (tests/test_torch_flash_attention.py models both), so the
+// three gradient products cost two units each: ten product-units in all,
+// against the bound's five.  P = 2^(S scale log2 e - lse log2 e) in fp32,
+// scaled after the product.  Only tiles that straddle the causal diagonal,
+// the prefix, the window's edge, sk_valid or the rows' end compare positions;
+// tiles no row sees are skipped.  The dK/dV pass launches its key tiles in
+// order (under the causal mask the first see the most rows), the dQ pass its
+// row tiles last first (they see the most keys).  Head dim 128 takes the
+// dK/dV pass's rows 32 at a time (64 + 64 fp32 of dK and dV a thread beside
+// 32 of S^T and dP^T) and reads the dQ pass's Q and dO fragments from shared
+// memory at each k-step (64 fp32 of dQ beside 64 of S and dP); up to head
+// dim 80 a sub-step is the whole 64-row tile and the dQ pass holds Q's and
+// dO's fragments in registers.  About 104 KB of shared memory at head dim
+// 128: two blocks an SM.  wgmma, TMA and warp specialisation are later work.
+//
+// fp32, and bf16 at head dim 256: dkdv_kernel and dq_kernel, the first
+// port's shared-memory FMA kernels (67 TFLOP/s at best, fp32 sums; bf16 read
+// as fp32).  They serve the fp32 checks and smoke configs; at head dim 256 a
+// warp's dK and dV of 16 keys would be 256 fp32 a thread, past the register
+// file, and no model trains there in bf16 on the card (ROADMAP queue 2 item
+// 8).  Operands sit in shared memory as fp32 in the layout each product reads
+// along: Q^T, dO^T, K^T and V^T for the score products (float4 loads along
+// rows and keys), Q, dO and K rows for the gradient products.  Rows are
+// padded by 4 floats.
 
 #include <math.h>
 
@@ -423,8 +463,505 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   }
 }
 
-// The three launches at one head dim's tiles: dK/dV over (BK keys, BQ rows),
-// dQ over (BQQ rows, 32 keys).
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (mma.sync m16n8k16) fed by cp.async and ldmatrix.
+// ---------------------------------------------------------------------------
+
+// Row r of a KV head's group (position-major) is position r / group of query
+// head hk group + r % group; 32-bit arithmetic (the entry takes fewer than
+// 2^31 rows).
+__device__ __forceinline__ int64_t row_pos(int64_t r, int64_t group) {
+  return static_cast<uint32_t>(r) / static_cast<uint32_t>(group);
+}
+__device__ __forceinline__ int64_t row_head(int64_t r, int64_t group) {
+  return static_cast<uint32_t>(r) % static_cast<uint32_t>(group);
+}
+
+// The tensor-core passes' tiles: a block's 64 keys (dK/dV) or 64 query rows
+// (dQ), 16 a warp; the other side's 64-row (64-key) tiles in an NS-stage
+// ring; the dK/dV pass takes a ring tile SUB rows at a time, and the dQ pass
+// holds Q's and dO's fragments in registers when QREG.  Rows padded to RS.
+template <int D>
+struct BwdTile {
+  static constexpr int BT = 64;
+  static constexpr int NS = 2;
+  static constexpr int RS = D + 8;            // 16 bytes of padding a row
+  static constexpr int SUB = D <= 80 ? 64 : 32;
+  static constexpr bool QREG = D <= 80;
+  // K, V and the ring of Q and dO tiles with their lse and D (dK/dV pass);
+  // Q, dO and the ring of K and V tiles (dQ pass).
+  static constexpr size_t kSmemBytes =
+      sizeof(bf16) * (2 + 2 * NS) * BT * RS + sizeof(float) * 2 * NS * BT;
+  static_assert(D % 16 == 0 && BT * (D / 8) % kThreads == 0 && BT % SUB == 0, "tile");
+};
+
+// Whether rows [r0, r1] (positions p_lo..p_hi) see any of keys [k0, k1], and
+// whether they see all of them (live: the rows exist; kv_lim: sk_valid).
+__device__ __forceinline__ bool sees_none(int64_t p_lo, int64_t p_hi, int64_t k0, int64_t k1,
+                                          int64_t kv_lim, int causal, int64_t window,
+                                          int64_t prefix) {
+  return k0 >= kv_lim || (causal && k0 > causal_limit(p_hi, prefix)) ||
+         (window > 0 && k1 <= p_lo - window);
+}
+__device__ __forceinline__ bool sees_all(int64_t p_lo, int64_t p_hi, int64_t k0, int64_t k1,
+                                         int64_t kv_lim, int causal, int64_t window,
+                                         int64_t prefix) {
+  return k1 < kv_lim && (!causal || k1 <= causal_limit(p_lo, prefix)) &&
+         (window <= 0 || k0 > p_hi - window);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(const Args a) {
+  using L = BwdTile<D>;
+  constexpr int BT = L::BT, NS = L::NS, RS = L::RS, SUB = L::SUB;
+  constexpr int CH = D / 8;     // 16-byte chunks of a row
+  constexpr int KS = D / 16;    // 16-deep steps of S^T and dP^T
+  constexpr int DT = D / 8;     // 8-column tiles of dK and dV
+  constexpr int NT = SUB / 8;   // 8-row tiles of a sub-step's S^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);               // [BT][RS]
+  bf16* sV = sK + BT * RS;                                    // [BT][RS]
+  bf16* sQ = sV + BT * RS;                                    // [NS][BT][RS]
+  bf16* sO = sQ + NS * BT * RS;                               // [NS][BT][RS] dO
+  float* sL = reinterpret_cast<float*>(sO + NS * BT * RS);    // [NS][BT] lse
+  float* sD = sL + NS * BT;                                   // [NS][BT] D
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int64_t group = a.group, rows = a.sq * group, q_offset = a.q_offset;
+  const int64_t window = a.window, prefix = a.prefix;
+  const int causal = a.causal;
+  // Key tiles in order: under the causal mask the first see the most rows.
+  const int64_t b = blockIdx.z, hk = blockIdx.y, k0 = static_cast<int64_t>(blockIdx.x) * BT;
+  const int64_t kv_lim = a.sk_valid < a.sk ? a.sk_valid : a.sk;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
+
+  // K and V (zeros from kv_lim on) go with the first row tile.
+  for (int e = tid; e < BT * CH; e += kThreads) {
+    const int j = e / CH, c = e % CH;
+    const int64_t kp = k0 + j;
+    const bool ok = kp < kv_lim;
+    cp_async16(smem_addr(sK + j * RS + c * 8), ok ? kb + kp * a.ks.s + c * 8 : kb, ok);
+    cp_async16(smem_addr(sV + j * RS + c * 8), ok ? vb + kp * a.vs.s + c * 8 : vb, ok);
+  }
+
+  // The rows that may see a key of the tile: under the causal mask those at
+  // or after its first key (every row, if that key is in the prefix); under
+  // a window those before its last key plus the window.
+  int64_t r_lo = 0, r_hi = k0 < kv_lim ? rows : 0;
+  if (causal && k0 >= prefix) {
+    const int64_t first = k0 - q_offset;
+    r_lo = first > 0 ? first * group : 0;
+  }
+  if (window > 0) {
+    const int64_t last = (k0 + BT < kv_lim ? k0 + BT : kv_lim) - 1;
+    const int64_t end = last + window - q_offset;  // positions before it
+    const int64_t lim = end > 0 ? end * group : 0;
+    r_hi = lim < r_hi ? lim : r_hi;
+  }
+  const int ntiles = r_hi > r_lo ? static_cast<int>((r_hi - r_lo + BT - 1) / BT) : 0;
+
+  // Q and dO rows of row tile t (zeros from r_hi on), and their lse and D.
+  auto load_rows = [&](int t) {
+    const int64_t r0 = r_lo + static_cast<int64_t>(t) * BT;
+    bf16* dq_s = sQ + (t % NS) * BT * RS;
+    bf16* do_s = sO + (t % NS) * BT * RS;
+#pragma unroll 4
+    for (int e = tid; e < BT * CH; e += kThreads) {
+      const int rr = e / CH, c = e % CH;
+      const int64_t r = r0 + rr;
+      const bool ok = r < r_hi;
+      int64_t qo = 0, oo = 0;
+      if (ok) {
+        const int64_t i = row_pos(r, group), h = hk * group + row_head(r, group);
+        qo = b * a.qs.b + i * a.qs.s + h * a.qs.h + c * 8;
+        oo = b * a.dos.b + i * a.dos.s + h * a.dos.h + c * 8;
+      }
+      cp_async16(smem_addr(dq_s + rr * RS + c * 8), q + qo, ok);
+      cp_async16(smem_addr(do_s + rr * RS + c * 8), dout + oo, ok);
+    }
+    if (tid < BT) {
+      const int64_t r = r0 + tid;
+      const bool ok = r < r_hi;
+      const int64_t idx =
+          ok ? (b * a.hq + hk * group + row_head(r, group)) * a.sq + row_pos(r, group) : 0;
+      cp_async4(smem_addr(sL + (t % NS) * BT + tid), a.lse + idx, ok);
+      cp_async4(smem_addr(sD + (t % NS) * BT + tid), a.dsum + idx, ok);
+    }
+  };
+  if (ntiles > 0) load_rows(0);
+  cp_async_commit();
+
+  // The warp's keys [kw0, kw0 + 16); a thread holds keys g and g + 8 of them.
+  const int64_t kw0 = k0 + 16 * warp;
+  const float sl = a.scale * kLog2e;
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[n][j] = dv[n][j] = 0.f;
+  // ldmatrix row addresses: K and V as A (keys 16 warp + lane % 16, columns
+  // 8 (lane / 16)); Q and dO as B (rows lane % 8 + 8 (lane / 16), columns
+  // 8 ((lane / 8) % 2)); Q and dO as B, transposed (rows lane % 16, columns
+  // 8 (lane / 16)).
+  const uint32_t k_addr = smem_addr(sK + (16 * warp + lane % 16) * RS + (lane / 16) * 8);
+  const uint32_t v_addr = smem_addr(sV + (16 * warp + lane % 16) * RS + (lane / 16) * 8);
+  const int b_row = (lane % 8 + (lane / 16) * 8) * RS + ((lane / 8) % 2) * 8;
+  const int t_row = (lane % 16) * RS + (lane / 16) * 8;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // tile t has landed for every thread; tile t - 1 is no longer read
+    if (t + NS - 1 < ntiles) load_rows(t + NS - 1);
+    cp_async_commit();
+    const int64_t rt0 = r_lo + static_cast<int64_t>(t) * BT;
+    const bf16* tq = sQ + (t % NS) * BT * RS;
+    const bf16* to = sO + (t % NS) * BT * RS;
+    const float* tl = sL + (t % NS) * BT;
+    const float* td = sD + (t % NS) * BT;
+#pragma unroll 1
+    for (int s0 = 0; s0 < BT; s0 += SUB) {
+      const int64_t rs0 = rt0 + s0;
+      if (rs0 >= r_hi) break;
+      const int64_t rs1 = (rs0 + SUB < r_hi ? rs0 + SUB : r_hi) - 1;
+      const int64_t p_lo = q_offset + row_pos(rs0, group);
+      const int64_t p_hi = q_offset + row_pos(rs1, group);
+      // A sub-step no row of which sees a key of the warp is skipped; one
+      // whose rows all see every key of the warp is not masked.
+      if (sees_none(p_lo, p_hi, kw0, kw0 + 15, kv_lim, causal, window, prefix)) continue;
+      const bool full = rs0 + SUB <= r_hi &&
+                        sees_all(p_lo, p_hi, kw0, kw0 + 15, kv_lim, causal, window, prefix);
+
+      // S^T = K Q^T and dP^T = V dO^T over the sub-step's rows.
+      float st[NT][4], dpt[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[n][j] = dpt[n][j] = 0.f;
+      const uint32_t q_b = smem_addr(tq + s0 * RS + b_row);
+      const uint32_t o_b = smem_addr(to + s0 * RS + b_row);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4];
+        ldsm_x4(ka, k_addr + kk * 32);
+        ldsm_x4(va, v_addr + kk * 32);
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t qf[4], of[4];
+          ldsm_x4(qf, q_b + (np * 16 * RS + kk * 16) * 2);
+          ldsm_x4(of, o_b + (np * 16 * RS + kk * 16) * 2);
+          mma_bf16(st[2 * np], ka, qf[0], qf[1]);
+          mma_bf16(st[2 * np + 1], ka, qf[2], qf[3]);
+          mma_bf16(dpt[2 * np], va, of[0], of[1]);
+          mma_bf16(dpt[2 * np + 1], va, of[2], of[3]);
+        }
+      }
+
+      // P^T = 2^(S^T scale log2 e - lse log2 e) and dS^T = P^T (dP^T - D), in
+      // place.  Accumulator element j of tile n: key g + 8 (j / 2), row
+      // n 8 + 2 tig + j % 2 of the sub-step.
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int c = s0 + n * 8 + 2 * tig;
+        const float2 lv = *reinterpret_cast<const float2*>(tl + c);
+        const float2 dd = *reinterpret_cast<const float2*>(td + c);
+        const float l2[2] = {lv.x * kLog2e, lv.y * kLog2e};
+        const float dv2[2] = {dd.x, dd.y};
+        bool ok[4] = {true, true, true, true};
+        if (!full) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int64_t r = rt0 + c + e;
+            const int64_t pos = q_offset + row_pos(r, group);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              ok[2 * i + e] = r < r_hi && sees(pos, kw0 + g + 8 * i, kv_lim, causal, window,
+                                               prefix);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = ok[j] ? exp2f(fmaf(st[n][j], sl, -l2[j & 1])) : 0.f;
+          dpt[n][j] = ok[j] ? p * (dpt[n][j] - dv2[j & 1]) : 0.f;
+          st[n][j] = p;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q, P^T and dS^T as bf16 hi + lo straight
+      // from the accumulators: the A fragment of rows [16 kt, 16 kt + 16) is
+      // the C fragments of 8-row tiles 2 kt and 2 kt + 1.
+      const uint32_t q_t = smem_addr(tq + s0 * RS + t_row);
+      const uint32_t o_t = smem_addr(to + s0 * RS + t_row);
+#pragma unroll
+      for (int kt = 0; kt < SUB / 16; ++kt) {
+        uint32_t ph[4], pl[4], sh[4], so[4];
+        split_frag(st[2 * kt], st[2 * kt + 1], ph, pl);
+        split_frag(dpt[2 * kt], dpt[2 * kt + 1], sh, so);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t of[4], qf[4];
+          ldsm_x4_t(of, o_t + (kt * 16 * RS + dp * 16) * 2);
+          ldsm_x4_t(qf, q_t + (kt * 16 * RS + dp * 16) * 2);
+          mma_bf16(dv[2 * dp], ph, of[0], of[1]);
+          mma_bf16(dv[2 * dp], pl, of[0], of[1]);
+          mma_bf16(dv[2 * dp + 1], ph, of[2], of[3]);
+          mma_bf16(dv[2 * dp + 1], pl, of[2], of[3]);
+          mma_bf16(dk[2 * dp], sh, qf[0], qf[1]);
+          mma_bf16(dk[2 * dp], so, qf[0], qf[1]);
+          mma_bf16(dk[2 * dp + 1], sh, qf[2], qf[3]);
+          mma_bf16(dk[2 * dp + 1], so, qf[2], qf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  bf16* dkb = static_cast<bf16*>(a.dk) + b * a.dks.b + hk * a.dks.h;
+  bf16* dvb = static_cast<bf16*>(a.dv) + b * a.dvs.b + hk * a.dvs.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t kp = kw0 + g + 8 * i;
+    if (kp >= a.sk) continue;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + kp * a.dks.s + n * 8 + tig * 2) =
+          __floats2bfloat162_rn(dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + kp * a.dvs.s + n * 8 + tig * 2) =
+          __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
+  using L = BwdTile<D>;
+  constexpr int BT = L::BT, NS = L::NS, RS = L::RS;
+  constexpr int CH = D / 8;     // 16-byte chunks of a row
+  constexpr int KS = D / 16;    // 16-deep steps of S and dP
+  constexpr int DT = D / 8;     // 8-column tiles of dQ
+  constexpr int NT = BT / 8;    // 8-key tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][RS]
+  bf16* sO = sQ + BT * RS;                        // [BT][RS] dO
+  bf16* sK = sO + BT * RS;                        // [NS][BT][RS]
+  bf16* sV = sK + NS * BT * RS;                   // [NS][BT][RS]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int64_t group = a.group, rows = a.sq * group, q_offset = a.q_offset;
+  const int64_t window = a.window;
+  const int causal = a.causal;
+  // Row tiles last first: under the causal mask the last see the most keys.
+  const int64_t b = blockIdx.z, hk = blockIdx.y;
+  const int64_t r0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * BT;
+  const int64_t r_end = r0 + BT < rows ? r0 + BT : rows;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  int64_t k_lo, k_hi;
+  key_range<BT>(r0, r_end, 0, a.sk, a.sk, group, a.sk_valid, q_offset, causal, window,
+                a.prefix, k_lo, k_hi);
+  const int ntiles = k_hi > k_lo ? static_cast<int>((k_hi - k_lo + BT - 1) / BT) : 0;
+
+  // Q and dO (zeros past the last row) go with the first K/V stage.
+  for (int e = tid; e < BT * CH; e += kThreads) {
+    const int rr = e / CH, c = e % CH;
+    const int64_t r = r0 + rr;
+    const bool ok = r < rows;
+    int64_t qo = 0, oo = 0;
+    if (ok) {
+      const int64_t i = row_pos(r, group), h = hk * group + row_head(r, group);
+      qo = b * a.qs.b + i * a.qs.s + h * a.qs.h + c * 8;
+      oo = b * a.dos.b + i * a.dos.s + h * a.dos.h + c * 8;
+    }
+    cp_async16(smem_addr(sQ + rr * RS + c * 8), q + qo, ok);
+    cp_async16(smem_addr(sO + rr * RS + c * 8), dout + oo, ok);
+  }
+  auto load_kv = [&](int t) {
+    const int64_t k0 = k_lo + static_cast<int64_t>(t) * BT;
+    bf16* dk_s = sK + (t % NS) * BT * RS;
+    bf16* dv_s = sV + (t % NS) * BT * RS;
+#pragma unroll 4
+    for (int e = tid; e < BT * CH; e += kThreads) {
+      const int j = e / CH, c = e % CH;
+      const int64_t kp = k0 + j;
+      const bool ok = kp < k_hi;  // zeros past the range: masked keys never hold NaN
+      cp_async16(smem_addr(dk_s + j * RS + c * 8), ok ? kb + kp * a.ks.s + c * 8 : kb, ok);
+      cp_async16(smem_addr(dv_s + j * RS + c * 8), ok ? vb + kp * a.vs.s + c * 8 : vb, ok);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < ntiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  // The warp's rows [wr0, wr0 + 16); a thread holds rows g and g + 8 of them,
+  // with their lse (log2 units; +inf past the last row: P is 0 there) and D.
+  const int64_t wr0 = r0 + 16 * warp;
+  const bool live = wr0 < rows;
+  const int64_t wr_last = (wr0 + 16 < rows ? wr0 + 16 : rows) - 1;
+  const int64_t p_lo = q_offset + row_pos(wr0, group), p_hi = q_offset + row_pos(wr_last, group);
+  int64_t pos[2], cl_row[2];
+  float l2[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t r = wr0 + g + 8 * i;
+    pos[i] = q_offset + row_pos(r, group);
+    cl_row[i] = causal_limit(pos[i], a.prefix);
+    l2[i] = INFINITY;
+    dd[i] = 0.f;
+    if (r < rows) {
+      const int64_t idx = (b * a.hq + hk * group + row_head(r, group)) * a.sq + row_pos(r, group);
+      l2[i] = a.lse[idx] * kLog2e;
+      dd[i] = a.dsum[idx];
+    }
+  }
+  const float sl = a.scale * kLog2e;
+
+  float dq[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  uint32_t qf[L::QREG ? KS : 1][4], of[L::QREG ? KS : 1][4];
+  // ldmatrix row addresses: Q and dO as A (rows 16 warp + lane % 16,
+  // columns 8 (lane / 16)); K and V as B (keys lane % 8 + 8 (lane / 16),
+  // columns 8 ((lane / 8) % 2)); K as B, transposed (keys lane % 16, columns
+  // 8 (lane / 16)).
+  const uint32_t q_addr = smem_addr(sQ + (16 * warp + lane % 16) * RS + (lane / 16) * 8);
+  const uint32_t o_addr = smem_addr(sO + (16 * warp + lane % 16) * RS + (lane / 16) * 8);
+  const int b_row = (lane % 8 + (lane / 16) * 8) * RS + ((lane / 8) % 2) * 8;
+  const int t_row = (lane % 16) * RS + (lane / 16) * 8;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // tile t has landed for every thread; tile t - 1 is no longer read
+    if (t + NS - 1 < ntiles) load_kv(t + NS - 1);
+    cp_async_commit();
+    if constexpr (L::QREG) {
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          ldsm_x4(qf[kk], q_addr + kk * 32);
+          ldsm_x4(of[kk], o_addr + kk * 32);
+        }
+      }
+    }
+    const int64_t k0 = k_lo + static_cast<int64_t>(t) * BT;
+    // A tile no row of the warp sees is skipped; one every row sees whole is
+    // not masked.
+    if (!live || sees_none(p_lo, p_hi, k0, k0 + BT - 1, k_hi, causal, window, a.prefix))
+      continue;
+    const bool full = sees_all(p_lo, p_hi, k0, k0 + BT - 1, k_hi, causal, window, a.prefix);
+    const bf16* kt = sK + (t % NS) * BT * RS;
+    const bf16* vt = sV + (t % NS) * BT * RS;
+
+    // S = Q K^T and dP = dO V^T over the tile's keys.
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = dp[n][j] = 0.f;
+    const uint32_t k_b = smem_addr(kt + b_row), v_b = smem_addr(vt + b_row);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], oa[4];
+      if constexpr (L::QREG) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          qa[x] = qf[kk][x];
+          oa[x] = of[kk][x];
+        }
+      } else {
+        ldsm_x4(qa, q_addr + kk * 32);
+        ldsm_x4(oa, o_addr + kk * 32);
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kf[4], vf[4];
+        ldsm_x4(kf, k_b + (np * 16 * RS + kk * 16) * 2);
+        ldsm_x4(vf, v_b + (np * 16 * RS + kk * 16) * 2);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+        mma_bf16(dp[2 * np], oa, vf[0], vf[1]);
+        mma_bf16(dp[2 * np + 1], oa, vf[2], vf[3]);
+      }
+    }
+
+    // The masks as key offsets within the tile: below hi; at or below the
+    // row's causal limit cl; above its window limit wl.  Then P and dS = P
+    // (dP - D), dS in place of S.  Element j of tile n: row g + 8 (j / 2),
+    // key n 8 + 2 tig + j % 2.
+    int hi = BT, cl[2] = {BT, BT}, wl[2] = {-1, -1};
+    if (!full) {
+      hi = k_hi - k0 < BT ? static_cast<int>(k_hi - k0) : BT;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int64_t c = cl_row[i] - k0, w = pos[i] - window - k0;
+        if (causal) cl[i] = c < -1 ? -1 : (c > BT ? BT : static_cast<int>(c));
+        if (window > 0) wl[i] = w < -1 ? -1 : (w > BT ? BT : static_cast<int>(w));
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = j >> 1;
+        const int kp = n * 8 + tig * 2 + (j & 1);
+        const bool ok = full || (kp < hi && kp <= cl[i] && kp > wl[i]);
+        const float p = ok ? exp2f(fmaf(s[n][j], sl, -l2[i])) : 0.f;
+        s[n][j] = ok ? p * (dp[n][j] - dd[i]) : 0.f;
+      }
+
+    // dQ += dS K, dS as bf16 hi + lo straight from the accumulators.
+    const uint32_t k_t = smem_addr(kt + t_row);
+#pragma unroll
+    for (int kt2 = 0; kt2 < BT / 16; ++kt2) {
+      uint32_t sh[4], so[4];
+      split_frag(s[2 * kt2], s[2 * kt2 + 1], sh, so);
+#pragma unroll
+      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+        uint32_t kf[4];
+        ldsm_x4_t(kf, k_t + (kt2 * 16 * RS + dp2 * 16) * 2);
+        mma_bf16(dq[2 * dp2], sh, kf[0], kf[1]);
+        mma_bf16(dq[2 * dp2], so, kf[0], kf[1]);
+        mma_bf16(dq[2 * dp2 + 1], sh, kf[2], kf[3]);
+        mma_bf16(dq[2 * dp2 + 1], so, kf[2], kf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+
+  bf16* dqb = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t r = wr0 + g + 8 * i;
+    if (r >= rows) continue;
+    bf16* row = dqb + b * a.dqs.b + row_pos(r, group) * a.dqs.s +
+                (hk * group + row_head(r, group)) * a.dqs.h;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + tig * 2) =
+          __floats2bfloat162_rn(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);
+  }
+}
+
+// D_i = sum dO_i O_i into a.dsum, one warp a row.
+template <typename T>
+cudaError_t row_dot(const Args& a, cudaStream_t stream) {
+  const int64_t rows_total = a.batch * a.hq * a.sq;
+  const unsigned warps = kThreads / 32;
+  row_dot_kernel<T><<<static_cast<unsigned>((rows_total + warps - 1) / warps), kThreads, 0,
+                      stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The FMA kernels' three launches at one head dim's tiles: dK/dV over (BK
+// keys, BQ rows), dQ over (BQQ rows, 32 keys).
 template <typename T, int D, int BK, int BQ, int BQQ>
 cudaError_t run(const Args& a, int device, cudaStream_t stream) {
   using KV = KvTile<T, D, BK, BQ>;
@@ -436,12 +973,7 @@ cudaError_t run(const Args& a, int device, cudaStream_t stream) {
   static bool kv_done[64] = {}, q_done[64] = {};
   cudaError_t err = allow_smem(kv_kern, kv_smem, device, kv_done);
   if (err == cudaSuccess) err = allow_smem(q_kern, q_smem, device, q_done);
-  if (err != cudaSuccess) return err;
-  const int64_t rows_total = a.batch * a.hq * a.sq;
-  const unsigned warps = kThreads / 32;
-  row_dot_kernel<T><<<static_cast<unsigned>((rows_total + warps - 1) / warps), kThreads, 0,
-                      stream>>>(a);
-  err = cudaGetLastError();
+  if (err == cudaSuccess) err = row_dot<T>(a, stream);
   if (err != cudaSuccess) return err;
   const dim3 kv_grid(static_cast<unsigned>((a.sk + BK - 1) / BK), static_cast<unsigned>(a.hkv),
                      static_cast<unsigned>(a.batch));
@@ -454,20 +986,58 @@ cudaError_t run(const Args& a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The tiles built, by head dim: (BK, BQ) of the dK/dV pass and BQ of the dQ
-// pass, within two blocks an SM up to head dim 128 (about 105 KB of shared
-// memory at 80, 79 KB at 128; one block at 256).
-template <typename T>
-cudaError_t dispatch(const Args& a, int device, cudaStream_t stream) {
-  switch (a.d) {
-    case 16: return run<T, 16, 64, 32, 64>(a, device, stream);
-    case 32: return run<T, 32, 64, 32, 64>(a, device, stream);
-    case 64: return run<T, 64, 64, 32, 64>(a, device, stream);
-    case 80: return run<T, 80, 64, 32, 64>(a, device, stream);
-    case 128: return run<T, 128, 32, 16, 32>(a, device, stream);
-    case 256: return run<T, 256, 16, 32, 16>(a, device, stream);
-    default: return cudaErrorInvalidValue;
+// The tensor-core kernels' three launches at head dim D: dK/dV over 64-key
+// tiles, dQ over 64-row tiles.
+template <int D>
+cudaError_t run_mma(const Args& a, int device, cudaStream_t stream) {
+  using L = BwdTile<D>;
+  auto* kv_kern = dkdv_mma_kernel<D>;
+  auto* q_kern = dq_mma_kernel<D>;
+  static bool kv_done[64] = {}, q_done[64] = {};
+  cudaError_t err = allow_smem(kv_kern, L::kSmemBytes, device, kv_done);
+  if (err == cudaSuccess) err = allow_smem(q_kern, L::kSmemBytes, device, q_done);
+  if (err == cudaSuccess) err = row_dot<bf16>(a, stream);
+  if (err != cudaSuccess) return err;
+  const dim3 kv_grid(static_cast<unsigned>((a.sk + L::BT - 1) / L::BT),
+                     static_cast<unsigned>(a.hkv), static_cast<unsigned>(a.batch));
+  kv_kern<<<kv_grid, kThreads, L::kSmemBytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 q_grid(static_cast<unsigned>((a.sq * a.group + L::BT - 1) / L::BT),
+                    static_cast<unsigned>(a.hkv), static_cast<unsigned>(a.batch));
+  q_kern<<<q_grid, kThreads, L::kSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The kernels built, by dtype and head dim.  fp32: the FMA kernels' tiles
+// (BK, BQ) of the dK/dV pass and BQ of the dQ pass, within two blocks an SM
+// up to head dim 128 (about 105 KB of shared memory at 80, 79 KB at 128; one
+// block at 256).  bf16: the tensor-core kernels up to head dim 128, the FMA
+// kernels at 256.
+cudaError_t dispatch(int64_t dtype, const Args& a, int device, cudaStream_t stream) {
+  if (dtype == 0) {
+    switch (a.d) {
+      case 16: return run<float, 16, 64, 32, 64>(a, device, stream);
+      case 32: return run<float, 32, 64, 32, 64>(a, device, stream);
+      case 64: return run<float, 64, 64, 32, 64>(a, device, stream);
+      case 80: return run<float, 80, 64, 32, 64>(a, device, stream);
+      case 128: return run<float, 128, 32, 16, 32>(a, device, stream);
+      case 256: return run<float, 256, 16, 32, 16>(a, device, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
+  if (dtype == 1) {
+    switch (a.d) {
+      case 16: return run_mma<16>(a, device, stream);
+      case 32: return run_mma<32>(a, device, stream);
+      case 64: return run_mma<64>(a, device, stream);
+      case 80: return run_mma<80>(a, device, stream);
+      case 128: return run_mma<128>(a, device, stream);
+      case 256: return run<bf16, 256, 16, 32, 16>(a, device, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -477,9 +1047,11 @@ cudaError_t dispatch(const Args& a, int device, cudaStream_t stream) {
 // output o and the output's gradient dout (both [batch, sq, hq, d]) and lse
 // (fp32 [batch, hq, sq], the forward's), into dq, dk and dv (the shapes of q,
 // k and v); each tensor given by its pointer and its batch, position and head
-// strides in elements, d contiguous.  dsum is fp32 scratch of [batch, hq, sq].
-// dtype 0 is fp32, 1 is bf16; every key of dk and dv is written, zeros where
-// no query sees it.
+// strides in elements, d contiguous (for bf16 q, k, v and dout 16-byte
+// aligned with strides in multiples of 8, as the forward takes them; dq, dk
+// and dv 4-byte aligned with even strides).  dsum is fp32 scratch of [batch,
+// hq, sq].  dtype 0 is fp32, 1 is bf16; sq * hq / hkv is below 2^31; every
+// key of dk and dv is written, zeros where no query sees it.
 extern "C" int repro_flash_attention_bwd(
     int64_t device, const void* q, int64_t qsb, int64_t qss, int64_t qsh, const void* k,
     int64_t ksb, int64_t kss, int64_t ksh, const void* v, int64_t vsb, int64_t vss,
@@ -493,7 +1065,8 @@ extern "C" int repro_flash_attention_bwd(
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || sq <= 0 || sk <= 0 || hq <= 0) return 0;
-  if (hkv <= 0 || hq % hkv != 0 || window < 0 || prefix < 0)
+  if (hkv <= 0 || hq % hkv != 0 || window < 0 || prefix < 0 ||
+      sq * (hq / hkv) >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
@@ -508,8 +1081,6 @@ extern "C" int repro_flash_attention_bwd(
   a.causal = causal ? 1 : 0;
   a.d = static_cast<int>(d);
   a.scale = static_cast<float>(scale);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(dispatch<float>(a, static_cast<int>(device), st));
-  if (dtype == 1) return static_cast<int>(dispatch<bf16>(a, static_cast<int>(device), st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      dispatch(dtype, a, static_cast<int>(device), static_cast<cudaStream_t>(stream)));
 }

@@ -53,7 +53,10 @@ kernel with the per-row log-sum-exp ``lse`` (:func:`attend_with_lse`) and its
 backward launches kernel 5b, the hand-written backward
 (``csrc/flash_attention_bwd.cu``, :func:`attend_backward`), or raises; on a
 CPU tensor it takes :func:`attend_plain` and :func:`attend_backward_plain`,
-the explicit gradient formula.  The JAX package has no backward kernel: its
+the explicit gradient formula.  Kernel 5b's bf16 passes run on the tensor
+cores up to head dim 128, P and dS entering their products as bf16 hi +
+lo as the forward's P does; fp32, and bf16 at head dim 256, take FMA
+kernels with fp32 sums.  The JAX package has no backward kernel: its
 gradient is XLA's autodiff of ``layers.attention``
 (``src/repro/models/layers.py:99-174``), what the tests hold both against.
 """

@@ -11,8 +11,9 @@ float sums differs.  On the CPU the wrapper takes its plain version; the CUDA
 kernel is held against the same plain version on the card
 (``tests/test_torch_gpu.py`` and ``chip_smoke.py``).  What of the CUDA path
 the CPU can check is checked here too: the launch plan's key splits, given
-the card's SM count, and the bf16 kernel's rounding, modelled in plain
-PyTorch, against the card's bf16 tolerance.
+the card's SM count, and the bf16 kernels' rounding (kernel 5's and
+kernel 5b's), modelled in plain PyTorch, against the card's bf16
+tolerances.
 """
 
 from __future__ import annotations
@@ -637,3 +638,127 @@ def test_plan_splits_at_the_cards_training_edge_shapes(case):
     _, _, splits, _ = j_fa_t._plan(SMS, torch.float32, b, sq * (hq // hkv), hkv,
                                  d, sk=sk, sk_valid=sk)
     assert splits > 1
+
+
+# --------------------------------------------------------------------------- #
+# Kernel 5b's bf16 rounding, modelled on the CPU                              #
+# --------------------------------------------------------------------------- #
+
+# The card holds kernel 5b's bf16 gradients to attend_backward_plain within
+# rtol |plain| + atol max(1, max |plain|) (chip_smoke.py ``BWD_BF16_TOL``):
+# both sum in fp32, and each gradient is rounded to bf16 once.
+BWD_BF16_TOL = (2**-7, 1e-4)
+# BWD_CASES, then narrow hubert-like (head dim 80, group 1, non-causal) and
+# qwen2-like (head dim 128, group 6, causal) calls whose rows and keys are
+# not multiples of the kernel's 64-row and 64-key tiles.
+BWD_ROUNDING = BWD_CASES + [
+    (1, 300, 2, 2, 80, dict(causal=False)),
+    (1, 100, 12, 2, 128, dict(causal=True)),
+]
+
+
+def _split(x, split):
+    """x as bf16 ``hi`` and ``lo = bf16(x - hi)`` (``lo`` 0 unless
+    ``split``), both as float32."""
+    hi = x.bfloat16().float()
+    return hi, ((x - hi).bfloat16().float() if split else torch.zeros_like(x))
+
+
+def _bwd_kernel_rounding(q, k, v, out, dout, lse, *, causal, sk_valid=None,
+                         q_offset=0, window=0, prefix=0, split_p=True,
+                         split_ds=True, tile=64):
+    """Kernel 5b's bf16 arithmetic in plain PyTorch: the rows of a KV head's
+    group position-major; S = Q·Kᵀ and dP = dO·Vᵀ of the bf16 values summed
+    in float32; P = 2^(S·scale·log2 e − lse·log2 e) from the forward's
+    ``lse`` and dS = P (dP − D), D = rowsum(dO ∘ O), in float32; P and dS
+    split into bf16 ``hi + lo`` (``split_p``/``split_ds`` False: rounded
+    once); dV and dK summed over 64-row tiles and dQ over 64-key tiles in
+    float32, dK and dQ scaled at the end; one rounding of each gradient to
+    bf16."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    rows = sq * group
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    sk_valid = sk if sk_valid is None else sk_valid
+
+    def by_row(t):
+        return (t.float().reshape(b, sq, hkv, group, d)
+                .permute(0, 2, 1, 3, 4).reshape(b, hkv, rows, d))
+
+    qr, dor = by_row(q), by_row(dout)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
+    l2 = (lse.reshape(b, hkv, group, sq).permute(0, 1, 3, 2)
+          .reshape(b, hkv, rows) * log2e)
+    dsum = (dor * by_row(out)).sum(-1)
+    pos = q_offset + torch.arange(rows) // group
+    col = torch.arange(sk)
+    mask = (col < sk_valid)[None, :].expand(rows, -1)
+    if causal:
+        mask = mask & ((col[None, :] <= pos[:, None])
+                       | (col < prefix)[None, :])
+    if window:
+        mask = mask & (col[None, :] > pos[:, None] - window)
+    s = torch.einsum("bhrd,bhkd->bhrk", qr, kf)
+    p = torch.where(mask, torch.exp2(s * (scale * log2e) - l2[..., None]),
+                    0.0)
+    dp = torch.einsum("bhrd,bhkd->bhrk", dor, vf)
+    ds = torch.where(mask, p * (dp - dsum[..., None]), 0.0)
+    p_parts, ds_parts = _split(p, split_p), _split(ds, split_ds)
+    dv, dk, dq = (torch.zeros_like(t) for t in (vf, kf, qr))
+    for r0 in range(0, rows, tile):
+        r = slice(r0, r0 + tile)
+        for part in p_parts:
+            dv += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r], dor[:, :, r])
+        for part in ds_parts:
+            dk += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r], qr[:, :, r])
+    for k0 in range(0, sk, tile):
+        c = slice(k0, k0 + tile)
+        for part in ds_parts:
+            dq += torch.einsum("bhrk,bhkd->bhrd", part[..., c], kf[:, :, c])
+    dq = ((dq * scale).reshape(b, hkv, sq, group, d).permute(0, 2, 1, 3, 4)
+          .reshape(b, sq, hq, d))
+    return (dq.bfloat16(), (dk * scale).permute(0, 2, 1, 3).bfloat16(),
+            dv.permute(0, 2, 1, 3).bfloat16())
+
+
+def _bwd_rounding_errors(case, **split):
+    """max |model − plain| / (rtol |plain| + atol max(1, max |plain|)) of
+    dq, dk and dv at a ``BWD_ROUNDING`` case, over seeded bf16 inputs."""
+    b, sq, hq, hkv, d, kw = case
+    q, k, v, dout = (_t(x).bfloat16() for x in
+                     _bwd_inputs(sum(case[:5]), b, sq, hq, hkv, d))
+    out, lse = j_fa_t.attend_plain_with_lse(q, k, v, **kw)
+    got = _bwd_kernel_rounding(q, k, v, out, dout, lse, **kw, **split)
+    want = j_fa_t.attend_backward_plain(q, k, v, out, dout, **kw)
+    rtol, atol = BWD_BF16_TOL
+    errs = []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all()
+        bound = rtol * w.abs() + atol * max(1.0, float(w.abs().max()))
+        errs.append(float(((g - w).abs() / bound).max()))
+    return errs
+
+
+@pytest.mark.parametrize("case", BWD_ROUNDING, ids=str)
+def test_backward_rounding_model_holds_the_cards_bf16_tolerance(case):
+    """Kernel 5b's rounding (P and dS split into bf16 hi + lo, float32
+    sums, 64-row and 64-key tiles) keeps dq, dk and dv within the card's
+    bf16 tolerance ``BWD_BF16_TOL`` of the plain version."""
+    assert max(_bwd_rounding_errors(case)) <= 1.0
+
+
+@pytest.mark.parametrize("once", ["P", "dS"])
+def test_p_or_ds_rounded_once_would_leave_the_tolerance(once):
+    """Why both P and dS are split: rounded once to bf16, either takes the
+    gradients its product makes (dV for P; dK and dQ for dS) out of the
+    card's tolerance, while the other, still split, stays within it."""
+    split = dict(split_p=once != "P", split_ds=once != "dS")
+    errs = [_bwd_rounding_errors(case, **split) for case in BWD_ROUNDING]
+    dq, dk, dv = (max(e[i] for e in errs) for i in range(3))
+    if once == "P":
+        assert dv > 1 and max(dq, dk) <= 1
+    else:
+        assert min(dq, dk) > 1 and dv <= 1

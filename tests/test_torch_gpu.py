@@ -958,7 +958,10 @@ def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # mask keywords), each in fp32 and bf16.  Head dims 16, 64, 80 (hubert's),
 # 128 and 256; causal, non-causal, the prefix-LM mask, windows, sk_valid and
 # q_offset; GQA groups 1, 6, 7 and 8; one query row, and shapes whose plan
-# splits the keys (the merge writes lse).
+# splits the keys (the merge writes lse).  The last three meet the bf16
+# kernels' 64-key and 64-row tiles: ragged tiles at hubert's heads, a
+# position's group of 6 across two row tiles (258 rows), and a prefix at
+# qwen2's heads.
 _BWD = [
     (2, 1, 1, 2, 2, 16, dict(causal=True)),
     (2, 37, 37, 6, 1, 16, dict(causal=True)),
@@ -972,6 +975,9 @@ _BWD = [
                                sk_valid=85, q_offset=20)),
     (1, 1, 1062, 12, 2, 128, dict(causal=True, sk_valid=1000, q_offset=999)),
     (1, 200, 1062, 2, 1, 80, dict(causal=True, q_offset=862)),
+    (1, 1023, 1023, 16, 16, 80, dict(causal=False)),
+    (1, 43, 43, 6, 1, 128, dict(causal=True)),
+    (1, 200, 200, 12, 2, 128, dict(causal=True, prefix=37)),
 ]
 
 

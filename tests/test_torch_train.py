@@ -27,7 +27,15 @@ Tolerances:
   only steps by m/eps there, so free-running runs part after a step.  Held:
   the losses within 1e-5, at least 99.5 % of the int8 moments equal, and at
   least 99.9 % of the parameter elements within 1e-5 of their leaf's
-  largest element (the bit-for-bit AdamW is ``tests/test_torch_optim.py``).
+  largest element (the bit-for-bit AdamW is ``tests/test_torch_optim.py``);
+- three free-running steps with ``accum_dtype="bfloat16"`` (two
+  microbatches summed into a bf16 accumulator, where the packages' sums
+  part by up to one bf16 ulp, 2^-8 of the accumulated gradient): the losses
+  and gnorm within 1e-5 relative, every ``m`` leaf within one bf16 ulp
+  (2^-8) of its largest element and every ``v`` leaf within two (2^-7: it
+  is a square of the gradient), the parameters within 1e-4 (each Adam step
+  moves them by the moments' ratio times lr; measured: ``m`` 3.0e-3, ``v``
+  4.3e-3, parameters 1.3e-5).
 """
 
 from __future__ import annotations
@@ -64,7 +72,10 @@ from repro_torch.tree import leaves, map_tree
 RTOL = 1e-5
 GRAD_TOL = 1e-5
 TRAINED = ["hubert-xlarge", "qwen2-1.5b", "paligemma-3b", "kimi-k2-1t-a32b",
-           "arctic-480b"]
+           "arctic-480b", "qwen2.5-3b", "yi-6b", "qwen3-14b"]
+# bf16 gradient accumulation (module docstring): m within one bf16 ulp, v
+# within two, the parameters within 1e-4 of each leaf's largest element.
+ACCUM_BF16_TOL = {"m": 2**-8, "v": 2**-7, "params": 1e-4}
 
 
 def _cfgs(arch, **kw):
@@ -242,6 +253,26 @@ def test_three_train_steps_match_jax(arch, nmb, compress):
             assert (diff > 2e-3 * unit).mean() <= 0.01
     else:
         assert ts["ef"] is None and js.ef is None
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "kimi-k2-1t-a32b"])
+def test_train_steps_with_bf16_accumulation_match_jax(arch):
+    """Three free-running steps with two microbatches summed in a bf16
+    accumulator (``accum_dtype="bfloat16"``) against
+    ``jax.jit(make_train_step)``, within ``ACCUM_BF16_TOL``."""
+    kw = dict(microbatches=2, warmup_steps=1, total_steps=10,
+              accum_dtype="bfloat16")
+    for js, jmet, ts, tmet in _run_both(arch, JTrainConfig(**kw),
+                                        TrainConfig(**kw), 3):
+        np.testing.assert_allclose(float(tmet["loss"]), float(jmet["loss"]),
+                                   rtol=RTOL)
+        np.testing.assert_allclose(float(tmet["gnorm"]), float(jmet["gnorm"]),
+                                   rtol=RTOL)
+    assert int(ts["opt"]["step"]) == int(js.opt["step"]) == 3
+    _leaves_close(ts["opt"]["m"], js.opt["m"], ACCUM_BF16_TOL["m"], "m")
+    _leaves_close(ts["opt"]["v"], js.opt["v"], ACCUM_BF16_TOL["v"], "v")
+    _leaves_close(ts["params"], js.params, ACCUM_BF16_TOL["params"],
+                  "params")
 
 
 @pytest.mark.parametrize("nmb, compress", [(1, False), (2, True)])
