@@ -166,27 +166,53 @@ What it does, in order; any failure raises and the exit code is non-zero:
    and 8, one query row, ragged lengths, sk_valid, q_offset, forward
    plans that split the keys and the bf16 tensor-core passes' ragged
    64-key and 64-row tiles (``BWD_FP32_TOL``, ``BWD_BF16_TOL``,
-   ``LSE_TOL``); kernel 5b twice gives the same bits.  (b) hubert-xlarge
-   whole (48 layers, d 1280, bf16, remat per layer, 0.947 G parameters) for
-   5 AdamW steps of 16 x 1024 frames in 2 microbatches, through the API
-   ``python -m repro_torch.launch.train`` drives, each step's loss, gnorm,
-   ms, frames/s, peak memory and kernel 5 and 5b launches and device ms
-   (``KernelClock``: CUDA events around each wrapper call); then 5 steps on
-   one fixed batch at peak lr ``FIXED_LR``, whose loss must fall.  (c) One
-   full-width hubert layer in fp32 (TF32 off): its gradients with kernels
-   5 and 5b against attention differentiated through ``attend_plain``,
-   every leaf within ``LAYER_GRAD_TOL`` of its largest element.  (d)
-   qwen2-1.5b whole, 3 steps of 8 x 1024 tokens.  (e) paligemma-3b's and
-   kimi-k2's smoke configs, 3 steps on the card and on the CPU from the
-   same weights (the prefix-LM mask and the MoE block's backward), losses
-   within ``SMOKE_LOSS_RTOL``.  Then, at the shapes, dtype and mask of the
-   last kernel-5b call in a step of hubert, qwen2 and paligemma's smoke
-   config (prefix 8), kernel 5's output and lse against the plain version
+   ``LSE_TOL``); kernel 5b twice gives the same bits.  Kernels 6b and 7b
+   (the SSD and RG-LRU scans' backward, ``csrc/ssd_scan_bwd.cu`` and
+   ``csrc/lru_scan_bwd.cu``) against their plain versions at
+   ``SSD_BWD_EDGES`` and ``LRU_BWD_EDGES``: one step, lengths shorter than
+   their chunks and not multiples of them, every built (N, P), the final
+   state's gradient given and None, the model's strided views
+   (``SSD_BWD_TOL``, ``LRU_BWD_TOL``); each twice gives the same bits.
+   (b) hubert-xlarge whole (48 layers, d 1280, bf16, remat per layer, 0.947
+   G parameters) for 5 AdamW steps of 16 x 1024 frames in 2 microbatches,
+   through the API ``python -m repro_torch.launch.train`` drives, each
+   step's loss, gnorm, ms, frames/s, peak memory and kernel 5 and 5b
+   launches and device ms (``KernelClock``: CUDA events around each
+   wrapper call of kernels 5, 5b, 6, 6b, 7 and 7b); then 5 steps on one
+   fixed batch at peak lr ``FIXED_LR``, whose loss must fall.  (c)
+   qwen2-1.5b whole, 3 steps of 8 x 1024 tokens.  (d) mamba2-130m whole
+   (24 layers, d 768, 24 SSD heads of 64, state 128), 3 steps of 16 x 2048
+   tokens: kernels 6 (twice a layer under remat) and 6b.  (e)
+   recurrentgemma-2b whole (26 layers: 18 RG-LRU and 8 local attention of
+   10 heads of 256 over one KV head, window 2048; 2.895 G parameters), 3
+   steps of 4 x 3072 tokens in 2 microbatches: kernels 7, 7b, 5 and 5b at
+   head dim 256 in bf16.  Every step of (b)-(e) must launch each of its
+   layers' kernels as often as ``step_launches`` says; each run prints a
+   step under ``torch.profiler`` with the device ms by kernel.  (f) One
+   full-width layer of each kind in fp32 (TF32 off), ``LAYER_CHECKS``: a
+   hubert layer, a mamba2 layer, a recurrentgemma rec layer and its
+   local-attention layer (3072 positions, past the window): its gradients
+   with the kernels against the layer's mixer differentiated through its
+   plain version, every leaf within ``LAYER_GRAD_TOL`` of its largest
+   element.  (g) paligemma-3b's, kimi-k2's, mamba2-130m's and
+   recurrentgemma-2b's smoke configs, 3 steps on the card and on the CPU
+   from the same weights (the prefix-LM mask, the MoE block's backward,
+   the SSD and RG-LRU scans' backward), losses within
+   ``SMOKE_LOSS_RTOL``.  Then, at the shapes, dtype and mask of the last
+   kernel-5b call in a step of hubert, qwen2, paligemma's smoke config
+   (prefix 8) and recurrentgemma (bf16, head dim 256, window 2048: kernel
+   5b's FMA passes), kernel 5's output and lse against the plain version
    and kernel 5b beside its plain version, its bound,
    ``scaled_dot_product_attention``'s forward plus backward
-   (``library_ms``) and its backward alone (``library_bwd_ms``, the same
-   function as kernel 5b) (rows ``flash_attention_bwd``, ``_qwen2``,
-   ``_prefix``).  Alone:
+   (``library_ms``; a boolean mask for the prefix and the window) and its
+   backward alone (``library_bwd_ms``, the same function as kernel 5b)
+   (rows ``flash_attention_bwd``, ``_qwen2``, ``_prefix``, ``_window``);
+   and at the shapes of the last kernel-6b and 7b calls of
+   mamba2's and recurrentgemma's steps, kernels 6b and 7b against their
+   plain versions, timed beside them and their bounds (no PyTorch call
+   computes either: ``library_ms`` null), and kernels 6 and 7's forwards
+   at the same shapes (rows ``ssd_scan_bwd``, ``ssd_scan_train``,
+   ``lru_scan_bwd``, ``lru_scan_train``).  Alone:
    ``python3 chip_smoke.py --train-only``.
 11. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
@@ -3144,9 +3170,39 @@ LAYER_GRAD_TOL = 1e-4
 SMOKE_LOSS_RTOL = 1e-4
 # hubert-xlarge whole, as python -m repro_torch.launch.train
 # --arch hubert-xlarge --steps 5 --seq 1024 --batch 16 --microbatches 2;
-# qwen2-1.5b whole, 3 steps of 8 x 1024 tokens.
+# qwen2-1.5b whole, 3 steps of 8 x 1024 tokens; mamba2-130m whole, 3 steps
+# of 16 x 2048 tokens; recurrentgemma-2b whole, 3 steps of 4 x 3072 tokens
+# in 2 microbatches (longer than its 2048-token window).
 HUBERT_RUN = dict(steps=5, seq=1024, batch=16, microbatches=2)
 QWEN_RUN = dict(steps=3, seq=1024, batch=8, microbatches=1)
+MAMBA_RUN = dict(steps=3, seq=2048, batch=16, microbatches=1)
+RGEMMA_RUN = dict(steps=3, seq=3072, batch=4, microbatches=2)
+# One full-width layer of each kind in fp32 (TF32 off), its gradients with
+# the kernels against the plain path: (what, arch, config changes, batch,
+# positions).  recurrentgemma's local-attention layer is its block pattern
+# cut to ("attn",): head dim 256, 10 heads over one KV head, window 2048.
+LAYER_CHECKS = (
+    ("hubert-xlarge", "hubert-xlarge", dict(), 2, 1024),
+    ("mamba2-130m", "mamba2-130m", dict(), 2, 2048),
+    ("recurrentgemma-2b rec", "recurrentgemma-2b", dict(), 1, 3072),
+    ("recurrentgemma-2b local-attention", "recurrentgemma-2b",
+     dict(block_pattern=("attn",)), 1, 3072),
+)
+# Kernels 6b and 7b's edge shapes: SSD (b, h, s, p, n): one step, shorter
+# than the kernel's chunk of 64, one chunk, ragged, every built (N, P); LRU
+# (b, s, d): one step, shorter than kernel 7b's chunk of 32, ragged, a width
+# that is no multiple of its 128-channel blocks, recurrentgemma's width.
+SSD_BWD_EDGES = [(1, 1, 1, 16, 16), (2, 3, 37, 16, 16), (1, 2, 64, 32, 32),
+                 (2, 2, 100, 64, 64), (1, 2, 129, 64, 128),
+                 (2, 24, 300, 64, 128)]
+LRU_BWD_EDGES = [(1, 1, 1), (2, 31, 64), (2, 37, 100), (1, 300, 2560)]
+# Kernel 6b against ssd_backward_plain (chunks of 64 both): 3xTF32 products
+# and fp32 sums in other orders, dA, dB and dC summing over the whole
+# sequence and the heads: |kernel - plain| <= 1e-4 |plain| + 1e-4 max(1,
+# max |plain|).  Kernel 7b against lru_backward_plain: the same recurrence,
+# its carries composed in another order: 1e-5 and 1e-5.
+SSD_BWD_TOL = (1e-4, 1e-4)
+LRU_BWD_TOL = (1e-5, 1e-5)
 # The fixed-batch run's peak lr: at the default 3e-4 the first Adam step
 # (every weight moved by about lr) lifts hubert's loss before it falls, so
 # the fall is checked at a tenth of it.
@@ -3170,54 +3226,85 @@ def grad_close(got, want, tol, what: str) -> float:
     return err
 
 
+# The kernels a training step's clock counts and times: (key, kernel module,
+# the wrapper function timed, its launch counter).
+CLOCKED = (("5", "flash_attention", "_launch", "LAUNCHES"),
+           ("5b", "flash_attention", "attend_backward", "BWD_LAUNCHES"),
+           ("6", "ssd_scan", "_forward", "LAUNCHES"),
+           ("6b", "ssd_scan", "ssd_scan_backward", "BWD_LAUNCHES"),
+           ("7", "lru_scan", "_forward", "LAUNCHES"),
+           ("7b", "lru_scan", "lru_scan_backward", "BWD_LAUNCHES"))
+
+
+def step_launches(cfg, microbatches: int) -> dict:
+    """The launches a training step of ``cfg`` makes of each clocked
+    kernel: each layer's forward kernel (5 attention, 6 SSD, 7 RG-LRU) once
+    a microbatch, twice under ``remat="layer"`` (its forward rerun in the
+    backward), and its backward kernel once a microbatch."""
+    from repro_torch.models.model import layer_kinds
+    fwd = 2 if cfg.remat == "layer" else 1
+    key = {"attn": "5", "moe": "5", "ssm": "6", "rec": "7"}
+    out = dict.fromkeys((k for k, *_ in CLOCKED), 0)
+    for kind in layer_kinds(cfg):
+        out[key[kind]] += fwd * microbatches
+        out[key[kind] + "b"] += microbatches
+    return out
+
+
 class KernelClock:
-    """Counts kernel 5's and 5b's launches and sums their device time in a
-    run, between CUDA events recorded around each wrapper call (the events
-    add no synchronisation; :meth:`read` synchronises once)."""
+    """Counts the launches of kernels 5, 5b, 6, 6b, 7 and 7b and sums their
+    device time in a run, between CUDA events recorded around each wrapper
+    call (``CLOCKED``; the events add no synchronisation, :meth:`read`
+    synchronises once)."""
 
-    def __init__(self, fa):
-        self.fa = fa
-        self.events = {"5": [], "5b": []}
-        self.bwd_call = None
-        self._launch, self._bwd = fa._launch, fa.attend_backward
+    def __init__(self):
+        self.orig = []
+        for key, name, fn, counter in CLOCKED:
+            mod = importlib.import_module(
+                f"repro_torch.kernels.{name}.{name}")
+            f = getattr(mod, fn)
+            self.orig.append((mod, fn, f, counter))
+            setattr(mod, fn, self._timed(key, f))
+        self.reset()
 
-        def timed(key, fn):
-            def call(*a, **kw):
-                e0 = torch.cuda.Event(enable_timing=True)
-                e1 = torch.cuda.Event(enable_timing=True)
-                e0.record()
-                out = fn(*a, **kw)
-                e1.record()
-                self.events[key].append((e0, e1))
-                if key == "5b":
-                    self.bwd_call = dict(q=tuple(a[0].shape),
-                                         k=tuple(a[1].shape),
-                                         dtype=a[0].dtype, kw=dict(kw))
-                return out
-            return call
-
-        fa._launch = timed("5", self._launch)
-        fa.attend_backward = timed("5b", self._bwd)
+    def _timed(self, key, fn):
+        def call(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            self.events[key].append((e0, e1))
+            self.calls[key] = dict(
+                shapes=[tuple(t.shape) for t in a
+                        if isinstance(t, torch.Tensor)],
+                dtype=a[0].dtype,
+                kw={k: v for k, v in kw.items()
+                    if not isinstance(v, torch.Tensor)})
+            return out
+        return call
 
     def reset(self) -> None:
-        self.events = {"5": [], "5b": []}
-        self.bwd_call = None
-        self.fa.LAUNCHES = self.fa.BWD_LAUNCHES = 0
+        self.events = {key: [] for key, *_ in CLOCKED}
+        self.calls = {}
+        for mod, _, _, counter in self.orig:
+            setattr(mod, counter, 0)
 
     def read(self) -> dict:
-        """Launches and device ms since :meth:`reset`, and ``bwd_call``:
-        the shapes, dtype and keywords of the last kernel-5b call (None if
-        there was none)."""
+        """Launches (``launches``) and device ms (``ms``) by kernel since
+        :meth:`reset`, and the shapes of each kernel's last call
+        (``calls``: its tensor arguments' shapes, the first one's dtype and
+        the keywords that are not tensors)."""
         torch.cuda.synchronize()
         ms = {k: sum(a.elapsed_time(b) for a, b in ev)
               for k, ev in self.events.items()}
-        return {"fwd_launches": self.fa.LAUNCHES,
-                "bwd_launches": self.fa.BWD_LAUNCHES,
-                "fwd_ms": ms["5"], "bwd_ms": ms["5b"],
-                "bwd_call": self.bwd_call}
+        launches = {key: getattr(mod, counter) for (key, *_), (mod, _, _,
+                    counter) in zip(CLOCKED, self.orig)}
+        return {"launches": launches, "ms": ms, "calls": dict(self.calls)}
 
     def close(self) -> None:
-        self.fa._launch, self.fa.attend_backward = self._launch, self._bwd
+        for mod, fn, f, _ in self.orig:
+            setattr(mod, fn, f)
 
 
 def fwd_lse_check(fa, q, k, v, kw: dict, what: str):
@@ -3262,11 +3349,190 @@ def bwd_edge_checks(gen, fa) -> int:
     return n
 
 
+def scan_bwd_edge_checks(gen, ss, ls) -> int:
+    """Kernels 6b and 7b against their plain versions at ``SSD_BWD_EDGES``
+    and ``LRU_BWD_EDGES``, each with the final state's gradient given and
+    None, and at the model's strided views (x, B and C column slices of one
+    projection whose rows are not 16-byte aligned, dt and dy transposed
+    views; a column slice of a and every second step of dh); each kernel
+    twice gives the same bits.  Returns the number of cases."""
+    dev, n = gen.device, 0
+
+    def ssd_case(ops, dy, fin, what):
+        _, _, states = ss._forward(*ops, 128)
+        got = ss.ssd_scan_backward(*ops, dy, fin, states=states)
+        want = ss.ssd_backward_plain(*ops, dy, fin, chunk=ss.KERNEL_CHUNK)
+        for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+            grad_close(g, w, SSD_BWD_TOL, f"{what} {name}")
+        again = ss.ssd_scan_backward(*ops, dy, fin, states=states)
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              f"{what}: two runs of kernel 6b give equal bits")
+
+    for b, h, s, p, nn in SSD_BWD_EDGES:
+        ops = ssd_inputs(gen, b, h, s, p, nn)
+        dy = torch.randn((b, h, s, p), generator=gen, device=dev)
+        dS = torch.randn((b, h, nn, p), generator=gen, device=dev)
+        for fin in (None, dS):
+            ssd_case(ops, dy, fin, f"6b {(b, h, s, p, nn)} dS_fin "
+                                   f"{'given' if fin is not None else None}")
+            n += 1
+    b, h, s, p, nn = 2, 3, 70, 64, 128
+    proj = torch.randn((b, s, h * p + 2 * nn + 3), generator=gen, device=dev)
+    views = (proj[..., 1:1 + h * p].reshape(b, s, h, p).transpose(1, 2),
+             torch.nn.functional.softplus(torch.randn(
+                 (b, s, h), generator=gen, device=dev)).transpose(1, 2),
+             -torch.exp(0.5 * torch.randn((h,), generator=gen, device=dev)),
+             proj[..., 1 + h * p:1 + h * p + nn] / nn ** 0.5,
+             proj[..., 1 + h * p + nn:1 + h * p + 2 * nn] / nn ** 0.5)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).transpose(1, 2)
+    ssd_case(views, dy, None, "6b the model's strided views")
+    n += 1
+    for b, s, d in LRU_BWD_EDGES:
+        a, x = lru_inputs(gen, b, s, d)
+        dh = torch.randn((b, s, d), generator=gen, device=dev)
+        dh_fin = torch.randn((b, d), generator=gen, device=dev)
+        h, _ = ls.lru_scan_chunked(a, x)
+        wide = torch.zeros((b, s, 2 * d), device=dev)
+        wide[..., d:] = a
+        long = torch.zeros((b, 2 * s, d), device=dev)
+        long[:, ::2] = dh
+        for fin in (None, dh_fin):
+            what = (f"7b {(b, s, d)} dh_fin "
+                    f"{'given' if fin is not None else None}")
+            got = ls.lru_scan_backward(a, h, dh, fin)
+            want = ls.lru_backward_plain(a, h, dh, fin)
+            for name, g, w in zip(("da", "db"), got, want):
+                grad_close(g, w, LRU_BWD_TOL, f"{what} {name}")
+            for args in ((a, h, dh, fin), (wide[..., d:], h, long[:, ::2],
+                                           fin)):
+                again = ls.lru_scan_backward(*args)
+                check(all(torch.equal(u, v) for u, v in zip(got, again)),
+                      f"{what}: kernel 7b again (strided: "
+                      f"{args[0] is not a}) gives equal bits")
+            n += 1
+    return n
+
+
+def ssd_bwd_bound(b, h, s, p, n, nc):
+    """Kernel 6b's bound: read x, dt, B, C, dy and the forward's chunk
+    states once, write dx, ddt, dA, dB and dC once (fp32); the least
+    operations of the chunked form kernel 6b computes, in fp32 accuracy on
+    the tensor cores (3xTF32, a third of TF32's rate): 8 N P a step and head
+    (the state gradient's update, dx, dB and dC, 2 N P each; dC's carry
+    term reads the saved chunk state, so no state is rebuilt a step) and
+    2 N P a chunk and head (the decay's dot <Gbar_c+1, S_c>).  The products
+    inside a chunk, O(Q (N + P)) a step, are left out: the bound is what any
+    chunk length needs."""
+    nbytes = 4 * (3 * b * h * s * p + 2 * b * h * s + 4 * b * s * n + 2 * h
+                  + b * h * nc * n * p)
+    return bound(nbytes, 2 * n * p * b * h * (4 * s + nc), TF32X3_FLOPS_PER_S)
+
+
+def scan_train_rows(gen, ss, ls, mamba: dict, rg: dict, reps: int) -> list:
+    """Kernels 6b and 7b at the shapes of their last call in a training step
+    of mamba2-130m and recurrentgemma-2b (``calls`` of
+    :meth:`KernelClock.read`), on fresh inputs: held against their plain
+    versions and timed beside them and their bounds (no one PyTorch call
+    computes either function: ``library_ms`` null); and kernels 6 and 7's
+    forwards at the same shapes (rows ``ssd_scan_train``,
+    ``lru_scan_train``)."""
+    dev = gen.device
+    rows = []
+    (b, h, s, p), _, _, (_, _, n) = mamba["calls"]["6b"]["shapes"][:4]
+    ops = ssd_inputs(gen, b, h, s, p, n)
+    dy = torch.randn((b, h, s, p), generator=gen, device=dev)
+    y, s_fin, states = ss._forward(*ops, 128)
+    y_p, s_p = ss.ssd_chunked_plain(*ops, 128)
+    e_fwd = max(close(y, y_p, SSD_TOL, SSD_TOL, "6t y"),
+                close(s_fin, s_p, SSD_TOL, SSD_TOL, "6t S_fin"))
+    del y, s_fin, y_p, s_p
+    got = ss.ssd_scan_backward(*ops, dy, states=states)
+    want = ss.ssd_backward_plain(*ops, dy, chunk=ss.KERNEL_CHUNK)
+    err = max(grad_close(g, w, SSD_BWD_TOL, f"6b training {nm}") for nm, g, w
+              in zip(("dx", "ddt", "dA", "dB", "dC"), got, want))
+    del got, want
+    shape = (f"mamba2-130m training: x, dy [{b}, {h}, {s}, {p}], B/C [{b}, "
+             f"{s}, {n}] fp32")
+    b_ms, b_by = ssd_bwd_bound(b, h, s, p, n, -(-s // ss.KERNEL_CHUNK))
+    rows.append(dict(
+        name="ssd_scan_bwd", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+        # No TPU kernel: it replaces XLA's autodiff of the JAX model's
+        # twin, src/repro/models/blocks.py:250.
+        replaces="src/repro/models/blocks.py:250",
+        launches=mamba["launches"]["6b"], max_abs_err=err,
+        ms=cuda_ms(lambda: ss.ssd_scan_backward(*ops, dy, states=states),
+                   reps),
+        plain_ms=cuda_ms(lambda: ss.ssd_backward_plain(
+            *ops, dy, chunk=ss.KERNEL_CHUNK), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape))
+    x, dt, A, B, C = ops
+    nbytes = 4 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
+                  + C.numel() + b * h * n * p)
+    b_ms, b_by = bound(nbytes, 4 * n * p * b * h * s, TF32X3_FLOPS_PER_S)
+    rows.append(dict(
+        name="ssd_scan_train", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:78",
+        launches=mamba["launches"]["6"], max_abs_err=e_fwd,
+        ms=cuda_ms(lambda: ss.ssd_scan_chunked(*ops), reps),
+        plain_ms=cuda_ms(lambda: ss.ssd_chunked_plain(*ops, 128), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=shape.replace(", dy", "").replace("training", "training "
+                                                "forward")))
+    del ops, dy, states, x, dt, A, B, C
+
+    (b, s, d), _ = rg["calls"]["7b"]["shapes"][:2]
+    a, x = lru_inputs(gen, b, s, d)
+    dh = torch.randn((b, s, d), generator=gen, device=dev)
+    h, h_fin = ls.lru_scan_chunked(a, x)
+    h_p, fin_p = ls.lru_chunked_plain(a, x, 256)
+    e_fwd = max(close(h, h_p, LRU_TOL, LRU_TOL, "7t h"),
+                close(h_fin, fin_p, LRU_TOL, LRU_TOL, "7t h_fin"))
+    del h_p, fin_p
+    got = ls.lru_scan_backward(a, h, dh)
+    want = ls.lru_backward_plain(a, h, dh)
+    err = max(grad_close(g, w, LRU_BWD_TOL, f"7b training {nm}")
+              for nm, g, w in zip(("da", "db"), got, want))
+    del got, want
+    shape = f"recurrentgemma-2b training: a, h, dh [{b}, {s}, {d}] fp32"
+    # Read a, h and dh, write da and db: 5 fp32 words an element; 3 FLOP
+    # an element count for nothing against them.
+    b_ms, b_by = bound(4 * 5 * a.numel(), 3 * a.numel(), FP32_FLOPS_PER_S)
+    rows.append(dict(
+        name="lru_scan_bwd", route="cuda",
+        source="src/repro_torch/csrc/lru_scan_bwd.cu",
+        # No TPU kernel: it replaces XLA's autodiff of the JAX model's
+        # twin, src/repro/models/blocks.py:397.
+        replaces="src/repro/models/blocks.py:397",
+        launches=rg["launches"]["7b"], max_abs_err=err,
+        ms=cuda_ms(lambda: ls.lru_scan_backward(a, h, dh), reps),
+        plain_ms=cuda_ms(lambda: ls.lru_backward_plain(a, h, dh), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, shape=shape))
+    b_ms, b_by = bound(4 * (3 * a.numel() + b * d), 2 * a.numel(),
+                       FP32_FLOPS_PER_S)
+    rows.append(dict(
+        name="lru_scan_train", route="cuda",
+        source="src/repro_torch/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/lru_scan/lru_scan.py:57",
+        launches=rg["launches"]["7"], max_abs_err=e_fwd,
+        ms=cuda_ms(lambda: ls.lru_scan_chunked(a, x), reps),
+        plain_ms=cuda_ms(lambda: ls.lru_chunked_plain(a, x, 256), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"recurrentgemma-2b training forward: a, b [{b}, {s}, {d}] "
+              f"fp32, h_fin [{b}, {d}]"))
+    return rows
+
+
 # Kernel names of a training step's device time, by what launched them.
 STEP_PARTS = (("kernel 5", ("flash_mma_kernel", "flash_kernel",
                             "combine_kernel")),
               ("kernel 5b", ("dkdv_mma_kernel", "dq_mma_kernel", "dkdv_kernel",
                              "dq_kernel", "row_dot_kernel")),
+              ("kernel 6b", ("ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_dA")),
+              ("kernel 6", ("ssd_gram", "ssd_states", "ssd_output")),
+              ("kernel 7b", ("lru_bwd_local", "lru_bwd_carry", "lru_bwd_fix")),
+              ("kernel 7", ("lru_kernel",)),
               ("matmuls", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")))
 
 
@@ -3298,7 +3564,8 @@ def train_steps(model, tcfg, batches, clock, what: str,
                 profile: bool = False):
     """``tcfg``'s train step over ``batches`` on ``model``, each step timed
     on the host clock (synchronised) with its loss, gnorm, peak memory and
-    kernel 5 and 5b launches and device ms; returns the per-step dicts and,
+    the clocked kernels' launches and device ms (:class:`KernelClock`), the
+    launches held to :func:`step_launches`; returns the per-step dicts and,
     with ``profile``, :func:`profile_step` of one more step on the last
     batch (else None)."""
     from repro_torch.train import init_train_state, make_train_step
@@ -3314,11 +3581,14 @@ def train_steps(model, tcfg, batches, clock, what: str,
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         rec = dict(step=i + 1, loss=float(m["loss"]), gnorm=float(m["gnorm"]),
-                   lr=float(m["lr"]), ms=ms,
+                   lr=float(m["lr"]), ms_step=ms,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    **clock.read())
         check(math.isfinite(rec["loss"]) and math.isfinite(rec["gnorm"]),
               f"{what} step {i + 1}: finite loss and gnorm")
+        want = step_launches(model.cfg, tcfg.microbatches)
+        check(rec["launches"] == want, f"{what} step {i + 1}: launches "
+                                       f"{rec['launches']}, want {want}")
         out.append(rec)
     prof = profile_step(step_fn, state, batches[-1]) if profile else None
     del state
@@ -3327,12 +3597,28 @@ def train_steps(model, tcfg, batches, clock, what: str,
 
 def print_steps(what: str, recs: list, positions: int) -> None:
     for r in recs:
+        kern = "; ".join(f"kernel {k}: {n} launches, {r['ms'][k]:.1f} ms"
+                         for k, n in r["launches"].items() if n)
         print(f"train {what} step {r['step']}: loss {r['loss']:.4f}, gnorm "
-              f"{r['gnorm']:.3f}, lr {r['lr']:.3g}, {r['ms']:.1f} ms, "
-              f"{positions / r['ms'] * 1e3:,.0f} positions/s, peak "
-              f"{r['peak_gib']:.2f} GiB; kernel 5: {r['fwd_launches']} "
-              f"launches, {r['fwd_ms']:.1f} ms; kernel 5b: "
-              f"{r['bwd_launches']} launches, {r['bwd_ms']:.1f} ms")
+              f"{r['gnorm']:.3f}, lr {r['lr']:.3g}, {r['ms_step']:.1f} ms, "
+              f"{positions / r['ms_step'] * 1e3:,.0f} positions/s, peak "
+              f"{r['peak_gib']:.2f} GiB; {kern}")
+
+
+def describe_mixers(cfg) -> str:
+    """The sequence mixers of ``cfg``: attention heads, SSD heads and state,
+    the RG-LRU width and the local window, as the family has them."""
+    parts = []
+    if cfg.family == "ssm":
+        parts.append(f"{cfg.ssm_heads} SSD heads of {cfg.ssm_headdim}, state "
+                     f"{cfg.ssm_state}")
+    else:
+        parts.append(f"{cfg.n_heads} heads of {cfg.head_dim} "
+                     f"({cfg.n_kv_heads} KV)")
+    if cfg.family == "hybrid":
+        parts.append(f"RG-LRU width {cfg.lru_width}, pattern "
+                     f"{'/'.join(cfg.block_pattern)}, window {cfg.local_window}")
+    return ", ".join(parts)
 
 
 def train_full(dev, arch: str, run: dict, clock, seed: int,
@@ -3363,10 +3649,9 @@ def train_full(dev, arch: str, run: dict, clock, seed: int,
                                  synthetic_batches(dcfg, device=dev))]
     positions = run["batch"] * run["seq"]
     print(f"train {arch}: {n_params / 1e9:.4f} G params, {cfg.n_layers} "
-          f"layers, d {cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim} "
-          f"({cfg.n_kv_heads} KV), {cfg.dtype}, remat {cfg.remat}; "
-          f"{steps} steps of {run['batch']} x {run['seq']}, microbatches "
-          f"{run['microbatches']}")
+          f"layers, d {cfg.d_model}, {describe_mixers(cfg)}, {cfg.dtype}, "
+          f"remat {cfg.remat}; {steps} steps of {run['batch']} x "
+          f"{run['seq']}, microbatches {run['microbatches']}")
     recs, prof = train_steps(model, tcfg, batches, clock, arch,
                              profile=True)
     print_steps(arch, recs, positions)
@@ -3392,63 +3677,85 @@ def train_full(dev, arch: str, run: dict, clock, seed: int,
     return res
 
 
-def layer_grad_check(dev, seed: int) -> dict:
-    """One full-width hubert-xlarge layer (fp32, TF32 off): the loss's
-    gradients with kernels 5 and 5b against the same model with attention
-    differentiated through ``attend_plain`` (PyTorch autograd), every leaf
-    within ``LAYER_GRAD_TOL`` of its largest element."""
+def layer_grad_check(dev, seed: int, what: str, arch: str, changes: dict,
+                     batch: int, seq: int) -> dict:
+    """One full-width layer of ``arch`` (``changes`` applied, fp32, TF32
+    off): the loss's gradients with the kernels (5 and 5b, 6 and 6b, or 7
+    and 7b, by the layer's kind) against the same model with the layer's
+    mixer differentiated through its plain version (``attend_plain``,
+    ``ssd_chunked_plain``, ``lru_chunked_plain``; PyTorch autograd), every
+    leaf within ``LAYER_GRAD_TOL`` of its largest element."""
+    import repro_torch.models.blocks as blocks
     import repro_torch.models.layers as layers
     from repro_torch.configs import get_config
     from repro_torch.models import Model
+    from repro_torch.models.model import layer_kinds
     from repro_torch.tree import leaves
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("hubert-xlarge"), n_layers=1,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=1, dtype="float32",
+                              **changes)
+    kind = layer_kinds(cfg)[0]
     model = Model(cfg, device=dev, seed=seed)
     flat = list(leaves(model.params()))
     for p in flat:
         p.requires_grad_(True)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    batch = {"frames": torch.randn((2, 1024, cfg.d_model), generator=gen,
-                                   device=dev),
-             "labels": torch.randint(0, cfg.vocab, (2, 1024), generator=gen,
-                                     device=dev)}
+    if cfg.frontend == "frames":
+        data = {"frames": torch.randn((batch, seq, cfg.d_model), generator=gen,
+                                      device=dev),
+                "labels": torch.randint(0, cfg.vocab, (batch, seq),
+                                        generator=gen, device=dev)}
+    else:
+        data = {"tokens": torch.randint(0, cfg.vocab, (batch, seq),
+                                        generator=gen, device=dev)}
 
     def grads():
-        loss, _ = model.loss(batch)
+        loss, _ = model.loss(data)
         got = torch.autograd.grad(loss, flat, allow_unused=True)
         return float(loss.detach()), [torch.zeros_like(p) if g is None else g
-                             for p, g in zip(flat, got)]
+                                      for p, g in zip(flat, got)]
 
-    fa = layers.attend
-    before = (sys.modules[fa.__module__].LAUNCHES,
-              sys.modules[fa.__module__].BWD_LAUNCHES)
+    # The layer's kernel module, and the plain versions put in its place.
+    fa = sys.modules[layers.attend.__module__]
+    ss = sys.modules[blocks.ssd_scan_chunked.__module__]
+    ls = sys.modules[blocks.lru_scan_chunked.__module__]
+    mod, key = {"attn": (fa, "5"), "ssm": (ss, "6"), "rec": (ls, "7")}[kind]
+    plain = {"attn": [(layers, "attend", fa.attend_plain)],
+             "ssm": [(blocks, "ssd_scan_chunked",
+                      lambda *a, chunk: ss.ssd_chunked_plain(*a, chunk))],
+             "rec": [(blocks, "lru_scan_chunked",
+                      lambda a, b, chunk: ls.lru_chunked_plain(a, b, chunk))]
+             }[kind]
+    before = (mod.LAUNCHES, mod.BWD_LAUNCHES)
     loss_k, g_k = grads()
-    after = (sys.modules[fa.__module__].LAUNCHES,
-             sys.modules[fa.__module__].BWD_LAUNCHES)
+    after = (mod.LAUNCHES, mod.BWD_LAUNCHES)
     check(after[0] - before[0] == 2 and after[1] - before[1] == 1,
-          f"hubert layer: kernel 5 twice (remat) and 5b once, got "
+          f"{what} layer: kernel {key} twice (remat) and {key}b once, got "
           f"{after[0] - before[0]} and {after[1] - before[1]}")
-    layers.attend = sys.modules[fa.__module__].attend_plain
+    saved = [(m, name, getattr(m, name)) for m, name, _ in plain]
+    for m, name, fn in plain:
+        setattr(m, name, fn)
     try:
         loss_p, g_p = grads()
     finally:
-        layers.attend = fa
+        for m, name, fn in saved:
+            setattr(m, name, fn)
     check(abs(loss_k - loss_p) <= 1e-5 * abs(loss_p),
-          f"hubert layer loss {loss_k} vs plain {loss_p}")
+          f"{what} layer loss {loss_k} vs plain {loss_p}")
     worst = 0.0
     for a, b in zip(g_k, g_p):
         scale = float(b.abs().max())
         err = float((a - b).abs().max()) / max(scale, 1e-30)
-        check(err <= LAYER_GRAD_TOL, f"hubert layer gradient {tuple(a.shape)}"
+        check(err <= LAYER_GRAD_TOL, f"{what} layer gradient {tuple(a.shape)}"
                                      f": max |kernel - plain| / max |plain| "
                                      f"= {err}")
         worst = max(worst, err)
-    print(f"train hubert-xlarge, one full-width layer (fp32): loss {loss_k:.6f}"
-          f" (plain {loss_p:.6f}), {len(g_k)} gradient leaves within "
-          f"{worst:.3g} of their largest element (bound {LAYER_GRAD_TOL})")
-    del model, flat, g_k, g_p
+    print(f"train {what}, one full-width {kind} layer (fp32, {batch} x "
+          f"{seq}): loss {loss_k:.6f} (plain {loss_p:.6f}), {len(g_k)} "
+          f"gradient leaves within {worst:.3g} of their largest element "
+          f"(bound {LAYER_GRAD_TOL}); kernels {key} and {key}b")
+    del model, flat, g_k, g_p, data
     torch.cuda.empty_cache()
     return dict(loss=loss_k, worst=worst)
 
@@ -3456,8 +3763,9 @@ def layer_grad_check(dev, seed: int) -> dict:
 def smoke_train_check(dev, arch: str, seed: int, clock) -> dict:
     """``arch``'s smoke config (fp32, TF32 off) trained 3 steps on the card
     and on the CPU from the same weights and batches: the losses within
-    ``SMOKE_LOSS_RTOL``, the card's run through kernels 5 and 5b.  The
-    launches returned are those of the card's last step."""
+    ``SMOKE_LOSS_RTOL``, the card's run through its layers' kernels
+    (:func:`step_launches`).  The launches returned are those of the card's
+    last step."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.models import Model
@@ -3493,31 +3801,33 @@ def smoke_train_check(dev, arch: str, seed: int, clock) -> dict:
     for a, b in zip(card, cpu):
         check(abs(a - b) <= SMOKE_LOSS_RTOL * abs(b),
               f"{arch} smoke: card losses {card} vs CPU {cpu}")
-    check(counts["fwd_launches"] > 0 and counts["bwd_launches"] > 0,
-          f"{arch} smoke: kernels 5 and 5b launched ({counts})")
+    want = step_launches(cfg, tcfg.microbatches)
+    check(counts["launches"] == want, f"{arch} smoke: launches "
+                                      f"{counts['launches']}, want {want}")
+    kern = ", ".join(f"{k} {n}" for k, n in counts["launches"].items() if n)
     print(f"train {cfg.name} (fp32) 3 steps: card losses "
           f"{[round(x, 6) for x in card]}, CPU {[round(x, 6) for x in cpu]}; "
-          f"its last step: kernel 5 {counts['fwd_launches']} launches, 5b "
-          f"{counts['bwd_launches']}")
+          f"its last step's launches by kernel: {kern}")
     return dict(losses=card, **counts)
 
 
-def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
-            reps: int) -> dict:
-    """Kernel 5b at the shapes, dtype and mask of ``call``, the last kernel-5b
-    call of ``arch``'s training step (:meth:`KernelClock.read`), on fresh
-    inputs: kernel 5 with lse held against attend_plain_with_lse, kernel 5b
-    against attend_backward_plain, each timed beside its plain version, its
-    bound, scaled_dot_product_attention's forward plus backward (the
-    library call; never called by the port) and its backward alone
-    (``library_bwd_ms``: ``torch.autograd.grad`` with ``retain_graph`` on
-    one forward run outside the timer), the same function as kernel 5b."""
-    b, s, hq, d = call["q"]
-    _, sk, hkv, _ = call["k"]
+def bwd_row(gen, fa, name: str, arch: str, step: dict, reps: int) -> dict:
+    """Kernel 5b at the shapes, dtype and mask of the last kernel-5b call of
+    ``arch``'s training step (``step``, a :meth:`KernelClock.read` of it),
+    on fresh inputs: kernel 5 with lse held against attend_plain_with_lse,
+    kernel 5b against attend_backward_plain, each timed beside its plain
+    version, its bound, scaled_dot_product_attention's forward plus
+    backward (the library call; never called by the port) and its backward
+    alone (``library_bwd_ms``: ``torch.autograd.grad`` with
+    ``retain_graph`` on one forward run outside the timer), the same
+    function as kernel 5b.  The row's launches are the step's, kernel 5b's
+    and (``fwd_launches``) kernel 5's."""
+    call = step["calls"]["5b"]
+    (b, s, hq, d), (_, sk, hkv, _) = call["shapes"][:2]
     dtype, kw = call["dtype"], call["kw"]
-    check(sk == s and kw["sk_valid"] == s and kw["q_offset"] == 0
-          and kw["window"] == 0, f"{name}: a training call ({call})")
-    causal, prefix = kw["causal"], kw["prefix"]
+    check(sk == s and kw["sk_valid"] == s and kw["q_offset"] == 0,
+          f"{name}: a training call ({call})")
+    causal, prefix, window = kw["causal"], kw["prefix"], kw["window"]
     q, k, v = flash_inputs(gen, b, s, s, hq, hkv, d, dtype)
     dout = torch.randn((b, s, hq, d), generator=gen,
                        device=gen.device).to(dtype)
@@ -3528,10 +3838,11 @@ def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
     err = max(grad_close(g, w, tol, f"{name} {nm}")
               for nm, g, w in zip(("dq", "dk", "dv"), got, want))
     del got, want
-    # The pairs (query, key) the mask lets through; five products of
-    # 2 d FLOP a pair and head.
-    pairs = (sum(min(s, max(i, prefix - 1) + 1) for i in range(s))
-             if causal else s * s)
+    # The pairs (query, key) the mask lets through: query i sees keys up
+    # to max(i, prefix - 1) (all keys without causality), past i - window;
+    # five products of 2 d FLOP a pair and head.
+    pairs = sum((min(s, max(i, prefix - 1) + 1) if causal else s)
+                - (max(0, i - window + 1) if window else 0) for i in range(s))
     # Read q, k, v, out, dout and lse once; write dq, dk and dv once.
     nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
               + 4 * lse.numel())
@@ -3542,10 +3853,11 @@ def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
     kh, vh = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
               .contiguous().requires_grad_(True) for t in (k, v))
     doh = dout.transpose(1, 2).contiguous()
-    if prefix:
+    if prefix or window:
         i = torch.arange(s, device=q.device)[:, None]
         j = torch.arange(s, device=q.device)[None, :]
-        sdpa_kw = dict(attn_mask=(j <= i) | (j < prefix))
+        mask = (j <= i) | (j < prefix) if causal else j >= 0
+        sdpa_kw = dict(attn_mask=mask & (j > i - window) if window else mask)
     else:
         sdpa_kw = dict(is_causal=causal)
 
@@ -3560,6 +3872,7 @@ def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
 
     masks = "causal" if causal else "non-causal"
     masks += f", prefix {prefix}" if prefix else ""
+    masks += f", window {window}" if window else ""
     kind = "bf16" if dtype == torch.bfloat16 else "fp32"
     row = dict(
         name=name, route="cuda",
@@ -3567,7 +3880,7 @@ def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
         # No TPU kernel: it replaces XLA's autodiff of the JAX model's
         # attention, src/repro/models/layers.py:99-174.
         replaces="src/repro/models/layers.py:99",
-        launches=launches, max_abs_err=err,
+        launches=step["launches"]["5b"], max_abs_err=err,
         ms=cuda_ms(lambda: fa.attend_backward(q, k, v, out, dout, lse, **kw),
                    reps),
         plain_ms=cuda_ms(lambda: fa.attend_backward_plain(q, k, v, out, dout,
@@ -3578,18 +3891,19 @@ def bwd_row(gen, fa, name: str, arch: str, call: dict, launches: int,
         fwd_ms=cuda_ms(lambda: fa.attend_with_lse(q, k, v, **kw), reps),
         shape=f"{arch} training: q [{b}, {s}, {hq}, {d}] {kind} over k, v "
               f"[{b}, {s}, {hkv}, {d}], {masks}",
-        fwd_err=(e_out, e_lse))
+        fwd_err=(e_out, e_lse), fwd_launches=step["launches"]["5"])
     return row
 
 
 def run_train(dev: torch.device, args) -> list:
-    """The training phase: kernel 5b's edge checks, hubert-xlarge and
-    qwen2-1.5b whole, one full-width hubert layer against the plain path,
-    paligemma's and kimi's smoke configs against the CPU; returns the
-    ``kernels`` rows 5b, 5bq and 5bp."""
+    """The training phase: kernel 5b's, 6b's and 7b's edge checks;
+    hubert-xlarge, qwen2-1.5b, mamba2-130m and recurrentgemma-2b whole; one
+    full-width layer of each kind against the plain path; paligemma's,
+    kimi's, mamba2's and recurrentgemma's smoke configs against the CPU;
+    returns the ``kernels`` rows 5b, 5bq, 5bp, 5br, 6b, 6t, 7b and 7t."""
     t_phase = time.perf_counter()
-    fa = importlib.import_module(
-        "repro_torch.kernels.flash_attention.flash_attention")
+    fa, ss, ls = (importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+                  for m in ("flash_attention", "ssd_scan", "lru_scan"))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()
     n = bwd_edge_checks(gen, fa)
@@ -3597,28 +3911,35 @@ def run_train(dev: torch.device, args) -> list:
           f"within {BWD_FP32_TOL}, bf16 within {BWD_BF16_TOL} as (rtol, atol "
           f"of max(1, max |plain|))), two runs bit-equal, passed in "
           f"{time.perf_counter() - t0:.2f} s")
-    clock = KernelClock(fa)
+    t0 = time.perf_counter()
+    n = scan_bwd_edge_checks(gen, ss, ls)
+    print(f"train: kernel 6b and 7b edge checks, {n} cases (6b within "
+          f"{SSD_BWD_TOL}, 7b within {LRU_BWD_TOL} as (rtol, atol of max(1, "
+          f"max |plain|))), two runs bit-equal, passed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    clock = KernelClock()
     try:
         hub = train_full(dev, "hubert-xlarge", HUBERT_RUN, clock, args.seed,
                          fixed_steps=5)
-        layer_grad_check(dev, args.seed)
         qwen = train_full(dev, "qwen2-1.5b", QWEN_RUN, clock, args.seed)
+        mamba = train_full(dev, "mamba2-130m", MAMBA_RUN, clock, args.seed)
+        rg = train_full(dev, "recurrentgemma-2b", RGEMMA_RUN, clock,
+                        args.seed)
+        for check_args in LAYER_CHECKS:
+            layer_grad_check(dev, args.seed, *check_args)
         pali = smoke_train_check(dev, "paligemma-3b", args.seed, clock)
-        smoke_train_check(dev, "kimi-k2-1t-a32b", args.seed, clock)
+        for arch in ("kimi-k2-1t-a32b", "mamba2-130m", "recurrentgemma-2b"):
+            smoke_train_check(dev, arch, args.seed, clock)
     finally:
         clock.close()
-    for what, res in (("hubert-xlarge", hub), ("qwen2-1.5b", qwen)):
-        for r in res["steps"]:
-            check(r["fwd_launches"] > 0 and r["bwd_launches"] > 0,
-                  f"{what} step {r['step']}: kernels 5 and 5b launched")
     rows = []
     for name, arch, step in (
             ("flash_attention_bwd", "hubert-xlarge", hub["steps"][-1]),
             ("flash_attention_bwd_qwen2", "qwen2-1.5b", qwen["steps"][-1]),
-            ("flash_attention_bwd_prefix", "paligemma-3b smoke", pali)):
-        rows.append(bwd_row(gen, fa, name, arch, step["bwd_call"],
-                            step["bwd_launches"], args.reps))
-        rows[-1]["fwd_launches"] = step["fwd_launches"]
+            ("flash_attention_bwd_prefix", "paligemma-3b smoke", pali),
+            ("flash_attention_bwd_window", "recurrentgemma-2b",
+             rg["steps"][-1])):
+        rows.append(bwd_row(gen, fa, name, arch, step, args.reps))
     for r in rows:
         print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms, launches "
               f"{r['launches']} a step (forward {r['fwd_launches']}, under "
@@ -3630,9 +3951,16 @@ def run_train(dev: torch.device, args) -> list:
               f"{r['fwd_err'][0]:.3g}, |lse - plain| "
               f"{r['fwd_err'][1]:.3g}), max |kernel - plain| / max(1, "
               f"max |plain|) {r['max_abs_err']:.3g}")
+    scan_rows = scan_train_rows(gen, ss, ls, mamba["steps"][-1],
+                                rg["steps"][-1], args.reps)
+    for r in scan_rows:
+        print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms, launches "
+              f"{r['launches']} a step, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4g} ms ({r['bound_by']}), no library call; "
+              f"max |kernel - plain| {r['max_abs_err']:.3g}")
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
     return [{key: r[key] for key in r if key not in ("shape", "fwd_err")}
-            for r in rows]
+            for r in rows + scan_rows]
 
 if __name__ == "__main__":
     sys.exit(main())

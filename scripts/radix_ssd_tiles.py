@@ -42,8 +42,10 @@ KERNELS = ("row_histograms", "upsweep", "scan_tiles", "downsweep",
            "ssd_gram", "ssd_states", "ssd_pass", "ssd_output")
 
 
-def ptxas_lines(build, source: str, obj: Path) -> list:
-    """``ptxas -v``'s resource lines for each kernel of ``source``."""
+def ptxas_lines(build, source: str, obj: Path,
+                kernels: tuple = KERNELS) -> list:
+    """``ptxas -v``'s resource lines for each kernel of ``source`` whose
+    name is one of ``kernels``, with its template arguments."""
     out = subprocess.run([build._nvcc(), *build.FLAGS, "-Xptxas", "-v", "-c",
                           str(build.CSRC / source), "-o", str(obj)],
                          capture_output=True, text=True, check=True)
@@ -51,7 +53,7 @@ def ptxas_lines(build, source: str, obj: Path) -> list:
     for line in (out.stdout + out.stderr).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(" + "|".join(KERNELS) + r")(I(?:Li\d+E)+E)?",
+            k = re.search(r"(" + "|".join(kernels) + r")(I(?:Li\d+E)+E)?",
                           m.group(1))
             name = None if k is None else k.group(1) + (
                 "<" + ", ".join(re.findall(r"Li(\d+)E", k.group(2))) + ">"

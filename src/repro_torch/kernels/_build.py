@@ -31,7 +31,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("bitonic_sort.cu", "radix_sort.cu", "kway_merge.cu",
            "alltoallv_deliver.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "ssd_scan.cu", "lru_scan.cu")
+           "flash_attention_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
+           "lru_scan.cu", "lru_scan_bwd.cu")
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -77,9 +78,18 @@ _SIGNATURES = {
     # g, states, batch, heads, seq, n, p, q, stream
     "repro_ssd_scan": "i" "piii" "piii" "p" "pii" "pii" "piii" "p" "pp"
                       "iiiiii" "p",
+    # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
+    # B strides (b, s), C, C strides (b, s), dy, dy strides (b, h, s),
+    # ds_fin, states, dstates, dx, dx strides (b, h, s), ddt, dB, dC,
+    # dA_part, dA, batch, heads, seq, n, p, q, stream
+    "repro_ssd_scan_bwd": "i" "piii" "piii" "p" "pii" "pii" "piii" "p"
+                          "pp" "piii" "pppp" "p" "iiiiii" "p",
     # device, a, a strides (b, s), b, b strides (b, s), h, h_fin, batch,
     # seq, width, stream
     "repro_lru_scan": "i" "pii" "pii" "pp" "iii" "p",
+    # device, a, a strides (b, s), h, h strides (b, s), dh, dh strides
+    # (b, s), dh_fin, da, db, carry, prod, batch, seq, width, stream
+    "repro_lru_scan_bwd": "i" "pii" "pii" "pii" "p" "pppp" "iii" "p",
 }
 
 _lock = threading.Lock()

@@ -17,6 +17,15 @@ What bounds it is in the source's note.
 chunked doubling scan, with the final state), which a CPU tensor takes.  The
 chunk length changes only the order of the float operations, not the
 function: the kernel's scan is sequential whatever ``chunk`` says.
+
+Training: when autograd needs a gradient of ``a`` or ``b``,
+:func:`lru_scan_chunked` goes through :class:`_LruScan`, whose forward runs
+the scan above and saves ``a`` and ``h``, and whose backward is the reverse
+recurrence (:func:`lru_scan_backward`): on a CUDA tensor kernel 7b
+(``repro_lru_scan_bwd``, ``csrc/lru_scan_bwd.cu``, counted in
+``BWD_LAUNCHES``), on a CPU tensor :func:`lru_backward_plain`.  No kernel of
+the JAX package computes it: it replaces XLA's autodiff of
+``_lru_chunked_jnp``.
 """
 
 from __future__ import annotations
@@ -26,7 +35,9 @@ import torch.nn.functional as F
 
 from .._build import launch, ptr
 
-LAUNCHES = 0   # calls of lru_scan_chunked that launched the CUDA kernel
+LAUNCHES = 0       # forward scans that launched kernel 7
+BWD_LAUNCHES = 0   # calls of lru_scan_backward that launched kernel 7b
+BWD_CHUNK = 32     # kernel 7b's chunk of steps (kChunk in lru_scan_bwd.cu)
 
 
 def lru_chunked_plain(a, b, chunk: int):
@@ -61,22 +72,35 @@ def lru_chunked_plain(a, b, chunk: int):
 def lru_scan_chunked(a, b, *, chunk: int = 256):
     """The recurrence with its final state: → ``(h [B, S, D], h_fin [B,
     D])``, both float32.  A CPU tensor takes :func:`lru_chunked_plain` with
-    ``chunk``; a CUDA tensor launches the kernel or raises."""
-    global LAUNCHES
+    ``chunk``; a CUDA tensor launches the kernel or raises.  When autograd
+    needs a gradient of ``a`` or ``b`` the call goes through
+    :class:`_LruScan` (kernel 7b backward on the card)."""
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"lru_scan: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)}: need two [B, S, D] tensors")
     if a.dtype != b.dtype or not a.is_floating_point():
         raise TypeError(f"lru_scan: a and b must be floats of one dtype, got "
                         f"{a.dtype} and {b.dtype}")
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _LruScan.apply(a, b, chunk)
+    return _forward(a, b, chunk)
+
+
+def _require_kernel_operand(t, what: str) -> None:
+    if not t.is_cuda or t.dtype != torch.float32:
+        raise ValueError(f"{what}: the kernel takes float32 CUDA tensors, "
+                         f"got {t.device} {t.dtype}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{what}: the width must be contiguous")
+
+
+def _forward(a, b, chunk: int):
+    """:func:`lru_scan_chunked` without autograd."""
+    global LAUNCHES
     if a.device.type == "cpu":
         return lru_chunked_plain(a, b, chunk)
     for t in (a, b):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise ValueError(f"lru_scan: the kernel takes float32 CUDA "
-                             f"tensors, got {t.device} {t.dtype}")
-        if t.stride(-1) != 1:
-            raise ValueError("lru_scan: the width must be contiguous")
+        _require_kernel_operand(t, "lru_scan")
     bsz, s, d = a.shape
     h = torch.empty((bsz, s, d), dtype=torch.float32, device=a.device)
     h_fin = torch.empty((bsz, d), dtype=torch.float32, device=a.device)
@@ -84,3 +108,79 @@ def lru_scan_chunked(a, b, *, chunk: int = 256):
            ptr(b), b.stride(0), b.stride(1), ptr(h), ptr(h_fin), bsz, s, d)
     LAUNCHES += 1
     return h, h_fin
+
+
+def lru_backward_plain(a, h, dh, dh_fin=None, chunk: int = 256):
+    """The recurrence's gradient, written out: with ``g_t`` the gradient of
+    ``h_t`` (its own ``dh_t`` and all it feeds),
+
+        g_t = dh_t + a_{t+1}·g_{t+1},   g_{S−1} = dh_{S−1} + dh_fin,
+        db_t = g_t,   da_t = g_t·h_{t−1}   (h_{−1} = 0).
+
+    a, h, dh ``[B, S, D]``, dh_fin ``[B, D]`` or None (zero) → ``(da, db)``
+    float32.  The reverse scan is :func:`lru_chunked_plain` on the reversed
+    steps with ``a`` shifted by one (``a_S = 1``), in chunks of ``chunk``."""
+    a, h, dh = a.float(), h.float(), dh.float()
+    rhs = dh.clone()
+    if dh_fin is not None and rhs.shape[1]:
+        rhs[:, -1] += dh_fin.float()
+    a_next = torch.cat([a[:, 1:], torch.ones_like(a[:, :1])], dim=1)
+    g = lru_chunked_plain(a_next.flip(1), rhs.flip(1), chunk)[0].flip(1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return g * h_prev, g
+
+
+def lru_scan_backward(a, h, dh, dh_fin=None, *, chunk: int = 256):
+    """The gradients ``(da, db)`` of the recurrence from the forward's ``a``
+    and ``h`` and the gradients ``dh [B, S, D]`` and ``dh_fin [B, D]`` (None:
+    zero), float32.  A CPU tensor takes :func:`lru_backward_plain` with
+    ``chunk``; a CUDA tensor launches kernel 7b or raises (``dh`` is made
+    width-contiguous first: autograd may hand in a strided one)."""
+    global BWD_LAUNCHES
+    if a.dim() != 3 or h.shape != a.shape or dh.shape != a.shape or (
+            dh_fin is not None and dh_fin.shape != (a.shape[0], a.shape[2])):
+        raise ValueError(f"lru_scan_backward: a {tuple(a.shape)}, h "
+                         f"{tuple(h.shape)}, dh {tuple(dh.shape)}: need "
+                         "[B, S, D] and dh_fin [B, D] or None")
+    if a.device.type == "cpu":
+        return lru_backward_plain(a, h, dh, dh_fin, chunk)
+    if dh.stride(-1) != 1:
+        dh = dh.contiguous()
+    if dh_fin is not None:
+        dh_fin = dh_fin.contiguous()
+        _require_kernel_operand(dh_fin, "lru_scan_backward")
+    for t in (a, h, dh):
+        _require_kernel_operand(t, "lru_scan_backward")
+    bsz, s, d = a.shape
+    da = torch.empty((bsz, s, d), dtype=torch.float32, device=a.device)
+    db = torch.empty_like(da)
+    nc = -(-s // BWD_CHUNK)
+    carry = torch.empty((bsz, nc, d), dtype=torch.float32, device=a.device)
+    prod = torch.empty_like(carry)
+    launch("repro_lru_scan_bwd", a.device, ptr(a), a.stride(0), a.stride(1),
+           ptr(h), h.stride(0), h.stride(1), ptr(dh), dh.stride(0),
+           dh.stride(1), ptr(dh_fin), ptr(da), ptr(db), ptr(carry),
+           ptr(prod), bsz, s, d)
+    BWD_LAUNCHES += 1
+    return da, db
+
+
+class _LruScan(torch.autograd.Function):
+    """:func:`lru_scan_chunked` with its gradient: kernel 7 then kernel 7b
+    on CUDA, the plain versions on the CPU.  No ``try`` falls back."""
+
+    @staticmethod
+    def forward(ctx, a, b, chunk):
+        h, h_fin = _forward(a, b, chunk)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(a, h)
+        return h, h_fin
+
+    @staticmethod
+    def backward(ctx, dh, dh_fin):
+        a, h = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        da, db = lru_scan_backward(a, h, dh, dh_fin, chunk=ctx.chunk)
+        return da, db, None

@@ -327,7 +327,9 @@ def mamba_apply(cfg, p, x: torch.Tensor, *, cache: Optional[dict] = None,
     """x [B, S, d] → (out [B, S, d], cache).  A prefill (no cache, or
     S > 1) runs the SSD scan kernel's wrapper and, with a cache, stores the
     final state and the conv window in it; a decode step (S == 1 with a
-    cache) advances the cached state by one step in plain PyTorch."""
+    cache) advances the cached state by one step in plain PyTorch.  In
+    training the wrapper's autograd function gives the scan's gradient
+    (kernel 6b on the card)."""
     b, s, d = x.shape
     din, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     cw = cfg.ssm_conv
@@ -430,7 +432,9 @@ def rglru_apply(cfg, p, x: torch.Tensor, *, cache: Optional[dict] = None,
     """x [B, S, d] → (out [B, S, d], cache).  A prefill (no cache, or
     S > 1) runs the LRU scan kernel's wrapper and, with a cache, stores the
     final state and the conv window in it; a decode step (S == 1 with a
-    cache) advances the cached state by one step in plain PyTorch."""
+    cache) advances the cached state by one step in plain PyTorch.  In
+    training the wrapper's autograd function gives the scan's gradient
+    (kernel 7b on the card)."""
     b, s, _ = x.shape
     cw = _RG_CONV
     gate = F.gelu(x @ p["in_gate"], approximate="tanh")   # jax.nn.gelu's form

@@ -1,7 +1,8 @@
 """The model: the port of ``repro/models/model.py``.  It serves every family
 with a decode step (``dense``, ``moe``, ``ssm``, ``hybrid`` and ``vlm``, the
-patches frontend) and trains every family whose forward runs only kernel 5
-(``dense``, ``moe``, ``vlm`` and ``audio``, the frames frontend).
+patches frontend) and trains every family (those and ``audio``, the frames
+frontend): kernel 5's gradient is kernel 5b, the SSD scan's (kernel 6) is
+kernel 6b and the RG-LRU scan's (kernel 7) is kernel 7b.
 
 A :class:`Model` is an ``nn.Module`` holding its weights; its layers are an
 ``nn.ModuleList`` run in a Python loop (the JAX package scans a stacked
@@ -26,15 +27,13 @@ A patches model takes ``batch["patches"]`` ``[B, n_frontend_tokens, d]``
 with the prefix-LM mask; a frames model (hubert) takes ``batch["frames"]``
 ``[B, S, d]`` through ``frontend_proj`` and, in training, ``batch["labels"]
 [B, S]``.  Caches are updated in place (see :mod:`.blocks`).  Serving an
-encoder-only model raises (no decode step), as does training the ssm and
-hybrid families, whose kernels 6 and 7 have no backward kernel yet
-(``ROADMAP.md`` queue 1 item 11).
+encoder-only model raises (no decode step).
 
 The weights are made with ``requires_grad=False``; the training step
 (:func:`repro_torch.train.init_train_state`) makes them trainable.  With
 ``cfg.remat == "layer"`` a training forward checkpoints each layer
 (``torch.utils.checkpoint``, non-reentrant), so the backward reruns the
-layer's forward, kernel 5 included, as ``jax.checkpoint`` does.
+layer's forward, kernels 5, 6 and 7 included, as ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -52,25 +51,12 @@ from .blocks import (attn_apply, attn_cache, attn_params, mamba_apply,
                      rglru_apply, rglru_cache, rglru_params)
 from .layers import _init, mlp, mlp_params, rmsnorm
 
-_BACKWARD = "ROADMAP.md queue 1 item 11"
-
-
 def check_servable(cfg) -> None:
     """Raise ``NotImplementedError`` for a configuration with no decode step
     (encoder-only hubert, which ``repro/launch/serve.py`` refuses too)."""
     if cfg.is_encoder_only:
         raise NotImplementedError(f"{cfg.name} is encoder-only: no decode "
                                   "step to serve")
-
-
-def check_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not train:
-    ssm and hybrid, whose scans (kernels 6 and 7) have no backward kernel
-    yet."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family needs backward "
-            f"kernels for the SSD and RG-LRU scans ({_BACKWARD})")
 
 
 def layer_kinds(cfg) -> list:
@@ -321,7 +307,6 @@ class Model(nn.Module):
         patches (patches), else of each token's next; plus ``1e-2`` times
         the MoE layers' summed load-balance loss."""
         cfg = self.cfg
-        check_trainable(cfg)
         if cfg.frontend == "patches" and "patches" not in batch:
             raise ValueError(f"{cfg.name} trains on {cfg.n_frontend_tokens} "
                              "patch embeddings before the tokens: the batch "

@@ -1039,22 +1039,27 @@ def test_attend_under_autograd_launches_kernels_5_and_5b(cuda):
 
 
 @pytest.mark.parametrize("arch", ["hubert-xlarge", "paligemma-3b",
-                                  "kimi-k2-1t-a32b"])
+                                  "kimi-k2-1t-a32b", "mamba2-130m",
+                                  "recurrentgemma-2b"])
 def test_smoke_training_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
     """Three train steps of a smoke config (fp32, TF32 off) on the card and
     on the CPU from the same weights and batches: the losses within 1e-4
-    relative, and the card's run through kernels 5 and 5b."""
+    relative, and the card's run through the backward kernels of its layers
+    (5b a layer with attention, 6b an ssm layer, 7b a rec layer), once a
+    layer and microbatch."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.models import Model
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import init_params, layer_kinds
     from repro_torch.train import (TrainConfig, init_train_state,
                                    make_train_step)
     from repro_torch.tree import map_tree
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    fa = _kernel("flash_attention")
+    mods = {"attn": _kernel("flash_attention"), "moe": _kernel("flash_attention"),
+            "ssm": _kernel("ssd_scan"), "rec": _kernel("lru_scan")}
     cfg = get_config(arch).smoke()
+    kinds = layer_kinds(cfg)
     params = init_params(cfg, torch.Generator().manual_seed(1))
     tcfg = TrainConfig(warmup_steps=1, total_steps=10, microbatches=2)
     dcfg = DataConfig(seq_len=48, global_batch=4, vocab=cfg.vocab,
@@ -1067,16 +1072,168 @@ def test_smoke_training_on_the_card_matches_the_cpu(cuda, arch, monkeypatch):
                       params=map_tree(lambda t: t.clone(), params))
         state = init_train_state(model.params(), tcfg)
         step = make_train_step(model, tcfg)
-        b0 = fa.BWD_LAUNCHES
+        before = {m: m.BWD_LAUNCHES for m in set(mods.values())}
         got = []
         for i in range(3):
             batch = {k: t.to(dev) for k, t in synthetic_batch(dcfg, i).items()}
             state, m = step(state, batch)
             got.append(float(m["loss"]))
         if dev.type == "cuda":
-            assert fa.BWD_LAUNCHES - b0 == 3 * 2 * cfg.n_layers
+            for mod in set(mods.values()):
+                layers = sum(mods[k] is mod for k in kinds)
+                assert mod.BWD_LAUNCHES - before[mod] == 3 * 2 * layers
         losses.append(got)
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+
+
+# Kernel 7b against lru_backward_plain: one step, shorter than its chunk of
+# 32, ragged, a width that is no multiple of its 128-channel blocks, and
+# recurrentgemma's training microbatch.  Within 1e-5 (1 + |plain|): the same
+# recurrence, its carries composed in another order.
+@pytest.mark.parametrize("final", [False, True], ids=["no-dh_fin", "dh_fin"])
+@pytest.mark.parametrize("b, s, d", [(1, 1, 1), (2, 31, 64), (2, 37, 100),
+                                     (1, 300, 2560), (2, 3072, 2560)])
+def test_lru_backward_kernel_matches_plain(cuda, b, s, d, final):
+    ls = _kernel("lru_scan")
+    g = torch.Generator(device=cuda).manual_seed(s * d + final)
+    a = 0.5 + 0.499 * torch.rand((b, s, d), generator=g, device=cuda)
+    x, dh = (torch.randn((b, s, d), generator=g, device=cuda)
+             for _ in range(2))
+    dh_fin = torch.randn((b, d), generator=g, device=cuda) if final else None
+    h, _ = ls.lru_scan_chunked(a, x)
+    before = ls.BWD_LAUNCHES
+    da, db = ls.lru_scan_backward(a, h, dh, dh_fin)
+    torch.cuda.synchronize()
+    assert ls.BWD_LAUNCHES == before + 1
+    da_p, db_p = ls.lru_backward_plain(a, h, dh, dh_fin)
+    torch.testing.assert_close(da, da_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(db, db_p, rtol=1e-5, atol=1e-5)
+    again = ls.lru_scan_backward(a, h, dh, dh_fin)
+    assert torch.equal(again[0], da) and torch.equal(again[1], db)
+    # Strided operands: a column slice of a wider tensor, every second step.
+    wide = torch.zeros((b, s, 2 * d), device=cuda)
+    wide[..., d:] = a
+    long = torch.zeros((b, 2 * s, d), device=cuda)
+    long[:, ::2] = dh
+    dv = ls.lru_scan_backward(wide[..., d:], h, long[:, ::2], dh_fin)
+    assert torch.equal(dv[0], da) and torch.equal(dv[1], db)
+
+
+def _ssd_operands(cuda, b, h, s, p, n, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x, dy = (torch.randn((b, h, s, p), generator=g, device=cuda)
+             for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn((b, h, s), generator=g,
+                                                  device=cuda))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=g, device=cuda))
+    Bm, Cm = (torch.randn((b, s, n), generator=g, device=cuda) / n ** 0.5
+              for _ in range(2))
+    dS = torch.randn((b, h, n, p), generator=g, device=cuda)
+    return x, dt, A, Bm, Cm, dy, dS
+
+
+def _ssd_bwd_close(got, want):
+    """|kernel - plain| <= 1e-4 |plain| + 1e-4 max(1, max |plain|) for each
+    gradient: 3xTF32 products and fp32 sums in other orders, over K up to
+    the sequence for dA, dB and dC."""
+    for a, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4 * scale)
+
+
+# Kernel 6b against ssd_backward_plain at its chunk of 64: one step, shorter
+# than a chunk, one chunk, ragged, every built (N, P), and mamba2-130m's
+# training microbatch.
+@pytest.mark.parametrize("final", [False, True], ids=["no-dS", "dS"])
+@pytest.mark.parametrize("b, h, s, p, n", [(1, 1, 1, 16, 16),
+                                           (2, 3, 37, 16, 16),
+                                           (1, 2, 64, 32, 32),
+                                           (2, 2, 100, 64, 64),
+                                           (1, 2, 129, 64, 128),
+                                           (16, 24, 2048, 64, 128)])
+def test_ssd_backward_kernel_matches_plain(cuda, b, h, s, p, n, final):
+    ss = _kernel("ssd_scan")
+    x, dt, A, Bm, Cm, dy, dS = _ssd_operands(cuda, b, h, s, p, n, s * n)
+    dS = dS if final else None
+    _, _, states = ss._forward(x, dt, A, Bm, Cm, 128)
+    before = ss.BWD_LAUNCHES
+    got = ss.ssd_scan_backward(x, dt, A, Bm, Cm, dy, dS, states=states)
+    torch.cuda.synchronize()
+    assert ss.BWD_LAUNCHES == before + 1
+    want = ss.ssd_backward_plain(x, dt, A, Bm, Cm, dy, dS,
+                                 chunk=ss.KERNEL_CHUNK)
+    _ssd_bwd_close(got, want)
+    again = ss.ssd_scan_backward(x, dt, A, Bm, Cm, dy, dS, states=states)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+def test_ssd_backward_kernel_reads_the_models_strided_views(cuda):
+    """x, B and C as column slices of one projection (rows 3 floats past a
+    multiple of 4: 4-byte copies), dt a transposed view, dy a transposed
+    view as autograd hands it in."""
+    ss = _kernel("ssd_scan")
+    b, h, s, p, n = 2, 3, 70, 64, 128
+    g = torch.Generator(device=cuda).manual_seed(6)
+    proj = torch.randn((b, s, h * p + 2 * n + 3), generator=g, device=cuda)
+    x = proj[..., 1:1 + h * p].reshape(b, s, h, p).transpose(1, 2)
+    Bm = proj[..., 1 + h * p:1 + h * p + n] / n ** 0.5
+    Cm = proj[..., 1 + h * p + n:1 + h * p + 2 * n] / n ** 0.5
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=g,
+                                                  device=cuda)).transpose(1, 2)
+    A = -torch.exp(0.5 * torch.randn((h,), generator=g, device=cuda))
+    dy = torch.randn((b, s, h, p), generator=g, device=cuda).transpose(1, 2)
+    _, _, states = ss._forward(x, dt, A, Bm, Cm, 128)
+    got = ss.ssd_scan_backward(x, dt, A, Bm, Cm, dy, states=states)
+    want = ss.ssd_backward_plain(x, dt, A, Bm, Cm, dy, chunk=ss.KERNEL_CHUNK)
+    _ssd_bwd_close(got, want)
+    dense = ss.ssd_scan_backward(*(t.contiguous() for t in (x, dt, A, Bm, Cm,
+                                                           dy)),
+                                 states=states)
+    assert all(torch.equal(u, v) for u, v in zip(got, dense))
+
+
+def test_scans_under_autograd_launch_their_backward_kernels(cuda):
+    """``ssd_scan_chunked`` and ``lru_scan_chunked`` on operands that require
+    grad: kernels 6 and 6b, 7 and 7b, one launch each; the gradients equal
+    the backward wrappers' on the same operands."""
+    ss, ls = _kernel("ssd_scan"), _kernel("lru_scan")
+    x, dt, A, Bm, Cm, dy, _ = _ssd_operands(cuda, 2, 3, 100, 64, 128, 8)
+    ops = [t.clone().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    f0, b0 = ss.LAUNCHES, ss.BWD_LAUNCHES
+    y, _ = ss.ssd_scan_chunked(*ops)
+    got = torch.autograd.grad(y, ops, dy)
+    assert (ss.LAUNCHES - f0, ss.BWD_LAUNCHES - b0) == (1, 1)
+    with torch.no_grad():
+        _, _, states = ss._forward(x, dt, A, Bm, Cm, 128)
+        want = ss.ssd_scan_backward(x, dt, A, Bm, Cm, dy, states=states)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a = (0.5 + 0.499 * torch.rand((2, 77, 256), generator=g, device=cuda))
+    xb, dh = (torch.randn((2, 77, 256), generator=g, device=cuda)
+              for _ in range(2))
+    a, xb = a.requires_grad_(True), xb.requires_grad_(True)
+    f0, b0 = ls.LAUNCHES, ls.BWD_LAUNCHES
+    h, _ = ls.lru_scan_chunked(a, xb)
+    got = torch.autograd.grad(h, (a, xb), dh)
+    assert (ls.LAUNCHES - f0, ls.BWD_LAUNCHES - b0) == (1, 1)
+    want = ls.lru_scan_backward(a.detach(), h.detach(), dh)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    ss, ls = _kernel("ssd_scan"), _kernel("lru_scan")
+    x, dt, A, Bm, Cm, dy, _ = _ssd_operands(cuda, 1, 2, 70, 64, 128, 3)
+    with pytest.raises(ValueError, match="states"):
+        ss.ssd_scan_backward(x, dt, A, Bm, Cm, dy)
+    _, _, states = ss._forward(x, dt, A, Bm, Cm, 128)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        ss.ssd_scan_backward(x, dt, A, Bm, Cm, dy.double(), states=states)
+    a = torch.rand((1, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        ls.lru_scan_backward(a, a, a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ls.lru_scan_backward(a.transpose(1, 2), a.transpose(1, 2),
+                             a.transpose(1, 2))
 
 
 def test_bf16_backward_rejects_misaligned_tensors(cuda):

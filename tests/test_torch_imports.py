@@ -1,10 +1,11 @@
 """Guards of the PyTorch port's package boundary.
 
-``repro_torch``, ``chip_smoke.py``, ``scripts/flash_d256_tiles.py`` and
-``scripts/radix_ssd_tiles.py`` import ``torch`` and numpy, never
-``jax`` and nothing of the JAX package ``repro`` (whose name ``repro_torch``
-shares a prefix, so the checks compare whole dotted names).  Its entry points
-run on CUDA unless the caller passes ``device="cpu"``.
+``repro_torch``, ``chip_smoke.py`` and the port's scripts of kernel tiles
+(``scripts/flash_d256_tiles.py``, ``radix_ssd_tiles.py``,
+``flash_bwd_tiles.py``, ``train_scan_tiles.py``) import ``torch`` and
+numpy, never ``jax`` and nothing of the JAX package ``repro`` (whose name
+``repro_torch`` shares a prefix, so the checks compare whole dotted names).
+Its entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ import torch
 
 _ROOT = Path(__file__).resolve().parent.parent
 _PORT_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    _ROOT / "chip_smoke.py", _ROOT / "scripts" / "flash_d256_tiles.py",
-    _ROOT / "scripts" / "radix_ssd_tiles.py"]
+    _ROOT / "chip_smoke.py"] + [
+    _ROOT / "scripts" / f"{name}_tiles.py"
+    for name in ("flash_d256", "radix_ssd", "flash_bwd", "train_scan")]
 
 
 def _forbidden(module: str) -> bool:

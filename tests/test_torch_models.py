@@ -92,22 +92,26 @@ def test_model_serves_dense_and_ssm_and_raises_for_the_rest(name):
 
 
 def test_training_is_outside_the_slice():
-    """Training runs for every family whose forward uses kernel 5 alone
-    (hubert's frames included: ``tests/test_torch_train.py``); the ssm and
-    hybrid families, whose scans have no backward kernel yet, raise naming
-    ROADMAP.md queue 1 item 11."""
-    for name in ("qwen2-1.5b", "hubert-xlarge"):
+    """Training runs for every family: kernel 5 alone (dense, and hubert's
+    frames: ``tests/test_torch_train.py``), the SSD scan (ssm) and the
+    RG-LRU scan with local attention (hybrid), each a finite loss with
+    finite gradients."""
+    for name in ("qwen2-1.5b", "hubert-xlarge", "mamba2-130m",
+                 "recurrentgemma-2b"):
         cfg = configs.get_config(name).smoke()
         batch = ({"frames": torch.zeros((1, 4, cfg.d_model)),
                   "labels": torch.zeros((1, 4), dtype=torch.int64)}
                  if cfg.frontend == "frames" else
                  {"tokens": torch.zeros((1, 4), dtype=torch.int64)})
-        loss, aux = Model(cfg, device="cpu").loss(batch)
+        m = Model(cfg, device="cpu")
+        loss, aux = m.loss(batch)
         assert torch.isfinite(loss) and set(aux) == {"ce", "aux"}
-    for name in ("mamba2-130m", "recurrentgemma-2b"):
-        m = Model(configs.get_config(name).smoke(), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            m.loss({"tokens": torch.zeros((1, 4), dtype=torch.int64)})
+        if cfg.family in ("ssm", "hybrid"):
+            params = [p.requires_grad_(True) for p in m.parameters()]
+            loss, _ = m.loss(batch)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            assert all(torch.isfinite(g).all() for g in grads
+                       if g is not None)
 
 
 # --------------------------------------------------------------------------- #

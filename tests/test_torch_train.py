@@ -72,7 +72,8 @@ from repro_torch.tree import leaves, map_tree
 RTOL = 1e-5
 GRAD_TOL = 1e-5
 TRAINED = ["hubert-xlarge", "qwen2-1.5b", "paligemma-3b", "kimi-k2-1t-a32b",
-           "arctic-480b", "qwen2.5-3b", "yi-6b", "qwen3-14b"]
+           "arctic-480b", "qwen2.5-3b", "yi-6b", "qwen3-14b", "mamba2-130m",
+           "recurrentgemma-2b"]
 # bf16 gradient accumulation (module docstring): m within one bf16 ulp, v
 # within two, the parameters within 1e-4 of each leaf's largest element.
 ACCUM_BF16_TOL = {"m": 2**-8, "v": 2**-7, "params": 1e-4}
@@ -221,7 +222,8 @@ def _configs(nmb, compress, quantize):
 @pytest.mark.parametrize("arch, nmb, compress", [
     ("hubert-xlarge", 1, False), ("hubert-xlarge", 2, False),
     ("hubert-xlarge", 1, True), ("hubert-xlarge", 2, True),
-    ("qwen2-1.5b", 2, False), ("kimi-k2-1t-a32b", 1, False)])
+    ("qwen2-1.5b", 2, False), ("kimi-k2-1t-a32b", 1, False),
+    ("mamba2-130m", 1, False), ("recurrentgemma-2b", 2, False)])
 def test_three_train_steps_match_jax(arch, nmb, compress):
     """Three free-running steps of ``make_train_step`` against
     ``jax.jit(make_train_step)``: microbatches 1 and 2, ``grad_compress``
@@ -299,7 +301,8 @@ def test_train_steps_with_int8_moments_match_jax(nmb, compress):
         assert near >= 0.999 * total
 
 
-@pytest.mark.parametrize("arch", ["hubert-xlarge", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "kimi-k2-1t-a32b",
+                                  "mamba2-130m", "recurrentgemma-2b"])
 def test_layer_remat_gives_the_gradients_of_no_remat(arch):
     """``remat == "layer"`` (each layer under ``torch.utils.checkpoint``,
     its forward rerun in the backward) against ``"none"``: the same loss
@@ -318,14 +321,6 @@ def test_layer_remat_gives_the_gradients_of_no_remat(arch):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b"])
-def test_ssm_and_hybrid_training_names_roadmap_item_11(arch):
-    _, tcfg = _cfgs(arch)
-    model = Model(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        model.loss({"tokens": torch.zeros((1, 8), dtype=torch.int64)})
-
-
 def test_a_patches_batch_without_patches_raises():
     _, tcfg = _cfgs("paligemma-3b")
     model = Model(tcfg, device="cpu")
@@ -334,7 +329,7 @@ def test_a_patches_batch_without_patches_raises():
 
 
 @pytest.mark.parametrize("arch", ["hubert-xlarge", "kimi-k2-1t-a32b",
-                                  "recurrentgemma-2b"])
+                                  "recurrentgemma-2b", "mamba2-130m"])
 @pytest.mark.parametrize("quantize, compress", [(False, False), (True, True)])
 def test_train_state_round_trips_through_interop(arch, quantize, compress):
     """``train_state_from_jax`` then ``train_state_to_numpy`` gives back the
