@@ -164,8 +164,9 @@ What it does, in order; any failure raises and the exit code is non-zero:
    at ``BWD_EDGES`` in fp32 and bf16: head dims 16, 64, 80, 128 and 256,
    causal, non-causal, the prefix-LM mask, windows, GQA groups 1, 6, 7
    and 8, one query row, ragged lengths, sk_valid, q_offset, forward
-   plans that split the keys and the bf16 tensor-core passes' ragged
-   64-key and 64-row tiles (``BWD_FP32_TOL``, ``BWD_BF16_TOL``,
+   plans that split the keys, the bf16 tensor-core passes' ragged
+   64-key and 64-row tiles, and at head dim 256 their row slices (1, 2,
+   3 and 11 a key tile) (``BWD_FP32_TOL``, ``BWD_BF16_TOL``,
    ``LSE_TOL``); kernel 5b twice gives the same bits.  Kernels 6b and 7b
    (the SSD and RG-LRU scans' backward, ``csrc/ssd_scan_bwd.cu`` and
    ``csrc/lru_scan_bwd.cu``) against their plain versions at
@@ -3134,7 +3135,11 @@ def run_lm(dev: torch.device, args) -> list:
 # blocks that the forward's plan splits the keys (its merge writes lse);
 # the last three at the bf16 kernels' 64-key and 64-row tiles: ragged tiles
 # at hubert's heads, a position's group of 6 across two row tiles (258
-# rows), a prefix at qwen2's heads.  Each case runs in fp32 and in bf16.
+# rows), a prefix at qwen2's heads.  The four after them meet bf16's
+# head-dim-256 passes: recurrentgemma's 10 heads over one KV head under a
+# window of 100 (300 ragged rows, the dK/dV pass's rows in 11 slices),
+# sk_valid and q_offset (3 slices), non-causal (2 slices), and a shape too
+# small to slice.  Each case runs in fp32 and in bf16.
 BWD_EDGES = [
     (2, 1, 1, 2, 2, 16, dict(causal=True)),
     (2, 37, 37, 6, 1, 16, dict(causal=True)),
@@ -3152,6 +3157,10 @@ BWD_EDGES = [
     (1, 1023, 1023, 16, 16, 80, dict(causal=False)),
     (1, 43, 43, 6, 1, 128, dict(causal=True)),
     (1, 200, 200, 12, 2, 128, dict(causal=True, prefix=37)),
+    (1, 300, 300, 10, 1, 256, dict(causal=True, window=100)),
+    (2, 100, 300, 8, 1, 256, dict(causal=True, sk_valid=260, q_offset=170)),
+    (1, 150, 200, 4, 1, 256, dict(causal=False)),
+    (1, 40, 40, 2, 1, 256, dict(causal=True)),
 ]
 # Kernel 5b against attend_backward_plain from the same inputs: both sum in
 # fp32 in other orders, so |kernel - plain| <= rtol |plain| + atol
@@ -3528,7 +3537,8 @@ def scan_train_rows(gen, ss, ls, mamba: dict, rg: dict, reps: int) -> list:
 STEP_PARTS = (("kernel 5", ("flash_mma_kernel", "flash_kernel",
                             "combine_kernel")),
               ("kernel 5b", ("dkdv_mma_kernel", "dq_mma_kernel", "dkdv_kernel",
-                             "dq_kernel", "row_dot_kernel")),
+                             "dq_kernel", "row_dot_kernel", "dkdv_256_kernel",
+                             "dq_256_kernel", "sum_slices_kernel")),
               ("kernel 6b", ("ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_dA")),
               ("kernel 6", ("ssd_gram", "ssd_states", "ssd_output")),
               ("kernel 7b", ("lru_bwd_local", "lru_bwd_carry", "lru_bwd_fix")),

@@ -11,16 +11,22 @@ CUDA toolkit:
 Compiles ``src/repro_torch/csrc/flash_attention_bwd.cu`` as the port builds
 it and prints what ``ptxas -v`` reports (registers, spill stores and loads)
 for every kernel: the tensor-core passes ``dkdv_mma_kernel<D>`` and
-``dq_mma_kernel<D>`` (bf16), the FMA passes ``dkdv_kernel`` and
-``dq_kernel`` (fp32, and bf16 at head dim 256) and ``row_dot_kernel``.
-Then, at hubert-xlarge's and qwen2-1.5b's training shapes, holds the bf16
-backward to ``attend_backward_plain`` within ``chip_smoke.py``'s
-``BWD_BF16_TOL``, times it in turns beside the plain version,
+``dq_mma_kernel<D>`` (bf16 up to head dim 128), ``dkdv_256_kernel``,
+``dq_256_kernel`` and ``sum_slices_kernel`` (bf16 at head dim 256), the
+FMA passes ``dkdv_kernel`` and ``dq_kernel`` (fp32) and
+``row_dot_kernel``.  Then, at hubert-xlarge's, qwen2-1.5b's and
+recurrentgemma-2b's training shapes, holds the bf16 backward to
+``attend_backward_plain`` within ``chip_smoke.py``'s ``BWD_BF16_TOL``,
+times it in turns beside the plain version,
 ``scaled_dot_product_attention``'s forward plus backward and its backward
 alone (the library calls; the port never makes them), and splits the
-kernel's device time by pass (``torch.profiler``).  The edge cases are
-``chip_smoke.py --train-only``'s.  The object goes to ``build/`` in the
-checkout.  Exit 1 if a check fails.
+kernel's device time by pass (``torch.profiler``).
+
+At recurrentgemma's call it also checks and times 1-4 row slices of the
+head-dim-256 dK/dV pass in turns, pass by pass (the wrapper's plan,
+``_bwd_slices``, gives 2).  The edge cases are ``chip_smoke.py
+--train-only``'s.
+The objects go to ``build/`` in the checkout.  Exit 1 if a check fails.
 """
 
 from __future__ import annotations
@@ -34,18 +40,21 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-# (name, b, s, hq, hkv, d, causal): the training calls of hubert-xlarge and
-# qwen2-1.5b (chip_smoke.py rows 5b and 5bq).
-SHAPES = [("hubert-xlarge", 8, 1024, 16, 16, 80, False),
-          ("qwen2-1.5b", 8, 1024, 12, 2, 128, True)]
+# (name, b, s, hq, hkv, d, mask keywords): the training calls of
+# hubert-xlarge, qwen2-1.5b and recurrentgemma-2b's local attention
+# (chip_smoke.py rows 5b, 5bq and 5br).
+SHAPES = [("hubert-xlarge", 8, 1024, 16, 16, 80, dict(causal=False)),
+          ("qwen2-1.5b", 8, 1024, 12, 2, 128, dict(causal=True)),
+          ("recurrentgemma-2b", 2, 3072, 10, 1, 256,
+           dict(causal=True, window=2048))]
 BWD_BF16_TOL = (2**-7, 1e-4)
 
 
 def ptxas_lines(build, obj: Path) -> list:
     """``ptxas -v``'s registers and spills for each kernel of the source."""
-    out = subprocess.run([build._nvcc(), *build.FLAGS, "-Xptxas", "-v", "-c",
-                          str(build.CSRC / "flash_attention_bwd.cu"), "-o",
-                          str(obj)], capture_output=True, text=True,
+    out = subprocess.run([build._nvcc(), *build.FLAGS, "-Xptxas",
+                          "-v", "-c", str(build.CSRC / "flash_attention_bwd.cu"),
+                          "-o", str(obj)], capture_output=True, text=True,
                          check=True)
     lines, name = [], None
     for line in (out.stdout + out.stderr).splitlines():
@@ -56,12 +65,16 @@ def ptxas_lines(build, obj: Path) -> list:
         if not name or ("registers" not in line and "spill" not in line):
             continue
         mma = re.search(r"(dkdv|dq)_mma_kernelILi(\d+)E", name)
-        fma = re.search(r"(dkdv|dq)_kernelI(f|13__nv_bfloat16)Li(\d+)E", name)
+        fma = re.search(r"(dkdv|dq)_kernelILi(\d+)E", name)
+        d256 = re.search(r"(dkdv|dq)_256_kernel", name)
         if mma:
             what = f"{mma.group(1)}_mma_kernel bf16 D {mma.group(2)}"
         elif fma:
-            kind = "fp32" if fma.group(2) == "f" else "bf16"
-            what = f"{fma.group(1)}_kernel {kind} D {fma.group(3)}"
+            what = f"{fma.group(1)}_kernel fp32 D {fma.group(2)}"
+        elif d256:
+            what = f"{d256.group(1)}_256_kernel bf16"
+        elif "sum_slices" in name:
+            what = "sum_slices_kernel"
         elif "row_dot" in name:
             what = "row_dot_kernel " + ("fp32" if "IfE" in name else "bf16")
         else:
@@ -116,6 +129,48 @@ def by_pass(fn, calls: int) -> dict:
     return out
 
 
+def compare_slices(fa, gen) -> bool:
+    """1-4 row slices of the head-dim-256 dK/dV pass at recurrentgemma-2b's
+    call: each held to the plain version and run twice for equal bits, then
+    timed in turns (1, 2, 3, 4, 4, 3, 2, 1) and split by pass."""
+    _, b, s, hq, hkv, d, kw = SHAPES[-1]
+    q, dout = (torch.randn((b, s, hq, d), generator=gen, device="cuda")
+               .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    out, lse = fa.attend_with_lse(q, k, v, **kw)
+    want = fa.attend_backward_plain(q, k, v, out, dout, **kw)
+    run = lambda: fa.attend_backward(q, k, v, out, dout, lse, **kw)
+    ok = True
+    plan = fa._bwd_slices
+    try:
+        counts = (1, 2, 3, 4)
+        times = {n: [] for n in counts}
+        for n in counts + counts[::-1]:
+            fa._bwd_slices = lambda *args, n=n: n
+            if len(times[n]) == 0:
+                got = run()
+                if not all(torch.equal(x, y) for x, y in zip(got, run())):
+                    ok = False
+                    print(f"{n} slices: FAILED, two runs differ")
+                for g, w in zip(got, want):
+                    close(g, w)
+            times[n].append(cuda_ms(run, 5))
+        for n in counts:
+            fa._bwd_slices = lambda *args, n=n: n
+            passes = by_pass(run, 3)
+            print(f"{n} row slices (plan {plan(fa._sms(q.device), q.dtype, b, s * hq // hkv, hkv, d, s)}): "
+                  f"ms a call {', '.join(f'{t:.4f}' for t in times[n])}; dkdv_256_kernel "
+                  f"{passes.get('dkdv_256_kernel', 0.0):.4f}, sum_slices_kernel "
+                  f"{passes.get('sum_slices_kernel', 0.0):.4f}")
+    except AssertionError as e:
+        ok = False
+        print(f"row slices: FAILED {e}")
+    finally:
+        fa._bwd_slices = plan
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("flash_bwd_tiles: CUDA is not available", file=sys.stderr)
@@ -135,13 +190,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    ok = True
-    for name, b, s, hq, hkv, d, causal in SHAPES:
+    ok = compare_slices(fa, gen)
+    for name, b, s, hq, hkv, d, kw in SHAPES:
         q, dout = (torch.randn((b, s, hq, d), generator=gen, device=dev)
                    .bfloat16() for _ in range(2))
         k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev)
                 .bfloat16() for _ in range(2))
-        kw = dict(causal=causal)
         out, lse = fa.attend_with_lse(q, k, v, **kw)
         got = fa.attend_backward(q, k, v, out, dout, lse, **kw)
         want = fa.attend_backward_plain(q, k, v, out, dout, **kw)
@@ -156,8 +210,14 @@ def main() -> int:
         kh, vh = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
                   .contiguous().requires_grad_(True) for t in (k, v))
         doh = dout.transpose(1, 2).contiguous()
+        if kw.get("window"):
+            i = torch.arange(s, device=dev)[:, None]
+            j = torch.arange(s, device=dev)[None, :]
+            sdpa_kw = dict(attn_mask=(j <= i) & (j > i - kw["window"]))
+        else:
+            sdpa_kw = dict(is_causal=kw["causal"])
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=causal)
+            qh, kh, vh, **sdpa_kw)
         o_lib = sdpa()
         times = {"kernel": [], "plain": [], "sdpa": [], "sdpa_bwd": []}
         runs = {
@@ -172,14 +232,16 @@ def main() -> int:
                      "sdpa", "plain", "kernel"):
             times[turn].append(cuda_ms(runs[turn],
                                        2 if turn == "plain" else 10))
+        masks = ", ".join(f"{k} {v}" for k, v in kw.items())
         print(f"{name}: q [{b}, {s}, {hq}, {d}] over {hkv} KV heads, "
-              f"{'causal' if causal else 'non-causal'}, bf16: max |kernel - "
-              f"plain| / max(1, max |plain|) {err:.3g}; ms a call "
+              f"{masks}, bf16: max |kernel - plain| / max(1, max |plain|) "
+              f"{err:.3g}; ms a call "
               + "; ".join(f"{k} {', '.join(f'{t:.4f}' for t in v)}"
                           for k, v in times.items()))
         print(f"{name}: device ms a call by pass (torch.profiler, 5 calls): "
               + ", ".join(f"{k} {v:.4f}" for k, v in
                           by_pass(runs["kernel"], 5).items()))
+        del q, k, v, out, dout, lse, qh, kh, vh, doh, o_lib
     print(f"every check passed: {ok}")
     return 0 if ok else 1
 

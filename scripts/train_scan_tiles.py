@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Registers and device time by pass of the training path's scan backwards
-(kernels 6b and 7b) and of kernel 5b at recurrentgemma-2b's attention.
+(kernels 6b and 7b).
 
 Run from the root of a checkout on a machine with an NVIDIA H100 and the
 CUDA toolkit:
@@ -9,19 +9,18 @@ CUDA toolkit:
 
 Compiles ``src/repro_torch/csrc/ssd_scan_bwd.cu`` and ``lru_scan_bwd.cu``
 as the port builds them and prints what ``ptxas -v`` reports (registers,
-spill stores and loads) for every kernel they instantiate (kernel 5b's:
-``scripts/flash_bwd_tiles.py``).  Then each backward's device ms a call by
-launch (``torch.profiler``), at the shapes of a training step's calls:
+spill stores and loads) for every kernel they instantiate.  Then each
+backward's device ms a call by launch (``torch.profiler``), at the shapes of
+a training step's calls:
 
 * kernel 6b at mamba2-130m's microbatch (x, dy ``[16, 24, 2048, 64]``, B
   and C ``[16, 2048, 128]``);
-* kernel 7b at recurrentgemma-2b's (a, h, dh ``[2, 3072, 2560]``);
-* kernel 5b at recurrentgemma-2b's local attention (q ``[2, 3072, 10,
-  256]`` bf16 over one KV head, causal, window 2048).
+* kernel 7b at recurrentgemma-2b's (a, h, dh ``[2, 3072, 2560]``).
 
-``chip_smoke.py`` holds each of them against its plain version at these
-shapes and times the whole call (rows ``ssd_scan_bwd``, ``lru_scan_bwd``
-and ``flash_attention_bwd_window``).  The objects go to
+Kernel 5b, recurrentgemma-2b's local attention among its shapes, is
+``scripts/flash_bwd_tiles.py``'s.  ``chip_smoke.py`` holds each of them
+against its plain version at these shapes and times the whole call (rows
+``ssd_scan_bwd`` and ``lru_scan_bwd``).  The objects go to
 ``build/train_scan_tiles`` in the checkout.
 """
 
@@ -40,8 +39,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 from radix_ssd_tiles import breakdown, ptxas_lines  # noqa: E402
 
 KERNELS = ("ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_dA", "lru_bwd_local",
-           "lru_bwd_carry", "lru_bwd_fix", "dkdv_mma_kernel", "dq_mma_kernel",
-           "dkdv_kernel", "dq_kernel", "row_dot_kernel")
+           "lru_bwd_carry", "lru_bwd_fix")
 
 
 def passes(what: str, fn) -> None:
@@ -57,8 +55,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build as build
-    fa, ss, ls = (importlib.import_module(f"repro_torch.kernels.{m}.{m}")
-                  for m in ("flash_attention", "ssd_scan", "lru_scan"))
+    ss, ls = (importlib.import_module(f"repro_torch.kernels.{m}.{m}")
+              for m in ("ssd_scan", "lru_scan"))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -92,18 +90,6 @@ def main() -> int:
     hs, _ = ls.lru_scan_chunked(a, xb)
     passes(f"7b a, h, dh [{b}, {s}, {d}]",
            lambda: ls.lru_scan_backward(a, hs, dh))
-    del a, xb, dh, hs
-
-    hq, hkv, dh_ = 10, 1, 256
-    kw = dict(causal=True, window=2048)
-    q, dout = (torch.randn((b, s, hq, dh_), generator=gen, device=dev)
-               .bfloat16() for _ in range(2))
-    k, v = (torch.randn((b, s, hkv, dh_), generator=gen, device=dev)
-            .bfloat16() for _ in range(2))
-    out, lse = fa.attend_with_lse(q, k, v, **kw)
-    passes(f"5b q [{b}, {s}, {hq}, {dh_}] bf16 over k, v [{b}, {s}, {hkv}, "
-           f"{dh_}], causal, window 2048",
-           lambda: fa.attend_backward(q, k, v, out, dout, lse, **kw))
     return 0
 
 

@@ -34,50 +34,72 @@
 // written in the inputs' type.  S and dP are built in both passes: seven
 // products against the function's five.
 //
-// bf16, head dims 16-128: dkdv_mma_kernel and dq_mma_kernel, on the tensor
-// cores (the first port's fp32 FMA ran at 16.5 TFLOP/s, 1.2 % of this bound).
-// Every product is mma.sync m16n8k16 (bf16 in, fp32 sums) with operands read
-// by ldmatrix from bf16 shared rows padded by 16 bytes (the 8 row addresses
+// bf16: every product on the tensor cores (the first port's fp32 FMA ran
+// at 16.5 TFLOP/s at head dim 80 and 2.6 at 256, 1.2 % and 0.3 % of the
+// bound), mma.sync m16n8k16 (bf16 in, fp32 sums) with operands read by
+// ldmatrix from bf16 shared rows padded by 16 bytes (the 8 row addresses
 // of an ldmatrix fall on distinct banks), so nothing is widened or
-// transposed on its way in.  Each of 4 warps owns 16 keys of a 64-key tile
-// (dK/dV) or 16 rows of a 64-row tile (dQ); K and V (Q and dO) are loaded
-// once, and 64-row Q and dO tiles with their lse and D (64-key K and V tiles)
-// stream through a 2-stage ring of cp.async copies, tile j + 1 in flight
-// while tile j is computed; rows and keys past the range are zero-filled
-// (src-size 0), so nothing masked holds NaN.  The dK/dV pass computes the
-// transposed scores, S^T = K Q^T and dP^T = V dO^T, with K and V as the A
-// operand and Q and dO as the column-major B operand (their rows, read as
-// the forward reads K), so that P^T and dS^T = P^T (dP^T - D) land in the
-// m16n8 accumulator layout, which is the m16n8k16 A layout: they go straight
-// into A fragments for dV += P^T dO and dK += dS^T Q, with dO and Q read by
-// ldmatrix.trans as the forward reads V.  The dQ pass computes S = Q K^T and
-// dP = dO V^T and adds dS K, K read by ldmatrix.trans.  P and dS enter their
-// products as bf16 hi + lo (two products into one fp32 sum, exact to about
-// 2^-16): rounded once, either alone takes the gradients out of the card's
-// bf16 tolerance (tests/test_torch_flash_attention.py models both), so the
-// three gradient products cost two units each: ten product-units in all,
-// against the bound's five.  P = 2^(S scale log2 e - lse log2 e) in fp32,
-// scaled after the product.  Only tiles that straddle the causal diagonal,
-// the prefix, the window's edge, sk_valid or the rows' end compare positions;
-// tiles no row sees are skipped.  The dK/dV pass launches its key tiles in
-// order (under the causal mask the first see the most rows), the dQ pass its
-// row tiles last first (they see the most keys).  Head dim 128 takes the
-// dK/dV pass's rows 32 at a time (64 + 64 fp32 of dK and dV a thread beside
-// 32 of S^T and dP^T) and reads the dQ pass's Q and dO fragments from shared
-// memory at each k-step (64 fp32 of dQ beside 64 of S and dP); up to head
-// dim 80 a sub-step is the whole 64-row tile and the dQ pass holds Q's and
-// dO's fragments in registers.  About 104 KB of shared memory at head dim
-// 128: two blocks an SM.  wgmma, TMA and warp specialisation are later work.
+// transposed on its way in.  The dK/dV pass computes the transposed scores,
+// S^T = K Q^T and dP^T = V dO^T, with K and V as the A operand and Q and
+// dO as the column-major B operand (their rows, read as the forward reads
+// K), so that P^T and dS^T = P^T (dP^T - D) land in the m16n8 accumulator
+// layout, which is the m16n8k16 A layout: they go straight into A
+// fragments for dV += P^T dO and dK += dS^T Q, with dO and Q read by
+// ldmatrix.trans as the forward reads V.  The dQ pass computes S = Q K^T
+// and dP = dO V^T and adds dS K, K read by ldmatrix.trans.  The streamed
+// side (Q and dO with their lse and D; K and V) arrives through a 2-stage
+// ring of cp.async copies, tile j + 1 in flight while tile j is computed;
+// rows and keys past the range are zero-filled (src-size 0), so nothing
+// masked holds NaN.  P and dS enter their products as bf16 hi + lo (two
+// products into one fp32 sum, exact to about 2^-16): rounded once, either
+// alone takes the gradients out of the card's bf16 tolerance
+// (tests/test_torch_flash_attention.py models both), so the three gradient
+// products cost two units each: ten product-units in all, against the
+// bound's five.  P = 2^(S scale log2 e - lse log2 e) in fp32, scaled after
+// the product.  Only tiles that straddle the causal diagonal, the prefix,
+// the window's edge, sk_valid or the rows' end compare positions; tiles no
+// row sees are skipped.  wgmma, TMA and warp specialisation are later work.
 //
-// fp32, and bf16 at head dim 256: dkdv_kernel and dq_kernel, the first
-// port's shared-memory FMA kernels (67 TFLOP/s at best, fp32 sums; bf16 read
-// as fp32).  They serve the fp32 checks and smoke configs; at head dim 256 a
-// warp's dK and dV of 16 keys would be 256 fp32 a thread, past the register
-// file, and no model trains there in bf16 on the card (ROADMAP queue 2 item
-// 8).  Operands sit in shared memory as fp32 in the layout each product reads
-// along: Q^T, dO^T, K^T and V^T for the score products (float4 loads along
-// rows and keys), Q, dO and K rows for the gradient products.  Rows are
-// padded by 4 floats.
+// Head dims 16-128: dkdv_mma_kernel and dq_mma_kernel.  Each of 4 warps
+// owns 16 keys of a 64-key tile (dK/dV) or 16 rows of a 64-row tile (dQ)
+// over 64-row (64-key) ring tiles.  The dK/dV pass launches its key tiles
+// in order (under the causal mask the first see the most rows), the dQ
+// pass its row tiles last first (they see the most keys).  Head dim 128
+// takes the dK/dV pass's rows 32 at a time (64 + 64 fp32 of dK and dV a
+// thread beside 32 of S^T and dP^T) and reads the dQ pass's Q and dO
+// fragments from shared memory at each k-step (64 fp32 of dQ beside 64 of
+// S and dP); up to head dim 80 a sub-step is the whole 64-row tile and the
+// dQ pass holds Q's and dO's fragments in registers.  About 104 KB of
+// shared memory at head dim 128: two blocks an SM.
+//
+// Head dim 256 (recurrentgemma's and paligemma's): dkdv_256_kernel,
+// sum_slices_kernel and dq_256_kernel.  A warp's dK and dV of 16 keys over
+// 256 columns would be 256 fp32 a thread, past the register file, so a
+// dK/dV block has 8 warps on 64 keys, a pair on each 16: each warp of a
+// pair keeps 128 columns of dK and dV (128 fp32 a thread, as at 128),
+// computes S^T and dP^T over its 128 columns of the depth, and the pair adds
+// the two halves through shared memory (a + b in both warps, the same bits;
+// two buffers, one named barrier for the pair a sub-step), so no product is
+// repeated.  Q and dO stream in 32-row ring tiles (about 197 KB of shared
+// memory, one block an SM).  The key tiles alone are too few for the card
+// (recurrentgemma's call: 96 for 132 SMs, the first seeing up to 21,110
+// rows and the last a few hundred), so each tile's rows are cut into row
+// slices, one block each (the wrapper plans them from the SM count,
+// flash_attention._bwd_slices); every batch's and head's first tiles start
+// first; a slice writes fp32 partial dK and dV to scratch, and
+// sum_slices_kernel adds them in slice order.  The dQ pass gives each of 8
+// warps 16 rows by 256 columns of dQ (128 fp32 a thread), reads Q's and
+// dO's fragments from shared memory at each k-step, and streams K and V in
+// 32-key tiles, as the forward's head-dim-256 prefill does (about 198 KB,
+// one block an SM).  Both were measured on the card (PERF.md) against pairs
+// that repeat S^T and dP^T, and against dQ blocks of 4 and 2 warps.
+//
+// fp32: dkdv_kernel and dq_kernel, the first port's shared-memory FMA
+// kernels (67 TFLOP/s at best, fp32 sums).  They serve the fp32 checks and
+// smoke configs.  Operands sit in shared memory as fp32 in the layout each
+// product reads along: Q^T, dO^T, K^T and V^T for the score products
+// (float4 loads along rows and keys), Q, dO and K rows for the gradient
+// products.  Rows are padded by 4 floats.
 
 #include <math.h>
 
@@ -152,6 +174,10 @@ struct Args {
   int64_t batch, sq, sk, hq, hkv, group, sk_valid, q_offset, window, prefix;
   int causal, d;
   float scale;
+  // bf16 at head dim 256: the dK/dV pass's row slices, and (slices > 1) its
+  // fp32 partial sums [2 (dK, dV)][slices][batch][sk][hkv][256].
+  int slices;
+  float* part;
 };
 
 // D_i = sum_d dO_id O_id, one warp a row (b, h, i), into dsum [batch, hq, sq].
@@ -171,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) row_dot_kernel(const Args a) {
 }
 
 // dK and dV of a tile of BK keys, over the query rows in tiles of BQ.
-template <typename T, int D, int BK, int BQ>
+template <int D, int BK, int BQ>
 struct KvTile {
   static constexpr int KP = BK + 4, QP = BQ + 4, DP = D + 4;
   static constexpr int KR = BK / 16;  // keys a thread of the dK/dV tile
@@ -180,9 +206,9 @@ struct KvTile {
   static_assert(BK % 16 == 0, "key tile");
 };
 
-template <typename T, int D, int BK, int BQ>
+template <int D, int BK, int BQ>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
-  using L = KvTile<T, D, BK, BQ>;
+  using L = KvTile<D, BK, BQ>;
   using C = Cols<D>;
   using S = Scores<BK, BQ>;
   constexpr int KP = L::KP, QP = L::QP, DP = L::DP, KR = L::KR;
@@ -205,16 +231,16 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
   const int64_t b = blockIdx.z, hk = blockIdx.y, k0 = static_cast<int64_t>(blockIdx.x) * BK;
   const int64_t group = a.group, rows = a.sq * group;
   const int64_t kv_lim = a.sk_valid < a.sk ? a.sk_valid : a.sk;
-  const T* q = static_cast<const T*>(a.q);
-  const T* g = static_cast<const T*>(a.dout);
-  const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const float* q = static_cast<const float*>(a.q);
+  const float* g = static_cast<const float*>(a.dout);
+  const float* kb = static_cast<const float*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vs.b + hk * a.vs.h;
 
   for (int e = tid; e < BK * D; e += kThreads) {
     const int j = e / D, c = e % D;
     const int64_t kp = k0 + j;
-    kt[c * KP + j] = kp < a.sk ? to_f(kb[kp * a.ks.s + c]) : 0.f;
-    vt[c * KP + j] = kp < a.sk ? to_f(vb[kp * a.vs.s + c]) : 0.f;
+    kt[c * KP + j] = kp < a.sk ? kb[kp * a.ks.s + c] : 0.f;
+    vt[c * KP + j] = kp < a.sk ? vb[kp * a.vs.s + c] : 0.f;
   }
 
   float dk[KR][NCG * VEC], dv[KR][NCG * VEC];
@@ -246,8 +272,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
       float x = 0.f, y = 0.f;
       if (r < r_hi) {
         const int64_t i = r / group, h = hk * group + r % group;
-        x = to_f(q[b * a.qs.b + i * a.qs.s + h * a.qs.h + c]);
-        y = to_f(g[b * a.dos.b + i * a.dos.s + h * a.dos.h + c]);
+        x = q[b * a.qs.b + i * a.qs.s + h * a.qs.h + c];
+        y = g[b * a.dos.b + i * a.dos.s + h * a.dos.h + c];
       }
       qt[c * QP + rr] = x;
       qr[rr * DP + c] = x;
@@ -309,8 +335,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
     }
   }
 
-  T* dkb = static_cast<T*>(a.dk) + b * a.dks.b + hk * a.dks.h;
-  T* dvb = static_cast<T*>(a.dv) + b * a.dvs.b + hk * a.dvs.h;
+  float* dkb = static_cast<float*>(a.dk) + b * a.dks.b + hk * a.dks.h;
+  float* dvb = static_cast<float*>(a.dv) + b * a.dvs.b + hk * a.dvs.h;
 #pragma unroll
   for (int kk = 0; kk < KR; ++kk) {
     const int64_t kp = k0 + ky * KR + kk;
@@ -320,14 +346,14 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         const int c = cg * 8 * VEC + dx * VEC + e;
-        dkb[kp * a.dks.s + c] = from_f<T>(dk[kk][cg * VEC + e] * a.scale);
-        dvb[kp * a.dvs.s + c] = from_f<T>(dv[kk][cg * VEC + e]);
+        dkb[kp * a.dks.s + c] = dk[kk][cg * VEC + e] * a.scale;
+        dvb[kp * a.dvs.s + c] = dv[kk][cg * VEC + e];
       }
   }
 }
 
 // dQ of a tile of BQ query rows, over the key tiles of BK its rows may see.
-template <typename T, int D, int BQ, int BK>
+template <int D, int BQ, int BK>
 struct QTile {
   static constexpr int KP = BK + 4, QP = BQ + 4, DP = D + 4;
   static constexpr int RQ = BQ / 16;  // rows a thread of the dQ tile
@@ -335,9 +361,9 @@ struct QTile {
   static_assert(BQ % 16 == 0, "row tile");
 };
 
-template <typename T, int D, int BQ, int BK>
+template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
-  using L = QTile<T, D, BQ, BK>;
+  using L = QTile<D, BQ, BK>;
   using C = Cols<D>;
   using S = Scores<BK, BQ>;
   constexpr int KP = L::KP, QP = L::QP, DP = L::DP, RQ = L::RQ;
@@ -360,10 +386,10 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   const int64_t r0 = static_cast<int64_t>(blockIdx.x) * BQ;
   const int64_t r_end = r0 + BQ < rows ? r0 + BQ : rows;
   const int64_t kv_lim = a.sk_valid < a.sk ? a.sk_valid : a.sk;
-  const T* q = static_cast<const T*>(a.q);
-  const T* g = static_cast<const T*>(a.dout);
-  const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const T* vb = static_cast<const T*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const float* q = static_cast<const float*>(a.q);
+  const float* g = static_cast<const float*>(a.dout);
+  const float* kb = static_cast<const float*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vs.b + hk * a.vs.h;
 
   for (int e = tid; e < BQ * D; e += kThreads) {
     const int rr = e / D, c = e % D;
@@ -371,8 +397,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
     float x = 0.f, y = 0.f;
     if (r < rows) {
       const int64_t i = r / group, h = hk * group + r % group;
-      x = to_f(q[b * a.qs.b + i * a.qs.s + h * a.qs.h + c]);
-      y = to_f(g[b * a.dos.b + i * a.dos.s + h * a.dos.h + c]);
+      x = q[b * a.qs.b + i * a.qs.s + h * a.qs.h + c];
+      y = g[b * a.dos.b + i * a.dos.s + h * a.dos.h + c];
     }
     qt[c * QP + rr] = x;
     dot[c * QP + rr] = y;
@@ -405,8 +431,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
       const int64_t kp = k0 + j;
       float x = 0.f, y = 0.f;
       if (kp < k_hi) {  // zeros past the range: masked keys never hold NaN
-        x = to_f(kb[kp * a.ks.s + c]);
-        y = to_f(vb[kp * a.vs.s + c]);
+        x = kb[kp * a.ks.s + c];
+        y = vb[kp * a.vs.s + c];
       }
       kt[c * KP + j] = x;
       kr[j * DP + c] = x;
@@ -448,18 +474,18 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
     }
   }
 
-  T* dqb = static_cast<T*>(a.dq);
+  float* dqb = static_cast<float*>(a.dq);
 #pragma unroll
   for (int ii = 0; ii < RQ; ++ii) {
     const int64_t r = r0 + qy * RQ + ii;
     if (r >= rows) continue;
     const int64_t i = r / group, h = hk * group + r % group;
-    T* row = dqb + b * a.dqs.b + i * a.dqs.s + h * a.dqs.h;
+    float* row = dqb + b * a.dqs.b + i * a.dqs.s + h * a.dqs.h;
 #pragma unroll
     for (int cg = 0; cg < NCG; ++cg)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        row[cg * 8 * VEC + dx * VEC + e] = from_f<T>(dq[ii][cg * VEC + e] * a.scale);
+        row[cg * 8 * VEC + dx * VEC + e] = dq[ii][cg * VEC + e] * a.scale;
   }
 }
 
@@ -950,6 +976,527 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at head dim 256: the same products, in passes shaped for 256 columns.
+// ---------------------------------------------------------------------------
+
+struct Tile256 {
+  static constexpr int D = 256;
+  static constexpr int RS = D + 8;     // 16 bytes of padding a row
+  static constexpr int CH = D / 8;     // 16-byte chunks of a row
+  static constexpr int NS = 2;         // stages of either pass's ring
+  // dK/dV pass: 64 keys a block, 8 warps, a pair on each 16 keys, each warp
+  // of a pair 128 columns of dK and dV and of the score products' depth;
+  // 32-row Q and dO ring tiles.  flash_attention.py restates BK, SUB and
+  // QBK for its slice plan and the tests' model of the kernel;
+  // repro_flash_attention_bwd256_tile reports them so a card test holds the
+  // two equal.
+  static constexpr int BK = 64;
+  static constexpr int KV_WARPS = 8;
+  static constexpr int HALF = D / 2;
+  static constexpr int SUB = 32;
+  static constexpr size_t kKvSmemBytes = sizeof(bf16) * (2 * BK + 2 * NS * SUB) * RS +
+                                         sizeof(float) * 2 * NS * SUB +
+                                         sizeof(float) * 2 * KV_WARPS * 32 * 32;
+  // dQ pass: 8 warps of 16 query rows, 32-key K and V ring tiles.
+  static constexpr int Q_WARPS = 8;
+  static constexpr int BQ = 16 * Q_WARPS;
+  static constexpr int QBK = 32;
+  static constexpr size_t kQSmemBytes = sizeof(bf16) * (2 * BQ + 2 * NS * QBK) * RS;
+};
+
+// Wait at named barrier id (1-15) until `threads` threads have reached it.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The dK/dV pass at head dim 256.  Block (key tile, batch x KV head, slice),
+// the slice fastest and the key tile slowest, so the first key tiles, which
+// under the causal mask see the most rows, start first in every batch and
+// head.  Warp w holds keys 16 (w % 4) and columns 128 (w / 4) of dK and dV
+// (64 + 64 fp32 a thread); each warp of a pair computes S^T and dP^T over
+// its 128 columns of the depth and the pair adds the halves through shared
+// memory (a + b in both warps: the same bits).  A slice takes a contiguous run of the tile's
+// 32-row ring tiles and writes fp32 partial sums, which sum_slices_kernel
+// adds in slice order; one slice writes dK and dV itself.
+__global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(const Args a) {
+  using L = Tile256;
+  constexpr int D = L::D, RS = L::RS, CH = L::CH, NS = L::NS, BK = L::BK, SUB = L::SUB;
+  constexpr int NTH = 32 * L::KV_WARPS;
+  constexpr int KS = L::HALF / 16;  // 16-deep steps of S^T and dP^T
+  constexpr int DT = L::HALF / 8;   // 8-column tiles of dK and dV
+  constexpr int NT = SUB / 8;       // 8-row tiles of S^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);               // [BK][RS]
+  bf16* sV = sK + BK * RS;                                    // [BK][RS]
+  bf16* sQ = sV + BK * RS;                                    // [NS][SUB][RS]
+  bf16* sO = sQ + NS * SUB * RS;                              // [NS][SUB][RS] dO
+  float* sL = reinterpret_cast<float*>(sO + NS * SUB * RS);   // [NS][SUB] lse
+  float* sD = sL + NS * SUB;                                  // [NS][SUB] D
+  float4* sX = reinterpret_cast<float4*>(sD + NS * SUB);      // [2][warps][8][32] halves
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int kq = warp % 4, c0 = (warp / 4) * L::HALF;  // keys, and columns and depth
+  const int64_t group = a.group, rows = a.sq * group, q_offset = a.q_offset;
+  const int64_t window = a.window, prefix = a.prefix;
+  const int causal = a.causal, slices = a.slices;
+  const int slice = static_cast<int>(blockIdx.x % slices);
+  const int64_t rest = blockIdx.x / slices, bhs = a.batch * a.hkv;
+  const int64_t b = (rest % bhs) / a.hkv, hk = rest % a.hkv, k0 = (rest / bhs) * BK;
+  const int64_t kv_lim = a.sk_valid < a.sk ? a.sk_valid : a.sk;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
+
+  for (int e = tid; e < BK * CH; e += NTH) {
+    const int j = e / CH, c = e % CH;
+    const int64_t kp = k0 + j;
+    const bool ok = kp < kv_lim;
+    cp_async16(smem_addr(sK + j * RS + c * 8), ok ? kb + kp * a.ks.s + c * 8 : kb, ok);
+    cp_async16(smem_addr(sV + j * RS + c * 8), ok ? vb + kp * a.vs.s + c * 8 : vb, ok);
+  }
+
+  // The rows that may see a key of the tile, as dkdv_mma_kernel finds them,
+  // then the slice's share of their 32-row ring tiles.
+  int64_t r_lo = 0, r_hi = k0 < kv_lim ? rows : 0;
+  if (causal && k0 >= prefix) {
+    const int64_t first = k0 - q_offset;
+    r_lo = first > 0 ? first * group : 0;
+  }
+  if (window > 0) {
+    const int64_t last = (k0 + BK < kv_lim ? k0 + BK : kv_lim) - 1;
+    const int64_t end = last + window - q_offset;
+    const int64_t lim = end > 0 ? end * group : 0;
+    r_hi = lim < r_hi ? lim : r_hi;
+  }
+  const int64_t nsub = r_hi > r_lo ? (r_hi - r_lo + SUB - 1) / SUB : 0;
+  const int64_t per = (nsub + slices - 1) / slices;
+  const int64_t t_lo = slice * per < nsub ? slice * per : nsub;
+  const int ntiles = static_cast<int>((t_lo + per < nsub ? t_lo + per : nsub) - t_lo);
+  const int64_t r_base = r_lo + t_lo * SUB;
+
+  auto load_rows = [&](int t) {
+    const int64_t r0 = r_base + static_cast<int64_t>(t) * SUB;
+    bf16* q_s = sQ + (t % NS) * SUB * RS;
+    bf16* o_s = sO + (t % NS) * SUB * RS;
+#pragma unroll 4
+    for (int e = tid; e < SUB * CH; e += NTH) {
+      const int rr = e / CH, c = e % CH;
+      const int64_t r = r0 + rr;
+      const bool ok = r < r_hi;
+      int64_t qo = 0, oo = 0;
+      if (ok) {
+        const int64_t i = row_pos(r, group), h = hk * group + row_head(r, group);
+        qo = b * a.qs.b + i * a.qs.s + h * a.qs.h + c * 8;
+        oo = b * a.dos.b + i * a.dos.s + h * a.dos.h + c * 8;
+      }
+      cp_async16(smem_addr(q_s + rr * RS + c * 8), q + qo, ok);
+      cp_async16(smem_addr(o_s + rr * RS + c * 8), dout + oo, ok);
+    }
+    if (tid < SUB) {
+      const int64_t r = r0 + tid;
+      const bool ok = r < r_hi;
+      const int64_t idx =
+          ok ? (b * a.hq + hk * group + row_head(r, group)) * a.sq + row_pos(r, group) : 0;
+      cp_async4(smem_addr(sL + (t % NS) * SUB + tid), a.lse + idx, ok);
+      cp_async4(smem_addr(sD + (t % NS) * SUB + tid), a.dsum + idx, ok);
+    }
+  };
+  if (ntiles > 0) load_rows(0);
+  cp_async_commit();
+
+  const int64_t kw0 = k0 + 16 * kq;
+  const float sl = a.scale * kLog2e;
+  // The thread's keys kw0 + g + 8 i: below kv_lim, in the prefix; and the
+  // window as a 32-bit distance (no distance between a row and a key
+  // reaches 2^30).
+  bool key_live[2], key_pre[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key_live[i] = kw0 + g + 8 * i < kv_lim;
+    key_pre[i] = kw0 + g + 8 * i < prefix;
+  }
+  const int win = window < (1 << 30) ? static_cast<int>(window) : (1 << 30);
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[n][j] = dv[n][j] = 0.f;
+  // ldmatrix row addresses as in dkdv_mma_kernel, at the warp's columns.
+  const uint32_t k_addr = smem_addr(sK + (16 * kq + lane % 16) * RS + (lane / 16) * 8 + c0);
+  const uint32_t v_addr = smem_addr(sV + (16 * kq + lane % 16) * RS + (lane / 16) * 8 + c0);
+  const int b_row = (lane % 8 + (lane / 16) * 8) * RS + ((lane / 8) % 2) * 8 + c0;
+  const int t_row = (lane % 16) * RS + (lane / 16) * 8 + c0;
+  int xbuf = 0;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // tile t has landed for every thread; tile t - 1 is no longer read
+    if (t + NS - 1 < ntiles) load_rows(t + NS - 1);
+    cp_async_commit();
+    const int64_t rs0 = r_base + static_cast<int64_t>(t) * SUB;
+    const int64_t rs1 = (rs0 + SUB < r_hi ? rs0 + SUB : r_hi) - 1;
+    const int64_t p_lo = q_offset + row_pos(rs0, group);
+    const int64_t p_hi = q_offset + row_pos(rs1, group);
+    // Both warps of a pair hold the same keys, so they skip alike.
+    if (sees_none(p_lo, p_hi, kw0, kw0 + 15, kv_lim, causal, window, prefix)) continue;
+    const bool full =
+        rs0 + SUB <= r_hi && sees_all(p_lo, p_hi, kw0, kw0 + 15, kv_lim, causal, window, prefix);
+    const bf16* tq = sQ + (t % NS) * SUB * RS;
+    const bf16* to = sO + (t % NS) * SUB * RS;
+    const float* tl = sL + (t % NS) * SUB;
+    const float* td = sD + (t % NS) * SUB;
+
+    // S^T = K Q^T and dP^T = V dO^T over the warp's depth.
+    float st[NT][4], dpt[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) st[n][j] = dpt[n][j] = 0.f;
+    const uint32_t q_b = smem_addr(tq + b_row);
+    const uint32_t o_b = smem_addr(to + b_row);
+#pragma unroll 4
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, k_addr + kk * 32);
+      ldsm_x4(va, v_addr + kk * 32);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t qf[4], of[4];
+        ldsm_x4(qf, q_b + (np * 16 * RS + kk * 16) * 2);
+        ldsm_x4(of, o_b + (np * 16 * RS + kk * 16) * 2);
+        mma_bf16(st[2 * np], ka, qf[0], qf[1]);
+        mma_bf16(st[2 * np + 1], ka, qf[2], qf[3]);
+        mma_bf16(dpt[2 * np], va, of[0], of[1]);
+        mma_bf16(dpt[2 * np + 1], va, of[2], of[3]);
+      }
+    }
+    // The pair's halves: each warp writes its own into this sub-step's buffer
+    // and adds its partner's.  Two buffers: a warp writes one again only
+    // after the next pair barrier, which its partner reaches after reading it.
+    float4* mine = sX + ((xbuf * L::KV_WARPS + warp) * 8) * 32 + lane;
+    const float4* theirs = sX + ((xbuf * L::KV_WARPS + (warp ^ 4)) * 8) * 32 + lane;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      mine[n * 32] = make_float4(st[n][0], st[n][1], st[n][2], st[n][3]);
+      mine[(NT + n) * 32] = make_float4(dpt[n][0], dpt[n][1], dpt[n][2], dpt[n][3]);
+    }
+    bar_sync(1 + kq, 64);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float4 s4 = theirs[n * 32], d4 = theirs[(NT + n) * 32];
+      st[n][0] += s4.x; st[n][1] += s4.y; st[n][2] += s4.z; st[n][3] += s4.w;
+      dpt[n][0] += d4.x; dpt[n][1] += d4.y; dpt[n][2] += d4.z; dpt[n][3] += d4.w;
+    }
+    xbuf ^= 1;
+
+    // P^T and dS^T in place, as dkdv_mma_kernel forms them.
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = n * 8 + 2 * tig;
+      const float2 lv = *reinterpret_cast<const float2*>(tl + c);
+      const float2 dd = *reinterpret_cast<const float2*>(td + c);
+      const float l2[2] = {lv.x * kLog2e, lv.y * kLog2e};
+      const float dv2[2] = {dd.x, dd.y};
+      bool ok[4] = {true, true, true, true};
+      if (!full) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int64_t r = rs0 + c + e;
+          // The row's position past key kw0 + g, clamped (a key it sees is
+          // within the window, so at most 2^30 away).
+          int64_t dist = q_offset + row_pos(r, group) - (kw0 + g);
+          dist = dist < -(1 << 30) ? -(1 << 30) : (dist > (1 << 30) ? (1 << 30) : dist);
+          const int dd0 = static_cast<int>(dist);
+          const bool live = r < r_hi;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int di = dd0 - 8 * i;
+            ok[2 * i + e] = live && key_live[i] && (!causal || di >= 0 || key_pre[i]) &&
+                            (window <= 0 || di < win);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = ok[j] ? exp2f(fmaf(st[n][j], sl, -l2[j & 1])) : 0.f;
+        dpt[n][j] = ok[j] ? p * (dpt[n][j] - dv2[j & 1]) : 0.f;
+        st[n][j] = p;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the warp's 128 columns, P^T and
+    // dS^T as bf16 hi + lo.
+    const uint32_t q_t = smem_addr(tq + t_row);
+    const uint32_t o_t = smem_addr(to + t_row);
+#pragma unroll
+    for (int kt = 0; kt < SUB / 16; ++kt) {
+      uint32_t ph[4], pl[4], sh[4], so[4];
+      split_frag(st[2 * kt], st[2 * kt + 1], ph, pl);
+      split_frag(dpt[2 * kt], dpt[2 * kt + 1], sh, so);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t of[4], qf[4];
+        ldsm_x4_t(of, o_t + (kt * 16 * RS + dp * 16) * 2);
+        ldsm_x4_t(qf, q_t + (kt * 16 * RS + dp * 16) * 2);
+        mma_bf16(dv[2 * dp], ph, of[0], of[1]);
+        mma_bf16(dv[2 * dp], pl, of[0], of[1]);
+        mma_bf16(dv[2 * dp + 1], ph, of[2], of[3]);
+        mma_bf16(dv[2 * dp + 1], pl, of[2], of[3]);
+        mma_bf16(dk[2 * dp], sh, qf[0], qf[1]);
+        mma_bf16(dk[2 * dp], so, qf[0], qf[1]);
+        mma_bf16(dk[2 * dp + 1], sh, qf[2], qf[3]);
+        mma_bf16(dk[2 * dp + 1], so, qf[2], qf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t kp = kw0 + g + 8 * i;
+    if (kp >= a.sk) continue;
+    if (slices == 1) {
+      bf16* dkr = static_cast<bf16*>(a.dk) + b * a.dks.b + hk * a.dks.h + kp * a.dks.s + c0;
+      bf16* dvr = static_cast<bf16*>(a.dv) + b * a.dvs.b + hk * a.dvs.h + kp * a.dvs.s + c0;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(dkr + n * 8 + tig * 2) =
+            __floats2bfloat162_rn(dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvr + n * 8 + tig * 2) =
+            __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+      }
+    } else {
+      const int64_t plane = a.batch * a.sk * a.hkv * D;
+      float* pk = a.part + slice * plane + ((b * a.sk + kp) * a.hkv + hk) * D + c0;
+      float* pv = pk + slices * plane;
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        *reinterpret_cast<float2*>(pk + n * 8 + tig * 2) = make_float2(dk[n][2 * i], dk[n][2 * i + 1]);
+        *reinterpret_cast<float2*>(pv + n * 8 + tig * 2) = make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// dK and dV from the slices' partial sums, added in slice order (fp32), dK
+// scaled, each rounded to bf16 once; a thread 4 columns of a key.
+__global__ void __launch_bounds__(kThreads) sum_slices_kernel(const Args a) {
+  constexpr int D = Tile256::D;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t plane = a.batch * a.sk * a.hkv * D;
+  if (i * 4 >= plane) return;
+  float4 k = make_float4(0.f, 0.f, 0.f, 0.f), v = k;
+  for (int s = 0; s < a.slices; ++s) {
+    const float4 pk = *reinterpret_cast<const float4*>(a.part + s * plane + i * 4);
+    const float4 pv = *reinterpret_cast<const float4*>(a.part + (a.slices + s) * plane + i * 4);
+    k.x += pk.x; k.y += pk.y; k.z += pk.z; k.w += pk.w;
+    v.x += pv.x; v.y += pv.y; v.z += pv.z; v.w += pv.w;
+  }
+  const int64_t c = (i * 4) % D, row = (i * 4) / D;  // row: (b sk + kp) hkv + hk
+  const int64_t hk = row % a.hkv, kp = (row / a.hkv) % a.sk, b = row / (a.hkv * a.sk);
+  bf16* dkr = static_cast<bf16*>(a.dk) + b * a.dks.b + kp * a.dks.s + hk * a.dks.h + c;
+  bf16* dvr = static_cast<bf16*>(a.dv) + b * a.dvs.b + kp * a.dvs.s + hk * a.dvs.h + c;
+  reinterpret_cast<__nv_bfloat162*>(dkr)[0] = __floats2bfloat162_rn(k.x * a.scale, k.y * a.scale);
+  reinterpret_cast<__nv_bfloat162*>(dkr)[1] = __floats2bfloat162_rn(k.z * a.scale, k.w * a.scale);
+  reinterpret_cast<__nv_bfloat162*>(dvr)[0] = __floats2bfloat162_rn(v.x, v.y);
+  reinterpret_cast<__nv_bfloat162*>(dvr)[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// The dQ pass at head dim 256: one block a (batch, KV head, tile of BQ query
+// rows), row tiles last first; a warp's 16 rows of dQ over 256 columns in
+// registers (128 fp32 a thread); Q's and dO's fragments read from shared
+// memory at each k-step; K and V through the ring in 32-key tiles.
+__global__ void __launch_bounds__(32 * Tile256::Q_WARPS) dq_256_kernel(const Args a) {
+  using L = Tile256;
+  constexpr int D = L::D, RS = L::RS, CH = L::CH, NS = L::NS, BK = L::QBK;
+  constexpr int BQ = L::BQ, NTH = 32 * L::Q_WARPS;
+  constexpr int KS = D / 16;    // 16-deep steps of S and dP
+  constexpr int DT = D / 8;     // 8-column tiles of dQ
+  constexpr int NT = BK / 8;    // 8-key tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BQ][RS]
+  bf16* sO = sQ + BQ * RS;                        // [BQ][RS] dO
+  bf16* sK = sO + BQ * RS;                        // [NS][BK][RS]
+  bf16* sV = sK + NS * BK * RS;                   // [NS][BK][RS]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tig = lane % 4;
+  const int64_t group = a.group, rows = a.sq * group, q_offset = a.q_offset;
+  const int64_t window = a.window;
+  const int causal = a.causal;
+  const int64_t b = blockIdx.z, hk = blockIdx.y;
+  const int64_t r0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * BQ;
+  const int64_t r_end = r0 + BQ < rows ? r0 + BQ : rows;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  int64_t k_lo, k_hi;
+  key_range<BK>(r0, r_end, 0, a.sk, a.sk, group, a.sk_valid, q_offset, causal, window,
+                a.prefix, k_lo, k_hi);
+  const int ntiles = k_hi > k_lo ? static_cast<int>((k_hi - k_lo + BK - 1) / BK) : 0;
+
+  for (int e = tid; e < BQ * CH; e += NTH) {
+    const int rr = e / CH, c = e % CH;
+    const int64_t r = r0 + rr;
+    const bool ok = r < rows;
+    int64_t qo = 0, oo = 0;
+    if (ok) {
+      const int64_t i = row_pos(r, group), h = hk * group + row_head(r, group);
+      qo = b * a.qs.b + i * a.qs.s + h * a.qs.h + c * 8;
+      oo = b * a.dos.b + i * a.dos.s + h * a.dos.h + c * 8;
+    }
+    cp_async16(smem_addr(sQ + rr * RS + c * 8), q + qo, ok);
+    cp_async16(smem_addr(sO + rr * RS + c * 8), dout + oo, ok);
+  }
+  auto load_kv = [&](int t) {
+    const int64_t k0 = k_lo + static_cast<int64_t>(t) * BK;
+    bf16* k_s = sK + (t % NS) * BK * RS;
+    bf16* v_s = sV + (t % NS) * BK * RS;
+#pragma unroll 4
+    for (int e = tid; e < BK * CH; e += NTH) {
+      const int j = e / CH, c = e % CH;
+      const int64_t kp = k0 + j;
+      const bool ok = kp < k_hi;  // zeros past the range: masked keys never hold NaN
+      cp_async16(smem_addr(k_s + j * RS + c * 8), ok ? kb + kp * a.ks.s + c * 8 : kb, ok);
+      cp_async16(smem_addr(v_s + j * RS + c * 8), ok ? vb + kp * a.vs.s + c * 8 : vb, ok);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < NS - 1; ++t) {
+    if (t < ntiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  const int64_t wr0 = r0 + 16 * warp;
+  const bool live = wr0 < rows;
+  const int64_t wr_last = (wr0 + 16 < rows ? wr0 + 16 : rows) - 1;
+  const int64_t p_lo = q_offset + row_pos(wr0, group), p_hi = q_offset + row_pos(wr_last, group);
+  // Each row's causal limit and window limit as key offsets past k_lo,
+  // 32-bit (clamped: only -1 and below, or past the last tile, matter).
+  int cl_rel[2], wl_rel[2];
+  float l2[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t r = wr0 + g + 8 * i;
+    const int64_t pos = q_offset + row_pos(r, group);
+    const int64_t c = causal_limit(pos, a.prefix) - k_lo, w = pos - window - k_lo;
+    cl_rel[i] = c < -1 ? -1 : (c > (1 << 30) ? (1 << 30) : static_cast<int>(c));
+    wl_rel[i] = w < -1 ? -1 : (w > (1 << 30) ? (1 << 30) : static_cast<int>(w));
+    l2[i] = INFINITY;
+    dd[i] = 0.f;
+    if (r < rows) {
+      const int64_t idx = (b * a.hq + hk * group + row_head(r, group)) * a.sq + row_pos(r, group);
+      l2[i] = a.lse[idx] * kLog2e;
+      dd[i] = a.dsum[idx];
+    }
+  }
+  const float sl = a.scale * kLog2e;
+
+  float dq[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  // ldmatrix row addresses as in dq_mma_kernel.
+  const uint32_t q_addr = smem_addr(sQ + (16 * warp + lane % 16) * RS + (lane / 16) * 8);
+  const uint32_t o_addr = smem_addr(sO + (16 * warp + lane % 16) * RS + (lane / 16) * 8);
+  const int b_row = (lane % 8 + (lane / 16) * 8) * RS + ((lane / 8) % 2) * 8;
+  const int t_row = (lane % 16) * RS + (lane / 16) * 8;
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // tile t has landed for every thread; tile t - 1 is no longer read
+    if (t + NS - 1 < ntiles) load_kv(t + NS - 1);
+    cp_async_commit();
+    const int64_t k0 = k_lo + static_cast<int64_t>(t) * BK;
+    if (!live || sees_none(p_lo, p_hi, k0, k0 + BK - 1, k_hi, causal, window, a.prefix))
+      continue;
+    const bool full = sees_all(p_lo, p_hi, k0, k0 + BK - 1, k_hi, causal, window, a.prefix);
+    const bf16* kt = sK + (t % NS) * BK * RS;
+    const bf16* vt = sV + (t % NS) * BK * RS;
+
+    // S = Q K^T and dP = dO V^T over the tile's keys.
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[n][j] = dp[n][j] = 0.f;
+    const uint32_t k_b = smem_addr(kt + b_row), v_b = smem_addr(vt + b_row);
+#pragma unroll 4
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], oa[4];
+      ldsm_x4(qa, q_addr + kk * 32);
+      ldsm_x4(oa, o_addr + kk * 32);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t kf[4], vf[4];
+        ldsm_x4(kf, k_b + (np * 16 * RS + kk * 16) * 2);
+        ldsm_x4(vf, v_b + (np * 16 * RS + kk * 16) * 2);
+        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+        mma_bf16(dp[2 * np], oa, vf[0], vf[1]);
+        mma_bf16(dp[2 * np + 1], oa, vf[2], vf[3]);
+      }
+    }
+
+    // The masks and dS = P (dP - D) in place of S, as dq_mma_kernel forms them.
+    int hi = BK, cl[2] = {BK, BK}, wl[2] = {-1, -1};
+    if (!full) {
+      hi = k_hi - k0 < BK ? static_cast<int>(k_hi - k0) : BK;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = cl_rel[i] - t * BK, w = wl_rel[i] - t * BK;
+        if (causal) cl[i] = c < -1 ? -1 : (c > BK ? BK : c);
+        if (window > 0) wl[i] = w < -1 ? -1 : (w > BK ? BK : w);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = j >> 1;
+        const int kp = n * 8 + tig * 2 + (j & 1);
+        const bool ok = full || (kp < hi && kp <= cl[i] && kp > wl[i]);
+        const float p = ok ? exp2f(fmaf(s[n][j], sl, -l2[i])) : 0.f;
+        s[n][j] = ok ? p * (dp[n][j] - dd[i]) : 0.f;
+      }
+
+    // dQ += dS K, dS as bf16 hi + lo.
+    const uint32_t k_t = smem_addr(kt + t_row);
+#pragma unroll
+    for (int kt2 = 0; kt2 < BK / 16; ++kt2) {
+      uint32_t sh[4], so[4];
+      split_frag(s[2 * kt2], s[2 * kt2 + 1], sh, so);
+#pragma unroll
+      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+        uint32_t kf[4];
+        ldsm_x4_t(kf, k_t + (kt2 * 16 * RS + dp2 * 16) * 2);
+        mma_bf16(dq[2 * dp2], sh, kf[0], kf[1]);
+        mma_bf16(dq[2 * dp2], so, kf[0], kf[1]);
+        mma_bf16(dq[2 * dp2 + 1], sh, kf[2], kf[3]);
+        mma_bf16(dq[2 * dp2 + 1], so, kf[2], kf[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+
+  bf16* dqb = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t r = wr0 + g + 8 * i;
+    if (r >= rows) continue;
+    bf16* row = dqb + b * a.dqs.b + row_pos(r, group) * a.dqs.s +
+                (hk * group + row_head(r, group)) * a.dqs.h;
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + tig * 2) =
+          __floats2bfloat162_rn(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);
+  }
+}
+
 // D_i = sum dO_i O_i into a.dsum, one warp a row.
 template <typename T>
 cudaError_t row_dot(const Args& a, cudaStream_t stream) {
@@ -962,18 +1509,18 @@ cudaError_t row_dot(const Args& a, cudaStream_t stream) {
 
 // The FMA kernels' three launches at one head dim's tiles: dK/dV over (BK
 // keys, BQ rows), dQ over (BQQ rows, 32 keys).
-template <typename T, int D, int BK, int BQ, int BQQ>
+template <int D, int BK, int BQ, int BQQ>
 cudaError_t run(const Args& a, int device, cudaStream_t stream) {
-  using KV = KvTile<T, D, BK, BQ>;
-  using QT = QTile<T, D, BQQ, 32>;
+  using KV = KvTile<D, BK, BQ>;
+  using QT = QTile<D, BQQ, 32>;
   const size_t kv_smem = sizeof(float) * KV::kSmemFloats;
   const size_t q_smem = sizeof(float) * QT::kSmemFloats;
-  auto* kv_kern = dkdv_kernel<T, D, BK, BQ>;
-  auto* q_kern = dq_kernel<T, D, BQQ, 32>;
+  auto* kv_kern = dkdv_kernel<D, BK, BQ>;
+  auto* q_kern = dq_kernel<D, BQQ, 32>;
   static bool kv_done[64] = {}, q_done[64] = {};
   cudaError_t err = allow_smem(kv_kern, kv_smem, device, kv_done);
   if (err == cudaSuccess) err = allow_smem(q_kern, q_smem, device, q_done);
-  if (err == cudaSuccess) err = row_dot<T>(a, stream);
+  if (err == cudaSuccess) err = row_dot<float>(a, stream);
   if (err != cudaSuccess) return err;
   const dim3 kv_grid(static_cast<unsigned>((a.sk + BK - 1) / BK), static_cast<unsigned>(a.hkv),
                      static_cast<unsigned>(a.batch));
@@ -1009,20 +1556,49 @@ cudaError_t run_mma(const Args& a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The tensor-core kernels' launches at head dim 256: the dK/dV pass over
+// (64-key tile, batch x KV head, slice) blocks, the slices' sum when there
+// are several, and the dQ pass over BQ-row tiles.
+cudaError_t run_256(const Args& a, int device, cudaStream_t stream) {
+  using L = Tile256;
+  auto* kv_kern = dkdv_256_kernel;
+  auto* q_kern = dq_256_kernel;
+  static bool kv_done[64] = {}, q_done[64] = {};
+  cudaError_t err = allow_smem(kv_kern, L::kKvSmemBytes, device, kv_done);
+  if (err == cudaSuccess) err = allow_smem(q_kern, L::kQSmemBytes, device, q_done);
+  if (err == cudaSuccess) err = row_dot<bf16>(a, stream);
+  if (err != cudaSuccess) return err;
+  const int64_t kv_blocks = (a.sk + L::BK - 1) / L::BK * a.batch * a.hkv * a.slices;
+  kv_kern<<<static_cast<unsigned>(kv_blocks), 32 * L::KV_WARPS, L::kKvSmemBytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (a.slices > 1) {
+    const int64_t quads = a.batch * a.sk * a.hkv * L::D / 4;
+    sum_slices_kernel<<<static_cast<unsigned>((quads + kThreads - 1) / kThreads), kThreads, 0,
+                        stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 q_grid(static_cast<unsigned>((a.sq * a.group + L::BQ - 1) / L::BQ),
+                    static_cast<unsigned>(a.hkv), static_cast<unsigned>(a.batch));
+  q_kern<<<q_grid, 32 * L::Q_WARPS, L::kQSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // The kernels built, by dtype and head dim.  fp32: the FMA kernels' tiles
 // (BK, BQ) of the dK/dV pass and BQ of the dQ pass, within two blocks an SM
 // up to head dim 128 (about 105 KB of shared memory at 80, 79 KB at 128; one
-// block at 256).  bf16: the tensor-core kernels up to head dim 128, the FMA
-// kernels at 256.
+// block at 256).  bf16: the tensor-core kernels, dkdv_mma_kernel and
+// dq_mma_kernel up to head dim 128, dkdv_256_kernel and dq_256_kernel at 256.
 cudaError_t dispatch(int64_t dtype, const Args& a, int device, cudaStream_t stream) {
   if (dtype == 0) {
     switch (a.d) {
-      case 16: return run<float, 16, 64, 32, 64>(a, device, stream);
-      case 32: return run<float, 32, 64, 32, 64>(a, device, stream);
-      case 64: return run<float, 64, 64, 32, 64>(a, device, stream);
-      case 80: return run<float, 80, 64, 32, 64>(a, device, stream);
-      case 128: return run<float, 128, 32, 16, 32>(a, device, stream);
-      case 256: return run<float, 256, 16, 32, 16>(a, device, stream);
+      case 16: return run<16, 64, 32, 64>(a, device, stream);
+      case 32: return run<32, 64, 32, 64>(a, device, stream);
+      case 64: return run<64, 64, 32, 64>(a, device, stream);
+      case 80: return run<80, 64, 32, 64>(a, device, stream);
+      case 128: return run<128, 32, 16, 32>(a, device, stream);
+      case 256: return run<256, 16, 32, 16>(a, device, stream);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1033,7 +1609,7 @@ cudaError_t dispatch(int64_t dtype, const Args& a, int device, cudaStream_t stre
       case 64: return run_mma<64>(a, device, stream);
       case 80: return run_mma<80>(a, device, stream);
       case 128: return run_mma<128>(a, device, stream);
-      case 256: return run<bf16, 256, 16, 32, 16>(a, device, stream);
+      case 256: return run_256(a, device, stream);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -1041,6 +1617,19 @@ cudaError_t dispatch(int64_t dtype, const Args& a, int device, cudaStream_t stre
 }
 
 }  // namespace
+
+// The head-dim-256 passes' tiles: which 0 is the dK/dV pass's keys a block,
+// 1 its Q and dO ring rows, 2 the dQ pass's keys a ring tile, 3 its query
+// rows a block; -1 for any other.
+extern "C" int64_t repro_flash_attention_bwd256_tile(int64_t which) {
+  switch (which) {
+    case 0: return Tile256::BK;
+    case 1: return Tile256::SUB;
+    case 2: return Tile256::QBK;
+    case 3: return Tile256::BQ;
+    default: return -1;
+  }
+}
 
 // Gradients of attention of q [batch, sq, hq, d] over k, v [batch, sk, hkv,
 // d] (the forward's arguments, as repro_flash_attention takes them) given its
@@ -1051,22 +1640,25 @@ cudaError_t dispatch(int64_t dtype, const Args& a, int device, cudaStream_t stre
 // aligned with strides in multiples of 8, as the forward takes them; dq, dk
 // and dv 4-byte aligned with even strides).  dsum is fp32 scratch of [batch,
 // hq, sq].  dtype 0 is fp32, 1 is bf16; sq * hq / hkv is below 2^31; every
-// key of dk and dv is written, zeros where no query sees it.
+// key of dk and dv is written, zeros where no query sees it.  slices: the
+// row slices of the dK/dV pass, 1 but for bf16 at head dim 256, where more
+// than 1 needs part, fp32 scratch of [2, slices, batch, sk, hkv, 256].
 extern "C" int repro_flash_attention_bwd(
     int64_t device, const void* q, int64_t qsb, int64_t qss, int64_t qsh, const void* k,
     int64_t ksb, int64_t kss, int64_t ksh, const void* v, int64_t vsb, int64_t vss,
     int64_t vsh, const void* o, int64_t osb, int64_t oss, int64_t osh, const void* dout,
     int64_t dosb, int64_t doss, int64_t dosh, const void* lse, void* dsum, void* dq,
     int64_t dqsb, int64_t dqss, int64_t dqsh, void* dk, int64_t dksb, int64_t dkss,
-    int64_t dksh, void* dv, int64_t dvsb, int64_t dvss, int64_t dvsh, int64_t batch,
-    int64_t sq, int64_t sk, int64_t hq, int64_t hkv, int64_t d, int64_t sk_valid,
-    int64_t q_offset, int64_t causal, int64_t window, int64_t prefix, int64_t dtype,
-    double scale, void* stream) {
+    int64_t dksh, void* dv, int64_t dvsb, int64_t dvss, int64_t dvsh, void* part,
+    int64_t slices, int64_t batch, int64_t sq, int64_t sk, int64_t hq, int64_t hkv,
+    int64_t d, int64_t sk_valid, int64_t q_offset, int64_t causal, int64_t window,
+    int64_t prefix, int64_t dtype, double scale, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || sq <= 0 || sk <= 0 || hq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || window < 0 || prefix < 0 ||
-      sq * (hq / hkv) >= (int64_t{1} << 31))
+      sq * (hq / hkv) >= (int64_t{1} << 31) || slices < 1 ||
+      (slices > 1 && (part == nullptr || dtype != 1 || d != 256)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
@@ -1081,6 +1673,8 @@ extern "C" int repro_flash_attention_bwd(
   a.causal = causal ? 1 : 0;
   a.d = static_cast<int>(d);
   a.scale = static_cast<float>(scale);
+  a.slices = static_cast<int>(slices);
+  a.part = static_cast<float*>(part);
   return static_cast<int>(
       dispatch(dtype, a, static_cast<int>(device), static_cast<cudaStream_t>(stream)));
 }

@@ -68,10 +68,10 @@ _SIGNATURES = {
     "repro_flash_attention": "i" "piii" "piii" "piii" "piii" "pp"
                              "iiiiiiiiiiiiiiii" "f" "p",
     # device, q, k, v, o, dout (each with strides b, s, h), lse, dsum, dq,
-    # dk, dv (with strides), batch, sq, sk, hq, hkv, d, sk_valid,
-    # q_offset, causal, window, prefix, dtype, scale, stream
+    # dk, dv (with strides), part, slices, batch, sq, sk, hq, hkv, d,
+    # sk_valid, q_offset, causal, window, prefix, dtype, scale, stream
     "repro_flash_attention_bwd": "i" "piii" "piii" "piii" "piii" "piii"
-                                 "pp" "piii" "piii" "piii"
+                                 "pp" "piii" "piii" "piii" "pi"
                                  "iiiiiiiiiiii" "f" "p",
     # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
     # B strides (b, s), C, C strides (b, s), y, y strides (b, h, s), s_fin,
@@ -162,6 +162,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.repro_error_string.argtypes = [ctypes.c_int64]
             lib.repro_error_string.restype = ctypes.c_char_p
+            lib.repro_flash_attention_bwd256_tile.argtypes = [ctypes.c_int64]
+            lib.repro_flash_attention_bwd256_tile.restype = ctypes.c_int64
             _lib = lib
     return _lib
 

@@ -54,8 +54,10 @@ backward launches kernel 5b, the hand-written backward
 (``csrc/flash_attention_bwd.cu``, :func:`attend_backward`), or raises; on a
 CPU tensor it takes :func:`attend_plain` and :func:`attend_backward_plain`,
 the explicit gradient formula.  Kernel 5b's bf16 passes run on the tensor
-cores up to head dim 128, P and dS entering their products as bf16 hi +
-lo as the forward's P does; fp32, and bf16 at head dim 256, take FMA
+cores at every head dim, P and dS entering their products as bf16 hi + lo
+as the forward's P does; at head dim 256 they are passes of their own (warp
+pairs on each 16 keys, and the dK/dV pass's rows cut into slices when its
+key tiles are too few for the card, :func:`_bwd_slices`).  fp32 takes FMA
 kernels with fp32 sums.  The JAX package has no backward kernel: its
 gradient is XLA's autodiff of ``layers.attention``
 (``src/repro/models/layers.py:99-174``), what the tests hold both against.
@@ -68,7 +70,7 @@ import math
 
 import torch
 
-from .._build import launch, ptr
+from .._build import launch, library, ptr
 
 LAUNCHES = 0   # calls that launched the CUDA kernel (the forward)
 BWD_LAUNCHES = 0   # calls of attend_backward that launched kernel 5b
@@ -77,6 +79,15 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Keys per K/V tile of the bf16 prefill kernel at head dim 256; the kernel is
 # built for 32 and 64 (``scripts/flash_d256_tiles.py`` compares them).
 D256_PREFILL_BK = 32
+# Kernel 5b's passes at head dim 256 (bf16): the dK/dV pass's keys a block
+# and its Q and dO ring rows, and the dQ pass's keys a ring tile, as the
+# kernel has them (``Tile256``; :func:`_check_bwd256_tiles` holds the two
+# equal); and the fewest query rows (of a KV head's group) a row slice of
+# the dK/dV pass is planned for.
+BWD256_BK = 64
+BWD256_SUB = 32
+BWD256_QBK = 32
+BWD256_SLICE_ROWS = 256
 
 
 def _probs_plain(q, k, *, causal: bool, sk_valid: int | None, q_offset: int,
@@ -307,15 +318,21 @@ def attend_backward(q, k, v, out, dout, lse, *, causal: bool,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if sq == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if q.dtype == torch.bfloat16 and d == 256:
+        _check_bwd256_tiles()
     dsum = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    slices = _bwd_slices(_sms(q.device), q.dtype, b, sq * (hq // hkv), hkv,
+                         d, sk)
+    part = (torch.empty((2, slices, b, sk, hkv, d), dtype=torch.float32,
+                        device=q.device) if slices > 1 else None)
     launch("repro_flash_attention_bwd", q.device,
            ptr(q), *q.stride()[:3], ptr(k), *k.stride()[:3],
            ptr(v), *v.stride()[:3], ptr(out), *out.stride()[:3],
            ptr(dout), *dout.stride()[:3], ptr(lse), ptr(dsum),
            ptr(dq), *dq.stride()[:3], ptr(dk), *dk.stride()[:3],
-           ptr(dv), *dv.stride()[:3], b, sq, sk, hq, hkv, d, kw["sk_valid"],
-           kw["q_offset"], int(kw["causal"]), kw["window"], kw["prefix"],
-           _DTYPES[q.dtype], kw["scale"])
+           ptr(dv), *dv.stride()[:3], ptr(part), slices, b, sq, sk, hq, hkv,
+           d, kw["sk_valid"], kw["q_offset"], int(kw["causal"]),
+           kw["window"], kw["prefix"], _DTYPES[q.dtype], kw["scale"])
     BWD_LAUNCHES += 1
     return dq, dk, dv
 
@@ -399,6 +416,36 @@ def _plan(sms: int, dtype: torch.dtype, b: int, rows: int, hkv: int, d: int,
     want = -(-sms // blocks)
     per = max(1, (kv_tiles - 1) // (want - 1))
     return bq, bk, -(-kv_tiles // per), per * bk
+
+
+@functools.cache
+def _check_bwd256_tiles() -> None:
+    """Raise unless the built kernel's head-dim-256 tiles are
+    :data:`BWD256_BK`, :data:`BWD256_SUB` and :data:`BWD256_QBK`, which the
+    slice plan and the tests' model of the kernel take."""
+    lib = library()
+    got = tuple(lib.repro_flash_attention_bwd256_tile(i) for i in range(3))
+    if got != (BWD256_BK, BWD256_SUB, BWD256_QBK):
+        raise RuntimeError(f"kernel 5b's head-dim-256 tiles (BK, SUB, QBK) "
+                           f"are {got}, the wrapper's "
+                           f"{(BWD256_BK, BWD256_SUB, BWD256_QBK)}")
+
+
+def _bwd_slices(sms: int, dtype: torch.dtype, b: int, rows: int, hkv: int,
+                d: int, sk: int) -> int:
+    """The row slices of kernel 5b's dK/dV pass on a card of ``sms`` SMs:
+    bf16 at head dim 256 takes one block (8 warps, one an SM) a
+    :data:`BWD256_BK`-key tile, batch and KV head, too few to fill the card
+    at recurrentgemma's call (96), so each tile's rows are cut into the
+    fewest slices that give at least ``sms`` blocks, each slice at least
+    :data:`BWD256_SLICE_ROWS` of the ``rows`` query rows of a KV head's
+    group; every other dtype and head dim takes 1.  A slice takes a
+    contiguous run of the tile's 32-row ring tiles, and a last launch adds
+    the slices' fp32 partial dK and dV in slice order."""
+    if dtype != torch.bfloat16 or d != 256:
+        return 1
+    blocks = -(-sk // BWD256_BK) * b * hkv
+    return max(1, min(-(-sms // blocks), rows // BWD256_SLICE_ROWS))
 
 
 def flash_attention_bh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -528,8 +528,9 @@ def test_p_rounded_once_would_leave_the_tolerance():
 # --------------------------------------------------------------------------- #
 
 # (b, sq, hq, hkv, d, mask keywords): causal, non-causal, the prefix-LM mask,
-# windows, GQA groups 1, 2 and 6, head dims 16 and 80 (hubert's); 40 and 70
-# positions over the JAX attention's 32-key chunks, so its chunked,
+# windows, GQA groups 1, 2 and 6, head dims 16, 80 (hubert's) and 256 under
+# a window (recurrentgemma's local attention, 4 heads over one KV head); 40
+# and 70 positions over the JAX attention's 32-key chunks, so its chunked,
 # checkpointed path (``_attention_chunked``) is what jax.grad differentiates.
 BWD_CASES = [
     (2, 40, 2, 2, 16, dict(causal=True)),
@@ -539,6 +540,7 @@ BWD_CASES = [
     (1, 70, 6, 1, 16, dict(causal=True, prefix=9, window=20)),
     (1, 40, 4, 4, 80, dict(causal=False)),
     (1, 40, 6, 2, 80, dict(causal=True)),
+    (1, 70, 4, 1, 256, dict(causal=True, window=24)),
 ]
 
 
@@ -650,11 +652,42 @@ def test_plan_splits_at_the_cards_training_edge_shapes(case):
 BWD_BF16_TOL = (2**-7, 1e-4)
 # BWD_CASES, then narrow hubert-like (head dim 80, group 1, non-causal) and
 # qwen2-like (head dim 128, group 6, causal) calls whose rows and keys are
-# not multiples of the kernel's 64-row and 64-key tiles.
+# not multiples of the kernel's 64-row and 64-key tiles; at head dim 256
+# recurrentgemma's heads (10 over one KV head) under a window of 100, whose
+# edge falls inside the key tiles (3000 rows in 11 slices, 300 keys), and
+# paligemma's (8 over one) under a prefix of 37 (6 slices).
 BWD_ROUNDING = BWD_CASES + [
     (1, 300, 2, 2, 80, dict(causal=False)),
     (1, 100, 12, 2, 128, dict(causal=True)),
+    (1, 300, 10, 1, 256, dict(causal=True, window=100)),
+    (1, 200, 8, 1, 256, dict(causal=True, prefix=37)),
 ]
+
+
+def _tile_slices(rows, group, k0, *, kv_lim, causal, q_offset, window,
+                 prefix, slices, bk=j_fa_t.BWD256_BK,
+                 sub=j_fa_t.BWD256_SUB):
+    """The query rows ``[lo, hi)`` of each slice of key tile ``k0`` in
+    ``dkdv_256_kernel`` (``csrc/flash_attention_bwd.cu``), its arithmetic in
+    Python: the rows that may see a key of the tile, ``[r_lo, r_hi)`` in
+    ``rows`` position-major rows of a KV head's group, cut into 32-row ring
+    tiles and those into ``slices`` contiguous runs of equal length."""
+    r_lo, r_hi = 0, rows if k0 < kv_lim else 0
+    if causal and k0 >= prefix:
+        first = k0 - q_offset
+        r_lo = first * group if first > 0 else 0
+    if window > 0:
+        end = min(k0 + bk, kv_lim) - 1 + window - q_offset
+        r_hi = min(r_hi, end * group if end > 0 else 0)
+    nsub = -(-(r_hi - r_lo) // sub) if r_hi > r_lo else 0
+    per = -(-nsub // slices)
+    out = []
+    for s in range(slices):
+        t_lo = min(nsub, s * per)
+        t_hi = min(nsub, t_lo + per)
+        out.append((min(r_hi, r_lo + t_lo * sub),
+                    min(r_hi, r_lo + t_hi * sub)))
+    return out
 
 
 def _split(x, split):
@@ -674,7 +707,11 @@ def _bwd_kernel_rounding(q, k, v, out, dout, lse, *, causal, sk_valid=None,
     split into bf16 ``hi + lo`` (``split_p``/``split_ds`` False: rounded
     once); dV and dK summed over 64-row tiles and dQ over 64-key tiles in
     float32, dK and dQ scaled at the end; one rounding of each gradient to
-    bf16."""
+    bf16.  Head dim 256 (``dkdv_256_kernel``, ``dq_256_kernel``): each
+    64-key tile's dV and dK summed over its slices' 32-row ring tiles
+    (:func:`_tile_slices`, slices from the wrapper's plan for the card), one
+    float32 partial a slice, the partials added in slice order; dQ over
+    32-key tiles."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -707,12 +744,36 @@ def _bwd_kernel_rounding(q, k, v, out, dout, lse, *, causal, sk_valid=None,
     ds = torch.where(mask, p * (dp - dsum[..., None]), 0.0)
     p_parts, ds_parts = _split(p, split_p), _split(ds, split_ds)
     dv, dk, dq = (torch.zeros_like(t) for t in (vf, kf, qr))
-    for r0 in range(0, rows, tile):
-        r = slice(r0, r0 + tile)
-        for part in p_parts:
-            dv += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r], dor[:, :, r])
-        for part in ds_parts:
-            dk += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r], qr[:, :, r])
+    if d == 256:
+        slices = j_fa_t._bwd_slices(SMS, torch.bfloat16, b, rows, hkv, d, sk)
+        bk = j_fa_t.BWD256_BK
+        for k0 in range(0, sk, bk):
+            c = slice(k0, k0 + bk)
+            for lo, hi in _tile_slices(rows, group, k0, kv_lim=min(sk_valid, sk),
+                                       causal=causal, q_offset=q_offset,
+                                       window=window, prefix=prefix,
+                                       slices=slices):
+                pv, pk = torch.zeros_like(dv[:, :, c]), torch.zeros_like(dk[:, :, c])
+                for r0 in range(lo, hi, j_fa_t.BWD256_SUB):
+                    r = slice(r0, min(r0 + j_fa_t.BWD256_SUB, hi))
+                    for part in p_parts:
+                        pv += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r, c],
+                                           dor[:, :, r])
+                    for part in ds_parts:
+                        pk += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r, c],
+                                           qr[:, :, r])
+                dv[:, :, c] += pv
+                dk[:, :, c] += pk
+        tile = j_fa_t.BWD256_QBK
+    else:
+        for r0 in range(0, rows, tile):
+            r = slice(r0, r0 + tile)
+            for part in p_parts:
+                dv += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r],
+                                   dor[:, :, r])
+            for part in ds_parts:
+                dk += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r],
+                                   qr[:, :, r])
     for k0 in range(0, sk, tile):
         c = slice(k0, k0 + tile)
         for part in ds_parts:
@@ -762,3 +823,88 @@ def test_p_or_ds_rounded_once_would_leave_the_tolerance(once):
         assert dv > 1 and max(dq, dk) <= 1
     else:
         assert min(dq, dk) > 1 and dv <= 1
+
+
+# Kernel 5b's head-dim-256 calls whose dK/dV rows the card slices, (b, sq,
+# sk, hq, hkv, mask keywords): recurrentgemma-2b's training call, then
+# chip_smoke.py's BWD_EDGES (and test_torch_gpu.py's) at head dim 256.
+SLICED = [
+    (2, 3072, 3072, 10, 1, dict(causal=True, window=2048)),
+    (2, 300, 300, 8, 1, dict(causal=True, prefix=256)),
+    (1, 90, 90, 4, 2, dict(causal=True, window=16)),
+    (1, 300, 300, 10, 1, dict(causal=True, window=100)),
+    (2, 100, 300, 8, 1, dict(causal=True, sk_valid=260, q_offset=170)),
+    (1, 150, 200, 4, 1, dict(causal=False)),
+    (1, 40, 40, 2, 1, dict(causal=True)),
+]
+
+
+@pytest.mark.parametrize("tiles", [(64, 32, 32), (32, 32, 32),
+                                   (64, 16, 32), (64, 32, 64)], ids=str)
+def test_bwd256_tile_check_refuses_a_kernel_with_other_tiles(monkeypatch,
+                                                             tiles):
+    """The wrapper launches the head-dim-256 passes only when the built
+    kernel reports the tiles its slice plan and this file's rounding model
+    take (``repro_flash_attention_bwd256_tile``); any other tile raises.
+    The card's own report is held in ``tests/test_torch_gpu.py``."""
+
+    class Lib:
+        def repro_flash_attention_bwd256_tile(self, which):
+            return tiles[which]
+
+    monkeypatch.setattr(j_fa_t, "library", Lib)
+    j_fa_t._check_bwd256_tiles.cache_clear()
+    try:
+        if tiles == (j_fa_t.BWD256_BK, j_fa_t.BWD256_SUB, j_fa_t.BWD256_QBK):
+            j_fa_t._check_bwd256_tiles()
+        else:
+            with pytest.raises(RuntimeError, match="head-dim-256 tiles"):
+                j_fa_t._check_bwd256_tiles()
+    finally:
+        j_fa_t._check_bwd256_tiles.cache_clear()
+
+
+@pytest.mark.parametrize("case", SLICED, ids=str)
+def test_bwd_slices_cover_every_row_that_sees_a_key_tile_once(case):
+    """The dK/dV pass at head dim 256: for every 64-key tile, the slices'
+    row ranges (:func:`_tile_slices`, the kernel's arithmetic) hold every
+    query row that sees a key of the tile exactly once, and no row twice;
+    the plan gives at least one block per SM where the rows allow it, and
+    one slice to fp32, other head dims and the smallest call."""
+    b, sq, sk, hq, hkv, kw = case
+    group, rows = hq // hkv, sq * (hq // hkv)
+    causal, prefix, window = kw["causal"], kw.get("prefix", 0), kw.get("window", 0)
+    sk_valid, q_offset = kw.get("sk_valid", sk), kw.get("q_offset", 0)
+    slices = j_fa_t._bwd_slices(SMS, torch.bfloat16, b, rows, hkv, 256, sk)
+    tiles = -(-sk // j_fa_t.BWD256_BK) * b * hkv
+    assert 1 <= slices <= max(1, rows // j_fa_t.BWD256_SLICE_ROWS)
+    if slices < -(-SMS // tiles):
+        assert slices == max(1, rows // j_fa_t.BWD256_SLICE_ROWS)
+    else:
+        assert tiles * slices >= SMS and (slices == 1
+                                          or tiles * (slices - 1) < SMS)
+    for dtype, d in ((torch.float32, 256), (torch.bfloat16, 128)):
+        assert j_fa_t._bwd_slices(SMS, dtype, b, rows, hkv, d, sk) == 1
+    pos = q_offset + torch.arange(sq)[:, None]
+    col = torch.arange(sk)[None, :]
+    mask = (col < min(sk_valid, sk)).expand(sq, sk)
+    if causal:
+        mask = mask & ((col <= pos) | (col < prefix))
+    if window:
+        mask = mask & (col > pos - window)
+    row_pos = torch.arange(rows) // group
+    for k0 in range(0, sk, j_fa_t.BWD256_BK):
+        sees = mask[:, k0:k0 + j_fa_t.BWD256_BK].any(1)[row_pos]
+        count = torch.zeros(rows, dtype=torch.int64)
+        for lo, hi in _tile_slices(rows, group, k0, kv_lim=min(sk_valid, sk),
+                                   causal=causal, q_offset=q_offset,
+                                   window=window, prefix=prefix,
+                                   slices=slices):
+            assert lo <= hi
+            count[lo:hi] += 1
+        assert count.max() <= 1
+        assert bool((count[sees] == 1).all()), f"key tile {k0}"
+    if case == SLICED[0]:
+        assert slices == 2
+    if case == SLICED[-1]:
+        assert slices == 1

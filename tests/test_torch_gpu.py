@@ -961,7 +961,10 @@ def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):
 # splits the keys (the merge writes lse).  The last three meet the bf16
 # kernels' 64-key and 64-row tiles: ragged tiles at hubert's heads, a
 # position's group of 6 across two row tiles (258 rows), and a prefix at
-# qwen2's heads.
+# qwen2's heads.  The four after them meet bf16's head-dim-256 passes:
+# recurrentgemma's 10 heads over one KV head under a window of 100 (300
+# ragged rows, the dK/dV pass's rows in 11 slices), sk_valid and q_offset
+# (3 slices), non-causal (2 slices), and a shape too small to slice.
 _BWD = [
     (2, 1, 1, 2, 2, 16, dict(causal=True)),
     (2, 37, 37, 6, 1, 16, dict(causal=True)),
@@ -978,6 +981,10 @@ _BWD = [
     (1, 1023, 1023, 16, 16, 80, dict(causal=False)),
     (1, 43, 43, 6, 1, 128, dict(causal=True)),
     (1, 200, 200, 12, 2, 128, dict(causal=True, prefix=37)),
+    (1, 300, 300, 10, 1, 256, dict(causal=True, window=100)),
+    (2, 100, 300, 8, 1, 256, dict(causal=True, sk_valid=260, q_offset=170)),
+    (1, 150, 200, 4, 1, 256, dict(causal=False)),
+    (1, 40, 40, 2, 1, 256, dict(causal=True)),
 ]
 
 
@@ -1015,6 +1022,18 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, case, dtype):
         _bwd_close(a, w, rtol, atol)
     again = fa.attend_backward(q, k, v, out, do, lse, **kw)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def test_bwd256_tiles_are_the_wrappers(cuda):
+    """The built kernel's head-dim-256 tiles are the wrapper's constants,
+    which its slice plan and the CPU rounding model take."""
+    from repro_torch.kernels import _build
+    fa = _kernel("flash_attention")
+    lib = _build.library()
+    got = [lib.repro_flash_attention_bwd256_tile(i) for i in range(5)]
+    assert got == [fa.BWD256_BK, fa.BWD256_SUB, fa.BWD256_QBK, 128, -1]
+    fa._check_bwd256_tiles.cache_clear()
+    fa._check_bwd256_tiles()
 
 
 def test_attend_under_autograd_launches_kernels_5_and_5b(cuda):
