@@ -2453,9 +2453,12 @@ FLASH_WINDOW_EDGES = [(2, 4, 1, 70, 90, 256), (1, 10, 1, 1, 300, 256),
                       (1, 10, 1, 4, 110, 256), (2, 6, 2, 33, 80, 64),
                       (1, 2, 2, 40, 40, 16)]
 # LRU edge shapes of tests/test_torch_lru_scan.py and the model's width:
-# (b, s, d).
+# (b, s, d); one chunk of kernel 7's chunked scan (lru_scan.CHUNK, 32
+# steps) and a step past it; batch x width below ONE_PASS_CHANNELS (the
+# chunked scan) and, the last, at or above it (the one-pass kernel).
 LRU_EDGES = [(1, 1, 1), (2, 1, 64), (2, 37, 64), (1, 300, 100),
-             (2, 37, 256), (3, 17, 2560)]
+             (2, 37, 256), (3, 17, 2560), (2, 32, 64), (2, 33, 100),
+             (8, 33, 2560)]
 # SSD edge shapes of tests/test_torch_ssd_scan.py: (b, h, s, p, n).
 # and mamba2's (N 128, P 64) at one kernel chunk (64 steps; 128 is built
 # too) and one step past it.
@@ -2581,6 +2584,12 @@ def lm_edge_checks(gen, fa, ss, ls) -> None:
     y_p, s_p = ss.ssd_chunked_plain(x, dt, A, B, C, 128)
     close(y, y_p, SSD_TOL, SSD_TOL, "ssd y, unaligned views")
     close(s_fin, s_p, SSD_TOL, SSD_TOL, "ssd S_fin, unaligned views")
+    lengths = {s for _, s, _ in LRU_EDGES}
+    check({ls.CHUNK, ls.CHUNK + 1} <= lengths,
+          f"LRU_EDGES has lengths {ls.CHUNK} and {ls.CHUNK + 1} (CHUNK)")
+    one_pass = [b * d >= ls.ONE_PASS_CHANNELS for b, _, d in LRU_EDGES]
+    check(any(one_pass) and not all(one_pass),
+          "LRU_EDGES takes both paths of kernel 7 (ONE_PASS_CHANNELS)")
     for b, s, d in LRU_EDGES:
         a, x = lru_inputs(gen, b, s, d)
         wide = torch.zeros((b, s, 2 * d), device=gen.device)   # strided a
@@ -2590,6 +2599,8 @@ def lm_edge_checks(gen, fa, ss, ls) -> None:
             h_p, fin_p = ls.lru_chunked_plain(*args, 256)
             close(h, h_p, LRU_TOL, LRU_TOL, f"lru h {b, s, d}")
             close(h_fin, fin_p, LRU_TOL, LRU_TOL, f"lru h_fin {b, s, d}")
+            check(torch.equal(h_fin, h[:, -1]),
+                  f"lru {b, s, d}: h_fin is the last step's h, bit for bit")
 
 
 def glue_check(dev, seed: int) -> None:
@@ -3047,7 +3058,10 @@ def lm_kernel_rows(gen, fa, ss, ls, launches, args) -> list:
         err = max(close(h, h_p, LRU_TOL, LRU_TOL, f"lru h S={length}"),
                   close(h_fin, fin_p, LRU_TOL, LRU_TOL,
                         f"lru h_fin S={length}"))
-        del h, h_fin, h_p, fin_p
+        again = ls.lru_scan_chunked(a, x)
+        check(torch.equal(again[0], h) and torch.equal(again[1], h_fin),
+              f"lru S={length}: two runs of kernel 7 give equal bits")
+        del h, h_fin, h_p, fin_p, again
     b_ms, b_by = bound(4 * (3 * a.numel() + b * width), 2 * a.numel(),
                        FP32_FLOPS_PER_S)
     rows.append(dict(
@@ -3498,7 +3512,10 @@ def scan_train_rows(gen, ss, ls, mamba: dict, rg: dict, reps: int) -> list:
     h_p, fin_p = ls.lru_chunked_plain(a, x, 256)
     e_fwd = max(close(h, h_p, LRU_TOL, LRU_TOL, "7t h"),
                 close(h_fin, fin_p, LRU_TOL, LRU_TOL, "7t h_fin"))
-    del h_p, fin_p
+    again = ls.lru_scan_chunked(a, x)
+    check(torch.equal(again[0], h) and torch.equal(again[1], h_fin),
+          "7t: two runs of kernel 7 give equal bits")
+    del h_p, fin_p, again
     got = ls.lru_scan_backward(a, h, dh)
     want = ls.lru_backward_plain(a, h, dh)
     err = max(grad_close(g, w, LRU_BWD_TOL, f"7b training {nm}")
@@ -3542,7 +3559,8 @@ STEP_PARTS = (("kernel 5", ("flash_mma_kernel", "flash_kernel",
               ("kernel 6b", ("ssd_bwd_states", "ssd_bwd_chunk", "ssd_bwd_dA")),
               ("kernel 6", ("ssd_gram", "ssd_states", "ssd_output")),
               ("kernel 7b", ("lru_bwd_local", "lru_bwd_carry", "lru_bwd_fix")),
-              ("kernel 7", ("lru_kernel",)),
+              ("kernel 7", ("lru_kernel", "lru_local", "lru_carry",
+                            "lru_fix")),
               ("matmuls", ("gemm", "xmma", "cutlass", "sm90_", "nvjet")))
 
 

@@ -1,4 +1,4 @@
-// RG-LRU linear recurrence for Hopper (sm_90a).
+// RG-LRU linear recurrence for Hopper (sm_90a): kernel 7.
 //
 // Replaces the TPU kernel lru_scan_chunked
 // (src/repro/kernels/lru_scan/lru_scan.py:57, body _lru_kernel :41), which is
@@ -13,35 +13,55 @@
 // Design.  The TPU kernel runs a (batch, chunk) grid whose chunk axis is
 // sequential, carries h in VMEM scratch and does a log2(C) doubling scan
 // inside each chunk.  A Hopper block cannot carry scratch to the next grid
-// step, so a loop inside the thread takes the place of the chunk axis: one
-// thread per (batch, channel) runs the whole sequence in fp32 with one FMA a
-// step.  Neighbouring threads hold neighbouring channels, so each step's loads
-// and stores are coalesced 128-byte rows.  The loop goes in groups of kU
-// steps and loads the next group's a and b before it runs the current
-// group's dependent FMAs, so 2 kU loads a thread stay in flight.  A block is
-// one warp of 32 channels: recurrentgemma-2b's 8 x 2560 channels make 640
-// warps, which spread over the 132 SMs within one warp of even (128-thread
-// blocks would put two of the 160 blocks on 28 SMs and leave most SMs one).
-// Steps past the end load as the identity (a = 1, b = 0), as the JAX
-// wrapper's padding does, and their h is not written.  a and b are read
+// step, so the scan is chunked in time across blocks, kernel 7b's design
+// (lru_scan_bwd.cu) run forward, in three launches:
+//   1. lru_local, grid (channel tiles, chunks, batch): each thread runs one
+//      channel over one chunk of kChunk steps (lru_scan.CHUNK) from a zero
+//      carry, with every step's a and b loaded up front (2 kChunk loads in
+//      flight a thread).  The chunk's outgoing state is affine in its
+//      incoming one, h_out = L + Pr * h_in, with L the end state from zero
+//      and Pr the product of the chunk's a.  It writes L and Pr.
+//   2. lru_carry, one thread per (batch, channel): walks the chunks from the
+//      first, whose incoming state is 0, and writes each chunk's incoming
+//      state over its L.
+//   3. lru_fix, the grid of pass 1: reruns each chunk's recurrence from its
+//      incoming state, writes h, and (the last chunk) h_fin = h at the last
+//      step, the same bits.
+// That reads a and b twice: 20 bytes an element against the function's 12.
+// Where batch x width fills the card, one thread per (batch, channel) over
+// the whole sequence already keeps enough loads in flight, so lru_kernel
+// (the one-pass design of the first port) reads 12 bytes an element and
+// stays: the wrapper takes it from ONE_PASS_CHANNELS = 16384 (batch x
+// width) channels up (lru_scan.py) and passes no scratch.  On the H100 the
+// chunked scan read 2.5 and 1.5 times faster at 5,120 and 10,240 channels,
+// the one-pass kernel 1.1 times faster at 20,480 (PERF.md, from
+// scripts/train_scan_tiles.py).  lru_kernel loops in groups of kU steps and loads the
+// next group's a and b before it runs the current group's dependent FMAs;
+// its block is one warp of 32 channels (recurrentgemma-2b's 8 x 2560
+// channels make 640 warps, within one warp of even over 132 SMs).
+// Neighbouring threads hold neighbouring channels, so every load and store
+// is a coalesced row.  Steps past the end load as the identity (a = 1, b =
+// 0), as the JAX wrapper's padding does, and their h is not written.  Every
+// sum runs in a fixed order: two runs give the same bits.  a and b are read
 // through their batch and step strides (width contiguous); h is written
 // contiguous.
 //
 // Bound.  The function reads a and b and writes h: 12 bytes an element (the
 // 2 FLOP an element count for nothing against that).  At recurrentgemma-2b's
-// prefill (batch 8, seq 3072, width 2560) that is 755 MB, 0.225 ms at
-// 3.35 TB/s.  One thread per channel gives only 20,480 threads, 155 a SM, so
-// far fewer bytes are in flight than the HBM rate needs: expect it well above
-// its bound.  A two-pass chunked scan across blocks (local scans, carry
-// propagation, fix-up) is the fast design.
+// training microbatch (batch 2, seq 3072, width 2560) that is 189 MB, 0.056
+// ms at 3.35 TB/s, and the chunked scan's 20 bytes 0.094 ms; at its prefill
+// (batch 8) 755 MB, 0.225 ms, where the one-pass kernel runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 32;  // channels per block: one warp
-constexpr int kU = 16;        // steps a group; the next group is loaded ahead
+constexpr int kThreads = 32;        // one-pass: channels per block, one warp
+constexpr int kU = 16;              // one-pass: steps a group, loaded ahead
+constexpr int kChunkThreads = 128;  // chunked: channels a block
+constexpr int kChunk = 32;          // chunked: steps a chunk (lru_scan.CHUNK)
+constexpr int kCarryU = 8;          // chunks whose L and Pr lru_carry loads ahead
 
 __device__ __forceinline__ void load_steps(const float* __restrict__ ap, int64_t ass,
                                            const float* __restrict__ bp, int64_t bss,
@@ -85,22 +105,128 @@ lru_kernel(const float* __restrict__ a, int64_t asb, int64_t ass, const float* _
   h_fin[n * width + c] = hv;
 }
 
+// The chunk's a and b (a = 1, b = 0 past the end) into registers.
+__device__ __forceinline__ void load_chunk(const float* __restrict__ ap, int64_t ass,
+                                           const float* __restrict__ bp, int64_t bss,
+                                           int64_t t0, int64_t seq, float* va, float* vb) {
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    const bool in = t0 + u < seq;
+    va[u] = in ? __ldg(ap + u * ass) : 1.f;
+    vb[u] = in ? __ldg(bp + u * bss) : 0.f;
+  }
+}
+
+// 1. The chunk's end state from a zero incoming one, and its product of a.
+__global__ void __launch_bounds__(kChunkThreads)
+lru_local(const float* __restrict__ a, int64_t asb, int64_t ass, const float* __restrict__ b,
+          int64_t bsb, int64_t bss, float* __restrict__ carry, float* __restrict__ prod,
+          int64_t seq, int64_t width) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
+  const int64_t k = blockIdx.y, n = blockIdx.z, nc = gridDim.y;
+  if (c >= width) return;
+  const int64_t t0 = k * kChunk;
+  float va[kChunk], vb[kChunk];
+  load_chunk(a + n * asb + t0 * ass + c, ass, b + n * bsb + t0 * bss + c, bss, t0, seq, va, vb);
+  float hv = 0.f, pr = 1.f;
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    hv = fmaf(va[u], hv, vb[u]);
+    pr *= va[u];
+  }
+  const int64_t o = (n * nc + k) * width + c;
+  carry[o] = hv;
+  prod[o] = pr;
+}
+
+// 2. Each chunk's incoming state, written over its L: chunk 0's is 0, and
+// chunk k + 1's is L_k + Pr_k * (chunk k's).
+__global__ void __launch_bounds__(kChunkThreads)
+lru_carry(float* __restrict__ carry, const float* __restrict__ prod, int64_t nc,
+          int64_t width) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
+  const int64_t n = blockIdx.y;
+  if (c >= width) return;
+  float cin = 0.f;
+  float* cp = carry + n * nc * width + c;
+  const float* pp = prod + n * nc * width + c;
+  int64_t k = 0;
+  for (; k + kCarryU <= nc; k += kCarryU) {
+    float l[kCarryU], p[kCarryU];
+#pragma unroll
+    for (int u = 0; u < kCarryU; ++u) {
+      l[u] = cp[(k + u) * width];
+      p[u] = pp[(k + u) * width];
+    }
+#pragma unroll
+    for (int u = 0; u < kCarryU; ++u) {
+      cp[(k + u) * width] = cin;
+      cin = fmaf(p[u], cin, l[u]);
+    }
+  }
+  for (; k < nc; ++k) {
+    const float l = cp[k * width], p = pp[k * width];
+    cp[k * width] = cin;
+    cin = fmaf(p, cin, l);
+  }
+}
+
+// 3. The chunk's recurrence from its incoming state: h, and h_fin from the
+// last chunk (steps past the end keep h: fmaf(1, h, 0) == h).
+__global__ void __launch_bounds__(kChunkThreads)
+lru_fix(const float* __restrict__ a, int64_t asb, int64_t ass, const float* __restrict__ b,
+        int64_t bsb, int64_t bss, const float* __restrict__ carry, float* __restrict__ h,
+        float* __restrict__ h_fin, int64_t seq, int64_t width) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
+  const int64_t k = blockIdx.y, n = blockIdx.z, nc = gridDim.y;
+  if (c >= width) return;
+  const int64_t t0 = k * kChunk;
+  float va[kChunk], vb[kChunk];
+  load_chunk(a + n * asb + t0 * ass + c, ass, b + n * bsb + t0 * bss + c, bss, t0, seq, va, vb);
+  float hv = carry[(n * nc + k) * width + c];
+  float* hp = h + (n * seq + t0) * width + c;
+#pragma unroll
+  for (int u = 0; u < kChunk; ++u) {
+    hv = fmaf(va[u], hv, vb[u]);
+    if (t0 + u < seq) hp[u * width] = hv;
+  }
+  if (k == nc - 1) h_fin[n * width + c] = hv;
+}
+
 }  // namespace
 
 // The recurrence over a, b [batch, seq, width] fp32, each given by pointer and
 // its batch and step strides in elements (width contiguous), into h [batch,
-// seq, width] and h_fin [batch, width], both contiguous fp32.
+// seq, width] and h_fin [batch, width], both contiguous fp32.  carry and prod
+// (contiguous fp32 [batch, nc, width], nc = ceil(seq / kChunk)) are the chunked
+// scan's scratch; null: the one-pass kernel.
 extern "C" int repro_lru_scan(int64_t device, const void* a, int64_t asb, int64_t ass,
                               const void* b, int64_t bsb, int64_t bss, void* h, void* h_fin,
-                              int64_t batch, int64_t seq, int64_t width, void* stream) {
+                              void* carry, void* prod, int64_t batch, int64_t seq,
+                              int64_t width, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || width <= 0) return 0;
   if (seq < 0 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>((width + kThreads - 1) / kThreads),
-            static_cast<unsigned>(batch));
-  lru_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), asb, ass, static_cast<const float*>(b), bsb, bss,
-      static_cast<float*>(h), static_cast<float*>(h_fin), seq, width);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* af = static_cast<const float*>(a);
+  const auto* bf = static_cast<const float*>(b);
+  auto* hf = static_cast<float*>(h);
+  auto* ff = static_cast<float*>(h_fin);
+  const auto ub = static_cast<unsigned>(batch);
+  if (carry == nullptr || prod == nullptr || seq == 0) {
+    const dim3 grid(static_cast<unsigned>((width + kThreads - 1) / kThreads), ub);
+    lru_kernel<<<grid, kThreads, 0, st>>>(af, asb, ass, bf, bsb, bss, hf, ff, seq, width);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t nc = (seq + kChunk - 1) / kChunk;
+  if (nc > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const auto tiles = static_cast<unsigned>((width + kChunkThreads - 1) / kChunkThreads);
+  const dim3 grid(tiles, static_cast<unsigned>(nc), ub);
+  auto* cf = static_cast<float*>(carry);
+  auto* pf = static_cast<float*>(prod);
+  lru_local<<<grid, kChunkThreads, 0, st>>>(af, asb, ass, bf, bsb, bss, cf, pf, seq, width);
+  lru_carry<<<dim3(tiles, ub), kChunkThreads, 0, st>>>(cf, pf, nc, width);
+  lru_fix<<<grid, kChunkThreads, 0, st>>>(af, asb, ass, bf, bsb, bss, cf, hf, ff, seq, width);
   return static_cast<int>(cudaGetLastError());
 }

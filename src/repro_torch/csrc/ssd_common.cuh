@@ -1,8 +1,8 @@
 // Helpers shared by the SSD scan (ssd_scan.cu, kernel 6) and its gradient
 // (ssd_scan_bwd.cu, kernel 6b): 3xTF32 products on mma.sync m16n8k8 for one
-// warp, the accumulator's stores, cp.async copies into padded shared rows,
-// a chunk's dt and its cumsum.  Each source gets its own copy (anonymous
-// namespace).
+// warp (kernel 6's; kernel 6b reads its fragments its own way), the
+// accumulator's stores, cp.async copies into padded shared rows, a chunk's
+// dt and its cumsum.  Each source gets its own copy (anonymous namespace).
 
 #pragma once
 

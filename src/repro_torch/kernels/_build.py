@@ -84,9 +84,9 @@ _SIGNATURES = {
     # dA_part, dA, batch, heads, seq, n, p, q, stream
     "repro_ssd_scan_bwd": "i" "piii" "piii" "p" "pii" "pii" "piii" "p"
                           "pp" "piii" "pppp" "p" "iiiiii" "p",
-    # device, a, a strides (b, s), b, b strides (b, s), h, h_fin, batch,
-    # seq, width, stream
-    "repro_lru_scan": "i" "pii" "pii" "pp" "iii" "p",
+    # device, a, a strides (b, s), b, b strides (b, s), h, h_fin, carry,
+    # prod, batch, seq, width, stream
+    "repro_lru_scan": "i" "pii" "pii" "pp" "pp" "iii" "p",
     # device, a, a strides (b, s), h, h strides (b, s), dh, dh strides
     # (b, s), dh_fin, da, db, carry, prod, batch, seq, width, stream
     "repro_lru_scan_bwd": "i" "pii" "pii" "pii" "p" "pppp" "iii" "p",

@@ -7,16 +7,19 @@ of the JAX model's prefill twin ``_lru_chunked_jnp``
 
     h_t = a_t ⊙ h_{t−1} + b_t        over [B, S, D], h_{−1} = 0
 
-The CUDA entry ``repro_lru_scan`` (``csrc/lru_scan.cu``) runs one thread per
-(batch, channel) over the whole sequence, and writes the final state
-``h_fin [B, D]`` beside ``h``: the model's prefill keeps it in its cache.
-Inputs are float32 and read through their strides (the width contiguous).
-What bounds it is in the source's note.
+The CUDA entry ``repro_lru_scan`` (``csrc/lru_scan.cu``) scans in chunks of
+``CHUNK`` steps across blocks (each chunk's local scan, the carries between
+chunks, each chunk again from its carry), or, where batch × width reaches
+``ONE_PASS_CHANNELS`` and so fills the card, runs one thread per (batch,
+channel) over the whole sequence.  It writes the final state ``h_fin [B,
+D]`` beside ``h``: the model's prefill keeps it in its cache.  Inputs are
+float32 and read through their strides (the width contiguous).  What bounds
+it is in the source's note.
 
 :func:`lru_chunked_plain` is the plain PyTorch version (``_lru_chunked_jnp``'s
 chunked doubling scan, with the final state), which a CPU tensor takes.  The
 chunk length changes only the order of the float operations, not the
-function: the kernel's scan is sequential whatever ``chunk`` says.
+function: the kernel's chunks are ``CHUNK`` steps whatever ``chunk`` says.
 
 Training: when autograd needs a gradient of ``a`` or ``b``,
 :func:`lru_scan_chunked` goes through :class:`_LruScan`, whose forward runs
@@ -37,7 +40,11 @@ from .._build import launch, ptr
 
 LAUNCHES = 0       # forward scans that launched kernel 7
 BWD_LAUNCHES = 0   # calls of lru_scan_backward that launched kernel 7b
+CHUNK = 32         # kernel 7's chunk of steps (kChunk in lru_scan.cu)
 BWD_CHUNK = 32     # kernel 7b's chunk of steps (kChunk in lru_scan_bwd.cu)
+# From this many (batch, channel) pairs up kernel 7 runs its one-pass kernel
+# (one thread a channel over the whole sequence), below it the chunked scan.
+ONE_PASS_CHANNELS = 16384
 
 
 def lru_chunked_plain(a, b, chunk: int):
@@ -104,8 +111,14 @@ def _forward(a, b, chunk: int):
     bsz, s, d = a.shape
     h = torch.empty((bsz, s, d), dtype=torch.float32, device=a.device)
     h_fin = torch.empty((bsz, d), dtype=torch.float32, device=a.device)
+    carry = prod = None
+    if bsz * d < ONE_PASS_CHANNELS:
+        carry = torch.empty((bsz, -(-s // CHUNK), d), dtype=torch.float32,
+                            device=a.device)
+        prod = torch.empty_like(carry)
     launch("repro_lru_scan", a.device, ptr(a), a.stride(0), a.stride(1),
-           ptr(b), b.stride(0), b.stride(1), ptr(h), ptr(h_fin), bsz, s, d)
+           ptr(b), b.stride(0), b.stride(1), ptr(h), ptr(h_fin), ptr(carry),
+           ptr(prod), bsz, s, d)
     LAUNCHES += 1
     return h, h_fin
 

@@ -777,10 +777,17 @@ def test_bf16_flash_attention_rejects_misaligned_tensors(cuda):
     assert fa.LAUNCHES == before
 
 
+# Kernel 7: one step, ragged lengths, one chunk of its chunked scan (32
+# steps) and a step past it, recurrentgemma's training microbatch (row 7t,
+# the chunked scan) and its serving prefill (row 7) and a shorter one (the
+# one-pass kernel, from ONE_PASS_CHANNELS channels).
 @pytest.mark.parametrize("b, s, d", [(1, 1, 1), (2, 37, 64), (1, 300, 100),
-                                     (3, 17, 2560), (8, 1024, 2560)])
+                                     (3, 17, 2560), (8, 1024, 2560),
+                                     (2, 32, 64), (2, 33, 100),
+                                     (2, 3072, 2560), (8, 3072, 2560)])
 def test_lru_kernel_matches_plain(cuda, b, s, d):
     ls = _kernel("lru_scan")
+    assert ls.CHUNK == 32 and (b * d >= ls.ONE_PASS_CHANNELS) == (b == 8)
     g = torch.Generator(device=cuda).manual_seed(s * d)
     a = 0.5 + 0.499 * torch.rand((b, s, d), generator=g, device=cuda)
     x = torch.randn((b, s, d), generator=g, device=cuda)
@@ -791,6 +798,9 @@ def test_lru_kernel_matches_plain(cuda, b, s, d):
     h_want, fin_want = ls.lru_chunked_plain(a, x, 256)
     torch.testing.assert_close(h, h_want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(h_fin, fin_want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(h_fin, h[:, -1])
+    again = ls.lru_scan_chunked(a, x)
+    assert torch.equal(again[0], h) and torch.equal(again[1], h_fin)
     # The same operands as strided views: a column slice and every second
     # step of a longer tensor.
     wide = torch.zeros((b, s, 2 * d), device=cuda)

@@ -7,6 +7,10 @@ bits.  Shapes: one step, lengths shorter than, equal to and not a multiple
 of the chunk, the JAX model's chunk and the kernel's (64), every (N, P) the
 CUDA kernels are built for, with the final state's gradient given and None.
 
+Kernel 6b's order of dB's and dC's sums (the terms linear in dG summed over
+the heads before one product with C and B) is modelled here and held
+against ``jax.grad`` too.
+
 float32 throughout, on the operands of ``tests/test_torch_ssd_scan.py``.
 Tolerances, as a share of each gradient's largest element:
 
@@ -37,6 +41,9 @@ from repro_torch.kernels.ssd_scan import (ssd_backward_plain,
                                           ssd_scan_backward,
                                           ssd_scan_chunked)
 from repro_torch.kernels.ssd_scan.ssd_scan import (KERNEL_CHUNK, STATE_SHAPES,
+                                                   _chunks, chunk_gram,
+                                                   chunk_states,
+                                                   state_passing,
                                                    state_passing_backward)
 
 TOL = 1e-5      # dx, ddt, dB, dC: share of the largest element
@@ -174,3 +181,61 @@ def test_backward_rejects_bad_gradient_shapes():
         ssd_scan_backward(x, dt, A, Bm, Cm, dy[:, :, :4], chunk=16)
     with pytest.raises(ValueError, match="dS_fin"):
         ssd_scan_backward(x, dt, A, Bm, Cm, dy, dS[..., :8], chunk=16)
+
+
+def _chunk_pass_dB_dC(x, dt, A, Bm, Cm, dy, dS, chunk):
+    """dB and dC in kernel 6b's chunk-pass order: the terms linear in dG
+    summed over the heads first, in head order, and multiplied by B and C
+    once, dC = (Σ_h dG_h)·B + Σ_h e_h ∘ (dy_h·S_cᵀ) and dB = (Σ_h dG_h)ᵀ·C +
+    Σ_h (w_h ∘ x_h)·Ḡ_{c+1}ᵀ, each head's terms added in head order."""
+    b, h, s, p = x.shape
+    n = Bm.shape[-1]
+    xc, dtc, Bc, Cc, dyc = _chunks(x, dt, Bm, Cm, chunk, dy)
+    A = A.float()
+    q = chunk
+    dS_, decay = chunk_states(xc, dtc, A, Bc)
+    S_before, _ = state_passing(dS_, decay)
+    G_after = state_passing_backward(dyc, dtc, A, Cc, dS)
+    G = chunk_gram(Cc, Bc)
+    causal = torch.ones((q, q), dtype=torch.bool).tril()
+    cdt = torch.cumsum(dtc, dim=-1)
+    sum_dG = torch.zeros_like(G)
+    eT = torch.zeros_like(Bc)
+    wV = torch.zeros_like(Bc)
+    for hh in range(h):
+        a = A[hh]
+        ct = cdt[:, hh]
+        seg = a * (ct[..., :, None] - ct[..., None, :])
+        M = torch.where(causal, torch.exp(torch.where(causal, seg, 0.0)), 0.0)
+        DM = torch.where(causal, dyc[:, hh] @ xc[:, hh].transpose(-1, -2),
+                         0.0) * M
+        sum_dG = sum_dG + DM * dtc[:, hh, :, None, :]
+        e = torch.exp(a * ct)
+        w = torch.exp(a * (ct[..., -1:] - ct)) * dtc[:, hh]
+        eT = eT + e[..., None] * (dyc[:, hh] @ S_before[:, hh].transpose(-1, -2))
+        wV = wV + (w[..., None] * xc[:, hh]) @ G_after[:, hh].transpose(-1, -2)
+    dC = sum_dG @ Bc + eT
+    dB = sum_dG.transpose(-1, -2) @ Cc + wV
+    sp = dtc.shape[2] * chunk
+    return (dB.reshape(b, sp, n)[:, :s], dC.reshape(b, sp, n)[:, :s])
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["no-dS", "dS"])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_chunk_pass_order_of_dB_and_dC_matches_jax_grad(shape, final):
+    """Kernel 6b's order of dB's and dC's sums against ``jax.grad`` of the
+    twin and against the plain backward, within 1e-5 of each one's largest
+    element (float32 in other orders)."""
+    x, dt, A, Bm, Cm, dy, dS = _inputs(sum(shape) + 3, *shape)
+    dS = dS if final else None
+    want = _jax_grads(x, dt, A, Bm, Cm, dy, dS, _model_chunk(shape[2]))
+    got = _chunk_pass_dB_dC(*_t(x, dt, A, Bm, Cm, dy),
+                            None if dS is None else _t(dS)[0], KERNEL_CHUNK)
+    plain = ssd_backward_plain(*_t(x, dt, A, Bm, Cm, dy),
+                               None if dS is None else _t(dS)[0],
+                               chunk=KERNEL_CHUNK)
+    for name, g, w, pl in zip(("dB", "dC"), got, want[3:], plain[3:]):
+        w = np.asarray(w, dtype=np.float64)
+        scale = max(np.abs(w).max(initial=0.0), 1e-30)
+        assert np.abs(g.numpy() - w).max(initial=0.0) / scale <= TOL, name
+        assert (g - pl).abs().max() / scale <= TOL, name
