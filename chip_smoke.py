@@ -215,7 +215,21 @@ What it does, in order; any failure raises and the exit code is non-zero:
    at the same shapes (rows ``ssd_scan_bwd``, ``ssd_scan_train``,
    ``lru_scan_bwd``, ``lru_scan_train``).  Alone:
    ``python3 chip_smoke.py --train-only``.
-11. Prints the stage and kernel times, peak device memory, one ``kernels``
+11. The dry run (``repro_torch.launch.dryrun``) held against the card:
+   three traces, each in a process of its own on the host's CPU (fake
+   tensors, nothing on the card), while the card runs the same steps for
+   real.  (a) qwen2-1.5b ``train_4k`` at global batch 4 in 2 microbatches
+   and (b) its ``decode_32k`` at batch 8, on a one-device mesh: the traced
+   flops equal ``FlopCounterMode`` over one real step and the traced
+   argument bytes the real parameters', moments', batch's and cache's
+   bytes, exactly; the traced peak within ``DRYRUN_PEAK_RTOL`` of
+   ``torch.cuda.max_memory_allocated()`` over the real step; it prints the
+   real step's ms beside the trace's ``step_lower_bound_s`` over the
+   H100's constants.  (c) mamba2-130m ``train_4k`` on the 16×16 production
+   mesh: its per-device GB, dominant term and trace seconds; in the whole
+   run its trace starts before the serving phase and runs beside it.
+   Alone: ``python3 chip_smoke.py --dryrun-only``.
+12. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
 
 A kernel's bound is the larger of two times: the bytes the function must
@@ -758,6 +772,12 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="build and run the training phase alone (no "
                          "kernels line, no ok line)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="run the dry-run phase alone (no kernels line, no "
+                         "ok line)")
+    ap.add_argument("--dryrun-child", metavar="CELL",
+                    help="one trace of the dry-run phase (a, b or c); the "
+                         "phase starts these itself")
     ap.add_argument("--recovery-child", metavar="SPEC",
                     help="one leg of the recovery phase (a JSON spec); the "
                          "phase starts these itself")
@@ -767,6 +787,8 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "scripts"))
+    if args.dryrun_child:
+        return dryrun_child(args.dryrun_child)
     if args.recovery_child:
         return recovery_child(json.loads(args.recovery_child))
     from repro_torch.kernels import _build
@@ -800,6 +822,9 @@ def main(argv=None) -> int:
     if args.train_only:
         run_train(dev, args)
         return 0
+    if args.dryrun_only:
+        run_dryrun(dev, args, card)
+        return 0
     rows = run(dev, args)
     torch.cuda.empty_cache()
     run_trace(dev, args, card)
@@ -810,9 +835,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += run_apps(dev, args)
     torch.cuda.empty_cache()
-    rows += run_lm(dev, args)
-    torch.cuda.empty_cache()
-    rows += run_train(dev, args)
+    # The dry run's production-mesh trace takes a minute of the host's CPU:
+    # it runs beside the serving and training phases.
+    early = {"c": spawn_dryrun("c")}
+    try:
+        rows += run_lm(dev, args)
+        torch.cuda.empty_cache()
+        rows += run_train(dev, args)
+        torch.cuda.empty_cache()
+        run_dryrun(dev, args, card, early)
+    finally:
+        stop(early.values())
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -3989,6 +4022,188 @@ def run_train(dev: torch.device, args) -> list:
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
     return [{key: r[key] for key in r if key not in ("shape", "fwd_err")}
             for r in rows + scan_rows]
+
+
+# The dry-run phase's cells held against a real step on the card: (arch,
+# shape, build_cell's cut) on a one-device mesh; and the bound on the
+# traced peak's relative distance from the card's.
+DRYRUN_CELLS = {
+    "a": ("qwen2-1.5b", "train_4k", dict(global_batch=4, microbatches=2)),
+    "b": ("qwen2-1.5b", "decode_32k", dict(global_batch=8)),
+}
+DRYRUN_PEAK_RTOL = 0.10
+
+
+def dryrun_cell(name: str):
+    """``(cell, meta)`` of dry-run cell ``a`` or ``b`` on a one-device mesh
+    (call inside ``fake_world(1)``)."""
+    from repro_torch.launch.dryrun import build_cell
+    from repro_torch.launch.mesh import make_mesh
+    arch, shape, kw = DRYRUN_CELLS[name]
+    return build_cell(arch, shape, make_mesh((1, 1), ("data", "model")),
+                      **kw)
+
+
+def dryrun_child(name: str) -> int:
+    """One trace of the dry-run phase in a process of its own, on the
+    host's CPU: cells ``a`` and ``b`` on a one-device mesh, ``c``
+    (mamba2-130m ``train_4k``) on the 16×16 production mesh; prints
+    ``DRYRUN <json>``: the record (``cell_result``) and the trace's
+    seconds."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_world
+    t0 = time.perf_counter()
+    if name == "c":
+        rec = dryrun.run_cell("mamba2-130m", "train_4k", False)
+    else:
+        with fake_world(1):
+            cell, meta = dryrun_cell(name)
+            trace = cell()
+        rec = dryrun.cell_result(trace, meta, False, 0.0)
+        rec["peak_bytes"] = trace.peak_bytes
+    rec["seconds"] = time.perf_counter() - t0
+    print("DRYRUN " + json.dumps(rec), flush=True)
+    return 0
+
+
+def spawn_dryrun(name: str):
+    """Start trace ``name`` in a child; its output goes to temporary files
+    (a pipe no one reads while the card runs other phases would stall it
+    once full)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                             "--dryrun-child", name], stdout=out, stderr=err,
+                            env=env, cwd=ROOT)
+    proc.logs = (out, err)
+    return proc
+
+
+def stop(procs) -> None:
+    """Kill and reap the dry-run children still running; close their
+    logs."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        for f in p.logs:
+            f.close()
+
+
+def dryrun_result(proc, name: str) -> dict:
+    proc.wait(timeout=600)
+    out, err = proc.logs
+    out.seek(0)
+    err.seek(0)
+    lines = [x for x in out.read().splitlines() if x.startswith("DRYRUN ")]
+    check(proc.returncode == 0 and lines, f"dry run ({name}): its trace "
+          f"ran (exit {proc.returncode}; {err.read()[-2000:]})")
+    return json.loads(lines[0].split(" ", 1)[1])
+
+
+def tree_bytes(*trees) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in leaves(tree))
+
+
+def dryrun_real(dev, name: str, seed: int) -> dict:
+    """Cell ``name``'s step run for real on the card: a warm-up step, a
+    timed one (host clock, synchronised) over which the peak of
+    ``torch.cuda.max_memory_allocated()`` above the memory before the model
+    is read, and one under ``FlopCounterMode``; with the real arguments'
+    bytes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.mesh import fake_world
+    from repro_torch.models import Model
+    from repro_torch.train import init_train_state, make_train_step
+    with fake_world(1):
+        cell, _ = dryrun_cell(name)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = Model(cell.cfg, device=dev, seed=seed)
+    shape = cell.shape
+    if shape.kind == "train":
+        state = init_train_state(model.params(), cell.tcfg)
+        step = make_train_step(model, cell.tcfg)
+        batch = synthetic_batch(cell.dcfg, 0, dev)
+        args_bytes = tree_bytes(state.params, state.opt, batch)
+        run = lambda: step(state, batch)
+    else:
+        cache = model.init_cache(shape.global_batch, shape.seq_len)
+        tok = torch.zeros((shape.global_batch, 1), dtype=torch.int32,
+                          device=dev)
+        args_bytes = tree_bytes(model.params(), tok, cache)
+        run = lambda: model.decode(tok, shape.seq_len - 1, cache)
+    run()
+    torch.cuda.synchronize()
+    reset_peak()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    with FlopCounterMode(display=False) as fc:
+        run()
+    torch.cuda.synchronize()
+    flops = fc.get_total_flops()
+    del model, run
+    torch.cuda.empty_cache()
+    return dict(ms=ms, peak=peak, flops=flops, args=args_bytes)
+
+
+def run_dryrun(dev, args, card: str, early=None) -> None:
+    """The dry-run phase: the three traces in processes of their own on the
+    host's CPU (``early`` holds those started before the phase), the card
+    meanwhile running cells (a) and (b) for real; then the checks and lines
+    of item 11 of the docstring."""
+    t_phase = time.perf_counter()
+    procs = dict(early or {})
+    procs.update((name, spawn_dryrun(name)) for name in ("c", "a", "b")
+                 if name not in procs)
+    try:
+        real = {name: dryrun_real(dev, name, args.seed)
+                for name in DRYRUN_CELLS}
+        traced = {name: dryrun_result(p, name) for name, p in procs.items()}
+    finally:
+        stop(procs.values())
+    for name, (arch, shape, kw) in DRYRUN_CELLS.items():
+        t, r = traced[name], real[name]
+        what = f"dry run ({name}) {arch} {shape}"
+        check(t["cost"]["flops_per_device"] == r["flops"],
+              f"{what}: traced flops {t['cost']['flops_per_device']:.0f} "
+              f"== FlopCounterMode over the real step {r['flops']}")
+        check(t["memory"]["argument_bytes"] == r["args"],
+              f"{what}: traced argument bytes "
+              f"{t['memory']['argument_bytes']} == the real {r['args']}")
+        ratio = t["peak_bytes"] / r["peak"]
+        check(abs(ratio - 1) <= DRYRUN_PEAK_RTOL,
+              f"{what}: traced peak {t['peak_bytes']} within "
+              f"{DRYRUN_PEAK_RTOL:.0%} of the card's {r['peak']}")
+        lb = t["roofline"]["step_lower_bound_s"] * 1e3
+        cut = ", ".join(f"{k} {v}" for k, v in kw.items())
+        print(f"dryrun ({name}) {arch} {shape} [{cut}; 1x1 mesh; {card}]: "
+              f"flops traced {t['cost']['flops_per_device']:.0f} == measured "
+              f"{r['flops']}; argument bytes traced "
+              f"{t['memory']['argument_bytes']} == real {r['args']}; peak "
+              f"traced {t['peak_bytes'] / 1e9:.4f} GB, measured "
+              f"{r['peak'] / 1e9:.4f} GB (traced/measured {ratio:.4f}); step "
+              f"{r['ms']:.2f} ms measured, lower bound {lb:.3f} ms "
+              f"({t['roofline']['dominant']}), bound/measured "
+              f"{lb / r['ms']:.4f}; traced in {t['seconds']:.1f} s")
+    c = traced["c"]
+    print(f"dryrun (c) mamba2-130m train_4k [16x16 mesh, fake, on the host]: "
+          f"{c['memory']['per_device_bytes'] / 1e9:.3f} GB per device "
+          f"(fits {c['memory']['fits_hbm']}), dominant "
+          f"{c['roofline']['dominant']}, step lower bound "
+          f"{c['roofline']['step_lower_bound_s'] * 1e3:.3f} ms, collectives "
+          f"{c['collectives']['weighted_bytes'] / 1e9:.3f} GB weighted, "
+          f"traced in {c['seconds']:.1f} s")
+    print(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s")
+
 
 if __name__ == "__main__":
     sys.exit(main())

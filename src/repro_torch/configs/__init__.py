@@ -5,7 +5,8 @@ architectures and names; :class:`repro_torch.models.Model` raises for the
 families it does not run yet.
 """
 
-from .base import ModelConfig
+from .base import (SHAPES, ModelConfig, ShapeConfig, applicable_shapes,
+                   skip_reason)
 
 from .paligemma_3b import CONFIG as _paligemma
 from .qwen2_1_5b import CONFIG as _qwen2
@@ -35,4 +36,5 @@ def get_config(name: str) -> ModelConfig:
     return REGISTRY[name]
 
 
-__all__ = ["ARCH_NAMES", "ModelConfig", "REGISTRY", "get_config"]
+__all__ = ["ARCH_NAMES", "ModelConfig", "REGISTRY", "SHAPES", "ShapeConfig",
+           "applicable_shapes", "get_config", "skip_reason"]

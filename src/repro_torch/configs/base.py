@@ -4,14 +4,15 @@
 One frozen dataclass covers all ten assigned architecture families; each
 ``configs/<arch>.py`` instantiates it with the exact published numbers.
 ``smoke()`` derives the reduced same-family variant used by CPU smoke tests.
-The input shapes (``SHAPES``, ``applicable_shapes``, ``skip_reason``) come
-with the train and dry-run slice of the port.
+The input shapes assigned to every architecture (``SHAPES``,
+``applicable_shapes``, ``skip_reason``) are the dry run's cells
+(:mod:`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,3 +121,42 @@ class ModelConfig:
             attn_chunk=32,
             dtype="float32",
         )
+
+
+# ---------------------------------------------------------------------------
+# Input shapes assigned to every LM architecture.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                    # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig):
+    """The shapes an architecture runs: no decode for an encoder-only
+    model, and the 500k-token decode only for the sub-quadratic families."""
+    out = ["train_4k", "prefill_32k"]
+    if not cfg.is_encoder_only:
+        out.append("decode_32k")
+        if cfg.family in ("ssm", "hybrid"):
+            out.append("long_500k")   # sub-quadratic decode only
+    return out
+
+
+def skip_reason(cfg: ModelConfig, shape: str) -> Optional[str]:
+    if shape in applicable_shapes(cfg):
+        return None
+    if cfg.is_encoder_only:
+        return "encoder-only: no autoregressive decode step exists"
+    return "pure full attention: 500k-token decode requires sub-quadratic attention"

@@ -196,3 +196,21 @@ def require_cuda(name: str, *tensors) -> None:
             raise TypeError(f"{name}: expected int32 words, got {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: rows must be contiguous")
+
+
+def define_op(schema: str, cuda_impl, fake_impl):
+    """Define the op ``repro_torch::<schema>`` (``torch.ops.repro_torch``)
+    with ``cuda_impl`` as its CUDA implementation and ``fake_impl`` as its
+    fake one (shapes, strides and dtypes only: what ``FakeTensorMode`` and
+    meta tensors run); returns its ``OpOverload``.  The plain
+    ``torch.library`` registration: ``torch.library.custom_op``'s Python
+    layers (an autograd wrapper and an aliasing check a call) cost tens of
+    microseconds a launch, which the host-bound kernel rows read."""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, cuda_impl, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake_impl, lib=_OPS)
+    return getattr(torch.ops.repro_torch, name).default
+
+
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")

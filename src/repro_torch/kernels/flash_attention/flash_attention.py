@@ -61,16 +61,25 @@ key tiles are too few for the card, :func:`_bwd_slices`).  fp32 takes FMA
 kernels with fp32 sums.  The JAX package has no backward kernel: its
 gradient is XLA's autodiff of ``layers.attention``
 (``src/repro/models/layers.py:99-174``), what the tests hold both against.
-"""
+
+The launches are PyTorch ops, ``repro_torch::flash_attention``,
+``flash_attention_lse`` and ``flash_attention_bwd`` (:data:`FLASH`,
+:data:`FLASH_LSE`, :data:`FLASH_BWD`), each with a fake
+implementation (shapes and dtypes only), a flop formula
+(:func:`attention_flops`) and a DTensor sharding rule
+(:func:`register_sharding_rules`), so a trace under ``FakeTensorMode``
+(``repro_torch.launch.dryrun``) runs the card's path without a card."""
 
 from __future__ import annotations
 
 import functools
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from .._build import launch, library, ptr
+from .._build import define_op, launch, library, ptr
 
 LAUNCHES = 0   # calls that launched the CUDA kernel (the forward)
 BWD_LAUNCHES = 0   # calls of attend_backward that launched kernel 5b
@@ -194,7 +203,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _Attend.apply(q, k, v, kw)
     if q.device.type == "cpu":
         return attend_plain(q, k, v, **kw)
-    return _launch(q, k, v, kw, with_lse=False)[0]
+    return FLASH(q, k, v, *_attention_args(kw))
 
 
 def attend_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -211,7 +220,7 @@ def attend_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   prefix=prefix)
     if q.device.type == "cpu":
         return attend_plain_with_lse(q, k, v, **kw)
-    return _launch(q, k, v, kw, with_lse=True)
+    return FLASH_LSE(q, k, v, *_attention_args(kw))
 
 
 def _options(q, k, v, *, causal, sk_valid, q_offset, scale, window,
@@ -260,14 +269,134 @@ def _check_cuda(what: str, q: torch.Tensor, *tensors) -> None:
             _check_aligned(name, t)
 
 
-def _launch(q, k, v, kw: dict, *, with_lse: bool):
+def _attention_args(kw: dict) -> tuple:
+    """The mask keywords of :func:`_options` in the ops' schema order."""
+    return (kw["causal"], kw["sk_valid"], kw["q_offset"], kw["scale"],
+            kw["window"], kw["prefix"])
+
+
+_MASK = ("bool causal, int sk_valid, int q_offset, float scale, int window, "
+         "int prefix")
+
+
+def _flash(q, k, v, causal, sk_valid, q_offset, scale, window, prefix):
+    """Kernel 5: the output ``[B, Sq, Hq, d]``."""
+    return _launch(q, k, v, causal, sk_valid, q_offset, scale, window,
+                   prefix, with_lse=False)[0]
+
+
+def _flash_fake(q, k, v, causal, sk_valid, q_offset, scale, window, prefix):
+    return q.new_empty(q.shape)
+
+
+def _flash_lse(q, k, v, causal, sk_valid, q_offset, scale, window, prefix):
+    """Kernel 5 with each row's log-sum-exp: ``(out, lse [B, Hq, Sq])``."""
+    return _launch(q, k, v, causal, sk_valid, q_offset, scale, window,
+                   prefix, with_lse=True)
+
+
+def _flash_lse_fake(q, k, v, causal, sk_valid, q_offset, scale, window,
+                    prefix):
+    b, sq, hq, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, hq, sq), dtype=torch.float32))
+
+
+def _flash_bwd(q, k, v, out, dout, lse, causal, sk_valid, q_offset, scale,
+               window, prefix):
+    """Kernel 5b: ``(dq, dk, dv)``, contiguous, in q's, k's and v's
+    shapes."""
+    return _launch_bwd(q, k, v, out, dout, lse, causal, sk_valid, q_offset,
+                       scale, window, prefix)
+
+
+def _flash_bwd_fake(q, k, v, out, dout, lse, causal, sk_valid, q_offset,
+                    scale, window, prefix):
+    return (q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape))
+
+
+FLASH = define_op(
+    f"flash_attention(Tensor q, Tensor k, Tensor v, {_MASK}) -> Tensor",
+    _flash, _flash_fake)
+FLASH_LSE = define_op(
+    f"flash_attention_lse(Tensor q, Tensor k, Tensor v, {_MASK}) "
+    "-> (Tensor, Tensor)", _flash_lse, _flash_lse_fake)
+FLASH_BWD = define_op(
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor out, "
+    f"Tensor dout, Tensor lse, {_MASK}) -> (Tensor, Tensor, Tensor)",
+    _flash_bwd, _flash_bwd_fake)
+
+
+def visible_pairs(sq: int, sk: int, *, causal: bool, sk_valid: int,
+                  q_offset: int, window: int, prefix: int) -> int:
+    """The (query row, key) pairs an attention call's mask leaves, for one
+    head: row ``i`` at position ``p = q_offset + i`` sees the keys ``k <
+    min(sk, sk_valid)``, with ``causal`` those ``k <= max(p, prefix - 1)``,
+    and with a ``window`` those ``k > p - window``."""
+    p = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.full(sq, max(0, min(sk, sk_valid)), dtype=np.int64)
+    if causal:
+        hi = np.minimum(hi, np.maximum(p, prefix - 1) + 1)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros_like(p)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attention_flops(q_shape, k_shape, *, causal: bool, sk_valid: int,
+                    q_offset: int, window: int, prefix: int,
+                    backward: bool = False) -> int:
+    """The floating-point operations of the function kernels 5 and 5b
+    compute, from the shapes and the mask, whatever their passes: with ``n``
+    the :func:`visible_pairs` of a head, the forward's two products ``S =
+    Q·Kᵀ`` and ``O = P·V`` take ``2·n·d`` each, ``4·n·d·Hq·B`` in all; the
+    backward's five (``S`` again, ``dP = dO·Vᵀ``, ``dV = Pᵀ·dO``, ``dQ =
+    dS·K``, ``dK = dSᵀ·Q``) take ``10·n·d·Hq·B``.  The softmax's elementwise
+    work is not counted, as ``torch.utils.flop_counter`` counts none for
+    ``scaled_dot_product_attention``."""
+    b, sq, hq, d = q_shape
+    n = visible_pairs(sq, k_shape[1], causal=causal, sk_valid=sk_valid,
+                      q_offset=q_offset, window=window, prefix=prefix)
+    return (10 if backward else 4) * n * d * hq * b
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_attention,
+                        torch.ops.repro_torch.flash_attention_lse])
+def _(q_shape, k_shape, v_shape, causal, sk_valid, q_offset, scale, window,
+      prefix, *args, out_shape=None, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal=causal,
+                           sk_valid=sk_valid, q_offset=q_offset,
+                           window=window, prefix=prefix)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _(q_shape, k_shape, v_shape, out_shape_, dout_shape, lse_shape, causal,
+      sk_valid, q_offset, scale, window, prefix, *args, out_shape=None,
+      **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal=causal,
+                           sk_valid=sk_valid, q_offset=q_offset,
+                           window=window, prefix=prefix, backward=True)
+
+
+def register_sharding_rules() -> None:
+    """Kernels 5 and 5b with DTensor operands: local on the batch and on the
+    heads (of q and of k and v alike, so each device keeps whole groups)."""
+    from .._sharding import register
+    ops = torch.ops.repro_torch
+    register(ops.flash_attention.default,
+             {"batch": ((0, 0, 0), (0,)), "heads": ((2, 2, 2), (2,))})
+    register(ops.flash_attention_lse.default,
+             {"batch": ((0, 0, 0), (0, 0)), "heads": ((2, 2, 2), (2, 1))})
+    register(ops.flash_attention_bwd.default,
+             {"batch": ((0,) * 6, (0, 0, 0)),
+              "heads": ((2, 2, 2, 2, 2, 1), (2, 2, 2))})
+
+
+def _launch(q, k, v, causal, sk_valid, q_offset, scale, window, prefix, *,
+            with_lse: bool):
     """Kernel 5 on CUDA tensors: ``(out, lse or None)``."""
     global LAUNCHES
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     _check_cuda("attend", q, k, v)
-    causal, sk_valid, q_offset = kw["causal"], kw["sk_valid"], kw["q_offset"]
-    window, prefix, scale = kw["window"], kw["prefix"], kw["scale"]
     bq, bk, splits, split_len = _plan(
         _sms(q.device), q.dtype, b, sq * (hq // hkv), hkv, d, sk=sk,
         sk_valid=sk_valid, q_offset=q_offset, window=window)
@@ -287,32 +416,14 @@ def _launch(q, k, v, kw: dict, *, with_lse: bool):
     return out, lse
 
 
-def attend_backward(q, k, v, out, dout, lse, *, causal: bool,
-                    sk_valid: int | None = None, q_offset: int = 0,
-                    scale: float | None = None, window: int = 0,
-                    prefix: int = 0):
-    """Kernel 5b: the gradients ``(dq, dk, dv)`` of :func:`attend` at ``(q,
-    k, v)`` given its output ``out``, the output's gradient ``dout`` and the
-    forward's ``lse`` (:func:`attend_with_lse`), on CUDA tensors (the
-    forward's dtypes, layouts and alignment; ``dout`` is made contiguous, as
-    autograd may hand in a strided one).  A CPU tensor takes
-    :func:`attend_backward_plain` (which recomputes the probabilities and
-    needs no ``lse``)."""
+def _launch_bwd(q, k, v, out, dout, lse, causal, sk_valid, q_offset, scale,
+                window, prefix):
+    """Kernel 5b on CUDA tensors (checked by :func:`attend_backward`):
+    ``(dq, dk, dv)``."""
     global BWD_LAUNCHES
-    kw = _options(q, k, v, causal=causal, sk_valid=sk_valid,
-                  q_offset=q_offset, scale=scale, window=window,
-                  prefix=prefix)
-    if q.device.type == "cpu":
-        return attend_backward_plain(q, k, v, out, dout, **kw)
-    dout = dout.contiguous()
     _check_cuda("attend_backward", q, k, v, out, dout)
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
-    if (tuple(out.shape) != tuple(q.shape) or dout.shape != out.shape
-            or lse is None or tuple(lse.shape) != (b, hq, sq)
-            or lse.dtype != torch.float32 or not lse.is_contiguous()):
-        raise ValueError("attend_backward: out and dout must be [B, Sq, Hq, "
-                         "d] and lse the forward's fp32 [B, Hq, Sq]")
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
@@ -331,10 +442,36 @@ def attend_backward(q, k, v, out, dout, lse, *, causal: bool,
            ptr(dout), *dout.stride()[:3], ptr(lse), ptr(dsum),
            ptr(dq), *dq.stride()[:3], ptr(dk), *dk.stride()[:3],
            ptr(dv), *dv.stride()[:3], ptr(part), slices, b, sq, sk, hq, hkv,
-           d, kw["sk_valid"], kw["q_offset"], int(kw["causal"]),
-           kw["window"], kw["prefix"], _DTYPES[q.dtype], kw["scale"])
+           d, sk_valid, q_offset, int(causal), window, prefix,
+           _DTYPES[q.dtype], scale)
     BWD_LAUNCHES += 1
     return dq, dk, dv
+
+
+def attend_backward(q, k, v, out, dout, lse, *, causal: bool,
+                    sk_valid: int | None = None, q_offset: int = 0,
+                    scale: float | None = None, window: int = 0,
+                    prefix: int = 0):
+    """Kernel 5b: the gradients ``(dq, dk, dv)`` of :func:`attend` at ``(q,
+    k, v)`` given its output ``out``, the output's gradient ``dout`` and the
+    forward's ``lse`` (:func:`attend_with_lse`), on CUDA tensors (the
+    forward's dtypes, layouts and alignment; ``dout`` is made contiguous, as
+    autograd may hand in a strided one).  A CPU tensor takes
+    :func:`attend_backward_plain` (which recomputes the probabilities and
+    needs no ``lse``)."""
+    kw = _options(q, k, v, causal=causal, sk_valid=sk_valid,
+                  q_offset=q_offset, scale=scale, window=window,
+                  prefix=prefix)
+    if q.device.type == "cpu":
+        return attend_backward_plain(q, k, v, out, dout, **kw)
+    dout = dout.contiguous()
+    b, sq, hq, d = q.shape
+    if (tuple(out.shape) != tuple(q.shape) or dout.shape != out.shape
+            or lse is None or tuple(lse.shape) != (b, hq, sq)
+            or lse.dtype != torch.float32 or not lse.is_contiguous()):
+        raise ValueError("attend_backward: out and dout must be [B, Sq, Hq, "
+                         "d] and lse the forward's fp32 [B, Hq, Sq]")
+    return FLASH_BWD(q, k, v, out, dout, lse, *_attention_args(kw))
 
 
 class _Attend(torch.autograd.Function):

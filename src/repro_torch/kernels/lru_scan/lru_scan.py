@@ -29,14 +29,20 @@ recurrence (:func:`lru_scan_backward`): on a CUDA tensor kernel 7b
 ``BWD_LAUNCHES``), on a CPU tensor :func:`lru_backward_plain`.  No kernel of
 the JAX package computes it: it replaces XLA's autodiff of
 ``_lru_chunked_jnp``.
-"""
+
+The launches are PyTorch ops, ``repro_torch::lru_scan`` and
+``lru_scan_bwd`` (:data:`LRU`, :data:`LRU_BWD`), each with a fake implementation (shapes and dtypes only),
+a flop formula (:func:`lru_flops`) and a DTensor sharding rule
+(:func:`register_sharding_rules`), so a trace under ``FakeTensorMode``
+(``repro_torch.launch.dryrun``) runs the card's path without a card."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
-from .._build import launch, ptr
+from .._build import define_op, launch, ptr
 
 LAUNCHES = 0       # forward scans that launched kernel 7
 BWD_LAUNCHES = 0   # calls of lru_scan_backward that launched kernel 7b
@@ -103,9 +109,28 @@ def _require_kernel_operand(t, what: str) -> None:
 
 def _forward(a, b, chunk: int):
     """:func:`lru_scan_chunked` without autograd."""
-    global LAUNCHES
     if a.device.type == "cpu":
         return lru_chunked_plain(a, b, chunk)
+    return LRU(a, b)
+
+
+def _lru_scan(a, b):
+    """Kernel 7: ``(h [B, S, D], h_fin [B, D])``, float32."""
+    return _launch(a, b)
+
+
+def _lru_scan_fake(a, b):
+    bsz, s, d = a.shape
+    return (a.new_empty((bsz, s, d), dtype=torch.float32),
+            a.new_empty((bsz, d), dtype=torch.float32))
+
+
+LRU = define_op("lru_scan(Tensor a, Tensor b) -> (Tensor, Tensor)",
+                _lru_scan, _lru_scan_fake)
+
+
+def _launch(a, b):
+    global LAUNCHES
     for t in (a, b):
         _require_kernel_operand(t, "lru_scan")
     bsz, s, d = a.shape
@@ -121,6 +146,32 @@ def _forward(a, b, chunk: int):
            ptr(prod), bsz, s, d)
     LAUNCHES += 1
     return h, h_fin
+
+
+def register_sharding_rules() -> None:
+    """Kernels 7 and 7b with DTensor operands: local on the batch and on
+    the channels."""
+    from .._sharding import register
+    ops = torch.ops.repro_torch
+    register(ops.lru_scan.default,
+             {"batch": ((0, 0), (0, 0)), "channels": ((2, 2), (2, 1))})
+    register(ops.lru_scan_bwd.default,
+             {"batch": ((0, 0, 0, 0), (0, 0)),
+              "channels": ((2, 2, 2, 1), (2, 2))})
+
+
+def lru_flops(shape, *, backward: bool = False) -> int:
+    """The floating-point operations of the function kernels 7 and 7b
+    compute over ``[B, S, D]``: the forward's ``h_t = a_t·h_{t-1} + b_t``,
+    a product and a sum, ``2·B·S·D``; the backward's ``g_t = dh_t +
+    a_{t+1}·g_{t+1}`` and ``da_t = g_t·h_{t-1}``, ``3·B·S·D``."""
+    bsz, s, d = shape
+    return (3 if backward else 2) * bsz * s * d
+
+
+@register_flop_formula(torch.ops.repro_torch.lru_scan)
+def _(a_shape, b_shape, *args, out_shape=None, **kwargs) -> int:
+    return lru_flops(a_shape)
 
 
 def lru_backward_plain(a, h, dh, dh_fin=None, chunk: int = 256):
@@ -149,7 +200,6 @@ def lru_scan_backward(a, h, dh, dh_fin=None, *, chunk: int = 256):
     zero), float32.  A CPU tensor takes :func:`lru_backward_plain` with
     ``chunk``; a CUDA tensor launches kernel 7b or raises (``dh`` is made
     width-contiguous first: autograd may hand in a strided one)."""
-    global BWD_LAUNCHES
     if a.dim() != 3 or h.shape != a.shape or dh.shape != a.shape or (
             dh_fin is not None and dh_fin.shape != (a.shape[0], a.shape[2])):
         raise ValueError(f"lru_scan_backward: a {tuple(a.shape)}, h "
@@ -161,6 +211,27 @@ def lru_scan_backward(a, h, dh, dh_fin=None, *, chunk: int = 256):
         dh = dh.contiguous()
     if dh_fin is not None:
         dh_fin = dh_fin.contiguous()
+    return LRU_BWD(a, h, dh, dh_fin)
+
+
+def _lru_scan_bwd(a, h, dh, dh_fin):
+    """Kernel 7b: ``(da, db)``, float32 ``[B, S, D]``."""
+    return _launch_bwd(a, h, dh, dh_fin)
+
+
+def _lru_scan_bwd_fake(a, h, dh, dh_fin):
+    return (a.new_empty(a.shape, dtype=torch.float32),
+            a.new_empty(a.shape, dtype=torch.float32))
+
+
+LRU_BWD = define_op("lru_scan_bwd(Tensor a, Tensor h, Tensor dh, "
+                    "Tensor? dh_fin) -> (Tensor, Tensor)", _lru_scan_bwd,
+                    _lru_scan_bwd_fake)
+
+
+def _launch_bwd(a, h, dh, dh_fin):
+    global BWD_LAUNCHES
+    if dh_fin is not None:
         _require_kernel_operand(dh_fin, "lru_scan_backward")
     for t in (a, h, dh):
         _require_kernel_operand(t, "lru_scan_backward")
@@ -176,6 +247,11 @@ def lru_scan_backward(a, h, dh, dh_fin=None, *, chunk: int = 256):
            ptr(prod), bsz, s, d)
     BWD_LAUNCHES += 1
     return da, db
+
+
+@register_flop_formula(torch.ops.repro_torch.lru_scan_bwd)
+def _(a_shape, *args, out_shape=None, **kwargs) -> int:
+    return lru_flops(a_shape, backward=True)
 
 
 class _LruScan(torch.autograd.Function):

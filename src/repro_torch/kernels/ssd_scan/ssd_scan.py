@@ -37,14 +37,20 @@ the kernel's phases (:func:`state_passing_backward`,
 :func:`chunk_backward`, then the sums over heads, batch and chunks).  No
 kernel of the JAX package computes it: it replaces XLA's autodiff of
 ``_ssd_chunked_jnp``.
-"""
+
+The launches are PyTorch ops, ``repro_torch::ssd_scan`` and
+``ssd_scan_bwd`` (:data:`SSD`, :data:`SSD_BWD`), each with a fake implementation (shapes and dtypes only),
+a flop formula (:func:`ssd_flops`) and a DTensor sharding rule
+(:func:`register_sharding_rules`), so a trace under ``FakeTensorMode``
+(``repro_torch.launch.dryrun``) runs the card's path without a card."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
-from .._build import launch, ptr
+from .._build import define_op, launch, ptr
 
 LAUNCHES = 0       # forward scans that launched kernel 6
 BWD_LAUNCHES = 0   # calls of ssd_scan_backward that launched kernel 6b
@@ -271,11 +277,51 @@ def _forward(x, dt, A, Bm, Cm, chunk: int):
     """:func:`ssd_scan_chunked` without autograd: ``(y, S_fin, states)``,
     ``states`` kernel 6's ``[B, H, nc, N, P]`` state before each chunk of
     ``KERNEL_CHUNK`` (chunk 0's left unwritten; None on the CPU)."""
+    if x.device.type == "cpu":
+        return (*ssd_chunked_plain(x, dt, A, Bm, Cm, chunk), None)
+    return SSD(x, dt, A, Bm, Cm)
+
+
+def _ssd_scan(x, dt, A, Bm, Cm):
+    """Kernel 6: ``(y, S_fin, states)`` as :func:`_forward` gives them."""
+    return _launch(x, dt, A, Bm, Cm)
+
+
+def _ssd_scan_fake(x, dt, A, Bm, Cm):
+    b, h, s, p = x.shape
+    n = Bm.shape[-1]
+    nc = -(-s // KERNEL_CHUNK)
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty((b, s, h, p), **f32).transpose(1, 2),
+            x.new_empty((b, h, n, p), **f32),
+            x.new_empty((b, h, nc, n, p), **f32))
+
+
+SSD = define_op("ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor Bm, "
+                "Tensor Cm) -> (Tensor, Tensor, Tensor)", _ssd_scan,
+                _ssd_scan_fake)
+
+
+def register_sharding_rules() -> None:
+    """Kernels 6 and 6b with DTensor operands: local on the batch (A
+    replicated; the backward's dA a partial sum over it) and on the heads
+    (B and C replicated; dB and dC partial sums over them)."""
+    from .._sharding import register
+    ops = torch.ops.repro_torch
+    register(ops.ssd_scan.default,
+             {"batch": ((0, 0, None, 0, 0), (0, 0, 0)),
+              "heads": ((1, 1, 0, None, None), (1, 1, 1))})
+    register(ops.ssd_scan_bwd.default,
+             {"batch": ((0, 0, None, 0, 0, 0, 0, 0),
+                        (0, 0, "partial", 0, 0)),
+              "heads": ((1, 1, 0, None, None, 1, 1, 1),
+                        (1, 1, 0, "partial", "partial"))})
+
+
+def _launch(x, dt, A, Bm, Cm):
     global LAUNCHES
     b, h, s, p = x.shape
     n = Bm.shape[-1]
-    if x.device.type == "cpu":
-        return (*ssd_chunked_plain(x, dt, A, Bm, Cm, chunk), None)
     _require_kernel_operands("ssd_scan", x, dt, A, Bm, Cm)
     for t in (x, Bm, Cm):
         if t.stride(-1) != 1:
@@ -301,6 +347,31 @@ def _forward(x, dt, A, Bm, Cm, chunk: int):
     return y, s_fin, states
 
 
+def ssd_flops(x_shape, n: int, *, backward: bool = False) -> int:
+    """The floating-point operations of the function kernels 6 and 6b
+    compute: the SSD decomposition's matrix products over ``nc = ceil(S /
+    Q)`` chunks of the kernels' ``Q = KERNEL_CHUNK`` steps, for x ``[B, H,
+    S, P]`` and a state of ``N``.  Forward: ``G = C·Bᵀ`` a (batch, chunk),
+    ``2·Q²·N``; a (batch, head, chunk) the diagonal block ``(G∘L)·X``,
+    ``2·Q²·P``, its state ``Bᵀ·X``, ``2·Q·N·P``, and the output from the
+    state before it ``C·S``, ``2·Q·N·P``: ``2·B·nc·Q²·N + B·H·nc·(2·Q²·P +
+    4·Q·N·P)``.  Backward: each forward product's two operand gradients
+    (twice the forward) and ``G`` again.  The decays' and the state
+    passing's elementwise work is not counted."""
+    b, h, s, p = x_shape
+    q = KERNEL_CHUNK
+    nc = -(-s // q)
+    gram = 2 * b * nc * q * q * n
+    fwd = gram + b * h * nc * (2 * q * q * p + 4 * q * n * p)
+    return 2 * fwd + gram if backward else fwd
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan)
+def _(x_shape, dt_shape, A_shape, B_shape, C_shape, *args, out_shape=None,
+      **kwargs) -> int:
+    return ssd_flops(x_shape, B_shape[-1])
+
+
 def ssd_scan_backward(x, dt, A, Bm, Cm, dy, dS_fin=None, *, states=None,
                       chunk: int = 128):
     """The SSD scan's gradients ``(dx, ddt, dA, dB, dC)``, float32, from its
@@ -311,7 +382,6 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, dy, dS_fin=None, *, states=None,
     before each chunk of ``KERNEL_CHUNK`` steps, from the forward on the same
     operands (``dy`` is made last-dim contiguous first: autograd may hand in
     a strided one)."""
-    global BWD_LAUNCHES
     _check_operands(x, dt, A, Bm, Cm)
     b, h, s, p = x.shape
     n = Bm.shape[-1]
@@ -331,6 +401,42 @@ def ssd_scan_backward(x, dt, A, Bm, Cm, dy, dS_fin=None, *, states=None,
         dy = dy.contiguous()
     if dS_fin is not None:
         dS_fin = dS_fin.contiguous()
+    return SSD_BWD(x, dt, A, Bm, Cm, dy, dS_fin, states)
+
+
+def _ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dS_fin, states):
+    """Kernel 6b: ``(dx, ddt, dA, dB, dC)`` as :func:`ssd_scan_backward`
+    gives them."""
+    return _launch_bwd(x, dt, A, Bm, Cm, dy, dS_fin, states)
+
+
+def _ssd_scan_bwd_fake(x, dt, A, Bm, Cm, dy, dS_fin, states):
+    b, h, s, p = x.shape
+    n = Bm.shape[-1]
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty((b, s, h, p), **f32).transpose(1, 2),
+            x.new_empty((b, h, s), **f32), x.new_empty((h,), **f32),
+            x.new_empty((b, s, n), **f32), x.new_empty((b, s, n), **f32))
+
+
+SSD_BWD = define_op(
+    "ssd_scan_bwd(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, "
+    "Tensor dy, Tensor? dS_fin, Tensor states) -> (Tensor, Tensor, Tensor, "
+    "Tensor, Tensor)", _ssd_scan_bwd, _ssd_scan_bwd_fake)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _(x_shape, dt_shape, A_shape, B_shape, *args, out_shape=None,
+      **kwargs) -> int:
+    return ssd_flops(x_shape, B_shape[-1], backward=True)
+
+
+def _launch_bwd(x, dt, A, Bm, Cm, dy, dS_fin, states):
+    global BWD_LAUNCHES
+    b, h, s, p = x.shape
+    n = Bm.shape[-1]
+    q = KERNEL_CHUNK
+    nc = -(-s // q)
     _require_kernel_operands("ssd_scan_backward", x, dt, A, Bm, Cm, dy,
                              states, dS_fin)
     for t in (x, Bm, Cm):

@@ -142,6 +142,18 @@ def init_params(cfg, gen: torch.Generator) -> Dict:
     return params
 
 
+def make_cache(cfg, batch: int, max_seq: int, device) -> Dict:
+    """Every layer's cache for ``batch`` sequences of ``max_seq`` positions
+    on ``device`` (:meth:`Model.init_cache` after its check that the model
+    has a decode step; the dry run's prefill of an encoder-only model takes
+    it directly, as the JAX package's does)."""
+    one = {"ssm": lambda: mamba_cache(cfg, batch, device),
+           "rec": lambda: rglru_cache(cfg, batch, device),
+           "attn": lambda: attn_cache(cfg, batch, max_seq, device),
+           "moe": lambda: attn_cache(cfg, batch, max_seq, device)}
+    return {"layers": [one[kind]() for kind in layer_kinds(cfg)]}
+
+
 class ParamTree(nn.Module):
     """Nested parameters addressed like the JAX package's dicts
     (``layer["attn"]["wq"]``), frozen until training asks for gradients."""
@@ -183,6 +195,11 @@ class Model(nn.Module):
                                   if k != "layers"}, dev))
         self.layers = nn.ModuleList(ParamTree(_to(lp, dev))
                                     for lp in params["layers"])
+        # Applied to the residual stream before every layer and before the
+        # final norm when set (the JAX package's ``act_constraint``, which
+        # its layer scan applies to each layer's input): the dry run pins
+        # the activations to the data axes with it.
+        self.act_constraint = None
 
     @property
     def device(self) -> torch.device:
@@ -223,6 +240,8 @@ class Model(nn.Module):
 
     def _unembed(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if self.act_constraint is not None:
+            x = self.act_constraint(x)
         x = rmsnorm(x, self.top["final_norm"], cfg.norm_eps)
         w = self.top["embed"].T if cfg.tie_embeddings else self.top["head"]
         return (x @ w).float()
@@ -252,6 +271,8 @@ class Model(nn.Module):
 
     def _run_stack(self, x, cache, pos, prefix: int = 0):
         for lp, c in zip(self.layers, cache["layers"]):
+            if self.act_constraint is not None:
+                x = self.act_constraint(x)
             x, _, _ = self._layer(lp, x, c, pos, prefix)
         return x
 
@@ -262,6 +283,9 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = self.cfg.remat == "layer" and torch.is_grad_enabled()
         for lp in self.layers:
+            if self.act_constraint is not None:
+                x = self.act_constraint(x)
+
             def one(x, lp=lp):
                 x, _, a = self._layer(lp, x, None, None, prefix)
                 return x, (a if a is not None else torch.zeros_like(aux))
@@ -273,12 +297,7 @@ class Model(nn.Module):
     # ----------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_seq: int) -> Dict:
         check_servable(self.cfg)
-        cfg, dev = self.cfg, self.device
-        one = {"ssm": lambda: mamba_cache(cfg, batch, dev),
-               "rec": lambda: rglru_cache(cfg, batch, dev),
-               "attn": lambda: attn_cache(cfg, batch, max_seq, dev),
-               "moe": lambda: attn_cache(cfg, batch, max_seq, dev)}
-        return {"layers": [one[kind]() for kind in layer_kinds(cfg)]}
+        return make_cache(self.cfg, batch, max_seq, self.device)
 
     def prefill(self, batch: Dict, cache: Dict) -> Tuple[torch.Tensor, Dict]:
         """The prompt ``batch["tokens"] [B, S]`` from position 0, after

@@ -146,10 +146,15 @@ def _nest(pairs) -> dict:
     return out
 
 
-def make_train_step(model, tcfg: TrainConfig):
+def make_train_step(model, tcfg: TrainConfig, split_microbatches=None):
     """``train_step(state, batch) -> (state, metrics)`` for ``model``:
     ``metrics`` holds ``loss``, ``gnorm`` and ``lr`` (0-d tensors).  A batch
-    is cut along its first dim into ``tcfg.microbatches`` rounds."""
+    is cut along its first dim into ``tcfg.microbatches`` rounds: each entry
+    reshaped to ``[nmb, B / nmb, ...]``, round ``i`` taking row ``i``.
+    ``split_microbatches(entry, nmb)``, when given, makes that reshape
+    instead (the dry run's, which keeps each device's rows on it where the
+    JAX package re-constrains the reshaped batch by its
+    ``microbatch_sharding`` hook)."""
     nmb = tcfg.microbatches
     acc_dt = getattr(torch, tcfg.accum_dtype)
     stacks = layer_stacks(model.cfg)
@@ -167,10 +172,13 @@ def make_train_step(model, tcfg: TrainConfig):
         if nmb == 1:
             loss, _, grads = grads_of(params, batch)
         else:
-            mbs = [{k: v.reshape((nmb, v.shape[0] // nmb) + v.shape[1:])[i]
-                    for k, v in batch.items()} for i in range(nmb)]
-            grads = map_tree(lambda p: torch.zeros(p.shape, dtype=acc_dt,
-                                                   device=p.device), params)
+            split = {k: (v.reshape((nmb, v.shape[0] // nmb) + v.shape[1:])
+                         if split_microbatches is None
+                         else split_microbatches(v, nmb))
+                     for k, v in batch.items()}
+            mbs = [{k: v[i] for k, v in split.items()} for i in range(nmb)]
+            grads = map_tree(lambda p: torch.zeros_like(p, dtype=acc_dt),
+                             params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=state.opt["step"].device)
             for mb in mbs:

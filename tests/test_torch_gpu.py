@@ -1275,3 +1275,80 @@ def test_bf16_backward_rejects_misaligned_tensors(cuda):
         fa.attend_backward(q, ok, ok, ok, ok, lse, causal=True)
     with pytest.raises(ValueError, match="lse"):
         fa.attend_backward(ok, ok, ok, ok, ok, lse[..., :4], causal=True)
+
+
+def _bitwise(got, want):
+    return all(torch.equal(u, v) and u.stride() == v.stride()
+               for u, v in zip(got, want))
+
+
+@pytest.mark.parametrize("sq, sk, dtype, d", [
+    (256, 256, torch.bfloat16, 128),     # prefill, causal tiles
+    (1, 4096, torch.bfloat16, 128),      # decode: the keys split
+    (96, 96, torch.float32, 64),         # the FMA kernels
+    (64, 64, torch.bfloat16, 256)])      # kernel 5b's head-dim-256 passes
+def test_flash_custom_ops_equal_the_direct_launch(cuda, sq, sk, dtype, d):
+    """The ops ``repro_torch::flash_attention``, ``..._lse`` and
+    ``..._bwd`` give what their implementations launched directly (the
+    launch before the ops wrapped them) give, bit for bit, and twice the
+    same; each call launches once."""
+    fa = _kernel("flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    b, hq, hkv = 2, 4, 2
+    q = torch.randn((b, sq, hq, d), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, sk, hkv, d), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    kw = fa._options(q, k, v, causal=True, sk_valid=None,
+                     q_offset=sk - sq, scale=None, window=0, prefix=0)
+    ops = torch.ops.repro_torch
+    n0 = fa.LAUNCHES
+    want = fa._launch(q, k, v, **kw, with_lse=True)
+    runs = [ops.flash_attention_lse(q, k, v, **kw) for _ in range(2)]
+    assert all(_bitwise(r, want) for r in runs)
+    plain = ops.flash_attention(q, k, v, **kw)
+    assert torch.equal(plain, fa._launch(q, k, v, **kw, with_lse=False)[0])
+    assert fa.LAUNCHES - n0 == 5
+    out, lse = want
+    dout = torch.randn(out.shape, generator=g, device=cuda).to(dtype)
+    n0 = fa.BWD_LAUNCHES
+    want = fa._launch_bwd(q, k, v, out, dout, lse, **kw)
+    runs = [ops.flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+            for _ in range(2)]
+    assert all(_bitwise(r, want) for r in runs)
+    assert fa.BWD_LAUNCHES - n0 == 3
+
+
+@pytest.mark.parametrize("b, h, s, p, n", [(2, 3, 200, 64, 128),
+                                           (1, 2, 64, 16, 16)])
+def test_scan_custom_ops_equal_the_direct_launch(cuda, b, h, s, p, n):
+    """``repro_torch::ssd_scan``/``ssd_scan_bwd`` and ``lru_scan``/
+    ``lru_scan_bwd`` against their implementations launched directly, bit
+    for bit (strides too: ``y`` and ``dx`` are ``[B, H, S, P]`` views of
+    ``[B, S, H, P]``), and twice the same."""
+    ss, ls = _kernel("ssd_scan"), _kernel("lru_scan")
+    ops = torch.ops.repro_torch
+    x, dt, A, Bm, Cm, dy, dS = _ssd_operands(cuda, b, h, s, p, n, 5)
+    want = ss._launch(x, dt, A, Bm, Cm)
+    runs = [ops.ssd_scan(x, dt, A, Bm, Cm) for _ in range(2)]
+    # the states before chunk 0 are left unwritten (kernel 6b never reads
+    # them): compare the chunks after it
+    cut = lambda r: (r[0], r[1], r[2][:, :, 1:])
+    assert all(_bitwise(cut(r), cut(want)) for r in runs)
+    states = want[2]
+    for fin in (None, dS):
+        want = ss._launch_bwd(x, dt, A, Bm, Cm, dy, fin, states)
+        runs = [ops.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, fin, states)
+                for _ in range(2)]
+        assert all(_bitwise(r, want) for r in runs)
+    g = torch.Generator(device=cuda).manual_seed(s)
+    for width in (p, 16384):     # chunked, and one pass a channel
+        a = 0.5 + 0.499 * torch.rand((b, s, width), generator=g, device=cuda)
+        xb, dh = (torch.randn((b, s, width), generator=g, device=cuda)
+                  for _ in range(2))
+        want = ls._launch(a, xb)
+        runs = [ops.lru_scan(a, xb) for _ in range(2)]
+        assert all(_bitwise(r, want) for r in runs)
+        fin = torch.randn((b, width), generator=g, device=cuda)
+        want = ls._launch_bwd(a, want[0], dh, fin)
+        runs = [ops.lru_scan_bwd(a, runs[0][0], dh, fin) for _ in range(2)]
+        assert all(_bitwise(r, want) for r in runs)

@@ -1,8 +1,10 @@
 """Guards of the PyTorch port's package boundary.
 
-``repro_torch``, ``chip_smoke.py`` and the port's scripts of kernel tiles
+``repro_torch`` (the dry run and the roofline among it),
+``chip_smoke.py`` and the port's scripts of kernel tiles
 (``scripts/flash_d256_tiles.py``, ``radix_ssd_tiles.py``,
-``flash_bwd_tiles.py``, ``train_scan_tiles.py``) import ``torch`` and
+``flash_bwd_tiles.py``, ``train_scan_tiles.py``) and of the ops' cost
+(``scripts/op_overhead.py``) import ``torch`` and
 numpy, never ``jax`` and nothing of the JAX package ``repro`` (whose name
 ``repro_torch`` shares a prefix, so the checks compare whole dotted names).
 Its entry points run on CUDA unless the caller passes ``device="cpu"``.
@@ -24,7 +26,8 @@ _ROOT = Path(__file__).resolve().parent.parent
 _PORT_FILES = sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
     _ROOT / "chip_smoke.py"] + [
     _ROOT / "scripts" / f"{name}_tiles.py"
-    for name in ("flash_d256", "radix_ssd", "flash_bwd", "train_scan")]
+    for name in ("flash_d256", "radix_ssd", "flash_bwd", "train_scan")] + [
+    _ROOT / "scripts" / "op_overhead.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -95,6 +98,45 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, env=env, cwd=str(_ROOT))
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_the_analysis_modules_load_no_jax_and_no_repro():
+    """The dry run, the meshes, the sharding rules and the roofline
+    (analysis, report, calibration) import neither jax nor the JAX package,
+    and importing them creates no process group."""
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+        "import repro_torch.distributed, repro_torch.distributed.sharding\n"
+        "import repro_torch.roofline, repro_torch.roofline.report\n"
+        "import repro_torch.roofline.calibrate\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(_ROOT / "src")] + [p for p in
+                                env.get("PYTHONPATH", "").split(os.pathsep)
+                                if p])
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=str(_ROOT))
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_every_jax_module_has_a_port_counterpart():
+    """Each module of ``src/repro`` has one of the same path in
+    ``src/repro_torch``, but ``lint/`` (the lint runs over all of ``src``)
+    and ``io/drivers.py`` (the port's drivers live in
+    ``core/backing.py``)."""
+    jax_root, port_root = _ROOT / "src" / "repro", _ROOT / "src" / "repro_torch"
+    missing = [str(p.relative_to(jax_root)) for p in jax_root.rglob("*.py")
+               if p.relative_to(jax_root).parts[0] != "lint"
+               and p.relative_to(jax_root).as_posix() != "io/drivers.py"
+               and not (port_root / p.relative_to(jax_root)).exists()]
+    assert not missing, missing
 
 
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
