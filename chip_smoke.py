@@ -59,6 +59,12 @@ What it does, in order; any failure raises and the exit code is non-zero:
    and the buffer layout), with the buffer layout's time beside it, and
    kernel 4 on the unchunked run's one chunk (8 GiB) beside kernel 2 on the
    same words.
+5d. The mesh-of-cards route (``run_forced_cards``) forced onto ``MESH_P``
+   blocks of the one card (a mesh whose ``spans_devices`` says so): 2^24
+   keys, k = 2, unchunked (async) and α = 1 (explicit); the sorted keys and
+   every final store word must equal the one-card fused route's, and
+   kernel 4 stage once a sender a chunk.  Times kernel 4 as a sender's
+   staging kernel into the wire buffer.
 5c. Tracing (``run_trace``, ``PemsConfig(trace=True)``): (a) the main path
    traced, 2^27 keys, v = 16 on the device tier at P = 1 under the explicit
    driver, untraced and traced in turns (host clock, synchronised), its
@@ -207,7 +213,11 @@ What it does, in order; any failure raises and the exit code is non-zero:
    ``scaled_dot_product_attention``'s forward plus backward
    (``library_ms``; a boolean mask for the prefix and the window) and its
    backward alone (``library_bwd_ms``, the same function as kernel 5b)
-   (rows ``flash_attention_bwd``, ``_qwen2``, ``_prefix``, ``_window``);
+   (rows ``flash_attention_bwd``, ``_qwen2``, ``_prefix``, ``_window``),
+   and kernel 5 with lse beside its plain version, its bound and
+   ``torch.ops.aten._scaled_dot_product_flash_attention`` (output and
+   logsumexp; KV heads expanded) at hubert's and qwen2's shapes (rows
+   ``flash_attention_lse``, ``_lse_qwen2``);
    and at the shapes of the last kernel-6b and 7b calls of
    mamba2's and recurrentgemma's steps, kernels 6b and 7b against their
    plain versions, timed beside them and their bounds (no PyTorch call
@@ -229,7 +239,21 @@ What it does, in order; any failure raises and the exit code is non-zero:
    mesh: its per-device GB, dominant term and trace seconds; in the whole
    run its trace starts before the serving phase and runs beside it.
    Alone: ``python3 chip_smoke.py --dryrun-only``.
-12. Prints the stage and kernel times, peak device memory, one ``kernels``
+12. The device tier over a mesh of four cards (``run_cards``), where four
+   cards are visible (else one line says it was not run and why; alone:
+   ``python3 chip_smoke.py --cards-only``, which exits 1 on fewer): each
+   card's name and power limit, ``nvidia-smi topo -m``, peer access; a
+   1 GiB card-to-card ``copy_`` and every card to every other at once
+   (the yardstick); PSRS over ``Mesh(["cuda:0", ..., "cuda:3"])`` at 2^27
+   keys (k 2, explicit α = 1 and async unchunked, as 5b) and at 2^29 (a
+   store past one card; k 1, α = 1 and unchunked): keys equal to
+   ``torch.sort``, ``rcount``/``oflow``, the modeled ledger the one-card
+   mesh's, kernel counts by card, block p on card p, stage ms and each
+   card's peak (at 2^29 under α = 1 within 1.5 × v·μ/P), the exchange's
+   bytes and GB/s; kernel 4 as a sender's staging kernel on card 1 (row
+   ``assemble_proc_tiles_wire``); the five collectives on 2^20-word fields
+   bit for bit against a one-card mesh.
+13. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
 
 A kernel's bound is the larger of two times: the bytes the function must
@@ -775,6 +799,10 @@ def main(argv=None) -> int:
     ap.add_argument("--dryrun-only", action="store_true",
                     help="run the dry-run phase alone (no kernels line, no "
                          "ok line)")
+    ap.add_argument("--cards-only", action="store_true",
+                    help="build and run the mesh-of-cards phase alone on "
+                         f"{CARDS} cards (its own kernels line, no ok line); "
+                         f"exits 1 with fewer than {CARDS}")
     ap.add_argument("--dryrun-child", metavar="CELL",
                     help="one trace of the dry-run phase (a, b or c); the "
                          "phase starts these itself")
@@ -797,7 +825,12 @@ def main(argv=None) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"card: {card}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    if args.cards_only and torch.cuda.device_count() < CARDS:
+        print(f"chip_smoke: --cards-only needs {CARDS} CUDA cards, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 1
 
     t0 = time.perf_counter()
     so = _build.build()
@@ -825,6 +858,9 @@ def main(argv=None) -> int:
     if args.dryrun_only:
         run_dryrun(dev, args, card)
         return 0
+    if args.cards_only:
+        print(json.dumps({"kernels": run_cards(args)}))
+        return 0
     rows = run(dev, args)
     torch.cuda.empty_cache()
     run_trace(dev, args, card)
@@ -846,6 +882,13 @@ def main(argv=None) -> int:
         run_dryrun(dev, args, card, early)
     finally:
         stop(early.values())
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= CARDS:
+        rows += run_cards(args)
+    else:
+        print(f"cards phase: not run: it needs {CARDS} CUDA cards for "
+              f"a mesh of cards, {torch.cuda.device_count()} visible "
+              "(the mesh-of-cards route ran forced onto one card, phase 5d)")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -1004,6 +1047,8 @@ def run(dev: torch.device, args) -> list:
 
     rows.append(run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms))
     del out_p1
+    torch.cuda.empty_cache()
+    run_forced_cards(dev, args, kern)
     torch.cuda.empty_cache()
 
     # ---- smaller matrix ------------------------------------------------
@@ -1217,6 +1262,497 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
           f"the recv rows {ms:.3f} ms, into a buffer {whole_ms:.3f} ms; "
           f"kernel 2 on the same words {k2_ms:.3f} ms")
     return row
+
+
+# --------------------------------------------------------------------------- #
+# The mesh of cards: each process's row block on its own card.                #
+# --------------------------------------------------------------------------- #
+
+# The cards phase: cards it needs, its runs as (log2 of the keys, driver,
+# alpha, k) — 2^27 as the one-card P = 4 runs have it, 2^29 (a store of
+# v·μ ≈ 70 GiB, past one card) at k = 1, where a card's partition
+# temporaries stay under half its block — and the card-to-card yardstick's
+# bytes.  On one card the route is forced onto four blocks of that card at
+# 2^24 keys.
+CARDS = 4
+CARDS_RUNS = [(27, "explicit", 1, 2), (27, "async", None, 2),
+              (29, "explicit", 1, 1), (29, "explicit", None, 1)]
+CARDS_FORCED_LOG_N = 24
+CARDS_COPY_BYTES = 1 << 30
+# At 2^29 under α = 1 a card's peak memory must stay within this share of
+# its block (v·μ/P).
+CARDS_PEAK_SHARE = 1.5
+
+
+def forced_cards(P: int, card: torch.device):
+    """A mesh of ``P`` entries on one card whose predicate says it spans
+    cards: the mesh-of-cards route (a block per process, each its own
+    allocation, the exchange through ``Mesh.all_to_all``) on ``card``."""
+    from repro_torch.core import Mesh
+
+    class OneCardAsCards(Mesh):
+        spans_devices = True
+
+    return OneCardAsCards([card] * P)
+
+
+def plan_run(keys, v: int, **kw):
+    """``psrs_plan`` run stage by stage: ``(sorted keys, the final store's
+    words on the first card, pems, store)``."""
+    from repro_torch.core.context import MeshStore
+    from repro_torch.pems_apps import psrs_plan
+    from repro_torch.pems_apps.psrs import _result_fields, _sorted_keys
+    pems, load, steps, _ = psrs_plan(v, keys.numel() // v, **kw)
+    store = load(keys.reshape(v, -1))
+    for _, step in steps:
+        store = step(store)
+    pems.synchronize()
+    words = store.gather() if isinstance(store, MeshStore) else store.data
+    return _sorted_keys(_result_fields(store)), words, pems, store
+
+
+def staging_row(dv, blk, lo, P, k, n_v, launches, reps, where) -> dict:
+    """Kernel 4 as a sender's staging kernel (row 4x): one sender's first
+    α = 1 chunk (its first ``k`` sources to context 0 of every process,
+    ``[P, 1, k, ω]`` words and counts) from its block ``blk`` into a
+    contiguous wire buffer on its card, against the plain version; its
+    bound is the valid words read, the buffer's words written and three
+    words a message, over the HBM rate."""
+    m = blk.shape[0]
+    off_s, off_c = lo.offset("bsend"), lo.offset("bscnt")
+    wires = [torch.empty((P, 1, k, n_v), dtype=torch.int32,
+                         device=blk.device) for _ in range(2)]
+    cts = [torch.empty((P, 1, k), dtype=torch.int32, device=blk.device)
+           for _ in range(2)]
+
+    def stage(fn, i):
+        return lambda: fn(blk, off_s, m, P, 1, 0, k, 0, 1, n_v, wires[i],
+                          blk, off_c, INT_MAX, blk, off_c, cts[i])
+
+    with torch.cuda.device(blk.device):
+        stage(dv.assemble_words, 0)()
+        stage(dv.assemble_words_plain, 1)()
+        err = max(same(wires[0], wires[1], f"kernel 4 staging {where}"),
+                  same(cts[0], cts[1], f"kernel 4 staging counts {where}"))
+        cnt = blk[:k, off_c:off_c + P * m].reshape(k, P, m)[:, :, 0]
+        valid = int(cnt.clamp(0, n_v).sum())
+        nmsg = P * k
+        b_ms, b_by = bound(4 * (valid + nmsg * n_v + 3 * nmsg))
+        return dict(
+            name="assemble_proc_tiles_wire", route="cuda",
+            source="src/repro_torch/csrc/alltoallv_deliver.cu",
+            replaces="src/repro/kernels/alltoallv_deliver/"
+                     "alltoallv_deliver.py:163",
+            launches=launches, max_abs_err=err,
+            ms=cuda_ms(stage(dv.assemble_words, 0), reps),
+            plain_ms=cuda_ms(stage(dv.assemble_words_plain, 1), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"one sender {where}: [P={P}, d=1, s={k}, ww={n_v}] int32 "
+                  f"words into the wire buffer, {valid} valid")
+
+
+def run_forced_cards(dev, args, kern) -> None:
+    """Phase 5d: the mesh-of-cards route forced onto ``MESH_P`` blocks of
+    the one card (``forced_cards``), 2^24 keys, k = ``MESH_K``, unchunked
+    under the async driver and α = 1 under the explicit driver: the sorted
+    keys and every final store word equal the one-card fused route's (the
+    same plan on a one-card mesh), the local sort and merge launch, and
+    kernel 4 stages once a sender a chunk (P × the network rounds).  Times
+    kernel 4 as the sender's staging kernel on block 1."""
+    from repro_torch.core import analysis, make_mesh
+    t_phase = time.perf_counter()
+    dv = kern["deliver"]
+    n, v, P, k = 1 << CARDS_FORCED_LOG_N, args.v, MESH_P, MESH_K
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 70)
+    keys = rand_int32((n,), gen)
+    ref = torch.sort(keys).values
+    card = torch.device("cuda", torch.cuda.current_device())
+    row = None
+    for driver, alpha in (("async", None), ("explicit", 1)):
+        kw = dict(k=k, P=P, alpha=alpha, driver=driver, device=dev)
+        what = f"forced cards P={P} {driver} alpha={alpha}"
+        want, want_words, _, _ = plan_run(
+            keys, v, mesh=make_mesh(P, device=dev), **kw)
+        set_counts(kern)
+        got, words, pems, store = plan_run(keys, v,
+                                           mesh=forced_cards(P, card), **kw)
+        launches = read_counts(kern, COUNTERS)
+        rounds = analysis.pems2_alltoallv_par_network_rounds(v, P, k, alpha)
+        check(pems.cards and len({b.data_ptr() for b in store.blocks}) == P,
+              f"{what}: a block a process, each its own allocation")
+        check(torch.equal(got, ref) and torch.equal(got, want),
+              f"{what}: keys == torch.sort == the one-card fused route")
+        check(torch.equal(words, want_words),
+              f"{what}: every final store word == the one-card fused route's")
+        check(launches["assemble_proc_tiles"] == P * rounds
+              and all(launches[x] > 0 for x in (
+                  "radix_sort", "kway_splitters", "kway_merge_segments")),
+              f"{what}: kernel 4 once a sender a chunk ({P} x {rounds}), "
+              f"every kernel of the path launched: {launches}")
+        print(f"{what}, n=2^{CARDS_FORCED_LOG_N}: keys and final store == the "
+              f"one-card fused route's; launches {launches}")
+        if alpha == 1:
+            row = staging_row(dv, store.blocks[1], pems.layout, P, k,
+                              n // v, launches["assemble_proc_tiles"],
+                              args.reps, "block 1 of the one card")
+        del want, want_words, got, words, pems, store
+    print(f"kernel 4x {row['shape']}: {row['ms']:.3f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})")
+    print(f"forced cards phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+class CardLaunches:
+    """Kernel launches by card: each PSRS kernel module's ``launch`` counted
+    by (its card, the entry it calls), beside the modules' own counters."""
+
+    def __init__(self, kern):
+        self.counts = {}
+        self._orig = {}
+        for mod in kern.values():
+            self._orig[mod] = launch = mod.launch
+
+            def counted(name, device, *a, launch=launch):
+                key = (device.index, name)
+                self.counts[key] = self.counts.get(key, 0) + 1
+                return launch(name, device, *a)
+
+            mod.launch = counted
+
+    def by_card(self) -> dict:
+        out = {}
+        for (card, name), n in sorted(self.counts.items()):
+            out.setdefault(card, {})[name.removeprefix("repro_")] = n
+        return out
+
+    def restore(self) -> None:
+        for mod, launch in self._orig.items():
+            mod.launch = launch
+
+
+def meta_ledger(v, n_v, P, k, alpha, driver) -> dict:
+    """The one-card mesh's modeled ledger of a PSRS run (direct mode):
+    ``psrs_plan`` on a one-device mesh with its store on the meta device
+    (shapes, no data), so a size no card holds is billed too.  The ledger
+    depends on the layout and the calls, not on the data: the partition's
+    grouping, whose output size depends on its data, is replaced by its
+    shapes for this run."""
+    import repro_torch.pems_apps.psrs as psrs_mod
+    from repro_torch.core import make_mesh
+
+    def shapes(data, dest, v_, cap, fill=0):
+        rows, dev = data.shape[0], data.device
+        return (torch.empty((rows, v_, cap), dtype=data.dtype, device=dev),
+                torch.empty((rows, v_), dtype=torch.int32, device=dev), None,
+                torch.empty((rows,), dtype=torch.bool, device=dev))
+
+    grouping = psrs_mod.group_by_dest
+    psrs_mod.group_by_dest = shapes
+    try:
+        pems, load, steps, _ = psrs_mod.psrs_plan(
+            v, n_v, k=k, P=P, alpha=alpha, driver=driver,
+            mesh=make_mesh(P, device="meta"), use_kernel=False,
+            device="meta")
+        store = load(torch.empty((v, n_v), dtype=torch.int32, device="meta"))
+        for _, step in steps:
+            store = step(store)
+    finally:
+        psrs_mod.group_by_dest = grouping
+    return pems.ledger.snapshot()
+
+
+def cards_staged(pems, load, steps, keys, v, reps, ref_host, what, devs):
+    """``staged`` over a mesh of cards: each stage's time on the host clock
+    from all cards drained to all cards drained (a stage ends when every
+    card has finished), each stage's peak memory over the cards and each
+    card's peak.  The keys lie on card 0, as ``psrs_sort`` has them, so the
+    load stage copies each block's rows to its card; the reference sort is
+    on the host.  Returns ``({stage: [ms]}, {stage: peak}, {card: peak},
+    the last store)``."""
+    from repro_torch.pems_apps.psrs import _result_fields, _sorted_keys
+    n_v = keys.numel() // v
+    ms = {name: [] for name in ["load"] + [nm for nm, _ in steps]}
+    peaks = dict.fromkeys(ms, 0)
+    card_peak = dict.fromkeys(range(len(devs)), 0)
+    store = None
+    for _ in range(reps):
+        store = None                              # free the last run's store
+        for name, fn in [("load", lambda _: load(keys.reshape(v, n_v)))] \
+                + list(steps):
+            for d in devs:
+                torch.cuda.reset_peak_memory_stats(d)
+            pems.synchronize()
+            t0 = time.perf_counter()
+            store = fn(store)
+            pems.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            for i, d in enumerate(devs):
+                peak = torch.cuda.max_memory_allocated(d)
+                card_peak[i] = max(card_peak[i], peak)
+                peaks[name] = max(peaks[name], peak)
+    check(int(store.field("rcount").sum()) == keys.numel()
+          and int(store.field("oflow").sum()) == 0,
+          f"{what}: rcount sums to n, no overflow")
+    check(torch.equal(_sorted_keys(_result_fields(store)).cpu(), ref_host),
+          f"{what}: staged plan output == torch.sort")
+    return ms, peaks, card_peak, store
+
+
+def card_info(n: int) -> None:
+    """Each card's name and power limit, the topology and peer access."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    for line in smi.splitlines():
+        print(f"card {line}")
+    for cmd in (["topo", "-m"], ["nvlink", "--status", "-i", "0"]):
+        got = subprocess.run(["nvidia-smi"] + cmd, capture_output=True,
+                             text=True)
+        print(f"nvidia-smi {' '.join(cmd)}:\n"
+              + (got.stdout + got.stderr).rstrip())
+    print("peer access: " + ", ".join(
+        f"{i}->{j} {torch.cuda.can_device_access_peer(i, j)}"
+        for i in range(n) for j in range(n) if i != j))
+
+
+def copy_yardstick(devs, reps: int) -> dict:
+    """The card-to-card yardstick: one ``CARDS_COPY_BYTES`` ``copy_`` from
+    card 0 to card 1 between CUDA events on card 0's stream (where the copy
+    runs), and every card sending that much to every other card at once
+    through ``Mesh.all_to_all`` on the host clock, all cards drained.
+    Returns ms and GB/s of each."""
+    from repro_torch.core import Mesh
+    words = CARDS_COPY_BYTES // 4
+    src = torch.full((words,), 7, dtype=torch.int32, device=devs[0])
+    dst = torch.empty(words, dtype=torch.int32, device=devs[1])
+    with torch.cuda.device(devs[0]):
+        ms = cuda_ms(lambda: dst.copy_(src), reps)
+    check(torch.equal(dst.to(devs[0]), src), "the yardstick's copy landed")
+    del src, dst
+    n = len(devs)
+    send = [torch.full((n, words), q, dtype=torch.int32, device=d)
+            for q, d in enumerate(devs)]
+    recv = [torch.empty((n, words), dtype=torch.int32, device=d)
+            for d in devs]
+    mesh = Mesh(devs)
+    times = []
+    for _ in range(reps + 1):
+        for d in devs:
+            torch.cuda.synchronize(d)
+        t0 = time.perf_counter()
+        mesh.all_to_all(send, recv)
+        for d in devs:
+            torch.cuda.synchronize(d)
+        times.append(time.perf_counter() - t0)
+    for p in range(n):
+        check(all(int(recv[p][q][0]) == q and int(recv[p][q][-1]) == q
+                  for q in range(n)), f"all_to_all landed on card {p}")
+    a2a = statistics.median(times[1:])
+    off_card = n * (n - 1) * CARDS_COPY_BYTES
+    out = {"one_ms": ms, "one_gbs": CARDS_COPY_BYTES / ms / 1e6,
+           "all_ms": a2a * 1e3, "all_gbs": off_card / a2a / 1e9}
+    print(f"yardstick: 1 GiB card 0 -> card 1 copy_ {ms:.3f} ms "
+          f"({out['one_gbs']:.1f} GB/s); every card to every other at once "
+          f"({off_card / 2**30:.0f} GiB off-card, Mesh.all_to_all) "
+          f"{out['all_ms']:.3f} ms ({out['all_gbs']:.1f} GB/s), host clock")
+    return out
+
+
+def cards_collectives(devs, args, gen) -> None:
+    """bcast, gather, allgather, reduce (add, max, min) and allreduce at
+    v = 16 on 2^20-word fields in int32, uint32 and float32 over the mesh
+    of cards, bit for bit against the same calls on a one-card mesh of card
+    0 (float32 sums included), with equal ledgers; ms a call on the host
+    clock, every card drained."""
+    from repro_torch import interop
+    from repro_torch.core import ContextLayout, Mesh, Pems, PemsConfig, \
+        make_mesh
+    v, w, P = args.v, APPS_COLL_WORDS, len(devs)
+    calls = [("bcast", ("x",), dict(root=5)),
+             ("gather", ("y", "g"), dict(root=9)),
+             ("allgather", ("x", "g"), {})]
+    for op in ("add", "max", "min"):
+        calls += [("reduce", ("x", "o"), dict(op=op, root=3)),
+                  ("allreduce", ("x", "o"), dict(op=op))]
+    ms = {}
+    for dtype in (torch.int32, torch.uint32, torch.float32):
+        lo = (ContextLayout().add("x", (w,), dtype).add("y", (w,), dtype)
+              .add("o", (w,), dtype).add("g", (v, w), dtype))
+        words = rand_int32((v, lo.words), gen)
+        if dtype == torch.float32:
+            words[:, :2 * w] = torch.randn(
+                (v, 2 * w), generator=gen, device=gen.device).view(
+                    torch.int32)
+        words = words.cpu().numpy().view("uint32")
+        outs = {}
+        for name, mesh in (("one card", make_mesh(P, device=devs[0])),
+                           ("cards", Mesh(devs))):
+            pems = Pems(PemsConfig(v=v, k=2, P=P), lo, mesh=mesh,
+                        device=devs[0])
+            store = interop.store_from_numpy(lo, words, devs[0], mesh=mesh)
+            got = []
+            for call, a, kw in calls:
+                pems.synchronize()
+                t0 = time.perf_counter()
+                store = getattr(pems, call)(store, *a, **kw)
+                pems.synchronize()
+                if name == "cards":
+                    key = f"{call} {kw.get('op', '')}".strip()
+                    ms.setdefault(key, []).append(
+                        (time.perf_counter() - t0) * 1e3)
+                got.append(interop.store_to_numpy(store).copy())
+            outs[name] = (got, pems.ledger.snapshot())
+            del store, pems
+        for (call, _, kw), a, b in zip(calls, outs["one card"][0],
+                                       outs["cards"][0]):
+            check((a == b).all(), f"collective {call} {kw} {dtype} over "
+                                  "cards == one card, bit for bit")
+        check(outs["one card"][1] == outs["cards"][1],
+              f"collectives {dtype}: ledger over cards == one card's")
+    print(f"collectives over {P} cards at v={v} on 2^20-word fields, ms a "
+          "call over int32, uint32 and float32 (median, min, max), each "
+          "equal to the one-card mesh's bit for bit:")
+    for key, t in ms.items():
+        print(f"  {key}: {statistics.median(t):.3f} ({min(t):.3f}, "
+              f"{max(t):.3f})")
+
+
+def run_cards(args) -> list:
+    """Phase 13, the device tier over a mesh of ``CARDS`` cards (``python3
+    chip_smoke.py --cards-only`` on four cards; the whole script runs it
+    where four are visible): the cards, topology and peer access; the
+    card-to-card yardstick; PSRS over ``Mesh(["cuda:0", ..., "cuda:3"])``
+    at ``CARDS_RUNS`` (keys made on card 0 from ``--seed``): each run once
+    through ``psrs_sort`` with every kernel count reset just before it,
+    then ``--stage-reps`` times stage by stage.  Checks: the keys equal one
+    ``torch.sort`` on card 0; ``rcount`` sums to n, no ``oflow``; the
+    modeled ledger equals the one-card mesh's at the same v, k, P, α
+    (``meta_ledger``; at the smaller size, under α = 1, that also equals a
+    real one-card run's); every kernel of the path launched, on every card,
+    kernel 4 once a sender a chunk; block p on card p; at the larger size
+    under α = 1 each card's peak within ``CARDS_PEAK_SHARE`` of v·μ/P.
+    Prints each stage's ms and the peaks by card, the exchange's bytes (the
+    ledger's Alltoallv network term) and GB/s beside the yardstick; then
+    kernel 4 as a sender's staging kernel on card 1 (row 4x) and the
+    collectives.  Returns row 4x."""
+    from repro_torch.core import Mesh, analysis, make_mesh
+    from repro_torch.pems_apps import psrs_plan, psrs_sort
+    t_phase = time.perf_counter()
+    P, v = CARDS, args.v
+    devs = [torch.device("cuda", i) for i in range(P)]
+    mesh = Mesh(devs)
+    card_info(torch.cuda.device_count())
+    kern = kernel_modules()
+    yard = copy_yardstick(devs, args.reps)
+    by_card = CardLaunches(kern)
+    row = None
+    sizes = sorted({r[0] for r in CARDS_RUNS})
+    try:
+        for log_n in sizes:
+            n = 1 << log_n
+            n_v, m = n // v, v // P
+            gen = torch.Generator(device=devs[0]).manual_seed(
+                args.seed + log_n)
+            keys = rand_int32((n,), gen)
+            ref = torch.sort(keys).values
+            runs = [r[1:] for r in CARDS_RUNS if r[0] == log_n]
+            launches = {}
+            for driver, alpha, k in runs:
+                what = f"cards P={P} n=2^{log_n} k={k} {driver} alpha={alpha}"
+                set_counts(kern)
+                by_card.counts.clear()
+                for d in devs:
+                    torch.cuda.reset_peak_memory_stats(d)
+                t0 = time.perf_counter()
+                out, pems = psrs_sort(keys, v=v, k=k, P=P, mesh=mesh,
+                                      alpha=alpha, driver=driver,
+                                      return_pems=True)
+                pems.synchronize()
+                secs = time.perf_counter() - t0
+                sort_peak = [torch.cuda.max_memory_allocated(d) / 2**30
+                             for d in devs]
+                launches[what] = got = read_counts(kern, COUNTERS)
+                rounds = analysis.pems2_alltoallv_par_network_rounds(
+                    v, P, k, alpha)
+                check(torch.equal(out, ref), f"{what}: == torch.sort")
+                check(got["assemble_proc_tiles"] == P * rounds
+                      and all(got[x] > 0 for x in (
+                          "radix_sort", "kway_splitters",
+                          "kway_merge_segments")),
+                      f"{what}: kernel 4 once a sender a chunk ({P} x "
+                      f"{rounds}), every kernel launched: {got}")
+                cards_launched = by_card.by_card()
+                check(sorted(cards_launched) == list(range(P)),
+                      f"{what}: kernels launched on every card: "
+                      f"{cards_launched}")
+                led = pems.ledger.snapshot()
+                check(led == meta_ledger(v, n_v, P, k, alpha, driver),
+                      f"{what}: ledger == the one-card mesh's (meta)")
+                del out, pems
+                if log_n == sizes[0] and alpha == 1:
+                    _, one = psrs_sort(keys, v=v, k=k, P=P,
+                                       mesh=make_mesh(P, device=devs[0]),
+                                       alpha=alpha, driver=driver,
+                                       return_pems=True)
+                    check(one.ledger.snapshot() == led,
+                          f"{what}: ledger == a real one-card run's")
+                    del one
+                print(f"psrs_sort {what}: {secs:.3f} s host clock (first "
+                      f"call), launches {got}, network_rounds {rounds}, by "
+                      f"card {cards_launched}, peak GiB by card "
+                      + ", ".join(f"{p:.2f}" for p in sort_peak)
+                      + " (card 0 also holds the input, the reference and "
+                      "the output)")
+            ref_host = ref.cpu()
+            del ref
+            for driver, alpha, k in runs:
+                what = f"cards P={P} n=2^{log_n} k={k} {driver} alpha={alpha}"
+                plan, load, steps, _ = psrs_plan(
+                    v, n_v, k=k, P=P, mesh=mesh, alpha=alpha, driver=driver)
+                ms, peaks, card_peak, store = cards_staged(
+                    plan, load, steps, keys, v, args.stage_reps, ref_host,
+                    what, devs)
+                check([b.device for b in store.blocks] == devs,
+                      f"{what}: block p on card p")
+                share = v * plan.layout.mu_bytes / P
+                print_stages(what, ms, peaks)
+                print(f"peak GiB by card, {what} (staged; card 0 also holds "
+                      "the input): " + ", ".join(
+                          f"{card_peak[i] / 2**30:.2f}" for i in range(P))
+                      + f"; v·mu/P {share / 2**30:.2f} GiB, the largest "
+                      f"{max(card_peak.values()) / share:.3f} of it")
+                if log_n == sizes[-1] and alpha == 1:
+                    check(max(card_peak.values())
+                          <= CARDS_PEAK_SHARE * share,
+                          f"{what}: each card's peak within "
+                          f"{CARDS_PEAK_SHARE} x v·mu/P")
+                net = (v - m) * plan.layout.field_bytes("bsend")
+                a2a = statistics.median(ms["alltoallv"])
+                print(f"exchange {what}: {net / 2**30:.3f} GiB off-card "
+                      f"(the ledger's Alltoallv network term), alltoallv "
+                      f"median {a2a:.3f} ms, {net / a2a / 1e6:.1f} GB/s; "
+                      f"yardstick one copy {yard['one_gbs']:.1f} GB/s, all "
+                      f"pairs at once {yard['all_gbs']:.1f} GB/s")
+                if log_n == sizes[0] and alpha == 1:
+                    row = staging_row(
+                        kern["deliver"], store.blocks[1], plan.layout, P, k,
+                        n_v, launches[what]["assemble_proc_tiles"],
+                        args.reps, "on card 1")
+                del store, plan, load, steps
+                for d in devs:
+                    with torch.cuda.device(d):
+                        torch.cuda.empty_cache()
+            del keys, ref_host
+    finally:
+        by_card.restore()
+    gen = torch.Generator(device=devs[0]).manual_seed(args.seed + 80)
+    cards_collectives(devs, args, gen)
+    print(f"kernel 4x {row['shape']}: {row['ms']:.3f} ms, launches "
+          f"{row['launches']}, plain {row['plain_ms']:.3f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+    print(f"cards phase: {time.perf_counter() - t_phase:.2f} s")
+    return [{key: row[key] for key in row if key != "shape"}]
 
 
 # --------------------------------------------------------------------------- #
@@ -3930,6 +4466,20 @@ def bwd_row(gen, fa, name: str, arch: str, step: dict, reps: int) -> dict:
         torch.autograd.grad(lib_fwd(), (qh, kh, vh), doh)
 
     o_lib = lib_fwd()
+    # Kernel 5 with lse (rows 5t, 5tq): its bound (q, k, v read, out and lse
+    # written once; two products of 2 d FLOP a pair and head) and the one
+    # PyTorch call that returns the output and its logsumexp, the flash
+    # attention op (no mask argument: rows without a prefix or window).
+    fwd_b_ms, fwd_b_by = bound(
+        q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(),
+        2 * 2 * b * hq * d * pairs,
+        BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+    fwd_lib_ms = None
+    if not (prefix or window) and dtype == torch.bfloat16:
+        qd, kd, vd = (t.detach() for t in (qh, kh, vh))
+        fwd_lib_ms = cuda_ms(
+            lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                qd, kd, vd, 0.0, causal, False, scale=kw["scale"]), reps)
 
     masks = "causal" if causal else "non-causal"
     masks += f", prefix {prefix}" if prefix else ""
@@ -3950,10 +4500,30 @@ def bwd_row(gen, fa, name: str, arch: str, step: dict, reps: int) -> dict:
         library_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
             o_lib, (qh, kh, vh), doh, retain_graph=True), reps),
         fwd_ms=cuda_ms(lambda: fa.attend_with_lse(q, k, v, **kw), reps),
+        fwd_plain_ms=cuda_ms(lambda: fa.attend_plain_with_lse(q, k, v, **kw),
+                             2),
+        fwd_bound_ms=fwd_b_ms, fwd_bound_by=fwd_b_by,
+        fwd_library_ms=fwd_lib_ms,
         shape=f"{arch} training: q [{b}, {s}, {hq}, {d}] {kind} over k, v "
               f"[{b}, {s}, {hkv}, {d}], {masks}",
         fwd_err=(e_out, e_lse), fwd_launches=step["launches"]["5"])
     return row
+
+
+def lse_row(r: dict, name: str) -> dict:
+    """Kernel 5 with lse at a training shape (rows 5t, 5tq), from
+    :func:`bwd_row`'s forward figures: the step's kernel-5 launches, the
+    output's largest difference from the plain version, the times, the
+    bound and the flash attention op's time."""
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:78",
+        launches=r["fwd_launches"], max_abs_err=r["fwd_err"][0],
+        ms=r["fwd_ms"], plain_ms=r["fwd_plain_ms"],
+        bound_ms=r["fwd_bound_ms"], bound_by=r["fwd_bound_by"],
+        library_ms=r["fwd_library_ms"],
+        shape=r["shape"] + ", forward with lse")
 
 
 def run_train(dev: torch.device, args) -> list:
@@ -3961,7 +4531,8 @@ def run_train(dev: torch.device, args) -> list:
     hubert-xlarge, qwen2-1.5b, mamba2-130m and recurrentgemma-2b whole; one
     full-width layer of each kind against the plain path; paligemma's,
     kimi's, mamba2's and recurrentgemma's smoke configs against the CPU;
-    returns the ``kernels`` rows 5b, 5bq, 5bp, 5br, 6b, 6t, 7b and 7t."""
+    returns the ``kernels`` rows 5b, 5bq, 5bp, 5br, 5t, 5tq (kernel 5 with
+    lse at hubert's and qwen2's training shapes), 6b, 6t, 7b and 7t."""
     t_phase = time.perf_counter()
     fa, ss, ls = (importlib.import_module(f"repro_torch.kernels.{m}.{m}")
                   for m in ("flash_attention", "ssd_scan", "lru_scan"))
@@ -4001,6 +4572,15 @@ def run_train(dev: torch.device, args) -> list:
             ("flash_attention_bwd_window", "recurrentgemma-2b",
              rg["steps"][-1])):
         rows.append(bwd_row(gen, fa, name, arch, step, args.reps))
+    lse_rows = [lse_row(rows[0], "flash_attention_lse"),
+                lse_row(rows[1], "flash_attention_lse_qwen2")]
+    for r in lse_rows:
+        print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms, launches "
+              f"{r['launches']} a step, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4g} ms ({r['bound_by']}), library "
+              f"(_scaled_dot_product_flash_attention, output and "
+              f"logsumexp) {r['library_ms']:.4f} ms, max |out - plain| "
+              f"{r['max_abs_err']:.3g}")
     for r in rows:
         print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms, launches "
               f"{r['launches']} a step (forward {r['fwd_launches']}, under "
@@ -4020,8 +4600,10 @@ def run_train(dev: torch.device, args) -> list:
               f"{r['bound_ms']:.4g} ms ({r['bound_by']}), no library call; "
               f"max |kernel - plain| {r['max_abs_err']:.3g}")
     print(f"train phase: {time.perf_counter() - t_phase:.1f} s")
-    return [{key: r[key] for key in r if key not in ("shape", "fwd_err")}
-            for r in rows + scan_rows]
+    fwd = ("fwd_err", "fwd_plain_ms", "fwd_bound_ms", "fwd_bound_by",
+           "fwd_library_ms")
+    return [{key: r[key] for key in r if key not in ("shape",) + fwd}
+            for r in rows + lse_rows + scan_rows]
 
 
 # The dry-run phase's cells held against a real step on the card: (arch,

@@ -19,15 +19,20 @@ Two Alltoallv implementations:
   baseline (Alg 2.2.1) stages every message through a materialised
   "indirect area" copy first; the direct dense route is the seed reference.
 
-With ``P > 1`` (a :class:`~.mesh.Mesh` on one device) the direct kernel
+With ``P > 1`` on a one-device :class:`~.mesh.Mesh` the direct kernel
 route runs per real processor (``_alltoallv_fused_mesh``): the mesh staging
 kernel moves each chunk straight from the send word ranges into the
 receivers' recv rows (boundary mask and counts transpose fused), so each
 message moves once, as at ``P == 1``.  ``alpha=None`` moves everything in
 one launch; with ``alpha`` the network phase is α-chunked (Alg 7.1.3): one
 launch per (source round of ``k``, destination α-chunk), ≤ α·k·ω words per
-process pair.  The dense route transposes through the mesh's exchange,
-:meth:`~.mesh.Mesh.all_to_all` (``_global_transpose``).
+process pair.  Over a mesh of cards (a :class:`~.context.MeshStore`,
+``_alltoallv_fused_cards``) each sender stages its chunk on its own card
+with the same kernel (``nq = 1``, in destination order, mask and counts
+transpose fused: the JAX package's ``assemble_proc_tiles`` then
+``lax.all_to_all``), ships each ``(q, p)`` slab to card ``p`` and lands it in
+``p``'s recv rows there.  The dense route transposes through the mesh's
+exchange, :meth:`~.mesh.Mesh.all_to_all` (``_global_transpose``).
 
 On a backing tier (:class:`~.backing.TieredStore`) every collective is
 host-side data movement over the (possibly sharded) backing, in numpy, bit
@@ -42,7 +47,9 @@ counts, independent of the implementation; it equals the JAX package's.
 on the device tier (at ``P > 1`` on a one-device mesh only the ledger's
 network terms differ); on a backing tier they stage host-side as the JAX
 package does, and a reduction runs on the executor's device, the same torch
-op as the device tier's, so both tiers give the same bits.
+op as the device tier's, so both tiers give the same bits.  Over a mesh of
+cards every collective copies between the blocks' cards, and a reduction
+gathers its ``[v, n]`` operand onto one card and runs the same op there.
 """
 
 from __future__ import annotations
@@ -56,7 +63,8 @@ import torch
 from ..kernels.alltoallv_deliver import assemble_words, check_fill_range, \
     deliver_words
 from .backing import TieredStore, _field_words, np_dtype
-from .context import WORD, ContextStore, _from_words, _to_words
+from .context import WORD, ContextStore, MeshStore, _from_words, _to_words, \
+    device_scope
 
 
 # --------------------------------------------------------------------------- #
@@ -120,6 +128,12 @@ def alltoallv(
     if tiered:
         store = _alltoallv_host(self, store, send, recv,
                                 send_counts, recv_counts, fill, procs)
+    elif isinstance(store, MeshStore) and mode == "direct" and use_kernel:
+        store = _alltoallv_fused_cards(self, store, send, recv, send_counts,
+                                       recv_counts, fill)
+    elif isinstance(store, MeshStore):
+        store = _alltoallv_dense_cards(self, store, send, recv, send_counts,
+                                       recv_counts, mode, fill)
     elif mode == "direct" and use_kernel:
         fused = _alltoallv_fused if cfg.P == 1 else _alltoallv_fused_mesh
         store = fused(self, store, send, recv, send_counts, recv_counts, fill)
@@ -204,17 +218,15 @@ def _alltoallv_fused_mesh(self, store, send, recv, send_counts, recv_counts,
     + c0 + dl``, its counts word at ``off_rc + q·m + s0 + j``.  Unchunked
     (``alpha=None``) one chunk covers everything; with ``alpha`` each
     (source round of ``k``, destination α-chunk) is one chunk, ≤ α·k·ω words
-    per process pair (Lemma 7.1.9).  A mesh over several cards would stage
-    each chunk in destination order and ship it (``assemble_proc_tiles``,
-    :meth:`~.mesh.Mesh.all_to_all`); ``self.mesh.device()`` raises for one
-    until ``ROADMAP.md`` queue 1 item 7b."""
+    per process pair (Lemma 7.1.9).  A mesh of cards stages each chunk in
+    destination order on the sender's card and ships it
+    (:func:`_alltoallv_fused_cards`)."""
     cfg = self.cfg
     lo = store.layout
     data = store.data
     v, Pn, m, k = cfg.v, cfg.P, cfg.v_local, cfg.k
     ww = lo.field_words(send) // v             # ω in store words
     off_r = lo.offset(recv)
-    self.mesh.device()                         # one device: land in place
 
     # A chunk's landing overwrites words that a later chunk still reads
     # when the fields alias: read those from a copy (the JAX mesh path
@@ -245,12 +257,7 @@ def _alltoallv_fused_mesh(self, store, send, recv, send_counts, recv_counts,
 
     # The recv rows as [P(dst), m (row), P(src), m (slot), ω] words.
     rows = data[:, off_r:off_r + v * ww].view(Pn, m, Pn, m, ww)
-    if cfg.alpha is None:
-        chunks = [(0, m, 0, m)]
-    else:
-        chunks = [(s0, k, c0, min(cfg.alpha, m - c0))
-                  for s0 in range(0, m, k) for c0 in range(0, m, cfg.alpha)]
-    for s0, s, c0, d in chunks:
+    for s0, s, c0, d in _chunks(cfg):
         # Message (q, p, dl, j) lands at rows[p, c0 + dl, q, s0 + j].
         out = rows[:, c0:c0 + d, :, s0:s0 + s].permute(2, 0, 1, 3, 4)
         ct = None
@@ -262,6 +269,101 @@ def _alltoallv_fused_mesh(self, store, send, recv, send_counts, recv_counts,
                        cnt, cnt_off, fill_word, cp, cp_off, ct)
         if has_counts and cs != cr:
             landed.copy_(_to_words(_from_words(ct, cs).to(cr)))
+    return store
+
+
+def _chunks(cfg):
+    """The network phase's chunks ``(s0, s, c0, d)``: senders' local
+    sources ``[s0, s0 + s)`` to each process's local contexts ``[c0, c0 +
+    d)`` — one chunk unchunked, else one per (source round of ``k``,
+    destination α-chunk) (Alg 7.1.3)."""
+    m, k = cfg.v_local, cfg.k
+    if cfg.alpha is None:
+        return [(0, m, 0, m)]
+    return [(s0, k, c0, min(cfg.alpha, m - c0))
+            for s0 in range(0, m, k) for c0 in range(0, m, cfg.alpha)]
+
+
+def _alltoallv_fused_cards(self, store, send, recv, send_counts, recv_counts,
+                           fill):
+    """PEMS2 word-level direct delivery over a mesh of cards, in Alg
+    7.1.3's chunks (:func:`_chunks`), each in three steps:
+
+    1. **stage** — every sender ``q`` runs kernel 4 once on its own card
+       (``nq = 1``): its chunk's messages read from its block's send words,
+       in destination order, into a contiguous wire buffer ``[P, d, s, ω]``
+       (lanes past the counts masked with ``fill``, the counts words
+       transposed beside it, converted to the recv counts' dtype there);
+    2. **ship** — :meth:`~.mesh.Mesh.all_to_all` copies slab ``(q, p)``
+       to card ``p``, ``P − 1`` of each sender's ``P`` off its card, each
+       of its ``d`` destinations' ``[s, ω]`` words one contiguous copy, the
+       senders' copies overlapping;
+    3. **land** — the copy writes straight into ``p``'s recv rows (message
+       ``(q, p, dl, j)`` at slot ``q·m + s0 + j`` of context ``c0 + dl``),
+       ordered behind ``p``'s queued work, and ``p``'s later work waits for
+       it.
+
+    Everything is queued without a host synchronisation.  Aliased fields
+    (``send == recv``, ``send_counts == recv_counts``) are read from a copy
+    on each sender's card, taken before any landing."""
+    cfg = self.cfg
+    lo = store.layout
+    v, Pn = cfg.v, cfg.P
+    ww = lo.field_words(send) // v             # ω in store words
+    off_r = lo.offset(recv)
+    blocks = store.blocks
+
+    src = [(b, lo.offset(send)) for b in blocks]
+    if send == recv:
+        src = [(store.field_words_view(send, p).clone(), 0)
+               for p in range(Pn)]
+    has_counts = send_counts is not None and recv_counts is not None
+    cp = [(None, 0)] * Pn
+    cnt = [(None, 0)] * Pn
+    fill_word = None
+    if has_counts:
+        cs = lo.field(send_counts).dtype
+        cr = lo.field(recv_counts).dtype
+        cp = [(b, lo.offset(send_counts)) for b in blocks]
+        if send_counts == recv_counts:
+            cp = [(store.field_words_view(send_counts, p).clone(), 0)
+                  for p in range(Pn)]
+        off_rc = lo.offset(recv_counts)
+        # Process p's landed counts, [m (row), P (src), m (slot)] words.
+        rc = [b[:, off_rc:off_rc + v].view(-1, Pn, v // Pn) for b in blocks]
+    if fill is not None:
+        fill_word = _fill_word(fill, lo.field(send).dtype)
+        # int32 mask lengths are the counts words themselves.
+        cnt = cp if cs in (torch.int32, torch.uint32) else [
+            (store.field(send_counts, p).reshape(-1, v).to(torch.int32), 0)
+            for p in range(Pn)]
+    # Process p's recv rows, [m (row), P (src), m (slot), ω] words.
+    rows = [b[:, off_r:off_r + v * ww].view(-1, Pn, v // Pn, ww)
+            for b in blocks]
+    for s0, s, c0, d in _chunks(cfg):
+        wires = []
+        for q, blk in enumerate(blocks):
+            with device_scope(blk.device):
+                wire = torch.empty((Pn, d, s, ww), dtype=torch.int32,
+                                   device=blk.device)
+                ct = None if not has_counts else torch.empty(
+                    (Pn, d, s), dtype=torch.int32, device=blk.device)
+                assemble_words(src[q][0], src[q][1], cfg.v_local, Pn, 1, s0,
+                               s, c0, d, ww, wire, cnt[q][0], cnt[q][1],
+                               fill_word, cp[q][0], cp[q][1], ct)
+                if has_counts and cs != cr:
+                    ct = _to_words(_from_words(ct, cs).to(cr))
+            wires.append((wire, ct))
+
+        self.mesh.all_to_all(
+            [w for w, _ in wires],
+            [[rows[p][c0:c0 + d, q, s0:s0 + s] for q in range(Pn)]
+             for p in range(Pn)])
+        if has_counts:
+            self.mesh.all_to_all(
+                [ct for _, ct in wires],
+                [[rc[p][c0:c0 + d, q, s0:s0 + s] for q in range(Pn)]
+                 for p in range(Pn)])
     return store
 
 
@@ -284,6 +386,65 @@ def _global_transpose(self, M: torch.Tensor) -> torch.Tensor:
         self.mesh.all_to_all(x[:, :, :, c0:c1].permute(0, 2, 1, 3, 4),
                              y[:, c0:c1].permute(0, 2, 3, 1, 4))
     return y.reshape(cfg.v, cfg.v, w)
+
+
+def _global_transpose_cards(self, M: list) -> list:
+    """:func:`_global_transpose` over a mesh of cards: ``M[q]`` is ``[v/P
+    (src), v (dst), w]`` on card ``q``; returns ``[v/P (dst), v (src), w]``
+    on each card ``p``, shipped through :meth:`~.mesh.Mesh.all_to_all`'s
+    per-card blocks, α-chunked over the destination contexts."""
+    cfg = self.cfg
+    Pn, m = cfg.P, cfg.v_local
+    alpha = m if cfg.alpha is None else cfg.alpha
+    w = M[0].shape[-1]
+    # x[q]: (src local, dst proc, dst local, w);
+    # y[p]: (dst local, src proc, src local, w).
+    x = [Mq.reshape(m, Pn, m, w) for Mq in M]
+    y = [torch.empty((m, Pn, m, w), dtype=Mq.dtype, device=Mq.device)
+         for Mq in M]
+    for c0 in range(0, m, alpha):
+        c1 = min(c0 + alpha, m)
+        self.mesh.all_to_all(
+            [[xq[:, p, c0:c1].transpose(0, 1) for p in range(Pn)]
+             for xq in x],
+            [[yp[c0:c1, q] for q in range(Pn)] for yp in y])
+    return [yp.reshape(m, cfg.v, w) for yp in y]
+
+
+def _alltoallv_dense_cards(self, store, send, recv, send_counts, recv_counts,
+                           mode, fill):
+    """:func:`_alltoallv_dense` over a mesh of cards, block by block: the
+    transposes ship through :func:`_global_transpose_cards`, and each
+    receiver masks and writes its own block on its card."""
+    cfg = self.cfg
+    f = store.layout.field(send)
+    Pn, m, v = cfg.P, cfg.v_local, cfg.v
+    M = [store.field(send, p).reshape(m, v, -1) for p in range(Pn)]
+    if mode == "indirect":
+        M = [x.clone() for x in M]
+    Mt = _global_transpose_cards(self, M)      # [m, v, ω] axes (dst, src)
+    Ct = None
+    if send_counts is not None and recv_counts is not None:
+        C = [store.field(send_counts, p).reshape(m, v, 1) for p in range(Pn)]
+        if mode == "indirect":
+            C = [c.clone() for c in C]
+        Ct = _global_transpose_cards(self, C)
+    out, cts = [], []
+    for p, mt in enumerate(Mt):
+        with device_scope(mt.device):
+            if fill is not None:
+                lane = torch.arange(mt.shape[2], device=mt.device)
+                mt = torch.where(lane < Ct[p].to(torch.int32), mt,
+                                 torch.tensor(fill, device=mt.device).to(
+                                     mt.dtype))
+            out.append(mt.reshape((m,) + f.shape))
+            if Ct is not None:
+                cts.append(Ct[p].reshape(m, v).to(
+                    store.layout.field(recv_counts).dtype))
+    store = store.with_field(recv, out)
+    if Ct is not None:
+        store = store.with_field(recv_counts, cts)
+    return store
 
 
 def _alltoallv_dense(self, store, send, recv, send_counts, recv_counts,
@@ -516,6 +677,12 @@ def bcast(self, store: ContextStore, field: str, root: int = 0,
             if store.on_disk:
                 self._account_disk(p * m, (p + 1) * m, row.nbytes,
                                    write=True)
+    elif isinstance(store, MeshStore):
+        m = cfg.v_local
+        row = store.field(field, root // m)[root % m].clone()
+        for p in range(cfg.P):
+            vals = store.field(field, p)       # [v/P, ...] on card p
+            vals.copy_(row.to(vals.device).expand_as(vals))
     else:
         vals = store.field(field)              # [v, ...]
         vals.copy_(vals[root].clone().expand_as(vals))
@@ -560,6 +727,12 @@ def gather(self, store: ContextStore, send: str, recv: str, root: int = 0,
                                       cols=slice(off, off + w.size))
             if store.on_disk:
                 self._account_disk(root, root + 1, w.nbytes, write=True)
+    elif isinstance(store, MeshStore):
+        m = cfg.v_local
+        R = store.field(recv, root // m)[root % m]   # [v, ...] root's card
+        for p in range(cfg.P):
+            R[p * m:(p + 1) * m] = store.field(send, p).to(fr.dtype).to(
+                R.device)
     else:
         A = store.field(send).to(fr.dtype)     # [v, ...] gathered result
         store.field(recv)[root] = A
@@ -601,6 +774,12 @@ def allgather(self, store: ContextStore, send: str, recv: str,
                 self._account_disk(p * m, (p + 1) * m, w.nbytes, write=True)
             st = self.shard_stats[p]
             st.peak_stage_bytes = max(st.peak_stage_bytes, w.nbytes)
+    elif isinstance(store, MeshStore):
+        for p in range(cfg.P):
+            R = store.field(recv, p)           # [v/P, v, ...] on card p
+            A = torch.cat([store.field(send, q).to(R.dtype).to(R.device)
+                           for q in range(cfg.P)])
+            R.copy_(A[None].expand_as(R))
     else:
         A = store.field(send)                  # [v, ...]
         R = store.field(recv)                  # [v, v, ...]
@@ -629,6 +808,11 @@ def reduce(self, store: ContextStore, field: str, out_field: str,
                                       cols=slice(off, off + w.size))
             if store.on_disk:
                 self._account_disk(root, root + 1, w.nbytes, write=True)
+    elif isinstance(store, MeshStore):
+        m = self.cfg.v_local
+        R = store.field(out_field, root // m)
+        red = _cards_reduce(store, field, op, R.device)
+        R[root % m] = red.to(R.dtype).reshape(R.shape[1:])
     else:
         red = _reduce_op(op)(store.field(field))
         R = store.field(out_field)
@@ -650,6 +834,12 @@ def allreduce(self, store: ContextStore, field: str, out_field: str,
         out = red[None].expand((m,) + red.shape)
         for p in (range(self.cfg.P) if procs is None else procs):
             store.with_field_rows(out_field, p * m, out)
+    elif isinstance(store, MeshStore):
+        red = _cards_reduce(store, field, op, store.device)
+        for p in range(self.cfg.P):
+            R = store.field(out_field, p)
+            R.copy_(red.to(R.dtype).reshape(R.shape[1:]).to(R.device)[
+                None].expand_as(R))
     else:
         red = _reduce_op(op)(store.field(field))
         R = store.field(out_field)
@@ -675,6 +865,16 @@ def _tiered_reduce(self, store, field: str, op: str) -> torch.Tensor:
     self.ledger.add_tier_in(vals.numel() * vals.element_size(), disk=False)
     self.ledger.add_tier_out(red.numel() * red.element_size(), disk=False)
     return red
+
+
+def _cards_reduce(store, field: str, op: str, device) -> torch.Tensor:
+    """Reduce a :class:`~.context.MeshStore`'s field on ``device``: the
+    blocks gathered there into the contiguous ``[v, n]`` operand the
+    one-device store reduces, so the float32 sums add in the same order and
+    give the same bits."""
+    x = torch.cat([store.field(field, p).to(device) for p in range(store.P)])
+    with device_scope(device):
+        return _reduce_op(op)(x)
 
 
 _SIGN = -2**31   # the int32 word 0x80000000

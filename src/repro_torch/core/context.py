@@ -8,7 +8,9 @@ be freed and reused, and so swapping touches only *live* bytes (§6.6).
 An :class:`Allocator` hands out word offsets inside the context, and a
 :class:`ContextLayout` maps field names to ``(offset, shape, dtype)``.  The
 whole population of contexts is a single ``[v, words]`` tensor (the
-:class:`ContextStore`) on one device — that tensor *is* the external memory.
+:class:`ContextStore`) on one device — that tensor *is* the external memory —
+or, over a mesh of cards, one ``[v/P, words]`` row block a card (the
+:class:`MeshStore`).
 
 Store words are ``torch.int32``: torch's ``uint32`` has no comparison or
 ``searchsorted`` on the CPU, and 4-byte words keep the typed views exact
@@ -25,6 +27,7 @@ option.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -380,6 +383,116 @@ class ContextStore:
         return ContextStore(self.layout, self.data)
 
 
+def device_scope(device: torch.device):
+    """A context in which ``device`` is the current CUDA device (nothing to
+    switch for another device): where a stage, kernel wrapper or copy runs
+    on one card of a mesh, an allocation it makes without an index lands
+    there too."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class MeshStore:
+    """All ``v`` contexts over a mesh of cards: ``P`` row blocks ``[v/P,
+    words]`` int32, block ``p`` (contexts ``[p·v/P, (p+1)·v/P)``) on card
+    ``p`` and nowhere else, each its own allocation — the JAX package's
+    store sharded over the ``vp`` axis.
+
+    The methods mirror :class:`ContextStore`'s, block by block: a write
+    takes a ``[v, ...]`` value (each block's rows go to its card) or ``P``
+    per-block values, and lands in place; ``field(name, p)`` and
+    ``field_words_view(name, p)`` are views of block ``p``.  Without ``p``
+    they gather the blocks onto the first card, a copy (like a backing
+    tier's CPU copy): the explicit call for whoever wants the whole field —
+    the result's extraction, tests, :mod:`repro_torch.interop` — never the
+    executor's or the collectives' hot path."""
+
+    def __init__(self, layout: ContextLayout, blocks: Sequence[torch.Tensor]):
+        blocks = list(blocks)
+        if not blocks or any(
+                b.dtype != torch.int32 or b.dim() != 2
+                or b.shape != blocks[0].shape for b in blocks):
+            raise TypeError(
+                "a mesh store's blocks must be [v/P, words] int32 tensors of "
+                "one shape, got "
+                f"{[(b.dtype, tuple(b.shape)) for b in blocks]}")
+        self.layout = layout
+        self.blocks = blocks
+
+    @property
+    def P(self) -> int:
+        return len(self.blocks)
+
+    @property
+    def m(self) -> int:
+        """Contexts a block (``v/P``)."""
+        return self.blocks[0].shape[0]
+
+    @property
+    def v(self) -> int:
+        return self.m * self.P
+
+    @property
+    def device(self) -> torch.device:
+        """The first card: where a gathered field lands."""
+        return self.blocks[0].device
+
+    def _split(self, value) -> List:
+        """``P`` per-block values: ``value`` itself when it is a sequence
+        of them, else its rows cut into blocks."""
+        if isinstance(value, (list, tuple)):
+            if len(value) != self.P:
+                raise ValueError(f"{len(value)} block values for {self.P} "
+                                 "blocks")
+            return list(value)
+        m = self.m
+        return [value[p * m:(p + 1) * m] for p in range(self.P)]
+
+    def field(self, name: str, p: Optional[int] = None) -> torch.Tensor:
+        """Block ``p``'s ``[v/P, *shape]`` typed view of a field, or with
+        ``p=None`` the ``[v, *shape]`` field gathered onto the first card
+        (a copy)."""
+        if p is None:
+            return torch.cat([self.field(name, q).to(self.device)
+                              for q in range(self.P)])
+        return ContextStore(self.layout, self.blocks[p]).field(name)
+
+    def with_field(self, name: str, value) -> "MeshStore":
+        """Write ``value`` (``[v, *shape]`` or ``P`` blocks, converted to
+        the field's dtype) into the field, each block on its card, in
+        place."""
+        for blk, val in zip(self.blocks, self._split(value)):
+            with device_scope(blk.device):
+                ContextStore(self.layout, blk).with_field(name, val)
+        return MeshStore(self.layout, self.blocks)
+
+    def field_words_view(self, name: str,
+                         p: Optional[int] = None) -> torch.Tensor:
+        """Block ``p``'s raw ``[v/P, field_words]`` int32 view of a field's
+        word range, or with ``p=None`` the ``[v, field_words]`` words
+        gathered onto the first card (a copy)."""
+        if p is None:
+            return torch.cat([self.field_words_view(name, q).to(self.device)
+                              for q in range(self.P)])
+        return ContextStore(self.layout, self.blocks[p]).field_words_view(
+            name)
+
+    def with_field_words(self, name: str, words) -> "MeshStore":
+        """Write a field's raw word range from ``[v, field_words]`` int32
+        words (or ``P`` blocks of them), each block on its card, in
+        place."""
+        for blk, w in zip(self.blocks, self._split(words)):
+            with device_scope(blk.device):
+                ContextStore(self.layout, blk).with_field_words(
+                    name, w.to(blk.device))
+        return MeshStore(self.layout, self.blocks)
+
+    def gather(self) -> torch.Tensor:
+        """The whole ``[v, words]`` population on the first card (a copy)."""
+        return torch.cat([b.to(self.device) for b in self.blocks])
+
+
 def init_store(layout_: ContextLayout, v: int,
                init_fn: Optional[Callable[[torch.Tensor],
                                           Dict[str, torch.Tensor]]] = None,
@@ -395,3 +508,20 @@ def init_store(layout_: ContextLayout, v: int,
                 torch.arange(v, dtype=torch.int32, device=dev)).items():
             ctx.set(name, val)
     return ContextStore(layout_, data)
+
+
+def init_mesh_store(layout_: ContextLayout, v: int, devices: Sequence,
+                    init_fn=None) -> MeshStore:
+    """Create a zeroed :class:`MeshStore` of ``v`` contexts over
+    ``devices`` (one block a card, ``v/len(devices)`` contexts each).
+    ``init_fn`` runs once a block, on its card, over its contexts' IDs."""
+    P = len(devices)
+    m = v // P
+    blocks = []
+    for p, dev in enumerate(devices):
+        with device_scope(dev):
+            blocks.append(init_store(
+                layout_, m,
+                None if init_fn is None
+                else (lambda rhos, p=p: init_fn(rhos + p * m)), dev).data)
+    return MeshStore(layout_, blocks)

@@ -5,8 +5,11 @@ concurrently-resident contexts per real processor, exactly the thesis' model
 (§3.2): execution proceeds in deterministic ID-ordered rounds of ``P·k``
 virtual processors (§6.5); real processor ``p`` runs its ``v/(P·k)`` rounds
 over its own contexts ``[p·v/P, (p+1)·v/P)``.  ``P > 1`` needs a
-:class:`~.mesh.Mesh` of ``P`` entries; the port runs one on a single device,
-the store one ``[v, words]`` tensor whose row blocks are the processes.  A
+:class:`~.mesh.Mesh` of ``P`` entries: on one device the store is one ``[v,
+words]`` tensor whose row blocks are the processes; over a mesh of cards
+(:attr:`~.mesh.Mesh.spans_devices`) it is a :class:`~.context.MeshStore`,
+process ``p``'s block on card ``p``, where its rounds run, every card at once
+(one host thread queues them all, with no synchronisation between them).  A
 stage function takes the round's IDs ``rhos [k]`` and a batched
 :class:`~.context.Ctx` over the round's ``[k, words]`` block — the explicit
 form of the JAX package's ``vmap`` — and returns the context.
@@ -75,6 +78,9 @@ from .context import (
     Ctx,
     ContextLayout,
     ContextStore,
+    MeshStore,
+    device_scope,
+    init_mesh_store,
     init_store,
     resolve_device,
 )
@@ -263,8 +269,10 @@ class PemsConfig:
 class Pems:
     """Executor: superstep engine + I/O ledger, on one device (CUDA unless
     ``device`` names another; the CPU runs the kernels' plain versions).
-    ``P > 1`` on the device tier needs a ``mesh`` (:func:`~.mesh.make_mesh`)
-    with ``P`` entries along ``cfg.vp_axis`` on that device; a backing tier
+    ``P > 1`` on the device tier needs a ``mesh`` with ``P`` entries along
+    ``cfg.vp_axis``: on that device (:func:`~.mesh.make_mesh`), or a mesh of
+    cards whose first is that device (``Mesh(["cuda:0", ..., "cuda:3"])``:
+    the store is then a :class:`~.context.MeshStore`); a backing tier
     shards instead.  Collective methods are bound from
     :mod:`repro_torch.core.collectives`."""
 
@@ -316,10 +324,16 @@ class Pems:
                 raise ValueError(
                     f"mesh axis {cfg.vp_axis}="
                     f"{mesh.shape.get(cfg.vp_axis)} != P={cfg.P}")
-            if mesh.device() != canonical(self.device):
+            first = canonical(mesh.devices[0])
+            if first != canonical(self.device):
                 raise ValueError(
-                    f"the mesh lies on {mesh.device()} but the executor on "
+                    f"the mesh lies on {first} but the executor on "
                     f"{self.device}")
+        # Over a mesh of cards each process's row block lives on its own
+        # card; ``devices`` are the cards the device tier's work runs on.
+        self.cards = (mesh is not None and cfg.P > 1
+                      and mesh.spans_devices)
+        self.devices = list(mesh.devices) if self.cards else [self.device]
         if cfg.device_cap_bytes is not None:
             # The device tier must fit the whole population; a backing tier
             # its in-flight round blocks — input + output, plus the
@@ -378,8 +392,15 @@ class Pems:
         synchronisation."""
         span = self.tracer.span(name, tid=tid, cat=cat, **args)
         if self.tracer.enabled and self.device.type == "cuda":
-            return _DrainedSpan(span, self.device)
+            return _DrainedSpan(span, self.devices)
         return span
+
+    def synchronize(self) -> None:
+        """Wait for the work queued on every card the device tier runs on
+        (each card of a mesh of cards; nothing to wait for on the CPU)."""
+        for dev in self.devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def metrics_snapshot(self) -> dict:
         """Flat metric-name dict subsuming ``TierStats`` and ``IOLedger``:
@@ -454,9 +475,10 @@ class Pems:
     # ------------------------------------------------------------------ setup
     def init(self, init_fn=None, tier: Optional[str] = None,
              backing_path: Optional[str] = None
-             ) -> ContextStore | TieredStore:
+             ) -> ContextStore | MeshStore | TieredStore:
         """Create the zeroed context population: on the executor's device
-        (``tier="device"``), or in a host/disk backing store
+        (``tier="device"``; a :class:`~.context.MeshStore` over a mesh of
+        cards), or in a host/disk backing store
         (:class:`~.backing.TieredStore`).  ``tier`` defaults to the
         config's.  ``init_fn(rhos[n]) -> {field: [n, *shape]}`` fills
         initial fields, batched over the IDs — ``k`` contexts at a time on a
@@ -467,6 +489,9 @@ class Pems:
         if tier != "device":
             return self._init_tiered(init_fn, tier,
                                      backing_path or self.cfg.backing_path)
+        if self.cards:
+            return init_mesh_store(self.layout, self.cfg.v, self.devices,
+                                   init_fn)
         return init_store(self.layout, self.cfg.v, init_fn, self.device)
 
     def _init_tiered(self, init_fn, tier: str,
@@ -512,14 +537,14 @@ class Pems:
     # -------------------------------------------------------------- superstep
     def superstep(
         self,
-        store: ContextStore | TieredStore,
+        store: ContextStore | MeshStore | TieredStore,
         fn: Callable[[torch.Tensor, Ctx], Ctx],
         reads: Optional[Sequence[str]] = None,
         writes: Optional[Sequence[str]] = None,
         name: str = "superstep",
         procs: Optional[Sequence[int]] = None,
         stream: bool = False,
-    ) -> ContextStore | TieredStore:
+    ) -> ContextStore | MeshStore | TieredStore:
         """Run one computation superstep: ``fn(rhos, ctx) -> ctx`` for every
         round of ``k`` virtual processors, updating the store in place.
 
@@ -562,7 +587,15 @@ class Pems:
             body = self._round_body_full(fn)
         # Each real processor runs its rounds over its own row block, IDs
         # offset by its first context (the JAX shard_map's per-device body).
+        # Over a mesh of cards each block's rounds are queued on its card's
+        # current stream and nothing waits between processors, so the cards
+        # compute at once.
         m = cfg.v_local
+        if isinstance(store, MeshStore):
+            for p, blk in enumerate(store.blocks):
+                with device_scope(blk.device):
+                    self._run_rounds(blk, body, p * m)
+            return store
         for p in range(cfg.P):
             self._run_rounds(store.data[p * m:(p + 1) * m], body, p * m)
         return store
@@ -861,24 +894,27 @@ class Pems:
 
 
 class _DrainedSpan:
-    """A span that opens and closes on a drained CUDA stream of ``device``:
-    the device work queued inside it is billed to it, and the work queued
-    before it is not.  Used by :meth:`Pems.device_span` with tracing on; an
-    exception closes the span at once."""
+    """A span that opens and closes on the drained current CUDA streams of
+    ``devices`` (every card of a mesh of cards): the device work queued
+    inside it is billed to it, and the work queued before it is not.  Used
+    by :meth:`Pems.device_span` with tracing on; an exception closes the
+    span at once."""
 
-    __slots__ = ("_span", "_stream")
+    __slots__ = ("_span", "_streams")
 
-    def __init__(self, span, device: torch.device):
+    def __init__(self, span, devices):
         self._span = span
-        self._stream = torch.cuda.current_stream(device)
+        self._streams = [torch.cuda.current_stream(d) for d in devices]
 
     def __enter__(self):
-        self._stream.synchronize()
+        for s in self._streams:
+            s.synchronize()
         return self._span.__enter__()
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         if exc_type is None:
-            self._stream.synchronize()
+            for s in self._streams:
+                s.synchronize()
         return self._span.__exit__(exc_type, exc, tb)
 
 

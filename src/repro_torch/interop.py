@@ -18,14 +18,18 @@ import numpy as np
 import torch
 
 from .core.backing import TieredStore, make_backing
-from .core.context import ContextLayout, ContextStore, resolve_device
+from .core.context import ContextLayout, ContextStore, MeshStore, \
+    resolve_device
 
 
 def store_from_numpy(layout: ContextLayout, words_u32: np.ndarray,
-                     device=None) -> ContextStore:
+                     device=None, mesh=None) -> ContextStore | MeshStore:
     """The port's store over ``words_u32`` (``[v, layout.words]`` uint32,
-    e.g. ``np.asarray(jax_store.data)``), copied to ``device`` (CUDA by
-    default)."""
+    e.g. ``np.asarray(jax_store.data)``, the global words of a sharded JAX
+    store too), copied to ``device`` (CUDA by default); over a ``mesh`` of
+    cards (:attr:`~repro_torch.core.Mesh.spans_devices`) a
+    :class:`~repro_torch.core.context.MeshStore`, its rows split into one
+    block a card."""
     words = np.ascontiguousarray(words_u32)
     if words.dtype != np.uint32 or words.ndim != 2:
         raise TypeError(f"expected [v, words] uint32 words, got {words.dtype} "
@@ -34,6 +38,10 @@ def store_from_numpy(layout: ContextLayout, words_u32: np.ndarray,
         raise ValueError(f"store rows hold {words.shape[1]} words but the "
                          f"layout has {layout.words}")
     data = torch.from_numpy(words.view(np.int32).copy())
+    if mesh is not None and len(mesh.devices) > 1 and mesh.spans_devices:
+        m = data.shape[0] // len(mesh.devices)
+        return MeshStore(layout, [data[p * m:(p + 1) * m].to(dev, copy=True)
+                                  for p, dev in enumerate(mesh.devices)])
     return ContextStore(layout, data.to(resolve_device(device)))
 
 
@@ -60,9 +68,13 @@ def tiered_store_from_numpy(layout: ContextLayout, words_u32: np.ndarray,
     return store
 
 
-def store_to_numpy(store: ContextStore) -> np.ndarray:
+def store_to_numpy(store: ContextStore | MeshStore) -> np.ndarray:
     """The store's words as a ``[v, words]`` uint32 numpy array (the JAX
-    package's ``ContextStore.data`` bits)."""
+    package's ``ContextStore.data`` bits; a mesh store's blocks joined in
+    process order)."""
+    if isinstance(store, MeshStore):
+        return np.concatenate([b.cpu().numpy() for b in store.blocks]).view(
+            np.uint32)
     return store.data.cpu().numpy().view(np.uint32)
 
 

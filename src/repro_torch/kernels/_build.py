@@ -170,10 +170,18 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call entry ``name`` with ``(device index, *args, current stream)``;
-    raise if its launches reported a CUDA error."""
+    raise if its launches reported a CUDA error.  An entry makes its card
+    the thread's current device (``cudaSetDevice``); the caller's is set
+    back, so that a launch on one card of a mesh does not move the
+    allocations that follow it (``"cuda"`` without an index) to that card."""
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, name)(device.index or 0, *args, stream)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    before = torch.cuda.current_device()
+    err = getattr(lib, name)(index, *args, stream)
+    if index != before:
+        torch.cuda.set_device(before)
     if err:
         msg = lib.repro_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -37,8 +37,12 @@ def group_by_dest(
         sorted_d, torch.arange(v, device=dev).expand(k, v).contiguous())
     pos_sorted = torch.arange(n, device=dev) - torch.gather(start, 1, sorted_d)
     rows = torch.arange(k, device=dev)[:, None]
-    counts = torch.bincount((dests + rows * v).reshape(-1),
-                            minlength=k * v).reshape(k, v).to(torch.int32)
+    # Each destination's count is the distance between its group's start
+    # and the next one's: no bincount, which on a CUDA tensor reads its
+    # largest value back to the host and so keeps it from queueing another
+    # card's rounds meanwhile.
+    counts = torch.diff(start, dim=1, append=torch.full(
+        (k, 1), n, dtype=start.dtype, device=dev)).to(torch.int32)
     ok = counts.max(dim=1).values <= cap
 
     payload = values if values.dim() > 2 else values[..., None]

@@ -31,8 +31,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core import (ContextLayout, Pems, PemsConfig, SuperstepCursor,
-                    atomic_replace_file, resolve_device)
+from ..core import (ContextLayout, ContextStore, Pems, PemsConfig,
+                    SuperstepCursor, atomic_replace_file, resolve_device)
+from ..core.context import MeshStore
 from ..kernels.bitonic_sort import bitonic_sort
 from ..kernels.kway_merge import kway_merge
 from .common import INT_MAX, group_by_dest
@@ -114,15 +115,17 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
     merge_on_kernel = pems.cfg.merge_kernel and use_kernel
     merge_tile = pems.cfg.merge_tile
     # Regular sampling: positions ⌊j·n_v/v⌋, j = 0..v−1 (Shi & Schaeffer).
-    samp_idx = (torch.arange(v, device=dev) * n_v) // v
+    samp_idx = _per_card((torch.arange(v, device=dev) * n_v) // v)
     # Splitters at ranks (i+1)·v + v/2 − 1, i = 0..v−2; sentinel at end.
-    split_ranks = (torch.arange(v - 1, device=dev) + 1) * v + v // 2 - 1
-    lane_gid = torch.arange(n_v, dtype=torch.int64, device=dev)
+    split_ranks = _per_card(
+        (torch.arange(v - 1, device=dev) + 1) * v + v // 2 - 1)
+    lane_gid = _per_card(torch.arange(n_v, dtype=torch.int64, device=dev))
 
     def sort_and_sample(rhos, ctx):
         data = local_sort(ctx.get("data"))                   # [k, n_v]
-        gid = rhos[:, None] * n_v + samp_idx.to(torch.int32)
-        samp = torch.stack([data[:, samp_idx], gid], dim=-1)
+        idx = samp_idx(data.device)
+        gid = rhos[:, None] * n_v + idx.to(torch.int32)
+        samp = torch.stack([data[:, idx], gid], dim=-1)
         return ctx.set("data", data).set("samp", samp)
 
     def pick_splitters(rhos, ctx):
@@ -135,13 +138,13 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
         s = torch.gather(s, 1, o[..., None].expand(-1, -1, 2))
         sentinel = torch.full((ctx.k, 1, 2), INT_MAX, dtype=torch.int32,
                               device=s.device)
-        return ctx.set("gsplit",
-                       torch.cat([s[:, split_ranks], sentinel], dim=1))
+        return ctx.set("gsplit", torch.cat(
+            [s[:, split_ranks(s.device)], sentinel], dim=1))
 
     def partition(rhos, ctx):
         data = ctx.get("data")                               # [k, n_v]
         gs = ctx.get("gsplit")                               # [k, v, 2]
-        gid = rhos[:, None].to(torch.int64) * n_v + lane_gid
+        gid = rhos[:, None].to(torch.int64) * n_v + lane_gid(data.device)
         # dest = #splitters (sv, sg) <= (x, gid) lexicographically: one
         # searchsorted of the 64-bit key x·2^32 + gid into the sorted
         # splitter keys (0 <= gid < 2^32 keeps the lexicographic order).
@@ -230,9 +233,52 @@ def _build(v: int, k: int, n_v: int, cap, rcap, driver: str,
         store = load(data_blocks)
         for _, step in steps:
             store = step(store)
-        return extract(store)
+        return store
 
     return pems, program, (load, steps, extract)
+
+
+def _per_card(t: torch.Tensor):
+    """``device -> t`` on that device, each copy made once: a stage over a
+    mesh of cards runs on each block's card and reads its constants
+    there."""
+    copies = {t.device: t}
+
+    def on(device):
+        if device not in copies:
+            copies[device] = t.to(device)
+        return copies[device]
+
+    return on
+
+
+def _result_fields(store) -> list:
+    """``[(result, rcount, oflow)]`` of each block of the store: its one
+    block, or each card's over a mesh of cards (views there)."""
+    blocks = ([ContextStore(store.layout, b) for b in store.blocks]
+              if isinstance(store, MeshStore) else [store])
+    return [(st.field("result"), st.field("rcount"), st.field("oflow"))
+            for st in blocks]
+
+
+def _sorted_keys(fields, cap=None, rcap=None) -> torch.Tensor:
+    """Each context's first ``rcount`` result keys, in context order, from
+    :func:`_result_fields`; ``OverflowError`` when a context overflowed
+    ``cap``/``rcap``.  Over a mesh of cards the rows are trimmed on each
+    block's card, then gathered onto the first card (an explicit copy of
+    the sorted keys alone)."""
+    if any(bool(oflow.any()) for _, _, oflow in fields):
+        raise OverflowError(
+            "PSRS message capacity exceeded; raise cap/rcap "
+            f"(cap={cap}, rcap={rcap})"
+        )
+    parts = []
+    for result, rcount, _ in fields:
+        counts = rcount[:, 0].tolist()
+        parts.append(torch.cat([result[i, :c] for i, c in enumerate(counts)]))
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([t.to(parts[0].device) for t in parts])
 
 
 def psrs_plan(
@@ -349,9 +395,12 @@ def psrs_sort(
 
     ``P`` runs the simulation over ``P`` real processors, each owning
     ``v/P`` contexts.  On the device tier ``mesh`` is a
-    :func:`~repro_torch.core.make_mesh` of ``P`` entries on ``device``, and
-    the final Alltoallv's network phase is α-chunked over it (``alpha``,
-    Alg 7.1.3); on a backing tier no mesh is needed: the backing is sharded,
+    :func:`~repro_torch.core.make_mesh` of ``P`` entries on ``device``, or a
+    mesh of ``P`` cards whose first is ``device``
+    (``Mesh(["cuda:0", ..., "cuda:3"])``: each process's contexts live on
+    its own card, and the result is gathered onto the first), and the final
+    Alltoallv's network phase is α-chunked over it (``alpha``, Alg 7.1.3);
+    on a backing tier no mesh is needed: the backing is sharded,
     one file (``backing_path + ".shard<p>"``), engine, ledger and stats per
     process.  The output is bit-identical to the ``P == 1`` run.
 
@@ -370,7 +419,7 @@ def psrs_sort(
 
     Raises ``ValueError`` for n not divisible by v (and for any invalid
     :class:`~repro_torch.core.PemsConfig` combination, or ``P > 1`` on the
-    device tier without a mesh of ``P`` entries on ``device``),
+    device tier without a mesh of ``P`` entries starting on ``device``),
     ``RuntimeError`` when CUDA is asked for and missing, and
     ``OverflowError`` when a bucket exceeds ``cap``/``rcap``.
     """
@@ -394,16 +443,10 @@ def psrs_sort(
                               merge_tile=merge_tile,
                               trace=trace, trace_path=trace_path,
                               device=dev)
-    result, rcount, oflow = program(keys.reshape(v, n_v))
+    fields = _result_fields(program(keys.reshape(v, n_v)))
     if pems.cfg.trace_path is not None:
         pems.export_trace()
-    if bool(oflow.any()):
-        raise OverflowError(
-            "PSRS message capacity exceeded; raise cap/rcap "
-            f"(cap={cap}, rcap={rcap})"
-        )
-    counts = rcount[:, 0].tolist()
-    out = torch.cat([result[i, :counts[i]] for i in range(v)])
+    out = _sorted_keys(fields, cap, rcap)
     if return_pems:
         return out, pems
     return out

@@ -136,12 +136,12 @@ def test_executor_rejects_what_jax_rejects():
     # host memory and its fields come back as CPU tensors.
     st = p.init(tier="host")
     assert st.tier == "host" and st.field("a").shape == (4, 5)
-    # P > 1 runs on a one-device mesh; a mesh over several cards is not
-    # ported yet (ROADMAP.md queue 1 item 7b), whatever its axis name.
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # P > 1 runs on a one-device mesh or a mesh of cards; a mesh of cards
+    # must start on the executor's device, whatever its axis name.
+    with pytest.raises(ValueError, match="lies on cuda:0 but the executor"):
         Pems(PemsConfig(v=4, P=2), tl, mesh=Mesh(["cuda:0", "cuda:1"]),
              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="lies on cuda:0 but the executor"):
         Pems(PemsConfig(v=4, P=2, vp_axis="procs"), tl,
              mesh=Mesh(["cuda:0", "cuda:1"], ("procs",)), device="cpu")
 

@@ -331,6 +331,138 @@ def test_psrs_at_P4_on_the_card_matches_P1_and_launches_kernel_4(cuda):
         assert dv.ASSEMBLE_LAUNCHES == pems.ledger.network_rounds > 0
 
 
+def _cards(n: int):
+    """``Mesh(["cuda:0", ..., f"cuda:{n - 1}"])``; skips with the reason on
+    a machine with fewer cards."""
+    from repro_torch.core import Mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    have = torch.cuda.device_count()
+    if have < n:
+        pytest.skip(f"needs {n} CUDA cards for a mesh of cards, {have} "
+                    "visible")
+    return Mesh([f"cuda:{i}" for i in range(n)])
+
+
+def _psrs_store(keys, v, **kw):
+    """``(sorted keys, final store words on the first card, pems)``."""
+    from repro_torch.core.context import MeshStore
+    from repro_torch.pems_apps import psrs_plan
+    from repro_torch.pems_apps.psrs import _result_fields, _sorted_keys
+
+    pems, load, steps, _ = psrs_plan(v, keys.numel() // v, **kw)
+    store = load(keys.reshape(v, -1))
+    for _, step in steps:
+        store = step(store)
+    pems.synchronize()
+    words = store.gather() if isinstance(store, MeshStore) else store.data
+    return _sorted_keys(_result_fields(store)), words, pems
+
+
+@pytest.mark.parametrize("driver, alpha", [("async", None), ("explicit", 1)])
+def test_cards_route_forced_on_one_card_matches_the_fused_route(
+        cuda, monkeypatch, driver, alpha):
+    """The mesh-of-cards route forced onto four blocks of one card: the
+    sorted keys and every final store word equal the one-card fused
+    route's, and kernel 4 stages once a sender a chunk."""
+    from repro_torch.core import Mesh, analysis, make_mesh
+
+    dv = _kernel("alltoallv_deliver")
+    keys = _keys((1 << 18,), cuda, 12)
+    kw = dict(k=2, P=4, alpha=alpha, driver=driver)
+    want, want_words, _ = _psrs_store(keys, 16, mesh=make_mesh(4), **kw)
+    monkeypatch.setattr(Mesh, "spans_devices", True)
+    dv.ASSEMBLE_LAUNCHES = 0
+    got, words, pems = _psrs_store(keys, 16, mesh=make_mesh(4), **kw)
+    assert pems.cards
+    assert torch.equal(got, want) and torch.equal(got, torch.sort(keys).values)
+    assert torch.equal(words, want_words)
+    assert dv.ASSEMBLE_LAUNCHES == 4 * (
+        analysis.pems2_alltoallv_par_network_rounds(16, 4, 2, alpha))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_psrs_over_a_mesh_of_cards_matches_one_card(cuda, n):
+    """Each block on its own card, and the sorted keys, every final store
+    word and the ledger equal the one-card mesh's."""
+    from repro_torch.core import make_mesh
+
+    mesh = _cards(n)
+    keys = _keys((1 << 18,), cuda, 13)
+    for driver, alpha in (("async", None), ("explicit", 1), ("sliced", 2)):
+        kw = dict(k=2, P=n, alpha=alpha, driver=driver)
+        want, want_words, one = _psrs_store(keys, 16, mesh=make_mesh(n),
+                                            **kw)
+        got, words, pems = _psrs_store(keys, 16, mesh=mesh, **kw)
+        assert torch.equal(got, want)
+        assert torch.equal(words, want_words)
+        assert pems.ledger.snapshot() == one.ledger.snapshot()
+    store = pems.init()
+    assert [b.device for b in store.blocks] == list(mesh.devices)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_collectives_over_a_mesh_of_cards_match_one_card(cuda, n):
+    """Every Alltoallv route and the five collectives over cards equal the
+    one-card mesh's bit for bit (float32 sums included)."""
+    from repro_torch import interop
+    from repro_torch.core import ContextLayout, Pems, PemsConfig, make_mesh
+
+    mesh = _cards(n)
+    v, w = 16, 1000
+    g = torch.Generator().manual_seed(18)
+    lo = (ContextLayout().add("x", (w,), torch.float32)
+          .add("i", (w,), torch.int32).add("o", (w,), torch.float32)
+          .add("m", (w,), torch.int32).add("g", (v, w), torch.float32)
+          .add("s", (v, 5), torch.int32).add("r", (v, 5), torch.int32)
+          .add("sc", (v,), torch.int32).add("rc", (v,), torch.float32)
+          .add("gi", (v, w), torch.int32))
+    words = torch.randint(0, 2**32, (v, lo.words), generator=g,
+                          dtype=torch.int64).to(torch.uint32).numpy()
+    words[:, :w] = torch.randn((v, w), generator=g).numpy().view("uint32")
+    sc = lo.offset("sc")
+    words[:, sc:sc + v] = torch.randint(-1, 7, (v, v), generator=g).to(
+        torch.int32).numpy().view("uint32")
+    got = {}
+    for where in (make_mesh(n), mesh):
+        out = []
+        for alpha, mode, uk in ((None, "direct", True), (1, "direct", True),
+                                (2, "indirect", True), (1, "direct", False)):
+            pems = Pems(PemsConfig(v=v, k=2, P=n, alpha=alpha), lo,
+                        mesh=where, device=cuda)
+            store = interop.store_from_numpy(lo, words, mesh=where)
+            store = pems.alltoallv(store, "s", "r", "sc", "rc", mode=mode,
+                                   fill=-9, use_kernel=uk)
+            store = pems.alltoallv(store, "s", "s", "sc", "sc", fill=5,
+                                   use_kernel=uk)
+            store = pems.bcast(store, "i", root=5)
+            store = pems.gather(store, "i", "gi", root=3)
+            store = pems.allgather(store, "x", "g")
+            store = pems.reduce(store, "x", "o", op="add", root=9)
+            store = pems.reduce(store, "i", "m", op="max", root=2)
+            store = pems.allreduce(store, "x", "o", op="add")
+            store = pems.allreduce(store, "i", "m", op="min")
+            out.append((interop.store_to_numpy(store),
+                        pems.ledger.snapshot()))
+        got[where.spans_devices] = out
+    for (a, la), (b, lb) in zip(got[False], got[True]):
+        np.testing.assert_array_equal(a, b)
+        assert la == lb
+
+
+def test_a_launch_on_another_card_keeps_the_current_device(cuda):
+    """A kernel entry sets its card current (``cudaSetDevice``); the launch
+    wrapper sets the caller's back."""
+    bs = _kernel("bitonic_sort")
+    _cards(2)
+    torch.cuda.set_device(0)
+    x = _keys((4, 1 << 14), torch.device("cuda:1"), 14)
+    got = bs.bitonic_sort_rows(x)
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(got, torch.sort(x, dim=-1).values)
+
+
 @pytest.mark.parametrize("tier, driver, P", [
     ("host", "async", 1), ("memmap", "sliced", 1), ("file", "async", 2),
     ("file", "explicit", 1)])

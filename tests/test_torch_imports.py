@@ -197,11 +197,15 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
 ])
 def test_knobs_outside_the_slice_raise_and_name_their_roadmap_item(
         knob, value, item):
-    """Knobs of a ROADMAP.md item the port has not brought raise
-    ``NotImplementedError`` naming it.  Items 6 (recovery) and 9 (tracing)
-    are ported: their knobs misused on the device tier (``trace_path``
-    without ``trace``) raise the JAX package's own ``ValueError``."""
-    from repro_torch.core import Mesh
+    """The knobs of ROADMAP.md items 6, 7 and 9, which once raised
+    ``NotImplementedError`` naming their item, are ported.  Items 6
+    (recovery) and 9 (tracing): their knobs misused on the device tier
+    (``trace_path`` without ``trace``) raise the JAX package's own
+    ``ValueError``.  Item 7 (``P > 1``), over a mesh of cards too (7b): a
+    mesh of cards that does not start on the executor's device raises the
+    mesh-mismatch ``ValueError``, and on a one-device mesh the knob
+    sorts."""
+    from repro_torch.core import Mesh, make_mesh
     from repro_torch.pems_apps import psrs_sort
 
     keys = torch.arange(64, dtype=torch.int32)
@@ -214,12 +218,13 @@ def test_knobs_outside_the_slice_raise_and_name_their_roadmap_item(
             apps.psrs_sort(keys.numpy(), v=4, **kw)
         assert str(port.value) == str(ref.value)
         return
-    if knob in ("P", "alpha"):
-        # P > 1 runs on a one-device mesh; a mesh over several cards is
-        # still to come (ROADMAP.md queue 1 item 7b).
-        kw.update(P=2, mesh=Mesh(["cuda:0", "cuda:1"]))
-    with pytest.raises(NotImplementedError, match=item):
+    assert item == "item 7"
+    kw.update(P=2, mesh=Mesh(["cuda:0", "cuda:1"]))
+    with pytest.raises(ValueError, match="lies on cuda:0"):
         psrs_sort(keys, v=4, device="cpu", **kw)
+    kw.update(mesh=make_mesh(2, device="cpu"))
+    assert torch.equal(psrs_sort(keys.flip(0), v=4, device="cpu", **kw),
+                       keys)
 
 
 @pytest.mark.parametrize("kw", [

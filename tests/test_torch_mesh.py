@@ -8,7 +8,10 @@ pytest worker has started it, so the whole JAX side of this module runs in
 one subprocess (``--xla_force_host_platform_device_count=4``, the mesh shims
 of ``tests/_jax_ref.py``).  A module-scoped fixture writes the inputs and the
 case list, the subprocess writes every JAX result into an ``.npz`` beside
-them, and each test reads its case from there.
+them, and each test reads its case from there.  The results are kept for
+the test session in a directory every pytest worker shares, under a lock:
+``tests/test_torch_mesh_cards.py`` (the mesh of cards, forced onto CPU
+blocks) reads the same results, and the subprocess runs once a session.
 
 Covered: ``alltoallv`` at P = 4, v = 16, k = 2 over α ∈ {None, 1, 2} ×
 ``use_kernel`` × (no counts | counts | counts + fill | float payload with
@@ -33,6 +36,7 @@ and the chunked runs take the fill variant only.
 
 from __future__ import annotations
 
+import fcntl
 import json
 import os
 import subprocess
@@ -90,13 +94,36 @@ _JAX_PSRS = [
     (2, 1, "explicit", None, "direct"), (2, 2, "sliced", None, "indirect"),
 ]
 N_V = 64                                    # PSRS keys per context
+# PSRS runs whose final store the JAX side keeps, (P, k, alpha), on random
+# keys: every stage's words, which depend on the keys and v only.
+_JAX_STORES = [(4, 2, None), (2, 1, 1)]
+# allgather, reduce and allreduce: (name, shape, kind) of their fields, and
+# the calls, (method, args, keywords).
+_COLL_FIELDS = [("xf", (3,), "f"), ("xi", (3,), "i"), ("allf", (V, 3), "f"),
+                ("sumf", (3,), "f"), ("maxi", (3,), "i"), ("sumi", (3,), "i"),
+                ("mini", (3,), "i"), ("allsum", (3,), "f")]
+_COLL_CALLS = [("allgather", ("xf", "allf"), {}),
+               ("reduce", ("xf", "sumf"), {"op": "add", "root": 5}),
+               ("reduce", ("xi", "maxi"), {"op": "max", "root": 13}),
+               ("allreduce", ("xi", "sumi"), {"op": "add"}),
+               ("allreduce", ("xi", "mini"), {"op": "min"}),
+               ("allreduce", ("xf", "allsum"), {"op": "add"})]
 
 
 def _words(fields=None):
     """The initial store words of the collective cases: random bits,
     counts words in ``[-1, ω + 1]`` (empty, partial, full and out-of-range
     masks) and finite float payloads; for ``_ODD_FIELDS`` counts in
-    ``[-1, ω + 2]``."""
+    ``[-1, ω + 2]``; for ``_COLL_FIELDS`` finite float operands."""
+    if fields is _COLL_FIELDS:
+        lo = _layout(fields)
+        rng = np.random.default_rng(17)
+        w = rng.integers(0, 2**32, size=(V, lo.words),
+                         dtype=np.uint64).astype(np.uint32)
+        off = lo.offset("xf")
+        w[:, off:off + 3] = np.float32(
+            rng.standard_normal((V, 3)) * 1000).view(np.uint32)
+        return w
     if fields is not None:
         lo = _layout(fields)
         rng = np.random.default_rng(13)
@@ -163,14 +190,15 @@ _JAX_SCRIPT = textwrap.dedent("""
             lo.add(name, tuple(shape), dt[kind])
         return lo
 
-    def pems(alpha=None, P=4, odd=False):
+    def pems(alpha=None, P=4, odd=False, coll=False):
+        name = "odd" if odd else "coll" if coll else ""
         p = core.Pems(core.PemsConfig(v=spec["V"], k=spec["K"], P=P,
                                       alpha=alpha),
-                      layout(spec["odd_fields" if odd else "fields"]),
+                      layout(spec[name + "_fields" if name else "fields"]),
                       mesh=R.auto_mesh(P))
         st = p.init()
         st = core.ContextStore(st.layout, jax.device_put(
-            jnp.asarray(inp["odd_words" if odd else "words"]),
+            jnp.asarray(inp[name + "_words" if name else "words"]),
             st.data.sharding))
         return p, st
 
@@ -199,6 +227,10 @@ _JAX_SCRIPT = textwrap.dedent("""
     st = p.bcast(st, "a", root=5)
     st = p.gather(st, "root_in", "root_out", root=13)
     keep("rooted", p, st)
+    p, st = pems(coll=True)
+    for method, args, kw in spec["coll_calls"]:
+        st = getattr(p, method)(st, *args, **kw)
+    keep("coll", p, st)
 
     keys = inp["keys_random"]
     for P, k, driver, alpha, mode in spec["psrs"]:
@@ -208,6 +240,17 @@ _JAX_SCRIPT = textwrap.dedent("""
         tag = f"psrs/{P}/{k}/{driver}/{alpha}/{mode}"
         res[tag + "/out"] = out
         res[tag + "/ledger"] = np.array(json.dumps(led))
+
+    keys = inp["keys_random"]
+    n_v = keys.size // spec["V"]
+    for P, k, alpha in spec["stores"]:
+        p, load, steps, _ = R.apps.psrs_plan(
+            spec["V"], n_v, k=k, P=P, alpha=alpha, mesh=R.auto_mesh(P),
+            use_kernel=False)
+        st = load(jnp.asarray(keys.reshape(spec["V"], n_v)))
+        for name, step in steps:
+            st = step(st)
+        res[f"store/{P}/{k}/{alpha}"] = R.store_words(st)
 
     # A P = 4 store taken after partition, and the same run's end.
     keys = inp["keys_dups"]
@@ -228,13 +271,33 @@ _JAX_SCRIPT = textwrap.dedent("""
 
 @pytest.fixture(scope="module")
 def jax_mesh(tmp_path_factory):
-    d = tmp_path_factory.mktemp("jax_mesh")
+    """Every JAX result, from one subprocess a test session: the first
+    module to ask runs it, under a lock in a directory every pytest worker
+    shares (the parent of a worker's base temp directory), and every other
+    reads its ``.npz``."""
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    d = base / "jax_mesh"
+    with open(base / "jax_mesh.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (d / "jax.npz").exists():
+            _run_jax_side(d)
+        with np.load(d / "jax.npz") as z:
+            return {key: z[key] for key in z.files}
+
+
+def _run_jax_side(d: Path) -> None:
+    d.mkdir(exist_ok=True)
     spec = {"V": V, "K": K, "fields": _FIELDS, "alphas": _ALPHAS,
             "variants": _VARIANTS, "psrs": _JAX_PSRS,
-            "odd_fields": _ODD_FIELDS, "odd": _ODD}
+            "odd_fields": _ODD_FIELDS, "odd": _ODD,
+            "coll_fields": _COLL_FIELDS, "coll_calls": _COLL_CALLS,
+            "stores": _JAX_STORES}
     (d / "spec.json").write_text(json.dumps(spec))
     np.savez(d / "inputs.npz", words=_words(),
              odd_words=_words(_ODD_FIELDS),
+             coll_words=_words(_COLL_FIELDS),
              keys_random=_keys("random"), keys_dups=_keys("dups"))
     env = {"PYTHONPATH": os.pathsep.join([str(_ROOT / "src"),
                                           str(_ROOT / "tests")]),
@@ -246,8 +309,6 @@ def jax_mesh(tmp_path_factory):
                        capture_output=True, text=True, timeout=600, env=env,
                        cwd=str(_ROOT))
     assert "JAX_MESH_OK" in r.stdout, r.stderr[-3000:]
-    with np.load(d / "jax.npz") as z:
-        return {key: z[key] for key in z.files}
 
 
 def _ledger(ref, tag):
@@ -458,13 +519,53 @@ def test_P_gt_1_errors_match_jax():
         psrs_sort(torch.from_numpy(_keys("dups")), v=V, P=2, device="cpu")
 
 
-def test_mesh_over_two_devices_is_not_ported():
+def test_mesh_over_two_devices_is_not_ported(monkeypatch):
+    """A mesh over several cards (this test once held that it raised): one
+    that does not start on the executor's device is refused as a one-device
+    mesh is, ``all_to_all`` over cards moves per-card blocks (forced onto
+    CPU blocks here), and a mesh naming one device twice beside another is
+    refused."""
     mesh = Mesh(["cuda:0", "cuda:1"])
-    assert mesh.shape == {"vp": 2}
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    assert mesh.shape == {"vp": 2} and mesh.spans_devices
+    assert not make_mesh(2, device="cpu").spans_devices
+    with pytest.raises(ValueError, match="lies on cuda:0 but the executor "
+                                         "on cpu"):
         Pems(PemsConfig(v=V, k=K, P=2), _layout(), mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        mesh.all_to_all(torch.zeros(2, 2, 3), torch.zeros(2, 2, 3))
+    with pytest.raises(ValueError, match="distinct device each"):
+        Mesh(["cuda:0", "cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="lies on meta"):
         Pems(PemsConfig(v=V, k=K, P=2), _layout(),
              mesh=Mesh(["meta", "meta"]), device="cpu")
+    monkeypatch.setattr(Mesh, "spans_devices", True)
+    cards = make_mesh(3, device="cpu")
+    send = [torch.arange(12).reshape(3, 4) + 100 * q for q in range(3)]
+    recv = [torch.zeros(3, 4, dtype=torch.int64) for _ in range(3)]
+    cards.all_to_all(send, recv)
+    for p in range(3):
+        for q in range(3):
+            assert torch.equal(recv[p][q], send[q][p])
+    with pytest.raises(ValueError, match="differ"):
+        cards.all_to_all(send, [torch.zeros(3, 5) for _ in range(3)])
+
+
+def _coll_close(got, want, lo):
+    """Every word equal, but the float32 sums' (``sumf``, ``allsum``),
+    which torch and XLA may add in another order: within 1e-6."""
+    words = np.ones(lo.words, bool)
+    for name in ("sumf", "allsum"):
+        off = lo.offset(name)
+        words[off:off + lo.field_words(name)] = False
+        np.testing.assert_allclose(
+            got[:, off:off + 3].view(np.float32),
+            want[:, off:off + 3].view(np.float32), rtol=1e-6)
+    np.testing.assert_array_equal(got[:, words], want[:, words])
+
+
+def test_allgather_reduce_allreduce_at_P4_match_jax(jax_mesh):
+    pems = _pems(fields=_COLL_FIELDS)
+    store = _store(_words(_COLL_FIELDS), _COLL_FIELDS)
+    for method, args, kw in _COLL_CALLS:
+        store = getattr(pems, method)(store, *args, **kw)
+    _coll_close(interop.store_to_numpy(store), jax_mesh["coll/words"],
+                pems.layout)
+    assert pems.ledger.snapshot() == _ledger(jax_mesh, "coll")
