@@ -26,6 +26,24 @@ What it does, in order; any failure raises and the exit code is non-zero:
    contiguous buffer and the receivers' recv rows of the store it reads, at
    send and recv word offsets of every phase mod 4 over a row stride of 2
    mod 4).  Equality is exact.
+3b. The same kernels in every dtype their JAX counterparts take
+   (``dtype_edge_checks``): the local sort's bitonic pass and radix kernel
+   in bool, int8, uint8, int16, uint16, int32, uint32, float16, bfloat16
+   and float32 over rows of 1 to 2^17 keys (±0, NaNs of both signs and
+   several payloads, ±inf, subnormals, type extremes, all-equal rows),
+   strided rows and ``ops.sort`` on ragged widths, bits compared as
+   integers against the plain version and ``torch.sort(stable=True)``;
+   kernel 3 in uint32 over ``KWAY_EDGES`` (fill 0xFFFFFFFF, keys at and
+   past 2^31) and its tile sort; kernels 6 and 7 in bf16 and fp16 at small
+   ragged shapes within one output ulp of the plain version (``y`` and
+   ``h`` in the operand's dtype, the final states fp32).  Then (rows
+   ``radix_sort_f32``, ``radix_sort_bf16``, ``kway_splitters_u32``,
+   ``kway_merge_segments_u32``, ``ssd_scan_bf16``, ``lru_scan_bf16``) each
+   at full width on the main path's shapes, driven through its entry point
+   (``ops.sort``, ``kway_merge``, ``ops.ssd_scan``, ``ops.lru_scan``) with
+   the counts reset just before, beside its plain version, its bound and
+   its library call.  Alone: ``python3 chip_smoke.py --dtypes-only`` (the
+   merge rows then on synthesized buckets of round 0's shape).
 4. Drives the main path once through ``psrs_sort``: 2^27 int32 keys, v = 16,
    k = 4, the async driver, every kernel on; the output must equal
    ``torch.sort``, and the launch count (reset just before) of every kernel
@@ -616,15 +634,18 @@ def edge_checks(gen, kern) -> None:
         same(g.view(torch.int32), w.view(torch.int32), "assemble float32")
 
 
-def merge_rows(km, recv, cnt, rcap: int, tile: int, launches, reps) -> list:
+def merge_rows(km, recv, cnt, rcap: int, tile: int, launches, reps,
+               fill=INT_MAX) -> list:
     """Kernel 3's fused merge on the main path's received buckets (round 0,
     ``recv [k, v, cap]`` and ``cnt [k, v]`` as the store holds them): the
     splitters and the segment merge, each held exactly against its plain
     version and timed beside it, with its bound.  The segments' library
     call is one ``torch.sort`` of the count-masked ``[k, v·cap]`` rows, as
-    ``kway_merge_ref`` does (the mask made outside the timed call)."""
+    ``kway_merge_ref`` does (the mask made outside the timed call; uint32
+    buckets as their int32 images ``x ^ 2^31``, ``fill`` their maximum)."""
     from repro_torch.kernels.kway_merge import kway_merge
     k, v, cap = recv.shape
+    dtype = str(recv.dtype).replace("torch.", "")
     S = km.segment_tiles(v, tile)
     ranks = km.coarse_ranks(rcap, tile, S, v * cap, recv.device)
     R = ranks.numel()
@@ -644,7 +665,7 @@ def merge_rows(km, recv, cnt, rcap: int, tile: int, launches, reps) -> list:
         plain_ms=cuda_ms(lambda: km.exact_splitters_plain(recv, cnt, ranks),
                          2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"[{k}, {v}, {cap}] int32 buckets, strides {recv.stride()}, "
+        shape=f"[{k}, {v}, {cap}] {dtype} buckets, strides {recv.stride()}, "
               f"{R} coarse ranks (S {S})")]
 
     def segments():
@@ -652,11 +673,12 @@ def merge_rows(km, recv, cnt, rcap: int, tile: int, launches, reps) -> list:
                                  seg_tiles=S)
 
     got = segments()
-    err = same(got, km.merge_segments_plain(recv, cnt, starts, rcap=rcap,
-                                            tile=tile, seg_tiles=S),
-               "segments main path")
-    masked = km.mask_buckets(recv, cnt).reshape(k, v * cap)
-    same(got, torch.sort(masked, dim=-1).values[:, :rcap],
+    err = same_bits(got, km.merge_segments_plain(recv, cnt, starts,
+                                                 rcap=rcap, tile=tile,
+                                                 seg_tiles=S),
+                    "segments main path")
+    masked = km.mask_buckets(km.biased(recv), cnt).reshape(k, v * cap)
+    same(km.biased(got), torch.sort(masked, dim=-1).values[:, :rcap],
          "fused merge main path == torch.sort of the masked rows")
     # Reads the valid keys of rank below rcap, writes k·rcap keys;
     # n·log2(v) comparisons merge them.
@@ -674,14 +696,336 @@ def merge_rows(km, recv, cnt, rcap: int, tile: int, launches, reps) -> list:
             recv, cnt, starts, rcap=rcap, tile=tile, seg_tiles=S), 2),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=cuda_ms(lambda: torch.sort(masked, dim=-1), reps),
-        shape=f"[{k}, {v}, {cap}] int32 buckets, {valid} valid keys below "
+        shape=f"[{k}, {v}, {cap}] {dtype} buckets, {valid} valid keys below "
               f"rcap, merged [{k}, {rcap}], tile {tile}, S {S}"))
     del masked, got
     whole = cuda_ms(lambda: kway_merge(recv, cnt, rcap=rcap, tile=tile,
-                                       fill=INT_MAX), reps)
-    print(f"kway_merge of round 0 (both launches and the totals): "
+                                       fill=fill), reps)
+    print(f"kway_merge of round 0, {dtype} (both launches and the totals): "
           f"{whole:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Kernels 1, 3, 6 and 7 in every dtype their JAX counterparts take.
+# ---------------------------------------------------------------------------
+
+# The sort's key dtypes with the signed view of each one's width.
+SORT_DTYPES = {torch.bool: torch.int8, torch.int8: torch.int8,
+               torch.uint8: torch.int8, torch.int16: torch.int16,
+               torch.uint16: torch.int16, torch.int32: torch.int32,
+               torch.uint32: torch.int32, torch.float16: torch.int16,
+               torch.bfloat16: torch.int16, torch.float32: torch.int32}
+U32_MAX = 2**32 - 1
+NARROW_EPS = {torch.bfloat16: 2**-7, torch.float16: 2**-10}
+# The scans' small ragged shapes in narrow dtypes: SSD (b, h, s, p, n) and
+# LRU (b, s, d), both LRU paths (the last at ONE_PASS_CHANNELS and past).
+SSD_NARROW_EDGES = [(1, 1, 1, 16, 16), (2, 3, 37, 16, 16), (1, 2, 50, 32, 32),
+                    (1, 2, 65, 64, 128), (1, 2, 129, 64, 128)]
+LRU_NARROW_EDGES = [(1, 1, 1), (2, 37, 64), (2, 33, 100), (3, 17, 2560),
+                    (8, 33, 2560)]
+
+
+def dtype_keys(shape, gen, dtype, kind="special"):
+    """Keys of ``dtype`` on the generator's device: random values with
+    (floats) ±0, NaNs of both signs and several payloads, ±inf, subnormals
+    and the largest finite value, or (integers) the type's extremes, at a
+    third of the places; ``equal``: one value repeated."""
+    dev = gen.device
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=gen, device=dev).bool()
+    view = SORT_DTYPES[dtype]
+    width = view.itemsize * 8
+    if kind == "equal":
+        return torch.full(shape, 3, dtype=view, device=dev).view(dtype) \
+            if not dtype.is_floating_point else \
+            torch.full(shape, -0.5, dtype=dtype, device=dev)
+    if dtype.is_floating_point:
+        x = (torch.randn(shape, generator=gen, device=dev) * 4).to(dtype)
+        sign = -2**(width - 1)
+        inf = {torch.float32: 0x7F800000, torch.float16: 0x7C00,
+               torch.bfloat16: 0x7F80}[dtype]
+        special = [0, sign, inf, sign | inf, inf | 1, inf | (inf >> 1),
+                   sign | inf | 5, sign | inf | (inf >> 1), 1, sign | 3,
+                   inf - 1]
+    else:
+        info = torch.iinfo(dtype)
+        x = torch.randint(-2**(width - 1), 2**(width - 1), shape,
+                          generator=gen, device=dev,
+                          dtype=torch.int64).to(view).view(dtype)
+        special = [v - (1 << width) if v >= 1 << (width - 1) else v
+                   for v in (info.min, info.min + 1, 0, 1, info.max - 1,
+                             info.max)]
+    pool = torch.tensor(special, dtype=torch.int64, device=dev).to(view)
+    pick = pool[torch.randint(0, len(special), shape, generator=gen,
+                              device=dev)]
+    at = torch.rand(shape, generator=gen, device=dev) < 1 / 3
+    return torch.where(at, pick, x.view(view)).view(dtype)
+
+
+def key_bits(x):
+    return x.view(torch.int8) if x.dtype == torch.bool else \
+        x.view(SORT_DTYPES[x.dtype])
+
+
+def stable_sort(x):
+    """``torch.sort(stable=True)`` of the keys on the CPU, whose order is
+    ``jnp.sort``'s (NaNs tie after +inf, ±0 tie): the card's ``torch.sort``
+    (2.11) puts negative NaNs first and orders NaN payloads by their bits,
+    so it is the yardstick of time only (on NaN-free keys)."""
+    return torch.sort(x.cpu(), dim=-1, stable=True).values.to(x.device)
+
+
+def same_bits(a, b, what: str) -> int:
+    return same(key_bits(a), key_bits(b), what)
+
+
+def narrow_close(got, want, dtype, tol: float, what: str) -> float:
+    """``got`` in ``dtype`` within one of its ulps of ``want`` (fp32) rounded,
+    plus ``tol`` (1 + |want|) for the fp32 sums' order: eps |want| + tol (1 +
+    |want|)."""
+    torch.cuda.synchronize()
+    check(got.dtype == dtype and got.shape == want.shape,
+          f"{what}: {got.dtype} {tuple(got.shape)}")
+    want = want.float()
+    diff = (got.float() - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    ok = bool((diff <= NARROW_EPS[dtype] * want.abs()
+               + tol * (1 + want.abs())).all())
+    check(ok and math.isfinite(err), f"{what}: max |kernel - plain| = {err}")
+    return err
+
+
+def u32_buckets(b, cnt):
+    """int32 buckets' bits as uint32 buckets in place (the layout kept), each
+    valid prefix sorted in uint32 order: keys at and past 2^31 last."""
+    img = b.view(torch.int32) ^ INT_MIN
+    valid = torch.arange(b.shape[-1], device=b.device) < cnt[..., None]
+    srt = torch.sort(torch.where(valid, img, INT_MAX), dim=-1).values
+    b.copy_(torch.where(valid, srt ^ INT_MIN, b))
+    return b.view(torch.uint32)
+
+
+def dtype_edge_checks(gen, kern) -> None:
+    bs, km = kern["bitonic"], kern["kway"]
+    from repro_torch.kernels.bitonic_sort import bitonic_sort
+    from repro_torch.kernels.kway_merge import kway_merge, kway_merge_ref
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    ls = importlib.import_module("repro_torch.kernels.lru_scan.lru_scan")
+    n_sorts = 0
+    for dtype in SORT_DTYPES:
+        for rows, n in [(1, 1), (1, 2), (3, 8), (2, 1024), (2, 8192),
+                        (2, 16384), (3, 1 << 17)]:
+            for kind in ("special", "equal") if n in (8, 16384) else \
+                    ("special",):
+                x = dtype_keys((rows, n), gen, dtype, kind)
+                y = bs.bitonic_sort_rows(x)
+                what = f"sort {dtype} {rows}x{n} {kind}"
+                same_bits(y, bs.radix_sort_plain(x), what)
+                same_bits(y, stable_sort(x), what + " == torch.sort")
+                n_sorts += 1
+        wide = dtype_keys((3, (1 << 16) + 300), gen, dtype)
+        for n in (2048, 1 << 16):                         # strided rows
+            v = wide[:, 100:100 + n]
+            same_bits(bs.bitonic_sort_rows(v), stable_sort(v),
+                      f"sort {dtype} strided n={n}")
+        for n in (1000, 20000):                          # padded rows
+            same_bits(bitonic_sort(wide[:, :n]), stable_sort(wide[:, :n]),
+                      f"ops.sort {dtype} n={n}")
+    for tile in (8, 1024, 2048):
+        t = dtype_keys(((1 << 16) // tile, tile), gen, torch.uint32)
+        same_bits(km.merge_tile_grid(t), km.sort_tile_rows(t),
+                  f"tile {tile} uint32")
+    for k, v, cap, kind, cnts, rcap, tile, S in KWAY_EDGES:
+        b, c = kway_inputs(gen, k, v, cap, kind, cnts)
+        b = u32_buckets(b, c)
+        ranks = km.coarse_ranks(rcap, tile, S, v * cap, gen.device)
+        what = f"kway uint32 k={k} v={v} cap={cap} {kind} {cnts} " \
+               f"rcap={rcap} tile={tile} S={S}"
+        starts = km.exact_splitters(b, c, ranks)
+        same(starts, km.exact_splitters_plain(b, c, ranks), what + " starts")
+        got = km.merge_segments(b, c, starts, rcap=rcap, tile=tile,
+                                seg_tiles=S)
+        check(got.dtype == torch.uint32, what + " dtype")
+        same_bits(got, km.merge_segments_plain(b, c, starts, rcap=rcap,
+                                               tile=tile, seg_tiles=S), what)
+        same_bits(got, kway_merge_ref(b, c, rcap=rcap, fill=U32_MAX),
+                  what + " == kway_merge_ref")
+        same_bits(kway_merge(b, c, rcap=rcap, tile=tile, fill=U32_MAX)[0],
+                  got, what + " kway_merge")
+    for dtype in NARROW_EPS:
+        for shape in SSD_NARROW_EDGES:
+            args = [t.to(dtype) for t in ssd_inputs(gen, *shape)]
+            y, s_fin = ss.ssd_scan_chunked(*args)
+            y_p, s_p = ss.ssd_chunked_plain(*args, 128)
+            narrow_close(y, y_p, dtype, SSD_TOL, f"ssd {dtype} y {shape}")
+            close(s_fin, s_p, SSD_TOL, SSD_TOL, f"ssd {dtype} S_fin {shape}")
+        for shape in LRU_NARROW_EDGES:
+            a, x = (t.to(dtype) for t in lru_inputs(gen, *shape))
+            h, h_fin = ls.lru_scan_chunked(a, x)
+            h_p, fin_p = ls.lru_chunked_plain(a, x, 256)
+            narrow_close(h, h_p, dtype, LRU_TOL, f"lru {dtype} h {shape}")
+            close(h_fin, fin_p, LRU_TOL, LRU_TOL,
+                  f"lru {dtype} h_fin {shape}")
+    print(f"dtype edge checks: {n_sorts} sorts in {len(SORT_DTYPES)} dtypes, "
+          f"{len(KWAY_EDGES)} uint32 merges, "
+          f"{2 * (len(SSD_NARROW_EDGES) + len(LRU_NARROW_EDGES))} narrow "
+          "scans")
+
+
+def sort_rows_float(gen, bs, k: int, n_v: int, reps: int) -> list:
+    """Kernel 1 on float32 and bfloat16 keys at the local sort's shape,
+    ``[k, n_v]`` strided rows (a context's row stride apart), driven through
+    ``ops.sort`` with the count reset just before: rows ``radix_sort_f32``
+    and ``radix_sort_bf16``."""
+    from repro_torch.kernels.bitonic_sort import bitonic_sort
+    rows = []
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        wide = torch.randn((k, n_v + 1024), generator=gen,
+                           device=gen.device).to(dtype)
+        x = wide[:, 512:512 + n_v]
+        bs.LAUNCHES = 0
+        got = bitonic_sort(x)
+        launches = bs.LAUNCHES
+        check(launches > 0, f"ops.sort {dtype} launched kernel 1")
+        err = max(same_bits(got, bs.radix_sort_plain(x), f"radix {dtype}"),
+                  same_bits(got, stable_sort(x), f"radix {dtype} torch.sort"))
+        del got
+        # Reads and writes each key once; log2(n!) comparisons a row, at
+        # the fp32 rate (the keys' type outside the tensor cores).
+        b_ms, b_by = bound(2 * x.element_size() * x.numel(),
+                           sort_ops(k, n_v), FP32_FLOPS_PER_S)
+        rows.append(dict(
+            name=f"radix_sort_{tag}", route="cuda",
+            source="src/repro_torch/csrc/radix_sort.cu",
+            replaces="src/repro/kernels/bitonic_sort/bitonic_sort.py:44",
+            launches=launches, max_abs_err=err,
+            ms=cuda_ms(lambda: bs.bitonic_sort_rows(x), reps),
+            plain_ms=cuda_ms(lambda: bs.radix_sort_plain(x), 2),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: torch.sort(x, dim=-1, stable=True),
+                               reps),
+            shape=f"[{k}, {n_v}] {str(dtype)[6:]}, row stride {x.stride(0)}"))
+        del wide, x
+    return rows
+
+
+def merge_rows_u32(km, recv, cnt, rcap: int, tile: int, reps) -> list:
+    """Kernel 3's splitters and segment merge on uint32 buckets of round 0's
+    shape: the main path's received buckets' images ``x ^ 2^31`` (their
+    order kept, half the keys at or past 2^31), driven through
+    ``kway_merge`` with the counts reset just before, each held against its
+    plain version and timed beside it: rows ``kway_splitters_u32`` and
+    ``kway_merge_segments_u32``."""
+    from repro_torch.kernels.kway_merge import kway_merge
+    k, v, cap = recv.shape
+    b = (recv.view(torch.int32) ^ INT_MIN).view(torch.uint32)
+    km.SPLIT_LAUNCHES = km.SEGMENT_LAUNCHES = 0
+    merged, _, _ = kway_merge(b, cnt, rcap=rcap, tile=tile, fill=U32_MAX)
+    launches = {"kway_splitters": km.SPLIT_LAUNCHES,
+                "kway_merge_segments": km.SEGMENT_LAUNCHES}
+    check(all(launches.values()) and merged.dtype == torch.uint32,
+          f"kway_merge uint32 launched its kernels: {launches}")
+    del merged
+    rows = merge_rows(km, b, cnt, rcap, tile, launches, reps, fill=U32_MAX)
+    for r in rows:
+        r["name"] += "_u32"
+        r["shape"] += " (round 0's int32 buckets' images x ^ 2^31)"
+    return rows
+
+
+def run_dtypes(dev, args) -> list:
+    """``--dtypes-only``: the dtype edge checks and the dtype rows, the
+    merge rows on synthesized buckets of round 0's shape ([k, v, n/v]
+    sorted random keys, counts about n/v²)."""
+    kern = kernel_modules()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    t0 = time.perf_counter()
+    dtype_edge_checks(gen, kern)
+    print(f"dtype edge checks: passed in {time.perf_counter() - t0:.2f} s")
+    n, v, k = 1 << args.log_n, args.v, args.k
+    n_v = n // v
+    rows = sort_rows_float(gen, kern["bitonic"], k, n_v, args.reps)
+    recv = torch.sort(rand_int32((k, v, n_v), gen), dim=-1).values
+    cnt = torch.randint(n_v // v - 4096, n_v // v + 4096, (k, v),
+                        generator=gen, device=dev, dtype=torch.int32)
+    rows += merge_rows_u32(kern["kway"], recv, cnt, 2 * n_v, 256, args.reps)
+    del recv
+    rows += lm_dtype_rows(gen, args)
+    print_rows(rows)
+    return [{key: r[key] for key in r if key != "shape"} for r in rows]
+
+
+def lm_dtype_rows(gen, args) -> list:
+    """Kernels 6 and 7 in bf16 at the serve path's shapes (mamba2-130m's x
+    [8, 24, 1024, 64], recurrentgemma-2b's [8, 3072, 2560]), each driven
+    through its entry point (``ops.ssd_scan``, ``ops.lru_scan``) with the
+    count reset just before, held against its plain version within one
+    bf16 ulp (plus the fp32 checks' tolerance) and timed beside it: rows
+    ``ssd_scan_bf16`` and ``lru_scan_bf16``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lru_scan.ops import lru_scan
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    ss = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+    ls = importlib.import_module("repro_torch.kernels.lru_scan.lru_scan")
+    reps, bf = args.reps, torch.bfloat16
+    mamba, rg = get_config("mamba2-130m"), get_config("recurrentgemma-2b")
+    b, s = REQUESTS, PROMPT_LEN
+    h, p, n = mamba.ssm_heads, mamba.ssm_headdim, mamba.ssm_state
+    ops = [t.to(bf) for t in ssd_inputs(gen, b, h, s, p, n)]
+    ss.LAUNCHES = 0
+    y = ssd_scan(*ops)
+    launches = ss.LAUNCHES
+    check(launches > 0 and y.dtype == bf, "ops.ssd_scan bf16 on kernel 6")
+    err = narrow_close(y, ss.ssd_chunked_plain(*ops, 128)[0], bf, SSD_TOL,
+                       "ssd bf16 serve shape")
+    x, dt, A, B, C = ops
+    nbytes = 2 * (2 * x.numel() + dt.numel() + A.numel() + B.numel()
+                  + C.numel()) + 4 * b * h * n * p
+    # The recurrence's 4 N P operations a step and head, on bf16 operands:
+    # the bf16 tensor-core rate.
+    b_ms, b_by = bound(nbytes, 4 * n * p * b * h * s, BF16_FLOPS_PER_S)
+    rows = [dict(
+        name="ssd_scan_bf16", route="cuda",
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/ssd_scan.py:78",
+        launches=launches, max_abs_err=err,
+        ms=cuda_ms(lambda: ss.ssd_scan_chunked(*ops), reps),
+        plain_ms=cuda_ms(lambda: ss.ssd_chunked_plain(*ops, 128), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"x [{b}, {h}, {s}, {p}], dt, A, B/C [{b}, {s}, {n}] bf16, "
+              f"y bf16, S_fin fp32")]
+    del y, ops, x, dt, A, B, C
+    s, width = HYBRID_PROMPT_LEN, rg.lru_width
+    a, x = (t.to(bf) for t in lru_inputs(gen, b, s, width))
+    ls.LAUNCHES = 0
+    hh = lru_scan(a, x)
+    launches = ls.LAUNCHES
+    check(launches > 0 and hh.dtype == bf, "ops.lru_scan bf16 on kernel 7")
+    err = narrow_close(hh, ls.lru_chunked_plain(a, x, 256)[0], bf, LRU_TOL,
+                       "lru bf16 serve shape")
+    del hh
+    b_ms, b_by = bound(2 * 3 * a.numel() + 4 * b * width, 2 * a.numel(),
+                       FP32_FLOPS_PER_S)
+    rows.append(dict(
+        name="lru_scan_bf16", route="cuda",
+        source="src/repro_torch/csrc/lru_scan.cu",
+        replaces="src/repro/kernels/lru_scan/lru_scan.py:57",
+        launches=launches, max_abs_err=err,
+        ms=cuda_ms(lambda: ls.lru_scan_chunked(a, x), reps),
+        plain_ms=cuda_ms(lambda: ls.lru_chunked_plain(a, x, 256), 2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"a, b [{b}, {s}, {width}] bf16, h bf16, h_fin fp32"))
+    return rows
+
+
+def print_rows(rows) -> None:
+    for r in rows:
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"kernel {r['name']} {r['shape']}: {r['ms']:.4f} ms, launches "
+              f"{r['launches']}, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib} ms, "
+              f"max |kernel - plain| {r['max_abs_err']:.3g}")
 
 
 def merge_split(recv, cnt, rcap: int, result) -> None:
@@ -799,6 +1143,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dryrun-only", action="store_true",
                     help="run the dry-run phase alone (no kernels line, no "
                          "ok line)")
+    ap.add_argument("--dtypes-only", action="store_true",
+                    help="build and run the dtype checks and rows alone "
+                         "(their own kernels line, no ok line)")
     ap.add_argument("--cards-only", action="store_true",
                     help="build and run the mesh-of-cards phase alone on "
                          f"{CARDS} cards (its own kernels line, no ok line); "
@@ -861,6 +1208,9 @@ def main(argv=None) -> int:
     if args.cards_only:
         print(json.dumps({"kernels": run_cards(args)}))
         return 0
+    if args.dtypes_only:
+        print(json.dumps({"kernels": run_dtypes(dev, args)}))
+        return 0
     rows = run(dev, args)
     torch.cuda.empty_cache()
     run_trace(dev, args, card)
@@ -910,6 +1260,9 @@ def run(dev: torch.device, args) -> list:
     t0 = time.perf_counter()
     edge_checks(gen, kern)
     print(f"edge checks: passed in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dtype_edge_checks(gen, kern)
+    print(f"dtype edge checks: passed in {time.perf_counter() - t0:.2f} s")
 
     # ---- main path: psrs_sort at full scale, counts reset just before ----
     n, v, k = 1 << args.log_n, args.v, args.k
@@ -971,6 +1324,7 @@ def run(dev: torch.device, args) -> list:
     rcap = 2 * n_v
     recv, rcnt = store.field("brecv")[:k], store.field("brcnt")[:k]
     rows += merge_rows(km, recv, rcnt, rcap, tile, launches, reps)
+    dtype_rows = merge_rows_u32(km, recv, rcnt, rcap, tile, reps)
     merge_split(recv, rcnt, rcap, store.field("result")[:k])
     tiles, _, _ = gather_tiles(recv, rcnt, rcap=rcap, tile=tile, fill=INT_MAX)
     err = same(km.merge_tile_grid(tiles), km.sort_tile_rows(tiles),
@@ -1045,6 +1399,7 @@ def run(dev: torch.device, args) -> list:
     del store, x, pems, load, steps, extract
     torch.cuda.empty_cache()
 
+    rows += sort_rows_float(gen, bs, k, n_v, reps) + dtype_rows
     rows.append(run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms))
     del out_p1
     torch.cuda.empty_cache()
@@ -3680,6 +4035,7 @@ def run_lm(dev: torch.device, args) -> list:
                 "flash_window": rg["launches"]["flash_attention"],
                 "lru": rg["launches"]["lru_scan"]}
     rows = lm_kernel_rows(gen, fa, ss, ls, launches, args)
+    rows += lm_dtype_rows(gen, args)
     for name, arch, res, prefix in (
             ("flash_attention_kimi", "kimi-k2-1t-a32b", kimi, 0),
             ("flash_attention_arctic", "arctic-480b", arctic, 0),

@@ -64,6 +64,14 @@
 // (4 x 1025 warps of dependent loads a round); the fill-only segments,
 // about half of rcap = 2n/v in PSRS, cost only their writes.
 //
+// Keys.  int32 or uint32 buckets (the JAX package's kway_merge takes both).
+// Every kernel here compares int32: a uint32 key is taken as its image
+// x ^ 0x80000000 read as an int32, whose signed order is the unsigned order
+// of x (the JAX package's _to_biased_u32, ops.py:88-95, the other way
+// round), XORed in where a key is loaded and out where it is stored; int32
+// keys take no XOR (`flip` 0).  The fill, INT_MAX in the signed domain,
+// leaves as 0xFFFFFFFF, uint32's maximum.
+//
 // Offsets into the buckets and the output are 64-bit; positions inside one
 // bucket are 32-bit (cap < 2^31).
 
@@ -71,7 +79,8 @@
 #include <stdint.h>
 
 extern "C" int repro_bitonic_sort_rows(int64_t device, const void* in, int64_t in_stride,
-                                       void* out, int64_t rows, int64_t n, void* stream);
+                                       void* out, int64_t rows, int64_t n, int64_t kind,
+                                       void* stream);
 
 namespace {
 
@@ -82,6 +91,7 @@ constexpr int kSegThreads = 256;    // threads a block of the segment kernel
 constexpr int kTileWarps = 4;       // warps a block of the tile-sort kernel
 constexpr int kWarpTileMax = 1024;  // largest tile the warp-register sort takes
 constexpr int kSmemMax = 227 * 1024;
+constexpr int64_t kKindI32 = 0, kKindU32 = 1;  // sort_keys.cuh's kI32, kU32
 
 // Keys a lane holds for tiles of T: a lane holds a whole tile up to 8, a
 // warp holds 32*8 keys up to tile 256, then one tile a warp.
@@ -121,14 +131,15 @@ __device__ __forceinline__ void cp_async4(int* dst, const int* src) {
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // Bucket j of one context where it lies: cap lanes, those at or past the
-// count INT_MAX (worked out, not loaded).
+// count INT_MAX (worked out, not loaded); keys as signed images (flip).
 struct Buckets {
   const int* rows;
   int64_t sb;
   const int* cnt;
   int cap;
+  int flip;
   __device__ int valid(int j) const { return min(max(__ldg(cnt + j), 0), cap); }
-  __device__ int at(int j, int i) const { return __ldg(rows + j * sb + i); }
+  __device__ int at(int j, int i) const { return __ldg(rows + j * sb + i) ^ flip; }
 };
 
 // #{x < q} in bucket j, known to lie in [lo, hi].  Lanes at or past
@@ -149,14 +160,14 @@ __device__ __forceinline__ int lower_bound(const Buckets& s, int j, int lo, int 
 __global__ void __launch_bounds__(kSplitWarps * 32)
     splitters_kernel(const int* __restrict__ brecv, int64_t sk, int64_t sb,
                      const int* __restrict__ cnt, int64_t sck, const int64_t* __restrict__ ranks,
-                     int64_t R, int64_t k, int v, int cap, int* __restrict__ starts) {
+                     int64_t R, int64_t k, int v, int cap, int* __restrict__ starts, int flip) {
   extern __shared__ int smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t item = static_cast<int64_t>(blockIdx.x) * kSplitWarps + warp;
   if (item >= k * R) return;
   const int64_t ctx = item / R;
   const long long r = ranks[item % R];
-  const Buckets seq{brecv + ctx * sk, sb, cnt + ctx * sck, cap};
+  const Buckets seq{brecv + ctx * sk, sb, cnt + ctx * sck, cap, flip};
   int* lo = smem + warp * 3 * v;
   int* hi = lo + v;
   int* mid = hi + v;
@@ -210,6 +221,7 @@ struct SegArgs {
   int v, cap, C;
   int seg_keys;       // S*tile
   int64_t rcap;
+  int flip;           // 0x80000000 for uint32 keys, else 0
 };
 
 // The number of A's keys among the first d of merge(A, B), A's first on
@@ -251,7 +263,7 @@ __global__ void __launch_bounds__(kSegThreads) segments_kernel(SegArgs a) {
   }
   __syncthreads();
   if (pos0 >= total) {                    // every key here is INT_MAX
-    for (int64_t p = pos0 + threadIdx.x; p < pos_end; p += blockDim.x) out[p] = kIntMax;
+    for (int64_t p = pos0 + threadIdx.x; p < pos_end; p += blockDim.x) out[p] = kIntMax ^ a.flip;
     return;
   }
 
@@ -279,11 +291,15 @@ __global__ void __launch_bounds__(kSegThreads) segments_kernel(SegArgs a) {
     const int* src = rows + j * a.sb;
     for (int i = threadIdx.x; i < w; i += blockDim.x) {
       if (s + i < n) cp_async4(buf0 + b0 + i, src + s + i);
-      else buf0[b0 + i] = kIntMax;
+      else buf0[b0 + i] = kIntMax ^ a.flip;
     }
   }
   cp_async_wait_all();
   __syncthreads();
+  if (a.flip) {                           // uint32 keys: their signed images
+    for (int i = threadIdx.x; i < base[v]; i += blockDim.x) buf0[i] ^= a.flip;
+    __syncthreads();
+  }
 
   // Merge runs of `width` windows pairwise into runs of 2*width, from src
   // into dst; run m of a level covers windows [m*2w, (m+1)*2w).  A
@@ -331,7 +347,7 @@ __global__ void __launch_bounds__(kSegThreads) segments_kernel(SegArgs a) {
 
   // Ranks past v*cap (rcap > v*cap) are fill too.
   for (int64_t p = threadIdx.x; p < pos_end - pos0; p += blockDim.x) {
-    out[pos0 + p] = p < n ? src[p] : kIntMax;
+    out[pos0 + p] = (p < n ? src[p] : kIntMax) ^ a.flip;
   }
 }
 
@@ -386,7 +402,7 @@ __device__ __forceinline__ void warp_sort(int (&a)[K], int lane) {
 // store.
 template <int T>
 __global__ void __launch_bounds__(kTileWarps * 32)
-    tile_sort_kernel(const int* __restrict__ in, int* __restrict__ out, int64_t n) {
+    tile_sort_kernel(const int* __restrict__ in, int* __restrict__ out, int64_t n, int flip) {
   constexpr int K = keys_per_lane(T);
   constexpr int LP = T / K;   // lanes a tile
   constexpr int W = 32 * K;
@@ -399,7 +415,7 @@ __global__ void __launch_bounds__(kTileWarps * 32)
 #pragma unroll
   for (int r = 0; r < K; ++r) {
     const int64_t i = base + t * T + r * LP + l;
-    key[r] = i < n ? in[i] : kIntMax;
+    key[r] = i < n ? in[i] ^ flip : kIntMax;
   }
   warp_sort<K, T>(key, lane);
   int* stg = stage[warp];
@@ -409,29 +425,39 @@ __global__ void __launch_bounds__(kTileWarps * 32)
 #pragma unroll
   for (int r = 0; r < K; ++r) {
     const int i = r * 32 + lane;
-    if (base + i < n) out[base + i] = stg[pad(i)];
+    if (base + i < n) out[base + i] = stg[pad(i)] ^ flip;
   }
 }
 
 template <int T>
-cudaError_t launch_tile_sort(const int* in, int* out, int64_t n, cudaStream_t st) {
+cudaError_t launch_tile_sort(const int* in, int* out, int64_t n, int flip, cudaStream_t st) {
   const int64_t per_block = static_cast<int64_t>(kTileWarps) * 32 * keys_per_lane(T);
   const int64_t blocks = (n + per_block - 1) / per_block;
-  tile_sort_kernel<T><<<static_cast<unsigned>(blocks), kTileWarps * 32, 0, st>>>(in, out, n);
+  tile_sort_kernel<T><<<static_cast<unsigned>(blocks), kTileWarps * 32, 0, st>>>(in, out, n,
+                                                                                 flip);
   return cudaGetLastError();
+}
+
+// The XOR that turns a key of KeyKind `kind` (int32 or uint32) into its
+// signed image; -1 for any other kind.
+int64_t flip_of(int64_t kind) {
+  return kind == kKindI32 ? 0 : (kind == kKindU32 ? int64_t(0x80000000u) : -1);
 }
 
 }  // namespace
 
 // Exact starts start[k, R, v] of the count-masked buckets brecv[k, v, cap]
 // (context stride sk, bucket stride sb; counts cnt[k, v], context stride
-// sck) at the ranks ranks[R] (int64, each <= v*cap).
+// sck) at the ranks ranks[R] (int64, each <= v*cap); keys of KeyKind `kind`,
+// int32 or uint32.
 extern "C" int repro_kway_splitters(int64_t device, const void* brecv, int64_t sk, int64_t sb,
                                     const void* cnt, int64_t sck, const void* ranks, int64_t R,
                                     int64_t k, int64_t v, int64_t cap, void* starts,
-                                    void* stream) {
+                                    int64_t kind, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t flip = flip_of(kind);
+  if (flip < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (k <= 0 || R <= 0 || v <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t blocks = (k * R + kSplitWarps - 1) / kSplitWarps;
@@ -445,20 +471,24 @@ extern "C" int repro_kway_splitters(int64_t device, const void* brecv, int64_t s
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   splitters_kernel<<<static_cast<unsigned>(blocks), kSplitWarps * 32, smem, st>>>(
-      b, sk, sb, c, sck, rk, R, k, static_cast<int>(v), static_cast<int>(cap), s);
+      b, sk, sb, c, sck, rk, R, k, static_cast<int>(v), static_cast<int>(cap), s,
+      static_cast<int>(flip));
   return static_cast<int>(cudaGetLastError());
 }
 
 // merged[k, rcap] from the buckets, their counts, and the starts of
 // repro_kway_splitters at the coarse ranks min(min(c*S, G)*tile, v*cap),
-// c = 0..C (G = ceil(rcap/tile), C = ceil(G/S)).
+// c = 0..C (G = ceil(rcap/tile), C = ceil(G/S)); keys of KeyKind `kind`,
+// int32 or uint32.
 extern "C" int repro_kway_merge_segments(int64_t device, const void* brecv, int64_t sk,
                                          int64_t sb, const void* cnt, int64_t sck,
                                          const void* starts, void* out, int64_t k, int64_t v,
                                          int64_t cap, int64_t rcap, int64_t tile,
-                                         int64_t seg_tiles, void* stream) {
+                                         int64_t seg_tiles, int64_t kind, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t flip = flip_of(kind);
+  if (flip < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (k <= 0 || rcap <= 0) return 0;
   const int64_t G = (rcap + tile - 1) / tile;
   const int64_t C = (G + seg_tiles - 1) / seg_tiles;
@@ -471,37 +501,42 @@ extern "C" int repro_kway_merge_segments(int64_t device, const void* brecv, int6
   if (err != cudaSuccess) return static_cast<int>(err);
   const SegArgs a{static_cast<const int*>(brecv), sk, sb, static_cast<const int*>(cnt), sck,
                   static_cast<const int*>(starts), static_cast<int*>(out), static_cast<int>(v),
-                  static_cast<int>(cap), static_cast<int>(C), static_cast<int>(seg_keys), rcap};
+                  static_cast<int>(cap), static_cast<int>(C), static_cast<int>(seg_keys), rcap,
+                  static_cast<int>(flip)};
   segments_kernel<<<dim3(static_cast<unsigned>(C), static_cast<unsigned>(k)), kSegThreads, smem,
                     static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Ascending sort of each compactly gathered k-way merge tile of in[G, tile]
-// into out: the warp-register sort up to tile 1024, bitonic_sort.cu's
-// passes above.
+// (keys of KeyKind `kind`, int32 or uint32) into out: the warp-register
+// sort up to tile 1024, bitonic_sort.cu's passes above.
 extern "C" int repro_kway_tile_sort(int64_t device, const void* in, void* out, int64_t tiles,
-                                    int64_t tile, void* stream) {
-  if (tile > kWarpTileMax) return repro_bitonic_sort_rows(device, in, tile, out, tiles, tile, stream);
+                                    int64_t tile, int64_t kind, void* stream) {
+  const int64_t flip64 = flip_of(kind);
+  if (flip64 < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (tile > kWarpTileMax)
+    return repro_bitonic_sort_rows(device, in, tile, out, tiles, tile, kind, stream);
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (tiles <= 0) return 0;
+  const int flip = static_cast<int>(flip64);
   const auto* i = static_cast<const int*>(in);
   auto* o = static_cast<int*>(out);
   const int64_t n = tiles * tile;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (tile) {
-    case 1: err = launch_tile_sort<1>(i, o, n, st); break;
-    case 2: err = launch_tile_sort<2>(i, o, n, st); break;
-    case 4: err = launch_tile_sort<4>(i, o, n, st); break;
-    case 8: err = launch_tile_sort<8>(i, o, n, st); break;
-    case 16: err = launch_tile_sort<16>(i, o, n, st); break;
-    case 32: err = launch_tile_sort<32>(i, o, n, st); break;
-    case 64: err = launch_tile_sort<64>(i, o, n, st); break;
-    case 128: err = launch_tile_sort<128>(i, o, n, st); break;
-    case 256: err = launch_tile_sort<256>(i, o, n, st); break;
-    case 512: err = launch_tile_sort<512>(i, o, n, st); break;
-    case 1024: err = launch_tile_sort<1024>(i, o, n, st); break;
+    case 1: err = launch_tile_sort<1>(i, o, n, flip, st); break;
+    case 2: err = launch_tile_sort<2>(i, o, n, flip, st); break;
+    case 4: err = launch_tile_sort<4>(i, o, n, flip, st); break;
+    case 8: err = launch_tile_sort<8>(i, o, n, flip, st); break;
+    case 16: err = launch_tile_sort<16>(i, o, n, flip, st); break;
+    case 32: err = launch_tile_sort<32>(i, o, n, flip, st); break;
+    case 64: err = launch_tile_sort<64>(i, o, n, flip, st); break;
+    case 128: err = launch_tile_sort<128>(i, o, n, flip, st); break;
+    case 256: err = launch_tile_sort<256>(i, o, n, flip, st); break;
+    case 512: err = launch_tile_sort<512>(i, o, n, flip, st); break;
+    case 1024: err = launch_tile_sort<1024>(i, o, n, flip, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

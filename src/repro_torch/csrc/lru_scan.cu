@@ -46,6 +46,13 @@
 // through their batch and step strides (width contiguous); h is written
 // contiguous.
 //
+// Types.  a and b are float32, bfloat16 or float16, both of one type, read
+// as they lie and converted to float32 on load (float_kinds.cuh); every
+// operation is float32.  h is written in a's type (rounded to nearest even
+// once, as the TPU kernel's o_ref store rounds), h_fin in float32: the
+// carried state, as the TPU kernel's scratch is.  The scratch carry and
+// prod are float32.  In bf16 the function moves 2 + 2 + 2 bytes an element.
+//
 // Bound.  The function reads a and b and writes h: 12 bytes an element (the
 // 2 FLOP an element count for nothing against that).  At recurrentgemma-2b's
 // training microbatch (batch 2, seq 3072, width 2560) that is 189 MB, 0.056
@@ -55,6 +62,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "float_kinds.cuh"
+
 namespace {
 
 constexpr int kThreads = 32;        // one-pass: channels per block, one warp
@@ -63,38 +72,44 @@ constexpr int kChunkThreads = 128;  // chunked: channels a block
 constexpr int kChunk = 32;          // chunked: steps a chunk (lru_scan.CHUNK)
 constexpr int kCarryU = 8;          // chunks whose L and Pr lru_carry loads ahead
 
-__device__ __forceinline__ void load_steps(const float* __restrict__ ap, int64_t ass,
-                                           const float* __restrict__ bp, int64_t bss,
-                                           int64_t t0, int64_t seq, float* xa, float* xb) {
+// The group's a and b as they lie (Raw bits, converted where used).
+template <typename TA, typename TB>
+__device__ __forceinline__ void load_steps(const TA* __restrict__ ap, int64_t ass,
+                                           const TB* __restrict__ bp, int64_t bss,
+                                           int64_t t0, int64_t seq,
+                                           typename Raw<TA>::type* xa,
+                                           typename Raw<TB>::type* xb) {
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
     const int64_t t = t0 + u;
     const bool in = t < seq;
-    xa[u] = in ? __ldg(ap + t * ass) : 1.f;
-    xb[u] = in ? __ldg(bp + t * bss) : 0.f;
+    xa[u] = in ? load_raw(ap + t * ass) : raw_one<TA>();
+    xb[u] = in ? load_raw(bp + t * bss) : typename Raw<TB>::type(0);
   }
 }
 
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(kThreads)
-lru_kernel(const float* __restrict__ a, int64_t asb, int64_t ass, const float* __restrict__ b,
-           int64_t bsb, int64_t bss, float* __restrict__ h, float* __restrict__ h_fin,
+lru_kernel(const TA* __restrict__ a, int64_t asb, int64_t ass, const TB* __restrict__ b,
+           int64_t bsb, int64_t bss, TA* __restrict__ h, float* __restrict__ h_fin,
            int64_t seq, int64_t width) {
   const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t n = blockIdx.y;
   if (c >= width) return;
-  const float* ap = a + n * asb + c;
-  const float* bp = b + n * bsb + c;
-  float* hp = h + n * seq * width + c;
+  const TA* ap = a + n * asb + c;
+  const TB* bp = b + n * bsb + c;
+  TA* hp = h + n * seq * width + c;
 
-  float ca[kU], cb[kU], na[kU], nb[kU];
+  typename Raw<TA>::type ca[kU], na[kU];
+  typename Raw<TB>::type cb[kU], nb[kU];
   load_steps(ap, ass, bp, bss, 0, seq, ca, cb);
   float hv = 0.f;
   for (int64_t t0 = 0; t0 < seq; t0 += kU) {
     load_steps(ap, ass, bp, bss, t0 + kU, seq, na, nb);
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      hv = fmaf(ca[u], hv, cb[u]);
-      if (t0 + u < seq) hp[(t0 + u) * width] = hv;
+      hv = fmaf(to_float<TA>(ca[u]), hv, to_float<TB>(cb[u]));
+      if (t0 + u < seq) store_f(hp + (t0 + u) * width, hv);
     }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
@@ -105,34 +120,41 @@ lru_kernel(const float* __restrict__ a, int64_t asb, int64_t ass, const float* _
   h_fin[n * width + c] = hv;
 }
 
-// The chunk's a and b (a = 1, b = 0 past the end) into registers.
-__device__ __forceinline__ void load_chunk(const float* __restrict__ ap, int64_t ass,
-                                           const float* __restrict__ bp, int64_t bss,
-                                           int64_t t0, int64_t seq, float* va, float* vb) {
+// The chunk's a and b (a = 1, b = 0 past the end) into registers, as they
+// lie (Raw bits, converted where used).
+template <typename TA, typename TB>
+__device__ __forceinline__ void load_chunk(const TA* __restrict__ ap, int64_t ass,
+                                           const TB* __restrict__ bp, int64_t bss,
+                                           int64_t t0, int64_t seq,
+                                           typename Raw<TA>::type* va,
+                                           typename Raw<TB>::type* vb) {
 #pragma unroll
   for (int u = 0; u < kChunk; ++u) {
     const bool in = t0 + u < seq;
-    va[u] = in ? __ldg(ap + u * ass) : 1.f;
-    vb[u] = in ? __ldg(bp + u * bss) : 0.f;
+    va[u] = in ? load_raw(ap + u * ass) : raw_one<TA>();
+    vb[u] = in ? load_raw(bp + u * bss) : typename Raw<TB>::type(0);
   }
 }
 
 // 1. The chunk's end state from a zero incoming one, and its product of a.
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(kChunkThreads)
-lru_local(const float* __restrict__ a, int64_t asb, int64_t ass, const float* __restrict__ b,
+lru_local(const TA* __restrict__ a, int64_t asb, int64_t ass, const TB* __restrict__ b,
           int64_t bsb, int64_t bss, float* __restrict__ carry, float* __restrict__ prod,
           int64_t seq, int64_t width) {
   const int64_t c = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
   const int64_t k = blockIdx.y, n = blockIdx.z, nc = gridDim.y;
   if (c >= width) return;
   const int64_t t0 = k * kChunk;
-  float va[kChunk], vb[kChunk];
+  typename Raw<TA>::type va[kChunk];
+  typename Raw<TB>::type vb[kChunk];
   load_chunk(a + n * asb + t0 * ass + c, ass, b + n * bsb + t0 * bss + c, bss, t0, seq, va, vb);
   float hv = 0.f, pr = 1.f;
 #pragma unroll
   for (int u = 0; u < kChunk; ++u) {
-    hv = fmaf(va[u], hv, vb[u]);
-    pr *= va[u];
+    const float au = to_float<TA>(va[u]);
+    hv = fmaf(au, hv, to_float<TB>(vb[u]));
+    pr *= au;
   }
   const int64_t o = (n * nc + k) * width + c;
   carry[o] = hv;
@@ -173,60 +195,78 @@ lru_carry(float* __restrict__ carry, const float* __restrict__ prod, int64_t nc,
 
 // 3. The chunk's recurrence from its incoming state: h, and h_fin from the
 // last chunk (steps past the end keep h: fmaf(1, h, 0) == h).
+template <typename TA, typename TB>
 __global__ void __launch_bounds__(kChunkThreads)
-lru_fix(const float* __restrict__ a, int64_t asb, int64_t ass, const float* __restrict__ b,
-        int64_t bsb, int64_t bss, const float* __restrict__ carry, float* __restrict__ h,
+lru_fix(const TA* __restrict__ a, int64_t asb, int64_t ass, const TB* __restrict__ b,
+        int64_t bsb, int64_t bss, const float* __restrict__ carry, TA* __restrict__ h,
         float* __restrict__ h_fin, int64_t seq, int64_t width) {
   const int64_t c = static_cast<int64_t>(blockIdx.x) * kChunkThreads + threadIdx.x;
   const int64_t k = blockIdx.y, n = blockIdx.z, nc = gridDim.y;
   if (c >= width) return;
   const int64_t t0 = k * kChunk;
-  float va[kChunk], vb[kChunk];
+  typename Raw<TA>::type va[kChunk];
+  typename Raw<TB>::type vb[kChunk];
   load_chunk(a + n * asb + t0 * ass + c, ass, b + n * bsb + t0 * bss + c, bss, t0, seq, va, vb);
   float hv = carry[(n * nc + k) * width + c];
-  float* hp = h + (n * seq + t0) * width + c;
+  TA* hp = h + (n * seq + t0) * width + c;
 #pragma unroll
   for (int u = 0; u < kChunk; ++u) {
-    hv = fmaf(va[u], hv, vb[u]);
-    if (t0 + u < seq) hp[u * width] = hv;
+    hv = fmaf(to_float<TA>(va[u]), hv, to_float<TB>(vb[u]));
+    if (t0 + u < seq) store_f(hp + u * width, hv);
   }
   if (k == nc - 1) h_fin[n * width + c] = hv;
 }
 
+template <typename TA, typename TB>
+cudaError_t run(const void* a, int64_t asb, int64_t ass, const void* b, int64_t bsb,
+                int64_t bss, void* h, float* h_fin, float* carry, float* prod, int64_t batch,
+                int64_t seq, int64_t width, cudaStream_t st) {
+  const auto* at = static_cast<const TA*>(a);
+  const auto* bt = static_cast<const TB*>(b);
+  auto* ht = static_cast<TA*>(h);
+  const auto ub = static_cast<unsigned>(batch);
+  if (carry == nullptr || prod == nullptr || seq == 0) {
+    const dim3 grid(static_cast<unsigned>((width + kThreads - 1) / kThreads), ub);
+    lru_kernel<TA, TB><<<grid, kThreads, 0, st>>>(at, asb, ass, bt, bsb, bss, ht, h_fin, seq,
+                                                  width);
+    return cudaGetLastError();
+  }
+  const int64_t nc = (seq + kChunk - 1) / kChunk;
+  if (nc > 65535) return cudaErrorInvalidValue;
+  const auto tiles = static_cast<unsigned>((width + kChunkThreads - 1) / kChunkThreads);
+  const dim3 grid(tiles, static_cast<unsigned>(nc), ub);
+  lru_local<TA, TB><<<grid, kChunkThreads, 0, st>>>(at, asb, ass, bt, bsb, bss, carry, prod,
+                                                    seq, width);
+  lru_carry<<<dim3(tiles, ub), kChunkThreads, 0, st>>>(carry, prod, nc, width);
+  lru_fix<TA, TB><<<grid, kChunkThreads, 0, st>>>(at, asb, ass, bt, bsb, bss, carry, ht, h_fin,
+                                                  seq, width);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// The recurrence over a, b [batch, seq, width] fp32, each given by pointer and
-// its batch and step strides in elements (width contiguous), into h [batch,
-// seq, width] and h_fin [batch, width], both contiguous fp32.  carry and prod
-// (contiguous fp32 [batch, nc, width], nc = ceil(seq / kChunk)) are the chunked
-// scan's scratch; null: the one-pass kernel.
+// The recurrence over a, b [batch, seq, width], each given by pointer, its
+// FloatKind (a_kind == b_kind: float32, bfloat16 or float16) and its
+// batch and step strides in elements (width contiguous), into h [batch, seq,
+// width] in a's kind and h_fin [batch, width] fp32, both contiguous.  carry
+// and prod (contiguous fp32 [batch, nc, width], nc = ceil(seq / kChunk)) are
+// the chunked scan's scratch; null: the one-pass kernel.
 extern "C" int repro_lru_scan(int64_t device, const void* a, int64_t asb, int64_t ass,
                               const void* b, int64_t bsb, int64_t bss, void* h, void* h_fin,
                               void* carry, void* prod, int64_t batch, int64_t seq,
-                              int64_t width, void* stream) {
+                              int64_t width, int64_t a_kind, int64_t b_kind, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || width <= 0) return 0;
   if (seq < 0 || batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* af = static_cast<const float*>(a);
-  const auto* bf = static_cast<const float*>(b);
-  auto* hf = static_cast<float*>(h);
   auto* ff = static_cast<float*>(h_fin);
-  const auto ub = static_cast<unsigned>(batch);
-  if (carry == nullptr || prod == nullptr || seq == 0) {
-    const dim3 grid(static_cast<unsigned>((width + kThreads - 1) / kThreads), ub);
-    lru_kernel<<<grid, kThreads, 0, st>>>(af, asb, ass, bf, bsb, bss, hf, ff, seq, width);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const int64_t nc = (seq + kChunk - 1) / kChunk;
-  if (nc > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const auto tiles = static_cast<unsigned>((width + kChunkThreads - 1) / kChunkThreads);
-  const dim3 grid(tiles, static_cast<unsigned>(nc), ub);
   auto* cf = static_cast<float*>(carry);
   auto* pf = static_cast<float*>(prod);
-  lru_local<<<grid, kChunkThreads, 0, st>>>(af, asb, ass, bf, bsb, bss, cf, pf, seq, width);
-  lru_carry<<<dim3(tiles, ub), kChunkThreads, 0, st>>>(cf, pf, nc, width);
-  lru_fix<<<grid, kChunkThreads, 0, st>>>(af, asb, ass, bf, bsb, bss, cf, hf, ff, seq, width);
-  return static_cast<int>(cudaGetLastError());
+  if (a_kind != b_kind) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_float(a_kind, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return static_cast<int>(
+        run<T, T>(a, asb, ass, b, bsb, bss, h, ff, cf, pf, batch, seq, width, st));
+  });
 }

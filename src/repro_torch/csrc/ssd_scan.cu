@@ -48,6 +48,15 @@
 // (column slices of one projection) go in as views.  Scratch, from the
 // wrapper: G [B, nc, Q, Q] and the states before each chunk [B, H, nc, N, P].
 //
+// Types.  x, dt, A, B and C are each float32, bfloat16 or float16, read as
+// they lie and converted to float32 where they land in shared memory
+// (float_kinds.cuh; a narrow operand by plain loads, float32 by cp.async);
+// every product and sum is the float32 one above.  y is written in x's type
+// (rounded to nearest even once, as the TPU kernel's y_ref store rounds);
+// S_fin, G and the chunk states stay float32, as the TPU kernel's state
+// scratch is.  A bf16 or fp16 operand is exact in TF32, so its products
+// could take one TF32 term instead of three: later work.
+//
 // Bound.  The function reads x, dt, B, C (B and C once per batch) and writes
 // y and S_fin; it needs the recurrence's 4 N P operations a step and head.
 // At mamba2-130m's prefill (B 8, H 24, S 1024, P 64, N 128) that is 115 MB,
@@ -59,9 +68,92 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "float_kinds.cuh"
 #include "ssd_common.cuh"
 
 namespace {
+
+// rows x L narrow elements from src (row stride rs) into the float rows of
+// dst (row stride DS), zero past `valid`: kBatch loads a thread in flight
+// (Raw bits), then converted and stored.  Not inlined: one copy a type, for
+// every tile shape (the build's time).
+template <typename T>
+__device__ __noinline__ void load_rows_t(float* dst, const T* src, int64_t rs, int rows,
+                                         int valid, int L, int DS) {
+  constexpr int kBatch = 16;
+  const int total = rows * L;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kBatch * blockDim.x) {
+    typename Raw<T>::type v[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int e = e0 + j * blockDim.x, r = e / L;
+      v[j] = e < total && r < valid ? load_raw(src + r * rs + e % L) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int e = e0 + j * blockDim.x;
+      if (e < total) dst[(e / L) * DS + e % L] = to_float<T>(v[j]);
+    }
+  }
+}
+
+// rows x L elements of kind `kind` from src (row stride rs) into the float
+// rows of dst (row stride DS), zero past `valid`: float32 by load_rows's
+// cp.async copies, a narrow kind by loads converted to float32.
+template <int L, int DS>
+__device__ __forceinline__ void load_rows_k(float* dst, const void* src, int kind, int64_t rs,
+                                            int rows, int valid, bool vec) {
+  if (kind == kFp32)
+    load_rows<L, DS>(dst, static_cast<const float*>(src), rs, rows, valid, vec);
+  else if (kind == kBf16)
+    load_rows_t(dst, static_cast<const __nv_bfloat16*>(src), rs, rows, valid, L, DS);
+  else
+    load_rows_t(dst, static_cast<const __half*>(src), rs, rows, valid, L, DS);
+}
+
+// The chunk's dt (0 past `valid`), as load_dt takes it, of kind `kind`.
+template <int Q>
+__device__ __forceinline__ void load_dt_k(float* dts, const void* dt, int kind, int64_t ds,
+                                          int valid) {
+  if (kind == kFp32) {
+    load_dt<Q>(dts, static_cast<const float*>(dt), ds, valid);
+    return;
+  }
+  for (int t = threadIdx.x; t < Q; t += blockDim.x)
+    dts[t] = t < valid ? load_kind(dt, t * ds, kind) : 0.f;
+}
+
+// store_acc into y of kind `kind` at element offset off, rounding a narrow
+// kind to nearest even.
+template <int NT>
+__device__ __forceinline__ void store_acc_k(const float (&acc)[NT][4], void* y, int kind,
+                                            int64_t off, int64_t rs, int r0, int c0, int rows) {
+  if (kind == kFp32) {
+    store_acc(acc, static_cast<float*>(y) + off, rs, r0, c0, rows);
+    return;
+  }
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= rows) continue;
+    const int64_t o = off + r * rs + c0 + 2 * q;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (kind == kBf16)
+          store_f(static_cast<__nv_bfloat16*>(y) + o + 8 * j + e, acc[j][2 * h + e]);
+        else
+          store_f(static_cast<__half*>(y) + o + 8 * j + e, acc[j][2 * h + e]);
+      }
+  }
+}
+
+// The float kinds of the operands: x (and y), dt, A, B, C.
+struct Kinds {
+  int x, dt, a, b, c;
+};
 
 // Padded shared row strides: A-side tiles read (row g, col q) want a stride
 // of 4 mod 32 words, B-side tiles read (row q, col g) 8 mod 32.
@@ -84,8 +176,8 @@ struct Dims {
 // 1. G[b, c] = C_c B_c^T.  Warp w: rows 16 (w / 2), columns (w % 2) Q / 2.
 template <int Q, int N>
 __global__ void __launch_bounds__(Dims<Q, N, 16>::kGramThreads)
-ssd_gram(const float* __restrict__ Bm, int64_t bsb, int64_t bss, const float* __restrict__ Cm,
-         int64_t csb, int64_t css, float* __restrict__ G, int64_t seq, bool vec) {
+ssd_gram(const void* __restrict__ Bm, int64_t bsb, int64_t bss, const void* __restrict__ Cm,
+         int64_t csb, int64_t css, float* __restrict__ G, int64_t seq, bool vec, Kinds kd) {
   using D = Dims<Q, N, 16>;
   constexpr int NT = Q / 16;
   extern __shared__ __align__(16) float smem[];
@@ -93,8 +185,10 @@ ssd_gram(const float* __restrict__ Bm, int64_t bsb, int64_t bss, const float* __
   float* bs = cs + Q * D::kCS;    // [Q][kCS]
   const int64_t c = blockIdx.x, b = blockIdx.y, t0 = c * Q;
   const int valid = static_cast<int>(seq - t0 < Q ? seq - t0 : Q);
-  load_rows<N, D::kCS>(cs, Cm + b * csb + t0 * css, css, Q, valid, vec);
-  load_rows<N, D::kCS>(bs, Bm + b * bsb + t0 * bss, bss, Q, valid, vec);
+  load_rows_k<N, D::kCS>(cs, offset_kind(Cm, b * csb + t0 * css, kd.c), kd.c, css, Q, valid,
+                         vec);
+  load_rows_k<N, D::kCS>(bs, offset_kind(Bm, b * bsb + t0 * bss, kd.b), kd.b, bss, Q, valid,
+                         vec);
   cp_async_wait_all();
   __syncthreads();
   const int w = threadIdx.x >> 5, r0 = 16 * (w >> 1), c0 = (w & 1) * (Q / 2);
@@ -114,11 +208,11 @@ ssd_gram(const float* __restrict__ Bm, int64_t bsb, int64_t bss, const float* __
 // state rows 16 w of the block's, all P columns.
 template <int Q, int N, int P>
 __global__ void __launch_bounds__(Dims<Q, N, P>::kStateThreads)
-ssd_states(const float* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
-           const float* __restrict__ dt, int64_t dsb, int64_t dsh, int64_t dss,
-           const float* __restrict__ A, const float* __restrict__ Bm, int64_t bsb,
+ssd_states(const void* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
+           const void* __restrict__ dt, int64_t dsb, int64_t dsh, int64_t dss,
+           const void* __restrict__ A, const void* __restrict__ Bm, int64_t bsb,
            int64_t bss, float* __restrict__ states, float* __restrict__ s_fin, int64_t seq,
-           bool vec) {
+           bool vec, Kinds kd) {
   using D = Dims<Q, N, P>;
   constexpr int NT = P / 8;
   extern __shared__ __align__(16) float smem[];
@@ -128,18 +222,21 @@ ssd_states(const float* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
   const int64_t rb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int64_t heads = gridDim.y;
   const int64_t nc = (seq + Q - 1) / Q;
-  const float a = A[h];
-  const float* xb = x + b * xsb + h * xsh;
-  const float* db = dt + b * dsb + h * dsh;
-  const float* bb = Bm + b * bsb + rb * D::kRB;
+  const float a = load_kind(A, h, kd.a);
+  const int64_t xb = b * xsb + h * xsh;
+  const int64_t db = b * dsb + h * dsh;
+  const int64_t bb = b * bsb + rb * D::kRB;
   auto stage = [&](int64_t c) { return smem + (c & 1) * D::kStage; };
   auto load = [&](int64_t c) {
     float* st = stage(c);
     const int64_t t0 = c * Q;
     const int valid = static_cast<int>(seq - t0 < Q ? seq - t0 : Q);
-    load_rows<D::kRB, D::kBS>(st, bb + t0 * bss, bss, Q, valid, vec);
-    load_rows<P, D::kXS>(st + Q * D::kBS, xb + t0 * xss, xss, Q, valid, vec);
-    load_dt<Q>(st + Q * D::kBS + Q * D::kXS, db + t0 * dss, dss, valid);
+    load_rows_k<D::kRB, D::kBS>(st, offset_kind(Bm, bb + t0 * bss, kd.b), kd.b, bss, Q, valid,
+                                vec);
+    load_rows_k<P, D::kXS>(st + Q * D::kBS, offset_kind(x, xb + t0 * xss, kd.x), kd.x, xss, Q,
+                           valid, vec);
+    load_dt_k<Q>(st + Q * D::kBS + Q * D::kXS, offset_kind(dt, db + t0 * dss, kd.dt), kd.dt, dss,
+                 valid);
   };
   const int r0 = 16 * (threadIdx.x >> 5);
   float* sb = states + ((b * heads + h) * nc * N + rb * D::kRB) * P;
@@ -179,12 +276,12 @@ ssd_states(const float* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
 // exp(A cdt_t); then W x is added, W built from G as the fragments are read.
 template <int Q, int N, int P>
 __global__ void __launch_bounds__(Dims<Q, N, P>::kOutThreads)
-ssd_output(const float* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
-           const float* __restrict__ dt, int64_t dsb, int64_t dsh, int64_t dss,
-           const float* __restrict__ A, const float* __restrict__ Cm, int64_t csb,
+ssd_output(const void* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
+           const void* __restrict__ dt, int64_t dsb, int64_t dsh, int64_t dss,
+           const void* __restrict__ A, const void* __restrict__ Cm, int64_t csb,
            int64_t css, const float* __restrict__ G, const float* __restrict__ states,
-           float* __restrict__ y, int64_t ysb, int64_t ysh, int64_t yss, int64_t seq,
-           bool vec) {
+           void* __restrict__ y, int64_t ysb, int64_t ysh, int64_t yss, int64_t seq,
+           bool vec, Kinds kd) {
   using D = Dims<Q, N, P>;
   constexpr int NT = P / 16;
   extern __shared__ __align__(16) float smem[];
@@ -199,13 +296,15 @@ ssd_output(const float* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
   const int64_t nc = gridDim.x, heads = gridDim.y;
   const int valid = static_cast<int>(seq - t0 < Q ? seq - t0 : Q);
   load_rows<Q, D::kWS>(gs, G + (b * nc + c) * Q * Q, Q, Q, Q, true);
-  load_rows<P, D::kXS>(xs, x + b * xsb + h * xsh + t0 * xss, xss, Q, valid, vec);
-  load_dt<Q>(dts, dt + b * dsb + h * dsh + t0 * dss, dss, valid);
+  load_rows_k<P, D::kXS>(xs, offset_kind(x, b * xsb + h * xsh + t0 * xss, kd.x), kd.x, xss, Q,
+                         valid, vec);
+  load_dt_k<Q>(dts, offset_kind(dt, b * dsb + h * dsh + t0 * dss, kd.dt), kd.dt, dss, valid);
   if (c > 0) {
-    load_rows<N, D::kCS>(cs, Cm + b * csb + t0 * css, css, Q, valid, vec);
+    load_rows_k<N, D::kCS>(cs, offset_kind(Cm, b * csb + t0 * css, kd.c), kd.c, css, Q, valid,
+                           vec);
     load_rows<P, D::kXS>(ss, states + ((b * heads + h) * nc + c) * N * P, P, N, N, true);
   }
-  const float a = A[h];
+  const float a = load_kind(A, h, kd.a);
   cp_async_wait_all();
   __syncthreads();
   if (threadIdx.x < 32) chunk_cumsum<Q>(dts, cdt);
@@ -237,15 +336,15 @@ ssd_output(const float* __restrict__ x, int64_t xsb, int64_t xsh, int64_t xss,
              return k <= t ? gs[t * D::kWS + k] * expf(a * (cdt[t] - cdt[k])) * dts[k] : 0.f;
            },
            [&](int k, int n) { return xs[k * D::kXS + c0 + n]; });
-  store_acc(acc, y + b * ysb + h * ysh + t0 * yss, yss, r0, c0, valid);
+  store_acc_k(acc, y, kd.x, b * ysb + h * ysh + t0 * yss, yss, r0, c0, valid);
 }
 
 template <int Q, int N, int P>
-cudaError_t run(const float* x, int64_t xsb, int64_t xsh, int64_t xss, const float* dt,
-                int64_t dsb, int64_t dsh, int64_t dss, const float* A, const float* Bm,
-                int64_t bsb, int64_t bss, const float* Cm, int64_t csb, int64_t css, float* y,
+cudaError_t run(const void* x, int64_t xsb, int64_t xsh, int64_t xss, const void* dt,
+                int64_t dsb, int64_t dsh, int64_t dss, const void* A, const void* Bm,
+                int64_t bsb, int64_t bss, const void* Cm, int64_t csb, int64_t css, void* y,
                 int64_t ysb, int64_t ysh, int64_t yss, float* s_fin, float* G, float* states,
-                int64_t batch, int64_t heads, int64_t seq, cudaStream_t st) {
+                int64_t batch, int64_t heads, int64_t seq, Kinds kd, cudaStream_t st) {
   using D = Dims<Q, N, P>;
   const int64_t nc = (seq + Q - 1) / Q;
   const bool vec_bc = aligned16(Bm, bsb, bss) && aligned16(Cm, csb, css);
@@ -259,13 +358,13 @@ cudaError_t run(const float* x, int64_t xsb, int64_t xsh, int64_t xss, const flo
   const auto ub = static_cast<unsigned>(batch), uh = static_cast<unsigned>(heads);
   const auto uc = static_cast<unsigned>(nc);
   ssd_states<Q, N, P><<<dim3(N / D::kRB, uh, ub), D::kStateThreads, state_smem, st>>>(
-      x, xsb, xsh, xss, dt, dsb, dsh, dss, A, Bm, bsb, bss, states, s_fin, seq, vec_x);
+      x, xsb, xsh, xss, dt, dsb, dsh, dss, A, Bm, bsb, bss, states, s_fin, seq, vec_x, kd);
   if (seq > 0) {
     ssd_gram<Q, N><<<dim3(uc, ub), D::kGramThreads, gram_smem, st>>>(Bm, bsb, bss, Cm, csb,
-                                                                   css, G, seq, vec_bc);
+                                                                   css, G, seq, vec_bc, kd);
     ssd_output<Q, N, P><<<dim3(uc, uh, ub), D::kOutThreads, out_smem, st>>>(
         x, xsb, xsh, xss, dt, dsb, dsh, dss, A, Cm, csb, css, G, states, y, ysb, ysh, yss,
-        seq, vec_x);
+        seq, vec_x, kd);
   }
   return cudaGetLastError();
 }
@@ -273,9 +372,11 @@ cudaError_t run(const float* x, int64_t xsb, int64_t xsh, int64_t xss, const flo
 }  // namespace
 
 // SSD scan of x [batch, heads, seq, p] with dt [batch, heads, seq], A [heads]
-// and B, C [batch, seq, n], all fp32 and given by pointer and element strides
-// (last dim contiguous); writes y [batch, heads, seq, p] (strided likewise,
-// p even) and the final state s_fin [batch, heads, n, p] (contiguous).
+// and B, C [batch, seq, n], each of the FloatKind given (float32, bfloat16
+// or float16) and given by pointer and element strides (last dim
+// contiguous); writes y [batch, heads, seq, p] in x's kind (strided
+// likewise, p even) and the final state s_fin [batch, heads, n, p] (fp32,
+// contiguous).
 // Scratch (contiguous fp32): g [batch, nc, q, q] and states [batch, heads,
 // nc, n, p], nc = ceil(seq / q).  (n, p) is one of (16, 16), (32, 32),
 // (64, 64), (128, 64); q is 64 or 128.
@@ -286,21 +387,26 @@ extern "C" int repro_ssd_scan(int64_t device, const void* x, int64_t xsb, int64_
                               void* y, int64_t ysb, int64_t ysh, int64_t yss, void* s_fin,
                               void* g, void* states, int64_t batch,
                               int64_t heads, int64_t seq, int64_t n, int64_t p, int64_t q,
-                              void* stream) {
+                              int64_t x_kind, int64_t dt_kind, int64_t a_kind, int64_t b_kind,
+                              int64_t c_kind, void* stream) {
   cudaError_t err = cudaSetDevice(static_cast<int>(device));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || heads <= 0) return 0;
   if (batch > 65535 || heads > 65535 || (seq + q - 1) / q > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t kinds[] = {x_kind, dt_kind, a_kind, b_kind, c_kind};
+  for (const int64_t kind : kinds)
+    if (kind != kFp32 && kind != kBf16 && kind != kFp16)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const Kinds kd{static_cast<int>(x_kind), static_cast<int>(dt_kind), static_cast<int>(a_kind),
+                static_cast<int>(b_kind), static_cast<int>(c_kind)};
   const auto s = static_cast<cudaStream_t>(stream);
-#define REPRO_SSD(QV, NV, PV)                                                            \
-  if (q == QV && n == NV && p == PV)                                                     \
-    return static_cast<int>(run<QV, NV, PV>(                                             \
-        static_cast<const float*>(x), xsb, xsh, xss, static_cast<const float*>(dt), dsb, \
-        dsh, dss, static_cast<const float*>(A), static_cast<const float*>(Bm), bsb, bss, \
-        static_cast<const float*>(Cm), csb, css, static_cast<float*>(y), ysb, ysh, yss,  \
-        static_cast<float*>(s_fin), static_cast<float*>(g), static_cast<float*>(states), \
-        batch, heads, seq, s));
+#define REPRO_SSD(QV, NV, PV)                                                              \
+  if (q == QV && n == NV && p == PV)                                                       \
+    return static_cast<int>(run<QV, NV, PV>(                                               \
+        x, xsb, xsh, xss, dt, dsb, dsh, dss, A, Bm, bsb, bss, Cm, csb, css, y, ysb, ysh, yss, \
+        static_cast<float*>(s_fin), static_cast<float*>(g), static_cast<float*>(states),   \
+        batch, heads, seq, kd, s));
   REPRO_SSD(64, 16, 16)
   REPRO_SSD(64, 32, 32)
   REPRO_SSD(64, 64, 64)

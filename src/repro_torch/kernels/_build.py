@@ -39,19 +39,19 @@ FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # Argument kinds per entry point: "p" pointer (c_void_p), "i" size (c_int64),
 # "f" real (c_double).
 _SIGNATURES = {
-    # device, in, in_stride, out, rows, n, stream
-    "repro_bitonic_sort_rows": "ipipiip",
+    # device, in, in_stride, out, rows, n, key kind, stream
+    "repro_bitonic_sort_rows": "ipipiiip",
     # device, in, in_stride, out, tmp, scratch, rows, n, kpt, threads,
-    # stream
-    "repro_radix_sort_rows": "ipipppiiiip",
-    # device, in, out, tiles, tile, stream
-    "repro_kway_tile_sort": "ippiip",
+    # key kind, stream
+    "repro_radix_sort_rows": "ipipppiiiiip",
+    # device, in, out, tiles, tile, key kind, stream
+    "repro_kway_tile_sort": "ippiiip",
     # device, brecv, context stride, bucket stride, cnt, cnt context stride,
-    # ranks, R, k, v, cap, starts, stream
-    "repro_kway_splitters": "ipiipi" "pi" "iii" "p" "p",
+    # ranks, R, k, v, cap, starts, key kind, stream
+    "repro_kway_splitters": "ipiipi" "pi" "iii" "p" "i" "p",
     # device, brecv, context stride, bucket stride, cnt, cnt context stride,
-    # starts, out, k, v, cap, rcap, tile, seg_tiles, stream
-    "repro_kway_merge_segments": "ipiipi" "pp" "iiiiii" "p",
+    # starts, out, k, v, cap, rcap, tile, seg_tiles, key kind, stream
+    "repro_kway_merge_segments": "ipiipi" "pp" "iiiiii" "i" "p",
     # device, src, src_stride, src_off, dst, dst_stride, dst_off, v, ww,
     # cnt, cnt_stride, cnt_off, fill, cp, cp_stride, cp_off,
     # ct, ct_stride, ct_off, stream
@@ -75,9 +75,10 @@ _SIGNATURES = {
                                  "iiiiiiiiiiii" "f" "p",
     # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
     # B strides (b, s), C, C strides (b, s), y, y strides (b, h, s), s_fin,
-    # g, states, batch, heads, seq, n, p, q, stream
+    # g, states, batch, heads, seq, n, p, q, the float kinds of x (and y),
+    # dt, A, B and C, stream
     "repro_ssd_scan": "i" "piii" "piii" "p" "pii" "pii" "piii" "p" "pp"
-                      "iiiiii" "p",
+                      "iiiiii" "iiiii" "p",
     # device, x, x strides (b, h, s), dt, dt strides (b, h, s), A, B,
     # B strides (b, s), C, C strides (b, s), dy, dy strides (b, h, s),
     # ds_fin, states, dstates, dx, dx strides (b, h, s), ddt, dB, dC,
@@ -85,8 +86,8 @@ _SIGNATURES = {
     "repro_ssd_scan_bwd": "i" "piii" "piii" "p" "pii" "pii" "piii" "p"
                           "pp" "piii" "pppp" "p" "iiiiii" "p",
     # device, a, a strides (b, s), b, b strides (b, s), h, h_fin, carry,
-    # prod, batch, seq, width, stream
-    "repro_lru_scan": "i" "pii" "pii" "pp" "pp" "iii" "p",
+    # prod, batch, seq, width, the float kinds of a (and h) and b, stream
+    "repro_lru_scan": "i" "pii" "pii" "pp" "pp" "iii" "ii" "p",
     # device, a, a strides (b, s), h, h strides (b, s), dh, dh strides
     # (b, s), dh_fin, da, db, carry, prod, batch, seq, width, stream
     "repro_lru_scan_bwd": "i" "pii" "pii" "pii" "p" "pppp" "iii" "p",
@@ -204,6 +205,41 @@ def require_cuda(name: str, *tensors) -> None:
             raise TypeError(f"{name}: expected int32 words, got {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: rows must be contiguous")
+
+
+# The key kinds of the sort and merge kernels (csrc/sort_keys.cuh's
+# KeyKind): keys of 1, 2 or 4 bytes, each with its order-preserving map.
+# bool sorts as its byte (0 or 1), as uint8 does.
+KEY_KINDS = {torch.int32: 0, torch.uint32: 1, torch.float32: 2,
+             torch.int16: 3, torch.uint16: 4, torch.float16: 5,
+             torch.bfloat16: 6, torch.int8: 7, torch.uint8: 8, torch.bool: 8}
+# The float kinds of the scans' operands (csrc/ssd_common.cuh's FloatKind):
+# each is read as it lies and converted to float32 in the kernel.
+FLOAT_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def require_kind(name: str, kinds: dict, *tensors,
+                 rows: bool = True) -> int:
+    """Raise unless every given tensor (None: none) is a CUDA tensor of one
+    dtype among ``kinds`` (a dtype → kind code map, such as
+    :data:`KEY_KINDS`), with contiguous rows unless ``rows`` is False (an
+    operand read through all its strides); returns that dtype's code.  A
+    dtype the kernel does not take raises ``TypeError`` naming it and the
+    dtypes it takes."""
+    ts = [t for t in tensors if t is not None]
+    for t in ts:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+        if t.dtype not in kinds:
+            taken = ", ".join(str(d).replace("torch.", "") for d in kinds)
+            raise TypeError(f"{name}: the kernel takes {taken}; got "
+                            f"{t.dtype}")
+        if t.dtype != ts[0].dtype:
+            raise TypeError(f"{name}: operands of one dtype, got "
+                            f"{ts[0].dtype} and {t.dtype}")
+        if rows and t.dim() and t.stride(-1) != 1:
+            raise ValueError(f"{name}: rows must be contiguous")
+    return kinds[ts[0].dtype]
 
 
 def define_op(schema: str, cuda_impl, fake_impl):

@@ -28,6 +28,13 @@ Each has a plain PyTorch version that a CPU tensor takes
 :func:`sort_tile_rows`); the plain versions of the first two follow the
 kernels' decomposition (coarse starts, windows, the merge of each segment),
 so the CPU tests reach every segment edge.
+
+Keys are int32 or uint32, as the JAX package's ``kway_merge`` takes them
+(its fill then ``0xFFFFFFFF``).  The kernels read uint32 buckets as they
+lie and compare each key's signed image ``x ^ 2^31`` (``csrc/
+kway_merge.cu``).  torch's CPU kernels take no uint32 ``<``, ``where`` or
+``gather``, so the plain versions run on that image as an int32 copy
+(:func:`biased`) and hand uint32 back (:func:`unbiased`).
 """
 
 from __future__ import annotations
@@ -36,23 +43,39 @@ from typing import Tuple
 
 import torch
 
-from .._build import launch, ptr, require_cuda
+from .._build import launch, ptr, require_cuda, require_kind
 from ..bitonic_sort.bitonic_sort import bitonic_network
 
 LAUNCHES = 0           # calls of merge_tile_grid that launched its kernel
 SPLIT_LAUNCHES = 0     # calls of exact_splitters that launched its kernel
 SEGMENT_LAUNCHES = 0   # calls of merge_segments that launched its kernel
 
-INT_MAX = 2**31 - 1
+INT_MIN, INT_MAX = -2**31, 2**31 - 1
 _BIAS = 1 << 31
+# The bucket dtypes the kernels take, with their key kinds (_build.KEY_KINDS).
+MERGE_KINDS = {torch.int32: 0, torch.uint32: 1}
 SEGMENT_KEYS = 1 << 13      # keys a segment holds at most (two 32 KiB buffers)
 SEGMENT_SMEM = 113 * 1024   # shared bytes a segment block may use: two an SM
 SPLIT_WARPS = 4             # warps a splitter block (kSplitWarps)
 SMEM_MAX = 227 * 1024       # shared bytes a block can have on Hopper
 
-# The plain version of the tile sort: the same network as the local sort's,
-# on each row (the JAX package's name for it).
-sort_tile_rows = bitonic_network
+
+
+def biased(x: torch.Tensor) -> torch.Tensor:
+    """uint32 keys as int32 images whose signed order is their order
+    (``x ^ 2^31``, a copy); int32 keys as they are."""
+    return x.view(torch.int32) ^ INT_MIN if x.dtype == torch.uint32 else x
+
+
+def unbiased(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The keys of dtype ``dtype`` whose :func:`biased` images ``x`` holds."""
+    return (x ^ INT_MIN).view(torch.uint32) if dtype == torch.uint32 else x
+
+
+def sort_tile_rows(tiles: torch.Tensor) -> torch.Tensor:
+    """The plain version of the tile sort (the JAX package's name for it):
+    the same network as the local sort's on each row, int32 or uint32."""
+    return unbiased(bitonic_network(biased(tiles)), tiles.dtype)
 
 
 def segment_smem_bytes(seg_tiles: int, tile: int, v: int) -> int:
@@ -132,8 +155,8 @@ def split_search(rows: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
 def exact_splitters_plain(buckets: torch.Tensor, counts: torch.Tensor,
                           ranks: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`exact_splitters`: :func:`split_search` over
-    the count-masked buckets."""
-    return split_search(mask_buckets(buckets, counts),
+    the count-masked (:func:`biased`) buckets."""
+    return split_search(mask_buckets(biased(buckets), counts),
                         ranks.to(torch.int64)).to(torch.int32).contiguous()
 
 
@@ -144,13 +167,13 @@ def exact_splitters(buckets: torch.Tensor, counts: torch.Tensor,
     ``starts [k, R, v]``, ``starts[c, r]`` summing to ``ranks[r]``, the
     duplicates of each rank's boundary key given to the buckets in order, as
     the JAX package's ``_exact_starts`` gives them.  A CPU tensor takes
-    :func:`exact_splitters_plain`; CUDA int32 buckets whose rows are
-    contiguous launch the kernel (any context and bucket strides; counts
+    :func:`exact_splitters_plain`; CUDA int32 or uint32 buckets whose rows
+    are contiguous launch the kernel (any context and bucket strides; counts
     ``[k, v]`` with contiguous rows)."""
     global SPLIT_LAUNCHES
     if buckets.device.type == "cpu":
         return exact_splitters_plain(buckets, counts, ranks)
-    k, v, cap = _require_buckets("exact_splitters", buckets, counts)
+    k, v, cap, kind = _require_buckets("exact_splitters", buckets, counts)
     if ranks.device != buckets.device or ranks.dtype != torch.int64 \
             or ranks.dim() != 1 or not ranks.is_contiguous():
         raise ValueError("exact_splitters: ranks must be a contiguous int64 "
@@ -162,7 +185,7 @@ def exact_splitters(buckets: torch.Tensor, counts: torch.Tensor,
     starts = torch.empty((k, R, v), dtype=torch.int32, device=buckets.device)
     launch("repro_kway_splitters", buckets.device, ptr(buckets),
            buckets.stride(0), buckets.stride(1), ptr(counts),
-           counts.stride(0), ptr(ranks), R, k, v, cap, ptr(starts))
+           counts.stride(0), ptr(ranks), R, k, v, cap, ptr(starts), kind)
     SPLIT_LAUNCHES += 1
     return starts
 
@@ -200,11 +223,11 @@ def merge_segments_plain(buckets: torch.Tensor, counts: torch.Tensor,
     segment's windows between its coarse starts packed in bucket order
     (:func:`compact_gather`), merged (here one ``torch.sort`` of the
     segment), and the segments at or past the valid total written as
-    ``INT_MAX``."""
+    ``INT_MAX`` (:func:`biased` images for uint32 buckets)."""
     k, _, cap = buckets.shape
     K = seg_tiles * tile                             # keys a segment
     C = n_segments(rcap, tile, seg_tiles)
-    keys = compact_gather(mask_buckets(buckets, counts), starts, K)
+    keys = compact_gather(mask_buckets(biased(buckets), counts), starts, K)
     merged = torch.sort(keys, dim=-1).values.reshape(k, C, K)
     total = torch.clamp(counts.to(torch.int64), 0, cap).sum(dim=1)
     fill_only = (torch.arange(C, device=buckets.device) * K)[None, :] \
@@ -212,7 +235,7 @@ def merge_segments_plain(buckets: torch.Tensor, counts: torch.Tensor,
     merged = torch.where(fill_only[..., None],
                          torch.tensor(INT_MAX, dtype=torch.int32,
                                       device=buckets.device), merged)
-    return merged.reshape(k, -1)[:, :rcap]
+    return unbiased(merged.reshape(k, -1)[:, :rcap], buckets.dtype)
 
 
 def merge_segments(buckets: torch.Tensor, counts: torch.Tensor,
@@ -228,7 +251,7 @@ def merge_segments(buckets: torch.Tensor, counts: torch.Tensor,
     if buckets.device.type == "cpu":
         return merge_segments_plain(buckets, counts, starts, rcap=rcap,
                                     tile=tile, seg_tiles=seg_tiles)
-    k, v, cap = _require_buckets("merge_segments", buckets, counts)
+    k, v, cap, kind = _require_buckets("merge_segments", buckets, counts)
     if rcap < 1 or tile < 1 or seg_tiles < 1 \
             or segment_smem_bytes(seg_tiles, tile, v) + 8 > SMEM_MAX:
         raise ValueError(f"merge_segments: rcap={rcap}, {seg_tiles} tiles of "
@@ -238,19 +261,19 @@ def merge_segments(buckets: torch.Tensor, counts: torch.Tensor,
     if tuple(starts.shape) != (k, C + 1, v) or not starts.is_contiguous():
         raise ValueError(f"merge_segments: starts must be [{k}, {C + 1}, "
                          f"{v}], contiguous")
-    out = torch.empty((k, rcap), dtype=torch.int32, device=buckets.device)
+    out = torch.empty((k, rcap), dtype=buckets.dtype, device=buckets.device)
     launch("repro_kway_merge_segments", buckets.device, ptr(buckets),
            buckets.stride(0), buckets.stride(1), ptr(counts),
            counts.stride(0), ptr(starts), ptr(out), k, v, cap, rcap, tile,
-           seg_tiles)
+           seg_tiles, kind)
     SEGMENT_LAUNCHES += 1
     return out
 
 
 def merge_tile_grid(tiles: torch.Tensor) -> torch.Tensor:
     """Order each compactly gathered output tile of ``tiles [G, tile]``.  A
-    CPU tensor takes :func:`sort_tile_rows`; a CUDA int32 tensor launches
-    the kernel into a new tensor."""
+    CPU tensor takes :func:`sort_tile_rows`; a CUDA int32 or uint32 tensor
+    launches the kernel into a new tensor."""
     global LAUNCHES
     G, tile = tiles.shape
     if tile & (tile - 1):
@@ -258,20 +281,21 @@ def merge_tile_grid(tiles: torch.Tensor) -> torch.Tensor:
     if tiles.device.type == "cpu":
         return sort_tile_rows(tiles)
     tiles = tiles.contiguous()
-    require_cuda("merge_tile_grid", tiles)
+    kind = require_kind("merge_tile_grid", MERGE_KINDS, tiles)
     out = torch.empty_like(tiles)
     launch("repro_kway_tile_sort", tiles.device, ptr(tiles), ptr(out), G,
-           tile)
+           tile, kind)
     LAUNCHES += 1
     return out
 
 
 def _require_buckets(name: str, buckets: torch.Tensor,
-                     counts: torch.Tensor) -> Tuple[int, int, int]:
-    """Raise unless ``buckets`` is CUDA int32 ``[k, v, cap]`` with
+                     counts: torch.Tensor) -> Tuple[int, int, int, int]:
+    """Raise unless ``buckets`` is CUDA int32 or uint32 ``[k, v, cap]`` with
     contiguous rows and ``counts`` int32 ``[k, v]`` beside it; returns
-    ``(k, v, cap)``."""
-    require_cuda(name, buckets, counts)
+    ``(k, v, cap, key kind)``."""
+    kind = require_kind(name, MERGE_KINDS, buckets)
+    require_cuda(name, counts)
     if buckets.dim() != 3:
         raise ValueError(f"{name}: buckets must be [k, v, cap], got "
                          f"{tuple(buckets.shape)}")
@@ -281,4 +305,4 @@ def _require_buckets(name: str, buckets: torch.Tensor,
     if tuple(counts.shape) != (k, v) or counts.device != buckets.device:
         raise ValueError(f"{name}: counts must be [{k}, {v}] on "
                          f"{buckets.device}")
-    return k, v, cap
+    return k, v, cap, kind

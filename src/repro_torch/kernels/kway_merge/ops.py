@@ -36,9 +36,10 @@ from typing import Tuple
 
 import torch
 
-from .kway_merge import (coarse_ranks, compact_gather, exact_splitters,
-                         mask_buckets, merge_segments, merge_tile_grid,
-                         segment_tiles, sort_tile_rows, split_search)
+from .kway_merge import (MERGE_KINDS, biased, coarse_ranks, compact_gather,
+                         exact_splitters, mask_buckets, merge_segments,
+                         merge_tile_grid, segment_tiles, sort_tile_rows,
+                         split_search, unbiased)
 
 
 def kway_merge(
@@ -58,7 +59,8 @@ def kway_merge(
     ``k`` for 2-D ``buckets``): ``total`` is the int32 ``counts`` sum and
     ``overflow`` flags ``total > rcap``.  ``fill`` must be the dtype maximum
     (the PSRS boundary sentinel): masked lanes must sort to every row's
-    tail.  This slice supports int32 buckets only.
+    tail.  Buckets are int32 or uint32 (fill ``0xFFFFFFFF``), as the JAX
+    package's ``kway_merge`` takes them.
     """
     if buckets.dim() == 2:
         merged, total, over = kway_merge(
@@ -87,15 +89,16 @@ def _check(buckets: torch.Tensor, *, rcap: int, tile: int, fill) -> None:
     if buckets.dim() != 3:
         raise ValueError(
             f"buckets must be [k, v, cap], got {tuple(buckets.shape)}")
-    if buckets.dtype != torch.int32:
+    if buckets.dtype not in MERGE_KINDS:
         raise ValueError(
-            f"kway_merge supports int32 buckets, got {buckets.dtype} (the "
-            "exact-splitter search runs in the biased 32-bit value domain)")
+            f"kway_merge supports int32 and uint32 buckets, got "
+            f"{buckets.dtype} (the exact-splitter search runs in the biased "
+            "32-bit value domain)")
     if tile < 1 or tile & (tile - 1):
         raise ValueError(f"tile={tile} must be a power of two")
     if rcap < 1:
         raise ValueError(f"rcap={rcap} must be >= 1")
-    fmax = torch.iinfo(torch.int32).max
+    fmax = torch.iinfo(buckets.dtype).max
     if int(fill) != fmax:
         raise ValueError(
             f"fill={fill!r} must be the dtype maximum {fmax}: masked lanes "
@@ -109,8 +112,12 @@ def gather_tiles(buckets: torch.Tensor, counts: torch.Tensor, *, rcap: int,
     """The gather route's steps before the tile sort on ``[k, v, cap]``
     buckets: returns ``(tiles [k·G, tile], total [k], overflow [k])``, each
     row of ``tiles`` a permutation of its output tile's elements
-    (``G = ceil(rcap/tile)`` tiles per context) — the tile sort's input."""
+    (``G = ceil(rcap/tile)`` tiles per context) — the tile sort's input,
+    in the buckets' dtype (the steps run on the :func:`.kway_merge.biased`
+    images)."""
     _check(buckets, rcap=rcap, tile=tile, fill=fill)
+    dtype = buckets.dtype
+    buckets = biased(buckets)
     k, v, cap = buckets.shape
     dev = buckets.device
 
@@ -123,4 +130,5 @@ def gather_tiles(buckets: torch.Tensor, counts: torch.Tensor, *, rcap: int,
     G = -(-rcap // tile)
     ranks = torch.clamp(torch.arange(G + 1, device=dev) * tile, max=n_all)
     starts = split_search(masked, ranks)     # [k, G+1, v]
-    return compact_gather(masked, starts, tile), total, overflow
+    return unbiased(compact_gather(masked, starts, tile), dtype), total, \
+        overflow

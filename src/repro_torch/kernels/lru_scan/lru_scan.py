@@ -12,9 +12,12 @@ The CUDA entry ``repro_lru_scan`` (``csrc/lru_scan.cu``) scans in chunks of
 chunks, each chunk again from its carry), or, where batch × width reaches
 ``ONE_PASS_CHANNELS`` and so fills the card, runs one thread per (batch,
 channel) over the whole sequence.  It writes the final state ``h_fin [B,
-D]`` beside ``h``: the model's prefill keeps it in its cache.  Inputs are
-float32 and read through their strides (the width contiguous).  What bounds
-it is in the source's note.
+D]`` beside ``h``: the model's prefill keeps it in its cache.  ``a`` and ``b``
+are float32, bfloat16 or float16, of one dtype (a pair of two raises,
+naming both), read as they lie through
+their strides (the width contiguous) and converted to float32 in the
+kernel; ``h`` comes back in ``a``'s dtype, as the JAX kernel's does, and
+``h_fin`` in float32.  What bounds it is in the source's note.
 
 :func:`lru_chunked_plain` is the plain PyTorch version (``_lru_chunked_jnp``'s
 chunked doubling scan, with the final state), which a CPU tensor takes.  The
@@ -26,7 +29,9 @@ Training: when autograd needs a gradient of ``a`` or ``b``,
 the scan above and saves ``a`` and ``h``, and whose backward is the reverse
 recurrence (:func:`lru_scan_backward`): on a CUDA tensor kernel 7b
 (``repro_lru_scan_bwd``, ``csrc/lru_scan_bwd.cu``, counted in
-``BWD_LAUNCHES``), on a CPU tensor :func:`lru_backward_plain`.  No kernel of
+``BWD_LAUNCHES``), on a CPU tensor :func:`lru_backward_plain`.  Kernel 7b
+is float32: narrow operands are cast at the Function's boundary, and each
+gradient comes back in its operand's dtype.  No kernel of
 the JAX package computes it: it replaces XLA's autodiff of
 ``_lru_chunked_jnp``.
 
@@ -42,7 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
-from .._build import define_op, launch, ptr
+from .._build import FLOAT_KINDS, define_op, launch, ptr, require_kind
 
 LAUNCHES = 0       # forward scans that launched kernel 7
 BWD_LAUNCHES = 0   # calls of lru_scan_backward that launched kernel 7b
@@ -84,10 +89,10 @@ def lru_chunked_plain(a, b, chunk: int):
 
 def lru_scan_chunked(a, b, *, chunk: int = 256):
     """The recurrence with its final state: → ``(h [B, S, D], h_fin [B,
-    D])``, both float32.  A CPU tensor takes :func:`lru_chunked_plain` with
-    ``chunk``; a CUDA tensor launches the kernel or raises.  When autograd
-    needs a gradient of ``a`` or ``b`` the call goes through
-    :class:`_LruScan` (kernel 7b backward on the card)."""
+    D])``, ``h`` in ``a``'s dtype and ``h_fin`` float32.  A CPU tensor takes
+    :func:`lru_chunked_plain` with ``chunk``; a CUDA tensor launches the
+    kernel or raises.  When autograd needs a gradient of ``a`` or ``b`` the
+    call goes through :class:`_LruScan` (kernel 7b backward on the card)."""
     if a.dim() != 3 or a.shape != b.shape:
         raise ValueError(f"lru_scan: a {tuple(a.shape)} and b "
                          f"{tuple(b.shape)}: need two [B, S, D] tensors")
@@ -110,18 +115,20 @@ def _require_kernel_operand(t, what: str) -> None:
 def _forward(a, b, chunk: int):
     """:func:`lru_scan_chunked` without autograd."""
     if a.device.type == "cpu":
-        return lru_chunked_plain(a, b, chunk)
+        h, h_fin = lru_chunked_plain(a, b, chunk)
+        return h.to(a.dtype), h_fin
     return LRU(a, b)
 
 
 def _lru_scan(a, b):
-    """Kernel 7: ``(h [B, S, D], h_fin [B, D])``, float32."""
+    """Kernel 7: ``(h [B, S, D]`` in ``a``'s dtype, ``h_fin [B, D])``
+    float32."""
     return _launch(a, b)
 
 
 def _lru_scan_fake(a, b):
     bsz, s, d = a.shape
-    return (a.new_empty((bsz, s, d), dtype=torch.float32),
+    return (a.new_empty((bsz, s, d)),
             a.new_empty((bsz, d), dtype=torch.float32))
 
 
@@ -131,10 +138,9 @@ LRU = define_op("lru_scan(Tensor a, Tensor b) -> (Tensor, Tensor)",
 
 def _launch(a, b):
     global LAUNCHES
-    for t in (a, b):
-        _require_kernel_operand(t, "lru_scan")
+    kind = require_kind("lru_scan", FLOAT_KINDS, a, b)
     bsz, s, d = a.shape
-    h = torch.empty((bsz, s, d), dtype=torch.float32, device=a.device)
+    h = torch.empty((bsz, s, d), dtype=a.dtype, device=a.device)
     h_fin = torch.empty((bsz, d), dtype=torch.float32, device=a.device)
     carry = prod = None
     if bsz * d < ONE_PASS_CHANNELS:
@@ -143,7 +149,7 @@ def _launch(a, b):
         prod = torch.empty_like(carry)
     launch("repro_lru_scan", a.device, ptr(a), a.stride(0), a.stride(1),
            ptr(b), b.stride(0), b.stride(1), ptr(h), ptr(h_fin), ptr(carry),
-           ptr(prod), bsz, s, d)
+           ptr(prod), bsz, s, d, kind, kind)
     LAUNCHES += 1
     return h, h_fin
 
@@ -256,7 +262,9 @@ def _(a_shape, *args, out_shape=None, **kwargs) -> int:
 
 class _LruScan(torch.autograd.Function):
     """:func:`lru_scan_chunked` with its gradient: kernel 7 then kernel 7b
-    on CUDA, the plain versions on the CPU.  No ``try`` falls back."""
+    on CUDA, the plain versions on the CPU.  No ``try`` falls back.  The
+    backward runs in float32 (kernel 7b's type) on the saved ``a`` and ``h``
+    cast to it, and returns each gradient in its operand's dtype."""
 
     @staticmethod
     def forward(ctx, a, b, chunk):
@@ -271,5 +279,6 @@ class _LruScan(torch.autograd.Function):
         a, h = ctx.saved_tensors
         if dh is None:
             dh = torch.zeros_like(h)
-        da, db = lru_scan_backward(a, h, dh, dh_fin, chunk=ctx.chunk)
-        return da, db, None
+        da, db = lru_scan_backward(a.float(), h.float(), dh.float(), dh_fin,
+                                   chunk=ctx.chunk)
+        return da.to(a.dtype), db.to(a.dtype), None

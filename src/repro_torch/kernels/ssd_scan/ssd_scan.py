@@ -15,10 +15,13 @@ the state on chip; each chunk's output, all chunks in parallel.  Its
 products run on the tensor cores in 3xTF32 (each operand split into a TF32
 high and low part, three products kept).  It writes the final state
 ``S_fin [B, H, N, P]`` beside ``y``: the model's prefill keeps it in its
-cache.  Inputs are float32 and read through their strides, so the model's
-``[B, H, S, P]`` view of its projection goes in without a copy; ``y`` is
-returned as a ``[B, H, S, P]`` view of a ``[B, S, H, P]`` tensor, the layout
-the model reads back.  What bounds it is in the source's note.
+cache.  ``x``, ``dt``, ``A``, ``B`` and ``C`` are each float32, bfloat16
+or float16, read as they lie through their strides (so the model's ``[B,
+H, S, P]`` view of its projection goes in without a copy) and converted to
+float32 in the kernel; ``y`` comes back in ``x``'s dtype, as the JAX
+kernel's does, as a ``[B, H, S, P]`` view of a ``[B, S, H, P]`` tensor, the
+layout the model reads back; ``S_fin`` and the chunk states are float32.
+What bounds it is in the source's note.
 
 :func:`ssd_chunked_plain` is the plain PyTorch version, which a CPU tensor
 takes, in the kernel's phases as four functions (:func:`chunk_gram`,
@@ -36,7 +39,9 @@ the scan above and, on the card, keeps kernel 6's chunk states; its backward
 the kernel's phases (:func:`state_passing_backward`,
 :func:`chunk_backward`, then the sums over heads, batch and chunks).  No
 kernel of the JAX package computes it: it replaces XLA's autodiff of
-``_ssd_chunked_jnp``.
+``_ssd_chunked_jnp``.  Kernel 6b is float32: narrow operands are cast at
+the Function's boundary, and each gradient comes back in its operand's
+dtype.
 
 The launches are PyTorch ops, ``repro_torch::ssd_scan`` and
 ``ssd_scan_bwd`` (:data:`SSD`, :data:`SSD_BWD`), each with a fake implementation (shapes and dtypes only),
@@ -50,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
-from .._build import define_op, launch, ptr
+from .._build import FLOAT_KINDS, define_op, launch, ptr, require_kind
 
 LAUNCHES = 0       # forward scans that launched kernel 6
 BWD_LAUNCHES = 0   # calls of ssd_scan_backward that launched kernel 6b
@@ -261,7 +266,7 @@ def _require_kernel_operands(what: str, *ts) -> None:
 
 def ssd_scan_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128):
     """The SSD scan with its final state: → ``(y [B,H,S,P], S_fin
-    [B,H,N,P])``, both float32.  A CPU tensor takes
+    [B,H,N,P])``, ``y`` in ``x``'s dtype and ``S_fin`` float32.  A CPU tensor takes
     :func:`ssd_chunked_plain` with ``chunk``; a CUDA tensor launches the
     kernels (chunks of ``KERNEL_CHUNK``) or raises.  When autograd needs a
     gradient of any operand the call goes through :class:`_SsdScan` (kernel
@@ -278,7 +283,8 @@ def _forward(x, dt, A, Bm, Cm, chunk: int):
     ``states`` kernel 6's ``[B, H, nc, N, P]`` state before each chunk of
     ``KERNEL_CHUNK`` (chunk 0's left unwritten; None on the CPU)."""
     if x.device.type == "cpu":
-        return (*ssd_chunked_plain(x, dt, A, Bm, Cm, chunk), None)
+        y, s_fin = ssd_chunked_plain(x, dt, A, Bm, Cm, chunk)
+        return y.to(x.dtype), s_fin, None
     return SSD(x, dt, A, Bm, Cm)
 
 
@@ -292,7 +298,7 @@ def _ssd_scan_fake(x, dt, A, Bm, Cm):
     n = Bm.shape[-1]
     nc = -(-s // KERNEL_CHUNK)
     f32 = dict(dtype=torch.float32)
-    return (x.new_empty((b, s, h, p), **f32).transpose(1, 2),
+    return (x.new_empty((b, s, h, p)).transpose(1, 2),
             x.new_empty((b, h, n, p), **f32),
             x.new_empty((b, h, nc, n, p), **f32))
 
@@ -322,7 +328,8 @@ def _launch(x, dt, A, Bm, Cm):
     global LAUNCHES
     b, h, s, p = x.shape
     n = Bm.shape[-1]
-    _require_kernel_operands("ssd_scan", x, dt, A, Bm, Cm)
+    kinds = [require_kind("ssd_scan", FLOAT_KINDS, t, rows=False)
+             for t in (x, dt, A, Bm, Cm)]
     for t in (x, Bm, Cm):
         if t.stride(-1) != 1:
             raise ValueError("ssd_scan: x, B and C need a contiguous last dim")
@@ -330,7 +337,7 @@ def _launch(x, dt, A, Bm, Cm):
         raise ValueError(f"ssd_scan: the kernel is built for (N, P) in "
                          f"{STATE_SHAPES}, got {(n, p)}")
     A = A.contiguous()
-    y = torch.empty((b, s, h, p), dtype=torch.float32,
+    y = torch.empty((b, s, h, p), dtype=x.dtype,
                     device=x.device).transpose(1, 2)
     s_fin = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     q = KERNEL_CHUNK
@@ -342,7 +349,7 @@ def _launch(x, dt, A, Bm, Cm):
            ptr(x), *x.stride()[:3], ptr(dt), *dt.stride(), ptr(A),
            ptr(Bm), *Bm.stride()[:2], ptr(Cm), *Cm.stride()[:2],
            ptr(y), *y.stride()[:3], ptr(s_fin), ptr(g), ptr(states),
-           b, h, s, n, p, q)
+           b, h, s, n, p, q, *kinds)
     LAUNCHES += 1
     return y, s_fin, states
 
@@ -471,7 +478,9 @@ def _launch_bwd(x, dt, A, Bm, Cm, dy, dS_fin, states):
 class _SsdScan(torch.autograd.Function):
     """:func:`ssd_scan_chunked` with its gradient: kernel 6 (keeping its
     chunk states) then kernel 6b on CUDA, the plain versions on the CPU.  No
-    ``try`` falls back."""
+    ``try`` falls back.  The backward runs in float32 (kernel 6b's type) on
+    the saved operands cast to it, and returns each gradient in its
+    operand's dtype."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk):
@@ -483,9 +492,9 @@ class _SsdScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dS_fin):
-        x, dt, A, Bm, Cm, states = ctx.saved_tensors
+        *ops, states = ctx.saved_tensors
         if dy is None:
-            dy = torch.zeros_like(x, dtype=torch.float32)
-        grads = ssd_scan_backward(x, dt, A, Bm, Cm, dy, dS_fin,
-                                  states=states, chunk=ctx.chunk)
-        return (*grads, None)
+            dy = torch.zeros_like(ops[0], dtype=torch.float32)
+        grads = ssd_scan_backward(*(t.float() for t in ops), dy.float(),
+                                  dS_fin, states=states, chunk=ctx.chunk)
+        return (*(g.to(t.dtype) for g, t in zip(grads, ops)), None)

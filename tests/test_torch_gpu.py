@@ -103,6 +103,102 @@ def test_tile_kernel_matches_plain(cuda, tile):
     assert torch.equal(got, km.sort_tile_rows(t))
 
 
+# Kernel 1 in every key dtype: (torch dtype, the signed view of its width).
+_SORT_DTYPES = {torch.bool: torch.int8, torch.int8: torch.int8,
+                torch.uint8: torch.int8, torch.int16: torch.int16,
+                torch.uint16: torch.int16, torch.int32: torch.int32,
+                torch.uint32: torch.int32, torch.float16: torch.int16,
+                torch.bfloat16: torch.int16, torch.float32: torch.int32}
+
+
+def _dtype_keys(shape, dev, seed, dtype):
+    """Keys of ``dtype``: random bits, with (floats) ±0, NaNs of both signs
+    and several payloads, ±inf and subnormals, or (integers) the type's
+    extremes, at a third of the places."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=g, device=dev).bool()
+    view = _SORT_DTYPES[dtype]
+    width = view.itemsize * 8
+    bits = torch.randint(-2**(width - 1), 2**(width - 1), shape, generator=g,
+                         device=dev, dtype=torch.int64).to(view)
+    if dtype.is_floating_point:
+        x = (torch.randn(shape, generator=g, device=dev) * 4).to(dtype)
+        sign = -2**(width - 1)
+        inf = {torch.float32: 0x7F800000, torch.float16: 0x7C00,
+               torch.bfloat16: 0x7F80}[dtype]
+        special = [0, sign, inf, sign | inf, inf | 1, inf | (inf >> 1),
+                   sign | inf | 5, 1, sign | 3, inf - 1]
+    else:
+        info = torch.iinfo(dtype)
+        x = bits.view(dtype)
+        special = [v - (1 << width) if v >= 1 << (width - 1) else v
+                   for v in (info.min, info.min + 1, 0, 1, info.max - 1,
+                             info.max)]
+    pool = torch.tensor(special, dtype=torch.int64, device=dev).to(view)
+    pick = pool[torch.randint(0, len(special), shape, generator=g,
+                              device=dev)]
+    at = torch.rand(shape, generator=g, device=dev) < 1 / 3
+    return torch.where(at, pick, x.view(view)).view(dtype)
+
+
+def _sort_bits(x):
+    return x.view(torch.int8) if x.dtype == torch.bool else \
+        x.view(_SORT_DTYPES[x.dtype])
+
+
+def _stable_sort_ref(x):
+    """``torch.sort(stable=True)`` of the keys on the CPU, whose order is
+    ``jnp.sort``'s (NaNs tie after +inf, ±0 tie); the card's ``torch.sort``
+    (2.11) puts negative NaNs first and orders NaN payloads by their bits."""
+    return torch.sort(x.cpu(), dim=-1, stable=True).values.to(x.device)
+
+
+# One shared-memory pass up to 2^13 keys a row (float rows sort (image,
+# index) pairs there), the radix kernel past it (one pass a byte).
+@pytest.mark.parametrize("rows, n", [(1, 1), (3, 8), (2, 8192), (2, 16384),
+                                     (3, 1 << 17)])
+@pytest.mark.parametrize("dtype", list(_SORT_DTYPES), ids=str)
+def test_sort_kernels_take_every_key_dtype(cuda, rows, n, dtype):
+    bs = _kernel("bitonic_sort")
+    x = _dtype_keys((rows, n), cuda, rows * n, dtype)
+    before = bs.LAUNCHES
+    got = bs.bitonic_sort_rows(x)
+    torch.cuda.synchronize()
+    assert bs.LAUNCHES == before + 1 and got.dtype == dtype
+    assert torch.equal(_sort_bits(got), _sort_bits(bs.radix_sort_plain(x)))
+    assert torch.equal(_sort_bits(got), _sort_bits(_stable_sort_ref(x)))
+
+
+@pytest.mark.parametrize("dtype", list(_SORT_DTYPES), ids=str)
+def test_sort_kernels_read_strided_rows_of_every_dtype(cuda, dtype):
+    """Rows a wider row apart (both kernels), and ``ops.sort`` on a ragged
+    width (padded with a key that ties with the largest)."""
+    bs = _kernel("bitonic_sort")
+    from repro_torch.kernels.bitonic_sort import bitonic_sort
+    x = _dtype_keys((3, 1 << 15), cuda, 3, dtype)
+    for n in (2048, 1 << 14):
+        view = x[:, 100:100 + n]
+        assert torch.equal(_sort_bits(bs.bitonic_sort_rows(view)),
+                           _sort_bits(_stable_sort_ref(view)))
+    for n in (1000, 20000):
+        before = bs.LAUNCHES
+        got = bitonic_sort(x[:, :n])
+        assert bs.LAUNCHES == before + 1
+        assert torch.equal(_sort_bits(got),
+                           _sort_bits(_stable_sort_ref(x[:, :n])))
+
+
+def _u32_buckets(b, cnt):
+    """int32 buckets' bits as uint32 buckets, each valid prefix sorted in
+    uint32 order (lanes past the count keep their words)."""
+    img = b.view(torch.int32) ^ INT_MIN               # signed images
+    valid = torch.arange(b.shape[-1], device=b.device) < cnt[..., None]
+    srt = torch.sort(torch.where(valid, img, INT_MAX), dim=-1).values
+    b.copy_(torch.where(valid, srt ^ INT_MIN, b))     # in place: the layout
+    return b.view(torch.uint32)
+
+
 # The fused k-way merge's edges, (k, v, cap, keys, counts, rcap, tile,
 # segment tiles): v of 1, 16, 33 and 64 (one and two warps of buckets, odd
 # merge levels), windows cut inside runs of equal keys, all-equal buckets,
@@ -168,6 +264,47 @@ def test_kway_merge_kernels_match_plain(cuda, case):
     assert torch.equal(got, kway_merge_ref(b, cnt, rcap=rcap, fill=INT_MAX))
     merged, _, _ = kway_merge(b, cnt, rcap=rcap, tile=tile, fill=INT_MAX)
     assert torch.equal(merged, got)
+
+
+@pytest.mark.parametrize("case", _KWAY, ids=str)
+def test_kway_merge_kernels_take_uint32_buckets(cuda, case):
+    """The same edges in uint32 (fill 0xFFFFFFFF): keys at and past 2^31
+    sort after the rest; the kernels read the uint32 words as they lie."""
+    k, v, cap, kind, cnt_kind, rcap, tile, S = case
+    km = _kernel("kway_merge")
+    b, cnt = _kway_inputs(cuda, k, v, cap, kind, cnt_kind, v * cap + rcap)
+    b = _u32_buckets(b, cnt)
+    ranks = km.coarse_ranks(rcap, tile, S, v * cap, cuda)
+    before = km.SPLIT_LAUNCHES, km.SEGMENT_LAUNCHES
+    starts = km.exact_splitters(b, cnt, ranks)
+    got = km.merge_segments(b, cnt, starts, rcap=rcap, tile=tile,
+                            seg_tiles=S)
+    torch.cuda.synchronize()
+    assert (km.SPLIT_LAUNCHES, km.SEGMENT_LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert got.dtype == torch.uint32
+    assert torch.equal(starts, km.exact_splitters_plain(b, cnt, ranks))
+    plain = km.merge_segments_plain(b, cnt, starts, rcap=rcap, tile=tile,
+                                    seg_tiles=S)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+    from repro_torch.kernels.kway_merge import kway_merge, kway_merge_ref
+    ref = kway_merge_ref(b, cnt, rcap=rcap, fill=2**32 - 1)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    merged, _, _ = kway_merge(b, cnt, rcap=rcap, tile=tile, fill=2**32 - 1)
+    assert torch.equal(merged.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("tile", [8, 256, 1024, 2048])
+def test_tile_kernel_takes_uint32_tiles(cuda, tile):
+    km = _kernel("kway_merge")
+    t = _keys((max(1, (1 << 16) // tile), tile), cuda, tile).view(
+        torch.uint32)
+    before = km.LAUNCHES
+    got = km.merge_tile_grid(t)
+    torch.cuda.synchronize()
+    assert km.LAUNCHES == before + 1 and got.dtype == torch.uint32
+    assert torch.equal(got.view(torch.int32),
+                       km.sort_tile_rows(t).view(torch.int32))
 
 
 def test_kway_merge_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -747,8 +884,9 @@ def test_traced_psrs_on_the_card_matches_untraced(cuda, tmp_path, tier, P):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     bs = _kernel("bitonic_sort")
-    with pytest.raises(TypeError, match="int32"):
-        bs.bitonic_sort_rows(torch.zeros((2, 8), device=cuda))
+    with pytest.raises(TypeError, match="float64"):
+        bs.bitonic_sort_rows(torch.zeros((2, 8), device=cuda,
+                                         dtype=torch.float64))
     with pytest.raises(ValueError, match="contiguous"):
         bs.bitonic_sort_rows(
             torch.zeros((8, 2), dtype=torch.int32, device=cuda).t())
@@ -943,6 +1081,102 @@ def test_lru_kernel_matches_plain(cuda, b, s, d):
     assert torch.equal(hv, h) and torch.equal(fin_v, h_fin)
 
 
+# Kernel 7 in bf16 and fp16: h in a's dtype within one output ulp of the
+# plain version rounded (both sum in fp32 and round once: eps |plain|, plus
+# the fp32 sums' order near zero), h_fin fp32 within 1e-5 (1 + |plain|);
+# both the chunked scan and the one-pass kernel (8 x 2560 channels).
+@pytest.mark.parametrize("b, s, d", [(1, 1, 1), (2, 37, 64), (3, 17, 2560),
+                                     (2, 33, 100), (8, 300, 2560)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_lru_kernel_takes_narrow_dtypes(cuda, b, s, d, dtype):
+    ls = _kernel("lru_scan")
+    g = torch.Generator(device=cuda).manual_seed(s * d + 1)
+    a = (0.5 + 0.499 * torch.rand((b, s, d), generator=g,
+                                  device=cuda)).to(dtype)
+    x = torch.randn((b, s, d), generator=g, device=cuda).to(dtype)
+    before = ls.LAUNCHES
+    h, h_fin = ls.lru_scan_chunked(a, x)
+    torch.cuda.synchronize()
+    assert ls.LAUNCHES == before + 1
+    assert h.dtype == dtype and h_fin.dtype == torch.float32
+    h_want, fin_want = ls.lru_chunked_plain(a, x, 256)
+    _narrow_close(h, h_want, dtype, 1e-5)
+    torch.testing.assert_close(h_fin, fin_want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(h, ls.lru_scan_chunked(a, x)[0])
+
+
+def _narrow_close(got, want, dtype, tol):
+    eps = 2**-7 if dtype == torch.bfloat16 else 2**-10
+    want = want.float()
+    diff = (got.float() - want).abs()
+    bound = eps * want.abs() + tol * (1 + want.abs())
+    assert bool((diff <= bound).all()), float(diff.max())
+
+
+# Kernel 6 in bf16 and fp16 (every operand narrow, and one narrow operand
+# among fp32 ones): y in x's dtype within one output ulp plus the fp32
+# check's 1e-4 (1 + |plain|); S_fin fp32 within 1e-4 (1 + |plain|).
+@pytest.mark.parametrize("b, h, s, p, n", [(2, 3, 37, 16, 16),
+                                           (1, 2, 65, 64, 128),
+                                           (8, 24, 256, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("which", ["all", "x", "dt", "A", "B", "C"])
+def test_ssd_kernel_takes_narrow_dtypes(cuda, b, h, s, p, n, dtype, which):
+    ss = _kernel("ssd_scan")
+    x, dt, A, Bm, Cm, _, _ = _ssd_operands(cuda, b, h, s, p, n, s + n)
+    ops = [x, dt, A, Bm, Cm]
+    names = ["x", "dt", "A", "B", "C"]
+    ops = [t.to(dtype) if which in ("all", nm) else t
+           for t, nm in zip(ops, names)]
+    before = ss.LAUNCHES
+    y, s_fin = ss.ssd_scan_chunked(*ops)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES == before + 1
+    assert y.dtype == ops[0].dtype and s_fin.dtype == torch.float32
+    y_want, s_want = ss.ssd_chunked_plain(*ops, 128)
+    if y.dtype == torch.float32:
+        torch.testing.assert_close(y, y_want, rtol=1e-4, atol=1e-4)
+    else:
+        _narrow_close(y, y_want, dtype, 1e-4)
+    torch.testing.assert_close(s_fin, s_want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_narrow_scans_under_autograd_launch_their_kernels(cuda, dtype):
+    """Kernels 6 and 7 on narrow operands that require grad, then kernels
+    6b and 7b in fp32 on the operands cast: each gradient in its operand's
+    dtype, equal to the backward wrappers' on the cast operands."""
+    ss, ls = _kernel("ssd_scan"), _kernel("lru_scan")
+    x, dt, A, Bm, Cm, dy, _ = _ssd_operands(cuda, 2, 3, 100, 64, 128, 8)
+    nar = [t.to(dtype) for t in (x, dt, A, Bm, Cm)]
+    ops = [t.clone().requires_grad_(True) for t in nar]
+    f0, b0 = ss.LAUNCHES, ss.BWD_LAUNCHES
+    y, _ = ss.ssd_scan_chunked(*ops)
+    got = torch.autograd.grad(y, ops, dy.to(dtype))
+    assert (ss.LAUNCHES - f0, ss.BWD_LAUNCHES - b0) == (1, 1)
+    with torch.no_grad():
+        f32 = [t.float() for t in nar]
+        _, _, states = ss._forward(*f32, 128)
+        want = ss.ssd_scan_backward(*f32, dy.to(dtype).float(),
+                                    states=states)
+    assert all(u.dtype == dtype and torch.equal(u, v.to(dtype))
+               for u, v in zip(got, want))
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a = (0.5 + 0.499 * torch.rand((2, 77, 256), generator=g,
+                                  device=cuda)).to(dtype)
+    xb, dh = (torch.randn((2, 77, 256), generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    a, xb = a.requires_grad_(True), xb.requires_grad_(True)
+    f0, b0 = ls.LAUNCHES, ls.BWD_LAUNCHES
+    h, _ = ls.lru_scan_chunked(a, xb)
+    got = torch.autograd.grad(h, (a, xb), dh)
+    assert (ls.LAUNCHES - f0, ls.BWD_LAUNCHES - b0) == (1, 1)
+    want = ls.lru_scan_backward(a.detach().float(), h.detach().float(),
+                                dh.float())
+    assert all(u.dtype == dtype and torch.equal(u, v.to(dtype))
+               for u, v in zip(got, want))
+
+
 # The kernel's chunks of 64 (built) and 128: S = 64, 65, 128 and 129 are one
 # chunk and one step past it, for each.
 @pytest.mark.parametrize("b, h, s, p, n", [(8, 24, 256, 64, 128),
@@ -1080,18 +1314,20 @@ def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="window"):
         fa.attend(q, q, q, causal=True, window=-1)
     a = torch.zeros((1, 8, 16), device=cuda)
-    with pytest.raises(ValueError, match="float32"):
-        ls.lru_scan_chunked(a.bfloat16(), a.bfloat16())
+    with pytest.raises(TypeError, match="float64"):
+        ls.lru_scan_chunked(a.double(), a.double())
+    with pytest.raises(TypeError, match="one dtype"):
+        ls.lru_scan_chunked(a, a.bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         ls.lru_scan_chunked(a.transpose(1, 2), a.transpose(1, 2))
-    with pytest.raises(ValueError, match="float32 CUDA"):
+    with pytest.raises(ValueError, match="CUDA"):
         ls.lru_scan_chunked(a, a.cpu())
     x = torch.zeros((1, 2, 8, 16), device=cuda)
     dt = torch.zeros((1, 2, 8), device=cuda)
     A = torch.zeros((2,), device=cuda)
     Bm = torch.zeros((1, 8, 16), device=cuda)
-    with pytest.raises(ValueError, match="float32"):
-        ss.ssd_scan_chunked(x.bfloat16(), dt, A, Bm, Bm)
+    with pytest.raises(TypeError, match="float64"):
+        ss.ssd_scan_chunked(x.double(), dt, A, Bm, Bm)
     with pytest.raises(ValueError, match="built for"):
         ss.ssd_scan_chunked(x, dt, A, Bm[..., :8], Bm[..., :8])
 

@@ -10,7 +10,10 @@ segment, counts of 0 and of ``cap``, fill-only segments (total < ``rcap``),
 overflow (total > ``rcap``), ``rcap`` past ``v·cap`` and not a multiple of
 the tile or the segment, v of 1, 16 and 33 (past one warp), tiles of 2, 8
 and 256.  The JAX side runs its Pallas tile grid in interpret mode; every
-comparison is exact.  The kernels are held against the same plain versions
+comparison is exact.  The same cases run in uint32 (the keys' bits, each
+bucket's valid prefix sorted as uint32, fill ``0xFFFFFFFF``): keys at and
+past 2^31 sort after the rest, as the JAX package's ``kway_merge`` sorts
+them.  The kernels are held against the same plain versions
 on the card (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 
@@ -87,6 +90,19 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+U32_MAX = 2**32 - 1
+
+
+def _case_u32(v, cap, kind, cnt_kind, seed):
+    """The int32 case's bits as uint32 buckets, each valid prefix sorted in
+    uint32 order (the lanes past the count keep their garbage)."""
+    b, counts = _case(v, cap, kind, cnt_kind, seed)
+    bu = b.view(np.uint32)
+    valid = np.arange(cap) < counts[..., None]
+    srt = np.sort(np.where(valid, bu, np.uint32(U32_MAX)), axis=-1)
+    return np.where(valid, srt, bu).astype(np.uint32), counts
+
+
 def _jax_merge(b, counts, rcap, tile):
     """The JAX package's kway_merge of each context (its Pallas tile grid in
     interpret mode) and its dense oracle."""
@@ -148,6 +164,66 @@ def test_kway_merge_on_the_cpu_matches_jax_kway_merge(case):
         np.testing.assert_array_equal(total.numpy(), counts.sum(axis=1))
         np.testing.assert_array_equal(over.numpy(),
                                       counts.sum(axis=1) > rcap)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_exact_splitters_plain_match_jax_exact_starts_uint32(case):
+    v, cap, kind, cnt_kind, rcap, tile, S = case
+    b, counts = _case_u32(v, cap, kind, cnt_kind, CASES.index(case))
+    ranks = km.coarse_ranks(rcap, tile, S, v * cap, "cpu")
+    starts = tkway.exact_splitters_plain(_t(b), _t(counts), ranks)
+    masked = np.where(np.arange(cap) < counts[..., None], b,
+                      np.uint32(U32_MAX))
+    for c in range(2):
+        want = np_out(_j_starts(jnp.asarray(masked[c]),
+                                jnp.asarray(ranks.numpy())))
+        np.testing.assert_array_equal(starts[c].numpy(), want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_kway_merge_uint32_on_the_cpu_matches_jax_kway_merge(case):
+    v, cap, kind, cnt_kind, rcap, tile, S = case
+    b, counts = _case_u32(v, cap, kind, cnt_kind, CASES.index(case))
+    want = np.stack([np_out(_j_kway(
+        jnp.asarray(b[c]), jnp.asarray(counts[c]), rcap=rcap, tile=tile,
+        fill=U32_MAX, interpret=True))[0] for c in range(2)])
+    assert want.dtype == np.uint32
+    for use_kernel in (True, False):
+        got, total, _ = tkway.kway_merge(_t(b), _t(counts), rcap=rcap,
+                                         tile=tile, fill=U32_MAX,
+                                         use_kernel=use_kernel)
+        assert got.dtype == torch.uint32
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(total.numpy(), counts.sum(axis=1))
+    ranks = km.coarse_ranks(rcap, tile, S, v * cap, "cpu")
+    starts = tkway.exact_splitters(_t(b), _t(counts), ranks)
+    got = tkway.merge_segments(_t(b), _t(counts), starts, rcap=rcap,
+                               tile=tile, seg_tiles=S)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tkway.kway_merge_ref(_t(b), _t(counts), rcap=rcap,
+                             fill=U32_MAX).numpy(), want)
+    tiles, _, _ = _gather_u32(b, counts, rcap, tile)
+    np.testing.assert_array_equal(
+        tkway.sort_tile_rows(tiles).reshape(2, -1)[:, :rcap].numpy(), want)
+
+
+def _gather_u32(b, counts, rcap, tile):
+    """The gather route's tiles of the port, in uint32."""
+    from repro_torch.kernels.kway_merge.ops import gather_tiles
+    tiles = gather_tiles(_t(b), _t(counts), rcap=rcap, tile=tile,
+                         fill=U32_MAX)
+    assert tiles[0].dtype == torch.uint32
+    return tiles
+
+
+def test_kway_merge_rejects_a_fill_below_the_uint32_maximum():
+    b, counts = _case_u32(4, 16, "dups", "random", 1)
+    with pytest.raises(ValueError, match="dtype maximum 4294967295"):
+        tkway.kway_merge(_t(b), _t(counts), rcap=32, tile=8, fill=INT_MAX)
+    with pytest.raises(ValueError, match="int32 and uint32"):
+        tkway.kway_merge(_t(b).to(torch.int64), _t(counts), rcap=32, tile=8,
+                         fill=INT_MAX)
 
 
 def test_segment_size_and_routes():
