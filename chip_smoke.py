@@ -36,14 +36,32 @@ What it does, in order; any failure raises and the exit code is non-zero:
    kernel 3 in uint32 over ``KWAY_EDGES`` (fill 0xFFFFFFFF, keys at and
    past 2^31) and its tile sort; kernels 6 and 7 in bf16 and fp16 at small
    ragged shapes within one output ulp of the plain version (``y`` and
-   ``h`` in the operand's dtype, the final states fp32).  Then (rows
-   ``radix_sort_f32``, ``radix_sort_bf16``, ``kway_splitters_u32``,
-   ``kway_merge_segments_u32``, ``ssd_scan_bf16``, ``lru_scan_bf16``) each
-   at full width on the main path's shapes, driven through its entry point
-   (``ops.sort``, ``kway_merge``, ``ops.ssd_scan``, ``ops.lru_scan``) with
-   the counts reset just before, beside its plain version, its bound and
-   its library call.  Alone: ``python3 chip_smoke.py --dtypes-only`` (the
-   merge rows then on synthesized buckets of round 0's shape).
+   ``h`` in the operand's dtype, the final states fp32); kernel 5 in fp16
+   at the bf16 edge tables (every mask, GQA, decode splits) and at every
+   head dim over strided caches, within one fp16 ulp (2^-13 + 2^-10
+   |plain|), and kernel 5b in fp16 at ``BWD_EDGES`` for output gradients
+   of unit scale and of 2^-16 (``BWD_FP16_TOL``), two runs bit-equal;
+   kernels 2 and 4 on bool, int8, uint8, int16, uint16, fp16 and bf16
+   payloads (ω of 1, 3, 130 and 257; counts of 0, of ω, past ω and
+   negative; fills of None, a value and the type's extremes; with and
+   without a narrow counts payload), bit for bit against the plain
+   version.  Then (rows ``radix_sort_f32``, ``radix_sort_bf16``,
+   ``kway_splitters_u32``, ``kway_merge_segments_u32``,
+   ``deliver_tiles_bf16``, ``deliver_tiles_i8``,
+   ``assemble_proc_tiles_bf16``, ``ssd_scan_bf16``, ``lru_scan_bf16``,
+   ``flash_attention_f16``, ``flash_attention_window_f16``) each at full
+   width on the main path's shapes (the delivery rows at rows 2r's and
+   4's bytes), driven through its entry point (``ops.sort``,
+   ``kway_merge``, ``deliver_fused``, ``assemble_proc_fused``,
+   ``ops.ssd_scan``, ``ops.lru_scan``, ``attend``) with the counts reset
+   just before, beside its plain version, its bound and its library call.
+   Then qwen2-1.5b with ``dtype="float16"`` at full width, cut to its
+   first 8 layers, served (8 prompts of 1024, 64 tokens) and trained (2
+   steps of 8 x 1024 tokens), kernels 5 and 5b launched and the losses
+   finite, and row
+   ``flash_attention_bwd_f16`` at its step's last kernel-5b call.  Alone:
+   ``python3 chip_smoke.py --dtypes-only`` (the merge rows then on
+   synthesized buckets of round 0's shape).
 4. Drives the main path once through ``psrs_sort``: 2^27 int32 keys, v = 16,
    k = 4, the async driver, every kernel on; the output must equal
    ``torch.sort``, and the launch count (reset just before) of every kernel
@@ -292,6 +310,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib
+import itertools
 import json
 import math
 import shutil
@@ -806,6 +825,109 @@ def u32_buckets(b, cnt):
     return b.view(torch.uint32)
 
 
+# Kernels 2 and 4 on 1- and 2-byte payloads: the dtypes and message widths
+# ω (1 and 3 elements: ragged rows, byte or halfword addressing; 130 and
+# 257: several vectors, a ragged tail).
+NARROW_PAYLOADS = (torch.bool, torch.int8, torch.uint8, torch.int16,
+                   torch.uint16, torch.float16, torch.bfloat16)
+NARROW_OMEGAS = (1, 3, 130, 257)
+# Kernel 5 in fp16 beyond the bf16 edge tables, at every head dim the kernel
+# is built for, (b, sq, sk, hq, hkv): a prefill at a q_offset and a decode
+# call whose keys the launch plan splits, each over K and V as strided views
+# of one [B, S, 2, Hkv, d] cache.
+F16_CACHE_EDGES = [(2, 70, 150, 12, 2), (8, 1, 300, 12, 2)]
+
+
+def narrow_fills(dtype):
+    """None, a value and the type's extremes (floats: -inf and NaN too)."""
+    if dtype == torch.bool:
+        return [None, True, False]
+    if dtype.is_floating_point:
+        fi = torch.finfo(dtype)
+        return [None, -1.5, fi.min, fi.max, -math.inf, math.nan]
+    ii = torch.iinfo(dtype)
+    return [None, 5, ii.min, ii.max]
+
+
+def narrow_payload(shape, dtype, gen):
+    """Random bits of ``dtype`` (bool: 0 or 1) on the generator's device."""
+    dev = gen.device
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=gen, device=dev).bool()
+    view = SORT_DTYPES[dtype]
+    width = 8 * view.itemsize
+    return torch.randint(-2**(width - 1), 2**(width - 1), shape,
+                         generator=gen, device=dev,
+                         dtype=torch.int32).to(view).view(dtype)
+
+
+def narrow_delivery_checks(gen, dv) -> int:
+    """Kernels 2 and 4 (``deliver_tiles``, ``assemble_proc_tiles``) on every
+    1- and 2-byte payload at ``NARROW_OMEGAS``: counts of 0, of ω, past ω
+    and negative; each fill of :func:`narrow_fills`, in turn without a
+    counts payload, with one of the payload's dtype and with one of the
+    other width; the bits exactly the plain version's (the CPU path), one
+    launch a call.  Returns the number of calls."""
+    n = 0
+    for dtype, omega in itertools.product(NARROW_PAYLOADS, NARROW_OMEGAS):
+        other = torch.int8 if dtype.itemsize == 2 else torch.int16
+        for shape, fn, counter in (((4, 4), dv.deliver_tiles, "LAUNCHES"),
+                                   ((3, 2, 2), dv.assemble_proc_tiles,
+                                    "ASSEMBLE_LAUNCHES")):
+            msgs = narrow_payload((*shape, omega), dtype, gen)
+            cnt = torch.randint(-2, omega + 3, shape, generator=gen,
+                                device=gen.device, dtype=torch.int32)
+            cnt.view(-1)[:4] = torch.tensor([0, omega, omega + 5, -3],
+                                            device=gen.device)
+            for i, fill in enumerate(narrow_fills(dtype)):
+                cp = (None, narrow_payload(shape, dtype, gen),
+                      narrow_payload(shape, other, gen))[i % 3]
+                what = (f"{fn.__name__} {dtype} ω={omega} fill={fill} "
+                        f"ct={None if cp is None else cp.dtype}")
+                before = getattr(dv, counter)
+                got = fn(msgs, cnt, cp, fill=fill)
+                check(getattr(dv, counter) == before + 1,
+                      f"{what}: one launch")
+                want = fn(msgs.cpu(), cnt.cpu(),
+                          None if cp is None else cp.cpu(), fill=fill)
+                check(got[0].dtype == dtype, f"{what}: dtype")
+                same_bits(got[0], want[0].to(got[0].device), what)
+                if cp is not None:
+                    check(got[1].dtype == cp.dtype, f"{what}: ct dtype")
+                    same_bits(got[1], want[1].to(got[1].device),
+                              what + " counts")
+                n += 1
+    return n
+
+
+def fp16_flash_edge_checks(gen, fa) -> tuple:
+    """Kernel 5 in fp16 at the bf16 edge tables (``flash_edge_checks``) and
+    at ``F16_CACHE_EDGES`` for every head dim, within one fp16 ulp of the
+    plain version; kernel 5 with lse and kernel 5b in fp16 at
+    ``BWD_EDGES`` for output gradients of unit scale and of 2^-16, two runs
+    of 5b bit-equal.  Returns the numbers of forward and backward calls."""
+    n = flash_edge_checks(gen, fa, torch.float16, F16_RTOL, F16_ATOL)
+    for d, (b, sq, sk, hq, hkv) in itertools.product(fa.HEAD_DIMS,
+                                                     F16_CACHE_EDGES):
+        q = torch.randn((b, sq, hq, d), generator=gen,
+                        device=gen.device).half()
+        cache = torch.randn((b, sk + 24, 2, hkv, d), generator=gen,
+                            device=gen.device).half()
+        k, v = cache[:, :sk, 0], cache[:, :sk, 1]
+        off = sk - 8 if sq == 1 else sk - sq - 10
+        kw = dict(causal=True, sk_valid=off + sq, q_offset=off)
+        if sq == 1:
+            splits = fa._plan(fa._sms(q.device), q.dtype, b,
+                              sq * (hq // hkv), hkv, d, sk=sk,
+                              sk_valid=off + 1, q_offset=off)[2]
+            check(splits > 1, f"fp16 decode d={d}: the plan splits the keys")
+        close(fa.attend(q, k, v, **kw), fa.attend_plain(q, k, v, **kw),
+              F16_RTOL, F16_ATOL, f"flash fp16 strided cache d={d} {kw}")
+        n += 1
+    m = bwd_edge_checks(gen, fa, (torch.float16,), (1.0, 2**-16))
+    return n, m
+
+
 def dtype_edge_checks(gen, kern) -> None:
     bs, km = kern["bitonic"], kern["kway"]
     from repro_torch.kernels.bitonic_sort import bitonic_sort
@@ -867,10 +989,15 @@ def dtype_edge_checks(gen, kern) -> None:
             narrow_close(h, h_p, dtype, LRU_TOL, f"lru {dtype} h {shape}")
             close(h_fin, fin_p, LRU_TOL, LRU_TOL,
                   f"lru {dtype} h_fin {shape}")
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    n_fwd, n_bwd = fp16_flash_edge_checks(gen, fa)
+    n_del = narrow_delivery_checks(gen, kern["deliver"])
     print(f"dtype edge checks: {n_sorts} sorts in {len(SORT_DTYPES)} dtypes, "
           f"{len(KWAY_EDGES)} uint32 merges, "
           f"{2 * (len(SSD_NARROW_EDGES) + len(LRU_NARROW_EDGES))} narrow "
-          "scans")
+          f"scans, {n_fwd} fp16 flash calls and {n_bwd} fp16 5b calls, "
+          f"{n_del} narrow deliveries and stagings")
 
 
 def sort_rows_float(gen, bs, k: int, n_v: int, reps: int) -> list:
@@ -934,6 +1061,108 @@ def merge_rows_u32(km, recv, cnt, rcap: int, tile: int, reps) -> list:
     return rows
 
 
+def narrow_delivery_rows(gen, dv, reps: int) -> list:
+    """Kernels 2 and 4 on narrow payloads at the bytes of rows 2r and 4,
+    each driven alone through its entry point (``deliver_fused``,
+    ``assemble_proc_fused``) with its count reset just before, held against
+    its plain version bit for bit and timed beside it, its bound and the one
+    PyTorch call that computes the same function: rows ``deliver_tiles_bf16``
+    (2h: ``[16, 16, 2^22]`` bf16, no fill, the int32 counts transposed, as
+    list ranking's exchange is), ``deliver_tiles_i8`` (2b: ``[16, 16,
+    2^23]`` int8) and ``assemble_proc_tiles_bf16`` (4h: a chunk ``[s 8, P
+    4, d 1, 2^24]`` bf16, 32 messages as row 4's, about a sixteenth of each
+    valid, the rest filled, the counts transposed)."""
+    from repro_torch.kernels.alltoallv_deliver import (assemble_proc_fused,
+                                                       deliver_fused)
+    rows, v, dev = [], 16, gen.device
+    for dtype, omega, tag, row in ((torch.bfloat16, 1 << 22, "bf16", "2h"),
+                                   (torch.int8, 1 << 23, "i8", "2b")):
+        msgs = narrow_payload((v, v, omega), dtype, gen)
+        cp = torch.randint(0, omega + 1, (v, v), generator=gen, device=dev,
+                           dtype=torch.int32)
+        dv.LAUNCHES = 0
+        out, ct = deliver_fused(msgs, None, cp)
+        launches = dv.LAUNCHES
+        check(launches == 1, f"deliver_fused {dtype} launched kernel 2")
+        elems = msgs.view(SORT_DTYPES[dtype]).reshape(v, v * omega)
+        plain_out, plain_ct = torch.empty_like(elems), torch.empty_like(cp)
+
+        def plain():
+            dv.deliver_words_plain(elems, 0, plain_out, 0, v, omega, None, 0,
+                                   None, cp, 0, plain_ct, 0)
+
+        plain()
+        err = max(same_bits(out, plain_out.view(dtype).reshape(out.shape),
+                            f"row {row}"),
+                  same(ct, plain_ct, f"row {row} counts"))
+        del out, ct
+        b_ms, b_by = bound(2 * msgs.numel() * msgs.element_size()
+                           + 2 * 4 * cp.numel())
+        rows.append(dict(
+            name=f"deliver_tiles_{tag}", route="cuda",
+            source="src/repro_torch/csrc/alltoallv_deliver.cu",
+            replaces="src/repro/kernels/alltoallv_deliver/"
+                     "alltoallv_deliver.py:79",
+            launches=launches, max_abs_err=err,
+            ms=cuda_ms(lambda: deliver_fused(msgs, None, cp), reps),
+            plain_ms=cuda_ms(plain, 2),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: msgs.transpose(0, 1).contiguous(),
+                               reps),
+            shape=f"row {row}: [{v}, {v}, {omega}] {tag}, the int32 counts "
+                  "transposed, no fill (whole lanes)"))
+        del msgs, elems, plain_out, plain_ct
+        torch.cuda.empty_cache()
+    s, pn, d, omega, dtype = 8, 4, 1, 1 << 24, torch.bfloat16
+    msgs = narrow_payload((s, pn, d, omega), dtype, gen)
+    cnt = torch.randint(omega // 16 - 4096, omega // 16 + 4096, (s, pn, d),
+                        generator=gen, device=dev, dtype=torch.int32)
+    fill = float(torch.finfo(dtype).max)
+    dv.ASSEMBLE_LAUNCHES = 0
+    out, ct = assemble_proc_fused(msgs, cnt, cnt, fill=fill)
+    launches = dv.ASSEMBLE_LAUNCHES
+    check(launches == 1, "assemble_proc_fused bf16 launched kernel 4")
+    elems = msgs.view(torch.int16).reshape(s, pn * d * omega)
+    fill_bits = int(torch.tensor(fill, dtype=dtype).view(torch.int16))
+    plain_out = torch.empty((pn, d, s, omega), dtype=torch.int16, device=dev)
+    plain_ct = torch.empty((pn, d, s), dtype=torch.int32, device=dev)
+    flat = cnt.reshape(s, pn * d)
+
+    def plain():
+        dv.assemble_words_plain(elems, 0, d, pn, 1, 0, s, 0, d, omega,
+                                plain_out, flat, 0, fill_bits, flat, 0,
+                                plain_ct)
+
+    plain()
+    err = max(same_bits(out, plain_out.view(dtype), "row 4h"),
+              same(ct, plain_ct, "row 4h counts"))
+    del out, ct
+    lane = torch.arange(omega, device=dev)
+    fill_t = torch.tensor(fill, dtype=dtype, device=dev)
+    cnt_t = cnt.permute(1, 2, 0)[..., None]
+    staged = msgs.permute(1, 2, 0, 3)
+    nmsg = s * pn * d
+    valid = int(cnt.clamp(0, omega).sum())
+    b_ms, b_by = bound(2 * (valid + nmsg * omega) + 4 * 3 * nmsg)
+    rows.append(dict(
+        name="assemble_proc_tiles_bf16", route="cuda",
+        source="src/repro_torch/csrc/alltoallv_deliver.cu",
+        replaces="src/repro/kernels/alltoallv_deliver/"
+                 "alltoallv_deliver.py:163",
+        launches=launches, max_abs_err=err,
+        ms=cuda_ms(lambda: assemble_proc_fused(msgs, cnt, cnt, fill=fill),
+                   reps),
+        plain_ms=cuda_ms(plain, 2),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.where(lane < cnt_t, staged, fill_t),
+                           reps),
+        shape=f"row 4h: [s={s}, P={pn}, d={d}, {omega}] bf16, {valid} "
+              "valid, the rest the fill, the int32 counts transposed"))
+    del msgs, elems, plain_out, staged
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_dtypes(dev, args) -> list:
     """``--dtypes-only``: the dtype edge checks and the dtype rows, the
     merge rows on synthesized buckets of round 0's shape ([k, v, n/v]
@@ -951,6 +1180,7 @@ def run_dtypes(dev, args) -> list:
                         generator=gen, device=dev, dtype=torch.int32)
     rows += merge_rows_u32(kern["kway"], recv, cnt, 2 * n_v, 256, args.reps)
     del recv
+    rows += narrow_delivery_rows(gen, kern["deliver"], args.reps)
     rows += lm_dtype_rows(gen, args)
     print_rows(rows)
     return [{key: r[key] for key in r if key != "shape"} for r in rows]
@@ -962,7 +1192,8 @@ def lm_dtype_rows(gen, args) -> list:
     through its entry point (``ops.ssd_scan``, ``ops.lru_scan``) with the
     count reset just before, held against its plain version within one
     bf16 ulp (plus the fp32 checks' tolerance) and timed beside it: rows
-    ``ssd_scan_bf16`` and ``lru_scan_bf16``."""
+    ``ssd_scan_bf16`` and ``lru_scan_bf16``; then kernels 5 and 5b in
+    float16 (:func:`fp16_lm_rows`)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.lru_scan.ops import lru_scan
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -1016,6 +1247,72 @@ def lm_dtype_rows(gen, args) -> list:
         plain_ms=cuda_ms(lambda: ls.lru_chunked_plain(a, x, 256), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=f"a, b [{b}, {s}, {width}] bf16, h bf16, h_fin fp32"))
+    del a, x
+    return rows + fp16_lm_rows(gen, args)
+
+
+# The float16 qwen2-1.5b run: its first layers at full width (the whole
+# script's 1200 s leave it no more), and its training steps of 8 x 1024
+# tokens.
+F16_QWEN_DEPTH = 8
+F16_QWEN_RUN = dict(steps=2, seq=1024, batch=8, microbatches=1)
+
+
+def fp16_lm_rows(gen, args) -> list:
+    """Kernels 5 and 5b in float16.  Rows ``flash_attention_f16`` (5h,
+    qwen2's prefill shape) and ``flash_attention_window_f16`` (5wh,
+    recurrentgemma's windowed prefill at head dim 256), each driven alone
+    through ``attend`` with the count reset just before.  Then qwen2-1.5b
+    with ``dtype="float16"`` (``dataclasses.replace`` of its config, as the
+    JAX package allows) at full width, cut to its first ``F16_QWEN_DEPTH``
+    layers: served through ``Model`` and ``ServeEngine.generate`` (``REQUESTS`` prompts of ``PROMPT_LEN``,
+    ``GEN_LEN`` tokens; kernel 5's count reset just before, above zero
+    after) and trained ``F16_QWEN_RUN`` steps through ``make_train_step``
+    (each step's kernel-5 and 5b counts reset just before and equal to
+    ``step_launches`` after, its loss and gnorm finite); row
+    ``flash_attention_bwd_f16`` (5bh) at the shapes and mask of the last
+    kernel-5b call of its step."""
+    from repro_torch.configs import get_config
+    fa = importlib.import_module(
+        "repro_torch.kernels.flash_attention.flash_attention")
+    f16, dev, reps = torch.float16, gen.device, args.reps
+    rg = get_config("recurrentgemma-2b")
+    rows = [flash_model_row(gen, fa, "flash_attention_f16", "qwen2-1.5b",
+                            None, reps, dtype=f16)[0],
+            flash_model_row(gen, fa, "flash_attention_window_f16",
+                            "recurrentgemma-2b", None, reps,
+                            prompt_len=HYBRID_PROMPT_LEN,
+                            window=rg.local_window, dtype=f16)[0]]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_full(dev, "qwen2-1.5b", ("flash_attention",),
+               {"flash_attention": fa}, args, depth=F16_QWEN_DEPTH,
+               changes=dict(dtype="float16"))
+    clock = KernelClock()
+    try:
+        res = train_full(dev, "qwen2-1.5b", F16_QWEN_RUN, clock, args.seed,
+                         changes=dict(dtype="float16",
+                                      n_layers=F16_QWEN_DEPTH))
+    finally:
+        clock.close()
+    steps = res["steps"]
+    check(all(r["launches"]["5"] > 0 and r["launches"]["5b"] > 0
+              for r in steps), "qwen2-1.5b float16: kernels 5 and 5b "
+                               "launched in every step")
+    print(f"qwen2-1.5b float16 served and trained in "
+          f"{time.perf_counter() - t0:.2f} s; losses "
+          f"{[round(r['loss'], 4) for r in steps]}")
+    row = bwd_row(gen, fa, "flash_attention_bwd_f16", "qwen2-1.5b",
+                  steps[-1], reps)
+    print(f"kernel {row['name']} {row['shape']}: sdpa backward alone "
+          f"{row['library_bwd_ms']:.4f} ms, forward with lse "
+          f"{row['fwd_ms']:.4f} ms (plain {row['fwd_plain_ms']:.4f}, bound "
+          f"{row['fwd_bound_ms']:.4g} ms, library {row['fwd_library_ms']}), "
+          f"max |out - plain| {row['fwd_err'][0]:.3g}")
+    fwd = ("fwd_err", "fwd_plain_ms", "fwd_bound_ms", "fwd_bound_by",
+           "fwd_library_ms")
+    rows.append({key: row[key] for key in row if key not in fwd})
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1362,6 +1659,13 @@ def run(dev: torch.device, args) -> list:
     del got, got_ct
     valid = int(store.field("bscnt").sum())
     b_ms, b_by = bound(4 * (valid + v * v * ww + 3 * v * v))
+    # The one PyTorch call computing the same function: the masked
+    # transpose of the send words, torch.where(lane < counts, msgs^T, fill).
+    msgs_t = data[:, off_s:off_s + v * ww].unflatten(1, (v, ww)).transpose(
+        0, 1)
+    cnt_t = data[:, off_c:off_c + v].transpose(0, 1)[..., None]
+    lane = torch.arange(ww, device=dev)
+    fill_t = torch.tensor(INT_MAX, dtype=torch.int32, device=dev)
     rows.append(dict(
         name="alltoallv_deliver", route="cuda",
         source="src/repro_torch/csrc/alltoallv_deliver.cu",
@@ -1370,8 +1674,11 @@ def run(dev: torch.device, args) -> list:
         launches=launches["alltoallv_deliver"], max_abs_err=err,
         ms=cuda_ms(deliver(dv.deliver_words), reps),
         plain_ms=cuda_ms(deliver(dv.deliver_words_plain), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.where(lane < cnt_t, msgs_t, fill_t),
+                           reps),
         shape=f"v={v}, ww={ww} int32 words, {valid} valid"))
+    del msgs_t, cnt_t
     store = data = result = rcount = oflow = None
 
     # The local sort's input as round 0 of sort_sample sees it: the "data"
@@ -1400,6 +1707,7 @@ def run(dev: torch.device, args) -> list:
     torch.cuda.empty_cache()
 
     rows += sort_rows_float(gen, bs, k, n_v, reps) + dtype_rows
+    rows += narrow_delivery_rows(gen, dv, reps)
     rows.append(run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms))
     del out_p1
     torch.cuda.empty_cache()
@@ -1578,6 +1886,14 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
     cnt = store.field("bscnt").reshape(P, m, P, m)[:, :s, :, :d]
     valid = int(cnt.clamp(0, n_v).sum())
     b_ms, b_by = bound(4 * (valid + nmsg * n_v + 3 * nmsg))
+    # The one PyTorch call computing the same function: torch.where(lane <
+    # counts, the chunk's permuted view [q, p, dl, j, ω], fill).
+    sent = data[:, off_s:off_s + v * n_v].view(P, m, P, m, n_v)
+    sent = sent[:, :s, :, :d].permute(0, 2, 3, 1, 4)
+    sent_cnt = data[:, off_c:off_c + v].view(P, m, P, m)[:, :s, :, :d]
+    sent_cnt = sent_cnt.permute(0, 2, 3, 1)[..., None]
+    lane = torch.arange(n_v, device=dev)
+    fill_t = torch.tensor(INT_MAX, dtype=torch.int32, device=dev)
     row = dict(
         name="assemble_proc_tiles", route="cuda",
         source="src/repro_torch/csrc/alltoallv_deliver.cu",
@@ -1587,9 +1903,12 @@ def run_mesh(dev, args, keys, ref, out_p1, kern, stage_ms_p1) -> dict:
         max_abs_err=err,
         ms=cuda_ms(stage(dv.assemble_words, s, d, out, ct), args.reps),
         plain_ms=cuda_ms(stage(dv.assemble_words_plain, s, d, out, ct), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: torch.where(lane < sent_cnt, sent,
+                                               fill_t), args.reps),
         shape=f"P={P} senders x [s={s}, P={P}, d={d}, ww={n_v}] int32 "
               f"words landing in the recv rows, {valid} valid")
+    del sent, sent_cnt
     buf_ms = cuda_ms(stage(dv.assemble_words, s, d, bufs[0], cts[0]),
                      args.reps)
     print("kernel 4 launches per run: " + ", ".join(
@@ -1693,6 +2012,13 @@ def staging_row(dv, blk, lo, P, k, n_v, launches, reps, where) -> dict:
         valid = int(cnt.clamp(0, n_v).sum())
         nmsg = P * k
         b_ms, b_by = bound(4 * (valid + nmsg * n_v + 3 * nmsg))
+        # The one PyTorch call computing the same function: torch.where
+        # over the chunk's permuted view [p, 1, j, ω].
+        sent = blk[:k, off_s:off_s + P * m * n_v].view(k, P, m, n_v)
+        sent = sent[:, :, :1].permute(1, 2, 0, 3)
+        sent_cnt = cnt[:, :, None].permute(1, 2, 0)[..., None]
+        lane = torch.arange(n_v, device=blk.device)
+        fill_t = torch.tensor(INT_MAX, dtype=torch.int32, device=blk.device)
         return dict(
             name="assemble_proc_tiles_wire", route="cuda",
             source="src/repro_torch/csrc/alltoallv_deliver.cu",
@@ -1701,7 +2027,9 @@ def staging_row(dv, blk, lo, P, k, n_v, launches, reps, where) -> dict:
             launches=launches, max_abs_err=err,
             ms=cuda_ms(stage(dv.assemble_words, 0), reps),
             plain_ms=cuda_ms(stage(dv.assemble_words_plain, 1), 2),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=cuda_ms(lambda: torch.where(lane < sent_cnt, sent,
+                                                   fill_t), reps),
             shape=f"one sender {where}: [P={P}, d=1, s={k}, ww={n_v}] int32 "
                   f"words into the wire buffer, {valid} valid")
 
@@ -1753,7 +2081,7 @@ def run_forced_cards(dev, args, kern) -> None:
         del want, want_words, got, words, pems, store
     print(f"kernel 4x {row['shape']}: {row['ms']:.3f} ms, plain "
           f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})")
+          f"({row['bound_by']}), library {row['library_ms']:.4f} ms")
     print(f"forced cards phase: {time.perf_counter() - t_phase:.2f} s")
 
 
@@ -2105,7 +2433,8 @@ def run_cards(args) -> list:
     cards_collectives(devs, args, gen)
     print(f"kernel 4x {row['shape']}: {row['ms']:.3f} ms, launches "
           f"{row['launches']}, plain {row['plain_ms']:.3f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+          f"{row['library_ms']:.4f} ms")
     print(f"cards phase: {time.perf_counter() - t_phase:.2f} s")
     return [{key: row[key] for key in row if key != "shape"}]
 
@@ -3124,6 +3453,9 @@ def deliver_row(dv, call, tag: str, what: str, launches: int, reps: int):
               same(got_ct, ct[:, ct_off:ct_off + v], f"kernel 2 {what} ct"))
     del got, got_ct
     b_ms, b_by = bound(4 * (2 * v * v * ww + 2 * v * v))
+    # The one PyTorch call computing the same function (no fill): the
+    # transposed copy of the messages.
+    msgs = src[:, src_off:src_off + v * ww].unflatten(1, (v, ww))
     row = dict(
         name=f"alltoallv_deliver_{what}", route="cuda",
         source="src/repro_torch/csrc/alltoallv_deliver.cu",
@@ -3132,12 +3464,13 @@ def deliver_row(dv, call, tag: str, what: str, launches: int, reps: int):
         launches=launches, max_abs_err=err,
         ms=cuda_ms(run(dv.deliver_words), reps),
         plain_ms=cuda_ms(run(dv.deliver_words_plain), 2),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(lambda: msgs.transpose(0, 1).contiguous(), reps),
         shape=f"row {tag}, list ranking's {what}: v={v}, ww={ww} int32 "
               "words, counts transposed, no fill")
     print(f"kernel {row['name']} ({tag}) {row['shape']}: {row['ms']:.4f} ms, "
           f"launches {launches}, plain {row['plain_ms']:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})")
+          f"{b_ms:.4f} ms ({b_by}), library {row['library_ms']:.4f} ms")
     return row
 
 
@@ -3394,6 +3727,13 @@ SSD_EDGES = [(1, 1, 1, 16, 16), (2, 3, 37, 16, 16), (1, 2, 64, 32, 32),
 # bf16 hi + lo, exact to about 2^-16 p): one bf16 ulp of |plain| (at most
 # 2^-7 |plain|) apart, plus the fp32 sums' order near zero.
 BF16_RTOL, BF16_ATOL = 2**-7, 2**-10
+# fp16 the same way: one fp16 ulp (2^-10 |plain|) plus the fp32 sums' order
+# near zero (tests/test_torch_flash_attention.py models both).
+F16_RTOL, F16_ATOL = 2**-10, 2**-13
+HALF_TOL = {torch.bfloat16: (BF16_RTOL, BF16_ATOL),
+            torch.float16: (F16_RTOL, F16_ATOL)}
+DTYPE_TAG = {torch.float32: "fp32", torch.bfloat16: "bf16",
+             torch.float16: "fp16"}
 FP32_ATOL = 1e-5     # only the order of the float sums differs
 SSD_TOL = 1e-4       # |kernel - plain| <= 1e-4 (1 + |plain|), fp32
 LRU_TOL = 1e-5       # |kernel - plain| <= 1e-5 (1 + |plain|), fp32
@@ -3571,8 +3911,9 @@ def glue_check(dev, seed: int) -> None:
 
 def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
                prompt_len: int = PROMPT_LEN, depth: int | None = None,
-               after=None) -> dict:
-    """Serve ``arch`` at full width (bf16, weights from the seed): a short
+               after=None, changes: dict | None = None) -> dict:
+    """Serve ``arch`` at full width (its config's dtype, bf16 unless
+    ``changes``, fields replaced, say so; weights from the seed): a short
     warm-up, then the main run with every kernel's count (``mods``) set to 0
     just before it; each of ``mods[kernels]`` must have launched.  Checks
     the tokens and, on two prompts, the prefill logits with the kernels
@@ -3591,7 +3932,7 @@ def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
     from repro_torch.models import Model
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(changes or {}))
     if depth is not None:
         cfg = dataclasses.replace(cfg, n_layers=depth)
     b, s, g = REQUESTS, prompt_len, GEN_LEN
@@ -3603,7 +3944,7 @@ def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
     cpu_gen = torch.Generator().manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab, (b, s - pre), generator=cpu_gen)
     patches = (torch.randn((b, pre, cfg.d_model), generator=cpu_gen)
-               .to(dev, torch.bfloat16) if pre else None)
+               .to(dev, getattr(torch, cfg.dtype)) if pre else None)
 
     def extra(rows):
         return {"patches": patches[:rows]} if pre else {}
@@ -3657,7 +3998,7 @@ def serve_full(dev, arch: str, kernels: tuple, mods: dict, args,
         cut += (f", expert capacity {moe_groups(cfg, b * s)[2]} prefill, "
                 f"{moe_groups(cfg, b)[2]} decode")
     prompt = f"{pre} patches + {s - pre} tokens" if pre else f"{s}"
-    print(f"serve {arch} ({n_params / 1e9:.3f} B params, bf16{cut}) "
+    print(f"serve {arch} ({n_params / 1e9:.3f} B params, {cfg.dtype}{cut}) "
           f"requests={b} prompt={prompt} generated={g}: prefill "
           f"{res['prefill_ms']:.3f} ms, "
           f"decode {res['decode_ms']:.3f} ms/step (median of {g}), "
@@ -3847,27 +4188,37 @@ def sdpa_mask_fn(q, k, v, window: int = 0, prefix: int = 0):
         qh, kh, vh, attn_mask=mask)
 
 
-def flash_model_row(gen, fa, name: str, arch: str, launches: int, reps: int,
+def flash_model_row(gen, fa, name: str, arch: str, launches, reps: int,
                     prompt_len: int = PROMPT_LEN, window: int = 0,
-                    prefix: int = 0):
-    """Kernel 5 at ``arch``'s prefill (bf16): ``REQUESTS`` × ``prompt_len``
-    queries of its heads over its serve cache, causal, ``sk_valid`` the
-    prompt, with the model's ``window`` or ``prefix`` mask; held against
-    the plain version and timed beside it and the library call.  Returns
-    the row and its ``(q, k, v)``, the cache for a decode row."""
+                    prefix: int = 0, dtype=torch.bfloat16):
+    """Kernel 5 at ``arch``'s prefill (bf16, or ``dtype``): ``REQUESTS`` ×
+    ``prompt_len`` queries of its heads over its serve cache, causal,
+    ``sk_valid`` the prompt, with the model's ``window`` or ``prefix``
+    mask; held against the plain version and timed beside it and the
+    library call.  ``launches`` None: the row's own call through ``attend``
+    with the count reset just before.  Returns the row and its ``(q, k,
+    v)``, the cache for a decode row."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     b, s, g = REQUESTS, prompt_len, GEN_LEN
     cache = s + g + 8
     hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, k, v = flash_inputs(gen, b, s, cache, hq, hkv, d, torch.bfloat16)
+    q, k, v = flash_inputs(gen, b, s, cache, hq, hkv, d, dtype)
     pre = dict(causal=True, sk_valid=s, window=window, prefix=prefix)
-    err = close(fa.attend(q, k, v, **pre), fa.attend_plain(q, k, v, **pre),
-                BF16_RTOL, BF16_ATOL, f"flash {name} prefill")
+    if launches is None:
+        fa.LAUNCHES = 0
+    got = fa.attend(q, k, v, **pre)
+    if launches is None:
+        launches = fa.LAUNCHES
+        check(launches > 0 and got.dtype == dtype,
+              f"{name}: attend launched kernel 5 ({launches})")
+    err = close(got, fa.attend_plain(q, k, v, **pre), *HALF_TOL[dtype],
+                f"flash {name} prefill")
+    del got
     # The keys each query sees: up to max(i, prefix - 1), past i - window.
     seen = sum(max(i, prefix - 1) + 1 - (max(0, i - window + 1) if window
                                           else 0) for i in range(s))
-    b_ms, b_by = bound(2 * (2 * q.numel() + 2 * b * s * hkv * d),
+    b_ms, b_by = bound(q.element_size() * (2 * q.numel() + 2 * b * s * hkv * d),
                        4 * b * hq * d * seen, BF16_FLOPS_PER_S)
     kv = k[:, :s], v[:, :s]
     lib = (sdpa_mask_fn(q, *kv, window, prefix) if window or prefix else
@@ -3882,8 +4233,9 @@ def flash_model_row(gen, fa, name: str, arch: str, launches: int, reps: int,
         ms=cuda_ms(lambda: fa.attend(q, k, v, **pre), reps),
         plain_ms=cuda_ms(lambda: fa.attend_plain(q, k, v, **pre), 2),
         bound_ms=b_ms, bound_by=b_by, library_ms=cuda_ms(lib, reps),
-        shape=f"{arch} prefill q [{b}, {s}, {hq}, {d}] bf16 over a [{b}, "
-              f"{cache}, {hkv}, {d}] cache, causal{masks}, sk_valid {s}")
+        shape=f"{arch} prefill q [{b}, {s}, {hq}, {d}] {DTYPE_TAG[dtype]} "
+              f"over a [{b}, {cache}, {hkv}, {d}] cache, causal{masks}, "
+              f"sk_valid {s}")
     return row, (q, k, v)
 
 
@@ -4108,6 +4460,14 @@ BWD_EDGES = [
 # |plain|): fp32 sums of the same products.
 BWD_FP32_TOL = (1e-4, 1e-5)
 BWD_BF16_TOL = (2**-7, 1e-4)
+# fp16: rtol |plain| + atol max(max |plain|, max |dout|) + 2^-24 (fp16's
+# subnormal spacing): no floor of 1, so an output gradient of 2^-16, whose
+# dS lies below fp16's normal range, is held at its own scale (the kernel
+# scales dS a row by a power of two), and a gradient whose terms cancel at
+# dout's (tests/test_torch_flash_attention.py models it).
+BWD_FP16_TOL = (2**-10, 2**-12, 2**-24)
+BWD_TOL = {torch.float32: BWD_FP32_TOL, torch.bfloat16: BWD_BF16_TOL,
+           torch.float16: BWD_FP16_TOL}
 LSE_TOL = 1e-5
 # A full-width hubert-xlarge layer's gradients with the kernels against the
 # plain path (attention differentiated through attend_plain), fp32 with TF32
@@ -4157,17 +4517,24 @@ LRU_BWD_TOL = (1e-5, 1e-5)
 FIXED_LR = 3e-5
 
 
-def grad_close(got, want, tol, what: str) -> float:
-    """max |got - want| / max(1, max |want|), failing unless every element is
-    within ``rtol |want| + atol max(1, max |want|)``."""
+def grad_close(got, want, tol, what: str, dout=None) -> float:
+    """max |got - want| / scale, failing unless every element is within
+    ``rtol |want| + atol scale``, scale ``max(1, max |want|)``; a tolerance
+    of three, ``(rtol, atol, floor)`` (fp16's), takes scale ``max(max
+    |want|, max |dout|)`` and adds ``floor``."""
     torch.cuda.synchronize()
-    rtol, atol = tol
+    rtol, atol, *floor = tol
     check(got.shape == want.shape, f"{what}: shapes {got.shape} vs "
                                    f"{want.shape}")
     want = want.float()
     diff = (got.float() - want).abs()
-    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
-    ok = bool((diff <= rtol * want.abs() + atol * scale).all())
+    top = float(want.abs().max()) if want.numel() else 0.0
+    if floor:
+        scale = max(top, float(dout.abs().max()), floor[0])
+        floor = floor[0]
+    else:
+        scale, floor = max(1.0, top), 0.0
+    ok = bool((diff <= rtol * want.abs() + atol * scale + floor).all())
     err = float(diff.max()) / scale if diff.numel() else 0.0
     check(ok and math.isfinite(err), f"{what}: max |kernel - plain| = "
                                      f"{err * scale} (scale {scale})")
@@ -4265,7 +4632,7 @@ def fwd_lse_check(fa, q, k, v, kw: dict, what: str):
     if q.dtype == torch.float32:
         e_out = close(out, out_p, 0, FP32_ATOL, f"{what} out")
     else:
-        e_out = close(out, out_p, BF16_RTOL, BF16_ATOL, f"{what} out")
+        e_out = close(out, out_p, *HALF_TOL[q.dtype], f"{what} out")
     live = torch.isfinite(lse_p)
     check(torch.equal(live, torch.isfinite(lse)),
           f"{what}: lse +inf on the same rows")
@@ -4273,23 +4640,25 @@ def fwd_lse_check(fa, q, k, v, kw: dict, what: str):
     return out, lse, (e_out, e_lse)
 
 
-def bwd_edge_checks(gen, fa) -> int:
+def bwd_edge_checks(gen, fa, dtypes=(torch.float32, torch.bfloat16),
+                    dout_scales=(1.0,)) -> int:
     """Kernel 5 with lse and kernel 5b against their plain versions at
-    ``BWD_EDGES`` in fp32 and bf16; kernel 5b twice gives the same bits.
+    ``BWD_EDGES`` in ``dtypes`` (``BWD_TOL``), with output gradients of
+    ``dout_scales`` times unit scale; kernel 5b twice gives the same bits.
     Returns the number of cases."""
     n = 0
-    for dtype, tol in ((torch.float32, BWD_FP32_TOL),
-                       (torch.bfloat16, BWD_BF16_TOL)):
-        for b, sq, sk, hq, hkv, d, kw in BWD_EDGES:
+    for dtype in dtypes:
+        for (b, sq, sk, hq, hkv, d, kw), dsc in itertools.product(
+                BWD_EDGES, dout_scales):
             q, k, v = flash_inputs(gen, b, sq, sk, hq, hkv, d, dtype)
-            dout = torch.randn((b, sq, hq, d), generator=gen,
-                               device=gen.device).to(dtype)
-            what = f"5b {dtype} {b, sq, sk, hq, hkv, d} {kw}"
+            dout = (torch.randn((b, sq, hq, d), generator=gen,
+                                device=gen.device) * dsc).to(dtype)
+            what = f"5b {dtype} {b, sq, sk, hq, hkv, d} {kw} dout x {dsc}"
             out, lse, _ = fwd_lse_check(fa, q, k, v, kw, what)
             got = fa.attend_backward(q, k, v, out, dout, lse, **kw)
             want = fa.attend_backward_plain(q, k, v, out, dout, **kw)
             for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                grad_close(g, w, tol, f"{what} {name}")
+                grad_close(g, w, BWD_TOL[dtype], f"{what} {name}", dout)
             again = fa.attend_backward(q, k, v, out, dout, lse, **kw)
             check(all(torch.equal(a, c) for a, c in zip(got, again)),
                   f"{what}: two runs of kernel 5b give equal bits")
@@ -4575,8 +4944,9 @@ def describe_mixers(cfg) -> str:
 
 
 def train_full(dev, arch: str, run: dict, clock, seed: int,
-               fixed_steps: int = 0) -> dict:
-    """``arch`` whole at full width (bf16, random weights from ``seed``):
+               fixed_steps: int = 0, changes: dict | None = None) -> dict:
+    """``arch`` whole at full width (its config's dtype, bf16 unless
+    ``changes``, fields replaced, say so; random weights from ``seed``):
     ``run["steps"]`` steps of the synthetic pipeline's batches through the
     training API ``launch.train`` drives (``Model``, ``init_train_state``,
     ``make_train_step``, ``synthetic_batches``), then, with
@@ -4587,7 +4957,7 @@ def train_full(dev, arch: str, run: dict, clock, seed: int,
     from repro_torch.models import Model
     from repro_torch.optim import OptConfig
     from repro_torch.train import TrainConfig
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(changes or {}))
     reset_peak()
     model = Model(cfg, device=dev, seed=seed)
     n_params = sum(p.numel() for p in model.parameters())
@@ -4787,8 +5157,7 @@ def bwd_row(gen, fa, name: str, arch: str, step: dict, reps: int) -> dict:
     out, lse, (e_out, e_lse) = fwd_lse_check(fa, q, k, v, kw, name)
     got = fa.attend_backward(q, k, v, out, dout, lse, **kw)
     want = fa.attend_backward_plain(q, k, v, out, dout, **kw)
-    tol = BWD_BF16_TOL if dtype == torch.bfloat16 else BWD_FP32_TOL
-    err = max(grad_close(g, w, tol, f"{name} {nm}")
+    err = max(grad_close(g, w, BWD_TOL[dtype], f"{name} {nm}", dout)
               for nm, g, w in zip(("dq", "dk", "dv"), got, want))
     del got, want
     # The pairs (query, key) the mask lets through: query i sees keys up
@@ -4799,9 +5168,8 @@ def bwd_row(gen, fa, name: str, arch: str, step: dict, reps: int) -> dict:
     # Read q, k, v, out, dout and lse once; write dq, dk and dv once.
     nbytes = (q.element_size() * (4 * q.numel() + 4 * k.numel())
               + 4 * lse.numel())
-    b_ms, b_by = bound(nbytes, 5 * 2 * b * hq * d * pairs,
-                       BF16_FLOPS_PER_S if dtype == torch.bfloat16
-                       else FP32_FLOPS_PER_S)
+    rate = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    b_ms, b_by = bound(nbytes, 5 * 2 * b * hq * d * pairs, rate)
     qh = q.transpose(1, 2).contiguous().requires_grad_(True)
     kh, vh = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
               .contiguous().requires_grad_(True) for t in (k, v))
@@ -4828,10 +5196,9 @@ def bwd_row(gen, fa, name: str, arch: str, step: dict, reps: int) -> dict:
     # attention op (no mask argument: rows without a prefix or window).
     fwd_b_ms, fwd_b_by = bound(
         q.element_size() * (2 * q.numel() + 2 * k.numel()) + 4 * lse.numel(),
-        2 * 2 * b * hq * d * pairs,
-        BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S)
+        2 * 2 * b * hq * d * pairs, rate)
     fwd_lib_ms = None
-    if not (prefix or window) and dtype == torch.bfloat16:
+    if not (prefix or window) and dtype != torch.float32:
         qd, kd, vd = (t.detach() for t in (qh, kh, vh))
         fwd_lib_ms = cuda_ms(
             lambda: torch.ops.aten._scaled_dot_product_flash_attention(
@@ -4840,7 +5207,7 @@ def bwd_row(gen, fa, name: str, arch: str, step: dict, reps: int) -> dict:
     masks = "causal" if causal else "non-causal"
     masks += f", prefix {prefix}" if prefix else ""
     masks += f", window {window}" if window else ""
-    kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+    kind = DTYPE_TAG[dtype]
     row = dict(
         name=name, route="cuda",
         source="src/repro_torch/csrc/flash_attention_bwd.cu",

@@ -42,18 +42,23 @@
 // tensor cores; recurrentgemma's windowed prefill (B 8, 3072 positions, 10
 // query heads of 256, window 2048) 344 GFLOP, 0.348 ms.
 //
-// bf16: flash_mma_kernel, on the tensor cores.  Each of 4 warps owns 16 query
-// rows of a 64-row tile (prefill).  S = Q K^T is mma.sync m16n8k16 (bf16 in,
-// fp32 sums) with Q and K fragments read by ldmatrix (K row-major is the
+// bf16 and fp16: flash_mma_kernel, on the tensor cores, one template built
+// for each (mma.sync's .bf16 or .f16 operands).  Each of 4 warps owns 16 query
+// rows of a 64-row tile (prefill).  S = Q K^T is mma.sync m16n8k16 (16-bit
+// in, fp32 sums) with Q and K fragments read by ldmatrix (K row-major is the
 // column-major B operand); S is scaled in fp32 after the product, never by a
-// pre-scaled bf16 Q.  Row max and row sum use the quad shuffles of the m16n8
+// pre-scaled 16-bit Q.  Row max and row sum use the quad shuffles of the m16n8
 // accumulator layout and exp2f on log2(e)-scaled scores.  P goes from the S
 // accumulators straight into A fragments (the C and A layouts of m16n8k16
 // agree), and O += P V takes V by ldmatrix.trans.  P is split into hi =
 // bf16(p) and lo = bf16(p - hi), two products into one fp32 accumulator: the
 // residual is about 2^-16 p, so the output still differs from the fp32 plain
 // version by the final rounding to bf16 alone (a P rounded once would add up
-// to 2^-8 max|v|); l sums the fp32 p.  K/V tiles stream through a 2-stage
+// to 2^-8 max|v|); l sums the fp32 p.  In fp16 hi + lo is p to about 2^-22
+// down to p = 2^-14, where fp16 turns subnormal: a smaller p errs by 2^-25 at
+// most, and the largest p of a row is 1, so the output (p v summed, over l >=
+// 1) still differs by its final rounding alone (modelled against the card's
+// fp16 tolerance in tests/test_torch_flash_attention.py).  K/V tiles stream through a 2-stage
 // ring of cp.async.cg 16-byte copies, tile j + 1 in flight while tile j is
 // computed; keys past the range are zero-filled (src-size 0), so a masked key
 // never holds NaN.  Shared rows are padded by 16 bytes, so the 8 row addresses
@@ -77,8 +82,8 @@
 // 8-column output tiles on the tensor cores, 2-column accumulator groups in
 // the FMA kernel.  For training, either kernel (or, when the keys are split,
 // the merge) also writes each row's natural log-sum-exp lse = m + log l of the
-// scaled, masked scores (the bf16 kernel's m and l are in log2 units and are
-// converted); the backward, flash_attention_bwd.cu, rebuilds P = e^(s - lse)
+// scaled, masked scores (the tensor-core kernel's m and l are in log2 units
+// and are converted); the backward, flash_attention_bwd.cu, rebuilds P = e^(s - lse)
 // from it without a second softmax.
 
 #include <math.h>
@@ -273,12 +278,14 @@ flash_kernel(const T* __restrict__ q, Strides qs, const T* __restrict__ k, Strid
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16) fed by cp.async and ldmatrix.
+// bf16 and fp16: tensor cores (mma.sync m16n8k16) fed by cp.async and
+// ldmatrix.
 // ---------------------------------------------------------------------------
 
-// The tensor-core kernel's tiles: BQ query rows (4 warps of 16 in prefill; one
-// m16 tile that all 4 warps share in decode), BK keys a K/V stage, KW of them
-// each warp's (decode: a quarter each), NS stages, rows padded to RS elements.
+// The tensor-core kernel's tiles, of 16-bit elements: BQ query rows (4 warps
+// of 16 in prefill; one m16 tile that all 4 warps share in decode), BK keys a
+// K/V stage, KW of them each warp's (decode: a quarter each), NS stages, rows
+// padded to RS elements.
 template <int D, int BK, bool DECODE>
 struct MmaTile {
   static constexpr int BQ = DECODE ? 16 : 64;
@@ -286,20 +293,21 @@ struct MmaTile {
   static constexpr int NS = 2;
   static constexpr int RS = D + 8;          // 16 bytes of padding a row
   static constexpr bool QREG = D <= 128;    // Q's fragments held in registers
-  static constexpr size_t kSmemBytes = sizeof(bf16) * (BQ + 2 * NS * BK) * RS;
+  static constexpr size_t kSmemBytes = sizeof(uint16_t) * (BQ + 2 * NS * BK) * RS;
   // Decode's merge, in the K/V stages: [4 warps][16 rows][D + 8] fp32 of acc
   // and [4][16] (m, l).
   static constexpr int MS = D + 8;
   static constexpr size_t kMergeBytes = sizeof(float) * 4 * 16 * (MS + 2);
   static_assert(D % 16 == 0 && KW % 16 == 0 && BK * (D / 8) % kThreads == 0, "tile");
-  static_assert(!DECODE || kMergeBytes <= sizeof(bf16) * 2 * NS * BK * RS, "merge");
+  static_assert(!DECODE || kMergeBytes <= sizeof(uint16_t) * 2 * NS * BK * RS, "merge");
 };
 
+template <typename T>
 struct MmaArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* o;
+  const T* q;
+  const T* k;
+  const T* v;
+  T* o;
   float* part;
   float* lse;
   Strides qs, ks, vs, os;
@@ -308,8 +316,8 @@ struct MmaArgs {
   float scale;
 };
 
-template <int D, int BK, bool DECODE>
-__global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
+template <typename T, int D, int BK, bool DECODE>
+__global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs<T> a) {
   using L = MmaTile<D, BK, DECODE>;
   constexpr int BQ = L::BQ, KW = L::KW, NS = L::NS, RS = L::RS;
   constexpr int NT = KW / 8;   // 8-key tiles of a warp's scores
@@ -317,9 +325,9 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
   constexpr int KS = D / 16;   // 16-deep steps of Q K^T
   constexpr int CH = D / 8;    // 16-byte chunks of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BQ][RS]
-  bf16* sK = sQ + BQ * RS;                        // [NS][BK][RS]
-  bf16* sV = sK + NS * BK * RS;                   // [NS][BK][RS]
+  T* sQ = reinterpret_cast<T*>(smem_raw);   // [BQ][RS]
+  T* sK = sQ + BQ * RS;                     // [NS][BK][RS]
+  T* sV = sK + NS * BK * RS;                // [NS][BK][RS]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
@@ -331,8 +339,8 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
   const int64_t rows = a.sq * group;
   const int64_t r0 = tile * BQ;
   const int64_t r_end = r0 + BQ < rows ? r0 + BQ : rows;
-  const bf16* kb = a.k + b * a.ks.b + hk * a.ks.h;
-  const bf16* vb = a.v + b * a.vs.b + hk * a.vs.h;
+  const T* kb = a.k + b * a.ks.b + hk * a.ks.h;
+  const T* vb = a.v + b * a.vs.b + hk * a.vs.h;
   int64_t k_lo, k_hi;
   key_range<BK>(r0, r_end, split, a.split_len, a.sk, group, a.sk_valid, q_offset, causal,
                 window, a.prefix, k_lo, k_hi);
@@ -343,15 +351,15 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
     const int rr = e / CH, c = e % CH;
     const int64_t r = r0 + rr;
     const bool ok = r < rows;
-    const bf16* src =
+    const T* src =
         ok ? a.q + b * a.qs.b + (r / group) * a.qs.s + (hk * group + r % group) * a.qs.h + c * 8
            : a.q;
     cp_async16(smem_addr(sQ + rr * RS + c * 8), src, ok);
   }
   auto load_kv = [&](int t) {
     const int64_t k0 = k_lo + static_cast<int64_t>(t) * BK;
-    bf16* dk = sK + (t % NS) * BK * RS;
-    bf16* dv = sV + (t % NS) * BK * RS;
+    T* dk = sK + (t % NS) * BK * RS;
+    T* dv = sV + (t % NS) * BK * RS;
 #pragma unroll 4
     for (int e = tid; e < BK * CH; e += kThreads) {
       const int j = e / CH, c = e % CH;
@@ -415,8 +423,8 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
       continue;
     const bool full = k0 + KW <= k_hi && (!causal || k0 + KW - 1 <= cl_lo) &&
                       (window <= 0 || k0 > pos_hi - window);
-    const bf16* kt = sK + (t % NS) * BK * RS + kw * RS;
-    const bf16* vt = sV + (t % NS) * BK * RS + kw * RS;
+    const T* kt = sK + (t % NS) * BK * RS + kw * RS;
+    const T* vt = sV + (t % NS) * BK * RS + kw * RS;
 
     float s[NT][4];
 #pragma unroll
@@ -434,8 +442,8 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t kf[4];
         ldsm_x4(kf, k_addr + (np * 16 * RS + kk * 16) * 2);
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
+        mma16<T>(s[2 * np], qa, kf[0], kf[1]);
+        mma16<T>(s[2 * np + 1], qa, kf[2], kf[3]);
       }
     }
 
@@ -490,25 +498,22 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
       acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
     }
 
-    // O += P V, P as bf16 hi + lo straight from the S accumulators: the A
+    // O += P V, P as hi + lo straight from the S accumulators: the A
     // fragment of keys [16 kt, 16 kt + 16) is the C fragments of 8-key tiles
     // 2 kt and 2 kt + 1.
     const uint32_t v_addr = smem_addr(vt + v_row);
 #pragma unroll
     for (int kt2 = 0; kt2 < KW / 16; ++kt2) {
       uint32_t ph[4], pl[4];
-      split_bf16(s[2 * kt2][0], s[2 * kt2][1], ph[0], pl[0]);
-      split_bf16(s[2 * kt2][2], s[2 * kt2][3], ph[1], pl[1]);
-      split_bf16(s[2 * kt2 + 1][0], s[2 * kt2 + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kt2 + 1][2], s[2 * kt2 + 1][3], ph[3], pl[3]);
+      split_frag<T>(s[2 * kt2], s[2 * kt2 + 1], ph, pl);
 #pragma unroll
       for (int dp = 0; dp < D / 16; ++dp) {
         uint32_t vf[4];
         ldsm_x4_t(vf, v_addr + (kt2 * 16 * RS + dp * 16) * 2);
-        mma_bf16(acc[2 * dp], ph, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp], pl, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], ph, vf[2], vf[3]);
-        mma_bf16(acc[2 * dp + 1], pl, vf[2], vf[3]);
+        mma16<T>(acc[2 * dp], ph, vf[0], vf[1]);
+        mma16<T>(acc[2 * dp], pl, vf[0], vf[1]);
+        mma16<T>(acc[2 * dp + 1], ph, vf[2], vf[3]);
+        mma16<T>(acc[2 * dp + 1], pl, vf[2], vf[3]);
       }
     }
   }
@@ -542,11 +547,11 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
         a.lse[(b * gridDim.y * group + hk * group + r % group) * a.sq + r / group] =
             l[i] == 0.f ? INFINITY : (m[i] + log2f(l[i])) * kLn2;
       const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-      bf16* orow = a.o + b * a.os.b + (r / group) * a.os.s + (hk * group + r % group) * a.os.h;
+      T* orow = a.o + b * a.os.b + (r / group) * a.os.s + (hk * group + r % group) * a.os.h;
 #pragma unroll
       for (int n = 0; n < DT; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + tig * 2) =
-            __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+        *reinterpret_cast<uint32_t*>(orow + n * 8 + tig * 2) =
+            pack2<T>(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
     }
   } else {
     // The 4 warps' (m, l, acc) of the same 16 rows, merged in shared memory.
@@ -599,7 +604,7 @@ __global__ void __launch_bounds__(kThreads) flash_mma_kernel(const MmaArgs a) {
         }
       } else {
         a.o[b * a.os.b + (r / group) * a.os.s + (hk * group + r % group) * a.os.h + c] =
-            __float2bfloat16(num / (den == 0.f ? 1.f : den));
+            from_f<T>(num / (den == 0.f ? 1.f : den));
         if (a.lse != nullptr && c == 0)
           a.lse[(b * gridDim.y * group + hk * group + r % group) * a.sq + r / group] =
               den == 0.f ? INFINITY : (top + log2f(den)) * kLn2;
@@ -693,18 +698,18 @@ cudaError_t run_fma(const Call& c) {
   return err != cudaSuccess ? err : combine<float>(c);
 }
 
-template <int D, int BK, bool DECODE>
+template <typename T, int D, int BK, bool DECODE>
 cudaError_t run_mma(const Call& c) {
   using L = MmaTile<D, BK, DECODE>;
-  auto* kern = flash_mma_kernel<D, BK, DECODE>;
+  auto* kern = flash_mma_kernel<T, D, BK, DECODE>;
   static bool done[64] = {};
   cudaError_t err = allow_smem(kern, L::kSmemBytes, c.device, done);
   if (err != cudaSuccess) return err;
-  MmaArgs a;
-  a.q = static_cast<const bf16*>(c.q);
-  a.k = static_cast<const bf16*>(c.k);
-  a.v = static_cast<const bf16*>(c.v);
-  a.o = static_cast<bf16*>(c.o);
+  MmaArgs<T> a;
+  a.q = static_cast<const T*>(c.q);
+  a.k = static_cast<const T*>(c.k);
+  a.v = static_cast<const T*>(c.v);
+  a.o = static_cast<T*>(c.o);
   a.part = c.splits > 1 ? c.part : nullptr;
   a.lse = c.splits > 1 ? nullptr : c.lse;  // with splits the merge writes it
   a.qs = c.qs; a.ks = c.ks; a.vs = c.vs; a.os = c.os;
@@ -717,15 +722,44 @@ cudaError_t run_mma(const Call& c) {
             static_cast<unsigned>(c.batch));
   kern<<<grid, kThreads, L::kSmemBytes, c.stream>>>(a);
   err = cudaGetLastError();
-  return err != cudaSuccess ? err : combine<bf16>(c);
+  return err != cudaSuccess ? err : combine<T>(c);
 }
 
+// The tensor-core kernel's tiles, in T: 16 rows (decode) over 64-key tiles for
+// every head dim; 64 rows over 64-key tiles for prefill, and at head dim 256
+// over 32- or 64-key tiles.
+template <typename T>
+cudaError_t dispatch_mma(int64_t bq, int64_t bk, const Call& c) {
+  const int64_t d = c.d;
+#define REPRO_FLASH_MMA(DV, BKV, DEC) \
+  if (d == DV && bk == BKV && bq == (DEC ? 16 : 64)) return run_mma<T, DV, BKV, DEC>(c);
+  REPRO_FLASH_MMA(16, 64, true) REPRO_FLASH_MMA(16, 64, false)
+  REPRO_FLASH_MMA(32, 64, true) REPRO_FLASH_MMA(32, 64, false)
+  REPRO_FLASH_MMA(64, 64, true) REPRO_FLASH_MMA(64, 64, false)
+  REPRO_FLASH_MMA(80, 64, true) REPRO_FLASH_MMA(80, 64, false)
+  REPRO_FLASH_MMA(128, 64, true) REPRO_FLASH_MMA(128, 64, false)
+  REPRO_FLASH_MMA(256, 64, true) REPRO_FLASH_MMA(256, 32, false)
+  REPRO_FLASH_MMA(256, 64, false)
+#undef REPRO_FLASH_MMA
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// The fp16 instantiations are an object of their own, this source built again
+// with REPRO_FLASH_F16 defined (kernels/_build.py's SPLIT), so that they
+// compile beside the fp32 and bf16 ones; the entry hands them an fp16 call.
+#ifdef REPRO_FLASH_F16
+extern "C" int repro_flash_attention_f16(int64_t bq, int64_t bk, const void* call) {
+  return static_cast<int>(dispatch_mma<f16>(bq, bk, *static_cast<const Call*>(call)));
+}
+#else
+extern "C" int repro_flash_attention_f16(int64_t bq, int64_t bk, const void* call);
+
 // The tiles built.  fp32: key tile 32; 16 query rows (RT 1) for every head
-// dim, and for prefill 64 (RT 4) up to 128 and 32 (RT 2) at 256.  bf16: 16
-// rows (decode) over 64-key tiles for every head dim; 64 rows over 64-key
-// tiles for prefill, and at head dim 256 over 32- or 64-key tiles.  Head dims
-// 16, 32, 64, 80, 128 and 256.
-cudaError_t dispatch(int64_t dtype, int64_t bq, int64_t bk, const Call& c) {
+// dim, and for prefill 64 (RT 4) up to 128 and 32 (RT 2) at 256.  bf16 and
+// fp16: dispatch_mma's.  Head dims 16, 32, 64, 80, 128 and 256.
+static cudaError_t dispatch(int64_t dtype, int64_t bq, int64_t bk, const Call& c) {
   const int64_t d = c.d;
   if (dtype == 0 && bk == kBK) {
 #define REPRO_FLASH_FMA(DV, RTV) \
@@ -738,27 +772,19 @@ cudaError_t dispatch(int64_t dtype, int64_t bq, int64_t bk, const Call& c) {
     REPRO_FLASH_FMA(256, 1) REPRO_FLASH_FMA(256, 2)
 #undef REPRO_FLASH_FMA
   } else if (dtype == 1) {
-#define REPRO_FLASH_MMA(DV, BKV, DEC) \
-  if (d == DV && bk == BKV && bq == (DEC ? 16 : 64)) return run_mma<DV, BKV, DEC>(c);
-    REPRO_FLASH_MMA(16, 64, true) REPRO_FLASH_MMA(16, 64, false)
-    REPRO_FLASH_MMA(32, 64, true) REPRO_FLASH_MMA(32, 64, false)
-    REPRO_FLASH_MMA(64, 64, true) REPRO_FLASH_MMA(64, 64, false)
-    REPRO_FLASH_MMA(80, 64, true) REPRO_FLASH_MMA(80, 64, false)
-    REPRO_FLASH_MMA(128, 64, true) REPRO_FLASH_MMA(128, 64, false)
-    REPRO_FLASH_MMA(256, 64, true) REPRO_FLASH_MMA(256, 32, false)
-    REPRO_FLASH_MMA(256, 64, false)
-#undef REPRO_FLASH_MMA
+    return dispatch_mma<bf16>(bq, bk, c);
+  } else if (dtype == 2) {
+    return static_cast<cudaError_t>(repro_flash_attention_f16(bq, bk, &c));
   }
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
 // Attention of q [batch, sq, hq, d] over k, v [batch, sk, hkv, d] into
 // o [batch, sq, hq, d]; each tensor given by its pointer and its batch,
-// position and head strides in elements (d contiguous; for bf16 the pointers
-// 16-byte aligned and the strides multiples of 8).  dtype 0 is fp32, 1 is
-// bf16; hq is a multiple of hkv; window 0 is none; prefix 0 is none (with causal,
+// position and head strides in elements (d contiguous; for bf16 and fp16 the
+// pointers 16-byte aligned and the strides multiples of 8).  dtype 0 is fp32,
+// 1 is bf16, 2 is fp16 (kernels/_build.py's FLOAT_KINDS); hq is a multiple of
+// hkv; window 0 is none; prefix 0 is none (with causal,
 // the queries also see the keys before prefix).  (bq, bk) is the tile of
 // query rows and keys, one of those `dispatch` lists.  The keys from the bk
 // tile holding max(0, q_offset - window + 1) (0 without a window) are cut
@@ -797,3 +823,4 @@ extern "C" int repro_flash_attention(
   c.stream = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dispatch(dtype, bq, bk, c));
 }
+#endif  // REPRO_FLASH_F16

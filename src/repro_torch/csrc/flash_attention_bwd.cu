@@ -34,10 +34,11 @@
 // written in the inputs' type.  S and dP are built in both passes: seven
 // products against the function's five.
 //
-// bf16: every product on the tensor cores (the first port's fp32 FMA ran
-// at 16.5 TFLOP/s at head dim 80 and 2.6 at 256, 1.2 % and 0.3 % of the
-// bound), mma.sync m16n8k16 (bf16 in, fp32 sums) with operands read by
-// ldmatrix from bf16 shared rows padded by 16 bytes (the 8 row addresses
+// bf16 and fp16 (one template, built for each): every product on the tensor
+// cores (the first port's fp32 FMA ran at 16.5 TFLOP/s at head dim 80 and 2.6
+// at 256, 1.2 % and 0.3 % of the bound), mma.sync m16n8k16 (16-bit in, fp32
+// sums) with operands read by ldmatrix from 16-bit shared rows padded by 16
+// bytes (the 8 row addresses
 // of an ldmatrix fall on distinct banks), so nothing is widened or
 // transposed on its way in.  The dK/dV pass computes the transposed scores,
 // S^T = K Q^T and dP^T = V dO^T, with K and V as the A operand and Q and
@@ -50,12 +51,18 @@
 // side (Q and dO with their lse and D; K and V) arrives through a 2-stage
 // ring of cp.async copies, tile j + 1 in flight while tile j is computed;
 // rows and keys past the range are zero-filled (src-size 0), so nothing
-// masked holds NaN.  P and dS enter their products as bf16 hi + lo (two
-// products into one fp32 sum, exact to about 2^-16): rounded once, either
-// alone takes the gradients out of the card's bf16 tolerance
+// masked holds NaN.  P and dS enter their products as 16-bit hi + lo (two
+// products into one fp32 sum, exact to about 2^-16 in bf16): rounded once,
+// either alone takes the gradients out of the card's bf16 tolerance
 // (tests/test_torch_flash_attention.py models both), so the three gradient
 // products cost two units each: ten product-units in all, against the
-// bound's five.  P = 2^(S scale log2 e - lse log2 e) in fp32, scaled after
+// bound's five.  In fp16 dS is scaled by a power of two before its split
+// (flash_common.cuh's scale_rows): by 2^e a row of the split operand (a query
+// row in the dQ pass, a key in the dK/dV pass), e from the largest |dS| the
+// row has met, so that dS, which follows the size of dO and can sit wholly
+// below fp16's normal range (2^-14), keeps 22 bits; the row's sums are
+// rescaled when e falls and the scale comes out before the gradient is
+// rounded.  P, at most 1, is split as it is (as the forward splits it).  P = 2^(S scale log2 e - lse log2 e) in fp32, scaled after
 // the product.  Only tiles that straddle the causal diagonal, the prefix,
 // the window's edge, sk_valid or the rows' end compare positions; tiles no
 // row sees are skipped.  wgmma, TMA and warp specialisation are later work.
@@ -174,8 +181,8 @@ struct Args {
   int64_t batch, sq, sk, hq, hkv, group, sk_valid, q_offset, window, prefix;
   int causal, d;
   float scale;
-  // bf16 at head dim 256: the dK/dV pass's row slices, and (slices > 1) its
-  // fp32 partial sums [2 (dK, dV)][slices][batch][sk][hkv][256].
+  // bf16 and fp16 at head dim 256: the dK/dV pass's row slices, and (slices
+  // > 1) its fp32 partial sums [2 (dK, dV)][slices][batch][sk][hkv][256].
   int slices;
   float* part;
 };
@@ -490,7 +497,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16) fed by cp.async and ldmatrix.
+// bf16 and fp16: tensor cores (mma.sync m16n8k16) fed by cp.async and
+// ldmatrix.
 // ---------------------------------------------------------------------------
 
 // Row r of a KV head's group (position-major) is position r / group of query
@@ -506,7 +514,8 @@ __device__ __forceinline__ int64_t row_head(int64_t r, int64_t group) {
 // The tensor-core passes' tiles: a block's 64 keys (dK/dV) or 64 query rows
 // (dQ), 16 a warp; the other side's 64-row (64-key) tiles in an NS-stage
 // ring; the dK/dV pass takes a ring tile SUB rows at a time, and the dQ pass
-// holds Q's and dO's fragments in registers when QREG.  Rows padded to RS.
+// holds Q's and dO's fragments in registers when QREG.  Rows of 16-bit
+// elements padded to RS.
 template <int D>
 struct BwdTile {
   static constexpr int BT = 64;
@@ -517,7 +526,7 @@ struct BwdTile {
   // K, V and the ring of Q and dO tiles with their lse and D (dK/dV pass);
   // Q, dO and the ring of K and V tiles (dQ pass).
   static constexpr size_t kSmemBytes =
-      sizeof(bf16) * (2 + 2 * NS) * BT * RS + sizeof(float) * 2 * NS * BT;
+      sizeof(uint16_t) * (2 + 2 * NS) * BT * RS + sizeof(float) * 2 * NS * BT;
   static_assert(D % 16 == 0 && BT * (D / 8) % kThreads == 0 && BT % SUB == 0, "tile");
 };
 
@@ -536,7 +545,7 @@ __device__ __forceinline__ bool sees_all(int64_t p_lo, int64_t p_hi, int64_t k0,
          (window <= 0 || k0 > p_hi - window);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(const Args a) {
   using L = BwdTile<D>;
   constexpr int BT = L::BT, NS = L::NS, RS = L::RS, SUB = L::SUB;
@@ -545,10 +554,10 @@ __global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(const Args a) {
   constexpr int DT = D / 8;     // 8-column tiles of dK and dV
   constexpr int NT = SUB / 8;   // 8-row tiles of a sub-step's S^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);               // [BT][RS]
-  bf16* sV = sK + BT * RS;                                    // [BT][RS]
-  bf16* sQ = sV + BT * RS;                                    // [NS][BT][RS]
-  bf16* sO = sQ + NS * BT * RS;                               // [NS][BT][RS] dO
+  T* sK = reinterpret_cast<T*>(smem_raw);                     // [BT][RS]
+  T* sV = sK + BT * RS;                                       // [BT][RS]
+  T* sQ = sV + BT * RS;                                       // [NS][BT][RS]
+  T* sO = sQ + NS * BT * RS;                                  // [NS][BT][RS] dO
   float* sL = reinterpret_cast<float*>(sO + NS * BT * RS);    // [NS][BT] lse
   float* sD = sL + NS * BT;                                   // [NS][BT] D
 
@@ -560,10 +569,10 @@ __global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(const Args a) {
   // Key tiles in order: under the causal mask the first see the most rows.
   const int64_t b = blockIdx.z, hk = blockIdx.y, k0 = static_cast<int64_t>(blockIdx.x) * BT;
   const int64_t kv_lim = a.sk_valid < a.sk ? a.sk_valid : a.sk;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
+  const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vs.b + hk * a.vs.h;
 
   // K and V (zeros from kv_lim on) go with the first row tile.
   for (int e = tid; e < BT * CH; e += kThreads) {
@@ -593,8 +602,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(const Args a) {
   // Q and dO rows of row tile t (zeros from r_hi on), and their lse and D.
   auto load_rows = [&](int t) {
     const int64_t r0 = r_lo + static_cast<int64_t>(t) * BT;
-    bf16* dq_s = sQ + (t % NS) * BT * RS;
-    bf16* do_s = sO + (t % NS) * BT * RS;
+    T* dq_s = sQ + (t % NS) * BT * RS;
+    T* do_s = sO + (t % NS) * BT * RS;
 #pragma unroll 4
     for (int e = tid; e < BT * CH; e += kThreads) {
       const int rr = e / CH, c = e % CH;
@@ -621,9 +630,11 @@ __global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(const Args a) {
   if (ntiles > 0) load_rows(0);
   cp_async_commit();
 
-  // The warp's keys [kw0, kw0 + 16); a thread holds keys g and g + 8 of them.
+  // The warp's keys [kw0, kw0 + 16); a thread holds keys g and g + 8 of them,
+  // and (fp16) their dS^T rows' exponents.
   const int64_t kw0 = k0 + 16 * warp;
   const float sl = a.scale * kLog2e;
+  [[maybe_unused]] int dse[2] = {kDsExpMax, kDsExpMax};
   float dk[DT][4], dv[DT][4];
 #pragma unroll
   for (int n = 0; n < DT; ++n)
@@ -644,8 +655,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(const Args a) {
     if (t + NS - 1 < ntiles) load_rows(t + NS - 1);
     cp_async_commit();
     const int64_t rt0 = r_lo + static_cast<int64_t>(t) * BT;
-    const bf16* tq = sQ + (t % NS) * BT * RS;
-    const bf16* to = sO + (t % NS) * BT * RS;
+    const T* tq = sQ + (t % NS) * BT * RS;
+    const T* to = sO + (t % NS) * BT * RS;
     const float* tl = sL + (t % NS) * BT;
     const float* td = sD + (t % NS) * BT;
 #pragma unroll 1
@@ -679,10 +690,10 @@ __global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(const Args a) {
           uint32_t qf[4], of[4];
           ldsm_x4(qf, q_b + (np * 16 * RS + kk * 16) * 2);
           ldsm_x4(of, o_b + (np * 16 * RS + kk * 16) * 2);
-          mma_bf16(st[2 * np], ka, qf[0], qf[1]);
-          mma_bf16(st[2 * np + 1], ka, qf[2], qf[3]);
-          mma_bf16(dpt[2 * np], va, of[0], of[1]);
-          mma_bf16(dpt[2 * np + 1], va, of[2], of[3]);
+          mma16<T>(st[2 * np], ka, qf[0], qf[1]);
+          mma16<T>(st[2 * np + 1], ka, qf[2], qf[3]);
+          mma16<T>(dpt[2 * np], va, of[0], of[1]);
+          mma16<T>(dpt[2 * np + 1], va, of[2], of[3]);
         }
       }
 
@@ -716,52 +727,55 @@ __global__ void __launch_bounds__(kThreads) dkdv_mma_kernel(const Args a) {
         }
       }
 
-      // dV += P^T dO and dK += dS^T Q, P^T and dS^T as bf16 hi + lo straight
-      // from the accumulators: the A fragment of rows [16 kt, 16 kt + 16) is
-      // the C fragments of 8-row tiles 2 kt and 2 kt + 1.
+      // dV += P^T dO and dK += dS^T Q, P^T and dS^T as hi + lo straight
+      // from the accumulators (in fp16 dS^T scaled first): the A fragment of
+      // rows [16 kt, 16 kt + 16) is the C fragments of 8-row tiles 2 kt and
+      // 2 kt + 1.
+      if constexpr (Scaled<T>::value) scale_rows(dpt, dk, dse);
       const uint32_t q_t = smem_addr(tq + s0 * RS + t_row);
       const uint32_t o_t = smem_addr(to + s0 * RS + t_row);
 #pragma unroll
       for (int kt = 0; kt < SUB / 16; ++kt) {
         uint32_t ph[4], pl[4], sh[4], so[4];
-        split_frag(st[2 * kt], st[2 * kt + 1], ph, pl);
-        split_frag(dpt[2 * kt], dpt[2 * kt + 1], sh, so);
+        split_frag<T>(st[2 * kt], st[2 * kt + 1], ph, pl);
+        split_frag<T>(dpt[2 * kt], dpt[2 * kt + 1], sh, so);
 #pragma unroll
         for (int dp = 0; dp < D / 16; ++dp) {
           uint32_t of[4], qf[4];
           ldsm_x4_t(of, o_t + (kt * 16 * RS + dp * 16) * 2);
           ldsm_x4_t(qf, q_t + (kt * 16 * RS + dp * 16) * 2);
-          mma_bf16(dv[2 * dp], ph, of[0], of[1]);
-          mma_bf16(dv[2 * dp], pl, of[0], of[1]);
-          mma_bf16(dv[2 * dp + 1], ph, of[2], of[3]);
-          mma_bf16(dv[2 * dp + 1], pl, of[2], of[3]);
-          mma_bf16(dk[2 * dp], sh, qf[0], qf[1]);
-          mma_bf16(dk[2 * dp], so, qf[0], qf[1]);
-          mma_bf16(dk[2 * dp + 1], sh, qf[2], qf[3]);
-          mma_bf16(dk[2 * dp + 1], so, qf[2], qf[3]);
+          mma16<T>(dv[2 * dp], ph, of[0], of[1]);
+          mma16<T>(dv[2 * dp], pl, of[0], of[1]);
+          mma16<T>(dv[2 * dp + 1], ph, of[2], of[3]);
+          mma16<T>(dv[2 * dp + 1], pl, of[2], of[3]);
+          mma16<T>(dk[2 * dp], sh, qf[0], qf[1]);
+          mma16<T>(dk[2 * dp], so, qf[0], qf[1]);
+          mma16<T>(dk[2 * dp + 1], sh, qf[2], qf[3]);
+          mma16<T>(dk[2 * dp + 1], so, qf[2], qf[3]);
         }
       }
     }
   }
   cp_async_wait<0>();
+  if constexpr (Scaled<T>::value) unscale_rows(dk, dse);
 
-  bf16* dkb = static_cast<bf16*>(a.dk) + b * a.dks.b + hk * a.dks.h;
-  bf16* dvb = static_cast<bf16*>(a.dv) + b * a.dvs.b + hk * a.dvs.h;
+  T* dkb = static_cast<T*>(a.dk) + b * a.dks.b + hk * a.dks.h;
+  T* dvb = static_cast<T*>(a.dv) + b * a.dvs.b + hk * a.dvs.h;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int64_t kp = kw0 + g + 8 * i;
     if (kp >= a.sk) continue;
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + kp * a.dks.s + n * 8 + tig * 2) =
-          __floats2bfloat162_rn(dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + kp * a.dvs.s + n * 8 + tig * 2) =
-          __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dkb + kp * a.dks.s + n * 8 + tig * 2) =
+          pack2<T>(dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvb + kp * a.dvs.s + n * 8 + tig * 2) =
+          pack2<T>(dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
   using L = BwdTile<D>;
   constexpr int BT = L::BT, NS = L::NS, RS = L::RS;
@@ -770,10 +784,10 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
   constexpr int DT = D / 8;     // 8-column tiles of dQ
   constexpr int NT = BT / 8;    // 8-key tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BT][RS]
-  bf16* sO = sQ + BT * RS;                        // [BT][RS] dO
-  bf16* sK = sO + BT * RS;                        // [NS][BT][RS]
-  bf16* sV = sK + NS * BT * RS;                   // [NS][BT][RS]
+  T* sQ = reinterpret_cast<T*>(smem_raw);   // [BT][RS]
+  T* sO = sQ + BT * RS;                     // [BT][RS] dO
+  T* sK = sO + BT * RS;                     // [NS][BT][RS]
+  T* sV = sK + NS * BT * RS;                // [NS][BT][RS]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
@@ -784,10 +798,10 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
   const int64_t b = blockIdx.z, hk = blockIdx.y;
   const int64_t r0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * BT;
   const int64_t r_end = r0 + BT < rows ? r0 + BT : rows;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
+  const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vs.b + hk * a.vs.h;
   int64_t k_lo, k_hi;
   key_range<BT>(r0, r_end, 0, a.sk, a.sk, group, a.sk_valid, q_offset, causal, window,
                 a.prefix, k_lo, k_hi);
@@ -809,8 +823,8 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
   }
   auto load_kv = [&](int t) {
     const int64_t k0 = k_lo + static_cast<int64_t>(t) * BT;
-    bf16* dk_s = sK + (t % NS) * BT * RS;
-    bf16* dv_s = sV + (t % NS) * BT * RS;
+    T* dk_s = sK + (t % NS) * BT * RS;
+    T* dv_s = sV + (t % NS) * BT * RS;
 #pragma unroll 4
     for (int e = tid; e < BT * CH; e += kThreads) {
       const int j = e / CH, c = e % CH;
@@ -848,6 +862,7 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
     }
   }
   const float sl = a.scale * kLog2e;
+  [[maybe_unused]] int dse[2] = {kDsExpMax, kDsExpMax};   // fp16: the rows' dS exponents
 
   float dq[DT][4];
 #pragma unroll
@@ -882,8 +897,8 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
     if (!live || sees_none(p_lo, p_hi, k0, k0 + BT - 1, k_hi, causal, window, a.prefix))
       continue;
     const bool full = sees_all(p_lo, p_hi, k0, k0 + BT - 1, k_hi, causal, window, a.prefix);
-    const bf16* kt = sK + (t % NS) * BT * RS;
-    const bf16* vt = sV + (t % NS) * BT * RS;
+    const T* kt = sK + (t % NS) * BT * RS;
+    const T* vt = sV + (t % NS) * BT * RS;
 
     // S = Q K^T and dP = dO V^T over the tile's keys.
     float s[NT][4], dp[NT][4];
@@ -910,10 +925,10 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
         uint32_t kf[4], vf[4];
         ldsm_x4(kf, k_b + (np * 16 * RS + kk * 16) * 2);
         ldsm_x4(vf, v_b + (np * 16 * RS + kk * 16) * 2);
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], oa, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], oa, vf[2], vf[3]);
+        mma16<T>(s[2 * np], qa, kf[0], kf[1]);
+        mma16<T>(s[2 * np + 1], qa, kf[2], kf[3]);
+        mma16<T>(dp[2 * np], oa, vf[0], vf[1]);
+        mma16<T>(dp[2 * np + 1], oa, vf[2], vf[3]);
       }
     }
 
@@ -942,42 +957,46 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Args a) {
         s[n][j] = ok ? p * (dp[n][j] - dd[i]) : 0.f;
       }
 
-    // dQ += dS K, dS as bf16 hi + lo straight from the accumulators.
+    // dQ += dS K, dS as hi + lo straight from the accumulators (in fp16
+    // scaled first).
+    if constexpr (Scaled<T>::value) scale_rows(s, dq, dse);
     const uint32_t k_t = smem_addr(kt + t_row);
 #pragma unroll
     for (int kt2 = 0; kt2 < BT / 16; ++kt2) {
       uint32_t sh[4], so[4];
-      split_frag(s[2 * kt2], s[2 * kt2 + 1], sh, so);
+      split_frag<T>(s[2 * kt2], s[2 * kt2 + 1], sh, so);
 #pragma unroll
       for (int dp2 = 0; dp2 < D / 16; ++dp2) {
         uint32_t kf[4];
         ldsm_x4_t(kf, k_t + (kt2 * 16 * RS + dp2 * 16) * 2);
-        mma_bf16(dq[2 * dp2], sh, kf[0], kf[1]);
-        mma_bf16(dq[2 * dp2], so, kf[0], kf[1]);
-        mma_bf16(dq[2 * dp2 + 1], sh, kf[2], kf[3]);
-        mma_bf16(dq[2 * dp2 + 1], so, kf[2], kf[3]);
+        mma16<T>(dq[2 * dp2], sh, kf[0], kf[1]);
+        mma16<T>(dq[2 * dp2], so, kf[0], kf[1]);
+        mma16<T>(dq[2 * dp2 + 1], sh, kf[2], kf[3]);
+        mma16<T>(dq[2 * dp2 + 1], so, kf[2], kf[3]);
       }
     }
   }
   cp_async_wait<0>();
   if (!live) return;
+  if constexpr (Scaled<T>::value) unscale_rows(dq, dse);
 
-  bf16* dqb = static_cast<bf16*>(a.dq);
+  T* dqb = static_cast<T*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int64_t r = wr0 + g + 8 * i;
     if (r >= rows) continue;
-    bf16* row = dqb + b * a.dqs.b + row_pos(r, group) * a.dqs.s +
-                (hk * group + row_head(r, group)) * a.dqs.h;
+    T* row = dqb + b * a.dqs.b + row_pos(r, group) * a.dqs.s +
+             (hk * group + row_head(r, group)) * a.dqs.h;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + tig * 2) =
-          __floats2bfloat162_rn(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(row + n * 8 + tig * 2) =
+          pack2<T>(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at head dim 256: the same products, in passes shaped for 256 columns.
+// bf16 and fp16 at head dim 256: the same products, in passes shaped for 256
+// columns.
 // ---------------------------------------------------------------------------
 
 struct Tile256 {
@@ -995,14 +1014,14 @@ struct Tile256 {
   static constexpr int KV_WARPS = 8;
   static constexpr int HALF = D / 2;
   static constexpr int SUB = 32;
-  static constexpr size_t kKvSmemBytes = sizeof(bf16) * (2 * BK + 2 * NS * SUB) * RS +
+  static constexpr size_t kKvSmemBytes = sizeof(uint16_t) * (2 * BK + 2 * NS * SUB) * RS +
                                          sizeof(float) * 2 * NS * SUB +
                                          sizeof(float) * 2 * KV_WARPS * 32 * 32;
   // dQ pass: 8 warps of 16 query rows, 32-key K and V ring tiles.
   static constexpr int Q_WARPS = 8;
   static constexpr int BQ = 16 * Q_WARPS;
   static constexpr int QBK = 32;
-  static constexpr size_t kQSmemBytes = sizeof(bf16) * (2 * BQ + 2 * NS * QBK) * RS;
+  static constexpr size_t kQSmemBytes = sizeof(uint16_t) * (2 * BQ + 2 * NS * QBK) * RS;
 };
 
 // Wait at named barrier id (1-15) until `threads` threads have reached it.
@@ -1019,6 +1038,7 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 // memory (a + b in both warps: the same bits).  A slice takes a contiguous run of the tile's
 // 32-row ring tiles and writes fp32 partial sums, which sum_slices_kernel
 // adds in slice order; one slice writes dK and dV itself.
+template <typename T>
 __global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(const Args a) {
   using L = Tile256;
   constexpr int D = L::D, RS = L::RS, CH = L::CH, NS = L::NS, BK = L::BK, SUB = L::SUB;
@@ -1027,10 +1047,10 @@ __global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(con
   constexpr int DT = L::HALF / 8;   // 8-column tiles of dK and dV
   constexpr int NT = SUB / 8;       // 8-row tiles of S^T
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);               // [BK][RS]
-  bf16* sV = sK + BK * RS;                                    // [BK][RS]
-  bf16* sQ = sV + BK * RS;                                    // [NS][SUB][RS]
-  bf16* sO = sQ + NS * SUB * RS;                              // [NS][SUB][RS] dO
+  T* sK = reinterpret_cast<T*>(smem_raw);                     // [BK][RS]
+  T* sV = sK + BK * RS;                                       // [BK][RS]
+  T* sQ = sV + BK * RS;                                       // [NS][SUB][RS]
+  T* sO = sQ + NS * SUB * RS;                                 // [NS][SUB][RS] dO
   float* sL = reinterpret_cast<float*>(sO + NS * SUB * RS);   // [NS][SUB] lse
   float* sD = sL + NS * SUB;                                  // [NS][SUB] D
   float4* sX = reinterpret_cast<float4*>(sD + NS * SUB);      // [2][warps][8][32] halves
@@ -1045,10 +1065,10 @@ __global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(con
   const int64_t rest = blockIdx.x / slices, bhs = a.batch * a.hkv;
   const int64_t b = (rest % bhs) / a.hkv, hk = rest % a.hkv, k0 = (rest / bhs) * BK;
   const int64_t kv_lim = a.sk_valid < a.sk ? a.sk_valid : a.sk;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
+  const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vs.b + hk * a.vs.h;
 
   for (int e = tid; e < BK * CH; e += NTH) {
     const int j = e / CH, c = e % CH;
@@ -1079,8 +1099,8 @@ __global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(con
 
   auto load_rows = [&](int t) {
     const int64_t r0 = r_base + static_cast<int64_t>(t) * SUB;
-    bf16* q_s = sQ + (t % NS) * SUB * RS;
-    bf16* o_s = sO + (t % NS) * SUB * RS;
+    T* q_s = sQ + (t % NS) * SUB * RS;
+    T* o_s = sO + (t % NS) * SUB * RS;
 #pragma unroll 4
     for (int e = tid; e < SUB * CH; e += NTH) {
       const int rr = e / CH, c = e % CH;
@@ -1119,6 +1139,7 @@ __global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(con
     key_pre[i] = kw0 + g + 8 * i < prefix;
   }
   const int win = window < (1 << 30) ? static_cast<int>(window) : (1 << 30);
+  [[maybe_unused]] int dse[2] = {kDsExpMax, kDsExpMax};   // fp16: the keys' dS^T exponents
   float dk[DT][4], dv[DT][4];
 #pragma unroll
   for (int n = 0; n < DT; ++n)
@@ -1144,8 +1165,8 @@ __global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(con
     if (sees_none(p_lo, p_hi, kw0, kw0 + 15, kv_lim, causal, window, prefix)) continue;
     const bool full =
         rs0 + SUB <= r_hi && sees_all(p_lo, p_hi, kw0, kw0 + 15, kv_lim, causal, window, prefix);
-    const bf16* tq = sQ + (t % NS) * SUB * RS;
-    const bf16* to = sO + (t % NS) * SUB * RS;
+    const T* tq = sQ + (t % NS) * SUB * RS;
+    const T* to = sO + (t % NS) * SUB * RS;
     const float* tl = sL + (t % NS) * SUB;
     const float* td = sD + (t % NS) * SUB;
 
@@ -1167,10 +1188,10 @@ __global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(con
         uint32_t qf[4], of[4];
         ldsm_x4(qf, q_b + (np * 16 * RS + kk * 16) * 2);
         ldsm_x4(of, o_b + (np * 16 * RS + kk * 16) * 2);
-        mma_bf16(st[2 * np], ka, qf[0], qf[1]);
-        mma_bf16(st[2 * np + 1], ka, qf[2], qf[3]);
-        mma_bf16(dpt[2 * np], va, of[0], of[1]);
-        mma_bf16(dpt[2 * np + 1], va, of[2], of[3]);
+        mma16<T>(st[2 * np], ka, qf[0], qf[1]);
+        mma16<T>(st[2 * np + 1], ka, qf[2], qf[3]);
+        mma16<T>(dpt[2 * np], va, of[0], of[1]);
+        mma16<T>(dpt[2 * np + 1], va, of[2], of[3]);
       }
     }
     // The pair's halves: each warp writes its own into this sub-step's buffer
@@ -1228,45 +1249,48 @@ __global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(con
     }
 
     // dV += P^T dO and dK += dS^T Q over the warp's 128 columns, P^T and
-    // dS^T as bf16 hi + lo.
+    // dS^T as hi + lo (in fp16 dS^T scaled first: both warps of a pair hold
+    // the same dS^T, so they scale alike).
+    if constexpr (Scaled<T>::value) scale_rows(dpt, dk, dse);
     const uint32_t q_t = smem_addr(tq + t_row);
     const uint32_t o_t = smem_addr(to + t_row);
 #pragma unroll
     for (int kt = 0; kt < SUB / 16; ++kt) {
       uint32_t ph[4], pl[4], sh[4], so[4];
-      split_frag(st[2 * kt], st[2 * kt + 1], ph, pl);
-      split_frag(dpt[2 * kt], dpt[2 * kt + 1], sh, so);
+      split_frag<T>(st[2 * kt], st[2 * kt + 1], ph, pl);
+      split_frag<T>(dpt[2 * kt], dpt[2 * kt + 1], sh, so);
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t of[4], qf[4];
         ldsm_x4_t(of, o_t + (kt * 16 * RS + dp * 16) * 2);
         ldsm_x4_t(qf, q_t + (kt * 16 * RS + dp * 16) * 2);
-        mma_bf16(dv[2 * dp], ph, of[0], of[1]);
-        mma_bf16(dv[2 * dp], pl, of[0], of[1]);
-        mma_bf16(dv[2 * dp + 1], ph, of[2], of[3]);
-        mma_bf16(dv[2 * dp + 1], pl, of[2], of[3]);
-        mma_bf16(dk[2 * dp], sh, qf[0], qf[1]);
-        mma_bf16(dk[2 * dp], so, qf[0], qf[1]);
-        mma_bf16(dk[2 * dp + 1], sh, qf[2], qf[3]);
-        mma_bf16(dk[2 * dp + 1], so, qf[2], qf[3]);
+        mma16<T>(dv[2 * dp], ph, of[0], of[1]);
+        mma16<T>(dv[2 * dp], pl, of[0], of[1]);
+        mma16<T>(dv[2 * dp + 1], ph, of[2], of[3]);
+        mma16<T>(dv[2 * dp + 1], pl, of[2], of[3]);
+        mma16<T>(dk[2 * dp], sh, qf[0], qf[1]);
+        mma16<T>(dk[2 * dp], so, qf[0], qf[1]);
+        mma16<T>(dk[2 * dp + 1], sh, qf[2], qf[3]);
+        mma16<T>(dk[2 * dp + 1], so, qf[2], qf[3]);
       }
     }
   }
   cp_async_wait<0>();
+  if constexpr (Scaled<T>::value) unscale_rows(dk, dse);
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int64_t kp = kw0 + g + 8 * i;
     if (kp >= a.sk) continue;
     if (slices == 1) {
-      bf16* dkr = static_cast<bf16*>(a.dk) + b * a.dks.b + hk * a.dks.h + kp * a.dks.s + c0;
-      bf16* dvr = static_cast<bf16*>(a.dv) + b * a.dvs.b + hk * a.dvs.h + kp * a.dvs.s + c0;
+      T* dkr = static_cast<T*>(a.dk) + b * a.dks.b + hk * a.dks.h + kp * a.dks.s + c0;
+      T* dvr = static_cast<T*>(a.dv) + b * a.dvs.b + hk * a.dvs.h + kp * a.dvs.s + c0;
 #pragma unroll
       for (int n = 0; n < DT; ++n) {
-        *reinterpret_cast<__nv_bfloat162*>(dkr + n * 8 + tig * 2) =
-            __floats2bfloat162_rn(dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvr + n * 8 + tig * 2) =
-            __floats2bfloat162_rn(dv[n][2 * i], dv[n][2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dkr + n * 8 + tig * 2) =
+            pack2<T>(dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvr + n * 8 + tig * 2) =
+            pack2<T>(dv[n][2 * i], dv[n][2 * i + 1]);
       }
     } else {
       const int64_t plane = a.batch * a.sk * a.hkv * D;
@@ -1282,7 +1306,8 @@ __global__ void __launch_bounds__(32 * Tile256::KV_WARPS, 1) dkdv_256_kernel(con
 }
 
 // dK and dV from the slices' partial sums, added in slice order (fp32), dK
-// scaled, each rounded to bf16 once; a thread 4 columns of a key.
+// scaled, each rounded to T once; a thread 4 columns of a key.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) sum_slices_kernel(const Args a) {
   constexpr int D = Tile256::D;
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -1297,18 +1322,19 @@ __global__ void __launch_bounds__(kThreads) sum_slices_kernel(const Args a) {
   }
   const int64_t c = (i * 4) % D, row = (i * 4) / D;  // row: (b sk + kp) hkv + hk
   const int64_t hk = row % a.hkv, kp = (row / a.hkv) % a.sk, b = row / (a.hkv * a.sk);
-  bf16* dkr = static_cast<bf16*>(a.dk) + b * a.dks.b + kp * a.dks.s + hk * a.dks.h + c;
-  bf16* dvr = static_cast<bf16*>(a.dv) + b * a.dvs.b + kp * a.dvs.s + hk * a.dvs.h + c;
-  reinterpret_cast<__nv_bfloat162*>(dkr)[0] = __floats2bfloat162_rn(k.x * a.scale, k.y * a.scale);
-  reinterpret_cast<__nv_bfloat162*>(dkr)[1] = __floats2bfloat162_rn(k.z * a.scale, k.w * a.scale);
-  reinterpret_cast<__nv_bfloat162*>(dvr)[0] = __floats2bfloat162_rn(v.x, v.y);
-  reinterpret_cast<__nv_bfloat162*>(dvr)[1] = __floats2bfloat162_rn(v.z, v.w);
+  T* dkr = static_cast<T*>(a.dk) + b * a.dks.b + kp * a.dks.s + hk * a.dks.h + c;
+  T* dvr = static_cast<T*>(a.dv) + b * a.dvs.b + kp * a.dvs.s + hk * a.dvs.h + c;
+  reinterpret_cast<uint32_t*>(dkr)[0] = pack2<T>(k.x * a.scale, k.y * a.scale);
+  reinterpret_cast<uint32_t*>(dkr)[1] = pack2<T>(k.z * a.scale, k.w * a.scale);
+  reinterpret_cast<uint32_t*>(dvr)[0] = pack2<T>(v.x, v.y);
+  reinterpret_cast<uint32_t*>(dvr)[1] = pack2<T>(v.z, v.w);
 }
 
 // The dQ pass at head dim 256: one block a (batch, KV head, tile of BQ query
 // rows), row tiles last first; a warp's 16 rows of dQ over 256 columns in
 // registers (128 fp32 a thread); Q's and dO's fragments read from shared
 // memory at each k-step; K and V through the ring in 32-key tiles.
+template <typename T>
 __global__ void __launch_bounds__(32 * Tile256::Q_WARPS) dq_256_kernel(const Args a) {
   using L = Tile256;
   constexpr int D = L::D, RS = L::RS, CH = L::CH, NS = L::NS, BK = L::QBK;
@@ -1317,10 +1343,10 @@ __global__ void __launch_bounds__(32 * Tile256::Q_WARPS) dq_256_kernel(const Arg
   constexpr int DT = D / 8;     // 8-column tiles of dQ
   constexpr int NT = BK / 8;    // 8-key tiles of S
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [BQ][RS]
-  bf16* sO = sQ + BQ * RS;                        // [BQ][RS] dO
-  bf16* sK = sO + BQ * RS;                        // [NS][BK][RS]
-  bf16* sV = sK + NS * BK * RS;                   // [NS][BK][RS]
+  T* sQ = reinterpret_cast<T*>(smem_raw);   // [BQ][RS]
+  T* sO = sQ + BQ * RS;                     // [BQ][RS] dO
+  T* sK = sO + BQ * RS;                     // [NS][BK][RS]
+  T* sV = sK + NS * BK * RS;                // [NS][BK][RS]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tig = lane % 4;
@@ -1330,10 +1356,10 @@ __global__ void __launch_bounds__(32 * Tile256::Q_WARPS) dq_256_kernel(const Arg
   const int64_t b = blockIdx.z, hk = blockIdx.y;
   const int64_t r0 = static_cast<int64_t>(gridDim.x - 1 - blockIdx.x) * BQ;
   const int64_t r_end = r0 + BQ < rows ? r0 + BQ : rows;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* dout = static_cast<const bf16*>(a.dout);
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ks.b + hk * a.ks.h;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
+  const T* kb = static_cast<const T*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const T* vb = static_cast<const T*>(a.v) + b * a.vs.b + hk * a.vs.h;
   int64_t k_lo, k_hi;
   key_range<BK>(r0, r_end, 0, a.sk, a.sk, group, a.sk_valid, q_offset, causal, window,
                 a.prefix, k_lo, k_hi);
@@ -1354,8 +1380,8 @@ __global__ void __launch_bounds__(32 * Tile256::Q_WARPS) dq_256_kernel(const Arg
   }
   auto load_kv = [&](int t) {
     const int64_t k0 = k_lo + static_cast<int64_t>(t) * BK;
-    bf16* k_s = sK + (t % NS) * BK * RS;
-    bf16* v_s = sV + (t % NS) * BK * RS;
+    T* k_s = sK + (t % NS) * BK * RS;
+    T* v_s = sV + (t % NS) * BK * RS;
 #pragma unroll 4
     for (int e = tid; e < BK * CH; e += NTH) {
       const int j = e / CH, c = e % CH;
@@ -1395,6 +1421,7 @@ __global__ void __launch_bounds__(32 * Tile256::Q_WARPS) dq_256_kernel(const Arg
     }
   }
   const float sl = a.scale * kLog2e;
+  [[maybe_unused]] int dse[2] = {kDsExpMax, kDsExpMax};   // fp16: the rows' dS exponents
 
   float dq[DT][4];
 #pragma unroll
@@ -1414,8 +1441,8 @@ __global__ void __launch_bounds__(32 * Tile256::Q_WARPS) dq_256_kernel(const Arg
     if (!live || sees_none(p_lo, p_hi, k0, k0 + BK - 1, k_hi, causal, window, a.prefix))
       continue;
     const bool full = sees_all(p_lo, p_hi, k0, k0 + BK - 1, k_hi, causal, window, a.prefix);
-    const bf16* kt = sK + (t % NS) * BK * RS;
-    const bf16* vt = sV + (t % NS) * BK * RS;
+    const T* kt = sK + (t % NS) * BK * RS;
+    const T* vt = sV + (t % NS) * BK * RS;
 
     // S = Q K^T and dP = dO V^T over the tile's keys.
     float s[NT][4], dp[NT][4];
@@ -1434,10 +1461,10 @@ __global__ void __launch_bounds__(32 * Tile256::Q_WARPS) dq_256_kernel(const Arg
         uint32_t kf[4], vf[4];
         ldsm_x4(kf, k_b + (np * 16 * RS + kk * 16) * 2);
         ldsm_x4(vf, v_b + (np * 16 * RS + kk * 16) * 2);
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], oa, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], oa, vf[2], vf[3]);
+        mma16<T>(s[2 * np], qa, kf[0], kf[1]);
+        mma16<T>(s[2 * np + 1], qa, kf[2], kf[3]);
+        mma16<T>(dp[2 * np], oa, vf[0], vf[1]);
+        mma16<T>(dp[2 * np + 1], oa, vf[2], vf[3]);
       }
     }
 
@@ -1463,37 +1490,39 @@ __global__ void __launch_bounds__(32 * Tile256::Q_WARPS) dq_256_kernel(const Arg
         s[n][j] = ok ? p * (dp[n][j] - dd[i]) : 0.f;
       }
 
-    // dQ += dS K, dS as bf16 hi + lo.
+    // dQ += dS K, dS as hi + lo (in fp16 scaled first).
+    if constexpr (Scaled<T>::value) scale_rows(s, dq, dse);
     const uint32_t k_t = smem_addr(kt + t_row);
 #pragma unroll
     for (int kt2 = 0; kt2 < BK / 16; ++kt2) {
       uint32_t sh[4], so[4];
-      split_frag(s[2 * kt2], s[2 * kt2 + 1], sh, so);
+      split_frag<T>(s[2 * kt2], s[2 * kt2 + 1], sh, so);
 #pragma unroll
       for (int dp2 = 0; dp2 < D / 16; ++dp2) {
         uint32_t kf[4];
         ldsm_x4_t(kf, k_t + (kt2 * 16 * RS + dp2 * 16) * 2);
-        mma_bf16(dq[2 * dp2], sh, kf[0], kf[1]);
-        mma_bf16(dq[2 * dp2], so, kf[0], kf[1]);
-        mma_bf16(dq[2 * dp2 + 1], sh, kf[2], kf[3]);
-        mma_bf16(dq[2 * dp2 + 1], so, kf[2], kf[3]);
+        mma16<T>(dq[2 * dp2], sh, kf[0], kf[1]);
+        mma16<T>(dq[2 * dp2], so, kf[0], kf[1]);
+        mma16<T>(dq[2 * dp2 + 1], sh, kf[2], kf[3]);
+        mma16<T>(dq[2 * dp2 + 1], so, kf[2], kf[3]);
       }
     }
   }
   cp_async_wait<0>();
   if (!live) return;
+  if constexpr (Scaled<T>::value) unscale_rows(dq, dse);
 
-  bf16* dqb = static_cast<bf16*>(a.dq);
+  T* dqb = static_cast<T*>(a.dq);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int64_t r = wr0 + g + 8 * i;
     if (r >= rows) continue;
-    bf16* row = dqb + b * a.dqs.b + row_pos(r, group) * a.dqs.s +
-                (hk * group + row_head(r, group)) * a.dqs.h;
+    T* row = dqb + b * a.dqs.b + row_pos(r, group) * a.dqs.s +
+             (hk * group + row_head(r, group)) * a.dqs.h;
 #pragma unroll
     for (int n = 0; n < DT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + tig * 2) =
-          __floats2bfloat162_rn(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(row + n * 8 + tig * 2) =
+          pack2<T>(dq[n][2 * i] * a.scale, dq[n][2 * i + 1] * a.scale);
   }
 }
 
@@ -1533,17 +1562,17 @@ cudaError_t run(const Args& a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The tensor-core kernels' three launches at head dim D: dK/dV over 64-key
-// tiles, dQ over 64-row tiles.
-template <int D>
+// The tensor-core kernels' three launches at head dim D in T: dK/dV over
+// 64-key tiles, dQ over 64-row tiles.
+template <typename T, int D>
 cudaError_t run_mma(const Args& a, int device, cudaStream_t stream) {
   using L = BwdTile<D>;
-  auto* kv_kern = dkdv_mma_kernel<D>;
-  auto* q_kern = dq_mma_kernel<D>;
+  auto* kv_kern = dkdv_mma_kernel<T, D>;
+  auto* q_kern = dq_mma_kernel<T, D>;
   static bool kv_done[64] = {}, q_done[64] = {};
   cudaError_t err = allow_smem(kv_kern, L::kSmemBytes, device, kv_done);
   if (err == cudaSuccess) err = allow_smem(q_kern, L::kSmemBytes, device, q_done);
-  if (err == cudaSuccess) err = row_dot<bf16>(a, stream);
+  if (err == cudaSuccess) err = row_dot<T>(a, stream);
   if (err != cudaSuccess) return err;
   const dim3 kv_grid(static_cast<unsigned>((a.sk + L::BT - 1) / L::BT),
                      static_cast<unsigned>(a.hkv), static_cast<unsigned>(a.batch));
@@ -1556,17 +1585,18 @@ cudaError_t run_mma(const Args& a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The tensor-core kernels' launches at head dim 256: the dK/dV pass over
+// The tensor-core kernels' launches at head dim 256 in T: the dK/dV pass over
 // (64-key tile, batch x KV head, slice) blocks, the slices' sum when there
 // are several, and the dQ pass over BQ-row tiles.
+template <typename T>
 cudaError_t run_256(const Args& a, int device, cudaStream_t stream) {
   using L = Tile256;
-  auto* kv_kern = dkdv_256_kernel;
-  auto* q_kern = dq_256_kernel;
+  auto* kv_kern = dkdv_256_kernel<T>;
+  auto* q_kern = dq_256_kernel<T>;
   static bool kv_done[64] = {}, q_done[64] = {};
   cudaError_t err = allow_smem(kv_kern, L::kKvSmemBytes, device, kv_done);
   if (err == cudaSuccess) err = allow_smem(q_kern, L::kQSmemBytes, device, q_done);
-  if (err == cudaSuccess) err = row_dot<bf16>(a, stream);
+  if (err == cudaSuccess) err = row_dot<T>(a, stream);
   if (err != cudaSuccess) return err;
   const int64_t kv_blocks = (a.sk + L::BK - 1) / L::BK * a.batch * a.hkv * a.slices;
   kv_kern<<<static_cast<unsigned>(kv_blocks), 32 * L::KV_WARPS, L::kKvSmemBytes, stream>>>(a);
@@ -1574,8 +1604,8 @@ cudaError_t run_256(const Args& a, int device, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (a.slices > 1) {
     const int64_t quads = a.batch * a.sk * a.hkv * L::D / 4;
-    sum_slices_kernel<<<static_cast<unsigned>((quads + kThreads - 1) / kThreads), kThreads, 0,
-                        stream>>>(a);
+    sum_slices_kernel<T><<<static_cast<unsigned>((quads + kThreads - 1) / kThreads), kThreads,
+                           0, stream>>>(a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -1588,9 +1618,35 @@ cudaError_t run_256(const Args& a, int device, cudaStream_t stream) {
 // The kernels built, by dtype and head dim.  fp32: the FMA kernels' tiles
 // (BK, BQ) of the dK/dV pass and BQ of the dQ pass, within two blocks an SM
 // up to head dim 128 (about 105 KB of shared memory at 80, 79 KB at 128; one
-// block at 256).  bf16: the tensor-core kernels, dkdv_mma_kernel and
+// block at 256).  bf16 and fp16: the tensor-core kernels, dkdv_mma_kernel and
 // dq_mma_kernel up to head dim 128, dkdv_256_kernel and dq_256_kernel at 256.
-cudaError_t dispatch(int64_t dtype, const Args& a, int device, cudaStream_t stream) {
+template <typename T>
+cudaError_t dispatch_mma(const Args& a, int device, cudaStream_t stream) {
+  switch (a.d) {
+    case 16: return run_mma<T, 16>(a, device, stream);
+    case 32: return run_mma<T, 32>(a, device, stream);
+    case 64: return run_mma<T, 64>(a, device, stream);
+    case 80: return run_mma<T, 80>(a, device, stream);
+    case 128: return run_mma<T, 128>(a, device, stream);
+    case 256: return run_256<T>(a, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The fp16 instantiations are an object of their own, as in
+// flash_attention.cu (REPRO_FLASH_F16); the entry hands them an fp16 call.
+#ifdef REPRO_FLASH_F16
+extern "C" int repro_flash_attention_bwd_f16(const void* args, int64_t device, void* stream) {
+  return static_cast<int>(dispatch_mma<f16>(*static_cast<const Args*>(args),
+                                            static_cast<int>(device),
+                                            static_cast<cudaStream_t>(stream)));
+}
+#else
+extern "C" int repro_flash_attention_bwd_f16(const void* args, int64_t device, void* stream);
+
+static cudaError_t dispatch(int64_t dtype, const Args& a, int device, cudaStream_t stream) {
   if (dtype == 0) {
     switch (a.d) {
       case 16: return run<16, 64, 32, 64>(a, device, stream);
@@ -1602,21 +1658,11 @@ cudaError_t dispatch(int64_t dtype, const Args& a, int device, cudaStream_t stre
       default: return cudaErrorInvalidValue;
     }
   }
-  if (dtype == 1) {
-    switch (a.d) {
-      case 16: return run_mma<16>(a, device, stream);
-      case 32: return run_mma<32>(a, device, stream);
-      case 64: return run_mma<64>(a, device, stream);
-      case 80: return run_mma<80>(a, device, stream);
-      case 128: return run_mma<128>(a, device, stream);
-      case 256: return run_256(a, device, stream);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+  if (dtype == 1) return dispatch_mma<bf16>(a, device, stream);
+  if (dtype == 2)
+    return static_cast<cudaError_t>(repro_flash_attention_bwd_f16(&a, device, stream));
   return cudaErrorInvalidValue;
 }
-
-}  // namespace
 
 // The head-dim-256 passes' tiles: which 0 is the dK/dV pass's keys a block,
 // 1 its Q and dO ring rows, 2 the dQ pass's keys a ring tile, 3 its query
@@ -1636,13 +1682,14 @@ extern "C" int64_t repro_flash_attention_bwd256_tile(int64_t which) {
 // output o and the output's gradient dout (both [batch, sq, hq, d]) and lse
 // (fp32 [batch, hq, sq], the forward's), into dq, dk and dv (the shapes of q,
 // k and v); each tensor given by its pointer and its batch, position and head
-// strides in elements, d contiguous (for bf16 q, k, v and dout 16-byte
-// aligned with strides in multiples of 8, as the forward takes them; dq, dk
-// and dv 4-byte aligned with even strides).  dsum is fp32 scratch of [batch,
-// hq, sq].  dtype 0 is fp32, 1 is bf16; sq * hq / hkv is below 2^31; every
-// key of dk and dv is written, zeros where no query sees it.  slices: the
-// row slices of the dK/dV pass, 1 but for bf16 at head dim 256, where more
-// than 1 needs part, fp32 scratch of [2, slices, batch, sk, hkv, 256].
+// strides in elements, d contiguous (for bf16 and fp16 q, k, v and dout
+// 16-byte aligned with strides in multiples of 8, as the forward takes them;
+// dq, dk and dv 4-byte aligned with even strides).  dsum is fp32 scratch of
+// [batch, hq, sq].  dtype 0 is fp32, 1 is bf16, 2 is fp16; sq * hq / hkv is
+// below 2^31; every key of dk and dv is written, zeros where no query sees
+// it.  slices: the row slices of the dK/dV pass, 1 but for bf16 and fp16 at
+// head dim 256, where more than 1 needs part, fp32 scratch of [2, slices,
+// batch, sk, hkv, 256].
 extern "C" int repro_flash_attention_bwd(
     int64_t device, const void* q, int64_t qsb, int64_t qss, int64_t qsh, const void* k,
     int64_t ksb, int64_t kss, int64_t ksh, const void* v, int64_t vsb, int64_t vss,
@@ -1658,7 +1705,7 @@ extern "C" int repro_flash_attention_bwd(
   if (batch <= 0 || sq <= 0 || sk <= 0 || hq <= 0) return 0;
   if (hkv <= 0 || hq % hkv != 0 || window < 0 || prefix < 0 ||
       sq * (hq / hkv) >= (int64_t{1} << 31) || slices < 1 ||
-      (slices > 1 && (part == nullptr || dtype != 1 || d != 256)))
+      (slices > 1 && (part == nullptr || dtype == 0 || d != 256)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
@@ -1678,3 +1725,4 @@ extern "C" int repro_flash_attention_bwd(
   return static_cast<int>(
       dispatch(dtype, a, static_cast<int>(device), static_cast<cudaStream_t>(stream)));
 }
+#endif  // REPRO_FLASH_F16

@@ -2,7 +2,8 @@
 
 The sources under ``repro_torch/csrc/*.cu`` have a plain C interface.  On
 first use each source is compiled by its own ``nvcc`` process (all started
-together) for ``sm_90a`` and the objects are linked into one shared library,
+together; the flash sources twice, :data:`SPLIT`) for ``sm_90a`` and the
+objects are linked into one shared library,
 ``build/kernels/librepro_torch_<hash>.so`` at the root of the source tree;
 ``<hash>`` covers the sources, every header beside them (``csrc/*.cuh``) and
 the flags, so a changed source or header builds anew and an unchanged tree
@@ -33,6 +34,11 @@ SOURCES = ("bitonic_sort.cu", "radix_sort.cu", "kway_merge.cu",
            "alltoallv_deliver.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
            "lru_scan.cu", "lru_scan_bwd.cu")
+# Sources built a second time into an object of their own with a define:
+# the flash kernels' float16 instantiations, so that they compile beside the
+# float32 and bfloat16 ones (each source's entry hands them an fp16 call).
+SPLIT = (("flash_attention.cu", "REPRO_FLASH_F16"),
+         ("flash_attention_bwd.cu", "REPRO_FLASH_F16"))
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
@@ -54,13 +60,15 @@ _SIGNATURES = {
     "repro_kway_merge_segments": "ipiipi" "pp" "iiiiii" "i" "p",
     # device, src, src_stride, src_off, dst, dst_stride, dst_off, v, ww,
     # cnt, cnt_stride, cnt_off, fill, cp, cp_stride, cp_off,
-    # ct, ct_stride, ct_off, stream
-    "repro_deliver_words": "ipiipiiii" "piii" "pii" "pii" "p",
+    # ct, ct_stride, ct_off, the payload's and the counts payload's element
+    # bytes, stream
+    "repro_deliver_words": "ipiipiiii" "piii" "pii" "pii" "ii" "p",
     # device, src, src_stride, src_off, m, pn, nq, s0, s, c0, d, ww,
     # out, out strides (q, p, dl, j), cnt, cnt_stride, cnt_off, fill,
-    # cp, cp_stride, cp_off, ct, ct strides (q, p, dl, j), span, stream
+    # cp, cp_stride, cp_off, ct, ct strides (q, p, dl, j), span, the
+    # payload's and the counts payload's element bytes, stream
     "repro_assemble_proc_words": "ipii" "iiiiiiii" "piiii" "piii" "pii"
-                                 "piiii" "i" "p",
+                                 "piiii" "i" "ii" "p",
     # device, q, q strides (b, s, h), k, k strides, v, v strides, o,
     # o strides, part, lse, batch, sq, sk, hq, hkv, d, sk_valid, q_offset,
     # causal, window, prefix, dtype, bq, bk, splits, split_len, scale,
@@ -106,7 +114,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h = hashlib.sha256(" ".join(FLAGS).encode() + repr(SPLIT).encode())
     headers = sorted(p.name for p in CSRC.glob("*.cuh"))
     for name in (*SOURCES, *headers):
         h.update(name.encode())
@@ -126,16 +134,20 @@ def build() -> Path:
     # disk and renamed, so a build cut short, or another process building
     # the same sources, never leaves a partial library under the final name.
     tag = f"{so.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    units = [(s, None) for s in SOURCES] + list(SPLIT)
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}{'.' + d if d else ''}.o"
+            for s, d in units]
     tmp = BUILD_DIR / f"{tag}.so"
-    procs = [subprocess.Popen([nvcc, *FLAGS, "-c", str(CSRC / s),
-                               "-o", str(o)], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([nvcc, *FLAGS, *([f"-D{d}"] if d else []),
+                               "-c", str(CSRC / s), "-o", str(o)],
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for s, o in zip(SOURCES, objs)]
-    for s, p in zip(SOURCES, procs):
+             for (s, d), o in zip(units, objs)]
+    for (s, d), p in zip(units, procs):
         out = p.communicate()[0]
         if p.returncode:
-            raise RuntimeError(f"nvcc failed on {s}:\n{out}")
+            raise RuntimeError(f"nvcc failed on {s}"
+                               f"{f' (-D{d})' if d else ''}:\n{out}")
     link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp),
                            *map(str, objs)], capture_output=True, text=True)
     if link.returncode:

@@ -6,12 +6,17 @@ Replaces the TPU kernel ``deliver_tiles``
 ``fill``, and the fused counts transpose ``ct[d, s] = counts_payload[s, d]``.
 
 The CUDA kernel (``csrc/alltoallv_deliver.cu``, entry
-``repro_deliver_words``) addresses every operand as raw int32 words through
-``(tensor [rows, row_words], word offset)``, so :func:`deliver_words` can
-deliver straight between the word ranges of the context store — message
-``(s -> d)`` from row ``s`` at ``src_off + d·ww`` into row ``d`` at
+``repro_deliver_words``) addresses every operand as raw elements through
+``(tensor [rows, row_elements], element offset)``, so :func:`deliver_words`
+can deliver straight between the int32 word ranges of the context store —
+message ``(s -> d)`` from row ``s`` at ``src_off + d·ww`` into row ``d`` at
 ``dst_off + s·ww`` — with no ``[v, v, ww]`` temporary.  :func:`deliver_tiles`
-is the JAX kernel's array form on top of it.
+is the JAX kernel's array form on top of the same entry, for a payload and a
+counts payload of any dtype of 1, 2 or 4 bytes (bool, int8, uint8, int16,
+uint16, float16, bfloat16, int32, uint32, float32, ...), moved as the bits of
+the signed integer of their width; 8-byte dtypes raise ``TypeError`` (JAX
+with x64 off makes none).  Elements of 1 or 2 bytes move as whole words where
+the rows allow it, and one at a time where they do not.
 
 :func:`deliver_words_plain` is the plain PyTorch version: the CPU path, and
 what ``chip_smoke.py`` holds the kernel against on the card.
@@ -24,7 +29,8 @@ the fused ``ct[p, d, j] = counts_payload[j, p, d]``.  Its CUDA entry
 (:func:`assemble_words`), one α-chunk for every sending process in one
 launch, and writes through a strided destination: the contiguous buffer,
 or on a one-card mesh the receivers' recv rows of the same store.
-:func:`assemble_proc_tiles` is the JAX kernel's array form (the buffer) and
+:func:`assemble_proc_tiles` is the JAX kernel's array form (the buffer), for
+the same payload dtypes as :func:`deliver_tiles`, and
 :func:`assemble_words_plain` the plain version.  Its launches are counted in
 ``ASSEMBLE_LAUNCHES``.
 """
@@ -46,6 +52,36 @@ ASSEMBLE_LAUNCHES = 0   # calls of assemble_words that launched the kernel
 # two 16-byte stores a thread, the fastest span scripts/assemble_sweep.py
 # measured on an H100 (4 KiB to 128 KiB).
 SPAN_WORDS = 2048
+# The signed integer of each element size: a payload of any dtype of that
+# size moves as its bits viewed as one of these.
+_ELEMS = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+
+
+def _elems(x: torch.Tensor, what: str) -> torch.Tensor:
+    """``x`` viewed as the signed integer of its element size; a dtype of
+    another size raises ``TypeError`` naming it."""
+    es = x.element_size()
+    if es not in _ELEMS:
+        raise TypeError(f"{what}: the kernel moves elements of 1, 2 or 4 "
+                        f"bytes, got {x.dtype}")
+    return x if x.dtype == _ELEMS[es] else x.view(_ELEMS[es])
+
+
+def _fill_bits(fill, dtype: torch.dtype) -> int:
+    """The bits of ``fill`` as an element of ``dtype`` (JAX's
+    ``jnp.asarray(fill, dtype)``), as the signed integer of its width."""
+    t = torch.tensor(fill, dtype=dtype)
+    return int(t.view(_ELEMS[t.element_size()]))
+
+
+def _require_cuda_counts(what: str, counts, counts_payload) -> None:
+    """Raise unless an array form's counts (int32) and counts payload (1, 2
+    or 4 bytes, viewed by :func:`_elems`) lie on the card, as its payload
+    does."""
+    require_cuda(what, counts)
+    if counts_payload is not None and not counts_payload.is_cuda:
+        raise ValueError(f"{what}: expected a CUDA tensor, got "
+                         f"{counts_payload.device}")
 
 
 def deliver_words_plain(src, src_off, dst, dst_off, v, ww, counts=None,
@@ -58,7 +94,7 @@ def deliver_words_plain(src, src_off, dst, dst_off, v, ww, counts=None,
         cnt = counts[:, cnt_off:cnt_off + v].transpose(0, 1)  # [d, s]
         lane = torch.arange(ww, device=src.device)
         out = torch.where(lane < cnt[..., None], out,
-                          torch.tensor(fill, dtype=torch.int32,
+                          torch.tensor(fill, dtype=src.dtype,
                                        device=src.device))
     # reshape copies the transposed view before the write: safe when the
     # source and destination ranges alias.
@@ -88,7 +124,6 @@ def deliver_words(src: torch.Tensor, src_off: int, dst: torch.Tensor,
 
     A CPU ``src`` takes the plain version; a CUDA one launches the kernel.
     """
-    global LAUNCHES
     if fill is not None and counts is None:
         raise ValueError("fill requires counts")
     if (counts_payload is None) != (ct_out is None):
@@ -99,6 +134,16 @@ def deliver_words(src: torch.Tensor, src_off: int, dst: torch.Tensor,
                             ct_off)
         return
     require_cuda("deliver_words", src, dst, counts, counts_payload, ct_out)
+    _launch_deliver(src, src_off, dst, dst_off, v, ww, counts, cnt_off, fill,
+                    counts_payload, cp_off, ct_out, ct_off)
+
+
+def _launch_deliver(src, src_off, dst, dst_off, v, ww, counts, cnt_off, fill,
+                    counts_payload, cp_off, ct_out, ct_off) -> None:
+    """Kernel 2 on checked CUDA operands: ``src`` and ``dst`` of one element
+    size (offsets and ``ww`` in its elements), ``counts_payload`` and
+    ``ct_out`` of another, ``fill`` the element's bits."""
+    global LAUNCHES
     masked = fill is not None
     launch("repro_deliver_words", src.device,
            ptr(src), src.stride(0), src_off, ptr(dst), dst.stride(0), dst_off,
@@ -108,7 +153,9 @@ def deliver_words(src: torch.Tensor, src_off: int, dst: torch.Tensor,
            int(fill) if masked else 0,
            ptr(counts_payload),
            0 if counts_payload is None else counts_payload.stride(0), cp_off,
-           ptr(ct_out), 0 if ct_out is None else ct_out.stride(0), ct_off)
+           ptr(ct_out), 0 if ct_out is None else ct_out.stride(0), ct_off,
+           src.element_size(),
+           4 if counts_payload is None else counts_payload.element_size())
     LAUNCHES += 1
 
 
@@ -122,36 +169,36 @@ def deliver_tiles(
     """Returns ``(out, ct)`` with ``out[d, s] = msgs[s, d]`` (lanes ≥
     ``counts[s, d]`` replaced by ``fill`` when ``fill`` is not ``None``) and
     ``ct[d, s] = counts_payload[s, d]`` (``None`` when no payload given).
-    ``msgs`` and ``counts_payload`` may be any 4-byte dtype; ``fill`` is a
-    value of ``msgs``' dtype."""
+    ``msgs`` and ``counts_payload`` may each be any dtype of 1, 2 or 4 bytes
+    (bool, int8, uint8, int16, uint16, float16, bfloat16, int32, uint32,
+    float32, ...) and keep it, bit for bit; ``fill`` is a value of ``msgs``'
+    dtype."""
     v, v2, omega = msgs.shape
     if v != v2:
         raise ValueError(f"msgs must be [v, v, ω], got {tuple(msgs.shape)}")
     if fill is not None and counts is None:
         raise ValueError("fill requires counts")
-    words = _words(msgs.contiguous()).reshape(v, v * omega)
-    out = torch.empty_like(words)
-    fill_word = None
+    elems = _elems(msgs.contiguous(), "deliver_tiles").reshape(v, v * omega)
+    out = torch.empty_like(elems)
+    fill_bits = None
     if fill is not None:
-        fill_word = int(torch.tensor(fill, dtype=msgs.dtype)
-                        .view(torch.int32))
+        fill_bits = _fill_bits(fill, msgs.dtype)
         counts = counts.to(torch.int32).contiguous()
     ct = cp = None
     if counts_payload is not None:
-        cp = _words(counts_payload.contiguous())
+        cp = _elems(counts_payload.contiguous(), "deliver_tiles")
         ct = torch.empty_like(cp)
-    deliver_words(words, 0, out, 0, v, omega, counts, 0, fill_word, cp, 0,
-                  ct, 0)
+    if elems.device.type == "cpu":
+        deliver_words_plain(elems, 0, out, 0, v, omega, counts, 0, fill_bits,
+                            cp, 0, ct, 0)
+    else:
+        _require_cuda_counts("deliver_tiles", counts, cp)
+        _launch_deliver(elems, 0, out, 0, v, omega, counts, 0, fill_bits, cp,
+                        0, ct, 0)
     out = out.reshape(v, v, omega).view(msgs.dtype)
     if ct is not None:
         ct = ct.view(counts_payload.dtype)
     return out, ct
-
-
-def _words(x: torch.Tensor) -> torch.Tensor:
-    if x.element_size() != 4:
-        raise TypeError(f"delivery moves 4-byte words, got {x.dtype}")
-    return x if x.dtype == torch.int32 else x.view(torch.int32)
 
 
 # --------------------------------------------------------------------------- #
@@ -245,7 +292,8 @@ def _check_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww, out, counts,
         base = t.untyped_storage().data_ptr()
         for r, lo, hi in reads:
             if base == r.untyped_storage().data_ptr() and _meets(
-                    (t.data_ptr() - r.data_ptr()) // 4, tuple(t.shape[:4]),
+                    (t.data_ptr() - r.data_ptr()) // t.element_size(),
+                    tuple(t.shape[:4]),
                     t.stride()[:4], run, (nq, m, s0, s), r.shape[0],
                     r.stride(0), lo, hi):
                 raise ValueError(f"assemble_words: {name} overlaps the "
@@ -272,7 +320,7 @@ def assemble_words_plain(src, src_off, m, pn, nq, s0, s, c0, d, ww, out,
             cnt = cnt.reshape(s, pn, m)[:, :, c0:c0 + d].permute(1, 2, 0)
             staged = torch.where(
                 lane < cnt[..., None], staged,
-                torch.tensor(fill, dtype=torch.int32, device=src.device))
+                torch.tensor(fill, dtype=src.dtype, device=src.device))
         out[q] = staged
         if counts_payload is not None:
             cp = counts_payload[r0:r0 + s, cp_off:cp_off + pn * m]
@@ -307,7 +355,6 @@ def assemble_words(src: torch.Tensor, src_off: int, m: int, pn: int,
 
     A CPU ``src`` takes the plain version; a CUDA one launches the kernel.
     """
-    global ASSEMBLE_LAUNCHES
     out, ct_out = _check_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww,
                                   out, counts, cnt_off, fill, counts_payload,
                                   cp_off, ct_out)
@@ -321,6 +368,17 @@ def assemble_words(src: torch.Tensor, src_off: int, m: int, pn: int,
         if t is not None and (not t.is_cuda or t.dtype != torch.int32):
             raise ValueError("assemble_words: out and ct_out must be int32 "
                              f"CUDA tensors, got {t.dtype} on {t.device}")
+    _launch_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww, out, counts,
+                     cnt_off, fill, counts_payload, cp_off, ct_out)
+
+
+def _launch_assemble(src, src_off, m, pn, nq, s0, s, c0, d, ww, out, counts,
+                     cnt_off, fill, counts_payload, cp_off, ct_out) -> None:
+    """Kernel 4 on checked CUDA operands (:func:`_check_assemble`'s views):
+    ``src`` and ``out`` of one element size (offsets, strides and ``ww`` in
+    its elements), ``counts_payload`` and ``ct_out`` of another, ``fill`` the
+    element's bits."""
+    global ASSEMBLE_LAUNCHES
     masked = fill is not None
     launch("repro_assemble_proc_words", src.device,
            ptr(src), src.stride(0), src_off, m, pn, nq, s0, s, c0, d, ww,
@@ -331,7 +389,8 @@ def assemble_words(src: torch.Tensor, src_off: int, m: int, pn: int,
            ptr(counts_payload),
            0 if counts_payload is None else counts_payload.stride(0), cp_off,
            ptr(ct_out), *(ct_out.stride() if ct_out is not None else (0,) * 4),
-           SPAN_WORDS)
+           SPAN_WORDS, src.element_size(),
+           4 if counts_payload is None else counts_payload.element_size())
     ASSEMBLE_LAUNCHES += 1
 
 
@@ -347,26 +406,34 @@ def assemble_proc_tiles(
     and ``ct[p, d, j] = counts_payload[j, p, d]`` (``None`` when no payload
     given): one real processor's chunk — axes (source local, destination
     process, destination local, payload) — staged in destination order.
-    ``msgs`` and ``counts_payload`` may be any 4-byte dtype; ``fill`` is a
-    value of ``msgs``' dtype."""
+    ``msgs`` and ``counts_payload`` may each be any dtype of 1, 2 or 4 bytes,
+    as :func:`deliver_tiles` takes them, and keep it; ``fill`` is a value of
+    ``msgs``' dtype."""
     s, pn, d, omega = msgs.shape
     if fill is not None and counts is None:
         raise ValueError("fill requires counts")
-    words = _words(msgs.contiguous()).reshape(s, pn * d * omega)
-    out = torch.empty((pn, d, s, omega), dtype=torch.int32,
+    elems = _elems(msgs.contiguous(), "assemble_proc_tiles")
+    elems = elems.reshape(s, pn * d * omega)
+    out = torch.empty((pn, d, s, omega), dtype=elems.dtype,
                       device=msgs.device)
-    fill_word = cnt = None
+    fill_bits = cnt = None
     if fill is not None:
-        fill_word = int(torch.tensor(fill, dtype=msgs.dtype)
-                        .view(torch.int32))
+        fill_bits = _fill_bits(fill, msgs.dtype)
         cnt = counts.to(torch.int32).reshape(s, pn * d).contiguous()
     ct = cp = None
     if counts_payload is not None:
-        cp = _words(counts_payload.contiguous()).reshape(s, pn * d)
-        ct = torch.empty((pn, d, s), dtype=torch.int32, device=msgs.device)
+        cp = _elems(counts_payload.contiguous(), "assemble_proc_tiles")
+        cp = cp.reshape(s, pn * d)
+        ct = torch.empty((pn, d, s), dtype=cp.dtype, device=msgs.device)
     # One sender (nq = 1) whose destination processes are d contexts apart.
-    assemble_words(words, 0, d, pn, 1, 0, s, 0, d, omega, out, cnt, 0,
-                   fill_word, cp, 0, ct)
+    chunk = (elems, 0, d, pn, 1, 0, s, 0, d, omega)
+    out_v, ct_v = _check_assemble(*chunk, out, cnt, 0, fill_bits, cp, 0, ct)
+    if elems.device.type == "cpu":
+        run = assemble_words_plain
+    else:
+        _require_cuda_counts("assemble_proc_tiles", cnt, cp)
+        run = _launch_assemble
+    run(*chunk, out_v, cnt, 0, fill_bits, cp, 0, ct_v)
     out = out.view(msgs.dtype)
     if ct is not None:
         ct = ct.view(counts_payload.dtype)

@@ -3,7 +3,8 @@ JAX package).
 
 The kernel route is the default: :func:`deliver_tiles` and
 :func:`assemble_proc_tiles` launch their CUDA kernels on a CUDA tensor and
-run their plain versions on a CPU tensor.
+run their plain versions on a CPU tensor, for payloads and counts payloads
+of any dtype of 1, 2 or 4 bytes.
 ``use_kernel=False`` takes the dense reference (:mod:`.ref`) instead — the
 seed implementation, kept so equivalence can be asserted end to end.
 """
@@ -29,6 +30,8 @@ def check_fill_range(fill, dtype) -> None:
           else getattr(torch, np.dtype(dtype).name))
     if not isinstance(fill, (int, float, np.integer, np.floating)):
         return                                 # not a plain number: can't check
+    if dt == torch.bool:
+        return                                 # neither integer nor float in JAX
     if not dt.is_floating_point:
         info = torch.iinfo(dt)
         if (isinstance(fill, (float, np.floating))
@@ -80,7 +83,7 @@ def deliver(msgs: torch.Tensor, counts: torch.Tensor, *, fill=0,
 
 
 def deliver_fused(
-    msgs: torch.Tensor,                        # [v, v, ω] (any 4-byte dtype)
+    msgs: torch.Tensor,                        # [v, v, ω] (1, 2 or 4 bytes)
     counts: Optional[torch.Tensor] = None,     # [v, v] int32 mask lengths
     counts_payload: Optional[torch.Tensor] = None,  # [v, v] raw counts words
     *,
@@ -100,7 +103,7 @@ def deliver_fused(
 
 
 def assemble_proc_fused(
-    msgs: torch.Tensor,                        # [s, P, d, ω] (any 4-byte dtype)
+    msgs: torch.Tensor,                        # [s, P, d, ω] (1, 2 or 4 bytes)
     counts: Optional[torch.Tensor] = None,     # [s, P, d] int32 mask lengths
     counts_payload: Optional[torch.Tensor] = None,  # [s, P, d] raw counts words
     *,

@@ -19,18 +19,19 @@ block each, and a second launch merges their partial results (:func:`_plan`
 decides; flash-decoding's split).  Head dims 16, 32, 64, 80, 128 and 256
 are built.
 
-bfloat16, what the model serves in, runs on the tensor cores: ``mma.sync``
-products of bf16 fragments summed in float32, 64 query rows (4 warps of 16)
-over 64-key tiles (32 at head dim 256, :data:`D256_PREFILL_BK`), K/V tiles
-copied asynchronously two stages ahead, and in decode one 16-row tile whose
-4 warps take a quarter of each key tile.  The probabilities go into P·V as
-two bf16 parts, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, so the output
-still differs from :func:`attend_plain` by its rounding to bf16 alone.  The
-kernel's 16-byte copies need bf16 tensors that start on 16 bytes with
+bfloat16, what the model serves in, and float16 run on the tensor cores, one
+CUDA template built for each: ``mma.sync`` products of 16-bit fragments
+summed in float32, 64 query rows (4 warps of 16) over 64-key tiles (32 at
+head dim 256, :data:`D256_PREFILL_BK`), K/V tiles copied asynchronously two
+stages ahead, and in decode one 16-row tile whose 4 warps take a quarter of
+each key tile.  The probabilities go into P·V as two 16-bit parts, ``hi =
+T(p)`` and ``lo = T(p - hi)``, so the output still differs from
+:func:`attend_plain` by its rounding to the input type T alone.  The
+kernel's 16-byte copies need 16-bit tensors that start on 16 bytes with
 strides in multiples of 8 elements; anything else raises.  float32 keeps an
-FMA kernel whose sums are float32 too.  The output has the input type, as on
-the TPU.  What bounds each and what its design does about it is in the
-source's note.
+FMA kernel whose sums are float32 too.  The output has the input type, as
+on the TPU (float16 past 65504 is inf, as JAX's ``astype`` makes it).  What
+bounds each and what its design does about it is in the source's note.
 
 :func:`attend` is the entry: ``[B, Sq, Hq, d]`` queries over ``[B, Sk, Hkv,
 d]`` keys and values, with ``q_offset`` (the absolute position of query row
@@ -53,9 +54,11 @@ kernel with the per-row log-sum-exp ``lse`` (:func:`attend_with_lse`) and its
 backward launches kernel 5b, the hand-written backward
 (``csrc/flash_attention_bwd.cu``, :func:`attend_backward`), or raises; on a
 CPU tensor it takes :func:`attend_plain` and :func:`attend_backward_plain`,
-the explicit gradient formula.  Kernel 5b's bf16 passes run on the tensor
-cores at every head dim, P and dS entering their products as bf16 hi + lo
-as the forward's P does; at head dim 256 they are passes of their own (warp
+the explicit gradient formula.  Kernel 5b's bf16 and fp16 passes run on the
+tensor cores at every head dim, P and dS entering their products as 16-bit
+hi + lo as the forward's P does (in fp16 dS, whose size follows dO, scaled
+first by a power of two a row from its largest element, the scale taken out
+of the float32 sums); at head dim 256 they are passes of their own (warp
 pairs on each 16 keys, and the dK/dV pass's rows cut into slices when its
 key tiles are too few for the card, :func:`_bwd_slices`).  fp32 takes FMA
 kernels with fp32 sums.  The JAX package has no backward kernel: its
@@ -84,7 +87,10 @@ from .._build import define_op, launch, library, ptr
 LAUNCHES = 0   # calls that launched the CUDA kernel (the forward)
 BWD_LAUNCHES = 0   # calls of attend_backward that launched kernel 5b
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # head dims the CUDA kernels take
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The dtypes the CUDA entries take, by their code (``_build.FLOAT_KINDS``'s):
+# float32 on the FMA kernels, the 16-bit floats on the tensor-core ones.
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_HALF = (torch.bfloat16, torch.float16)
 # Keys per K/V tile of the bf16 prefill kernel at head dim 256; the kernel is
 # built for 32 and 64 (``scripts/flash_d256_tiles.py`` compares them).
 D256_PREFILL_BK = 32
@@ -249,8 +255,8 @@ def _options(q, k, v, *, causal, sk_valid, q_offset, scale, window,
 
 def _check_cuda(what: str, q: torch.Tensor, *tensors) -> None:
     """Raise unless q and ``tensors`` are CUDA tensors of q's dtype, which
-    the kernels take, with the head dim contiguous (bf16: aligned for the
-    16-byte copies) and a head dim the kernels are built for."""
+    the kernels take, with the head dim contiguous (bf16 and fp16: aligned
+    for the 16-byte copies) and a head dim the kernels are built for."""
     d = q.shape[-1]
     for t in (q, *tensors):
         if not t.is_cuda or t.dtype != q.dtype:
@@ -264,7 +270,7 @@ def _check_cuda(what: str, q: torch.Tensor, *tensors) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"{what}: the kernel is built for head dims "
                          f"{HEAD_DIMS}, got {d}")
-    if q.dtype == torch.bfloat16:
+    if q.dtype in _HALF:
         for name, t in zip(("q", "k", "v", "out", "dout"), (q, *tensors)):
             _check_aligned(name, t)
 
@@ -429,7 +435,7 @@ def _launch_bwd(q, k, v, out, dout, lse, causal, sk_valid, q_offset, scale,
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     if sq == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    if q.dtype == torch.bfloat16 and d == 256:
+    if q.dtype in _HALF and d == 256:
         _check_bwd256_tiles()
     dsum = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     slices = _bwd_slices(_sms(q.device), q.dtype, b, sq * (hq // hkv), hkv,
@@ -492,16 +498,16 @@ class _Attend(torch.autograd.Function):
 
 
 def _check_aligned(name: str, t: torch.Tensor) -> None:
-    """Raise unless bf16 ``t`` suits the kernel's 16-byte asynchronous
+    """Raise unless 16-bit ``t`` suits the kernel's 16-byte asynchronous
     copies: its data 16-byte aligned and its batch, position and head strides
     (of the dims longer than 1) multiples of 8 elements."""
     strides = [st for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1]
     if t.data_ptr() % 16 or any(st % 8 for st in strides):
         raise ValueError(
-            f"attend: bf16 {name} must start on a 16-byte boundary with its "
-            f"batch, position and head strides multiples of 8 elements, got "
-            f"an address {t.data_ptr() % 16} bytes past one and strides "
-            f"{tuple(t.stride())}")
+            f"attend: {str(t.dtype)[6:]} {name} must start on a 16-byte "
+            f"boundary with its batch, position and head strides multiples "
+            f"of 8 elements, got an address {t.data_ptr() % 16} bytes past "
+            f"one and strides {tuple(t.stride())}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -512,11 +518,11 @@ def _sms(device: torch.device) -> int:
 
 def _tiles(dtype: torch.dtype, d: int, rows: int) -> tuple[int, int]:
     """The kernel's tile of query rows and keys, ``(bq, bk)``, for ``rows``
-    query rows per (batch, KV head).  bf16 (tensor cores): 16 rows when
-    there are no more (decode) over 64-key tiles, else 64 rows over 64-key
-    tiles (:data:`D256_PREFILL_BK` at head dim 256).  float32 (FMA): 32-key
-    tiles, 16 rows, else 64, or 32 at head dim 256."""
-    if dtype == torch.bfloat16:
+    query rows per (batch, KV head).  bf16 and fp16 (tensor cores): 16 rows
+    when there are no more (decode) over 64-key tiles, else 64 rows over
+    64-key tiles (:data:`D256_PREFILL_BK` at head dim 256).  float32 (FMA):
+    32-key tiles, 16 rows, else 64, or 32 at head dim 256."""
+    if dtype in _HALF:
         if rows <= 16:
             return 16, 64
         return 64, (D256_PREFILL_BK if d == 256 else 64)
@@ -571,7 +577,7 @@ def _check_bwd256_tiles() -> None:
 def _bwd_slices(sms: int, dtype: torch.dtype, b: int, rows: int, hkv: int,
                 d: int, sk: int) -> int:
     """The row slices of kernel 5b's dK/dV pass on a card of ``sms`` SMs:
-    bf16 at head dim 256 takes one block (8 warps, one an SM) a
+    bf16 and fp16 at head dim 256 take one block (8 warps, one an SM) a
     :data:`BWD256_BK`-key tile, batch and KV head, too few to fill the card
     at recurrentgemma's call (96), so each tile's rows are cut into the
     fewest slices that give at least ``sms`` blocks, each slice at least
@@ -579,7 +585,7 @@ def _bwd_slices(sms: int, dtype: torch.dtype, b: int, rows: int, hkv: int,
     group; every other dtype and head dim takes 1.  A slice takes a
     contiguous run of the tile's 32-row ring tiles, and a last launch adds
     the slices' fp32 partial dK and dV in slice order."""
-    if dtype != torch.bfloat16 or d != 256:
+    if dtype not in _HALF or d != 256:
         return 1
     blocks = -(-sk // BWD256_BK) * b * hkv
     return max(1, min(-(-sms // blocks), rows // BWD256_SLICE_ROWS))

@@ -25,6 +25,19 @@ Inputs are made with numpy from a seed and handed to both packages.
   values of order one), and for fp16 that tolerance scaled by the two
   types' epsilons (2^-10 / 2^-7: 6.25e-3).  Both sides compute in float32
   and round once, so they differ by an output ulp or two.
+* **Direct delivery** (kernels 2 and 4: ``deliver_tiles``, ``deliver``,
+  ``deliver_fused``, ``assemble_proc_tiles``, ``assemble_proc_fused``) on
+  payloads and counts payloads of bool, int8, uint8, int16, uint16, float16
+  and bfloat16, ω of 1, 3, 130 and 257, counts of 0, of ω, past ω and
+  negative, fills of None, a value and the type's extremes (for floats ±inf
+  and NaN too): bit for bit against the Pallas kernels in interpret mode,
+  compared as integer bits, each output in its input's dtype.  XLA's CPU
+  moves a bfloat16 NaN as the quiet NaN of its sign and flushes bfloat16
+  subnormals to zero in these kernels too (as their fused operations
+  have it), so JAX is met without those (``_keys``'s ``xla_cpu``); with
+  them the port moves every element's own bits, held against the
+  transposition of the bits in numpy.  8-byte payloads raise
+  ``TypeError`` naming the dtype.
 * **Gradients** through ``_SsdScan`` and ``_LruScan`` in narrow dtypes
   against autograd of the plain version: each gradient in its operand's
   dtype, within ``k·eps·|w| + 1e-4·max|w|`` (eps the dtype's, k = 1 for
@@ -40,9 +53,10 @@ import numpy as np
 import pytest
 import torch
 
-from _jax_ref import bitonic_ops, jax, jnp, np_out
+from _jax_ref import bitonic_ops, deliver as jdeliver, jax, jnp, np_out
 from repro.kernels.lru_scan.ops import lru_scan as j_lru
 from repro.kernels.ssd_scan.ops import ssd_scan as j_ssd
+from repro_torch.kernels import alltoallv_deliver as tdeliver
 from repro_torch.kernels.bitonic_sort import bitonic_sort, bitonic_sort_rows
 from repro_torch.kernels.bitonic_sort.bitonic_sort import (key_width,
                                                           radix_key,
@@ -387,3 +401,152 @@ def test_narrow_scans_keep_the_plain_dtype_rules_on_the_cpu(dtype):
                         for t in _ssd_inputs(2, 1, 2, 9, 16, 16))
     y, s_fin = ssd_scan_chunked(x, dt, A, Bm, Cm)
     assert y.dtype == dtype and s_fin.dtype == torch.float32
+
+
+# --------------------------------------------------------------------------- #
+# Kernels 2 and 4 on payloads of 1 and 2 bytes                                 #
+# --------------------------------------------------------------------------- #
+
+PAYLOADS = [torch.bool, torch.int8, torch.uint8, torch.int16, torch.uint16,
+            torch.float16, torch.bfloat16]
+OMEGAS = [1, 3, 130, 257]
+
+
+def _fills(dtype):
+    """None, a value and the type's extremes (floats: ±inf and NaN too)."""
+    if dtype == torch.bool:
+        return [None, True, False]
+    if dtype in FLOATS:
+        fi = torch.finfo(dtype)
+        return [None, -1.5, float(fi.min), float(fi.max), -np.inf, np.nan]
+    ii = torch.iinfo(dtype)
+    return [None, 5, ii.min, ii.max]
+
+
+def _counts_payload(dtype, shape, seed):
+    """A counts payload of the payload's own dtype, of another width, or
+    none, in turn with the fills."""
+    other = torch.uint16 if dtype in (torch.bool, torch.int8,
+                                      torch.uint8) else torch.int8
+    return [None, dtype, other][seed % 3]
+
+
+def _counts(rng, shape, omega):
+    c = rng.integers(-2, omega + 3, size=shape).astype(np.int32)
+    c.reshape(-1)[:4] = [0, omega, omega + 5, -3]   # empty, full, past, < 0
+    return c
+
+
+def _same_bits(got, want, what):
+    assert got.dtype == _to_torch(np.asarray(want)[:0], got.dtype).dtype
+    np.testing.assert_array_equal(_bits(got), _bits(np.asarray(want)),
+                                  err_msg=what)
+
+
+@pytest.mark.parametrize("omega", OMEGAS)
+@pytest.mark.parametrize("dtype", PAYLOADS, ids=_name)
+def test_deliver_narrow_payloads_match_pallas_interpret(dtype, omega):
+    """``deliver_tiles`` and the ``deliver``/``deliver_fused`` wrappers on a
+    1- or 2-byte payload: bit for bit against the Pallas kernel in interpret
+    mode, the output and the transposed counts payload each in its input's
+    dtype."""
+    v = 3
+    rng = np.random.default_rng(omega)
+    msgs = _keys(dtype, (v, v, omega), "special", omega, xla_cpu=True)
+    counts = _counts(rng, (v, v), omega)
+    tm, tc = _to_torch(msgs, dtype), torch.from_numpy(counts)
+    for i, fill in enumerate(_fills(dtype)):
+        cpd = _counts_payload(dtype, (v, v), i)
+        cp = None if cpd is None else _keys(cpd, (v, v), "special", i,
+                                            xla_cpu=True)
+        want = np_out(jdeliver.deliver_tiles(
+            jnp.asarray(msgs), jnp.asarray(counts),
+            None if cp is None else jnp.asarray(cp), fill=fill,
+            interpret=True))
+        got = tdeliver.deliver_tiles(
+            tm, tc, None if cp is None else _to_torch(cp, cpd), fill=fill)
+        what = f"{dtype} ω={omega} fill={fill} ct={cpd}"
+        _same_bits(got[0], want[0], what)
+        assert (got[1] is None) == (cp is None)
+        if cp is not None:
+            _same_bits(got[1], want[1], what + " counts")
+        fused = tdeliver.deliver_fused(
+            tm, tc, None if cp is None else _to_torch(cp, cpd), fill=fill)
+        _same_bits(fused[0], want[0], what + " deliver_fused")
+    fill = _fills(dtype)[1]
+    want = np_out(jdeliver.deliver(jnp.asarray(msgs), jnp.asarray(counts),
+                                   fill=fill, interpret=True))
+    _same_bits(tdeliver.deliver(tm, tc, fill=fill), want, "deliver")
+    want = np_out(jdeliver.deliver(jnp.asarray(msgs), jnp.asarray(counts),
+                                   interpret=True))
+    _same_bits(tdeliver.deliver(tm, tc), want, "deliver, fill 0")
+
+
+@pytest.mark.parametrize("omega", OMEGAS)
+@pytest.mark.parametrize("dtype", PAYLOADS, ids=_name)
+def test_assemble_narrow_payloads_match_pallas_interpret(dtype, omega):
+    """``assemble_proc_tiles`` and ``assemble_proc_fused`` on a 1- or 2-byte
+    chunk ``[s, P, d, ω]``: bit for bit against the Pallas kernel in
+    interpret mode."""
+    shape = (3, 2, 2)                          # s, P, d
+    rng = np.random.default_rng(omega + 1)
+    msgs = _keys(dtype, (*shape, omega), "special", omega + 1, xla_cpu=True)
+    counts = _counts(rng, shape, omega)
+    tm, tc = _to_torch(msgs, dtype), torch.from_numpy(counts)
+    for i, fill in enumerate(_fills(dtype)):
+        cpd = _counts_payload(dtype, shape, i + 1)
+        cp = None if cpd is None else _keys(cpd, shape, "special", i,
+                                            xla_cpu=True)
+        want = np_out(jdeliver.assemble_proc_tiles(
+            jnp.asarray(msgs), jnp.asarray(counts),
+            None if cp is None else jnp.asarray(cp), fill=fill,
+            interpret=True))
+        what = f"{dtype} ω={omega} fill={fill} ct={cpd}"
+        for fn in (tdeliver.assemble_proc_tiles,
+                   tdeliver.assemble_proc_fused):
+            got = fn(tm, tc, None if cp is None else _to_torch(cp, cpd),
+                     fill=fill)
+            _same_bits(got[0], want[0], f"{what} {fn.__name__}")
+            assert (got[1] is None) == (cp is None)
+            if cp is not None:
+                _same_bits(got[1], want[1], f"{what} {fn.__name__} counts")
+
+
+@pytest.mark.parametrize("omega", [3, 130])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=_name)
+def test_delivery_moves_nan_payloads_and_subnormals_bit_for_bit(dtype,
+                                                                 omega):
+    """Every NaN payload and subnormal of a narrow float payload (and of its
+    counts payload) arrives with its own bits: the masked transposes done on
+    the integer bits in numpy."""
+    rng = np.random.default_rng(omega)
+    fill = -np.inf
+    fb = _bits(np.array([fill], dtype=DTYPES[dtype][0]))[0]
+    lane = np.arange(omega)
+    for shape, fn, axes in (((3, 3), tdeliver.deliver_tiles, (1, 0)),
+                            ((3, 2, 2), tdeliver.assemble_proc_tiles,
+                             (1, 2, 0))):
+        msgs = _keys(dtype, (*shape, omega), "special", omega)
+        cp = _keys(dtype, shape, "special", omega + 1)
+        counts = _counts(rng, shape, omega)
+        out, ct = fn(_to_torch(msgs, dtype), torch.from_numpy(counts),
+                     _to_torch(cp, dtype), fill=fill)
+        want = np.where(lane < counts.transpose(axes)[..., None],
+                        _bits(msgs).transpose(*axes, len(shape)), fb)
+        np.testing.assert_array_equal(_bits(out), want)
+        np.testing.assert_array_equal(_bits(ct), _bits(cp).transpose(axes))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int64], ids=_name)
+def test_delivery_raises_on_8_byte_payloads(dtype):
+    """JAX with x64 off makes no 8-byte payload; the kernels move 1, 2 or 4
+    bytes an element, so the array forms raise, naming the dtype."""
+    c = torch.zeros((2, 2), dtype=torch.int32)
+    with pytest.raises(TypeError, match=str(dtype)):
+        tdeliver.deliver_tiles(torch.zeros((2, 2, 3), dtype=dtype), c,
+                               fill=0)
+    with pytest.raises(TypeError, match=str(dtype)):
+        tdeliver.deliver_tiles(torch.zeros((2, 2, 3), dtype=torch.int8),
+                               None, torch.zeros((2, 2), dtype=dtype))
+    with pytest.raises(TypeError, match=str(dtype)):
+        tdeliver.assemble_proc_tiles(torch.zeros((2, 2, 1, 3), dtype=dtype))

@@ -438,12 +438,13 @@ def test_plan_of_the_serve_calls(case):
 
 def _kernel_rounding(q, k, v, *, causal, sk_valid, q_offset=0, window=0,
                      prefix=0, bk=64, split=True):
-    """The bf16 kernel's arithmetic in plain PyTorch: S = Q·Kᵀ of the bf16
-    values summed in float32 and scaled after the product (log2 units), an
-    online softmax over ``bk``-key tiles with exp2, P split into bf16
-    ``hi = bf16(p)`` and ``lo = bf16(p - hi)`` whose two products with V sum
-    in float32 (``split=False``: P rounded once, no ``lo``), ``l`` from the
-    float32 p, and one rounding of the output to bf16."""
+    """The tensor-core kernel's arithmetic in plain PyTorch, in q's dtype
+    (bf16 or fp16): S = Q·Kᵀ of the 16-bit values summed in float32 and
+    scaled after the product (log2 units), an online softmax over
+    ``bk``-key tiles with exp2, P split into ``hi = T(p)`` and ``lo = T(p -
+    hi)`` whose two products with V sum in float32 (``split=False``: P
+    rounded once, no ``lo``), ``l`` from the float32 p, and one rounding of
+    the output to T."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -467,15 +468,14 @@ def _kernel_rounding(q, k, v, *, causal, sk_valid, q_offset=0, window=0,
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp2(m - m_new)
         p = torch.where(mask, torch.exp2(s - m_new[..., None]), 0.0)
-        hi = p.bfloat16().float()
-        lo = (p - hi).bfloat16().float() if split else torch.zeros_like(p)
+        hi, lo = _split(p, split, q.dtype)
         l = l * alpha + p.sum(-1)
         acc = (acc * alpha[..., None]
                + torch.einsum("bhgqk,bkhd->bhgqd", hi, vf[:, col])
                + torch.einsum("bhgqk,bkhd->bhgqd", lo, vf[:, col]))
         m = m_new
     out = acc / torch.where(l == 0, 1.0, l)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).bfloat16()
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d).to(q.dtype)
 
 
 # (b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, window, bk, prefix):
@@ -492,21 +492,30 @@ ROUNDING = [
 ]
 
 
-def _rounding_error(case, split=True):
-    """max |model - plain| / (2^-10 + 2^-7 |plain|) at a ``ROUNDING``
-    case, over seeded bf16 inputs."""
+# The card's tolerances for the 16-bit kernels, (rtol, atol): both kernel
+# and plain version sum in float32 and round once, so they part by one ulp
+# of the output's type at most (bf16 2^-7, fp16 2^-10 relative), plus the
+# float32 sums' order near zero (2^-10 in bf16, 2^-13 in fp16).
+HALF_TOL = {torch.bfloat16: (2**-7, 2**-10), torch.float16: (2**-10, 2**-13)}
+
+
+def _rounding_error(case, split=True, dtype=torch.bfloat16, scale=1.0):
+    """max |model - plain| / (atol + rtol |plain|) (``HALF_TOL``) at a
+    ``ROUNDING`` case, over seeded inputs of ``dtype`` (times ``scale``)."""
     b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, window, bk, prefix = \
         case
     rng = np.random.default_rng(sum(case[:6]))
-    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
-               .bfloat16() for shape in ((b, sq, hq, d), (b, sk, hkv, d),
-                                         (b, sk, hkv, d)))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * scale).to(dtype)
+               for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, d)))
     kw = dict(causal=causal, sk_valid=sk_valid, q_offset=q_offset,
               window=window, prefix=prefix)
     got = _kernel_rounding(q, k, v, bk=bk, split=split, **kw).float()
     want = attend_plain(q, k, v, **kw).float()
     assert torch.isfinite(got).all()
-    return float(((got - want).abs() / (2**-10 + 2**-7 * want.abs())).max())
+    rtol, atol = HALF_TOL[dtype]
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
 
 
 @pytest.mark.parametrize("case", ROUNDING, ids=str)
@@ -521,6 +530,24 @@ def test_p_rounded_once_would_leave_the_tolerance():
     """Why P is split: rounded once to bf16 it errs by up to 2^-8 max|v|,
     and the same model then leaves the card's tolerance."""
     assert max(_rounding_error(case, split=False) for case in ROUNDING) > 1
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+@pytest.mark.parametrize("case", ROUNDING, ids=str)
+def test_kernel_rounding_model_holds_the_cards_fp16_tolerance(case, scale):
+    """The card holds fp16 attention within 2^-13 + 2^-10 |plain|: P split
+    into fp16 hi + lo keeps the kernel within one fp16 ulp of the plain
+    version, also where inputs four times larger spread the scores so that
+    most p lie below fp16's normal range (2^-14) and many flush to 0 (the
+    row's largest p is 1, and l at least 1)."""
+    assert _rounding_error(case, dtype=torch.float16, scale=scale) <= 1.0
+
+
+def test_fp16_p_rounded_once_would_leave_the_tolerance():
+    """Why fp16's P is split too: rounded once to fp16 it errs by up to
+    2^-11 max|v|, and the model then leaves the card's fp16 tolerance."""
+    assert max(_rounding_error(c, split=False, dtype=torch.float16)
+               for c in ROUNDING) > 1
 
 
 # --------------------------------------------------------------------------- #
@@ -650,6 +677,8 @@ def test_plan_splits_at_the_cards_training_edge_shapes(case):
 # rtol |plain| + atol max(1, max |plain|) (chip_smoke.py ``BWD_BF16_TOL``):
 # both sum in fp32, and each gradient is rounded to bf16 once.
 BWD_BF16_TOL = (2**-7, 1e-4)
+BWD_FP16_TOL = (2**-10, 2**-12)
+FP16_SUBNORMAL = 2**-24     # fp16's spacing below 2^-14
 # BWD_CASES, then narrow hubert-like (head dim 80, group 1, non-causal) and
 # qwen2-like (head dim 128, group 6, causal) calls whose rows and keys are
 # not multiples of the kernel's 64-row and 64-key tiles; at head dim 256
@@ -690,28 +719,47 @@ def _tile_slices(rows, group, k0, *, kv_lim, causal, q_offset, window,
     return out
 
 
-def _split(x, split):
-    """x as bf16 ``hi`` and ``lo = bf16(x - hi)`` (``lo`` 0 unless
+def _split(x, split, dtype=torch.bfloat16):
+    """x as ``hi = dtype(x)`` and ``lo = dtype(x - hi)`` (``lo`` 0 unless
     ``split``), both as float32."""
-    hi = x.bfloat16().float()
-    return hi, ((x - hi).bfloat16().float() if split else torch.zeros_like(x))
+    hi = x.to(dtype).float()
+    return hi, ((x - hi).to(dtype).float() if split
+                else torch.zeros_like(x))
+
+
+def _ds_exp(m):
+    """``flash_common.cuh``'s ``ds_exp``: the largest e <= 100 with ``m·2^e
+    < 2^15`` (m >= 0 float32), from m's biased exponent."""
+    return (141 - ((m.contiguous().view(torch.int32) >> 23) & 0xFF)).clamp(
+        max=100)
+
+
+def _pow2(e):
+    """2^e as float32 (0 below 2^-126), as ``flash_common.cuh``'s ``pow2``."""
+    return torch.where(e < -126, 0.0,
+                       torch.ldexp(torch.ones(e.shape), e.float()))
 
 
 def _bwd_kernel_rounding(q, k, v, out, dout, lse, *, causal, sk_valid=None,
                          q_offset=0, window=0, prefix=0, split_p=True,
-                         split_ds=True, tile=64):
-    """Kernel 5b's bf16 arithmetic in plain PyTorch: the rows of a KV head's
-    group position-major; S = Q·Kᵀ and dP = dO·Vᵀ of the bf16 values summed
-    in float32; P = 2^(S·scale·log2 e − lse·log2 e) from the forward's
-    ``lse`` and dS = P (dP − D), D = rowsum(dO ∘ O), in float32; P and dS
-    split into bf16 ``hi + lo`` (``split_p``/``split_ds`` False: rounded
-    once); dV and dK summed over 64-row tiles and dQ over 64-key tiles in
-    float32, dK and dQ scaled at the end; one rounding of each gradient to
-    bf16.  Head dim 256 (``dkdv_256_kernel``, ``dq_256_kernel``): each
-    64-key tile's dV and dK summed over its slices' 32-row ring tiles
-    (:func:`_tile_slices`, slices from the wrapper's plan for the card), one
-    float32 partial a slice, the partials added in slice order; dQ over
-    32-key tiles."""
+                         split_ds=True, scale_ds=True, tile=64):
+    """Kernel 5b's 16-bit arithmetic in plain PyTorch, in q's dtype T (bf16
+    or fp16): the rows of a KV head's group position-major; S = Q·Kᵀ and
+    dP = dO·Vᵀ of the 16-bit values summed in float32; P = 2^(S·scale·log2
+    e − lse·log2 e) from the forward's ``lse`` and dS = P (dP − D), D =
+    rowsum(dO ∘ O), in float32; P and dS split into T ``hi + lo``
+    (``split_p``/``split_ds`` False: rounded once); dV and dK summed over
+    64-row tiles and dQ over 64-key tiles in float32, dK and dQ scaled at
+    the end; one rounding of each gradient to T.  In fp16 (``scale_ds``)
+    each tile's dS is split after scaling each row of the split operand (a
+    key for dK, a query row for dQ) by 2^e, e lowered to the row's
+    :func:`_ds_exp` of the largest |dS| it has met, the row's sum
+    multiplied by the change, and 2^-e taken out at the end
+    (``scale_rows``).  Head dim 256 (``dkdv_256_kernel``,
+    ``dq_256_kernel``): each 64-key tile's dV and dK summed over its slices'
+    32-row ring tiles (:func:`_tile_slices`, slices from the wrapper's plan
+    for the card), one float32 partial (its own scales) a slice, the
+    partials added in slice order; dQ over 32-key tiles."""
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -742,10 +790,31 @@ def _bwd_kernel_rounding(q, k, v, out, dout, lse, *, causal, sk_valid=None,
                     0.0)
     dp = torch.einsum("bhrd,bhkd->bhrk", dor, vf)
     ds = torch.where(mask, p * (dp - dsum[..., None]), 0.0)
-    p_parts, ds_parts = _split(p, split_p), _split(ds, split_ds)
+    half = q.dtype
+    scaled = scale_ds and half == torch.float16
+
+    def add(acc, e, x, y, eq, split, axis):
+        """acc += x·y (``eq``), x split into T hi + lo; with ``e`` (the rows'
+        exponents, None: no scale) x's rows scaled first, ``axis`` the one
+        a row's largest |x| is taken over."""
+        if e is not None:
+            e_new = torch.minimum(e, _ds_exp(x.abs().amax(dim=axis)))
+            acc = acc * _pow2(e_new - e)[..., None]
+            e = e_new
+            x = x * _pow2(e).unsqueeze(axis)
+        for part in _split(x, split, half):
+            acc = acc + torch.einsum(eq, part, y)
+        return acc, e
+
+    def exps(acc):
+        return torch.full(acc.shape[:-1], 100) if scaled else None
+
+    def unscale(acc, e):
+        return acc if e is None else acc * _pow2(-e)[..., None]
+
     dv, dk, dq = (torch.zeros_like(t) for t in (vf, kf, qr))
     if d == 256:
-        slices = j_fa_t._bwd_slices(SMS, torch.bfloat16, b, rows, hkv, d, sk)
+        slices = j_fa_t._bwd_slices(SMS, half, b, rows, hkv, d, sk)
         bk = j_fa_t.BWD256_BK
         for k0 in range(0, sk, bk):
             c = slice(k0, k0 + bk)
@@ -754,51 +823,63 @@ def _bwd_kernel_rounding(q, k, v, out, dout, lse, *, causal, sk_valid=None,
                                        window=window, prefix=prefix,
                                        slices=slices):
                 pv, pk = torch.zeros_like(dv[:, :, c]), torch.zeros_like(dk[:, :, c])
+                e = exps(pk)
                 for r0 in range(lo, hi, j_fa_t.BWD256_SUB):
                     r = slice(r0, min(r0 + j_fa_t.BWD256_SUB, hi))
-                    for part in p_parts:
-                        pv += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r, c],
-                                           dor[:, :, r])
-                    for part in ds_parts:
-                        pk += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r, c],
-                                           qr[:, :, r])
+                    pv, _ = add(pv, None, p[:, :, r, c], dor[:, :, r],
+                                "bhrk,bhrd->bhkd", split_p, 2)
+                    pk, e = add(pk, e, ds[:, :, r, c], qr[:, :, r],
+                                "bhrk,bhrd->bhkd", split_ds, 2)
                 dv[:, :, c] += pv
-                dk[:, :, c] += pk
+                dk[:, :, c] += unscale(pk, e)
         tile = j_fa_t.BWD256_QBK
     else:
+        e = exps(dk)
         for r0 in range(0, rows, tile):
             r = slice(r0, r0 + tile)
-            for part in p_parts:
-                dv += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r],
-                                   dor[:, :, r])
-            for part in ds_parts:
-                dk += torch.einsum("bhrk,bhrd->bhkd", part[:, :, r],
-                                   qr[:, :, r])
+            dv, _ = add(dv, None, p[:, :, r], dor[:, :, r],
+                        "bhrk,bhrd->bhkd", split_p, 2)
+            dk, e = add(dk, e, ds[:, :, r], qr[:, :, r], "bhrk,bhrd->bhkd",
+                        split_ds, 2)
+        dk = unscale(dk, e)
+    e = exps(dq)
     for k0 in range(0, sk, tile):
         c = slice(k0, k0 + tile)
-        for part in ds_parts:
-            dq += torch.einsum("bhrk,bhkd->bhrd", part[..., c], kf[:, :, c])
+        dq, e = add(dq, e, ds[..., c], kf[:, :, c], "bhrk,bhkd->bhrd",
+                    split_ds, 3)
+    dq = unscale(dq, e)
     dq = ((dq * scale).reshape(b, hkv, sq, group, d).permute(0, 2, 1, 3, 4)
           .reshape(b, sq, hq, d))
-    return (dq.bfloat16(), (dk * scale).permute(0, 2, 1, 3).bfloat16(),
-            dv.permute(0, 2, 1, 3).bfloat16())
+    return (dq.to(half), (dk * scale).permute(0, 2, 1, 3).to(half),
+            dv.permute(0, 2, 1, 3).to(half))
 
 
-def _bwd_rounding_errors(case, **split):
-    """max |model − plain| / (rtol |plain| + atol max(1, max |plain|)) of
-    dq, dk and dv at a ``BWD_ROUNDING`` case, over seeded bf16 inputs."""
+def _bwd_rounding_errors(case, dtype=torch.bfloat16, dout_scale=1.0,
+                         **split):
+    """max |model − plain| / bound of dq, dk and dv at a ``BWD_ROUNDING``
+    case, over seeded inputs of ``dtype`` (``dout`` times ``dout_scale``):
+    bf16's bound rtol |plain| + atol max(1, max |plain|) (``BWD_BF16_TOL``),
+    fp16's rtol |plain| + atol max(max |plain|, max |dout|)
+    (``BWD_FP16_TOL``) + 2^-24: a gradient's terms are of dout's size even
+    where they cancel (one query over one key: dS = dP - D = 0)."""
     b, sq, hq, hkv, d, kw = case
-    q, k, v, dout = (_t(x).bfloat16() for x in
+    q, k, v, dout = (_t(x) for x in
                      _bwd_inputs(sum(case[:5]), b, sq, hq, hkv, d))
+    q, k, v, dout = (x.to(dtype) for x in (q, k, v, dout * dout_scale))
     out, lse = j_fa_t.attend_plain_with_lse(q, k, v, **kw)
     got = _bwd_kernel_rounding(q, k, v, out, dout, lse, **kw, **split)
     want = j_fa_t.attend_backward_plain(q, k, v, out, dout, **kw)
-    rtol, atol = BWD_BF16_TOL
     errs = []
     for g, w in zip(got, want):
         g, w = g.float(), w.float()
         assert torch.isfinite(g).all()
-        bound = rtol * w.abs() + atol * max(1.0, float(w.abs().max()))
+        if dtype == torch.bfloat16:
+            rtol, atol = BWD_BF16_TOL
+            bound = rtol * w.abs() + atol * max(1.0, float(w.abs().max()))
+        else:
+            rtol, atol = BWD_FP16_TOL
+            scale = max(float(w.abs().max()), float(dout.abs().max()))
+            bound = rtol * w.abs() + atol * scale + FP16_SUBNORMAL
         errs.append(float(((g - w).abs() / bound).max()))
     return errs
 
@@ -809,6 +890,27 @@ def test_backward_rounding_model_holds_the_cards_bf16_tolerance(case):
     sums, 64-row and 64-key tiles) keeps dq, dk and dv within the card's
     bf16 tolerance ``BWD_BF16_TOL`` of the plain version."""
     assert max(_bwd_rounding_errors(case)) <= 1.0
+
+
+@pytest.mark.parametrize("dout_scale", [1.0, 2**-16])
+@pytest.mark.parametrize("case", BWD_ROUNDING, ids=str)
+def test_backward_rounding_model_holds_the_cards_fp16_tolerance(case,
+                                                                dout_scale):
+    """Kernel 5b's fp16 rounding (P and dS split into fp16 hi + lo, dS
+    scaled a row by a power of two first, float32 sums) keeps dq, dk and dv
+    within the card's fp16 tolerance, ``BWD_FP16_TOL`` of each gradient's
+    scale plus fp16's subnormal spacing, also for an output gradient of
+    2^-16 (a loss's gradient: dS then lies below fp16's normal range)."""
+    assert max(_bwd_rounding_errors(case, torch.float16, dout_scale)) <= 1.0
+
+
+def test_fp16_ds_unscaled_would_leave_the_tolerance():
+    """Why fp16's dS is scaled: for an output gradient of 2^-16, dS split as
+    it is loses its low bits below 2^-14 and dq and dk leave the card's
+    fp16 tolerance."""
+    errs = [_bwd_rounding_errors(case, torch.float16, 2**-16,
+                                 scale_ds=False) for case in BWD_ROUNDING]
+    assert max(max(e[:2]) for e in errs) > 1
 
 
 @pytest.mark.parametrize("once", ["P", "dS"])

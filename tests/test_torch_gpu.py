@@ -1028,23 +1028,25 @@ def test_prefix_flash_attention_kernel_matches_plain(cuda, case):
 
 
 def test_bf16_flash_attention_rejects_misaligned_tensors(cuda):
-    """The tensor-core kernel copies K/V tiles in 16-byte pieces: a bf16
-    tensor whose data or strides are not 16-byte aligned raises, and
+    """The tensor-core kernel copies K/V tiles in 16-byte pieces: a bf16 or
+    fp16 tensor whose data or strides are not 16-byte aligned raises, and
     launches nothing."""
     fa = _kernel("flash_attention")
     g = torch.Generator(device=cuda).manual_seed(3)
-    q = torch.randn((2, 8, 4, 128), generator=g, device=cuda).bfloat16()
-    kv = torch.randn((2, 8, 2, 128), generator=g, device=cuda).bfloat16()
-    wide = torch.randn((2, 8, 2, 130), generator=g, device=cuda).bfloat16()
-    wide_q = torch.randn((2, 8, 4, 136), generator=g,
-                         device=cuda).bfloat16()
-    before = fa.LAUNCHES
-    for qq, k, v in ((q, wide[..., :128], kv),        # k: head stride 130
-                     (q[:, :1], kv, wide[..., 2:]),   # v: 4 bytes past 16
-                     (wide_q[..., 4:132], kv, kv)):   # q: 8 bytes past 16
-        with pytest.raises(ValueError, match="16-byte"):
-            fa.attend(qq, k, v, causal=True)
-    assert fa.LAUNCHES == before
+    for dtype in (torch.bfloat16, torch.float16):
+        q = torch.randn((2, 8, 4, 128), generator=g, device=cuda).to(dtype)
+        kv = torch.randn((2, 8, 2, 128), generator=g, device=cuda).to(dtype)
+        wide = torch.randn((2, 8, 2, 130), generator=g,
+                           device=cuda).to(dtype)
+        wide_q = torch.randn((2, 8, 4, 136), generator=g,
+                             device=cuda).to(dtype)
+        before = fa.LAUNCHES
+        for qq, k, v in ((q, wide[..., :128], kv),        # k: head stride 130
+                         (q[:, :1], kv, wide[..., 2:]),   # v: 4 bytes past 16
+                         (wide_q[..., 4:132], kv, kv)):   # q: 8 bytes past 16
+            with pytest.raises(ValueError, match="16-byte"):
+                fa.attend(qq, k, v, causal=True)
+        assert fa.LAUNCHES == before
 
 
 # Kernel 7: one step, ragged lengths, one chunk of its chunked scan (32
@@ -1303,7 +1305,7 @@ def test_moe_block_on_the_card_matches_the_cpu(cuda, arch, cf, monkeypatch):
 def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):
     fa, ss = _kernel("flash_attention"), _kernel("ssd_scan")
     ls = _kernel("lru_scan")
-    q = torch.zeros((1, 4, 2, 16), device=cuda, dtype=torch.float16)
+    q = torch.zeros((1, 4, 2, 16), device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError, match="kernel takes"):
         fa.attend(q, q, q, causal=True)
     for d in (48, 512):
@@ -1720,3 +1722,162 @@ def test_scan_custom_ops_equal_the_direct_launch(cuda, b, h, s, p, n):
         want = ls._launch_bwd(a, want[0], dh, fin)
         runs = [ops.lru_scan_bwd(a, runs[0][0], dh, fin) for _ in range(2)]
         assert all(_bitwise(r, want) for r in runs)
+
+
+# --------------------------------------------------------------------------- #
+# Float16 on kernels 5 and 5b, and kernels 2 and 4 on 1- and 2-byte payloads. #
+# fp16 attention within 2^-13 + 2^-10 |plain| (one fp16 ulp: both sum in    #
+# fp32 and round once), its gradients within 2^-10 |plain| + 2^-12 max(max  #
+# |plain|, max |dout|) + 2^-24 (fp16's subnormal spacing), the model of     #
+# both in tests/test_torch_flash_attention.py; the delivery exact.           #
+# --------------------------------------------------------------------------- #
+
+F16_RTOL, F16_ATOL = 2**-10, 2**-13
+F16_BWD_TOL = (2**-10, 2**-12, 2**-24)
+
+# The bf16 cases of the three flash tables, in fp16.
+_F16_ATTN = [(*c[:-1], torch.float16) for c in _ATTN
+             if c[-1] == torch.bfloat16]
+_F16_WINDOWED = [(*c[:-1], torch.float16) for c in _WINDOWED
+                 if c[-1] == torch.bfloat16]
+_F16_PREFIXED = [(*c[:-1], torch.float16) for c in _PREFIXED
+                 if c[-1] == torch.bfloat16]
+
+
+@pytest.mark.parametrize("case", [(*c[:9], 0, 0) for c in _F16_ATTN]
+                         + [(*c[:10], 0) for c in _F16_WINDOWED]
+                         + [(*c[:6], True, *c[6:10]) for c in _F16_PREFIXED],
+                         ids=str)
+def test_fp16_flash_attention_kernel_matches_plain(cuda, case):
+    """Kernel 5 in fp16 (the tensor-core kernel's fp16 build) at the bf16
+    tables' shapes and masks, on the cache's strided view too."""
+    b, sq, sk, hq, hkv, d, causal, sk_valid, q_offset, window, prefix = case
+    fa = _kernel("flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(sq * sk + d)
+    q = torch.randn((b, sq, hq, d), generator=g, device=cuda).half()
+    cache = torch.randn((b, sk + 24, 2, hkv, d), generator=g,
+                        device=cuda).half()
+    kw = dict(causal=causal, sk_valid=sk_valid, q_offset=q_offset,
+              window=window, prefix=prefix)
+    for k, v in ((cache[:, :sk, 0].contiguous(),
+                  cache[:, :sk, 1].contiguous()),
+                 (cache[:, :sk, 0], cache[:, :sk, 1])):
+        before = fa.LAUNCHES
+        got = fa.attend(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == before + 1 and got.dtype == torch.float16
+        torch.testing.assert_close(got.float(),
+                                   fa.attend_plain(q, k, v, **kw).float(),
+                                   rtol=F16_RTOL, atol=F16_ATOL)
+
+
+@pytest.mark.parametrize("dout_scale", [1.0, 2**-16])
+@pytest.mark.parametrize("case", _BWD, ids=str)
+def test_fp16_flash_attention_backward_kernel_matches_plain(cuda, case,
+                                                            dout_scale):
+    """Kernel 5 with lse and kernel 5b in fp16 against their plain versions,
+    also for an output gradient of 2^-16 (dS below fp16's normal range,
+    scaled a row by the kernel); two runs of kernel 5b give the same
+    bits."""
+    b, sq, sk, hq, hkv, d, kw = case
+    fa = _kernel("flash_attention")
+    g = torch.Generator(device=cuda).manual_seed(sq * sk + d)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda)
+                   for shape in ((b, sq, hq, d), (b, sk, hkv, d),
+                                 (b, sk, hkv, d), (b, sq, hq, d)))
+    q, k, v, do = (t.half() for t in (q, k, v, do * dout_scale))
+    out, lse = fa.attend_with_lse(q, k, v, **kw)
+    _, lse_p = fa.attend_plain_with_lse(q, k, v, **kw)
+    live = torch.isfinite(lse_p)
+    assert torch.equal(torch.isfinite(lse), live) and out.dtype == q.dtype
+    torch.testing.assert_close(lse[live], lse_p[live], rtol=1e-5, atol=1e-5)
+    before = fa.BWD_LAUNCHES
+    got = fa.attend_backward(q, k, v, out, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == before + 1
+    want = fa.attend_backward_plain(q, k, v, out, do, **kw)
+    rtol, atol, floor = F16_BWD_TOL
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float16
+        w = w.float()
+        scale = max(float(w.abs().max()), float(do.abs().max()))
+        bound = rtol * w.abs() + atol * scale + floor
+        assert bool(((a.float() - w).abs() <= bound).all())
+    again = fa.attend_backward(q, k, v, out, do, lse, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+_NARROW = [torch.bool, torch.int8, torch.uint8, torch.int16, torch.uint16,
+           torch.float16, torch.bfloat16]
+
+
+def _payload(shape, dtype, dev, seed):
+    """Random bits of ``dtype`` (bool: 0 or 1) on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=g, device=dev).bool()
+    view = {1: torch.int8, 2: torch.int16}[dtype.itemsize]
+    bits = torch.randint(-2**(8 * dtype.itemsize - 1),
+                         2**(8 * dtype.itemsize - 1), shape, generator=g,
+                         device=dev, dtype=torch.int32)
+    return bits.to(view).view(dtype)
+
+
+def _fills(dtype):
+    if dtype == torch.bool:
+        return [None, True]
+    if dtype.is_floating_point:
+        fi = torch.finfo(dtype)
+        return [None, -1.5, fi.min, fi.max, float("nan")]
+    ii = torch.iinfo(dtype)
+    return [None, 5, ii.min, ii.max]
+
+
+def _bits(x):
+    return x.view({1: torch.int8, 2: torch.int16,
+                   4: torch.int32}[x.element_size()])
+
+
+@pytest.mark.parametrize("omega", [1, 2, 3, 4, 130, 257, 1030])
+@pytest.mark.parametrize("dtype", _NARROW, ids=str)
+def test_narrow_delivery_kernels_match_plain(cuda, dtype, omega):
+    """Kernels 2 and 4 (``deliver_tiles``, ``assemble_proc_tiles``) on 1-
+    and 2-byte payloads and counts payloads: whole-word messages (kernel
+    2's packed kernel) and ragged ones (its element kernel), counts of 0,
+    of ω, past ω and negative, fills of None, a value and the type's
+    extremes; exact against the CPU's plain versions, one launch a call."""
+    dv = _kernel("alltoallv_deliver")
+    for shape, fn, launches in (((4, 4), dv.deliver_tiles, "LAUNCHES"),
+                                ((3, 2, 2), dv.assemble_proc_tiles,
+                                 "ASSEMBLE_LAUNCHES")):
+        msgs = _payload((*shape, omega), dtype, cuda, omega)
+        cnt = torch.randint(-2, omega + 3, shape, device=cuda,
+                            dtype=torch.int32)
+        cnt.view(-1)[:4] = torch.tensor([0, omega, omega + 5, -3],
+                                        device=cuda)
+        for i, fill in enumerate(_fills(dtype)):
+            cp = (None, _payload(shape, dtype, cuda, i),
+                  _payload(shape, torch.int8 if dtype.itemsize == 2 else
+                           torch.int16, cuda, i))[i % 3]
+            before = getattr(dv, launches)
+            got = fn(msgs, cnt, cp, fill=fill)
+            torch.cuda.synchronize()
+            assert getattr(dv, launches) == before + 1
+            want = fn(msgs.cpu(), cnt.cpu(), None if cp is None else cp.cpu(),
+                      fill=fill)
+            assert got[0].dtype == dtype
+            assert torch.equal(_bits(got[0]).cpu(), _bits(want[0]))
+            if cp is not None:
+                assert got[1].dtype == cp.dtype
+                assert torch.equal(_bits(got[1]).cpu(), _bits(want[1]))
+
+
+def test_narrow_deliver_words_keep_the_int32_contract(cuda):
+    """The word entries the collectives call take int32 words only."""
+    dv = _kernel("alltoallv_deliver")
+    x = torch.zeros((2, 8), dtype=torch.int16, device=cuda)
+    with pytest.raises(TypeError, match="int32"):
+        dv.deliver_words(x, 0, x.clone(), 0, 2, 4)
+    with pytest.raises(TypeError, match="float64"):
+        dv.deliver_tiles(torch.zeros((2, 2, 3), dtype=torch.float64,
+                                     device=cuda))
