@@ -124,7 +124,8 @@ What it does, in order; any failure raises and the exit code is non-zero:
    host and file tiers, and a 2^20 matrix of tiers, drivers, P and I/O
    drivers.
 6c. Crash recovery (``run_recovery``): ``psrs_run_recoverable`` on the
-   file tier at the tiered phase's full scale and keys, (a) with checksum
+   file tier at the tiered phase's shape and half its keys
+   (``RECOVERY_LOG_N``, 2^26), (a) with checksum
    sidecars and (b) without, stage by stage with the seconds of snapshots,
    cursor writes, commit flushes and CRCs (``RecoveryClock``); (c) a child
    killed by SIGKILL in the merge stage and (d) its resume in a fresh child.
@@ -261,6 +262,19 @@ What it does, in order; any failure raises and the exit code is non-zero:
    at the same shapes (rows ``ssd_scan_bwd``, ``ssd_scan_train``,
    ``lru_scan_bwd``, ``lru_scan_train``).  Alone:
    ``python3 chip_smoke.py --train-only``.
+10b. The training driver's checkpoints (``run_resume``): ``main`` of
+   ``repro_torch.launch.train`` for mamba2-130m at full width, 6 steps of
+   2 × 2048 tokens (kernels 6 and 6b), in children: an uninterrupted run
+   (a checkpoint at step 6) beside one with a checkpoint every 2 steps,
+   killed by SIGKILL once step 4's has committed, then resumed in a fresh
+   child.  The resumed step-6 checkpoint must equal the uninterrupted one
+   chunk CRC for chunk CRC (a leaf that differs is named with its largest
+   error and fails the phase), steps 5 and 6 print the same loss and
+   gradient norm; then the checkpoint restored from a ``meta`` like onto
+   ``cuda:0`` by ``placements`` (each leaf's CRCs the uninterrupted
+   run's).  Prints the children's timelines, the resume's wall seconds,
+   each save's seconds and GB/s and the restores'.  Alone:
+   ``python3 chip_smoke.py --resume-only``.
 11. The dry run (``repro_torch.launch.dryrun``) held against the card:
    three traces, each in a process of its own on the host's CPU (fake
    tensors, nothing on the card), while the card runs the same steps for
@@ -289,6 +303,15 @@ What it does, in order; any failure raises and the exit code is non-zero:
    bytes and GB/s; kernel 4 as a sender's staging kernel on card 1 (row
    ``assemble_proc_tiles_wire``); the five collectives on 2^20-word fields
    bit for bit against a one-card mesh.
+12b. Elastic checkpoints over cards (``run_elastic``, with phase 12;
+   alone: ``python3 chip_smoke.py --elastic-only``): qwen2-1.5b's train
+   state at full width (bf16 weights, fp32 moments) laid out over a
+   ``(data 1, model 4)`` mesh by ``param_placements`` and
+   ``opt_placements`` (``shardings_for``), saved from DTensors by four NCCL
+   rank processes (rank 0 writes every leaf whole), then restored over
+   ``(data 1, model 2)`` by two from a ``meta`` like: every local shard
+   bit for bit its slice of the state rebuilt from the seed; the bytes,
+   save and restore GB/s, each rank's host and card peaks.
 13. Prints the stage and kernel times, peak device memory, one ``kernels``
    JSON line, and last ``{"ok": true, "device": {...}}``.
 
@@ -396,6 +419,12 @@ COUNTERS = {"radix_sort": ("bitonic", "LAUNCHES"),
 def check(ok, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def child_env() -> dict:
+    """The environment of this script's children: ours, ``src`` importable."""
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
 
 
 def rand_int32(shape, gen, kind="random"):
@@ -1447,6 +1476,16 @@ def main(argv=None) -> int:
                     help="build and run the mesh-of-cards phase alone on "
                          f"{CARDS} cards (its own kernels line, no ok line); "
                          f"exits 1 with fewer than {CARDS}")
+    ap.add_argument("--resume-only", action="store_true",
+                    help="build and run the training driver's kill -9 and "
+                         "resume phase alone (no kernels line, no ok line)")
+    ap.add_argument("--elastic-only", action="store_true",
+                    help="build and run the elastic checkpoint phase alone "
+                         f"on {CARDS} cards (no kernels line, no ok line); "
+                         f"exits 1 with fewer than {CARDS}")
+    ap.add_argument("--elastic-rank", metavar="SPEC",
+                    help="one rank of the elastic phase (a JSON spec); the "
+                         "phase starts these itself")
     ap.add_argument("--dryrun-child", metavar="CELL",
                     help="one trace of the dry-run phase (a, b or c); the "
                          "phase starts these itself")
@@ -1463,6 +1502,8 @@ def main(argv=None) -> int:
         return dryrun_child(args.dryrun_child)
     if args.recovery_child:
         return recovery_child(json.loads(args.recovery_child))
+    if args.elastic_rank:
+        return elastic_rank(json.loads(args.elastic_rank))
     from repro_torch.kernels import _build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1471,9 +1512,11 @@ def main(argv=None) -> int:
     card = smi.splitlines()[0]
     print(f"card: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
-    if args.cards_only and torch.cuda.device_count() < CARDS:
-        print(f"chip_smoke: --cards-only needs {CARDS} CUDA cards, "
-              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+    if ((args.cards_only or args.elastic_only)
+            and torch.cuda.device_count() < CARDS):
+        print(f"chip_smoke: --cards-only and --elastic-only need {CARDS} "
+              f"CUDA cards, {torch.cuda.device_count()} visible",
+              file=sys.stderr)
         return 1
 
     t0 = time.perf_counter()
@@ -1499,11 +1542,19 @@ def main(argv=None) -> int:
     if args.train_only:
         run_train(dev, args)
         return 0
+    if args.resume_only:
+        run_resume(dev)
+        return 0
+    if args.elastic_only:
+        run_elastic(args)
+        return 0
     if args.dryrun_only:
         run_dryrun(dev, args, card)
         return 0
     if args.cards_only:
-        print(json.dumps({"kernels": run_cards(args)}))
+        rows = run_cards(args)
+        run_elastic(args)
+        print(json.dumps({"kernels": rows}))
         return 0
     if args.dtypes_only:
         print(json.dumps({"kernels": run_dtypes(dev, args)}))
@@ -1526,16 +1577,19 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         rows += run_train(dev, args)
         torch.cuda.empty_cache()
+        run_resume(dev)
         run_dryrun(dev, args, card, early)
     finally:
         stop(early.values())
     torch.cuda.empty_cache()
     if torch.cuda.device_count() >= CARDS:
         rows += run_cards(args)
+        run_elastic(args)
     else:
-        print(f"cards phase: not run: it needs {CARDS} CUDA cards for "
-              f"a mesh of cards, {torch.cuda.device_count()} visible "
-              "(the mesh-of-cards route ran forced onto one card, phase 5d)")
+        print(f"cards and elastic phases: not run: they need {CARDS} CUDA "
+              f"cards for a mesh of cards, {torch.cuda.device_count()} "
+              "visible (the mesh-of-cards route ran forced onto one card, "
+              "phase 5d; a checkpoint restored by placements, phase 10b)")
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
@@ -2853,6 +2907,9 @@ def run_tiered(dev, args) -> None:
 # git-ignored), and the small legs' key count.
 RECOVERY_DIR = ROOT / "build" / "recovery"
 RECOVERY_SMALL_LOG_N = 20
+# The full-width legs' key count: half the tiered phase's 2^27, which made
+# room for phase 10b in the script's time limit.
+RECOVERY_LOG_N = 26
 
 
 class RecoveryClock:
@@ -3031,12 +3088,10 @@ def recovery_child(spec: dict) -> int:
 def spawn_leg(spec: dict):
     """Run one leg in a child (``sys.executable``, ``PYTHONPATH=src``);
     returns ``(returncode, its RECOVERY_CHILD report or None, stderr)``."""
-    import os
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
                         "--recovery-child", json.dumps(spec)],
-                       capture_output=True, text=True, env=env, cwd=ROOT,
-                       timeout=900)
+                       capture_output=True, text=True, env=child_env(),
+                       cwd=ROOT, timeout=900)
     rep = None
     for line in r.stdout.splitlines():
         if line.startswith("RECOVERY_CHILD "):
@@ -3120,8 +3175,9 @@ def run_chains(chains) -> dict:
 
 
 def run_recovery(dev, args) -> None:
-    """The recovery phase on the card: ``psrs_run_recoverable`` at full
-    width on the file tier (the tiered phase's keys and population), (a)
+    """The recovery phase on the card: ``psrs_run_recoverable`` on the file
+    tier at ``RECOVERY_LOG_N`` keys (the tiered phase's v, k and budget),
+    (a)
     with checksums, (b) without, (c) killed by SIGKILL in the merge stage in
     a child, beside the small matrix of legs at 2^20 keys (each in a
     child), and (d) resumed in a fresh child."""
@@ -3134,7 +3190,7 @@ def run_recovery(dev, args) -> None:
     try:
         ram, disk, fs = host_room(RECOVERY_DIR)
         v = args.v
-        log_n = args.log_n
+        log_n = min(args.log_n, RECOVERY_LOG_N)
         while True:
             lo = psrs_plan(v, (1 << log_n) // v, k=TIER_K,
                            device=dev)[0].layout
@@ -5329,6 +5385,578 @@ def run_train(dev: torch.device, args) -> list:
             for r in rows + lse_rows + scan_rows]
 
 
+# --------------------------------------------------------------------------- #
+# The training driver's checkpoints (phase 10b): SIGKILL and resume on one    #
+# card; elastic checkpoints over cards (phase 12b).                           #
+# --------------------------------------------------------------------------- #
+
+# Where the checkpoints go (inside the checkout, git-ignored), the model
+# and the training driver's flags: full width, 6 steps of 2 x 2048 tokens,
+# a checkpoint every 2 steps (the uninterrupted run keeps step 6's alone:
+# its steps are the same, and it writes 2.6 GB less beside the run to
+# kill), killed once step RESUME_KILL_AT's has committed.
+RESUME_DIR = ROOT / "build" / "resume"
+RESUME_ARCH = "mamba2-130m"
+RESUME_STEPS = 6
+RESUME_KILL_AT = 4
+RESUME_FLAGS = ["--arch", RESUME_ARCH, "--steps", str(RESUME_STEPS),
+                "--log-every", "1", "--batch", "2", "--seq", "2048"]
+# The driver's ``main`` (what ``python -m repro_torch.launch.train`` runs)
+# in a child that prints, as they happen, the host-clock marks of its
+# start, its imports, each train step's call, the restore and each save's
+# call and commit (its manifest durable), with the checkpoint layer's
+# seconds by function so far; then kernels 6's and 6b's launches.
+TRAIN_CHILD = """
+import time
+print("MARK start", time.time(), flush=True)
+import importlib, json, sys
+from repro_torch.checkpoint import manager
+from repro_torch.launch import train
+
+
+def mark(name):
+    print("MARK", name, time.time(), flush=True)
+
+
+Manager = manager.CheckpointManager
+save, restore, commit = (Manager.save, Manager.restore_latest,
+                         manager.atomic_write_json)
+
+
+def timed_save(self, step, state, blocking=True):
+    mark(f"save{step}")
+    return save(self, step, state, blocking)
+
+
+def timed_restore(self, *a, **kw):
+    mark("restore")
+    got = restore(self, *a, **kw)
+    mark("restored")
+    return got
+
+
+def timed_commit(path, obj):
+    commit(path, obj)
+    mark(f"commit{obj['step']}")
+    print("PARTS " + json.dumps(parts), flush=True)
+
+
+Manager.save, Manager.restore_latest = timed_save, timed_restore
+manager.atomic_write_json = timed_commit
+parts = {}
+
+
+def summed(owner, name):
+    fn = getattr(owner, name)
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t0
+    setattr(owner, name, run)
+
+
+for name in ("_snapshot", "_array_crcs", "save_npy_durable", "_verify"):
+    summed(manager, name)
+make_step = train.make_train_step
+
+
+def timed_make_step(*a, **kw):
+    step_fn, calls = make_step(*a, **kw), [0]
+
+    def step(state, batch):
+        calls[0] += 1
+        mark(f"call{calls[0]}")
+        return step_fn(state, batch)
+    return step
+
+
+train.make_train_step = timed_make_step
+mark("imported")
+train.main(sys.argv[1:])
+print("PARTS " + json.dumps(parts), flush=True)
+mark("end")
+ss = importlib.import_module("repro_torch.kernels.ssd_scan.ssd_scan")
+print("LAUNCHES " + json.dumps({"6": ss.LAUNCHES, "6b": ss.BWD_LAUNCHES}),
+      flush=True)
+"""
+
+
+def kill_all(procs) -> None:
+    """Kill and reap the children still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def train_child(ckpt_dir: Path, every: int) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-c", TRAIN_CHILD, *RESUME_FLAGS, "--ckpt-every",
+         str(every), "--ckpt-dir", str(ckpt_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=child_env(), cwd=ROOT)
+
+
+def step_dir(ckpt_dir: Path, step: int) -> Path:
+    return ckpt_dir / f"step_{step:012d}"
+
+
+def child_done(proc: subprocess.Popen, what: str, timeout: float = 600):
+    """A child's stdout once it exits 0 (else the check fails with its
+    stderr's tail)."""
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}; "
+          f"{err[-3000:]}")
+    return out
+
+
+def step_losses(out: str) -> dict:
+    """``{step: (loss, gnorm)}`` from the training driver's step lines."""
+    got = {}
+    for line in out.splitlines():
+        if line.startswith("step "):
+            f = line.split()
+            got[int(f[1])] = (f[2], f[3])
+    return got
+
+
+def marks(out: str) -> dict:
+    """A train child's host-clock marks, by name."""
+    return {f[1]: float(f[2]) for f in (line.split() for line in
+                                        out.splitlines())
+            if len(f) == 3 and f[0] == "MARK"}
+
+
+def manifest(d: Path) -> dict:
+    return json.loads((d / "manifest.json").read_text())
+
+
+def leaf_diffs(a: Path, b: Path) -> list:
+    """Each array whose chunk CRCs differ between checkpoints ``a`` and
+    ``b``: ``(key, dtype, largest |a - b|)`` (bf16 bits compared as
+    bf16)."""
+    import numpy as np
+    ma, mb = manifest(a), manifest(b)
+    check([(x["key"], x["shape"], x["dtype"]) for x in ma["arrays"]]
+          == [(x["key"], x["shape"], x["dtype"]) for x in mb["arrays"]],
+          f"checkpoints {a} and {b} hold the same leaves")
+    out = []
+    for x, y in zip(ma["arrays"], mb["arrays"]):
+        if x["chunk_crcs"] == y["chunk_crcs"]:
+            continue
+        u, w = (torch.from_numpy(np.load(d / z["file"]))
+                for d, z in ((a, x), (b, y)))
+        if u.dtype == torch.uint16:
+            u, w = u.view(torch.bfloat16), w.view(torch.bfloat16)
+        err = (u.double() - w.double()).abs().max().item() if u.numel() \
+            else 0.0
+        out.append((x["key"], x["dtype"], err))
+    return out
+
+
+def state_bytes(d: Path) -> int:
+    import numpy as np
+    return sum(int(np.prod(x["shape"], dtype=np.int64))
+               * np.dtype(x["dtype"]).itemsize
+               for x in manifest(d)["arrays"])
+
+
+def run_resume(dev) -> None:
+    """Phase 10b: the training driver (``repro_torch.launch.train``) at
+    ``RESUME_ARCH``'s full width with a checkpoint directory, in children:
+    an uninterrupted run beside a run killed by SIGKILL once step
+    ``RESUME_KILL_AT``'s checkpoint has committed, which a fresh child then
+    resumes.  The resumed step-6 checkpoint must equal the uninterrupted
+    one chunk CRC for chunk CRC (any leaf that differs is named with its
+    largest error), the resumed steps' loss and gradient-norm lines the
+    uninterrupted run's; then that checkpoint restored from a ``meta``
+    like onto ``cuda:0`` by ``placements``, every leaf's bits the
+    uninterrupted run's.  Prints the children's timelines, each save's
+    seconds and GB/s (the training driver's ``save(blocking=False)`` from
+    its call to its manifest's commit) and the restores'."""
+    import signal
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import _array_crcs
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import meta_params
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.tree import flatten_with_keys, map_tree
+    t_phase = time.perf_counter()
+    shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    RESUME_DIR.mkdir(parents=True)
+    whole, cut = RESUME_DIR / "uninterrupted", RESUME_DIR / "killed"
+    procs = []
+    try:
+        _, disk, fs = host_room(RESUME_DIR)
+        print(f"resume: checkpoints to {fs}, free disk {disk / 2**30:.1f} GiB")
+        t0 = time.time()
+        uninterrupted = train_child(whole, RESUME_STEPS)
+        killed = train_child(cut, 2)
+        procs += [uninterrupted, killed]
+        # The restore's like and placements, made while the children run.
+        like = init_train_state(meta_params(get_config(RESUME_ARCH)),
+                                TrainConfig())
+        target = (torch.device("cuda", dev.index or 0) if dev.type == "cuda"
+                  else dev)
+        place = map_tree(lambda _: str(target), like)
+        commit = step_dir(cut, RESUME_KILL_AT)
+        while not commit.is_dir():
+            if killed.poll() is not None:
+                check(False, "resume: the run to kill ended before step "
+                      f"{RESUME_KILL_AT}'s commit: "
+                      f"{killed.communicate()[1][-3000:]}")
+            check(time.time() - t0 < 300, "resume: step "
+                  f"{RESUME_KILL_AT}'s checkpoint committed within 300 s")
+            time.sleep(0.01)
+        killed.send_signal(signal.SIGKILL)
+        t_kill = time.time()
+        killed_out = killed.communicate()[0]
+        check(killed.returncode == -signal.SIGKILL,
+              f"resume: the run died by SIGKILL (exit {killed.returncode})")
+        later = [s for s in range(RESUME_KILL_AT + 1, RESUME_STEPS + 1)
+                 if step_dir(cut, s).is_dir()]
+        check(not later, f"resume: killed before step {later}'s commit")
+        resumed = train_child(cut, 2)
+        procs.append(resumed)
+        resumed_out = child_done(resumed, "resume: the resumed run")
+        t_resumed = time.time()
+        whole_out = child_done(uninterrupted, "resume: the uninterrupted run")
+        check(f"resumed from step {RESUME_KILL_AT}" in resumed_out,
+              f"resume: the run resumed from step {RESUME_KILL_AT}: "
+              f"{resumed_out[-2000:]}")
+        want, got = step_losses(whole_out), step_losses(resumed_out)
+        check(sorted(got) == list(range(RESUME_KILL_AT + 1,
+                                        RESUME_STEPS + 1))
+              and all(got[s] == want[s] for s in got),
+              f"resume: steps {sorted(got)} print the uninterrupted run's "
+              f"loss and gnorm ({got} vs {want})")
+        launches = json.loads(whole_out.split("LAUNCHES ", 1)[1])
+        check(launches["6"] > 0 and launches["6b"] > 0,
+              f"resume: kernels 6 and 6b launched ({launches})")
+        final = step_dir(whole, RESUME_STEPS)
+        nbytes = state_bytes(final)
+        for what, out in (("uninterrupted", whole_out),
+                          ("killed", killed_out), ("resumed", resumed_out)):
+            m = marks(out)
+            print(f"resume: {what} run, s after the phase's start: "
+                  + ", ".join(f"{k} {t - t0:.2f}" for k, t in m.items()))
+            last = [line for line in out.splitlines()
+                    if line.startswith("PARTS ")][-1:]
+            if last:
+                print(f"resume: {what} run's checkpoint seconds by part "
+                      f"(summed over threads): {last[0][6:]}")
+            for s in range(2, RESUME_STEPS + 1, 2):
+                if f"commit{s}" in m:
+                    dt = m[f"commit{s}"] - m[f"save{s}"]
+                    print(f"resume: {what} run's save of step {s}: "
+                          f"{dt:.3f} s from its call to its commit, "
+                          f"{nbytes / dt / 1e9:.3f} GB/s")
+        m = marks(resumed_out)
+        print(f"resume: {RESUME_ARCH} {' '.join(RESUME_FLAGS[2:])}, a "
+              f"checkpoint every 2 steps; killed {t_kill - t0:.2f} s after "
+              f"the start, once step {RESUME_KILL_AT}'s checkpoint had "
+              f"committed (steps printed "
+              f"{sorted(step_losses(killed_out))}); the resume "
+              f"{t_resumed - t_kill:.2f} s wall from the kill to its exit "
+              f"(its start {m['imported'] - m['start']:.2f} s of imports, "
+              f"its restore {m['restored'] - m['restore']:.3f} s, "
+              f"{nbytes / (m['restored'] - m['restore']) / 1e9:.3f} GB/s); "
+              f"uninterrupted run's launches {launches}")
+        diffs = leaf_diffs(final, step_dir(cut, RESUME_STEPS))
+        n_leaves = len(manifest(final)["arrays"])
+        for key, dtype, err in diffs:
+            print(f"resume: leaf {key} ({dtype}) differs, largest |resumed "
+                  f"- uninterrupted| {err:.6g}")
+        check(not diffs, f"resume: the resumed step-{RESUME_STEPS} "
+              f"checkpoint equals the uninterrupted one ({len(diffs)} of "
+              f"{n_leaves} leaves differ)")
+        print(f"resume: the resumed step-{RESUME_STEPS} checkpoint equals "
+              f"the uninterrupted one, chunk CRC for chunk CRC ({n_leaves} "
+              f"leaves, {nbytes} bytes)")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = CheckpointManager(str(cut)).restore(RESUME_STEPS, like,
+                                                    placements=place)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        want = {x["key"]: x["chunk_crcs"] for x in manifest(final)["arrays"]}
+        for key, leaf in flatten_with_keys(state):
+            host = leaf.cpu()
+            bits = (host.view(torch.int16).numpy().view("uint16")
+                    if host.dtype == torch.bfloat16 else host.numpy())
+            check(leaf.device == target and _array_crcs(bits) == want[key],
+                  f"resume: restored leaf {key} on {target}, its bits the "
+                  "uninterrupted run's")
+        check([t.dtype for _, t in flatten_with_keys(state)]
+              == [t.dtype for _, t in flatten_with_keys(like)],
+              "resume: restored leaves in the like's dtypes")
+        del state
+        print(f"resume: restored from a meta like onto {target} by "
+              f"placements in {t_restore:.3f} s "
+              f"({nbytes / t_restore / 1e9:.3f} GB/s, file to card, CRCs "
+              "verified)")
+    finally:
+        kill_all(procs)
+        shutil.rmtree(RESUME_DIR, ignore_errors=True)
+    print(f"resume phase: {time.perf_counter() - t_phase:.2f} s")
+
+
+# Four NCCL ranks save qwen2-1.5b's train state laid out over (data 1,
+# model ELASTIC_SAVE_MODEL); two restore it over (data 1, model
+# ELASTIC_RESTORE_MODEL).
+ELASTIC_DIR = ROOT / "build" / "elastic"
+ELASTIC_ARCH = "qwen2-1.5b"
+ELASTIC_SAVE_MODEL = 4
+ELASTIC_RESTORE_MODEL = 2
+ELASTIC_STEP = 5
+
+
+def elastic_state(cfg, seed: int, dev):
+    """``cfg``'s train state on ``dev``: weights from ``seed``, moments
+    drawn from ``seed + 1`` (the same on every card of one kind)."""
+    from repro_torch.models import Model
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.tree import leaves
+    st = init_train_state(Model(cfg, device=dev, seed=seed).params(),
+                          TrainConfig())
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for t in [*leaves(st.opt["m"]), *leaves(st.opt["v"])]:
+            t.normal_(generator=gen)
+        st.opt["step"].fill_(ELASTIC_STEP)
+    return st
+
+
+def elastic_layout(cfg, params, opt, mesh):
+    """The ``placements`` of a train state over ``mesh`` by the sharding
+    rules: ``shardings_for`` of ``param_placements`` and
+    ``opt_placements``."""
+    from repro_torch.distributed import (ShardingRules, opt_placements,
+                                         param_placements, shardings_for)
+    from repro_torch.train import TrainState
+    rules = ShardingRules(mesh=mesh)
+    return TrainState(
+        params=shardings_for(rules, param_placements(rules, cfg, params)),
+        opt=shardings_for(rules, opt_placements(rules, cfg, opt, params)),
+        ef=None)
+
+
+def shard_of(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's slice of ``full`` under ``placements`` (each
+    ``Shard(d)`` the mesh coordinate's chunk of dim ``d``)."""
+    from torch.distributed.tensor import Shard
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            full = torch.chunk(full, mesh.size(i), dim=p.dim)[
+                mesh.get_local_rank(i)]
+    return full
+
+
+def int_bits(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    if not t.is_floating_point():
+        return t
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def elastic_rank(spec: dict) -> int:
+    """One rank of the elastic phase (``--elastic-rank``): join the world,
+    then save the train state from DTensors or restore it onto this
+    world's layout, and print ``ELASTIC_RANK <json>``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import meta_params
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.tree import flatten_with_keys, leaves, map_tree
+    rank, world = spec["rank"], spec["world"]
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", init_method=spec["init"],
+                            rank=rank, world_size=world)
+    peak = PeakRss()
+    try:
+        cfg = get_config(spec["arch"])
+        mesh = init_device_mesh("cuda", (1, world),
+                                mesh_dim_names=("data", "model"))
+        mgr = CheckpointManager(spec["dir"])
+        rep = {"rank": rank}
+        if spec["save"]:
+            st = elastic_state(cfg, spec["seed"], dev)
+            where = elastic_layout(cfg, st.params, st.opt, mesh)
+            sharded = map_tree(lambda t, p: distribute_tensor(
+                t.detach(), *p, src_data_rank=None), st, where)
+            rep["global_bytes"] = sum(t.numel() * t.element_size()
+                                      for t in leaves(st))
+            rep["shapes"] = [list(t.shape) for t in leaves(st)]
+            del st
+            torch.cuda.empty_cache()
+            dist.barrier()
+            t0 = time.perf_counter()
+            mgr.save(ELASTIC_STEP, sharded)
+            rep["save_s"] = time.perf_counter() - t0
+            rep["local_bytes"] = sum(
+                t.to_local().numel() * t.element_size()
+                for t in leaves(sharded))
+        else:
+            like = init_train_state(meta_params(cfg), TrainConfig())
+            where = elastic_layout(cfg, like.params, like.opt, mesh)
+            dist.barrier()
+            t0 = time.perf_counter()
+            step, got = mgr.restore_latest(like=like, placements=where)
+            torch.cuda.synchronize()
+            rep["restore_s"] = time.perf_counter() - t0
+            rep["step"] = step
+            want = elastic_state(cfg, spec["seed"], dev)
+            same = map_tree(lambda g, w, p: torch.equal(
+                int_bits(g.to_local()), int_bits(shard_of(w.detach(), *p))),
+                got, want, where)
+            rep["mismatched"] = [k for k, ok in flatten_with_keys(same)
+                                 if not ok]
+            rep["leaves"] = len(list(leaves(same)))
+            rep["sharded"] = sum(g.to_local().shape != w.shape for g, w in
+                                 zip(leaves(got), leaves(want)))
+            rep["local_bytes"] = sum(
+                t.to_local().numel() * t.element_size() for t in leaves(got))
+        rep["host_peak_gib"] = peak.stop() / 2**30
+        rep["card_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    finally:
+        dist.destroy_process_group()
+    print("ELASTIC_RANK " + json.dumps(rep), flush=True)
+    return 0
+
+
+def rss_bytes() -> int:
+    """This process's resident bytes now (``/proc/self/statm``), 0 where
+    the host does not say."""
+    import os
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):
+        return 0
+
+
+class PeakRss:
+    """The largest of this process's resident bytes, sampled every 0.25 s on
+    a thread until ``stop()`` (the card's machine gives no ``VmHWM``, and
+    ``ru_maxrss`` counts the parent's resident bytes at the fork)."""
+
+    def __init__(self):
+        import threading
+        self.peak = rss_bytes()
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._done.wait(0.25):
+            self.peak = max(self.peak, rss_bytes())
+
+    def stop(self) -> int:
+        self._done.set()
+        self._thread.join()
+        return max(self.peak, rss_bytes())
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def elastic_world(world: int, save: bool, base: dict) -> list:
+    """A world of ``world`` rank processes (``chip_smoke.py
+    --elastic-rank``) rendezvousing on a free localhost port; each rank's
+    report, in rank order."""
+    env = child_env()
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    init = f"tcp://localhost:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--elastic-rank",
+         json.dumps(dict(base, rank=r, world=world, save=save, init=init))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for r in range(world)]
+    reps = []
+    try:
+        for r, p in enumerate(procs):
+            out = child_done(p, f"elastic rank {r} of {world}", timeout=900)
+            reps.append(json.loads(out.split("ELASTIC_RANK ", 1)[1]))
+    finally:
+        kill_all(procs)
+    return reps
+
+
+def run_elastic(args) -> None:
+    """Phase 12b on four cards: qwen2-1.5b's train state at full width
+    (bf16 weights from ``--seed``, fp32 moments drawn from ``--seed + 1``)
+    laid out over ``(data 1, model 4)`` by ``param_placements`` and
+    ``opt_placements`` and saved from DTensors by four NCCL ranks (rank 0
+    writes), then restored over ``(data 1, model 2)`` by two from a
+    ``meta`` like: every local shard bit for bit its slice of the state
+    rebuilt from the seed.  Prints the bytes, the save's and restore's
+    seconds and GB/s, and each rank's host and card peaks."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    ELASTIC_DIR.mkdir(parents=True)
+    base = {"arch": ELASTIC_ARCH, "seed": args.seed, "dir": str(ELASTIC_DIR)}
+    try:
+        _, disk, fs = host_room(ELASTIC_DIR)
+        print(f"elastic: {ELASTIC_ARCH} train state to {fs}, free disk "
+              f"{disk / 2**30:.1f} GiB")
+        saved = elastic_world(ELASTIC_SAVE_MODEL, True, base)
+        d = ELASTIC_DIR / f"step_{ELASTIC_STEP:012d}"
+        m = manifest(d)
+        nbytes = state_bytes(d)
+        check([x["shape"] for x in m["arrays"]] == saved[0]["shapes"]
+              and nbytes == saved[0]["global_bytes"],
+              "elastic: every leaf written whole (the manifest's shapes "
+              "and bytes the state's)")
+        check(sorted(p.name for p in ELASTIC_DIR.iterdir())
+              == [d.name], "elastic: one committed step, no staging dir")
+        save_s = max(r["save_s"] for r in saved)
+        print(f"elastic: saved {len(m['arrays'])} leaves, {nbytes} bytes "
+              f"({nbytes / 2**30:.3f} GiB), from DTensors over (data 1, "
+              f"model {ELASTIC_SAVE_MODEL}) in {save_s:.3f} s ("
+              f"{nbytes / save_s / 1e9:.3f} GB/s: gathered, copied to the "
+              f"host, CRC'd, written and fsynced by rank 0); local bytes "
+              f"by rank {[r['local_bytes'] for r in saved]}; host peak GiB "
+              + ", ".join(f"{r['host_peak_gib']:.2f}" for r in saved)
+              + "; card peak GiB "
+              + ", ".join(f"{r['card_peak_gib']:.2f}" for r in saved))
+        back = elastic_world(ELASTIC_RESTORE_MODEL, False, base)
+        for r in back:
+            check(r["step"] == ELASTIC_STEP and not r["mismatched"],
+                  f"elastic: rank {r['rank']} restored step "
+                  f"{ELASTIC_STEP}, every local shard bit-equal to its "
+                  f"slice ({r['mismatched'][:5]})")
+        restore_s = max(r["restore_s"] for r in back)
+        print(f"elastic: restored over (data 1, model "
+              f"{ELASTIC_RESTORE_MODEL}) from a meta like in {restore_s:.3f}"
+              f" s ({nbytes / restore_s / 1e9:.3f} GB/s a rank: each reads "
+              f"and CRCs every leaf, then keeps its shard); "
+              f"{back[0]['leaves']} leaves, {back[0]['sharded']} sharded, "
+              "every local shard "
+              f"bit-equal; local bytes by rank "
+              f"{[r['local_bytes'] for r in back]}; host peak GiB "
+              + ", ".join(f"{r['host_peak_gib']:.2f}" for r in back)
+              + "; card peak GiB "
+              + ", ".join(f"{r['card_peak_gib']:.2f}" for r in back))
+    finally:
+        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    print(f"elastic phase: {time.perf_counter() - t_phase:.2f} s")
+
+
 # The dry-run phase's cells held against a real step on the card: (arch,
 # shape, build_cell's cut) on a one-device mesh; and the bound on the
 # traced peak's relative distance from the card's.
@@ -5375,12 +6003,10 @@ def spawn_dryrun(name: str):
     """Start trace ``name`` in a child; its output goes to temporary files
     (a pipe no one reads while the card runs other phases would stall it
     once full)."""
-    import os
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
                              "--dryrun-child", name], stdout=out, stderr=err,
-                            env=env, cwd=ROOT)
+                            env=child_env(), cwd=ROOT)
     proc.logs = (out, err)
     return proc
 

@@ -1,5 +1,5 @@
 """Fault-tolerant checkpoints of the port (:class:`CheckpointManager`)."""
 
-from .manager import CheckpointManager
+from .manager import CheckpointManager, PlacementError
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "PlacementError"]

@@ -13,6 +13,7 @@ Public API::
     )
 """
 
+from . import analysis
 from .context import (
     WORD,
     Allocator,
@@ -21,6 +22,7 @@ from .context import (
     Ctx,
     Field,
     init_store,
+    layout,
     resolve_device,
 )
 from .backing import (
@@ -57,9 +59,11 @@ __all__ = [
     "TierStats",
     "TieredStore",
     "WORD",
+    "analysis",
     "atomic_replace_file",
     "atomic_write_json",
     "init_store",
+    "layout",
     "make_backing",
     "make_mesh",
     "resolve_device",

@@ -1045,6 +1045,9 @@ class ShardedBacking:
         for s in self.shards:
             s.drain()
 
+    def drain_shard(self, p: int) -> None:
+        self.shards[p].drain()
+
     def flush(self) -> None:
         for s in self.shards:
             s.flush()

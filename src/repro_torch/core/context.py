@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -258,6 +258,15 @@ def field_word_index(layout_: ContextLayout,
     return np.unique(np.concatenate(ranges)) if ranges else np.arange(0)
 
 
+def layout(fields: Iterable[Tuple[str, Sequence[int], object]],
+           capacity_words: Optional[int] = None) -> ContextLayout:
+    """A layout of ``(name, shape, dtype)`` fields, added in order."""
+    lo = ContextLayout(capacity_words)
+    for name, shape, dtype in fields:
+        lo.add(name, shape, dtype)
+    return lo
+
+
 # --------------------------------------------------------------------------- #
 # Context view                                                                 #
 # --------------------------------------------------------------------------- #
@@ -309,6 +318,12 @@ class Ctx:
         value = _cast(value, f.dtype, self.words.device)
         self.words[:, off:off + f.words] = _to_words(
             value.reshape(self.k, f.words))
+        return self
+
+    def update(self, **kv) -> "Ctx":
+        """``set`` of each keyword's field in turn; returns ``self``."""
+        for name, value in kv.items():
+            self.set(name, value)
         return self
 
 

@@ -534,6 +534,16 @@ class Pems:
                 store.load_rows(r0, blk.data.cpu().numpy().view(np.uint32))
         return store
 
+    def store_spec(self) -> tuple:
+        """The store's placement as a spec (:mod:`repro_torch.distributed`):
+        rows over the virtual-processor axis, words whole."""
+        return (self.cfg.vp_axis, None)
+
+    def all_rhos(self) -> torch.Tensor:
+        """Every virtual processor's index, int32 on the executor's
+        device."""
+        return torch.arange(self.cfg.v, dtype=torch.int32, device=self.device)
+
     # -------------------------------------------------------------- superstep
     def superstep(
         self,

@@ -31,6 +31,7 @@ import importlib
 from typing import Any, Dict, Tuple
 
 from ..models.model import layer_stacks
+from ..tree import is_namedtuple
 
 Spec = Tuple[Any, ...]
 
@@ -267,6 +268,24 @@ def to_placements(mesh, spec: Spec) -> list:
         for axis in (entry,) if isinstance(entry, str) else entry:
             out[mesh.mesh_dim_names.index(axis)] = Shard(dim)
     return out
+
+
+def shardings_for(rules: ShardingRules, specs: Any):
+    """The ``(mesh, placements)`` pair of every spec in ``specs`` (a nest of
+    :func:`param_placements`', :func:`opt_placements`' or
+    :func:`cache_placements`' specs, or of several in dicts, lists and
+    namedtuples), on ``rules.mesh``: what
+    :meth:`~repro_torch.checkpoint.CheckpointManager.restore` takes as
+    ``placements``.  A plain tuple is a spec; ``None`` stays ``None``."""
+    if specs is None:
+        return None
+    if isinstance(specs, dict):
+        return {k: shardings_for(rules, v) for k, v in specs.items()}
+    if is_namedtuple(specs):
+        return type(specs)(*(shardings_for(rules, v) for v in specs))
+    if isinstance(specs, list):
+        return [shardings_for(rules, v) for v in specs]
+    return (rules.mesh, to_placements(rules.mesh, specs))
 
 
 def local_shape(rules: ShardingRules, shape, spec: Spec) -> Tuple[int, ...]:

@@ -87,6 +87,7 @@ from .._build import define_op, launch, library, ptr
 LAUNCHES = 0   # calls that launched the CUDA kernel (the forward)
 BWD_LAUNCHES = 0   # calls of attend_backward that launched kernel 5b
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # head dims the CUDA kernels take
+NEG_INF = -1e30   # a masked score (csrc/flash_common.cuh's kNegInf)
 # The dtypes the CUDA entries take, by their code (``_build.FLOAT_KINDS``'s):
 # float32 on the FMA kernels, the 16-bit floats on the tensor-core ones.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -125,7 +126,7 @@ def _probs_plain(q, k, *, causal: bool, sk_valid: int | None, q_offset: int,
         mask = mask & ((col[None, :] <= row[:, None]) | (col < prefix)[None, :])
     if window > 0:
         mask = mask & (col[None, :] > row[:, None] - window)
-    s = torch.where(mask, s, -1e30)
+    s = torch.where(mask, s, NEG_INF)
     top = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - top), 0.0)
     denom = p.sum(dim=-1, keepdim=True)

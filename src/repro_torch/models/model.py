@@ -142,6 +142,20 @@ def init_params(cfg, gen: torch.Generator) -> Dict:
     return params
 
 
+def meta_params(cfg) -> Dict:
+    """:func:`init_params`' nest for ``cfg`` on the ``meta`` device: the
+    shapes and dtypes without storage, traced as the dry run traces them
+    (the ``like`` of a checkpoint restore that must not build the
+    weights)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from ..tree import map_tree
+    with FakeTensorMode():
+        fake = init_params(cfg, torch.Generator())
+    return map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), fake)
+
+
 def make_cache(cfg, batch: int, max_seq: int, device) -> Dict:
     """Every layer's cache for ``batch`` sequences of ``max_seq`` positions
     on ``device`` (:meth:`Model.init_cache` after its check that the model

@@ -154,6 +154,13 @@ def count_params(tree) -> int:
     return sum(_prod(leaf.shape) for leaf in leaves(tree))
 
 
+def active_param_fraction(cfg) -> float:
+    """Fraction of parameters active per token: 1 for a dense model, and
+    for an MoE model -1, the dry run counting the active parameters from
+    the parameter groups' sizes (``launch/dryrun.py``)."""
+    return 1.0 if not cfg.is_moe else -1.0
+
+
 def _prod(t) -> int:
     out = 1
     for x in t:

@@ -55,6 +55,7 @@ def map_tree(fn: Callable, tree, *rest):
                for k in sorted(tree)}
         return {k: got[k] for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map_tree(fn, x, *(r[i] for r in rest))
-                          for i, x in enumerate(tree))
+        got = [map_tree(fn, x, *(r[i] for r in rest))
+               for i, x in enumerate(tree)]
+        return type(tree)(*got) if is_namedtuple(tree) else type(tree)(got)
     return fn(tree, *rest)

@@ -139,6 +139,120 @@ def test_every_jax_module_has_a_port_counterpart():
     assert not missing, missing
 
 
+# The JAX package's public names whose port counterpart has another name
+# (``module:name`` -> the port's name in its module of the same path).
+_RENAMED = {
+    "distributed/sharding.py:param_pspecs": "param_placements",
+    "distributed/sharding.py:opt_pspecs": "opt_placements",
+    "distributed/sharding.py:cache_pspec": "cache_placements",
+    "distributed/sharding.py:batch_specs_sharded": "batch_placements",
+    "distributed/__init__.py:param_pspecs": "param_placements",
+    "distributed/__init__.py:cache_pspec": "cache_placements",
+    "distributed/__init__.py:batch_specs_sharded": "batch_placements",
+    "launch/mesh.py:make_mesh_auto": "make_mesh",
+    # The port makes the weights when it builds the model, from its seed.
+    "models/model.py:Model.init": "Model.__init__",
+}
+# JAX modules whose names the port keeps in another module.
+_MODULES = {"io/drivers.py": "core/backing.py"}
+# What the port has no counterpart of, and why (a module's path ending in
+# ``/`` covers the package).
+_NOT_PORTED = {
+    "lint/": "the lint rules check both packages' sources (scripts/"
+             "pems_lint.py over src); the port needs no copy of them",
+    "core/context.py:ContextStore.tree_flatten":
+        "pytree registration (jax.tree_util); torch has no pytrees",
+    "core/context.py:ContextStore.tree_unflatten":
+        "pytree registration (jax.tree_util); torch has no pytrees",
+    "kernels/alltoallv_deliver/ops.py:uses_pallas":
+        "chooses Pallas or XLA; the port's wrappers choose by the "
+        "tensor's device",
+    "kernels/alltoallv_deliver/__init__.py:uses_pallas":
+        "chooses Pallas or XLA; the port's wrappers choose by the "
+        "tensor's device",
+    "kernels/alltoallv_deliver/alltoallv_deliver.py:LANE_TILE":
+        "the TPU's 128-lane tile of the Pallas grid; the CUDA kernel "
+        "tiles by warps",
+}
+
+
+def _public_names(path: Path, defined_only: bool) -> set:
+    """A module's public top-level functions, classes, their public
+    methods and upper-case constants; with ``defined_only`` false, also
+    every other name it binds at the top level (imports, assignments)."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            if node.name.startswith("_") and defined_only:
+                continue
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out.update(f"{node.name}.{f.name}" for f in node.body
+                           if isinstance(f, (ast.FunctionDef,
+                                             ast.AsyncFunctionDef))
+                           and (not f.name.startswith("_")
+                                or not defined_only))
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out.update(t.id for t in targets if isinstance(t, ast.Name)
+                       and (not defined_only
+                            or (t.id.isupper() and t.id[0] != "_")))
+        elif isinstance(node, ast.ImportFrom) and not defined_only:
+            out.update(a.asname or a.name for a in node.names)
+    return out
+
+
+def _all_names(path: Path) -> set:
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    return set()
+
+
+def _not_ported(rel: str, name: str) -> bool:
+    return any(f"{rel}:{name}" == k or (k.endswith("/") and rel.startswith(k))
+               for k in _NOT_PORTED)
+
+
+def test_every_public_jax_name_has_a_port_counterpart():
+    """Each public top-level function, class, public method and upper-case
+    constant of each ``src/repro`` module (parsed, never imported), and
+    each name in a JAX ``__all__``, has a counterpart of the same name in
+    the port's module of the same path (or of ``_MODULES``), but those on
+    the lists above, each with the port's name or the reason it has none.
+    Every entry of the lists is still needed, and each renamed counterpart
+    exists."""
+    jax_root, port_root = _ROOT / "src" / "repro", _ROOT / "src" / "repro_torch"
+    missing, used = [], set()
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        port = port_root / _MODULES.get(rel, rel)
+        have = (_public_names(port, False) | _all_names(port)
+                if port.exists() else set())
+        want = {(n, "name") for n in _public_names(path, True)} | {
+            (n, "__all__") for n in _all_names(path)}
+        for name, kind in sorted(want):
+            key = f"{rel}:{name}"
+            if _not_ported(rel, name):
+                used.add(next(k for k in _NOT_PORTED
+                              if k == key or rel.startswith(k)))
+                continue
+            port_name = _RENAMED.get(key, name)
+            if key in _RENAMED:
+                used.add(key)
+            ok = (port_name in have if kind == "name"
+                  else port_name in _all_names(port))
+            if not ok:
+                missing.append(f"{key} ({kind}) -> {port_name}")
+    assert not missing, missing
+    assert used == set(_RENAMED) | set(_NOT_PORTED), (
+        "stale entries", (set(_RENAMED) | set(_NOT_PORTED)) - used)
+
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     from repro_torch.core import ContextLayout, Pems, PemsConfig, make_mesh
     from repro_torch.pems_apps import (euler_tour, list_rank, prefix_sum,
